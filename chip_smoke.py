@@ -9,22 +9,31 @@ Phases (any failure exits nonzero before the final line is printed):
 
 1. device — the card's name, the device count and ``nvidia-smi``'s name
    and power limit;
-2. build — the CUDA kernels compiled from
-   ``veles_tpu_torch/csrc/paged_flash_attention.cu`` into
-   ``build/kernels/``;
+2. build — the CUDA kernels compiled from ``veles_tpu_torch/csrc/``
+   (``paged_flash_attention.cu``, ``fused_sgd.cu``; one nvcc per source,
+   all started together) into ``build/kernels/``;
 3. kernels — each kernel against its plain PyTorch version on the card
-   at the serving path's shapes, with kernel, plain-version and library
-   (scaled_dot_product_attention on the gathered view) card times (CUDA
-   events; see ``time_ms``) and the card's bound for the same work; then
+   at its main path's shapes, with kernel, plain-version and library
+   card times (CUDA events; see ``time_ms``) and the card's bound for
+   the same work: the paged attention kernels at the serving shapes
+   (library: scaled_dot_product_attention on the gathered view), then
    (checked, not timed) long page tables — a 16384-token lane view at
    head_dim 128 — and a head_dim that is neither a multiple of 4 nor
-   below 256;
+   below 256; the fused SGD kernel at MNIST-FC's four parameters, a
+   4096x4096 weight, odd sizes, weight decay with an L1 mix and a clip
+   (no library call computes that function);
 4. serve — the paged LM engine at the full width of the repo's LM
    config (vocab 256, d_model 512, 8 heads, 8 layers, learned positions,
    max_len 512, fp32, random weights from a seed) answers 16 requests
    through the kernels, then every emitted token is checked against a
    teacher-forced pass of the plain attention path;
-5. one JSON line listing every ported kernel, then the JSON result line.
+5. train — the MNIST-FC sample (784→100 tanh→10 softmax, minibatch 100,
+   60,000 train / 10,000 validation synthetic samples, 2 epochs, fused
+   mode) through ``samples.mnist.train`` on the card: validation error
+   below 5%, validation loss falling, every dispatched train minibatch's
+   four momentum updates through the kernel; then the same seed on the
+   card and on the CPU for 50 committed updates, weights within 1e-4;
+6. one JSON line listing every ported kernel, then the JSON result line.
 
 It imports nothing of JAX and nothing of the ``veles_tpu`` package.
 """
@@ -52,10 +61,23 @@ KERNEL_ATOL = 1e-4
 LOGIT_TOL = 1e-3
 
 REPLACES = {
+    "fused_sgd_update": "veles_tpu/ops/pallas_kernels.py:92",
     "paged_flash_decode": "veles_tpu/ops/pallas_kernels.py:367",
     "paged_flash_prefill": "veles_tpu/ops/pallas_kernels.py:443",
 }
-SOURCE = "veles_tpu_torch/csrc/paged_flash_attention.cu"
+SOURCES = {
+    "fused_sgd_update": "veles_tpu_torch/csrc/fused_sgd.cu",
+    "paged_flash_decode": "veles_tpu_torch/csrc/paged_flash_attention.cu",
+    "paged_flash_prefill": "veles_tpu_torch/csrc/paged_flash_attention.cu",
+}
+#: fused SGD kernel vs plain version: at most 1 ulp per element (the
+#: plain version rounds each fused multiply-add once from float64)
+SGD_MAX_ULPS = 1.0
+#: MNIST-FC's parameters: (784, 100) and (100,) tanh, (100, 10) and (10,)
+MNIST_PARAMS = ((784, 100), (100,), (100, 10), (10,))
+#: card vs CPU weights after 50 committed updates: cuBLAS and the CPU
+#: sum the GEMMs in different orders over 50 steps; weights are O(0.1)
+TRAIN_ATOL = 1e-4
 #: the repo's LM config at full width (bench.py's lm config)
 LM_CONFIG = dict(vocab=256, d_model=512, n_heads=8, n_layers=8, max_len=512)
 
@@ -247,6 +269,83 @@ def prefill_case(torch, HK, A, n_hist, b=1, h=8, kv=8, dh=64, page=32,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes}
 
 
+# ---------------------------------------------------------------- fused SGD
+def sgd_operands(torch, shape, seed, copies=1):
+    """``copies`` sets of (p, v, g) of ``shape`` on the card (g a batch
+    sum of 100 samples)."""
+    rng = numpy.random.RandomState(seed)
+    n = int(numpy.prod(shape))
+    dev = torch.device("cuda")
+
+    def t(a):
+        return torch.as_tensor(a.astype(numpy.float32).reshape(shape),
+                               device=dev)
+
+    out = [(t(rng.uniform(-0.3, 0.3, n)), t(rng.randn(n) * 0.01),
+            t(rng.randn(n) * 5))]
+    return out + [tuple(x.clone() for x in out[0])
+                  for _ in range(copies - 1)]
+
+
+def sgd_ulps(torch, got, ref):
+    """(max |got - ref| in ulps of ref, count of unequal elements)."""
+    a = ref.abs()
+    ulp = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+    return ((got - ref).abs() / ulp).max().item(), int((got != ref).sum())
+
+
+def sgd_case(torch, HK, shapes, name, wd=0.0, l1=0.0, clip=None, seed=0,
+             copies=1):
+    """One update of each of ``shapes`` (momentum 0.9, lr 0.03, batch
+    100): checked against the plain version, then timed as one call that
+    updates them all."""
+    sets = [sgd_operands(torch, shape, seed + i, copies)
+            for i, shape in enumerate(shapes)]
+    args = (100, 0.03, 0.9, wd, l1, clip)
+    worst, unequal = 0.0, 0
+    for ops in sets:
+        p, v, g = ops[0]
+        got = HK.fused_sgd_update(p, v, g, *args)
+        ref = HK.fused_sgd_update_ref(p, v, g, *args)
+        torch.cuda.synchronize()
+        for x, y in zip(got, ref):
+            ulps, neq = sgd_ulps(torch, x, y)
+            worst, unequal = max(worst, ulps), unequal + neq
+    check(worst <= SGD_MAX_ULPS, "fused_sgd_update %s: %g ulps > %g"
+          % (name, worst, SGD_MAX_ULPS))
+
+    def step(fn, k):
+        return lambda: [fn(*ops[k], *args) for ops in sets]
+
+    ms = time_ms([step(HK.fused_sgd_update, k) for k in range(copies)],
+                 torch)
+    plain_ms = time_ms([step(HK.fused_sgd_update_ref, k)
+                        for k in range(copies)], torch, calls=3, reps=5)
+    n = sum(int(numpy.prod(s)) for s in shapes)
+    # read p, v, g and write p', v' once: 20 bytes; ~10 flops an element
+    bound_ms, bound_by = bound(20 * n, 10 * n)
+    return {"kernel": "fused_sgd_update", "case": name,
+            "shapes": [list(s) for s in shapes], "elements": n,
+            "weight_decay": wd, "l1_vs_l2": l1, "clip": clip,
+            "max_abs_err": max((x - y).abs().max().item()
+                               for x, y in zip(got, ref)),
+            "max_ulps": worst, "unequal": unequal, "kernel_ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def sgd_cases(torch, HK):
+    big = (4096, 4096)
+    return [sgd_case(torch, HK, MNIST_PARAMS, "mnist_fc_step"),
+            sgd_case(torch, HK, [big], "fc_4096x4096", seed=10, copies=2),
+            sgd_case(torch, HK, [(1,), (127,), (129,)], "odd_sizes",
+                     seed=20),
+            sgd_case(torch, HK, MNIST_PARAMS, "decay_l1_mix", wd=0.0005,
+                     l1=0.3, seed=30),
+            sgd_case(torch, HK, MNIST_PARAMS, "clip", wd=0.0005, l1=0.3,
+                     clip=0.05, seed=40)]
+
+
 # -------------------------------------------------------------------- serve
 def device_busy_share(torch, step, n):
     """Share of the wall time of ``n`` synchronous steps during which
@@ -385,6 +484,93 @@ def serve(torch, HK, T, S, card):
     return launches
 
 
+# -------------------------------------------------------------------- train
+def mnist_run(prng, root, mnist, device, **overrides):
+    """Seeded MNIST-FC sample run through ``mnist.train`` (sample
+    defaults: 784→100 tanh→10 softmax, minibatch 100, lr 0.03, momentum
+    0.9), with ``overrides`` for the loader and decision."""
+    prng.reset()
+    prng.seed_all(SEED)
+    root.__dict__.pop("mnist", None)
+    mnist.default_config()
+    return mnist.train(fused=True, device=device, **overrides)
+
+
+def train(torch, HK, card, device="cuda"):
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.samples import mnist
+
+    # full width and full data, 2 epochs
+    prng.reset()
+    prng.seed_all(SEED)
+    root.__dict__.pop("mnist", None)
+    mnist.default_config()
+    t0 = time.monotonic()
+    wf = mnist.build(fused=True, decision={"max_epochs": 2})
+    wf.initialize(device=device)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    HK.reset_launch_counts()
+    t0 = time.monotonic()
+    wf.run()
+    torch.cuda.synchronize()
+    run_s = time.monotonic() - t0
+    launches = HK.launch_counts()
+    metrics = wf.decision.epoch_metrics
+    check(len(metrics) == 2, "%d epochs ran, not 2" % len(metrics))
+    val = [m["validation"] for m in metrics]
+    steps = wf.fused_step.train_steps
+    check(val[-1]["err_pct"] < 5.0, "validation err_pct %g >= 5"
+          % val[-1]["err_pct"])
+    check(val[1]["loss"] < val[0]["loss"], "validation loss did not fall: "
+          "%r" % [v["loss"] for v in val])
+    check(steps == 2 * 600 and launches["fused_sgd_update"] == 4 * steps,
+          "fused_sgd_update launches %d for %d train minibatches"
+          % (launches["fused_sgd_update"], steps))
+    weights = [f.weights.mem for f in wf.forwards]
+    check(all(numpy.isfinite(w).all() for w in weights),
+          "non-finite weights after training")
+
+    # device busy share of one fused train step (profiler, 20 steps)
+    runner, loader = wf._fused_runner, wf.loader
+    x = loader.original_data.devmem[:100]
+    y = loader.original_labels.devmem[:100]
+    mask = torch.ones(100, device=device)
+    busy = device_busy_share(torch, lambda: (
+        runner._train_step(runner.state, x, y, mask, 100),
+        torch.cuda.synchronize()), 20)
+
+    # the same seed on the card and on the CPU: 51 train minibatches, the
+    # last gated by Decision (max_epochs 1), so 50 committed updates
+    small = {"loader": {"n_train": 5100, "n_valid": 1000},
+             "decision": {"max_epochs": 1}}
+    on_card = mnist_run(prng, root, mnist, device, **small)
+    on_cpu = mnist_run(prng, root, mnist, "cpu", **small)
+    worst = 0.0
+    for a, b in zip(on_card.forwards, on_cpu.forwards):
+        for va, vb in ((a.weights, b.weights), (a.bias, b.bias)):
+            worst = max(worst, float(numpy.abs(va.mem - vb.mem).max()))
+    check(worst <= TRAIN_ATOL, "card vs CPU weights differ by %g > %g"
+          % (worst, TRAIN_ATOL))
+    report = {"phase": "train", "card": card,
+              "config": {"layers": "784-100tanh-10softmax",
+                         "minibatch": 100, "n_train": 60000,
+                         "n_valid": 10000, "epochs": 2, "fused": True},
+              "setup_s": setup_s, "run_s": run_s,
+              "s_per_epoch": run_s / 2,
+              "train_samples_per_s": 2 * 60000 / run_s,
+              "train_steps": steps, "launches": launches,
+              "step_device_busy_share": busy,
+              "validation": [{k: v[k] for k in ("n_err", "err_pct", "loss")}
+                             for v in val],
+              "card_vs_cpu_max_abs_weight_diff": worst,
+              "card_vs_cpu_committed_updates": 50,
+              "tolerance": TRAIN_ATOL}
+    print(json.dumps(report), flush=True)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -405,13 +591,14 @@ def main():
     print("torch %s, CUDA %s" % (torch.__version__, torch.version.cuda),
           flush=True)
 
-    # 2. build
+    # 2. build, one nvcc per source, all started together
     t0 = time.monotonic()
-    _build.load("paged_flash_attention")
-    lib = _build.library_path(_build.CSRC_DIR / "paged_flash_attention.cu")
-    print("build: %.2f s -> %s" % (
-        time.monotonic() - t0, lib.relative_to(_build.PACKAGE_DIR.parent)),
-        flush=True)
+    names = ("paged_flash_attention", "fused_sgd")
+    _build.load_all(names)
+    libs = [str(_build.library_path(_build.CSRC_DIR / (n + ".cu"))
+                .relative_to(_build.PACKAGE_DIR.parent)) for n in names]
+    print("build: %.2f s -> %s" % (time.monotonic() - t0, ", ".join(libs)),
+          flush=True)
 
     # 3. kernels against their plain versions, at the serving shapes
     cases = [decode_case(torch, HK, A),
@@ -431,16 +618,21 @@ def main():
                           m=8, seed=7, timed=False),
               prefill_case(torch, HK, A, 400, kv=2, dh=128, m=512, seed=8,
                            timed=False)]
-    for case in cases + checks:
+    sgd = sgd_cases(torch, HK)
+    for case in cases + checks + sgd:
         print(json.dumps(dict(case, card=smi)), flush=True)
 
     # 4. serve through the engine
     launches = serve(torch, HK, T, S, smi)
 
-    # 5. the kernels line and the result
-    main_case = {"paged_flash_decode": cases[0],
+    # 5. train MNIST-FC through the sample's entry point
+    launches["fused_sgd_update"] = train(torch, HK, smi)["fused_sgd_update"]
+
+    # 6. the kernels line and the result
+    main_case = {"fused_sgd_update": sgd[0],
+                 "paged_flash_decode": cases[0],
                  "paged_flash_prefill": cases[5]}
-    kernels = [{"name": k, "route": "cuda", "source": SOURCE,
+    kernels = [{"name": k, "route": "cuda", "source": SOURCES[k],
                 "replaces": REPLACES[k], "launches": launches[k],
                 "max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
                 "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],

@@ -10,6 +10,10 @@ conftest:
 Tolerances: fp32 outputs are O(1) and the kernel sums up to 16384 keys
 in another order than the plain version (~1e-7 apart on the card), so
 max abs error <= 1e-4; the prefill install is a row copy, bit-equal.
+The fused SGD kernel is held within 1 ulp per element of its plain
+version (the plain version forms each fused multiply-add in float64 and
+rounds once, which can differ from the hardware fma only on a rare
+double-rounding tie).
 """
 
 import numpy
@@ -157,3 +161,65 @@ def test_wrappers_reject_bad_operands():
                               pool, pool, ptab, pos)
     with pytest.raises(ValueError, match="several devices"):
         HK.paged_flash_decode(q, pool, pool, ptab.cpu(), pos)
+
+
+def _sgd_operands(rng, shape, dev, offset=0):
+    """p, v, g of ``shape`` on the card; ``offset`` > 0 starts each one
+    ``offset`` floats into a buffer, so the pointers lose 16-byte
+    alignment and the kernel takes its scalar path."""
+    n = int(numpy.prod(shape))
+
+    def one(scale, uniform=False):
+        data = (rng.uniform(-scale, scale, n) if uniform
+                else rng.randn(n) * scale).astype(numpy.float32)
+        buf = torch.empty(n + offset, device=dev)
+        buf[offset:] = torch.as_tensor(data, device=dev)
+        return buf[offset:].view(shape)
+
+    return one(0.3, uniform=True), one(0.01), one(5.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,wd,l1,clip,offset", [
+    ((784, 100), 0.0, 0.0, None, 0),       # MNIST-FC's four parameters
+    ((100,), 0.0, 0.0, None, 0),
+    ((100, 10), 0.0, 0.0, None, 0),
+    ((10,), 0.0, 0.0, None, 0),
+    ((4096, 4096), 0.0, 0.0, None, 0),     # AlexNet's fc weights
+    ((1,), 0.0, 0.0, None, 0),
+    ((127,), 0.0005, 0.3, None, 0),
+    ((129,), 0.0005, 1.0, None, 0),
+    ((784, 100), 0.0005, 0.3, None, 0),
+    ((784, 100), 0.0005, 0.3, 0.05, 0),
+    ((129,), 0.0, 0.0, 0.05, 0),
+    ((1001,), 0.0005, 0.3, None, 1),       # unaligned: scalar path
+])
+def test_fused_sgd_matches_plain(shape, wd, l1, clip, offset):
+    dev = _card()
+    rng = numpy.random.RandomState(int(numpy.prod(shape)) % 1000 + offset)
+    p, v, g = _sgd_operands(rng, shape, dev, offset)
+    p0, v0 = p.clone(), v.clone()
+    before = HK.fused_sgd_update.launches
+    got_p, got_v = HK.fused_sgd_update(p, v, g, 100, 0.03, 0.9, wd, l1, clip)
+    assert HK.fused_sgd_update.launches == before + 1
+    ref_p, ref_v = HK.fused_sgd_update_ref(p, v, g, 100, 0.03, 0.9, wd, l1,
+                                           clip)
+    torch.cuda.synchronize()
+    assert torch.equal(p, p0) and torch.equal(v, v0)      # out of place
+    for got, ref in ((got_p, ref_p), (got_v, ref_v)):
+        ulp = torch.as_tensor(numpy.spacing(numpy.abs(ref.cpu().numpy())),
+                              device=dev)
+        assert ((got - ref).abs() / ulp).max().item() <= 1.0
+
+
+@pytest.mark.cuda
+def test_fused_sgd_rejects_bad_operands():
+    dev = _card()
+    p = torch.zeros(64, device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        HK.fused_sgd_update(p.double(), p.double(), p.double(), 1, 0.1, 0.9)
+    with pytest.raises(ValueError, match="contiguous"):
+        wide = torch.zeros(128, device=dev)[::2]
+        HK.fused_sgd_update(wide, wide, wide, 1, 0.1, 0.9)
+    with pytest.raises(ValueError, match="several devices"):
+        HK.fused_sgd_update(p, p.cpu(), p, 1, 0.1, 0.9)

@@ -55,18 +55,29 @@ def test_no_jax_or_reference_import_anywhere():
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.compiled import state_from_jax
+    from veles_tpu_torch.config import root
     from veles_tpu_torch.device import resolve_device
     from veles_tpu_torch.ops.transformer import (TransformerLM,
                                                  params_from_jax)
+    from veles_tpu_torch.samples import mnist
     from veles_tpu_torch.serving import LMEngine
+    from veles_tpu_torch.workflow import Workflow
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prng.reset()
+    root.mnist.update({"loader": {"n_train": 200, "n_valid": 100}})
     tree = {"embed": torch.zeros(4, 8).numpy(), "blocks": [],
             "ln_f": {"g": torch.ones(8).numpy(),
                      "b": torch.zeros(8).numpy()}}
     for call in (lambda: resolve_device(None),
                  lambda: params_from_jax(tree),
                  lambda: TransformerLM.from_jax(tree),
-                 lambda: LMEngine(tree, 2, 16)):
+                 lambda: LMEngine(tree, 2, 16),
+                 lambda: Workflow(None, name="wf").initialize(),
+                 lambda: mnist.build().initialize(),
+                 lambda: mnist.train(),
+                 lambda: state_from_jax([{"w": torch.zeros(2).numpy()}])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
@@ -80,3 +91,6 @@ def test_kernel_wrappers_refuse_other_devices():
     pos = torch.zeros(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         HK.paged_flash_decode(q, pool, pool, ptab, pos)
+    p = torch.zeros(7, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        HK.fused_sgd_update(p, p, p, 100, 0.03, 0.9)

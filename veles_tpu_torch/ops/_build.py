@@ -84,10 +84,27 @@ def compile_source(source):
 
 def load(name):
     """The loaded :class:`ctypes.CDLL` for ``csrc/<name>.cu``, built on
-    first use and cached for the process."""
+    first use and cached for the process.  The compile runs outside the
+    lock (it is atomic on disk), so builds of different sources in
+    different threads run side by side."""
+    with _lock:
+        lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    path = compile_source(CSRC_DIR / (name + ".cu"))
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(compile_source(CSRC_DIR / (name + ".cu"))))
+            lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
         return lib
+
+
+def load_all(names):
+    """Build and load several sources at once, one nvcc per source, all
+    started together; returns {name: CDLL}.  Raises the first build
+    failure."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        futures = {name: pool.submit(load, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}

@@ -1,11 +1,11 @@
-"""Hand-written Hopper kernels of the serving hot loop, with their plain
-PyTorch versions.
+"""Hand-written Hopper kernels, with their plain PyTorch versions.
 
-Counterpart of the paged half of ``veles_tpu/ops/pallas_kernels.py``.
-Both kernels live in ``csrc/paged_flash_attention.cu`` (CUDA C++ for
-``sm_90a``, built at first use by :mod:`._build`) and share the TPU
-kernels' geometry: the KV pool is (n_pages, kv_heads, page, head_dim), a
-lane's page-table row maps its linear positions [0, m·page) onto pool
+Counterpart of ``veles_tpu/ops/pallas_kernels.py``.  Each kernel is CUDA
+C++ for ``sm_90a`` under ``csrc/``, built at first use by :mod:`._build`:
+the training update in ``csrc/fused_sgd.cu``, the serving hot loop's two
+paged attention kernels in ``csrc/paged_flash_attention.cu``.  The
+attention kernels share the TPU kernels' geometry: the KV pool is
+(n_pages, kv_heads, page, head_dim), a lane's page-table row maps its linear positions [0, m·page) onto pool
 pages, and queries arrive as (b, heads, c, head_dim).  Grouped-query
 attention folds into the kernels as (kv, g·c) query rows per kv head —
 row r of kv head j is query head j·g + r // c at chunk offset r % c.
@@ -16,6 +16,12 @@ the kernel and adds one to the wrapper's ``launches`` count, and any
 other device raises.  There is no fallback from the kernel to the plain
 version.
 
+fused_sgd_update
+    Replaces ``veles_tpu/ops/pallas_kernels.py:92`` (fused_sgd_update).
+    Bound on the H100: bytes (p, v, g read once, p' and v' written once:
+    20 bytes per element).  One elementwise pass with 16-byte accesses;
+    the outputs are new tensors, because the fused training step holds
+    an update pending until Decision commits it.
 paged_flash_decode
     Replaces ``veles_tpu/ops/pallas_kernels.py:367`` (paged_flash_decode).
     Bound on the H100: bytes — every live K/V page is read once for
@@ -36,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy
 import torch
 
 NEG_INF = -1e30
@@ -59,6 +66,61 @@ def serving_kernels_supported(paged, n_heads, kv_heads, head_dim, page,
     if page < 1 or head_dim < 1:
         return False, "degenerate geometry"
     return True, None
+
+
+# ---------------------------------------------------------- fused SGD update
+def _sgd_scalars(batch_size, learning_rate, momentum, weight_decay,
+                 l1_vs_l2, gradient_clip):
+    """The update's scalars as fp32 values, rounded the way JAX rounds
+    them: inv_batch = float32(1) / float32(max(batch, 1)) in fp32, the
+    others rounded to fp32 once from Python doubles (``1 - l1_vs_l2``
+    computed in double first — JAX's weak-typed constant folding).  The
+    clip is 0 when off.  Raises on a tensor: a scalar on the card would
+    need a host sync per update."""
+    values = (batch_size, learning_rate, momentum, weight_decay, l1_vs_l2,
+              gradient_clip)
+    if any(isinstance(v, torch.Tensor) for v in values):
+        raise TypeError("fused_sgd_update takes its scalars as Python or "
+                        "numpy numbers, not tensors")
+    f32 = numpy.float32
+    clip = (f32(gradient_clip) if gradient_clip is not None
+            and gradient_clip > 0.0 else f32(0.0))
+    return {"inv_batch": f32(1.0) / f32(max(int(batch_size), 1)),
+            "lr": f32(learning_rate), "momentum": f32(momentum),
+            "weight_decay": f32(weight_decay), "l1": f32(l1_vs_l2),
+            "one_minus_l1": f32(1.0 - float(l1_vs_l2)), "clip": clip}
+
+
+def _fma(a, b, c):
+    """fp32 fused multiply-add a*b + c, rounded once: the fp32 product is
+    exact in float64, so one float64 add and one rounding to fp32 give
+    the fused result (up to the rare double-rounding tie)."""
+    return (a.double() * b + c.double()).float()
+
+
+def fused_sgd_update_ref(param, velocity, grad, batch_size, learning_rate,
+                         momentum=0.0, weight_decay=0.0, l1_vs_l2=0.0,
+                         gradient_clip=None):
+    """Plain PyTorch version of :func:`fused_sgd_update`, in the kernel's
+    order of operations (see ``csrc/fused_sgd.cu``); each fused
+    multiply-add is one float64 multiply-add rounded once to fp32.
+    Returns new (param, velocity)."""
+    s = _sgd_scalars(batch_size, learning_rate, momentum, weight_decay,
+                     l1_vs_l2, gradient_clip)
+    wd, clip = float(s["weight_decay"]), float(s["clip"])
+    if wd:
+        decay = _fma(param, float(s["one_minus_l1"]),
+                     torch.sign(param) * float(s["l1"]))
+    if clip > 0.0:
+        g = (grad * float(s["inv_batch"])).clamp(-clip, clip)
+        if wd:
+            g = _fma(decay, wd, g)
+    elif wd:
+        g = _fma(grad, float(s["inv_batch"]), decay * wd)
+    else:
+        g = grad * float(s["inv_batch"])
+    v = _fma(velocity, float(s["momentum"]), -(g * float(s["lr"])))
+    return param + v, v
 
 
 # ------------------------------------------------------------ plain versions
@@ -318,19 +380,89 @@ def paged_flash_prefill(q, k_new, v_new, k_pool, v_pool, ptab, pos,
 paged_flash_prefill.launches = 0
 
 
+_SGD_LIB = None
+#: the kernel's scalar arguments, in order (exact fp32 values as doubles)
+_SGD_ORDER = ("inv_batch", "lr", "momentum", "weight_decay", "l1",
+              "one_minus_l1", "clip")
+
+
+def _sgd_lib():
+    """The fused SGD kernel's shared library, built on first use."""
+    global _SGD_LIB
+    if _SGD_LIB is None:
+        from veles_tpu_torch.ops import _build
+        lib = _build.load("fused_sgd")
+        ptr, f32 = ctypes.c_void_p, ctypes.c_float
+        lib.fused_sgd_update_f32.argtypes = ([ptr] * 5 + [ctypes.c_longlong]
+                                             + [f32] * 7 + [ptr])
+        lib.fused_sgd_update_f32.restype = ctypes.c_int
+        lib.fused_sgd_error_string.argtypes = [ctypes.c_int]
+        lib.fused_sgd_error_string.restype = ctypes.c_char_p
+        _SGD_LIB = lib
+    return _SGD_LIB
+
+
+def fused_sgd_update(param, velocity, grad, batch_size, learning_rate,
+                     momentum=0.0, weight_decay=0.0, l1_vs_l2=0.0,
+                     gradient_clip=None):
+    """Momentum-SGD update as ONE kernel: returns NEW (param, velocity)
+    tensors, leaving the inputs untouched.  ``grad`` is the batch SUM;
+    ``gradient_clip`` None or <= 0 means no clipping.
+
+    CPU tensors run :func:`fused_sgd_update_ref`; CUDA tensors launch
+    the kernel (fp32, equal shapes, contiguous — anything else raises).
+    Scalars are Python or numpy numbers, passed to the kernel by value,
+    so nothing is read back from the card."""
+    if param.shape != velocity.shape or param.shape != grad.shape:
+        raise ValueError("param %s, velocity %s and grad %s differ in shape"
+                         % (tuple(param.shape), tuple(velocity.shape),
+                            tuple(grad.shape)))
+    if not _on_card(param, velocity, grad):
+        return fused_sgd_update_ref(param, velocity, grad, batch_size,
+                                    learning_rate, momentum, weight_decay,
+                                    l1_vs_l2, gradient_clip)
+    for name, t in (("param", param), ("velocity", velocity),
+                    ("grad", grad)):
+        if t.dtype != torch.float32:
+            raise TypeError("%s must be float32 (got %s)" % (name, t.dtype))
+        if not t.is_contiguous():
+            raise ValueError("%s must be contiguous" % name)
+    s = _sgd_scalars(batch_size, learning_rate, momentum, weight_decay,
+                     l1_vs_l2, gradient_clip)
+    new_p = torch.empty_like(param)
+    new_v = torch.empty_like(velocity)
+    lib = _sgd_lib()
+    with torch.cuda.device(param.device):
+        stream = torch.cuda.current_stream(param.device).cuda_stream
+        code = lib.fused_sgd_update_f32(
+            param.data_ptr(), velocity.data_ptr(), grad.data_ptr(),
+            new_p.data_ptr(), new_v.data_ptr(), param.numel(),
+            *[float(s[k]) for k in _SGD_ORDER], stream)
+    if code:
+        raise RuntimeError("fused_sgd_update launch failed: %s"
+                           % lib.fused_sgd_error_string(code).decode())
+    fused_sgd_update.launches += 1
+    return new_p, new_v
+
+
+fused_sgd_update.launches = 0
+
+_WRAPPERS = (fused_sgd_update, paged_flash_decode, paged_flash_prefill)
+
+
 def reset_launch_counts():
     """Set every kernel wrapper's ``launches`` to 0."""
-    paged_flash_decode.launches = 0
-    paged_flash_prefill.launches = 0
+    for fn in _WRAPPERS:
+        fn.launches = 0
 
 
 def launch_counts():
     """{kernel name: launches since the last reset}."""
-    return {"paged_flash_decode": paged_flash_decode.launches,
-            "paged_flash_prefill": paged_flash_prefill.launches}
+    return {fn.__name__: fn.launches for fn in _WRAPPERS}
 
 
-__all__ = ["NEG_INF", "serving_kernels_supported", "paged_flash_decode",
+__all__ = ["NEG_INF", "serving_kernels_supported", "fused_sgd_update",
+           "fused_sgd_update_ref", "paged_flash_decode",
            "paged_flash_decode_ref", "paged_flash_prefill",
            "paged_flash_prefill_ref", "reset_launch_counts",
            "launch_counts"]

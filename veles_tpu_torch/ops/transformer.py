@@ -35,7 +35,7 @@ def init_transformer_params(stream, vocab, d_model=64, n_heads=4,
     if n_experts > 0:
         raise NotImplementedError(
             "mixture-of-experts FFN (n_experts > 0) waits for the "
-            "transformer training slice (ROADMAP Queue 1)")
+            "transformer training slice (ROADMAP Queue 2, item 3)")
     d_ff = d_ff or 4 * d_model
     s_emb = d_model ** -0.5
 
@@ -87,7 +87,7 @@ def _block_ffn(blk, hn):
     if "moe" in blk:
         raise NotImplementedError(
             "mixture-of-experts blocks wait for the transformer training "
-            "slice (ROADMAP Queue 1)")
+            "slice (ROADMAP Queue 2, item 3)")
     ff = torch.clamp_min(matmul(hn, blk["w1"]) + blk["b1"], 0.0)
     return matmul(ff, blk["w2"]) + blk["b2"]
 

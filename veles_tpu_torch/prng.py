@@ -4,8 +4,11 @@ Port of ``veles_tpu/prng.py``: every consumer of host randomness (weight
 init, shuffles) pulls from a named stream whose numpy ``RandomState`` is
 seeded from sha256(``"<name>:<seed>"``), exactly as in the reference, so
 ``init_transformer_params`` gives bit-equal weights in both packages for
-the same seed.  The reference's device keys (``jax.random``) have no
-counterpart yet; they come with the first device-side consumer.
+the same seed, and the training slice's initial weights, synthetic data
+and loader shuffles are bit-equal too.  The reference's device keys
+(``jax.random``: ``key``, ``base_key``, ``key_at``) have no counterpart
+yet; they raise until the first device-side consumer ports them (ROADMAP
+Queue 2a, item 9).
 """
 
 from __future__ import annotations
@@ -62,6 +65,22 @@ class RandomGenerator:
         arr[...] = self.state.normal(mean, stddev, arr.shape).astype(arr.dtype)
         return arr
 
+    # -- device-side keys (not ported) ---------------------------------------
+    def key(self):
+        raise NotImplementedError(
+            "device PRNG keys are not ported yet: ROADMAP Queue 2a, item 9")
+
+    base_key = key_at = key
+
+    # -- snapshot support ----------------------------------------------------
+    def state_dict(self):
+        return {"seed": self._seed, "numpy_state": self.state.get_state(),
+                "key_counter": 0}
+
+    def load_state_dict(self, d):
+        self.seed(d["seed"])
+        self.state.set_state(d["numpy_state"])
+
 
 _streams = {}
 _pinned = set()
@@ -101,3 +120,16 @@ def reset():
     """Drop all streams (test isolation)."""
     _streams.clear()
     _pinned.clear()
+
+
+def state_dict():
+    return {"streams": {name: s.state_dict()
+                        for name, s in _streams.items()},
+            "pinned": sorted(_pinned)}
+
+
+def load_state_dict(d):
+    streams = d.get("streams", d if "pinned" not in d else {})
+    pinned = set(d.get("pinned", ()))
+    for name, sd in streams.items():
+        get(name, pinned=name in pinned).load_state_dict(sd)
