@@ -10,8 +10,9 @@ Phases (any failure exits nonzero before the final line is printed):
 1. device — the card's name, the device count and ``nvidia-smi``'s name
    and power limit;
 2. build — the CUDA kernels compiled from ``veles_tpu_torch/csrc/``
-   (``paged_flash_attention.cu``, ``fused_sgd.cu``; one nvcc per source,
-   all started together) into ``build/kernels/``;
+   (``paged_flash_attention.cu``, ``fused_sgd.cu``, ``lrn.cu``,
+   ``dropout.cu``; one nvcc per source, all started together) into
+   ``build/kernels/``;
 3. kernels — each kernel against its plain PyTorch version on the card
    at its main path's shapes, with kernel, plain-version and library
    card times (CUDA events; see ``time_ms``) and the card's bound for
@@ -19,9 +20,14 @@ Phases (any failure exits nonzero before the final line is printed):
    (library: scaled_dot_product_attention on the gathered view), then
    (checked, not timed) long page tables — a 16384-token lane view at
    head_dim 128 — and a head_dim that is neither a multiple of 4 nor
-   below 256; the fused SGD kernel at MNIST-FC's four parameters, a
-   4096x4096 weight, odd sizes, weight decay with an L1 mix and a clip
-   (no library call computes that function);
+   below 256; the fused SGD kernel at MNIST-FC's four parameters,
+   AlexNet's sixteen, a 4096x4096 weight, odd sizes, weight decay with
+   an L1 mix and a clip (no library call computes that function); the
+   LRN forward and backward kernels at AlexNet's two LRN layers (library:
+   ``local_response_norm`` on the NCHW view and its autograd backward),
+   checked, not timed, at C = 200 with n = 4; dropout at AlexNet's two
+   dropout inputs and at sizes 1, 127 and 2**16 + 3, bit-equal to its
+   plain version (no library call draws jax's mask);
 4. serve — the paged LM engine at the full width of the repo's LM
    config (vocab 256, d_model 512, 8 heads, 8 layers, learned positions,
    max_len 512, fp32, random weights from a seed) answers 16 requests
@@ -33,7 +39,16 @@ Phases (any failure exits nonzero before the final line is printed):
    below 5%, validation loss falling, every dispatched train minibatch's
    four momentum updates through the kernel; then the same seed on the
    card and on the CPU for 50 committed updates, weights within 1e-4;
-6. one JSON line listing every ported kernel, then the JSON result line.
+6. alexnet — the ImageNet sample at full AlexNet width
+   (``alexnet_layers()``: crop 227, five conv blocks with two LRN and
+   three max-pooling layers, two dropout-FC 4096 layers, softmax 1000;
+   minibatch 128; the synthetic loader at 256x256, 640 train / 128
+   validation, 2 epochs) through ``samples.imagenet.train`` on the card:
+   finite losses, and per dispatched train step exactly 2 LRN forward
+   (plus 2 per validation minibatch), 2 LRN backward, 4 dropout and 16
+   fused SGD launches; then the same seed on the card and on the CPU at
+   minibatch 16 for 3 committed updates, weights within ``ALEXNET_ATOL``;
+7. one JSON line listing every ported kernel, then the JSON result line.
 
 It imports nothing of JAX and nothing of the ``veles_tpu`` package.
 """
@@ -49,6 +64,13 @@ SEED = 20261016
 #: H100 SXM data-sheet peaks: HBM bytes/s and fp32 (non-tensor) flop/s
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+#: 32-bit integer operations/s: 64 INT32 lanes per SM (half the 128 fp32
+#: lanes behind the 67 TFLOP/s; Hopper white paper) x 132 SMs x 1.98 GHz
+INT32_OP_S = 64 * 132 * 1.98e9
+#: threefry2x32 per element: 20 rounds of add, rotate, xor; 5 key
+#: injections of 3 adds; 2 initial adds; then xor, shift, or, subtract,
+#: compare and select to turn the words into a kept-or-zero output
+DROPOUT_OPS = 20 * 3 + 5 * 3 + 2 + 6
 #: copies of each timed kernel's inputs, cycled so that every call finds
 #: its operands cold in the 50 MB L2 (4 x 16.8 MB of decode pools)
 COPIES = 4
@@ -62,11 +84,17 @@ LOGIT_TOL = 1e-3
 
 REPLACES = {
     "fused_sgd_update": "veles_tpu/ops/pallas_kernels.py:92",
+    "lrn_forward": "veles_tpu/ops/pallas_kernels.py:226",
+    "lrn_backward": "veles_tpu/ops/pallas_kernels.py:244",
+    "dropout": "veles_tpu/ops/pallas_kernels.py:272",
     "paged_flash_decode": "veles_tpu/ops/pallas_kernels.py:367",
     "paged_flash_prefill": "veles_tpu/ops/pallas_kernels.py:443",
 }
 SOURCES = {
     "fused_sgd_update": "veles_tpu_torch/csrc/fused_sgd.cu",
+    "lrn_forward": "veles_tpu_torch/csrc/lrn.cu",
+    "lrn_backward": "veles_tpu_torch/csrc/lrn.cu",
+    "dropout": "veles_tpu_torch/csrc/dropout.cu",
     "paged_flash_decode": "veles_tpu_torch/csrc/paged_flash_attention.cu",
     "paged_flash_prefill": "veles_tpu_torch/csrc/paged_flash_attention.cu",
 }
@@ -75,6 +103,29 @@ SOURCES = {
 SGD_MAX_ULPS = 1.0
 #: MNIST-FC's parameters: (784, 100) and (100,) tanh, (100, 10) and (10,)
 MNIST_PARAMS = ((784, 100), (100,), (100, 10), (10,))
+#: AlexNet's sixteen: five HWIO convs and three FC layers, with biases
+ALEXNET_PARAMS = ((11, 11, 3, 96), (96,), (5, 5, 96, 256), (256,),
+                  (3, 3, 256, 384), (384,), (3, 3, 384, 384), (384,),
+                  (3, 3, 384, 256), (256,), (9216, 4096), (4096,),
+                  (4096, 4096), (4096,), (4096, 1000), (1000,))
+#: LRN kernels vs plain versions: they differ only where CUDA's powf and
+#: PyTorch's pow round differently (the window sums are in one order);
+#: the reference's own Pallas-vs-XLA tolerances
+LRN_FWD_TOL = (2e-6, 2e-6)           # (rtol, atol)
+LRN_BWD_TOL = (3e-5, 3e-6)
+#: AlexNet's LRN inputs: conv1's and conv2's NHWC outputs
+LRN_SHAPES = {"lrn1": (128, 55, 55, 96), "lrn2": (128, 27, 27, 256)}
+#: AlexNet's dropout inputs: pool5 flattened, and fc6's output
+DROPOUT_SHAPES = {"dropout6": (128, 9216), "dropout7": (128, 4096)}
+#: card vs CPU AlexNet weights after 3 committed updates at minibatch 16:
+#: cuDNN (TF32 off) and the CPU's convolutions sum in other orders
+#: (activations ~3e-6 apart, relative), so a max-pool window whose two
+#: largest inputs are that close picks another argmax on the card (3 of
+#: pool2's 692,224 windows in the first step) and routes that element's
+#: gradient elsewhere; the conv weights below it then differ by up to
+#: 1.6e-4 after 3 updates (the updates move them by up to 6e-3), every
+#: other layer by under 1e-5.  With no flip the runs agree to ~1e-8.
+ALEXNET_ATOL = 5e-4
 #: card vs CPU weights after 50 committed updates: cuBLAS and the CPU
 #: sum the GEMMs in different orders over 50 steps; weights are O(0.1)
 TRAIN_ATOL = 1e-4
@@ -337,6 +388,8 @@ def sgd_case(torch, HK, shapes, name, wd=0.0, l1=0.0, clip=None, seed=0,
 def sgd_cases(torch, HK):
     big = (4096, 4096)
     return [sgd_case(torch, HK, MNIST_PARAMS, "mnist_fc_step"),
+            sgd_case(torch, HK, ALEXNET_PARAMS, "alexnet_step", wd=0.0005,
+                     seed=50),
             sgd_case(torch, HK, [big], "fc_4096x4096", seed=10, copies=2),
             sgd_case(torch, HK, [(1,), (127,), (129,)], "odd_sizes",
                      seed=20),
@@ -346,12 +399,128 @@ def sgd_cases(torch, HK):
                      clip=0.05, seed=40)]
 
 
+# ---------------------------------------------------------------------- LRN
+def within(torch, got, ref, tol):
+    """(max |got - ref|, True when every element is within atol + rtol
+    |ref|)."""
+    rtol, atol = tol
+    diff = (got - ref).abs()
+    return diff.max().item(), bool((diff <= atol + rtol * ref.abs()).all())
+
+
+def lrn_case(torch, HK, name, shape, n=5, seed=0, timed=True):
+    """Kernels 2 and 3 on an NHWC ``shape`` against their plain versions
+    (and, timed, against local_response_norm on the NCHW view)."""
+    dev = torch.device("cuda")
+    rng = numpy.random.RandomState(seed)
+    c = shape[-1]
+    rows = int(numpy.prod(shape[:-1]))
+    # post-ReLU activations: non-negative, O(1)
+    x = torch.as_tensor(numpy.abs(rng.randn(*shape)).astype(
+        numpy.float32), device=dev)
+    dy = torch.as_tensor(rng.randn(*shape).astype(numpy.float32) * 1e-3,
+                         device=dev)
+    hyper = (1e-4, 0.75, n)
+    y, d = HK.lrn_forward(x, *hyper, 2.0)
+    dx = HK.lrn_backward(x, d, dy, *hyper)
+    y_ref, d_ref = HK.lrn_forward_ref(x, *hyper, 2.0)
+    dx_ref = HK.lrn_backward_ref(x, d_ref, dy, *hyper)
+    torch.cuda.synchronize()
+    fwd_err, fwd_ok = within(torch, y, y_ref, LRN_FWD_TOL)
+    d_err, d_ok = within(torch, d, d_ref, LRN_FWD_TOL)
+    bwd_err, bwd_ok = within(torch, dx, dx_ref, LRN_BWD_TOL)
+    check(fwd_ok and d_ok, "lrn_forward %s: max abs err %g / %g beyond "
+          "%r" % (name, fwd_err, d_err, LRN_FWD_TOL))
+    check(bwd_ok, "lrn_backward %s: max abs err %g beyond %r"
+          % (name, bwd_err, LRN_BWD_TOL))
+    shape = {"rows": rows, "c": c, "n": n}
+    fwd = {"kernel": "lrn_forward", "case": name, "shape": shape,
+           "max_abs_err": max(fwd_err, d_err)}
+    bwd = {"kernel": "lrn_backward", "case": name, "shape": shape,
+           "max_abs_err": bwd_err}
+    if not timed:
+        return fwd, bwd
+    xs = [x] + [x.clone() for _ in range(COPIES - 1)]
+    ds = [d] + [d.clone() for _ in range(COPIES - 1)]
+    # the library: local_response_norm on the NHWC tensor's NCHW view
+    lib = torch.nn.functional.local_response_norm
+    xv = [t.permute(0, 3, 1, 2) for t in xs]
+    lib_err = (lib(xv[0], n, *hyper[:2], 2.0).permute(0, 2, 3, 1)
+               - y_ref).abs().max().item()
+    leaves = [t.detach().clone().requires_grad_() for t in xv]
+    outs = [lib(t, n, *hyper[:2], 2.0) for t in leaves]
+    dyv = dy.permute(0, 3, 1, 2)
+    elems = rows * c
+    fwd.update(
+        kernel_ms=time_ms([lambda t=t: HK.lrn_forward(t, *hyper, 2.0)
+                           for t in xs], torch),
+        plain_ms=time_ms([lambda t=t: HK.lrn_forward_ref(t, *hyper, 2.0)
+                          for t in xs], torch, calls=3, reps=5),
+        library_ms=time_ms([lambda t=t: lib(t, n, *hyper[:2], 2.0)
+                            for t in xv], torch, calls=3, reps=5),
+        library_max_abs_err=lib_err, bytes=12 * elems)
+    fwd["bound_ms"], fwd["bound_by"] = bound(12 * elems, (n + 4) * elems)
+    bwd.update(
+        kernel_ms=time_ms([lambda t=t, e=e: HK.lrn_backward(t, e, dy,
+                                                            *hyper)
+                           for t, e in zip(xs, ds)], torch),
+        plain_ms=time_ms([lambda t=t, e=e: HK.lrn_backward_ref(t, e, dy,
+                                                               *hyper)
+                          for t, e in zip(xs, ds)], torch, calls=3,
+                         reps=5),
+        library_ms=time_ms([lambda o=o, t=t: torch.autograd.grad(
+            o, t, dyv, retain_graph=True) for o, t in zip(outs, leaves)],
+            torch, calls=3, reps=5),
+        bytes=16 * elems)
+    bwd["bound_ms"], bwd["bound_by"] = bound(16 * elems, (n + 8) * elems)
+    return fwd, bwd
+
+
+# ------------------------------------------------------------------ dropout
+def dropout_case(torch, HK, prng, name, shape, rate=0.5, seed=0,
+                 timed=True):
+    """Kernel 4 against its plain version: bit-equal, 0 unequal."""
+    dev = torch.device("cuda")
+    x = torch.as_tensor(numpy.random.RandomState(seed).randn(*shape)
+                        .astype(numpy.float32), device=dev)
+    key = prng.fold_in(prng.PRNGKey(SEED), seed)
+    got = HK.dropout(x, key, rate)
+    ref = HK.dropout_ref(x, key, rate)
+    torch.cuda.synchronize()
+    unequal = int((got != ref).sum().item())
+    check(unequal == 0, "dropout %s: %d elements differ from the plain "
+          "version" % (name, unequal))
+    n = x.numel()
+    out = {"kernel": "dropout", "case": name, "shape": list(shape),
+           "rate": rate, "unequal": unequal,
+           "max_abs_err": (got - ref).abs().max().item(),
+           "kept_share": (got != 0).float().mean().item()}
+    if not timed:
+        return out
+    xs = [x] + [x.clone() for _ in range(COPIES - 1)]
+    out.update(
+        kernel_ms=time_ms([lambda t=t: HK.dropout(t, key, rate)
+                           for t in xs], torch),
+        plain_ms=time_ms([lambda t=t: HK.dropout_ref(t, key, rate)
+                          for t in xs], torch, calls=3, reps=5),
+        library_ms=None, bytes=8 * n, int_ops=DROPOUT_OPS * n)
+    t_bytes = 8 * n / HBM_BYTES_S * 1e3
+    t_ops = DROPOUT_OPS * n / INT32_OP_S * 1e3
+    out["bound_ms"], out["bound_by"] = ((t_bytes, "bytes") if t_bytes >= t_ops
+                                        else (t_ops, "operations"))
+    return out
+
+
 # -------------------------------------------------------------------- serve
-def device_busy_share(torch, step, n):
-    """Share of the wall time of ``n`` synchronous steps during which
-    the card ran kernels, from a torch.profiler trace (kernel time
-    summed over the trace's rows); None when the trace holds no device
-    time.  The profiler's own host cost makes this a lower bound."""
+def profile_steps(torch, step, n):
+    """(busy share, {kernel: card us per step}) over ``n`` synchronous
+    steps under torch.profiler.  The busy share is the union of the
+    trace's kernel intervals over the wall time (None when the trace
+    holds no kernel); the profiler's own host cost makes it a lower
+    bound.  Kernel times sum each kernel's own intervals (the profiler's
+    per-op device totals count a kernel twice: under the op that
+    launched it and as itself)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     step()
     with profile(activities=[ProfilerActivity.CPU,
@@ -360,9 +529,19 @@ def device_busy_share(torch, step, n):
         for _ in range(n):
             step()
         wall_us = (time.monotonic() - t0) * 1e6
-    device_us = sum(getattr(e, "self_device_time_total", 0)
-                    for e in prof.key_averages())
-    return device_us / wall_us if device_us else None
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in kernels):
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    per_kernel = {}
+    for e in kernels:
+        per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
+                              + e.time_range.elapsed_us() / n)
+    return (busy / wall_us if kernels else None), per_kernel
 
 
 def teacher_forced(torch, T, engine, seq, true_len, emitted):
@@ -461,7 +640,7 @@ def serve(torch, HK, T, S, card):
         for _ in range(20):
             engine._step_program(ptabs, last, pos)
         step_ms = (time.monotonic() - t1) / 20 * 1e3
-        busy = device_busy_share(torch, lambda: engine._step_program(
+        busy, _ = profile_steps(torch, lambda: engine._step_program(
             ptabs, last, pos), 10)
     ttft = sorted(f.ttft_s for f in futures)
     tokens = sum(len(o) for o in outs)
@@ -537,7 +716,7 @@ def train(torch, HK, card, device="cuda"):
     x = loader.original_data.devmem[:100]
     y = loader.original_labels.devmem[:100]
     mask = torch.ones(100, device=device)
-    busy = device_busy_share(torch, lambda: (
+    busy, _ = profile_steps(torch, lambda: (
         runner._train_step(runner.state, x, y, mask, 100),
         torch.cuda.synchronize()), 20)
 
@@ -571,6 +750,140 @@ def train(torch, HK, card, device="cuda"):
     return launches
 
 
+# ------------------------------------------------------------------ alexnet
+def imagenet_build(prng, root, imagenet, layers, **loader):
+    """A seeded ImageNet-sample workflow at ``layers`` on the synthetic
+    loader (defaults: minibatch 128, 256x256, 1000 classes, 640 train /
+    128 validation, 2 epochs)."""
+    prng.reset()
+    prng.seed_all(SEED)
+    root.__dict__.pop("imagenet", None)
+    loader = dict({"minibatch_size": 128, "records_path": None,
+                   "n_train": 640, "n_valid": 128,
+                   "image_hw": (256, 256), "n_classes": 1000}, **loader)
+    epochs = loader.pop("epochs", 2)
+    root.imagenet.update({"loader": loader,
+                          "decision": {"max_epochs": epochs,
+                                       "fail_iterations": 10},
+                          "layers": layers})
+    return imagenet.build(fused=True)
+
+
+def alexnet(torch, HK, card, device="cuda", layers=None, small=None,
+            **loader):
+    """The ImageNet sample at full AlexNet width through
+    ``imagenet.train``'s build + initialize + run, then card vs CPU."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.samples import imagenet
+    layers = layers or imagenet.alexnet_layers()
+    t0 = time.monotonic()
+    wf = imagenet_build(prng, root, imagenet, layers, **loader)
+    wf.initialize(device=device)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    HK.reset_launch_counts()
+    t0 = time.monotonic()
+    wf.run()
+    torch.cuda.synchronize()
+    run_s = time.monotonic() - t0
+    launches = HK.launch_counts()
+    metrics = wf.decision.epoch_metrics
+    check(len(metrics) == 2, "%d epochs ran, not 2" % len(metrics))
+    steps = wf.fused_step.train_steps
+    ld = wf.loader
+    mb = ld.max_minibatch_size
+    valid_mbs = 2 * -(-ld.class_lengths[1] // mb)
+    check(steps == 2 * -(-ld.class_lengths[2] // mb),
+          "%d train steps dispatched" % steps)
+    # per train step: each LRN forward and backward once, each dropout
+    # forward and backward, each parameter (weights, bias) one update;
+    # each validation minibatch runs the LRN forwards (AlexNet: 2, 2, 4,
+    # 16 per step)
+    n_lrn = sum(1 for f in wf.forwards if f.layer_type == "norm")
+    n_drop = sum(1 for f in wf.forwards if f.layer_type == "dropout")
+    n_params = sum(2 for f in wf.forwards if f.has_params)
+    want = {"lrn_forward": n_lrn * (steps + valid_mbs),
+            "lrn_backward": n_lrn * steps, "dropout": 2 * n_drop * steps,
+            "fused_sgd_update": n_params * steps}
+    got = {k: launches[k] for k in want}
+    check(got == want, "alexnet launches %r, expected %r" % (got, want))
+    losses = [m[s]["loss"] for m in metrics for s in ("validation", "train")]
+    check(all(numpy.isfinite(v) for v in losses), "non-finite loss %r"
+          % losses)
+    check(all(numpy.isfinite(f.weights.mem).all() for f in wf.forwards
+              if f.has_params), "non-finite weights after training")
+
+    # one steady train step: host clock over 5 synchronous steps, and the
+    # card's busy share of it (profiler, 5 steps)
+    runner = wf._fused_runner
+    x = ld.original_data.devmem[:mb]
+    y = ld.original_labels.devmem[:mb]
+    mask = torch.ones(mb, device=device)
+    key = prng.PRNGKey(SEED)
+
+    def step():
+        runner._train_step(runner.state, x, y, mask, mb, key)
+        torch.cuda.synchronize()
+
+    step()
+    t0 = time.monotonic()
+    for _ in range(5):
+        step()
+    step_s = (time.monotonic() - t0) / 5
+    busy, per_kernel = profile_steps(torch, step, 5)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
+    ported = {tag: sum(v for k, v in per_kernel.items() if tag in k)
+              for tag in ("lrn_fwd_kernel", "lrn_bwd_kernel",
+                          "dropout_kernel", "fused_sgd_kernel")}
+
+    # the same seed on the card and on the CPU at minibatch 16: 4 train
+    # minibatches, the last gated by Decision (max_epochs 1)
+    small = dict(small or {"minibatch_size": 16, "n_train": 64,
+                           "n_valid": 16}, epochs=1)
+    runs = []
+    for dev in (device, "cpu"):
+        run = imagenet_build(prng, root, imagenet, layers,
+                             **dict(loader, **small))
+        run.initialize(device=dev)
+        run.run()
+        runs.append(run)
+    per_layer = []
+    for a, b in zip(*(r.forwards for r in runs)):
+        if a.has_params:
+            per_layer.append(max(float(numpy.abs(va.mem - vb.mem).max())
+                                 for va, vb in ((a.weights, b.weights),
+                                                (a.bias, b.bias))))
+    worst = max(per_layer)
+    check(worst <= ALEXNET_ATOL, "card vs CPU AlexNet weights differ by "
+          "%g > %g (per layer %r)" % (worst, ALEXNET_ATOL, per_layer))
+    committed = runs[1].fused_step.train_steps - 1
+    report = {"phase": "alexnet", "card": card,
+              "config": {"layers": "alexnet_layers()", "crop": 227,
+                         "minibatch": mb, "image_hw": list(ld.image_hw),
+                         "n_classes": ld.n_classes,
+                         "n_train": ld.class_lengths[2],
+                         "n_valid": ld.class_lengths[1], "epochs": 2,
+                         "fused": True},
+              "setup_s": setup_s, "run_s": run_s, "train_steps": steps,
+              "validation_minibatches": valid_mbs,
+              "s_per_step": step_s, "samples_per_s": mb / step_s,
+              "step_device_busy_share": busy,
+              "step_card_us": sum(per_kernel.values()),
+              "step_top_kernels_us": [[k[:80], v] for k, v in top],
+              "step_ported_kernels_us": ported,
+              "launches": launches,
+              "losses": [{s: m[s]["loss"] for s in ("validation", "train")}
+                         for m in metrics],
+              "card_vs_cpu_max_abs_weight_diff": worst,
+              "card_vs_cpu_per_layer": per_layer,
+              "card_vs_cpu_committed_updates": committed,
+              "card_vs_cpu_minibatch": small["minibatch_size"],
+              "tolerance": ALEXNET_ATOL}
+    print(json.dumps(report), flush=True)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -580,7 +893,7 @@ def main():
     from veles_tpu_torch.ops import attention as A
     from veles_tpu_torch.ops import hopper_kernels as HK
     from veles_tpu_torch.ops import transformer as T
-    from veles_tpu_torch import serving as S
+    from veles_tpu_torch import prng, serving as S
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -593,7 +906,7 @@ def main():
 
     # 2. build, one nvcc per source, all started together
     t0 = time.monotonic()
-    names = ("paged_flash_attention", "fused_sgd")
+    names = ("paged_flash_attention", "fused_sgd", "lrn", "dropout")
     _build.load_all(names)
     libs = [str(_build.library_path(_build.CSRC_DIR / (n + ".cu"))
                 .relative_to(_build.PACKAGE_DIR.parent)) for n in names]
@@ -619,7 +932,16 @@ def main():
               prefill_case(torch, HK, A, 400, kv=2, dh=128, m=512, seed=8,
                            timed=False)]
     sgd = sgd_cases(torch, HK)
-    for case in cases + checks + sgd:
+    lrn = [c for i, (name, shape) in enumerate(LRN_SHAPES.items())
+           for c in lrn_case(torch, HK, name, shape, seed=i)]
+    lrn_checks = list(lrn_case(torch, HK, "c200_n4", (4, 32, 32, 200),
+                               n=4, seed=5, timed=False))
+    drop = [dropout_case(torch, HK, prng, name, shape, seed=i)
+            for i, (name, shape) in enumerate(DROPOUT_SHAPES.items())]
+    drop_checks = [dropout_case(torch, HK, prng, "n%d" % n, (n,), rate,
+                                seed=10 + n, timed=False)
+                   for n, rate in ((1, 0.5), (127, 0.3), (2 ** 16 + 3, 0.7))]
+    for case in cases + checks + sgd + lrn + lrn_checks + drop + drop_checks:
         print(json.dumps(dict(case, card=smi)), flush=True)
 
     # 4. serve through the engine
@@ -628,8 +950,15 @@ def main():
     # 5. train MNIST-FC through the sample's entry point
     launches["fused_sgd_update"] = train(torch, HK, smi)["fused_sgd_update"]
 
-    # 6. the kernels line and the result
+    # 6. train full-width AlexNet through the ImageNet sample
+    alex = alexnet(torch, HK, smi)
+    for k in ("lrn_forward", "lrn_backward", "dropout"):
+        launches[k] = alex[k]
+
+    # 7. the kernels line and the result
     main_case = {"fused_sgd_update": sgd[0],
+                 "lrn_forward": lrn[0], "lrn_backward": lrn[1],
+                 "dropout": drop[0],
                  "paged_flash_decode": cases[0],
                  "paged_flash_prefill": cases[5]}
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k],

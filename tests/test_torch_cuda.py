@@ -13,7 +13,11 @@ max abs error <= 1e-4; the prefill install is a row copy, bit-equal.
 The fused SGD kernel is held within 1 ulp per element of its plain
 version (the plain version forms each fused multiply-add in float64 and
 rounds once, which can differ from the hardware fma only on a rare
-double-rounding tie).
+double-rounding tie).  The LRN kernels sum each window in the plain
+version's order, and differ from it only where CUDA's powf and PyTorch's
+pow round differently: forward rtol/atol 2e-6, backward rtol 3e-5 /
+atol 3e-6 (the reference's Pallas-vs-XLA tolerances).  Dropout is
+bit-equal to its plain version.
 """
 
 import numpy
@@ -223,3 +227,86 @@ def test_fused_sgd_rejects_bad_operands():
         HK.fused_sgd_update(wide, wide, wide, 1, 0.1, 0.9)
     with pytest.raises(ValueError, match="several devices"):
         HK.fused_sgd_update(p, p.cpu(), p, 1, 0.1, 0.9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n", [
+    ((2, 55, 55, 96), 5),         # AlexNet LRN1's channels
+    ((2, 27, 27, 256), 5),        # LRN2's
+    ((3, 5, 5, 200), 4),          # even window: asymmetric
+    ((7, 16), 5),
+    ((2, 3, 3000), 5),            # one row per tile
+    ((1, 24), 1),
+])
+def test_lrn_matches_plain(shape, n):
+    dev = _card()
+    rng = numpy.random.RandomState(shape[-1] + n)
+    x = _randn(rng, *shape, dev=dev) * 3.0
+    dy = _randn(rng, *shape, dev=dev)
+    before = (HK.lrn_forward.launches, HK.lrn_backward.launches)
+    y, d = HK.lrn_forward(x, 1e-4, 0.75, n, 2.0)
+    dx = HK.lrn_backward(x, d, dy, 1e-4, 0.75, n)
+    assert (HK.lrn_forward.launches, HK.lrn_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    y_ref, d_ref = HK.lrn_forward_ref(x, 1e-4, 0.75, n, 2.0)
+    dx_ref = HK.lrn_backward_ref(x, d_ref, dy, 1e-4, 0.75, n)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_ref, rtol=2e-6, atol=2e-6)
+    torch.testing.assert_close(d, d_ref, rtol=2e-6, atol=2e-6)
+    torch.testing.assert_close(dx, dx_ref, rtol=3e-5, atol=3e-6)
+
+
+@pytest.mark.cuda
+def test_lrn_autograd_uses_both_kernels():
+    dev = _card()
+    rng = numpy.random.RandomState(3)
+    x = _randn(rng, 2, 4, 4, 32, dev=dev).requires_grad_()
+    before = HK.lrn_backward.launches
+    HK.LRN.apply(x, 2e-4, 0.7, 5, 1.5).sum().backward()
+    assert HK.lrn_backward.launches == before + 1
+    y, d = HK.lrn_forward_ref(x.detach(), 2e-4, 0.7, 5, 1.5)
+    ref = HK.lrn_backward_ref(x.detach(), d, torch.ones_like(y), 2e-4,
+                              0.7, 5)
+    torch.testing.assert_close(x.grad, ref, rtol=3e-5, atol=3e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,rate,seed", [
+    ((128, 9216), 0.5, 1),        # AlexNet's dropout inputs
+    ((128, 4096), 0.5, 2),
+    ((1,), 0.5, 3),
+    ((127,), 0.3, 4),
+    ((2 ** 16 + 3,), 0.7, 2 ** 40 + 5),
+])
+def test_dropout_bit_equal_to_plain(shape, rate, seed):
+    dev = _card()
+    from veles_tpu_torch import prng
+    x = _randn(numpy.random.RandomState(seed % 1000), *shape, dev=dev)
+    key = prng.fold_in(prng.PRNGKey(seed), 7)
+    before = HK.dropout.launches
+    got = HK.dropout(x, key, rate)
+    assert HK.dropout.launches == before + 1
+    ref = HK.dropout_ref(x, key, rate)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert torch.equal(HK.dropout(x, seed, rate),
+                       HK.dropout_ref(x, seed, rate))
+    kept = (got != 0).float().mean().item()
+    if x.numel() > 1000:
+        assert abs(kept - (1.0 - rate)) < 0.01
+
+
+@pytest.mark.cuda
+def test_lrn_and_dropout_reject_bad_operands():
+    dev = _card()
+    x = torch.zeros(2, 3, 8, device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        HK.lrn_forward(x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        HK.lrn_forward(torch.zeros(2, 3, 16, device=dev)[..., ::2])
+    with pytest.raises(ValueError, match="several devices"):
+        HK.lrn_backward(x, x.cpu(), x)
+    with pytest.raises(TypeError, match="float32"):
+        HK.dropout(x.double(), 1, 0.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        HK.dropout(torch.zeros(4, 8, device=dev)[:, ::2], 1, 0.5)

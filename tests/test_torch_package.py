@@ -61,7 +61,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from veles_tpu_torch.device import resolve_device
     from veles_tpu_torch.ops.transformer import (TransformerLM,
                                                  params_from_jax)
-    from veles_tpu_torch.samples import mnist
+    from veles_tpu_torch.samples import imagenet, mnist
     from veles_tpu_torch.serving import LMEngine
     from veles_tpu_torch.workflow import Workflow
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -77,6 +77,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                  lambda: Workflow(None, name="wf").initialize(),
                  lambda: mnist.build().initialize(),
                  lambda: mnist.train(),
+                 lambda: imagenet.build().initialize(),
+                 lambda: imagenet.train(),
                  lambda: state_from_jax([{"w": torch.zeros(2).numpy()}])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -94,3 +96,10 @@ def test_kernel_wrappers_refuse_other_devices():
     p = torch.zeros(7, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         HK.fused_sgd_update(p, p, p, 100, 0.03, 0.9)
+    x = torch.zeros(2, 3, 3, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        HK.lrn_forward(x)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        HK.lrn_backward(x, x, x)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        HK.dropout(x, 3, 0.5)

@@ -7,9 +7,11 @@ are hand-written CUDA for Hopper (``csrc/``), built at first use.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (see :func:`veles_tpu_torch.device.resolve_device`).
-This slice ports the paged LM serving path: ``serving.LMEngine`` over
+Ported so far: the paged LM serving path (``serving.LMEngine`` over
 ``ops.transformer`` / ``ops.attention`` and the two paged attention
-kernels in ``ops.hopper_kernels``.
+kernels), MNIST-FC training through the Unit/Workflow graph (the fused
+SGD kernel) and AlexNet training through ``samples.imagenet`` (the LRN
+and dropout kernels); the kernels' wrappers are ``ops.hopper_kernels``.
 """
 
 __version__ = "0.1.0"

@@ -11,6 +11,11 @@ gate-skipped and a ``FusedStep`` node runs in their place — so Decision
 gating keeps working unchanged.  PyTorch runs the step eagerly; every
 momentum update in it is one launch of the fused SGD kernel.
 
+Stochastic layers (dropout, random crop) get their keys as the reference
+threads them: one ``prng.get("dropout").key()`` per train minibatch when
+a forward is ``STOCHASTIC``, folded with the layer index per layer
+(``fold_in(rng, i)``, a host hash); eval steps take no key.
+
 The updated state of a train minibatch is held PENDING; ``FusedCommit``
 adopts it only after Decision lets the backward pass run (a minibatch
 gated by ``decision.complete`` is computed and dropped, as in the
@@ -24,6 +29,7 @@ from __future__ import annotations
 import numpy
 import torch
 
+from veles_tpu_torch import prng
 from veles_tpu_torch.device import resolve_device
 from veles_tpu_torch.loader.base import TRAIN
 from veles_tpu_torch.mutable import Bool
@@ -46,6 +52,8 @@ class FusedRunner:
         self.evaluator = wf.evaluator
         self.gds = list(wf.gds)
         self.state = self._pull_state()
+        self._has_stochastic = any(getattr(f, "STOCHASTIC", False)
+                                   for f in self.forwards)
         from veles_tpu_torch.ops.evaluator import EvaluatorMSE
         self._is_mse = isinstance(self.evaluator, EvaluatorMSE)
 
@@ -63,10 +71,15 @@ class FusedRunner:
                 gd.absorb_entry(entry)
 
     # ----------------------------------------------------------------- steps
-    def _forward_chain(self, state, x):
+    @staticmethod
+    def _layer_rng(rng, i):
+        return None if rng is None else prng.fold_in(rng, i)
+
+    def _forward_chain(self, state, x, rng=None, train=False):
         acts = [x]
-        for fwd, entry in zip(self.forwards, state):
-            acts.append(fwd.apply_fused(acts[-1], entry))
+        for i, (fwd, entry) in enumerate(zip(self.forwards, state)):
+            acts.append(fwd.apply_fused(acts[-1], entry,
+                                        self._layer_rng(rng, i), train))
         return acts
 
     def _loss(self, y, y_ref, mask):
@@ -76,14 +89,14 @@ class FusedRunner:
         return self.evaluator.loss_fn(y, y_ref, mask)
 
     def _eval_step(self, state, x, y_ref, mask):
-        acts = self._forward_chain(state, x)
+        acts = self._forward_chain(state, x, rng=None, train=False)
         _, metrics = self._loss(acts[-1], y_ref, mask)
         return metrics
 
-    def _grads_and_metrics(self, state, x, y_ref, mask):
+    def _grads_and_metrics(self, state, x, y_ref, mask, rng=None):
         """Forward + loss + backward without updates: per-layer grad sums
         (None for weightless layers) and the metric sums."""
-        acts = self._forward_chain(state, x)
+        acts = self._forward_chain(state, x, rng=rng, train=True)
         err, metrics = self._loss(acts[-1], y_ref, mask)
         all_grads = [None] * len(self.forwards)
         for i in range(len(self.forwards) - 1, -1, -1):
@@ -92,7 +105,8 @@ class FusedRunner:
                 # below it is weightless — nothing to do
                 break
             err_in, grads = self.gds[i].backward_fused(
-                acts[i], acts[i + 1], err, state[i])
+                acts[i], acts[i + 1], err, state[i],
+                self._layer_rng(rng, i))
             all_grads[i] = grads
             err = err_in
         return all_grads, metrics
@@ -105,10 +119,13 @@ class FusedRunner:
                     state[i], grads, batch_size, step)
         return new_state
 
-    def _train_step(self, state, x, y_ref, mask, batch_size, step=0):
+    def _train_step(self, state, x, y_ref, mask, batch_size, rng=None,
+                    step=0):
         """(new state, metrics); ``batch_size`` and ``step`` are Python
-        ints, the rest device tensors.  ``state`` is left untouched."""
-        all_grads, metrics = self._grads_and_metrics(state, x, y_ref, mask)
+        ints, ``rng`` a host key (or None), the rest device tensors.
+        ``state`` is left untouched."""
+        all_grads, metrics = self._grads_and_metrics(state, x, y_ref, mask,
+                                                     rng)
         return self._apply_updates(state, all_grads, batch_size,
                                    step), metrics
 
@@ -178,9 +195,11 @@ class FusedStep(Unit):
         else:
             y_ref = loader.minibatch_labels.devmem
         if loader.minibatch_class == TRAIN:
+            rng = (prng.get("dropout").key() if runner._has_stochastic
+                   else None)
             self.pending_state, metrics = runner._train_step(
                 runner.state, x, y_ref, mask, int(loader.minibatch_size),
-                self.train_steps)
+                rng, self.train_steps)
             self.train_steps += 1
         else:
             self.pending_state = None

@@ -1,2 +1,3 @@
-"""Numeric ops of the port: functional (matmul precision policy),
-attention, transformer and the hand-written Hopper kernels."""
+"""Numeric ops of the port: the pure functions (``functional``), the
+units built on them, attention, transformer and the hand-written Hopper
+kernels."""

@@ -1,17 +1,23 @@
 """Pure numeric functions behind every accelerated unit.
 
-Port of ``veles_tpu/ops/functional.py``, two subsets so far: the matmul
-precision policy every op routes its products through (``:37-90``), and
-the MNIST-FC training path — activations and their derivatives from the
-forward output (``:103-138``), the dense forward/backward (``:142-169``),
-the softmax and MSE evaluators (``:173-216``) and the update rules
-(``:624-719``).  Activation semantics follow the reference exactly:
+Port of ``veles_tpu/ops/functional.py``, three subsets so far: the
+matmul precision policy every op routes its products through
+(``:37-90``); the MNIST-FC training path — activations and their
+derivatives from the forward output (``:103-138``), the dense
+forward/backward (``:142-169``), the softmax and MSE evaluators
+(``:173-216``) and the update rules (``:624-719``); and the AlexNet path
+— convolution (``:220-248``), ceil-padded max/maxabs/avg pooling
+(``:311-395``), LRN (``:450``), dropout (``:473``) and the random crop
+and mirror (``:485``), each with the explicit backward the reference
+gets from ``jax.vjp``.  Activation semantics follow the reference exactly:
 ``tanh`` is the LeCun-scaled ``1.7159 * tanh(0.6666 x)``, ``relu`` the
 smooth ``log(1 + exp(x))``, ``strict_relu`` is ``max(0, x)``.  Every
 momentum update goes through the hand-written kernel's wrapper
 (:func:`veles_tpu_torch.ops.hopper_kernels.fused_sgd_update`), clipped or
-not; the adaptive solvers are plain tensor code, as the reference left
-them to XLA.
+not, and every LRN and dropout through theirs; the adaptive solvers,
+convolutions and pooling are PyTorch ops (cuBLAS, cuDNN), as the
+reference left them to XLA.  Convolutions run on NHWC tensors' NCHW
+views, which are channels_last, with HWIO weights.
 
 Precision modes:
 
@@ -32,6 +38,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy
 import torch
 
 _MODES = ("float32", "bfloat16")
@@ -80,6 +87,14 @@ def matmul(a, b):
         return torch.matmul(a.to(torch.bfloat16),
                             b.to(torch.bfloat16)).to(out_dtype)
     return torch.matmul(a, b)
+
+
+def _conv_operands(*tensors):
+    """The conv operands under the precision policy: bf16 mode casts
+    them, as ``matmul`` casts GEMM operands."""
+    if _Policy.mode == "bfloat16":
+        return [t.to(torch.bfloat16) for t in tensors]
+    return list(tensors)
 
 
 # LeCun-scaled tanh constants (ref: veles/znicz/all2all.py::All2AllTanh [H])
@@ -185,6 +200,305 @@ def mse_loss(output, target, valid_mask):
         "rmse_max": per_sample.max(),
         "loss_sum": 0.5 * (diff * diff).sum(),
     }
+
+
+# -------------------------------------------------------------- convolution
+def _norm_padding(padding):
+    """"SAME"/"VALID" pass through; int or (int, int) become symmetric
+    per-dimension (lo, hi) pairs."""
+    if isinstance(padding, int):
+        return [(padding, padding), (padding, padding)]
+    if (isinstance(padding, (tuple, list)) and len(padding) == 2
+            and all(isinstance(p, int) for p in padding)):
+        return [(padding[0], padding[0]), (padding[1], padding[1])]
+    return padding
+
+
+def conv_pads(in_hw, k_hw, stride, padding):
+    """Per-dimension (lo, hi) pads of a conv.  "SAME" follows XLA's rule:
+    out = ceil(in / stride) and the odd extra pad goes on the HIGH
+    side; "VALID" pads nothing."""
+    padding = _norm_padding(padding)
+    if padding == "VALID":
+        return [(0, 0), (0, 0)]
+    if padding == "SAME":
+        pads = []
+        for size, k, s in zip(in_hw, k_hw, stride):
+            total = max((-(-size // s) - 1) * s + k - size, 0)
+            pads.append((total // 2, total - total // 2))
+        return pads
+    if isinstance(padding, str):
+        raise ValueError("unknown padding %r" % (padding,))
+    return [tuple(int(v) for v in p) for p in padding]
+
+
+def conv2d_output_hw(in_hw, k_hw, stride, padding):
+    """(oh, ow) of a conv, from arithmetic."""
+    pads = conv_pads(in_hw, k_hw, stride, padding)
+    return tuple((size + lo + hi - k) // s + 1 for size, k, s, (lo, hi)
+                 in zip(in_hw, k_hw, stride, pads))
+
+
+def _oihw(weights):
+    """HWIO weights as an OIHW tensor in channels_last memory (OHWI)."""
+    return weights.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
+
+
+def _padded_nchw(x, pads):
+    """The NHWC input as an NCHW (channels_last) view, with the conv's
+    pads: symmetric pads go to the conv itself ((ph, pw) returned),
+    asymmetric ones are applied here as explicit zeros."""
+    xv = x.permute(0, 3, 1, 2)
+    if all(lo == hi for lo, hi in pads):
+        return xv, (pads[0][0], pads[1][0])
+    (lh, hh), (lw, hw) = pads
+    xv = torch.nn.functional.pad(xv, (lw, hw, lh, hh)).contiguous(
+        memory_format=torch.channels_last)
+    return xv, (0, 0)
+
+
+def conv2d_preact(x, weights, bias, stride=(1, 1), padding="VALID"):
+    """The pre-activation z of a 2-D convolution: NHWC x, HWIO weights
+    (kh, kw, cin, cout), bias (cout,) or None.  Returns NHWC z."""
+    pads = conv_pads(x.shape[1:3], weights.shape[:2], stride, padding)
+    xv, pad = _padded_nchw(x, pads)
+    xc, wc = _conv_operands(xv, _oihw(weights))
+    z = torch.nn.functional.conv2d(xc, wc, None, tuple(stride), pad)
+    z = z.to(x.dtype).permute(0, 2, 3, 1)
+    if bias is not None:
+        z = z + bias
+    return z.contiguous()
+
+
+def conv2d_forward(x, weights, bias, stride=(1, 1), padding="VALID",
+                   activation="linear"):
+    """2-D convolution + activation, NHWC layout, HWIO weights; padding
+    "SAME", "VALID", or an int/pair of ints applied symmetrically."""
+    return activate(conv2d_preact(x, weights, bias, stride, padding),
+                    activation)
+
+
+def conv2d_backward(x, y, err_output, weights, stride=(1, 1),
+                    padding="VALID", activation="linear", tie=None,
+                    include_bias=True, need_err_input=True):
+    """Conv backward: (err_input, grad_weights (HWIO), grad_bias) from
+    the forward's input and output, without re-running the forward.
+
+    err·activation' first — from the output y, except that ``strict_relu``
+    takes ``tie`` (the forward's ``z == 0`` mask): the reference's
+    ``jax.vjp`` of ``max(z, 0)`` gives 0.5 where z == 0, which y cannot
+    tell from z < 0 — then ATen's convolution backward for the input and
+    weight gradients (the input's skipped when ``need_err_input`` is
+    False).  Gradients are batch SUMS."""
+    if activation == "strict_relu":
+        deriv = torch.where(y > 0.0, 1.0, torch.where(tie, 0.5, 0.0)).to(
+            y.dtype)
+    else:
+        deriv = activation_derivative_from_output(y, activation)
+    dz = err_output.reshape(y.shape) * deriv
+    pads = conv_pads(x.shape[1:3], weights.shape[:2], stride, padding)
+    xv, pad = _padded_nchw(x, pads)
+    dzv, xc, wc = _conv_operands(dz.permute(0, 3, 1, 2), xv,
+                                 _oihw(weights))
+    grad_in, grad_w, _ = torch.ops.aten.convolution_backward(
+        dzv, xc, wc, None, list(stride), list(pad), [1, 1], False, [0, 0],
+        1, [need_err_input, True, False])
+    grad_w = grad_w.to(weights.dtype).permute(2, 3, 1, 0).contiguous()
+    grad_b = dz.sum(dim=(0, 1, 2)) if include_bias else None
+    err_input = None
+    if need_err_input:
+        # explicit (asymmetric) pads: the gradient is the padded input's
+        (lh, _), (lw, _) = pads
+        h, w = x.shape[1:3]
+        grad_in = grad_in[:, :, lh:lh + h, lw:lw + w] if xv.shape[2:] != (
+            h, w) else grad_in
+        err_input = grad_in.to(x.dtype).permute(0, 2, 3, 1).contiguous()
+    return err_input, grad_w, grad_b
+
+
+# ------------------------------------------------------------------- pooling
+def _ceil_pad(size, k, s):
+    """Right-pad so every input element is covered (ceil semantics: a 7x7
+    input with 2x2/2 pooling yields 4x4, not 3x3)."""
+    if size <= k:
+        return max(k - size, 0)
+    steps = -(-(size - k) // s)  # ceil division
+    return steps * s + k - size
+
+
+def pool_output_hw(in_hw, window, stride):
+    """(oh, ow) of a ceil-padded pooling, from arithmetic."""
+    return tuple((size + _ceil_pad(size, k, s) - k) // s + 1
+                 for size, k, s in zip(in_hw, window, stride))
+
+
+def _pool_padded(x, window, stride, value):
+    """NHWC x as its NCHW (channels_last) view, right/bottom-padded with
+    ``value`` to the ceil cover."""
+    ph = _ceil_pad(x.shape[1], window[0], stride[0])
+    pw = _ceil_pad(x.shape[2], window[1], stride[1])
+    xv = x.permute(0, 3, 1, 2)
+    if ph or pw:
+        xv = torch.nn.functional.pad(xv, (0, pw, 0, ph), value=value)
+    return xv
+
+
+def _pool_plane(x, window, stride):
+    """An uninitialized NCHW (channels_last) tensor of the padded plane's
+    shape: the pooling backwards read only its geometry."""
+    b, h, w, c = x.shape
+    return torch.empty(
+        (b, c, h + _ceil_pad(h, window[0], stride[0]),
+         w + _ceil_pad(w, window[1], stride[1])), dtype=x.dtype,
+        device=x.device).contiguous(memory_format=torch.channels_last)
+
+
+def _nhwc(t):
+    return t.permute(0, 2, 3, 1).contiguous()
+
+
+def max_pooling(x, window=(2, 2), stride=None):
+    """Ceil-padded max pooling (tail windows padded with -inf); returns
+    (y, argmax indices into the padded plane) — each window's first
+    maximum in row-major order, XLA's select-and-scatter choice."""
+    stride = tuple(stride or window)
+    y, idx = torch.nn.functional.max_pool2d(
+        _pool_padded(x, window, stride, float("-inf")), tuple(window),
+        stride, return_indices=True)
+    return _nhwc(y), idx
+
+
+def _scatter_max(x, err, idx, window, stride):
+    """Each window's gradient onto its argmax (summed where windows
+    overlap), cropped back to x's plane."""
+    g = torch.ops.aten.max_pool2d_with_indices_backward(
+        err.permute(0, 3, 1, 2), _pool_plane(x, window, stride),
+        list(window), list(stride), [0, 0], [1, 1], False, idx)
+    return g[:, :, :x.shape[1], :x.shape[2]]
+
+
+def max_pooling_backward(x, err, idx, window=(2, 2), stride=None):
+    stride = tuple(stride or window)
+    return _nhwc(_scatter_max(x, err, idx, window, stride))
+
+
+def maxabs_pooling(x, window=(2, 2), stride=None):
+    """Max-absolute-value pooling: the signed value of the abs-max
+    element, out = mx if mx >= -mn else mn (ties to the positive one),
+    from a max pool of x (-inf tail pad) and of -x (the min pool, +inf
+    tail pad).  Returns (y, (choose_max, idx_max, idx_min))."""
+    stride = tuple(stride or window)
+    mx, imx = max_pooling(x, window, stride)
+    neg_mn, imn = max_pooling(-x, window, stride)
+    choose = mx >= neg_mn
+    return torch.where(choose, mx, -neg_mn), (choose, imx, imn)
+
+
+def maxabs_pooling_backward(x, err, saved, window=(2, 2), stride=None):
+    stride = tuple(stride or window)
+    choose, imx, imn = saved
+    zero = torch.zeros((), dtype=err.dtype, device=err.device)
+    return _nhwc(_scatter_max(x, torch.where(choose, err, zero), imx,
+                              window, stride)
+                 + _scatter_max(x, torch.where(choose, zero, err), imn,
+                                window, stride))
+
+
+def avg_pooling(x, window=(2, 2), stride=None):
+    """Average pooling; tail windows are zero-padded and divided by the
+    FULL window size."""
+    stride = tuple(stride or window)
+    return _nhwc(torch.nn.functional.avg_pool2d(
+        _pool_padded(x, window, stride, 0.0), tuple(window), stride))
+
+
+def avg_pooling_backward(x, err, window=(2, 2), stride=None):
+    stride = tuple(stride or window)
+    g = torch.ops.aten.avg_pool2d_backward(
+        err.permute(0, 3, 1, 2), _pool_plane(x, window, stride),
+        list(window), list(stride), [0, 0], False, True, None)
+    return _nhwc(g[:, :, :x.shape[1], :x.shape[2]])
+
+
+# ------------------------------------------------- local response norm (LRN)
+def lrn_forward(x, alpha=1e-4, beta=0.75, n=5, k=2.0):
+    """AlexNet cross-channel LRN over the last axis, through the
+    hand-written kernel's wrapper: returns (y, d), d the denominator
+    the backward takes."""
+    from veles_tpu_torch.ops.hopper_kernels import lrn_forward as kernel
+    return kernel(x.contiguous(), alpha, beta, n, k)
+
+
+def lrn_backward(x, d, err, alpha=1e-4, beta=0.75, n=5):
+    from veles_tpu_torch.ops.hopper_kernels import lrn_backward as kernel
+    return kernel(x.contiguous(), d, err.contiguous(), alpha, beta, n)
+
+
+# ------------------------------------------------------------------- dropout
+def dropout(x, rng, rate, train):
+    """Inverted Bernoulli dropout through the kernel's wrapper; the mask
+    is regenerated from the same key in the backward (the same call on
+    the cotangent).  Eval, or rate <= 0, is the identity."""
+    if not train or rate <= 0.0:
+        return x
+    from veles_tpu_torch.ops.hopper_kernels import dropout as kernel
+    return kernel(x.contiguous(), rng, rate)
+
+
+# -------------------------------------------------------------- augmentation
+def _crop_index(x, rng, out_hw, flip, train):
+    """Per-sample (rows (b, oh), cols (b, ow)) source indices, or None for
+    the eval center crop.  The draws — ``split(rng, 3)``, ``randint`` for
+    the tops and lefts, ``bernoulli(0.5)`` for the mirrors — are made on
+    the host from the key, jax's bits exactly, and uploaded once."""
+    if not train or rng is None:
+        return None
+    from veles_tpu_torch import prng
+    b, h, w = x.shape[:3]
+    oh, ow = out_hw
+    k_top, k_left, k_flip = prng.split(rng, 3)
+    tops = prng.randint(k_top, (b,), 0, h - oh + 1).astype(numpy.int64)
+    lefts = prng.randint(k_left, (b,), 0, w - ow + 1).astype(numpy.int64)
+    cols = numpy.arange(ow)[None, :].repeat(b, 0)
+    if flip:
+        mirror = prng.bernoulli(k_flip, 0.5, (b,))
+        cols[mirror] = cols[mirror][:, ::-1]
+    index = numpy.concatenate([tops[:, None] + numpy.arange(oh)[None, :],
+                               lefts[:, None] + cols], axis=1)
+    index = torch.as_tensor(index).to(x.device)
+    return index[:, :oh], index[:, oh:]
+
+
+def random_crop_flip(x, rng, out_hw, flip=True, train=True):
+    """AlexNet augmentation: per-sample random crop (+ horizontal mirror)
+    in training, the center crop in eval (or with no key)."""
+    b, h, w = x.shape[:3]
+    oh, ow = out_hw
+    index = _crop_index(x, rng, out_hw, flip, train)
+    if index is None:
+        top, left = (h - oh) // 2, (w - ow) // 2
+        return x[:, top:top + oh, left:left + ow].contiguous()
+    rows, cols = index
+    batch = torch.arange(b, device=x.device)[:, None, None]
+    return x[batch, rows[:, :, None], cols[:, None, :]]
+
+
+def random_crop_flip_backward(x, err, rng, out_hw, flip=True, train=True):
+    """The crop's vjp: each sample's gradient scattered back into its
+    source window (the same draws, replayed from the key), zeros
+    elsewhere."""
+    b, h, w = x.shape[:3]
+    oh, ow = out_hw
+    grad = torch.zeros_like(x)
+    index = _crop_index(x, rng, out_hw, flip, train)
+    if index is None:
+        top, left = (h - oh) // 2, (w - ow) // 2
+        grad[:, top:top + oh, left:left + ow] = err
+        return grad
+    rows, cols = index
+    batch = torch.arange(b, device=x.device)[:, None, None]
+    grad[batch, rows[:, :, None], cols[:, None, :]] = err
+    return grad
 
 
 # ------------------------------------------------------------------- updates

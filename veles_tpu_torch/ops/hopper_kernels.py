@@ -2,8 +2,10 @@
 
 Counterpart of ``veles_tpu/ops/pallas_kernels.py``.  Each kernel is CUDA
 C++ for ``sm_90a`` under ``csrc/``, built at first use by :mod:`._build`:
-the training update in ``csrc/fused_sgd.cu``, the serving hot loop's two
-paged attention kernels in ``csrc/paged_flash_attention.cu``.  The
+the training update in ``csrc/fused_sgd.cu``, the AlexNet LRN forward and
+backward in ``csrc/lrn.cu``, dropout with its threefry mask in
+``csrc/dropout.cu``, and the serving hot loop's two paged attention
+kernels in ``csrc/paged_flash_attention.cu``.  The
 attention kernels share the TPU kernels' geometry: the KV pool is
 (n_pages, kv_heads, page, head_dim), a lane's page-table row maps its linear positions [0, m·page) onto pool
 pages, and queries arrive as (b, heads, c, head_dim).  Grouped-query
@@ -22,6 +24,19 @@ fused_sgd_update
     20 bytes per element).  One elementwise pass with 16-byte accesses;
     the outputs are new tensors, because the fused training step holds
     an update pending until Decision commits it.
+lrn_forward / lrn_backward
+    Replace ``veles_tpu/ops/pallas_kernels.py:226`` (``_lrn_fwd``) and
+    ``:244`` (``_lrn_bwd_vjp``).  Bound: bytes (12 and 16 bytes an
+    element).  A block stages whole rows in shared memory and sums each
+    channel window directly in fp32; the forward also writes the
+    denominator d, which the backward takes instead of recomputing it
+    (the Pallas custom VJP's residuals).  :class:`LRN` ties the two into
+    a ``torch.autograd.Function``.
+dropout
+    Replaces ``veles_tpu/ops/pallas_kernels.py:272`` (dropout).  Bound:
+    operations (the threefry hash, ~80 integer operations an element).
+    The mask is jax's ``bernoulli(key, 1 - rate, shape)`` bit for bit;
+    the backward is the same kernel on dy with the same key.
 paged_flash_decode
     Replaces ``veles_tpu/ops/pallas_kernels.py:367`` (paged_flash_decode).
     Bound on the H100: bytes — every live K/V page is read once for
@@ -447,7 +462,255 @@ def fused_sgd_update(param, velocity, grad, batch_size, learning_rate,
 
 fused_sgd_update.launches = 0
 
-_WRAPPERS = (fused_sgd_update, paged_flash_decode, paged_flash_prefill)
+
+# ---------------------------------------------------------------------- LRN
+#: one row of C channels must fit in the kernel's shared memory (227 KB)
+LRN_MAX_CHANNELS = 227 * 1024 // 4
+
+
+def _lrn_scalars(alpha, beta, n, k=None):
+    """The kernels' fp32 scalars, rounded once from the Python doubles
+    the reference folds them from (alpha/n, -beta, -beta - 1 and
+    2·(alpha/n)·beta are weak-typed constants there)."""
+    f32 = numpy.float32
+    alpha_n = float(alpha) / int(n)
+    return {"alpha_n": f32(alpha_n), "neg_beta": f32(-float(beta)),
+            "k": f32(0.0 if k is None else k),
+            "neg_beta_1": f32(-float(beta) - 1.0),
+            "coef": f32(2.0 * alpha_n * float(beta))}
+
+
+def _window_sum(t, n, left):
+    """sum_{m < n} t[..., i - left + m] over the channel axis, zero
+    outside [0, C), added in ascending channel order (the kernels'
+    order)."""
+    c = t.shape[-1]
+    padded = torch.nn.functional.pad(t, (left, n - 1 - left))
+    out = padded[..., 0:c]
+    for m in range(1, n):
+        out = out + padded[..., m:m + c]
+    return out
+
+
+def lrn_forward_ref(x, alpha=1e-4, beta=0.75, n=5, k=2.0):
+    """Plain PyTorch version of :func:`lrn_forward`: returns (y, d) with
+    d = k + (alpha/n)·Σ_{window(i)} x², window(i) = [i − n//2,
+    i + n − 1 − n//2], and y = x·d^−β."""
+    s = _lrn_scalars(alpha, beta, n, k)
+    d = float(s["k"]) + float(s["alpha_n"]) * _window_sum(x * x, n, n // 2)
+    return x * torch.pow(d, float(s["neg_beta"])), d
+
+
+def lrn_backward_ref(x, d, dy, alpha=1e-4, beta=0.75, n=5):
+    """Plain PyTorch version of :func:`lrn_backward`: dx = dy·(d·d^(−β−1))
+    − (2(alpha/n)β)·x·Σ_{j: i ∈ window(j)} dy_j·x_j·d_j^(−β−1)."""
+    s = _lrn_scalars(alpha, beta, n)
+    dpow = torch.pow(d, float(s["neg_beta_1"]))
+    inner = _window_sum(dy * x * dpow, n, n - 1 - n // 2)
+    return dy * (d * dpow) - float(s["coef"]) * x * inner
+
+
+def _check_lrn(name, t, c):
+    if t.dtype != torch.float32:
+        raise TypeError("%s must be float32 (got %s)" % (name, t.dtype))
+    if not t.is_contiguous():
+        raise ValueError("%s must be contiguous" % name)
+    if c > LRN_MAX_CHANNELS:
+        raise ValueError("LRN kernels take at most %d channels (got %d)"
+                         % (LRN_MAX_CHANNELS, c))
+
+
+_LRN_LIB = None
+
+
+def _lrn_lib():
+    global _LRN_LIB
+    if _LRN_LIB is None:
+        from veles_tpu_torch.ops import _build
+        lib = _build.load("lrn")
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        i64 = ctypes.c_longlong
+        lib.lrn_forward_f32.argtypes = ([ptr] * 3 + [i64, i32, i32]
+                                        + [f32] * 3 + [ptr])
+        lib.lrn_forward_f32.restype = i32
+        lib.lrn_backward_f32.argtypes = ([ptr] * 4 + [i64, i32, i32]
+                                         + [f32] * 2 + [ptr])
+        lib.lrn_backward_f32.restype = i32
+        lib.lrn_error_string.argtypes = [i32]
+        lib.lrn_error_string.restype = ctypes.c_char_p
+        _LRN_LIB = lib
+    return _LRN_LIB
+
+
+def lrn_forward(x, alpha=1e-4, beta=0.75, n=5, k=2.0):
+    """Cross-channel LRN over the last axis: returns (y, d), y =
+    x·d^−β and d the denominator the backward takes.
+
+    CPU tensors run :func:`lrn_forward_ref`; CUDA tensors launch the
+    kernel (fp32, contiguous — anything else raises)."""
+    if not _on_card(x):
+        return lrn_forward_ref(x, alpha, beta, n, k)
+    c = x.shape[-1]
+    _check_lrn("x", x, c)
+    s = _lrn_scalars(alpha, beta, n, k)
+    y, d = torch.empty_like(x), torch.empty_like(x)
+    lib = _lrn_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.lrn_forward_f32(
+            x.data_ptr(), y.data_ptr(), d.data_ptr(), x.numel() // max(c, 1),
+            c, int(n), float(s["alpha_n"]), float(s["neg_beta"]),
+            float(s["k"]), stream)
+    if code:
+        raise RuntimeError("lrn_forward launch failed: %s"
+                           % lib.lrn_error_string(code).decode())
+    lrn_forward.launches += 1
+    return y, d
+
+
+lrn_forward.launches = 0
+
+
+def lrn_backward(x, d, dy, alpha=1e-4, beta=0.75, n=5):
+    """The LRN vector-Jacobian product from the forward's input x and
+    denominator d: returns dx for the cotangent dy.
+
+    CPU tensors run :func:`lrn_backward_ref`; CUDA tensors launch the
+    kernel (fp32, equal shapes, contiguous — anything else raises)."""
+    if x.shape != d.shape or x.shape != dy.shape:
+        raise ValueError("x %s, d %s and dy %s differ in shape" % (
+            tuple(x.shape), tuple(d.shape), tuple(dy.shape)))
+    if not _on_card(x, d, dy):
+        return lrn_backward_ref(x, d, dy, alpha, beta, n)
+    c = x.shape[-1]
+    for name, t in (("x", x), ("d", d), ("dy", dy)):
+        _check_lrn(name, t, c)
+    s = _lrn_scalars(alpha, beta, n)
+    dx = torch.empty_like(x)
+    lib = _lrn_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.lrn_backward_f32(
+            x.data_ptr(), d.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            x.numel() // max(c, 1), c, int(n), float(s["neg_beta_1"]),
+            float(s["coef"]), stream)
+    if code:
+        raise RuntimeError("lrn_backward launch failed: %s"
+                           % lib.lrn_error_string(code).decode())
+    lrn_backward.launches += 1
+    return dx
+
+
+lrn_backward.launches = 0
+
+
+class LRN(torch.autograd.Function):
+    """Differentiable LRN: the forward kernel saves (x, d), the backward
+    kernel takes them — one launch each way.
+    ``LRN.apply(x, alpha, beta, n, k)``."""
+
+    @staticmethod
+    def forward(ctx, x, alpha=1e-4, beta=0.75, n=5, k=2.0):
+        y, d = lrn_forward(x, alpha, beta, n, k)
+        ctx.save_for_backward(x, d)
+        ctx.hyper = (alpha, beta, n)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, d = ctx.saved_tensors
+        return (lrn_backward(x, d, dy.contiguous(), *ctx.hyper),
+                None, None, None, None)
+
+
+# ------------------------------------------------------------------ dropout
+def _as_key(key):
+    """A (2,) uint32 key from a key or an int seed (``PRNGKey(seed)``)."""
+    from veles_tpu_torch import prng
+    if isinstance(key, (int, numpy.integer)):
+        return prng.PRNGKey(int(key))
+    key = numpy.asarray(key)
+    if key.shape != (2,) or key.dtype != numpy.uint32:
+        raise ValueError("a dropout key is two uint32 words (got %s %s)"
+                         % (key.dtype, key.shape))
+    return key
+
+
+def dropout_ref(x, key, rate):
+    """Plain PyTorch version of :func:`dropout`: the threefry bits of
+    every flat index hashed on tensors, u = uniform(bits), out = x / p
+    where u < p, else 0 (p = float32(1 − rate))."""
+    from veles_tpu_torch.prng import threefry2x32
+    if rate <= 0.0:
+        return x
+    k0, k1 = (int(w) for w in _as_key(key))
+    keep = float(numpy.float32(1.0 - rate))
+    idx = torch.arange(x.numel(), dtype=torch.int64, device=x.device)
+    o0, o1 = threefry2x32(k0, k1, idx >> 32, idx & 0xFFFFFFFF)
+    u = (((o0 ^ o1) >> 9) | 0x3F800000).to(torch.int32).view(
+        torch.float32) - 1.0
+    # a 0-dim tensor divisor: a true division on every device (a Python
+    # scalar divisor becomes a multiply by its reciprocal on the card)
+    divisor = torch.tensor(keep, dtype=torch.float32, device=x.device)
+    return torch.where(u.reshape(x.shape) < keep, x / divisor,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+_DROPOUT_LIB = None
+
+
+def _dropout_lib():
+    global _DROPOUT_LIB
+    if _DROPOUT_LIB is None:
+        from veles_tpu_torch.ops import _build
+        lib = _build.load("dropout")
+        ptr, u32 = ctypes.c_void_p, ctypes.c_uint
+        lib.dropout_f32.argtypes = [ptr, ptr, ctypes.c_longlong, u32, u32,
+                                    ctypes.c_float, ptr]
+        lib.dropout_f32.restype = ctypes.c_int
+        lib.dropout_error_string.argtypes = [ctypes.c_int]
+        lib.dropout_error_string.restype = ctypes.c_char_p
+        _DROPOUT_LIB = lib
+    return _DROPOUT_LIB
+
+
+def dropout(x, key, rate):
+    """Inverted dropout: out = x / p where the element's threefry draw
+    is below p = 1 − rate, else 0, with jax's
+    ``bernoulli(key, p, x.shape)`` mask bit for bit.  ``key`` is a (2,)
+    uint32 host key (``veles_tpu_torch.prng``) or an int seed, which
+    means ``PRNGKey(seed)`` as the Pallas wrapper takes it.  ``rate``
+    <= 0 returns x.  The backward is this function on dy with the same
+    key.
+
+    CPU tensors run :func:`dropout_ref`; CUDA tensors launch the kernel
+    (fp32, contiguous — anything else raises); the key goes by value."""
+    if rate <= 0.0:
+        return x
+    if not _on_card(x):
+        return dropout_ref(x, key, rate)
+    if x.dtype != torch.float32:
+        raise TypeError("x must be float32 (got %s)" % x.dtype)
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    k0, k1 = (int(w) for w in _as_key(key))
+    out = torch.empty_like(x)
+    lib = _dropout_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.dropout_f32(x.data_ptr(), out.data_ptr(), x.numel(), k0,
+                               k1, float(numpy.float32(1.0 - rate)), stream)
+    if code:
+        raise RuntimeError("dropout launch failed: %s"
+                           % lib.dropout_error_string(code).decode())
+    dropout.launches += 1
+    return out
+
+
+dropout.launches = 0
+
+_WRAPPERS = (fused_sgd_update, lrn_forward, lrn_backward, dropout,
+             paged_flash_decode, paged_flash_prefill)
 
 
 def reset_launch_counts():
@@ -462,7 +725,9 @@ def launch_counts():
 
 
 __all__ = ["NEG_INF", "serving_kernels_supported", "fused_sgd_update",
-           "fused_sgd_update_ref", "paged_flash_decode",
+           "fused_sgd_update_ref", "lrn_forward", "lrn_forward_ref",
+           "lrn_backward", "lrn_backward_ref", "LRN", "LRN_MAX_CHANNELS",
+           "dropout", "dropout_ref", "paged_flash_decode",
            "paged_flash_decode_ref", "paged_flash_prefill",
            "paged_flash_prefill_ref", "reset_launch_counts",
            "launch_counts"]

@@ -9,9 +9,12 @@ update rule (learning rate, momentum, L1/L2 decay, clipping, solver).
 
 Initial weights draw from the host ``init`` stream in the order the
 units initialize, exactly as the reference's do, so the same seed gives
-bit-equal weights in both packages.  Not ported yet, and raising when
-asked for: lr policies (ROADMAP Queue 2a, item 1) and the weightless
-``TransformUnit``/``TransformGD`` pair (item 7).
+bit-equal weights in both packages.  Weightless units (pooling, LRN,
+dropout, augmentation) derive from ``TransformUnit``; their one generic
+gradient unit, ``TransformGD``, calls the forward unit's explicit
+``backward`` where the reference takes ``jax.vjp`` of the transform.
+Not ported yet, and raising when asked for: lr policies (ROADMAP Queue
+2a, item 1).
 """
 
 from __future__ import annotations
@@ -146,6 +149,7 @@ class ForwardBase(AcceleratedUnit):
 
     # -- compute -------------------------------------------------------------
     has_params = True
+    STOCHASTIC = False
 
     def forward_fn(self, x, weights, bias):
         """The pure forward function (composed by the fused step)."""
@@ -153,7 +157,7 @@ class ForwardBase(AcceleratedUnit):
                             self.ACTIVATION)
         return y.reshape((x.shape[0],) + tuple(self.output_sample_shape))
 
-    def apply_fused(self, x, entry):
+    def apply_fused(self, x, entry, rng=None, train=False):
         """Uniform fused-chain hook: entry is this layer's param dict."""
         return self.forward_fn(x, entry.get("w"), entry.get("b"))
 
@@ -164,20 +168,102 @@ class ForwardBase(AcceleratedUnit):
 
 
 class TransformUnit(AcceleratedUnit):
-    """Weightless forward unit (pooling, activations, LRN, dropout, ...):
-    not ported yet (ROADMAP Queue 2a, item 7)."""
+    """Weightless forward unit: output = transform(input).
+
+    Subclasses define ``transform(x, rng, train) -> (y, saved)`` — the
+    output and what their ``backward(x, y, err, saved, rng)`` needs from
+    the forward (None when nothing) — and ``output_shape`` when it is not
+    the input's.  ``STOCHASTIC`` units get a fresh key per training
+    minibatch: the fused step's per-layer ``fold_in``, or in unit mode
+    ``prng.get("dropout").key()`` drawn by ``run`` and replayed by the
+    GD from ``_last_rng``.  The last training forward's ``saved`` stays
+    on the unit for its GD, which runs before the next forward.
+    """
+
+    has_params = False
+    STOCHASTIC = False
+
+    def __init__(self, workflow, **kwargs):
+        super().__init__(workflow, **kwargs)
+        self.output = Vector()
+        self.saved = None
+        self._last_rng = None
+
+    def transform(self, x, rng=None, train=False):
+        raise NotImplementedError
+
+    def backward(self, x, y, err, saved, rng=None):
+        raise NotImplementedError
+
+    def output_shape(self, input_shape):
+        """The output's shape for ``input_shape``, from arithmetic."""
+        return tuple(input_shape)
+
+    def initialize(self, device=None, **kwargs):
+        if not hasattr(self, "input") or self.input.is_empty:
+            raise DeferredInitError(self.name)
+        out_shape = self.output_shape(self.input.shape)
+        self.output.reset(numpy.zeros(out_shape, self.dtype))
+        self.output_sample_shape = out_shape[1:]
+        super().initialize(device=device, **kwargs)
+
+    def apply_fused(self, x, entry, rng=None, train=False):
+        y, saved = self.transform(x, rng, train)
+        if train:
+            self.saved = saved
+        return y
+
+    def _in_training_minibatch(self):
+        """Unit-mode train/eval detection (the loader's minibatch class)."""
+        from veles_tpu_torch.loader.base import TRAIN
+        loader = getattr(self.workflow, "loader", None)
+        return loader is None or loader.minibatch_class == TRAIN
+
+    def run(self):
+        train = self._in_training_minibatch()
+        self._last_rng = None
+        if self.STOCHASTIC and train:
+            self._last_rng = prng.get("dropout").key()
+        y, self.saved = self.transform(self.input.devmem, self._last_rng,
+                                       train)
+        self.output.assign_device(y)
+
+
+class TransformGD(AcceleratedUnit):
+    """Backward for a TransformUnit: err_input = the forward unit's
+    explicit ``backward`` of err_output (the reference's
+    ``jax.vjp(transform)``)."""
 
     has_params = False
 
-    def __init__(self, workflow, **kwargs):
-        raise NotImplementedError(
-            "weightless transform units are not ported yet: ROADMAP "
-            "Queue 2a, item 7")
+    def __init__(self, workflow, forward=None, need_err_input=True,
+                 **kwargs):
+        super().__init__(workflow, **kwargs)
+        self.forward = forward
+        self.need_err_input = need_err_input
+        self.err_input = Vector()
+        if forward is not None:
+            self.link_attrs(forward, "input", "output")
 
+    def initialize(self, device=None, **kwargs):
+        if self.forward is None or not self.forward.is_initialized:
+            raise DeferredInitError(self.name)
+        super().initialize(device=device, **kwargs)
 
-class TransformGD(TransformUnit):
-    """Backward of a TransformUnit: not ported yet (ROADMAP Queue 2a,
-    item 7)."""
+    def backward_fused(self, x, y, err_output, entry, rng=None):
+        if not self.need_err_input:
+            return None, None
+        fwd = self.forward
+        return fwd.backward(x, y, err_output.reshape(y.shape), fwd.saved,
+                            rng), None
+
+    def run(self):
+        if not self.need_err_input:
+            return  # nothing downstream consumes err_input
+        fwd = self.forward
+        self.err_input.assign_device(self.backward_fused(
+            self.input.devmem, self.output.devmem, self.err_output.devmem,
+            None, fwd._last_rng)[0])
 
 
 class GradientDescentBase(AcceleratedUnit):
@@ -277,7 +363,7 @@ class GradientDescentBase(AcceleratedUnit):
 
     has_params = True
 
-    def backward_fused(self, x, y, err_output, entry):
+    def backward_fused(self, x, y, err_output, entry, rng=None):
         """(err_input, grads) for the fused chain."""
         err_in, grad_w, grad_b = self.backward_fn(x, y, err_output,
                                                   entry["w"], entry.get("b"))

@@ -26,7 +26,10 @@ import inspect
 
 from veles_tpu_torch.config import get
 from veles_tpu_torch.workflow import Repeater
-from veles_tpu_torch.ops import all2all, gd  # noqa: F401 (layer registry)
+# importing a unit module registers its layer types
+from veles_tpu_torch.ops import (  # noqa: F401
+    all2all, augmentation, conv, dropout, gd, gd_conv, normalization,
+    pooling)
 from veles_tpu_torch.ops.nn_units import (NNWorkflow, LAYER_TYPES,
                                           gd_class_for)
 from veles_tpu_torch.ops.evaluator import EvaluatorSoftmax, EvaluatorMSE
