@@ -76,11 +76,17 @@ class FusedRunner:
         return None if rng is None else prng.fold_in(rng, i)
 
     def _forward_chain(self, state, x, rng=None, train=False):
-        acts = [x]
+        """(acts, saved): the chain's input and every layer's output,
+        and every layer's residuals for its backward (None where it
+        keeps none) — the reference's ``jax.vjp`` residuals, passed
+        explicitly."""
+        acts, saved = [x], []
         for i, (fwd, entry) in enumerate(zip(self.forwards, state)):
-            acts.append(fwd.apply_fused(acts[-1], entry,
-                                        self._layer_rng(rng, i), train))
-        return acts
+            y, res = fwd.apply_fused(acts[-1], entry,
+                                     self._layer_rng(rng, i), train)
+            acts.append(y)
+            saved.append(res)
+        return acts, saved
 
     def _loss(self, y, y_ref, mask):
         """y_ref: labels (classification) or the regression/AE target."""
@@ -89,14 +95,14 @@ class FusedRunner:
         return self.evaluator.loss_fn(y, y_ref, mask)
 
     def _eval_step(self, state, x, y_ref, mask):
-        acts = self._forward_chain(state, x, rng=None, train=False)
+        acts, _ = self._forward_chain(state, x, rng=None, train=False)
         _, metrics = self._loss(acts[-1], y_ref, mask)
         return metrics
 
     def _grads_and_metrics(self, state, x, y_ref, mask, rng=None):
         """Forward + loss + backward without updates: per-layer grad sums
         (None for weightless layers) and the metric sums."""
-        acts = self._forward_chain(state, x, rng=rng, train=True)
+        acts, saved = self._forward_chain(state, x, rng=rng, train=True)
         err, metrics = self._loss(acts[-1], y_ref, mask)
         all_grads = [None] * len(self.forwards)
         for i in range(len(self.forwards) - 1, -1, -1):
@@ -106,7 +112,7 @@ class FusedRunner:
                 break
             err_in, grads = self.gds[i].backward_fused(
                 acts[i], acts[i + 1], err, state[i],
-                self._layer_rng(rng, i))
+                self._layer_rng(rng, i), saved[i])
             all_grads[i] = grads
             err = err_in
         return all_grads, metrics

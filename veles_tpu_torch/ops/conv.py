@@ -21,8 +21,8 @@ from veles_tpu_torch.ops import functional as F
 class ConvBase(ForwardBase):
     """Conv layer: config n_kernels, kx, ky, sliding (stride), padding.
 
-    A training forward keeps ``saved``, the ``z == 0`` mask of its
-    pre-activation, for ``strict_relu``: the reference's backward gives
+    Its residuals for the GD (``saved``) are the ``z == 0`` mask of its
+    pre-activation under ``strict_relu``: the reference's backward gives
     0.5 there, which the output alone cannot tell from z < 0."""
 
     def __init__(self, workflow, n_kernels=32, kx=5, ky=5, sliding=(1, 1),
@@ -35,7 +35,6 @@ class ConvBase(ForwardBase):
         self.sliding = (sliding if isinstance(sliding, (tuple, list))
                         else (sliding, sliding))
         self.padding = padding
-        self.saved = None
 
     def initialize(self, device=None, **kwargs):
         if not hasattr(self, "input") or self.input.is_empty:
@@ -67,10 +66,7 @@ class ConvBase(ForwardBase):
         return self._forward(x, weights, bias)[0]
 
     def apply_fused(self, x, entry, rng=None, train=False):
-        y, tie = self._forward(x, entry["w"], entry.get("b"))
-        if train:
-            self.saved = tie
-        return y
+        return self._forward(x, entry["w"], entry.get("b"))
 
     def run(self):
         y, self.saved = self._forward(

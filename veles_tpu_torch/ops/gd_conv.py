@@ -17,10 +17,10 @@ from veles_tpu_torch.ops import functional as F
 
 
 class GradientDescentConvBase(GradientDescentBase):
-    def backward_fn(self, x, y, err_output, weights, bias=None):
+    def backward_fn(self, x, y, err_output, weights, bias=None, saved=None):
         fwd = self.forward
         return F.conv2d_backward(x, y, err_output, weights, fwd.sliding,
-                                 fwd.padding, fwd.ACTIVATION, fwd.saved,
+                                 fwd.padding, fwd.ACTIVATION, saved,
                                  fwd.include_bias, self.need_err_input)
 
 

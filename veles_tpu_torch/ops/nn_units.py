@@ -150,6 +150,8 @@ class ForwardBase(AcceleratedUnit):
     # -- compute -------------------------------------------------------------
     has_params = True
     STOCHASTIC = False
+    #: unit mode's residuals for the paired GD (see ``apply_fused``)
+    saved = None
 
     def forward_fn(self, x, weights, bias):
         """The pure forward function (composed by the fused step)."""
@@ -158,8 +160,10 @@ class ForwardBase(AcceleratedUnit):
         return y.reshape((x.shape[0],) + tuple(self.output_sample_shape))
 
     def apply_fused(self, x, entry, rng=None, train=False):
-        """Uniform fused-chain hook: entry is this layer's param dict."""
-        return self.forward_fn(x, entry.get("w"), entry.get("b"))
+        """Uniform fused-chain hook: entry is this layer's param dict.
+        Returns (y, the residuals the paired GD's ``backward_fused``
+        takes as ``saved`` — None here)."""
+        return self.forward_fn(x, entry.get("w"), entry.get("b")), None
 
     def run(self):
         self.output.assign_device(self._fwd(
@@ -176,8 +180,9 @@ class TransformUnit(AcceleratedUnit):
     the input's.  ``STOCHASTIC`` units get a fresh key per training
     minibatch: the fused step's per-layer ``fold_in``, or in unit mode
     ``prng.get("dropout").key()`` drawn by ``run`` and replayed by the
-    GD from ``_last_rng``.  The last training forward's ``saved`` stays
-    on the unit for its GD, which runs before the next forward.
+    GD from ``_last_rng``.  The fused chain passes each layer's
+    ``saved`` from its forward to its GD; in unit mode the last forward's
+    stays on the unit for its GD, which runs before the next forward.
     """
 
     has_params = False
@@ -208,10 +213,7 @@ class TransformUnit(AcceleratedUnit):
         super().initialize(device=device, **kwargs)
 
     def apply_fused(self, x, entry, rng=None, train=False):
-        y, saved = self.transform(x, rng, train)
-        if train:
-            self.saved = saved
-        return y
+        return self.transform(x, rng, train)
 
     def _in_training_minibatch(self):
         """Unit-mode train/eval detection (the loader's minibatch class)."""
@@ -250,12 +252,11 @@ class TransformGD(AcceleratedUnit):
             raise DeferredInitError(self.name)
         super().initialize(device=device, **kwargs)
 
-    def backward_fused(self, x, y, err_output, entry, rng=None):
+    def backward_fused(self, x, y, err_output, entry, rng=None, saved=None):
         if not self.need_err_input:
             return None, None
-        fwd = self.forward
-        return fwd.backward(x, y, err_output.reshape(y.shape), fwd.saved,
-                            rng), None
+        return self.forward.backward(x, y, err_output.reshape(y.shape),
+                                     saved, rng), None
 
     def run(self):
         if not self.need_err_input:
@@ -263,7 +264,7 @@ class TransformGD(AcceleratedUnit):
         fwd = self.forward
         self.err_input.assign_device(self.backward_fused(
             self.input.devmem, self.output.devmem, self.err_output.devmem,
-            None, fwd._last_rng)[0])
+            None, fwd._last_rng, fwd.saved)[0])
 
 
 class GradientDescentBase(AcceleratedUnit):
@@ -352,9 +353,9 @@ class GradientDescentBase(AcceleratedUnit):
         super().initialize(device=device, **kwargs)
 
     # -- pure functions ------------------------------------------------------
-    def backward_fn(self, x, y, err_output, weights, bias=None):
+    def backward_fn(self, x, y, err_output, weights, bias=None, saved=None):
         """(err_input, grad_weights, grad_bias) — pure, composed when
-        fused."""
+        fused; ``saved`` is the forward's residuals (unused here)."""
         return F.dense_backward(
             x, y.reshape(y.shape[0], -1),
             err_output.reshape(err_output.shape[0], -1), weights,
@@ -363,10 +364,10 @@ class GradientDescentBase(AcceleratedUnit):
 
     has_params = True
 
-    def backward_fused(self, x, y, err_output, entry, rng=None):
+    def backward_fused(self, x, y, err_output, entry, rng=None, saved=None):
         """(err_input, grads) for the fused chain."""
-        err_in, grad_w, grad_b = self.backward_fn(x, y, err_output,
-                                                  entry["w"], entry.get("b"))
+        err_in, grad_w, grad_b = self.backward_fn(
+            x, y, err_output, entry["w"], entry.get("b"), saved)
         return err_in, (grad_w, grad_b)
 
     def update_fused(self, entry, grads, batch_size, step=0):
@@ -452,7 +453,7 @@ class GradientDescentBase(AcceleratedUnit):
         err_in, grad_w, grad_b = self._bwd(
             self.input.devmem, self.output.devmem, self.err_output.devmem,
             self.weights.devmem,
-            fwd.bias.devmem if fwd.include_bias else None)
+            fwd.bias.devmem if fwd.include_bias else None, fwd.saved)
         if self.need_err_input:
             self.err_input.assign_device(err_in)
         adaptive = not self.accum_weights.is_empty
