@@ -11,7 +11,8 @@ Phases (any failure exits nonzero before the final line is printed):
    and power limit;
 2. build — the CUDA kernels compiled from ``veles_tpu_torch/csrc/``
    (``paged_flash_attention.cu``, ``fused_sgd.cu``, ``lrn.cu``,
-   ``dropout.cu``; one nvcc per source, all started together) into
+   ``dropout.cu``, ``flash_attention.cu``; one nvcc per source, all
+   started together) into
    ``build/kernels/``;
 3. kernels — each kernel against its plain PyTorch version on the card
    at its main path's shapes, with kernel, plain-version and library
@@ -50,7 +51,25 @@ Phases (any failure exits nonzero before the final line is printed):
    minibatch 16 for 3 committed updates, each layer's weight gap within
    its limit (``ALEXNET_*_SHARE``) after the first update and after the
    third, and two faulty card runs rejected by the same limits;
-7. one JSON line listing every ported kernel, then the JSON result line.
+7. lm_train — the char-LM sample at the repo's full LM width (vocab 256,
+   d_model 512, 8 heads, 8 layers, s 512, minibatch 32; 10 train steps
+   and 2 validation minibatches) through ``samples.char_lm.train``'s
+   build + initialize + run under ``set_attention_backend('flash_pallas')``:
+   exactly 8 launches of each flash kernel a train step and 8 of the
+   forward a validation minibatch, finite and falling losses; tokens/s
+   and the card's busy share of a steady step under 'flash_pallas' and
+   under 'xla'; greedy ``sample_tokens`` on the card checked against a
+   teacher-forced plain pass; then card vs CPU at 2 layers, s 128,
+   minibatch 4 after the first and the third Adam update
+   (``LM_*_SHARE``), and two faulty card runs rejected by those limits;
+8. one JSON line listing every ported kernel, then the JSON result line.
+
+The kernels phase also holds the three flash-attention kernels (forward,
+dK/dV pass, dQ pass; ``flash_attention.cu``) at the LM's train shape
+(32 x 8 heads, s 512, head_dim 64, causal), with kernel, plain and SDPA
+times, the bound, and the elements three faulty plain versions put
+outside the limits; then, checked only, s 200 non-causal at head_dim 32,
+40 and 128, and scores peaked at ±100.
 
 It imports nothing of JAX and nothing of the ``veles_tpu`` package.
 """
@@ -85,7 +104,13 @@ KERNEL_ATOL = 1e-4
 #: path and the plain path; logits are O(1))
 LOGIT_TOL = 1e-3
 
+#: jax's bundled TPU flash attention, which veles_tpu/ops/attention.py:190
+#: calls; its three pallas_call sites
+BUNDLED = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 REPLACES = {
+    "flash_attention_fwd": BUNDLED + ":758",
+    "flash_attention_bwd_dkv": BUNDLED + ":1121",
+    "flash_attention_bwd_dq": BUNDLED + ":1456",
     "fused_sgd_update": "veles_tpu/ops/pallas_kernels.py:92",
     "lrn_forward": "veles_tpu/ops/pallas_kernels.py:226",
     "lrn_backward": "veles_tpu/ops/pallas_kernels.py:244",
@@ -94,6 +119,9 @@ REPLACES = {
     "paged_flash_prefill": "veles_tpu/ops/pallas_kernels.py:443",
 }
 SOURCES = {
+    "flash_attention_fwd": "veles_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_dkv": "veles_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_dq": "veles_tpu_torch/csrc/flash_attention.cu",
     "fused_sgd_update": "veles_tpu_torch/csrc/fused_sgd.cu",
     "lrn_forward": "veles_tpu_torch/csrc/lrn.cu",
     "lrn_backward": "veles_tpu_torch/csrc/lrn.cu",
@@ -148,6 +176,40 @@ ALEXNET_FAULTS = ("dropout_key", "lrn_backward_k")
 TRAIN_ATOL = 1e-4
 #: the repo's LM config at full width (bench.py's lm config)
 LM_CONFIG = dict(vocab=256, d_model=512, n_heads=8, n_layers=8, max_len=512)
+#: the flash kernels' main shape: (b, h, s, dh) of that config's train
+#: step at minibatch 32, causal
+FLASH_MAIN = (32, 8, 512, 64)
+#: flash kernels vs plain versions, outputs and gradients O(1): sums of up
+#: to 512 terms in another order than cuBLAS's (~1e-6 expected); the
+#: peaked case (scores near ±100) scales the limit by the output's size
+FLASH_ATOL = 1e-4
+#: the char-LM train phase: loader seq_len 513 (s = 512 after the shift),
+#: 320 train / 64 validation sequences at minibatch 32 = 10 train steps
+#: and 2 validation minibatches in one epoch
+LM_TRAIN = {"loader": {"minibatch_size": 32, "n_train": 320, "n_valid": 64,
+                       "seq_len": 513, "vocab": 256},
+            "trainer": dict(LM_CONFIG, learning_rate=1e-3),
+            "decision": {"max_epochs": 1, "fail_iterations": 10}}
+#: card vs CPU at d_model 512, 8 heads, 2 layers, s 128, minibatch 4: one
+#: validation minibatch, then 3 Adam updates
+LM_SMALL = {"loader": {"minibatch_size": 4, "n_train": 12, "n_valid": 4,
+                       "seq_len": 129, "vocab": 256},
+            "trainer": dict(LM_CONFIG, n_layers=2, learning_rate=1e-3),
+            "decision": {"max_epochs": 1, "fail_iterations": 10}}
+#: a tensor's gap is ||card - CPU|| / ||CPU - initial|| (initial weights
+#: are bit-equal).  Adam's first updates are close to lr.sign(g), so an
+#: element whose gradient is near 0 and differs in sign by roundoff moves
+#: a whole step the other way; a norm weighs such elements against the
+#: tensor's whole movement.  Limits after the first and the third update,
+#: set from one sound run (worst tensor 1.1e-4 after the first update,
+#: 2.0e-3 after the third) and the two faulty runs below (worst 1.48 and
+#: 0.89 after the first): 87x above the sound reading and 89x below the
+#: weaker fault; the third-update limit 25x above its sound reading
+LM_FIRST_SHARE = 0.01
+LM_THIRD_SHARE = 0.05
+#: faulty card runs the first-update limit must reject: the flash backward
+#: launched with causal=False, and given the sm_scale of head_dim / 2
+LM_FAULTS = ("bwd_not_causal", "bwd_other_scale")
 
 
 def check(cond, what):
@@ -566,6 +628,146 @@ def dropout_case(torch, HK, prng, name, shape, rate=0.5, seed=0,
     out["bound_ms"], out["bound_by"] = ((t_bytes, "bytes") if t_bytes >= t_ops
                                         else (t_ops, "operations"))
     return out
+
+
+# ------------------------------------------------------- flash attention
+def flash_faults(torch, HK, q, k, v, do, causal, o_ref, grads_ref, limit):
+    """{fault: elements outside the limits} for three faulty plain
+    versions: the causal mask as col < row (the forward; its row 0 has no
+    key left, so NaN, which counts as outside), the backward without di,
+    and dQ without sm_scale.  Each count must be nonzero, or the checks
+    could not see that fault."""
+    scale = float(1.0 / q.shape[-1] ** 0.5)
+
+    def outside(got, want):
+        return int((~((got - want).abs() <= limit)).sum().item())
+
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    rows = torch.arange(q.shape[-2], device=q.device)[:, None]
+    cols = torch.arange(k.shape[-2], device=q.device)[None, :]
+    o_bad = torch.matmul(torch.softmax(s.masked_fill(
+        cols >= rows, float("-inf")), dim=-1), v)
+    del s
+    out = {"mask_col_lt_row": outside(o_bad, o_ref)}
+    del o_bad
+    o, lse = HK.flash_attention_ref(q, k, v, causal)
+    p = torch.exp(HK._flash_scores(q, k, causal, scale) - lse[..., None])
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    ds = p * dp                                  # without di
+    out["bwd_without_di"] = (outside(torch.matmul(ds, k) * scale,
+                                     grads_ref[0])
+                             + outside(torch.matmul(ds.transpose(-1, -2), q)
+                                       * scale, grads_ref[1]))
+    ds = p * (dp - (o * do).sum(-1)[..., None])
+    out["dq_without_scale"] = outside(torch.matmul(ds, k), grads_ref[0])
+    return out
+
+
+def flash_case(torch, HK, b, h, s, dh, causal=True, seed=0, timed=True,
+               peak=None):
+    """Kernels 7a, 7b, 7c at (b, h, s, dh) against their plain versions
+    (both backward kernels take the plain forward's o and lse, so each
+    is held alone); timed, also against SDPA and its autograd backward.
+    ``peak`` scales q so the largest score reaches it.  Returns three
+    records: forward, dK/dV, dQ."""
+    dev = torch.device("cuda")
+    rng = numpy.random.RandomState(seed)
+
+    def t():
+        return torch.as_tensor(rng.randn(b, h, s, dh).astype(numpy.float32),
+                               device=dev)
+
+    q, k, v, do = t(), t(), t(), t()
+    if peak:
+        q = q * (peak / (torch.matmul(q, k.transpose(-1, -2))
+                         / dh ** 0.5).abs().max())
+    o, lse = HK.flash_attention_fwd(q, k, v, causal)
+    o_ref, lse_ref = HK.flash_attention_ref(q, k, v, causal)
+    dk, dv = HK.flash_attention_bwd_dkv(q, k, v, o_ref, lse_ref, do, causal)
+    dq = HK.flash_attention_bwd_dq(q, k, v, o_ref, lse_ref, do, causal)
+    grads_ref = HK.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do,
+                                           causal)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, want in (("o", o, o_ref), ("lse", lse, lse_ref),
+                            ("dq", dq, grads_ref[0]), ("dk", dk, grads_ref[1]),
+                            ("dv", dv, grads_ref[2])):
+        limit = FLASH_ATOL * (max(want.abs().max().item(), 1.0) if peak
+                              else 1.0)
+        errs[name] = (got - want).abs().max().item()
+        check(bool(torch.isfinite(got).all()) and errs[name] <= limit,
+              "flash %s at %r: max abs err %g > %g"
+              % (name, (b, h, s, dh, causal, peak), errs[name], limit))
+    shape = {"b": b, "h": h, "s": s, "dh": dh, "causal": causal,
+             "peak": peak}
+    recs = [{"kernel": "flash_attention_fwd", "shape": shape,
+             "max_abs_err": max(errs["o"], errs["lse"])},
+            {"kernel": "flash_attention_bwd_dkv", "shape": shape,
+             "max_abs_err": max(errs["dk"], errs["dv"])},
+            {"kernel": "flash_attention_bwd_dq", "shape": shape,
+             "max_abs_err": errs["dq"]}]
+    if not timed:
+        return recs
+    faults = flash_faults(torch, HK, q, k, v, do, causal, o_ref, grads_ref,
+                          FLASH_ATOL)
+    check(all(n > 0 for n in faults.values()), "flash: a fault would pass "
+          "the limits: %r" % faults)
+    recs[0]["faults_caught"] = {"mask_col_lt_row": faults["mask_col_lt_row"]}
+    recs[1]["faults_caught"] = {"bwd_without_di": faults["bwd_without_di"]}
+    recs[2]["faults_caught"] = {"dq_without_scale":
+                                faults["dq_without_scale"],
+                                "bwd_without_di": faults["bwd_without_di"]}
+    del grads_ref
+    sets = [(q, k, v, o_ref, lse_ref, do)] + [
+        tuple(x.clone() for x in (q, k, v, o_ref, lse_ref, do))
+        for _ in range(COPIES - 1)]
+    fwd_ms = time_ms([lambda a=a: HK.flash_attention_fwd(*a[:3], causal)
+                      for a in sets], torch)
+    dkv_ms = time_ms([lambda a=a: HK.flash_attention_bwd_dkv(*a, causal)
+                      for a in sets], torch)
+    dq_ms = time_ms([lambda a=a: HK.flash_attention_bwd_dq(*a, causal)
+                     for a in sets], torch)
+    fwd_plain = time_ms([lambda a=a: HK.flash_attention_ref(*a[:3], causal)
+                         for a in sets[:2]], torch, calls=3, reps=5)
+    bwd_plain = time_ms([lambda a=a: HK.flash_attention_bwd_ref(*a, causal)
+                         for a in sets[:2]], torch, calls=3, reps=5)
+    # the library: SDPA (fp32, is_causal) and its autograd backward, which
+    # computes dq, dk and dv in one call (timed here, never used by the port)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_err = (sdpa(q, k, v, is_causal=causal) - o_ref).abs().max().item()
+    lib_fwd = time_ms([lambda a=a: sdpa(*a[:3], is_causal=causal)
+                       for a in sets], torch, calls=3, reps=5)
+    graphs = []
+    for a in sets[:2]:
+        leaves = [x.detach().clone().requires_grad_() for x in a[:3]]
+        graphs.append((sdpa(*leaves, is_causal=causal), leaves, a[5]))
+    lib_bwd = time_ms([lambda g=g: torch.autograd.grad(
+        g[0], g[1], g[2], retain_graph=True) for g in graphs], torch,
+        calls=3, reps=5)
+    del graphs, sets
+    # the work these inputs need: live (row, key) pairs, 2 flops a pair
+    # and head column per product; each input read once, each output
+    # written once
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    product = 2 * pairs * dh
+    tensor = b * h * s * dh * 4
+    row = b * h * s * 4
+    for rec, n_products, n_bytes, ms, plain, lib in (
+            (recs[0], 2, 4 * tensor + row, fwd_ms, fwd_plain, lib_fwd),
+            (recs[1], 4, 7 * tensor + row, dkv_ms, bwd_plain, lib_bwd),
+            (recs[2], 3, 6 * tensor + row, dq_ms, bwd_plain, lib_bwd)):
+        rec["bound_ms"], rec["bound_by"] = bound(n_bytes,
+                                                 n_products * product)
+        rec.update(kernel_ms=ms, plain_ms=plain, library_ms=lib,
+                   bytes=n_bytes, flops=n_products * product,
+                   tflops_per_s=n_products * product / ms * 1e-9)
+    recs[0]["library_max_abs_err"] = lib_err
+    for rec in recs[1:]:
+        rec["plain_computes"] = rec["library_computes"] = "dq, dk and dv"
+    # the backward's own work is 5 products (S, dP, dV, dK, dQ); the two
+    # passes recompute S and dP, 7 in all
+    recs[1]["backward_bound_ms"] = bound(8 * tensor + row, 5 * product)[0]
+    return recs
 
 
 # -------------------------------------------------------------------- serve
@@ -1019,6 +1221,243 @@ def alexnet(torch, HK, card, device="cuda", layers=None, small=None,
     return launches
 
 
+# ----------------------------------------------------------------- lm_train
+def lm_build(prng, root, char_lm, cfg):
+    """A seeded char-LM sample workflow at ``cfg`` (loader, trainer,
+    decision sections)."""
+    prng.reset()
+    prng.seed_all(SEED)
+    root.__dict__.pop("char_lm", None)
+    root.char_lm.update(cfg)
+    return char_lm.build()
+
+
+def flat_params(tree, prefix=""):
+    """{name: host copy} of a param tree's leaves."""
+    if isinstance(tree, dict):
+        return {k: v for key in tree
+                for k, v in flat_params(tree[key], prefix + "/" + key).items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, item in enumerate(tree)
+                for k, v in flat_params(item, "%s/%d" % (prefix, i)).items()}
+    return {prefix: tree.detach().to("cpu", copy=True).numpy()}
+
+
+def lm_committed(prng, root, char_lm, device, cfg):
+    """The char-LM sample run on ``device``: the params at set-up and
+    after every Adam update."""
+    wf = lm_build(prng, root, char_lm, cfg)
+    wf.initialize(device=device)
+    trainer = wf.trainer
+    inner = trainer.run
+    kept = [flat_params(trainer.params)]
+
+    def run_and_keep():
+        train = trainer.is_train_minibatch()
+        inner()
+        if train:
+            kept.append(flat_params(trainer.params))
+
+    trainer.run = run_and_keep
+    wf.run()
+    return kept
+
+
+def lm_shares(card, cpu):
+    """Per update (after the first, ...) the per-tensor gap
+    ||card - CPU|| / ||CPU - initial||."""
+    return [{name: float(numpy.linalg.norm(card[k][name] - cpu[k][name])
+                         / max(numpy.linalg.norm(cpu[k][name]
+                                                 - cpu[0][name]), 1e-30))
+             for name in cpu[k]} for k in range(1, len(cpu))]
+
+
+@contextlib.contextmanager
+def lm_fault(HK, name):
+    """Within the block, the flash backward runs ``name`` of
+    ``LM_FAULTS``: both passes launched with causal=False, or given the
+    sm_scale of head_dim / 2 (FlashAttention looks them up per call)."""
+    inner = (HK.flash_attention_bwd_dkv, HK.flash_attention_bwd_dq)
+
+    def planted(fn):
+        def call(q, k, v, o, lse, do, causal=True, sm_scale=None):
+            if name == "bwd_not_causal":
+                return fn(q, k, v, o, lse, do, False, sm_scale)
+            return fn(q, k, v, o, lse, do, causal,
+                      float(1.0 / (q.shape[-1] / 2) ** 0.5))
+        # the wrapper counts its launch under its module name, which now
+        # names this function (the counts are not read in a faulty run)
+        call.launches = 0
+        return call
+
+    HK.flash_attention_bwd_dkv, HK.flash_attention_bwd_dq = map(planted,
+                                                                inner)
+    try:
+        yield
+    finally:
+        HK.flash_attention_bwd_dkv, HK.flash_attention_bwd_dq = inner
+
+
+def lm_train(torch, HK, card, device="cuda", cfg=None, small=None,
+             steady_steps=3):
+    """The char-LM sample at the repo's full LM width through
+    ``char_lm.train``'s build + initialize + run under the 'flash_pallas'
+    backend, then a steady step under each backend, greedy sampling, and
+    card vs CPU at 2 layers."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.ops import attention as A
+    from veles_tpu_torch.ops import transformer as T
+    from veles_tpu_torch.samples import char_lm
+    cfg, small = cfg or LM_TRAIN, small or LM_SMALL
+    names = ("flash_attention_fwd", "flash_attention_bwd_dkv",
+             "flash_attention_bwd_dq")
+    A.set_attention_backend("flash_pallas")
+    try:
+        t0 = time.monotonic()
+        wf = lm_build(prng, root, char_lm, cfg)
+        wf.initialize(device=device)
+        torch.cuda.synchronize()
+        setup_s = time.monotonic() - t0
+        trainer, ld = wf.trainer, wf.loader
+        inner, step_losses = trainer.run, []
+
+        def run_and_keep():
+            train = trainer.is_train_minibatch()
+            inner()
+            if train:
+                step_losses.append(trainer.metrics["loss_sum"]
+                                   / trainer.metrics["tokens"])
+
+        trainer.run = run_and_keep
+        HK.reset_launch_counts()
+        t0 = time.monotonic()
+        wf.run()
+        torch.cuda.synchronize()
+        run_s = time.monotonic() - t0
+        launches = HK.launch_counts()
+        trainer.run = inner
+        mb = ld.max_minibatch_size
+        steps, n_layers = trainer.time, trainer.n_layers
+        valid_mbs = -(-ld.class_lengths[1] // mb)
+        check(steps == -(-ld.class_lengths[2] // mb),
+              "%d train steps dispatched" % steps)
+        want = {names[0]: n_layers * (steps + valid_mbs),
+                names[1]: n_layers * steps, names[2]: n_layers * steps}
+        got = {k: launches[k] for k in names}
+        check(got == want, "lm_train launches %r, expected %r" % (got, want))
+        losses = [float(x) for x in torch.stack(step_losses).cpu()]
+        metrics = wf.decision.epoch_metrics
+        check(all(numpy.isfinite(losses)) and all(
+            numpy.isfinite(m[s]["loss"]) for m in metrics
+            for s in ("validation", "train")), "non-finite loss %r" % losses)
+        check(numpy.mean(losses[-3:]) < numpy.mean(losses[:3]),
+              "train loss did not fall: %r" % losses)
+
+        # one steady train step under each backend: host clock over
+        # ``steady_steps`` synchronous steps, then the profiler's busy share
+        tokens = ld.original_data.devmem[:mb]
+        mask = torch.ones(mb, device=device)
+
+        def step():
+            trainer._train(trainer.params, trainer.opt_state, tokens, mask,
+                           trainer.time)
+            torch.cuda.synchronize()
+
+        steady = {}
+        for backend in ("flash_pallas", "xla"):
+            A.set_attention_backend(backend)
+            step()
+            t0 = time.monotonic()
+            for _ in range(steady_steps):
+                step()
+            step_s = (time.monotonic() - t0) / steady_steps
+            busy, per_kernel = profile_steps(torch, step, 2)
+            top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
+            steady[backend] = {
+                "step_s": step_s, "tokens_per_s": mb * (ld.seq_len - 1)
+                / step_s, "step_device_busy_share": busy,
+                "step_card_us": sum(per_kernel.values()),
+                "step_top_kernels_us": [[k[:80], v] for k, v in top],
+                "step_flash_kernels_us": {
+                    tag: sum(v for k, v in per_kernel.items() if tag in k)
+                    for tag in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                                "flash_bwd_dq_kernel")}}
+        A.set_attention_backend("flash_pallas")
+
+        # greedy sampling on the card (the prefill through kernel 7a), each
+        # emitted token held against a teacher-forced pass of the plain path
+        prompt = ld.original_data.mem[:2, :64]
+        before = HK.flash_attention_fwd.launches
+        out = char_lm.sample_tokens(wf, prompt, n_new=32)
+        prefill_launches = HK.flash_attention_fwd.launches - before
+        check(out.shape == (2, 96) and out.min() >= 0 and out.max() < 256
+              and (out[:, :64] == prompt).all(), "malformed sample %r" % out)
+        check(prefill_launches == n_layers, "sample prefill launched 7a %d "
+              "times" % prefill_launches)
+        A.set_attention_backend("xla")
+        with torch.no_grad():
+            logits = T.transformer_forward(
+                trainer.params, torch.as_tensor(out, device=device),
+                trainer.n_heads)[:, 63:95]
+        emitted = torch.as_tensor(out[:, 64:], device=device).long()
+        picked = logits.gather(-1, emitted[..., None])[..., 0]
+        short = (logits.max(dim=-1).values - picked).max().item()
+        exact = int((logits.argmax(dim=-1) == emitted).sum().item())
+        check(short <= LOGIT_TOL, "a sampled token's logit sits %g below "
+              "its row max (tolerance %g)" % (short, LOGIT_TOL))
+        del wf, trainer, tokens, logits
+
+        # card vs CPU at 2 layers, then the faulty card runs
+        A.set_attention_backend("flash_pallas")
+        on_card = lm_committed(prng, root, char_lm, device, small)
+        on_cpu = lm_committed(prng, root, char_lm, "cpu", small)
+        sound = lm_shares(on_card, on_cpu)
+        faults = {}
+        for name in LM_FAULTS:
+            with lm_fault(HK, name):
+                faults[name] = lm_shares(lm_committed(
+                    prng, root, char_lm, device, small), on_cpu)
+    finally:
+        A.set_attention_backend("xla")
+
+    def worst(shares):
+        return [max(d.values()) for d in shares]
+
+    report = {"phase": "lm_train", "card": card,
+              "config": {"vocab": 256, "d_model": cfg["trainer"]["d_model"],
+                         "n_heads": cfg["trainer"]["n_heads"],
+                         "n_layers": n_layers, "seq": ld.seq_len - 1,
+                         "minibatch": mb, "n_train": ld.class_lengths[2],
+                         "n_valid": ld.class_lengths[1], "epochs": 1,
+                         "backend": "flash_pallas"},
+              "setup_s": setup_s, "run_s": run_s, "train_steps": steps,
+              "validation_minibatches": valid_mbs, "launches": launches,
+              "train_step_losses": losses,
+              "validation_loss": metrics[0]["validation"]["loss"],
+              "steady": steady,
+              "sample": {"prompts": 2, "prompt_len": 64, "new": 32,
+                         "prefill_launches": prefill_launches,
+                         "teacher_forced_worst_shortfall": short,
+                         "exact_argmax": exact, "tolerance": LOGIT_TOL},
+              "card_vs_cpu": {
+                  "config": small, "limits": [LM_FIRST_SHARE,
+                                              LM_THIRD_SHARE],
+                  "sound_worst": worst(sound), "sound": sound,
+                  "faults_worst": {k: worst(v) for k, v in faults.items()},
+                  "faults_first": {k: v[0] for k, v in faults.items()}}}
+    print(json.dumps(report), flush=True)
+    check(len(sound) == 3, "%d committed updates, not 3" % len(sound))
+    check(worst(sound)[0] <= LM_FIRST_SHARE
+          and worst(sound)[-1] <= LM_THIRD_SHARE,
+          "card vs CPU LM weight gaps beyond their limits: %r"
+          % worst(sound))
+    for name, shares in faults.items():
+        check(worst(shares)[0] > LM_FIRST_SHARE, "the card-vs-CPU check "
+              "passed the faulty run %r: %r" % (name, worst(shares)))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1041,7 +1480,8 @@ def main():
 
     # 2. build, one nvcc per source, all started together
     t0 = time.monotonic()
-    names = ("paged_flash_attention", "fused_sgd", "lrn", "dropout")
+    names = ("paged_flash_attention", "fused_sgd", "lrn", "dropout",
+             "flash_attention")
     _build.load_all(names)
     libs = [str(_build.library_path(_build.CSRC_DIR / (n + ".cu"))
                 .relative_to(_build.PACKAGE_DIR.parent)) for n in names]
@@ -1076,7 +1516,14 @@ def main():
     drop_checks = [dropout_case(torch, HK, prng, "n%d" % n, (n,), rate,
                                 seed=10 + n, timed=False)
                    for n, rate in ((1, 0.5), (127, 0.3), (2 ** 16 + 3, 0.7))]
-    for case in cases + checks + sgd + lrn + lrn_checks + drop + drop_checks:
+    flash = flash_case(torch, HK, *FLASH_MAIN)
+    flash_checks = [rec for kw in (dict(dh=32), dict(dh=40), dict(dh=128))
+                    for rec in flash_case(torch, HK, 2, 4, 200, causal=False,
+                                          seed=kw["dh"], timed=False, **kw)]
+    flash_checks += flash_case(torch, HK, 2, 4, 256, 64, seed=3, timed=False,
+                               peak=100.0)
+    for case in (cases + checks + sgd + lrn + lrn_checks + drop + drop_checks
+                 + flash + flash_checks):
         print(json.dumps(dict(case, card=smi)), flush=True)
 
     # 4. serve through the engine
@@ -1090,8 +1537,17 @@ def main():
     for k in ("lrn_forward", "lrn_backward", "dropout"):
         launches[k] = alex[k]
 
-    # 7. the kernels line and the result
-    main_case = {"fused_sgd_update": sgd[0],
+    # 7. train the full-width LM through the char-LM sample
+    lm = lm_train(torch, HK, smi)
+    for k in ("flash_attention_fwd", "flash_attention_bwd_dkv",
+              "flash_attention_bwd_dq"):
+        launches[k] = lm[k]
+
+    # 8. the kernels line and the result
+    main_case = {"flash_attention_fwd": flash[0],
+                 "flash_attention_bwd_dkv": flash[1],
+                 "flash_attention_bwd_dq": flash[2],
+                 "fused_sgd_update": sgd[0],
                  "lrn_forward": lrn[0], "lrn_backward": lrn[1],
                  "dropout": drop[0],
                  "paged_flash_decode": cases[0],

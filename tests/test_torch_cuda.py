@@ -310,3 +310,105 @@ def test_lrn_and_dropout_reject_bad_operands():
         HK.dropout(x.double(), 1, 0.5)
     with pytest.raises(ValueError, match="contiguous"):
         HK.dropout(torch.zeros(4, 8, device=dev)[:, ::2], 1, 0.5)
+
+
+def _flash_operands(rng, b, h, sq, sk, dh, dev, peak=1.0):
+    q = _randn(rng, b, h, sq, dh, dev=dev) * peak
+    k = _randn(rng, b, h, sk, dh, dev=dev)
+    v = _randn(rng, b, h, sk, dh, dev=dev)
+    do = _randn(rng, b, h, sq, dh, dev=dev)
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,sq,sk,dh,causal", [
+    (2, 3, 128, 128, 64, True),
+    (2, 3, 200, 200, 40, True),      # ragged tail; dh % 32 != 0
+    (2, 3, 200, 200, 40, False),
+    (1, 2, 200, 200, 32, False),
+    (1, 2, 77, 77, 128, True),       # two head-dim chunks
+    (1, 1, 33, 33, 200, False),      # four chunks, the last ragged
+    (1, 2, 64, 150, 16, False),      # more keys than queries
+    (2, 2, 100, 130, 16, True),
+    (1, 1, 1, 1, 8, True),
+])
+def test_flash_attention_matches_plain(b, h, sq, sk, dh, causal):
+    """Kernels 7a, 7b, 7c against their plain versions.  Both backward
+    kernels take the plain forward's o and lse, so each is held alone."""
+    dev = _card()
+    rng = numpy.random.RandomState(sq + dh)
+    q, k, v, do = _flash_operands(rng, b, h, sq, sk, dh, dev)
+    before = [HK.flash_attention_fwd.launches,
+              HK.flash_attention_bwd_dkv.launches,
+              HK.flash_attention_bwd_dq.launches]
+    o, lse = HK.flash_attention_fwd(q, k, v, causal)
+    o_ref, lse_ref = HK.flash_attention_ref(q, k, v, causal)
+    dk, dv = HK.flash_attention_bwd_dkv(q, k, v, o_ref, lse_ref, do, causal)
+    dq = HK.flash_attention_bwd_dq(q, k, v, o_ref, lse_ref, do, causal)
+    ref = HK.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, causal)
+    torch.cuda.synchronize()
+    assert [HK.flash_attention_fwd.launches,
+            HK.flash_attention_bwd_dkv.launches,
+            HK.flash_attention_bwd_dq.launches] == [n + 1 for n in before]
+    for got, want in zip((o, lse, dq, dk, dv), (o_ref, lse_ref) + ref):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= ATOL
+
+
+@pytest.mark.cuda
+def test_flash_attention_peaked_scores():
+    """Scores reaching ±100 (a nearly one-hot softmax): the running max
+    and the residual keep every exp in range.  An fp32 score of 100
+    carries 8e-6 of roundoff, which moves each probability by that
+    share, so the limit scales with each output's largest value."""
+    dev = _card()
+    q, k, v, do = _flash_operands(numpy.random.RandomState(9), 1, 2, 96, 96,
+                                  64, dev)
+    q = q * (100.0 / (torch.matmul(q, k.transpose(-1, -2)) / 8.0).abs().max())
+    o, lse = HK.flash_attention_fwd(q, k, v, True)
+    o_ref, lse_ref = HK.flash_attention_ref(q, k, v, True)
+    ref = HK.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, True)
+    dk, dv = HK.flash_attention_bwd_dkv(q, k, v, o_ref, lse_ref, do, True)
+    dq = HK.flash_attention_bwd_dq(q, k, v, o_ref, lse_ref, do, True)
+    torch.cuda.synchronize()
+    for got, want in zip((o, lse, dq, dk, dv), (o_ref, lse_ref) + ref):
+        assert torch.isfinite(got).all()
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= 1e-4 * max(scale, 1.0)
+
+
+@pytest.mark.cuda
+def test_flash_autograd_launches_each_kernel_once():
+    dev = _card()
+    q, k, v, do = _flash_operands(numpy.random.RandomState(4), 2, 2, 130,
+                                  130, 64, dev)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = HK.launch_counts()
+    out = HK.FlashAttention.apply(*leaves, True, None)
+    grads = torch.autograd.grad(out, leaves, do)
+    after = HK.launch_counts()
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
+        assert after[name] == before[name] + 1
+    o_ref, lse_ref = HK.flash_attention_ref(q, k, v, True)
+    ref = HK.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, True)
+    torch.cuda.synchronize()
+    assert (out - o_ref).abs().max().item() <= ATOL
+    for got, want in zip(grads, ref):
+        assert (got - want).abs().max().item() <= ATOL
+
+
+@pytest.mark.cuda
+def test_flash_rejects_bad_operands():
+    dev = _card()
+    q = torch.zeros(1, 2, 16, 8, device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        HK.flash_attention_fwd(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        HK.flash_attention_fwd(q.transpose(1, 2), q.transpose(1, 2),
+                               q.transpose(1, 2))
+    with pytest.raises(ValueError, match="several devices"):
+        HK.flash_attention_fwd(q, q.cpu(), q)
+    lse = torch.zeros(1, 2, 16, device=dev)
+    with pytest.raises(ValueError, match="does not match"):
+        HK.flash_attention_bwd_dq(q, q, q, q, lse[..., :8], q)

@@ -61,12 +61,16 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from veles_tpu_torch.device import resolve_device
     from veles_tpu_torch.ops.transformer import (TransformerLM,
                                                  params_from_jax)
-    from veles_tpu_torch.samples import imagenet, mnist
+    from veles_tpu_torch.samples import char_lm, imagenet, mnist
     from veles_tpu_torch.serving import LMEngine
     from veles_tpu_torch.workflow import Workflow
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     prng.reset()
     root.mnist.update({"loader": {"n_train": 200, "n_valid": 100}})
+    root.char_lm.update({"loader": {"n_train": 8, "n_valid": 4,
+                                    "seq_len": 8}})
+    lm = char_lm.build()
+    lm.loader.initialize(device="cpu")
     tree = {"embed": torch.zeros(4, 8).numpy(), "blocks": [],
             "ln_f": {"g": torch.ones(8).numpy(),
                      "b": torch.zeros(8).numpy()}}
@@ -79,6 +83,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                  lambda: mnist.train(),
                  lambda: imagenet.build().initialize(),
                  lambda: imagenet.train(),
+                 lambda: char_lm.build().initialize(),
+                 lambda: char_lm.train(),
+                 lambda: lm.trainer.initialize(),
                  lambda: state_from_jax([{"w": torch.zeros(2).numpy()}])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -103,3 +110,10 @@ def test_kernel_wrappers_refuse_other_devices():
         HK.lrn_backward(x, x, x)
     with pytest.raises(ValueError, match="no kernel for device"):
         HK.dropout(x, 3, 0.5)
+    q = torch.zeros(1, 2, 8, 4, device="meta")
+    lse = torch.zeros(1, 2, 8, device="meta")
+    for call in (lambda: HK.flash_attention_fwd(q, q, q),
+                 lambda: HK.flash_attention_bwd_dkv(q, q, q, q, lse, q),
+                 lambda: HK.flash_attention_bwd_dq(q, q, q, q, lse, q)):
+        with pytest.raises(ValueError, match="no kernel for device"):
+            call()

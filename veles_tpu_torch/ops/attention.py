@@ -1,9 +1,13 @@
-"""Attention ops — the paged serving subset.
+"""Attention ops — training, KV-cached decoding and paged serving.
 
-Port of ``veles_tpu/ops/attention.py``: rotary embeddings (half-split
-"NeoX" layout), the shared band mask, grouped-query helpers, the paged
-KV view/write and :func:`mha_paged_chunk_step`, the one attention core
-of every paged serving program (decode step, prompt chunk).
+Port of ``veles_tpu/ops/attention.py``: dense ``attention`` and the
+flash-style ``blockwise_attention`` (both masked through the one
+``band_bias``), :func:`flash_attention` through the Hopper kernels,
+rotary embeddings (half-split "NeoX" layout), grouped-query helpers,
+``mha_forward`` with its attention-backend flag, the linear-cache decode
+step, the paged KV view/write and :func:`mha_paged_chunk_step`, the one
+attention core of every paged serving program (decode step, prompt
+chunk).
 
 PyTorch idiom: functions on tensors in the reference's layouts
 (activations (b, c, d_model), heads (b, h, c, head_dim), pools
@@ -19,6 +23,30 @@ import torch
 from veles_tpu_torch.ops.functional import matmul
 
 NEG_INF = -1e30
+
+
+def _sqrt_dh(q):
+    """√head_dim as a 0-dim tensor: dividing by it is a true division on
+    every device, as the reference's ``/ jnp.sqrt(dh)``."""
+    return torch.sqrt(torch.tensor(q.shape[-1], dtype=q.dtype))
+
+
+def attention(q, k, v, causal=False, bias=None, window=None, sinks=0):
+    """Dense scaled-dot-product attention over (..., heads, seq,
+    head_dim); returns q's shape.  ``window=W`` restricts each query to
+    the last W keys and requires causal=True."""
+    if window and not causal:
+        raise ValueError("window requires causal=True")
+    scores = matmul(q, k.transpose(-1, -2)) / _sqrt_dh(q)
+    if bias is not None:
+        scores = scores + bias
+    if causal or window:
+        s_q, s_k = scores.shape[-2], scores.shape[-1]
+        scores = scores + band_bias(
+            torch.arange(s_q, device=q.device) + (s_k - s_q),
+            torch.arange(s_k, device=q.device), causal, window,
+            scores.dtype, sinks=sinks)
+    return matmul(torch.softmax(scores, dim=-1), v)
 
 
 # ----------------------------------------------------------------- rotary
@@ -86,6 +114,84 @@ def chunk_live_mask(pos, c, cache_len, window=None, sinks=0):
     return live
 
 
+def _online_update(carry, q, k, v, score_bias):
+    """One online-softmax accumulation step: carry (o, l, m) with o
+    (..., sq, dh) and l, m (..., sq); returns the carry after this
+    key/value block."""
+    o, l, m = carry
+    s = matmul(q, k.transpose(-1, -2)) / _sqrt_dh(q)
+    if score_bias is not None:
+        s = s + score_bias
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l_new = l * alpha + p.sum(dim=-1)
+    o_new = o * alpha[..., None] + matmul(p.to(v.dtype), v)
+    return o_new, l_new, m_new
+
+
+def blockwise_attention(q, k, v, block_size=128, causal=False,
+                        window=None, sinks=0):
+    """Flash-style attention as a loop over key/value blocks with the
+    online softmax — equal to :func:`attention` up to roundoff, O(block)
+    live scores.  NEG_INF is finite, so a fully masked early block's
+    transient terms rescale to 0 once a live block arrives."""
+    if window and not causal:
+        raise ValueError("window requires causal=True")
+    s_q, s_k = q.shape[-2], k.shape[-2]
+    if s_k % block_size:
+        raise ValueError("seq %d not divisible by block %d"
+                         % (s_k, block_size))
+    q_pos = torch.arange(s_q, device=q.device) + (s_k - s_q)
+    carry = (torch.zeros_like(q),
+             torch.zeros(q.shape[:-1], dtype=q.dtype, device=q.device),
+             torch.full(q.shape[:-1], NEG_INF, dtype=q.dtype,
+                        device=q.device))
+    for start in range(0, s_k, block_size):
+        bias = None
+        if causal:
+            bias = band_bias(q_pos, torch.arange(start, start + block_size,
+                                                 device=q.device),
+                             causal, window, q.dtype, sinks=sinks)
+        carry = _online_update(carry, q, k[..., start:start + block_size, :],
+                               v[..., start:start + block_size, :], bias)
+    o, l, _ = carry
+    return o / l[..., None]
+
+
+def flash_attention(q, k, v, causal=True):
+    """Flash attention through the Hopper kernels (the counterpart of the
+    reference's ``flash_attention_tpu``): (b, h, s, dh) contiguous fp32
+    in and out, sm_scale = float(1/√dh) as that function passes it.
+    Differentiable: the backward is the kernels' dK/dV and dQ passes.
+    CPU tensors run the kernels' plain versions."""
+    from veles_tpu_torch.ops import hopper_kernels as HK
+    dh = q.shape[-1]
+    return HK.FlashAttention.apply(q, k, v, causal, float(1.0 / (dh ** 0.5)))
+
+
+#: attention backend for mha_forward's non-windowed path: 'xla' (dense
+#: ``attention`` or ``blockwise_attention``) | 'flash_pallas' (the
+#: reference's name for its bundled flash kernel; here the Hopper kernels
+#: of :func:`flash_attention`) | 'flash_serve' ('xla' for mha_forward;
+#: serving engines built while it is set ask for their kernels)
+_ATTN_BACKEND = "xla"
+
+
+def set_attention_backend(mode):
+    """mode: 'xla' | 'flash_pallas' | 'flash_serve' — read at every
+    ``mha_forward`` call (PyTorch has no trace to clear)."""
+    global _ATTN_BACKEND
+    if mode not in ("xla", "flash_pallas", "flash_serve"):
+        raise ValueError("unknown attention backend %r" % (mode,))
+    _ATTN_BACKEND = mode
+
+
+def serving_kernel_default():
+    """True when the global backend is 'flash_serve'."""
+    return _ATTN_BACKEND == "flash_serve"
+
+
 # ------------------------------------------------------------ MHA helpers
 def init_mha_params(stream, d_model, n_heads, dtype="float32",
                     n_kv_heads=None):
@@ -119,6 +225,92 @@ def _repeat_kv(k, n_heads):
     kv head j serves query heads j·g .. j·g + g - 1."""
     reps = n_heads // k.shape[-3]
     return k if reps == 1 else torch.repeat_interleave(k, reps, dim=-3)
+
+
+def mha_forward(params, x, n_heads, causal=True, block_size=None,
+                return_kv=False, rope=False, window=None,
+                positions=None, sinks=0):
+    """Multi-head attention over (batch, seq, d_model).  ``return_kv``
+    also returns the projected (k, v) heads (n_kv_heads wide under
+    GQA); ``rope`` rotates q/k at ``positions`` (default 0..s-1);
+    ``window`` restricts attention to the last W positions.  Under
+    'flash_pallas' a non-windowed call goes through
+    :func:`flash_attention`; otherwise ``block_size`` picks
+    :func:`blockwise_attention`, else :func:`attention`."""
+    b, s, d = x.shape
+    dh = d // n_heads
+    kv = kv_heads_of(params, n_heads, d)
+
+    def split(w, heads):
+        return matmul(x, w).reshape(b, s, heads, dh).transpose(1, 2)
+
+    q = split(params["wq"], n_heads)
+    k = split(params["wk"], kv)
+    v = split(params["wv"], kv)
+    if rope:
+        pos = positions if positions is not None \
+            else torch.arange(s, device=x.device)
+        q, k = rope_rotate(q, pos), rope_rotate(k, pos)
+    kr, vr = _repeat_kv(k, n_heads), _repeat_kv(v, n_heads)
+    if _ATTN_BACKEND == "flash_pallas" and not window:
+        o = flash_attention(q.contiguous(), kr.contiguous(),
+                            vr.contiguous(), causal=causal)
+    elif block_size:
+        o = blockwise_attention(q, kr, vr, block_size, causal=causal,
+                                window=window, sinks=sinks)
+    else:
+        o = attention(q, kr, vr, causal=causal, window=window, sinks=sinks)
+    o = o.transpose(1, 2).reshape(b, s, d)
+    out = matmul(o, params["wo"])
+    return (out, k, v) if return_kv else out
+
+
+def _decode_attend(params, x, k_cache, v_cache, write_idx, live, rope_pos,
+                   n_heads):
+    """The decode-step core: project q/k/v for one position, rotate q/k
+    at ``rope_pos`` (None = no rope), write the new k/v at cache index
+    ``write_idx`` IN PLACE, attend over the cache under the ``live``
+    mask (cache_len,), and project out.  Returns (out, k_cache,
+    v_cache)."""
+    b, _, d = x.shape
+    dh = d // n_heads
+    kv = kv_heads_of(params, n_heads, d)
+
+    def split(w, heads):
+        return matmul(x, w).reshape(b, 1, heads, dh).transpose(1, 2)
+
+    q = split(params["wq"], n_heads)            # (b, h, 1, dh)
+    k_new = split(params["wk"], kv)
+    if rope_pos is not None:
+        pos_arr = torch.tensor([int(rope_pos)], device=x.device)
+        q = rope_rotate(q, pos_arr)
+        k_new = rope_rotate(k_new, pos_arr)
+    k_cache[:, :, write_idx:write_idx + 1] = k_new
+    v_cache[:, :, write_idx:write_idx + 1] = split(params["wv"], kv)
+    scores = matmul(q, _repeat_kv(k_cache, n_heads).transpose(-1, -2)) \
+        / _sqrt_dh(q)                    # (b, h, 1, cache_len)
+    scores = torch.where(live, scores, NEG_INF)
+    o = matmul(torch.softmax(scores, dim=-1), _repeat_kv(v_cache, n_heads))
+    o = o.transpose(1, 2).reshape(b, 1, d)
+    return matmul(o, params["wo"]), k_cache, v_cache
+
+
+def mha_decode_step(params, x, k_cache, v_cache, pos, n_heads, rope=False,
+                    window=None, sinks=0):
+    """One autoregressive decode step: x (batch, 1, d_model) at position
+    ``pos`` (a host int) against caches (batch, kv_heads, max_len,
+    head_dim) holding positions [0, pos).  Writes position ``pos`` into
+    the caches IN PLACE and returns (out, k_cache, v_cache).  The caller
+    keeps ``pos < max_len``."""
+    idx = torch.arange(k_cache.shape[2], device=x.device)
+    live = idx <= pos
+    if window:
+        in_window = idx > pos - window
+        if sinks:
+            in_window |= idx < sinks
+        live &= in_window
+    return _decode_attend(params, x, k_cache, v_cache, pos, live,
+                          pos if rope else None, n_heads)
 
 
 # ------------------------------------------------------------- paged KV

@@ -51,6 +51,17 @@ paged_flash_prefill
     Bound: bytes (history pages plus the chunk's K/V, read once).  Same
     design, with the chunk's own K/V as the last keys walked, installed
     into its pool page by the same kernel.
+flash_attention_fwd / flash_attention_bwd_dkv / flash_attention_bwd_dq
+    Replace jax's bundled TPU Pallas flash attention, which
+    ``veles_tpu/ops/attention.py:176`` (flash_attention_tpu) calls for
+    training: its forward and its dK/dV and dQ passes (three
+    ``pallas_call`` s), in ``csrc/flash_attention.cu``.  Bound:
+    operations (fp32 products of s²·dh per head).  A block owns a 64-row
+    tile and walks the other side's tiles with an online softmax (the
+    forward) or the row residual lse (the backward), skipping tiles above
+    the diagonal; the two backward passes need no atomics.
+    :class:`FlashAttention` ties the three into a
+    ``torch.autograd.Function``.
 """
 
 from __future__ import annotations
@@ -709,8 +720,205 @@ def dropout(x, key, rate):
 
 dropout.launches = 0
 
+# ---------------------------------------------------- flash attention (train)
+def _flash_scale(q, sm_scale):
+    """sm_scale as ``flash_attention_tpu`` passes it: float(1 / dh**0.5)
+    when None."""
+    return float(1.0 / (q.shape[-1] ** 0.5)) if sm_scale is None \
+        else float(sm_scale)
+
+
+def _flash_scores(q, k, causal, sm_scale):
+    """s = (q kᵀ)·sm_scale with masked keys at -inf: the bundled
+    kernel's causal rule, key c live for query row r when c <= r."""
+    s = torch.matmul(q, k.transpose(-1, -2)) * sm_scale
+    if causal:
+        rows = torch.arange(q.shape[-2], device=q.device)[:, None]
+        cols = torch.arange(k.shape[-2], device=q.device)[None, :]
+        s = s.masked_fill(cols > rows, float("-inf"))
+    return s
+
+
+def flash_attention_ref(q, k, v, causal=True, sm_scale=None):
+    """Plain PyTorch version of :func:`flash_attention_fwd`: returns (o,
+    lse) with lse the row's log-sum-exp of the scaled, masked scores (the
+    one fp32 residual the backward takes) and o = exp(s - lse)·v."""
+    s = _flash_scores(q, k, causal, _flash_scale(q, sm_scale))
+    lse = torch.logsumexp(s, dim=-1)
+    return torch.matmul(torch.exp(s - lse[..., None]), v), lse
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True, sm_scale=None):
+    """Plain PyTorch version of the two backward kernels, the formulas
+    written out: P = exp(s - lse), dP = do vᵀ, di = rowsum(o·do), dS =
+    P (dP - di), dv = Pᵀ do, dk = sm_scale dSᵀ q, dq = sm_scale dS k.
+    Returns (dq, dk, dv)."""
+    scale = _flash_scale(q, sm_scale)
+    p = torch.exp(_flash_scores(q, k, causal, scale) - lse[..., None])
+    di = (o * do).sum(dim=-1)
+    ds = p * (torch.matmul(do, v.transpose(-1, -2)) - di[..., None])
+    return (torch.matmul(ds, k) * scale,
+            torch.matmul(ds.transpose(-1, -2), q) * scale,
+            torch.matmul(p.transpose(-1, -2), do))
+
+
+def _check_flash(q, k, v, o=None, lse=None, do=None):
+    """Shapes (b, h, sq, dh) for q, o and do, (b, h, sk, dh) for k and
+    v, (b, h, sq) for lse; returns (b·h, sq, sk, dh)."""
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
+            or q.shape[:2] != k.shape[:2] or q.shape[-1] != k.shape[-1]:
+        raise ValueError("q %s, k %s, v %s are not (b, h, s, dh) heads of "
+                         "one geometry" % (tuple(q.shape), tuple(k.shape),
+                                           tuple(v.shape)))
+    for t, want in ((o, q.shape), (do, q.shape), (lse, q.shape[:-1])):
+        if t is not None and t.shape != want:
+            raise ValueError("%s does not match q %s"
+                             % (tuple(t.shape), tuple(q.shape)))
+    b, h, sq, dh = q.shape
+    if min(sq, k.shape[2], dh) < 1:
+        raise ValueError("empty attention geometry q %s, k %s"
+                         % (tuple(q.shape), tuple(k.shape)))
+    return b * h, sq, k.shape[2], dh
+
+
+def _check_flash_operands(**tensors):
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError("%s must be float32 (got %s): other types wait "
+                            "for ROADMAP Queue 2a, item 12" % (name, t.dtype))
+        if not t.is_contiguous():
+            raise ValueError("%s must be contiguous" % name)
+
+
+_FLASH_LIB = None
+
+
+def _flash_lib():
+    global _FLASH_LIB
+    if _FLASH_LIB is None:
+        from veles_tpu_torch.ops import _build
+        lib = _build.load("flash_attention")
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        tail = [i32] * 5 + [f32, ptr]
+        lib.flash_attention_fwd_f32.argtypes = [ptr] * 5 + tail
+        lib.flash_attention_bwd_dkv_f32.argtypes = [ptr] * 8 + tail
+        lib.flash_attention_bwd_dq_f32.argtypes = [ptr] * 7 + tail
+        for fn in (lib.flash_attention_fwd_f32,
+                   lib.flash_attention_bwd_dkv_f32,
+                   lib.flash_attention_bwd_dq_f32):
+            fn.restype = i32
+        lib.flash_attention_error_string.argtypes = [i32]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        _FLASH_LIB = lib
+    return _FLASH_LIB
+
+
+def _flash_launch(what, entry, tensors, geometry, causal, scale):
+    lib = _flash_lib()
+    device = tensors[0].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = getattr(lib, entry)(*[t.data_ptr() for t in tensors],
+                                   *geometry, int(bool(causal)), scale,
+                                   stream)
+    if code:
+        raise RuntimeError("%s launch failed: %s" % (
+            what, lib.flash_attention_error_string(code).decode()))
+
+
+def flash_attention_fwd(q, k, v, causal=True, sm_scale=None):
+    """Flash attention forward (kernel 7a): q (b, h, sq, dh), k and v
+    (b, h, sk, dh); returns (o (b, h, sq, dh), lse (b, h, sq)).
+    ``sm_scale`` None means 1/√dh; ``causal`` masks key c from row r
+    when c > r.
+
+    CPU tensors run :func:`flash_attention_ref`; CUDA tensors launch the
+    kernel (fp32, contiguous — anything else raises)."""
+    geometry = _check_flash(q, k, v)
+    scale = _flash_scale(q, sm_scale)
+    if not _on_card(q, k, v):
+        return flash_attention_ref(q, k, v, causal, scale)
+    _check_flash_operands(q=q, k=k, v=v)
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    _flash_launch("flash_attention_fwd", "flash_attention_fwd_f32",
+                  (q, k, v, o, lse), geometry, causal, scale)
+    flash_attention_fwd.launches += 1
+    return o, lse
+
+
+flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, o, lse, do, causal=True, sm_scale=None):
+    """The dK/dV pass of the flash backward (kernel 7b) from the
+    forward's inputs, its output o and residual lse, and the cotangent
+    do; returns (dk, dv).
+
+    CPU tensors run :func:`flash_attention_bwd_ref`; CUDA tensors launch
+    the kernel (fp32, contiguous — anything else raises)."""
+    geometry = _check_flash(q, k, v, o, lse, do)
+    scale = _flash_scale(q, sm_scale)
+    if not _on_card(q, k, v, o, lse, do):
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal,
+                                       scale)[1:]
+    _check_flash_operands(q=q, k=k, v=v, o=o, lse=lse, do=do)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _flash_launch("flash_attention_bwd_dkv", "flash_attention_bwd_dkv_f32",
+                  (q, k, v, o, lse, do, dk, dv), geometry, causal, scale)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd_dq(q, k, v, o, lse, do, causal=True, sm_scale=None):
+    """The dQ pass of the flash backward (kernel 7c), from the same
+    operands as :func:`flash_attention_bwd_dkv`; returns dq.
+
+    CPU tensors run :func:`flash_attention_bwd_ref`; CUDA tensors launch
+    the kernel (fp32, contiguous — anything else raises)."""
+    geometry = _check_flash(q, k, v, o, lse, do)
+    scale = _flash_scale(q, sm_scale)
+    if not _on_card(q, k, v, o, lse, do):
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal,
+                                       scale)[0]
+    _check_flash_operands(q=q, k=k, v=v, o=o, lse=lse, do=do)
+    dq = torch.empty_like(q)
+    _flash_launch("flash_attention_bwd_dq", "flash_attention_bwd_dq_f32",
+                  (q, k, v, o, lse, do, dq), geometry, causal, scale)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: the forward kernel saves (q, k,
+    v, o, lse); the backward runs the dK/dV and the dQ kernels — one
+    launch each.  ``FlashAttention.apply(q, k, v, causal, sm_scale)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True, sm_scale=None):
+        o, lse = flash_attention_fwd(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.hyper = (causal, sm_scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        dk, dv = flash_attention_bwd_dkv(q, k, v, o, lse, do, *ctx.hyper)
+        dq = flash_attention_bwd_dq(q, k, v, o, lse, do, *ctx.hyper)
+        return dq, dk, dv, None, None
+
+
 _WRAPPERS = (fused_sgd_update, lrn_forward, lrn_backward, dropout,
-             paged_flash_decode, paged_flash_prefill)
+             paged_flash_decode, paged_flash_prefill, flash_attention_fwd,
+             flash_attention_bwd_dkv, flash_attention_bwd_dq)
 
 
 def reset_launch_counts():
@@ -729,5 +937,7 @@ __all__ = ["NEG_INF", "serving_kernels_supported", "fused_sgd_update",
            "lrn_backward", "lrn_backward_ref", "LRN", "LRN_MAX_CHANNELS",
            "dropout", "dropout_ref", "paged_flash_decode",
            "paged_flash_decode_ref", "paged_flash_prefill",
-           "paged_flash_prefill_ref", "reset_launch_counts",
-           "launch_counts"]
+           "paged_flash_prefill_ref", "flash_attention_fwd",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+           "flash_attention_ref", "flash_attention_bwd_ref",
+           "FlashAttention", "reset_launch_counts", "launch_counts"]

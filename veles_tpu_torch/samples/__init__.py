@@ -88,3 +88,42 @@ def make_sample(config_name, workflow_cls, loader_cls, default_config,
         main()
 
     return build, train, run
+
+
+def make_trainer_sample(config_name, workflow_cls, default_config,
+                        sections=("loader", "trainer", "decision")):
+    """Scaffolding for non-StandardWorkflow samples (the char LM): the
+    workflow constructor takes one ``<section>_config`` dict per
+    section.  Returns (build, train, run); ``train(device=None, ...)``
+    runs on the CUDA card unless the caller passes ``device="cpu"``."""
+
+    def _workflow_kwargs():
+        default_config()
+        cfg = getattr(root, config_name)
+        kwargs = {"name": config_name}
+        for section in sections:
+            kwargs["%s_config" % section] = {
+                k: get(v, v) for k, v in getattr(cfg, section).items()}
+        return kwargs
+
+    def build(**overrides):
+        kwargs = _workflow_kwargs()
+        for section in sections:
+            kwargs["%s_config" % section].update(
+                overrides.pop(section, {}))
+        kwargs.update(overrides)
+        return workflow_cls(None, **kwargs)
+
+    def train(device=None, **overrides):
+        """Build, initialize on ``device`` (None = the CUDA card) and run
+        to completion; returns the workflow."""
+        wf = build(**overrides)
+        wf.initialize(device=device)
+        wf.run()
+        return wf
+
+    def run(load, main):
+        load(workflow_cls, **_workflow_kwargs())
+        main()
+
+    return build, train, run

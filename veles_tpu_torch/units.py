@@ -193,6 +193,17 @@ class Unit(Logger, metaclass=UnitRegistry):
     def stop(self):
         pass
 
+    def is_train_minibatch(self):
+        """True when the CURRENT minibatch should train: the linked
+        ``minibatch_class`` says TRAIN and the workflow is not in
+        evaluation-only mode (``wf.eval_only``).  The one gate every
+        updating unit consults, so a scoring pass never moves
+        parameters."""
+        from veles_tpu_torch.loader.base import TRAIN
+        if getattr(self.workflow, "eval_only", False):
+            return False
+        return getattr(self, "minibatch_class", TRAIN) == TRAIN
+
     # --------------------------------------------------------------- snapshot
     #: attribute names persisted by the Snapshotter (subclasses extend)
     snapshot_attrs = ()
