@@ -67,9 +67,13 @@ Phases (any failure exits nonzero before the final line is printed):
 The kernels phase also holds the three flash-attention kernels (forward,
 dK/dV pass, dQ pass; ``flash_attention.cu``) at the LM's train shape
 (32 x 8 heads, s 512, head_dim 64, causal), with kernel, plain and SDPA
-times, the bound, and the elements three faulty plain versions put
-outside the limits; then, checked only, s 200 non-causal at head_dim 32,
-40 and 128, and scores peaked at ±100.
+times, the 3xTF32 and fp32-FMA bounds, and the elements four faulty
+plain versions put outside the limits (one of them the plain backward
+in single TF32 products); then, checked only, s 200 non-causal at
+head_dim 32, 40, 128 and 37 (rows not 16-byte aligned), and scores
+peaked at ±100.  In every case each backward kernel is launched twice
+(bit-equal) and held against an fp64 plain version: its error at most
+``FLASH_FP64_FACTOR`` times the fp32 plain version's.
 
 It imports nothing of JAX and nothing of the ``veles_tpu`` package.
 """
@@ -83,9 +87,11 @@ import time
 import numpy
 
 SEED = 20261016
-#: H100 SXM data-sheet peaks: HBM bytes/s and fp32 (non-tensor) flop/s
+#: H100 SXM data-sheet peaks: HBM bytes/s, fp32 (non-tensor) flop/s and
+#: dense TF32 tensor-core flop/s
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+TF32_FLOP_S = 495e12
 #: 32-bit integer operations/s: 64 INT32 lanes per SM (half the 128 fp32
 #: lanes behind the 67 TFLOP/s; Hopper white paper) x 132 SMs x 1.98 GHz
 INT32_OP_S = 64 * 132 * 1.98e9
@@ -183,6 +189,10 @@ FLASH_MAIN = (32, 8, 512, 64)
 #: to 512 terms in another order than cuBLAS's (~1e-6 expected); the
 #: peaked case (scores near ±100) scales the limit by the output's size
 FLASH_ATOL = 1e-4
+#: the backward kernels (3xTF32 on the tensor cores) against an fp64 plain
+#: version on the same inputs: their max abs error at most this many times
+#: the fp32 plain version's (fp32 accuracy; one TF32 product would not be)
+FLASH_FP64_FACTOR = 4.0
 #: the char-LM train phase: loader seq_len 513 (s = 512 after the shift),
 #: 320 train / 64 validation sequences at minibatch 32 = 10 train steps
 #: and 2 validation minibatches in one epoch
@@ -257,9 +267,9 @@ def time_ms(fns, torch, calls=10, reps=25):
     return statistics.median(times)
 
 
-def bound(n_bytes, n_flops):
+def bound(n_bytes, n_flops, flop_s=FP32_FLOP_S):
     t_bytes = n_bytes / HBM_BYTES_S * 1e3
-    t_ops = n_flops / FP32_FLOP_S * 1e3
+    t_ops = n_flops / flop_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -632,11 +642,12 @@ def dropout_case(torch, HK, prng, name, shape, rate=0.5, seed=0,
 
 # ------------------------------------------------------- flash attention
 def flash_faults(torch, HK, q, k, v, do, causal, o_ref, grads_ref, limit):
-    """{fault: elements outside the limits} for three faulty plain
+    """{fault: elements outside the limits} for four faulty plain
     versions: the causal mask as col < row (the forward; its row 0 has no
     key left, so NaN, which counts as outside), the backward without di,
-    and dQ without sm_scale.  Each count must be nonzero, or the checks
-    could not see that fault."""
+    dQ without sm_scale, and the backward's products as one TF32 product
+    each (what a kernel that dropped 3xTF32's small parts computes).  Each
+    count must be nonzero, or the checks could not see that fault."""
     scale = float(1.0 / q.shape[-1] ** 0.5)
 
     def outside(got, want):
@@ -660,6 +671,15 @@ def flash_faults(torch, HK, q, k, v, do, causal, o_ref, grads_ref, limit):
                                        * scale, grads_ref[1]))
     ds = p * (dp - (o * do).sum(-1)[..., None])
     out["dq_without_scale"] = outside(torch.matmul(ds, k), grads_ref[0])
+    del p, dp, ds
+    prior = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = HK.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prior
+    out["tf32_single_product"] = sum(outside(got, want)
+                                     for got, want in zip(tf32, grads_ref))
     return out
 
 
@@ -667,9 +687,11 @@ def flash_case(torch, HK, b, h, s, dh, causal=True, seed=0, timed=True,
                peak=None):
     """Kernels 7a, 7b, 7c at (b, h, s, dh) against their plain versions
     (both backward kernels take the plain forward's o and lse, so each
-    is held alone); timed, also against SDPA and its autograd backward.
-    ``peak`` scales q so the largest score reaches it.  Returns three
-    records: forward, dK/dV, dQ."""
+    is held alone); each backward kernel also against an fp64 plain
+    version beside the fp32 one, and launched twice (bit-equal); timed,
+    also against SDPA and its autograd backward.  ``peak`` scales q so
+    the largest score reaches it.  Returns three records: forward, dK/dV,
+    dQ."""
     dev = torch.device("cuda")
     rng = numpy.random.RandomState(seed)
 
@@ -683,11 +705,19 @@ def flash_case(torch, HK, b, h, s, dh, causal=True, seed=0, timed=True,
                          / dh ** 0.5).abs().max())
     o, lse = HK.flash_attention_fwd(q, k, v, causal)
     o_ref, lse_ref = HK.flash_attention_ref(q, k, v, causal)
-    dk, dv = HK.flash_attention_bwd_dkv(q, k, v, o_ref, lse_ref, do, causal)
-    dq = HK.flash_attention_bwd_dq(q, k, v, o_ref, lse_ref, do, causal)
-    grads_ref = HK.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do,
-                                           causal)
+    inputs = (q, k, v, o_ref, lse_ref, do)
+    dk, dv = HK.flash_attention_bwd_dkv(*inputs, causal)
+    dq = HK.flash_attention_bwd_dq(*inputs, causal)
+    # no atomics in either pass: a second launch repeats bit for bit
+    dk2, dv2 = HK.flash_attention_bwd_dkv(*inputs, causal)
+    dq2 = HK.flash_attention_bwd_dq(*inputs, causal)
+    grads_ref = HK.flash_attention_bwd_ref(*inputs, causal)
     torch.cuda.synchronize()
+    shape = (b, h, s, dh, causal, peak)
+    repeat = all(torch.equal(x, y) for x, y in ((dq, dq2), (dk, dk2),
+                                                 (dv, dv2)))
+    check(repeat, "flash backward at %r: two launches differ" % (shape,))
+    del dq2, dk2, dv2
     errs = {}
     for name, got, want in (("o", o, o_ref), ("lse", lse, lse_ref),
                             ("dq", dq, grads_ref[0]), ("dk", dk, grads_ref[1]),
@@ -697,15 +727,35 @@ def flash_case(torch, HK, b, h, s, dh, causal=True, seed=0, timed=True,
         errs[name] = (got - want).abs().max().item()
         check(bool(torch.isfinite(got).all()) and errs[name] <= limit,
               "flash %s at %r: max abs err %g > %g"
-              % (name, (b, h, s, dh, causal, peak), errs[name], limit))
+              % (name, shape, errs[name], limit))
+    # the same function in fp64 on the same inputs: the kernels' error
+    # beside the fp32 plain version's
+    grads64 = HK.flash_attention_bwd_ref(*(x.double() for x in inputs),
+                                         causal)
+    fp64 = {}
+    for name, got, plain, want in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                      grads_ref, grads64):
+        fp64[name] = {"kernel": (got.double() - want).abs().max().item(),
+                      "plain_fp32": (plain.double() - want).abs().max()
+                      .item()}
+        check(fp64[name]["kernel"]
+              <= FLASH_FP64_FACTOR * fp64[name]["plain_fp32"],
+              "flash %s at %r against fp64: kernel %g > %g x the fp32 "
+              "plain version's %g" % (name, shape, fp64[name]["kernel"],
+                                      FLASH_FP64_FACTOR,
+                                      fp64[name]["plain_fp32"]))
+    del grads64
     shape = {"b": b, "h": h, "s": s, "dh": dh, "causal": causal,
              "peak": peak}
     recs = [{"kernel": "flash_attention_fwd", "shape": shape,
              "max_abs_err": max(errs["o"], errs["lse"])},
             {"kernel": "flash_attention_bwd_dkv", "shape": shape,
-             "max_abs_err": max(errs["dk"], errs["dv"])},
+             "max_abs_err": max(errs["dk"], errs["dv"]),
+             "fp64_err": {n: fp64[n] for n in ("dk", "dv")},
+             "bit_equal_repeat": repeat},
             {"kernel": "flash_attention_bwd_dq", "shape": shape,
-             "max_abs_err": errs["dq"]}]
+             "max_abs_err": errs["dq"], "fp64_err": {"dq": fp64["dq"]},
+             "bit_equal_repeat": repeat}]
     if not timed:
         return recs
     faults = flash_faults(torch, HK, q, k, v, do, causal, o_ref, grads_ref,
@@ -713,24 +763,27 @@ def flash_case(torch, HK, b, h, s, dh, causal=True, seed=0, timed=True,
     check(all(n > 0 for n in faults.values()), "flash: a fault would pass "
           "the limits: %r" % faults)
     recs[0]["faults_caught"] = {"mask_col_lt_row": faults["mask_col_lt_row"]}
-    recs[1]["faults_caught"] = {"bwd_without_di": faults["bwd_without_di"]}
-    recs[2]["faults_caught"] = {"dq_without_scale":
-                                faults["dq_without_scale"],
-                                "bwd_without_di": faults["bwd_without_di"]}
+    recs[1]["faults_caught"] = {n: faults[n] for n in (
+        "bwd_without_di", "tf32_single_product")}
+    recs[2]["faults_caught"] = {n: faults[n] for n in (
+        "dq_without_scale", "bwd_without_di", "tf32_single_product")}
     del grads_ref
-    sets = [(q, k, v, o_ref, lse_ref, do)] + [
-        tuple(x.clone() for x in (q, k, v, o_ref, lse_ref, do))
-        for _ in range(COPIES - 1)]
+    # the main path hands both backward kernels one di per backward
+    operands = inputs + (HK.flash_attention_di(o_ref, do),)
+    sets = [operands] + [tuple(x.clone() for x in operands)
+                         for _ in range(COPIES - 1)]
     fwd_ms = time_ms([lambda a=a: HK.flash_attention_fwd(*a[:3], causal)
                       for a in sets], torch)
-    dkv_ms = time_ms([lambda a=a: HK.flash_attention_bwd_dkv(*a, causal)
-                      for a in sets], torch)
-    dq_ms = time_ms([lambda a=a: HK.flash_attention_bwd_dq(*a, causal)
+    dkv_ms = time_ms([lambda a=a: HK.flash_attention_bwd_dkv(
+        *a[:6], causal, di=a[6]) for a in sets], torch)
+    dq_ms = time_ms([lambda a=a: HK.flash_attention_bwd_dq(
+        *a[:6], causal, di=a[6]) for a in sets], torch)
+    di_ms = time_ms([lambda a=a: HK.flash_attention_di(a[3], a[5])
                      for a in sets], torch)
     fwd_plain = time_ms([lambda a=a: HK.flash_attention_ref(*a[:3], causal)
                          for a in sets[:2]], torch, calls=3, reps=5)
-    bwd_plain = time_ms([lambda a=a: HK.flash_attention_bwd_ref(*a, causal)
-                         for a in sets[:2]], torch, calls=3, reps=5)
+    bwd_plain = time_ms([lambda a=a: HK.flash_attention_bwd_ref(
+        *a[:6], causal) for a in sets[:2]], torch, calls=3, reps=5)
     # the library: SDPA (fp32, is_causal) and its autograd backward, which
     # computes dq, dk and dv in one call (timed here, never used by the port)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -747,26 +800,36 @@ def flash_case(torch, HK, b, h, s, dh, causal=True, seed=0, timed=True,
     del graphs, sets
     # the work these inputs need: live (row, key) pairs, 2 flops a pair
     # and head column per product; each input read once, each output
-    # written once
+    # written once.  The bound is 3xTF32 on the tensor cores (three TF32
+    # products for each fp32-accurate one), the least time the card could
+    # take for fp32 accuracy; fma_bound_ms is the same work as fp32 FMA
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
     product = 2 * pairs * dh
     tensor = b * h * s * dh * 4
     row = b * h * s * 4
     for rec, n_products, n_bytes, ms, plain, lib in (
             (recs[0], 2, 4 * tensor + row, fwd_ms, fwd_plain, lib_fwd),
-            (recs[1], 4, 7 * tensor + row, dkv_ms, bwd_plain, lib_bwd),
-            (recs[2], 3, 6 * tensor + row, dq_ms, bwd_plain, lib_bwd)):
-        rec["bound_ms"], rec["bound_by"] = bound(n_bytes,
-                                                 n_products * product)
+            (recs[1], 4, 6 * tensor + 2 * row, dkv_ms, bwd_plain, lib_bwd),
+            (recs[2], 3, 5 * tensor + 2 * row, dq_ms, bwd_plain, lib_bwd)):
+        flops = n_products * product
+        rec["bound_ms"], rec["bound_by"] = bound(n_bytes, 3 * flops,
+                                                 TF32_FLOP_S)
         rec.update(kernel_ms=ms, plain_ms=plain, library_ms=lib,
-                   bytes=n_bytes, flops=n_products * product,
-                   tflops_per_s=n_products * product / ms * 1e-9)
+                   bytes=n_bytes, flops=flops,
+                   fma_bound_ms=bound(n_bytes, flops)[0],
+                   tflops_per_s=flops / ms * 1e-9)
     recs[0]["library_max_abs_err"] = lib_err
     for rec in recs[1:]:
         rec["plain_computes"] = rec["library_computes"] = "dq, dk and dv"
-    # the backward's own work is 5 products (S, dP, dV, dK, dQ); the two
-    # passes recompute S and dP, 7 in all
-    recs[1]["backward_bound_ms"] = bound(8 * tensor + row, 5 * product)[0]
+    # the backward's own work is 5 products (S, dP, dV, dK, dQ) from q, k,
+    # v, o, do and lse to dq, dk, dv; the two passes recompute S and dP, 7
+    # in all.  Beside SDPA's one backward call: the pair, and the pair with
+    # the di reduction the backward runs before it
+    recs[1]["backward_bound_ms"] = bound(8 * tensor + row, 3 * 5 * product,
+                                         TF32_FLOP_S)[0]
+    recs[1].update(di_ms=di_ms, pair_ms=dkv_ms + dq_ms,
+                   pair_with_di_ms=dkv_ms + dq_ms + di_ms,
+                   pair_over_library=(dkv_ms + dq_ms + di_ms) / lib_bwd)
     return recs
 
 
@@ -1280,11 +1343,11 @@ def lm_fault(HK, name):
     inner = (HK.flash_attention_bwd_dkv, HK.flash_attention_bwd_dq)
 
     def planted(fn):
-        def call(q, k, v, o, lse, do, causal=True, sm_scale=None):
+        def call(q, k, v, o, lse, do, causal=True, sm_scale=None, di=None):
             if name == "bwd_not_causal":
-                return fn(q, k, v, o, lse, do, False, sm_scale)
+                return fn(q, k, v, o, lse, do, False, sm_scale, di=di)
             return fn(q, k, v, o, lse, do, causal,
-                      float(1.0 / (q.shape[-1] / 2) ** 0.5))
+                      float(1.0 / (q.shape[-1] / 2) ** 0.5), di=di)
         # the wrapper counts its launch under its module name, which now
         # names this function (the counts are not read in a faulty run)
         call.launches = 0
@@ -1522,6 +1585,9 @@ def main():
                                           seed=kw["dh"], timed=False, **kw)]
     flash_checks += flash_case(torch, HK, 2, 4, 256, 64, seed=3, timed=False,
                                peak=100.0)
+    # rows not 16-byte aligned: the backward stages by 4-byte copies
+    flash_checks += flash_case(torch, HK, 2, 4, 200, 37, causal=False,
+                               seed=37, timed=False)
     for case in (cases + checks + sgd + lrn + lrn_checks + drop + drop_checks
                  + flash + flash_checks):
         print(json.dumps(dict(case, card=smi)), flush=True)

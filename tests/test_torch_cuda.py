@@ -17,7 +17,10 @@ double-rounding tie).  The LRN kernels sum each window in the plain
 version's order, and differ from it only where CUDA's powf and PyTorch's
 pow round differently: forward rtol/atol 2e-6, backward rtol 3e-5 /
 atol 3e-6 (the reference's Pallas-vs-XLA tolerances).  Dropout is
-bit-equal to its plain version.
+bit-equal to its plain version.  The flash backward kernels (3xTF32 on
+the tensor cores) repeat bit for bit from launch to launch, and their
+error against an fp64 plain version is at most 4x the fp32 plain
+version's.
 """
 
 import numpy
@@ -331,6 +334,8 @@ def _flash_operands(rng, b, h, sq, sk, dh, dev, peak=1.0):
     (1, 2, 64, 150, 16, False),      # more keys than queries
     (2, 2, 100, 130, 16, True),
     (1, 1, 1, 1, 8, True),
+    (2, 4, 200, 200, 37, False),     # rows not 16-byte aligned: 4-byte copies
+    (1, 2, 150, 70, 64, False),      # more queries than keys, both ragged
 ])
 def test_flash_attention_matches_plain(b, h, sq, sk, dh, causal):
     """Kernels 7a, 7b, 7c against their plain versions.  Both backward
@@ -375,6 +380,52 @@ def test_flash_attention_peaked_scores():
         assert torch.isfinite(got).all()
         scale = want.abs().max().item()
         assert (got - want).abs().max().item() <= 1e-4 * max(scale, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,dh,causal", [(256, 256, 64, True),
+                                             (200, 200, 37, False),
+                                             (77, 130, 128, False)])
+def test_flash_backward_repeats_bit_for_bit(sq, sk, dh, causal):
+    """Two passes with no atomics: a second launch on the same inputs
+    gives the same bits."""
+    dev = _card()
+    q, k, v, do = _flash_operands(numpy.random.RandomState(sq + dh), 2, 3,
+                                  sq, sk, dh, dev)
+    o, lse = HK.flash_attention_ref(q, k, v, causal)
+    di = HK.flash_attention_di(o, do)
+    first = (HK.flash_attention_bwd_dkv(q, k, v, o, lse, do, causal, di=di)
+             + (HK.flash_attention_bwd_dq(q, k, v, o, lse, do, causal,
+                                          di=di),))
+    second = (HK.flash_attention_bwd_dkv(q, k, v, o, lse, do, causal, di=di)
+              + (HK.flash_attention_bwd_dq(q, k, v, o, lse, do, causal,
+                                           di=di),))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,dh,causal", [(512, 512, 64, True),
+                                             (200, 200, 37, False),
+                                             (96, 160, 128, True)])
+def test_flash_backward_fp32_accurate(sq, sk, dh, causal):
+    """Against an fp64 plain version on the same inputs, each backward
+    kernel's max abs error is at most 4x the fp32 plain version's: the
+    3xTF32 products keep fp32 accuracy (one TF32 product would not)."""
+    dev = _card()
+    q, k, v, do = _flash_operands(numpy.random.RandomState(dh), 2, 4, sq,
+                                  sk, dh, dev)
+    o, lse = HK.flash_attention_ref(q, k, v, causal)
+    inputs = (q, k, v, o, lse, do)
+    dk, dv = HK.flash_attention_bwd_dkv(*inputs, causal)
+    dq = HK.flash_attention_bwd_dq(*inputs, causal)
+    plain = HK.flash_attention_bwd_ref(*inputs, causal)
+    exact = HK.flash_attention_bwd_ref(*(t.double() for t in inputs), causal)
+    torch.cuda.synchronize()
+    for got, fp32, want in zip((dq, dk, dv), plain, exact):
+        err = (got.double() - want).abs().max().item()
+        assert err <= 4.0 * (fp32.double() - want).abs().max().item()
 
 
 @pytest.mark.cuda

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from veles_tpu import prng as jprng
 from veles_tpu.ops import attention as JA
@@ -124,6 +125,67 @@ def test_flash_peaked_scores(reference):
         assert numpy.isfinite(g).all()
         limit = 1e-4 * max(numpy.abs(w).max(), 1.0)
         assert numpy.abs(g - w).max() <= limit
+
+
+def _backward_matches(name, grads, want_grads):
+    for g, w in zip(grads, want_grads):
+        if name == "peaked":
+            assert numpy.isfinite(g).all()
+            assert numpy.abs(g - w).max() <= 1e-4 * max(numpy.abs(w).max(),
+                                                        1.0)
+        else:
+            numpy.testing.assert_allclose(g, w, **TOL)
+
+
+@pytest.mark.parametrize("form", ["di_passed", "di_formed"])
+@pytest.mark.parametrize("name", [n for n in VJP_CASES if n != "faults"])
+def test_backward_wrappers_match_reference_vjp(reference, name, form):
+    """The two backward wrappers called directly, with di handed in (as
+    FlashAttention.backward does) or formed by each wrapper from o and
+    do, against jax.vjp of the reference's attention."""
+    (q, k, v, do), causal = VJP_CASES[name]
+    q, k, v, do = (torch.from_numpy(t) for t in (q, k, v, do))
+    o, lse = HK.flash_attention_fwd(q, k, v, causal)
+    kw = {"di": HK.flash_attention_di(o, do)} if form == "di_passed" else {}
+    dk, dv = HK.flash_attention_bwd_dkv(q, k, v, o, lse, do, causal, **kw)
+    dq = HK.flash_attention_bwd_dq(q, k, v, o, lse, do, causal, **kw)
+    _backward_matches(name, [g.numpy() for g in (dq, dk, dv)],
+                      reference[name][1])
+
+
+@pytest.mark.parametrize("name", ["16-8-True", "40-40-False", "128-40-True",
+                                  "peaked"])
+def test_backward_forms_di_once_as_the_reference(monkeypatch, reference,
+                                                 name):
+    """FlashAttention.backward forms di once and hands the same tensor to
+    both wrappers; it equals the reference's jnp.sum(o * do, axis=-1) on
+    the same o and do (the bundled kernel's _flash_attention_bwd forms it
+    so in XLA), and the gradients still match jax.vjp."""
+    calls = []
+
+    def spy(fn):
+        def call(*args, **kw):
+            calls.append((args, kw))
+            return fn(*args, **kw)
+        return call
+
+    for wrapper in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        monkeypatch.setattr(HK, wrapper, spy(getattr(HK, wrapper)))
+    _, grads = _port(*VJP_CASES[name][0], VJP_CASES[name][1])
+    assert len(calls) == 2 and calls[0][1]["di"] is calls[1][1]["di"]
+    args, kw = calls[0]
+    o, do = (args[i].detach().numpy() for i in (3, 5))
+    want = numpy.asarray(jnp.sum(jnp.asarray(o) * jnp.asarray(do), axis=-1))
+    numpy.testing.assert_allclose(kw["di"].detach().numpy(), want,
+                                  rtol=1e-6, atol=1e-6)
+    _backward_matches(name, grads, reference[name][1])
+
+
+def test_backward_wrappers_check_di_shape():
+    q, lse = torch.zeros(1, 2, 8, 4), torch.zeros(1, 2, 8)
+    for wrapper in (HK.flash_attention_bwd_dkv, HK.flash_attention_bwd_dq):
+        with pytest.raises(ValueError, match="does not match"):
+            wrapper(q, q, q, q, lse, q, di=lse[..., :4])
 
 
 BAND_CASES = [(8, False, None, 0), (8, True, None, 0), (16, True, 12, 0),

@@ -748,29 +748,40 @@ def flash_attention_ref(q, k, v, causal=True, sm_scale=None):
     return torch.matmul(torch.exp(s - lse[..., None]), v), lse
 
 
-def flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True, sm_scale=None):
+def flash_attention_di(o, do):
+    """di = rowsum(o·do) (b, h, sq), the backward's second row residual:
+    formed once per backward and handed to both backward kernels, as the
+    bundled ``_flash_attention_bwd`` forms it in XLA before either
+    ``pallas_call``."""
+    return (o * do).sum(dim=-1)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True, sm_scale=None,
+                            di=None):
     """Plain PyTorch version of the two backward kernels, the formulas
-    written out: P = exp(s - lse), dP = do vᵀ, di = rowsum(o·do), dS =
-    P (dP - di), dv = Pᵀ do, dk = sm_scale dSᵀ q, dq = sm_scale dS k.
-    Returns (dq, dk, dv)."""
+    written out: P = exp(s - lse), dP = do vᵀ, di = rowsum(o·do) (unless
+    given), dS = P (dP - di), dv = Pᵀ do, dk = sm_scale dSᵀ q, dq =
+    sm_scale dS k.  Returns (dq, dk, dv)."""
     scale = _flash_scale(q, sm_scale)
     p = torch.exp(_flash_scores(q, k, causal, scale) - lse[..., None])
-    di = (o * do).sum(dim=-1)
+    if di is None:
+        di = flash_attention_di(o, do)
     ds = p * (torch.matmul(do, v.transpose(-1, -2)) - di[..., None])
     return (torch.matmul(ds, k) * scale,
             torch.matmul(ds.transpose(-1, -2), q) * scale,
             torch.matmul(p.transpose(-1, -2), do))
 
 
-def _check_flash(q, k, v, o=None, lse=None, do=None):
+def _check_flash(q, k, v, o=None, lse=None, do=None, di=None):
     """Shapes (b, h, sq, dh) for q, o and do, (b, h, sk, dh) for k and
-    v, (b, h, sq) for lse; returns (b·h, sq, sk, dh)."""
+    v, (b, h, sq) for lse and di; returns (b·h, sq, sk, dh)."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
             or q.shape[:2] != k.shape[:2] or q.shape[-1] != k.shape[-1]:
         raise ValueError("q %s, k %s, v %s are not (b, h, s, dh) heads of "
                          "one geometry" % (tuple(q.shape), tuple(k.shape),
                                            tuple(v.shape)))
-    for t, want in ((o, q.shape), (do, q.shape), (lse, q.shape[:-1])):
+    for t, want in ((o, q.shape), (do, q.shape), (lse, q.shape[:-1]),
+                    (di, q.shape[:-1])):
         if t is not None and t.shape != want:
             raise ValueError("%s does not match q %s"
                              % (tuple(t.shape), tuple(q.shape)))
@@ -850,22 +861,27 @@ def flash_attention_fwd(q, k, v, causal=True, sm_scale=None):
 flash_attention_fwd.launches = 0
 
 
-def flash_attention_bwd_dkv(q, k, v, o, lse, do, causal=True, sm_scale=None):
+def flash_attention_bwd_dkv(q, k, v, o, lse, do, causal=True, sm_scale=None,
+                            di=None):
     """The dK/dV pass of the flash backward (kernel 7b) from the
     forward's inputs, its output o and residual lse, and the cotangent
-    do; returns (dk, dv).
+    do; returns (dk, dv).  ``di`` = :func:`flash_attention_di` (o, do),
+    formed here when not given (the kernel reads di, not o).
 
     CPU tensors run :func:`flash_attention_bwd_ref`; CUDA tensors launch
     the kernel (fp32, contiguous — anything else raises)."""
-    geometry = _check_flash(q, k, v, o, lse, do)
+    geometry = _check_flash(q, k, v, o, lse, do, di)
     scale = _flash_scale(q, sm_scale)
-    if not _on_card(q, k, v, o, lse, do):
-        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal,
-                                       scale)[1:]
-    _check_flash_operands(q=q, k=k, v=v, o=o, lse=lse, do=do)
+    if not _on_card(*[t for t in (q, k, v, o, lse, do, di)
+                      if t is not None]):
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal, scale,
+                                       di)[1:]
+    if di is None:
+        di = flash_attention_di(o, do)
+    _check_flash_operands(q=q, k=k, v=v, di=di, lse=lse, do=do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _flash_launch("flash_attention_bwd_dkv", "flash_attention_bwd_dkv_f32",
-                  (q, k, v, o, lse, do, dk, dv), geometry, causal, scale)
+                  (q, k, v, di, lse, do, dk, dv), geometry, causal, scale)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -873,21 +889,25 @@ def flash_attention_bwd_dkv(q, k, v, o, lse, do, causal=True, sm_scale=None):
 flash_attention_bwd_dkv.launches = 0
 
 
-def flash_attention_bwd_dq(q, k, v, o, lse, do, causal=True, sm_scale=None):
+def flash_attention_bwd_dq(q, k, v, o, lse, do, causal=True, sm_scale=None,
+                           di=None):
     """The dQ pass of the flash backward (kernel 7c), from the same
     operands as :func:`flash_attention_bwd_dkv`; returns dq.
 
     CPU tensors run :func:`flash_attention_bwd_ref`; CUDA tensors launch
     the kernel (fp32, contiguous — anything else raises)."""
-    geometry = _check_flash(q, k, v, o, lse, do)
+    geometry = _check_flash(q, k, v, o, lse, do, di)
     scale = _flash_scale(q, sm_scale)
-    if not _on_card(q, k, v, o, lse, do):
-        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal,
-                                       scale)[0]
-    _check_flash_operands(q=q, k=k, v=v, o=o, lse=lse, do=do)
+    if not _on_card(*[t for t in (q, k, v, o, lse, do, di)
+                      if t is not None]):
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal, scale,
+                                       di)[0]
+    if di is None:
+        di = flash_attention_di(o, do)
+    _check_flash_operands(q=q, k=k, v=v, di=di, lse=lse, do=do)
     dq = torch.empty_like(q)
     _flash_launch("flash_attention_bwd_dq", "flash_attention_bwd_dq_f32",
-                  (q, k, v, o, lse, do, dq), geometry, causal, scale)
+                  (q, k, v, di, lse, do, dq), geometry, causal, scale)
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -897,8 +917,9 @@ flash_attention_bwd_dq.launches = 0
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention: the forward kernel saves (q, k,
-    v, o, lse); the backward runs the dK/dV and the dQ kernels — one
-    launch each.  ``FlashAttention.apply(q, k, v, causal, sm_scale)``."""
+    v, o, lse); the backward forms di = rowsum(o·do) once and runs the
+    dK/dV and the dQ kernels on it — one launch each.
+    ``FlashAttention.apply(q, k, v, causal, sm_scale)``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal=True, sm_scale=None):
@@ -911,8 +932,10 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        dk, dv = flash_attention_bwd_dkv(q, k, v, o, lse, do, *ctx.hyper)
-        dq = flash_attention_bwd_dq(q, k, v, o, lse, do, *ctx.hyper)
+        di = flash_attention_di(o, do)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, o, lse, do, *ctx.hyper,
+                                         di=di)
+        dq = flash_attention_bwd_dq(q, k, v, o, lse, do, *ctx.hyper, di=di)
         return dq, dk, dv, None, None
 
 
@@ -940,4 +963,5 @@ __all__ = ["NEG_INF", "serving_kernels_supported", "fused_sgd_update",
            "paged_flash_prefill_ref", "flash_attention_fwd",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
            "flash_attention_ref", "flash_attention_bwd_ref",
+           "flash_attention_di",
            "FlashAttention", "reset_launch_counts", "launch_counts"]
