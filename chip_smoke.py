@@ -21,7 +21,12 @@ Phases (any failure exits nonzero before the final line is printed):
    (library: scaled_dot_product_attention on the gathered view), then
    (checked, not timed) long page tables — a 16384-token lane view at
    head_dim 128 — and a head_dim that is neither a multiple of 4 nor
-   below 256; the fused SGD kernel at MNIST-FC's four parameters,
+   below 256, and the split-KV decode's edges on a 16384-token view
+   (lanes short of their first page's end, a window with sinks that
+   empties the splits between); each decode call's split count, one
+   call under ``set_sync_debug_mode("error")`` (the wrapper never reads
+   the card on the host) and a bit-equal second launch; the fused SGD
+   kernel at MNIST-FC's four parameters,
    AlexNet's sixteen, a 4096x4096 weight, odd sizes, weight decay with
    an L1 mix and a clip (no library call computes that function); the
    LRN forward and backward kernels at AlexNet's two LRN layers (library:
@@ -67,11 +72,12 @@ Phases (any failure exits nonzero before the final line is printed):
 The kernels phase also holds the three flash-attention kernels (forward,
 dK/dV pass, dQ pass; ``flash_attention.cu``) at the LM's train shape
 (32 x 8 heads, s 512, head_dim 64, causal), with kernel, plain and SDPA
-times, the 3xTF32 and fp32-FMA bounds, and the elements four faulty
-plain versions put outside the limits (one of them the plain backward
-in single TF32 products); then, checked only, s 200 non-causal at
+times, the 3xTF32 and fp32-FMA bounds, and the elements six faulty
+plain versions put outside the limits (among them the forward and the
+backward in single TF32 products, and the forward without the
+small(P).big(v) term); then, checked only, s 200 non-causal at
 head_dim 32, 40, 128 and 37 (rows not 16-byte aligned), and scores
-peaked at ±100.  In every case each backward kernel is launched twice
+peaked at ±100.  In every case each kernel is launched twice
 (bit-equal) and held against an fp64 plain version: its error at most
 ``FLASH_FP64_FACTOR`` times the fp32 plain version's.
 
@@ -189,7 +195,7 @@ FLASH_MAIN = (32, 8, 512, 64)
 #: to 512 terms in another order than cuBLAS's (~1e-6 expected); the
 #: peaked case (scores near ±100) scales the limit by the output's size
 FLASH_ATOL = 1e-4
-#: the backward kernels (3xTF32 on the tensor cores) against an fp64 plain
+#: the flash kernels (3xTF32 on the tensor cores) against an fp64 plain
 #: version on the same inputs: their max abs error at most this many times
 #: the fp32 plain version's (fp32 accuracy; one TF32 product would not be)
 FLASH_FP64_FACTOR = 4.0
@@ -293,7 +299,13 @@ def live_pages(ptab_width, page, pos, c, window=None, sinks=0,
 
 
 def decode_case(torch, HK, A, b=8, h=8, kv=8, c=1, dh=64, page=32, m=16,
-                window=None, sinks=0, seed=0, timed=True):
+                window=None, sinks=0, seed=0, timed=True, shallow=False):
+    """Kernel 5 against its plain version; the wrapper's call made under
+    ``set_sync_debug_mode("error")`` (it must not read the card on the
+    host: pos stays there), and repeated (bit-equal: the splits meet in a
+    fixed order).  Lanes sit deep in their tables, as a long-running
+    batch does, or with ``shallow`` below their first page's end (every
+    split but the first empty)."""
     dev = torch.device("cuda")
     rng = numpy.random.RandomState(seed)
     n_pages = b * m + 1
@@ -304,23 +316,36 @@ def decode_case(torch, HK, A, b=8, h=8, kv=8, c=1, dh=64, page=32, m=16,
     vp = torch.as_tensor(rng.randn(n_pages, kv, page, dh).astype(
         numpy.float32), device=dev)
     ptab_h = (1 + rng.permutation(b * m)).reshape(b, m).astype(numpy.int32)
-    # lanes deep in their tables, as a long-running batch sits
-    pos_h = rng.randint(m * page - 32, m * page - c + 1, b).astype(
-        numpy.int32)
+    if shallow:
+        pos_h = rng.randint(0, page - c + 1, b).astype(numpy.int32)
+    else:
+        pos_h = rng.randint(m * page - 32, m * page - c + 1, b).astype(
+            numpy.int32)
     ptab = torch.as_tensor(ptab_h, device=dev)
     pos = torch.as_tensor(pos_h, device=dev)
 
-    got = HK.paged_flash_decode(q, kp, vp, ptab, pos, window, sinks)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = HK.paged_flash_decode(q, kp, vp, ptab, pos, window, sinks)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    again = HK.paged_flash_decode(q, kp, vp, ptab, pos, window, sinks)
     ref = HK.paged_flash_decode_ref(q, kp, vp, ptab, pos, window, sinks)
     torch.cuda.synchronize()
     err = (got - ref).abs().max().item()
     check(err <= KERNEL_ATOL, "decode max abs err %g > %g" % (err,
                                                              KERNEL_ATOL))
+    check(torch.equal(got, again), "decode: two launches differ")
+    pages = live_pages(m, page, pos_h, c, window, sinks)
     shape = {"b": b, "h": h, "kv": kv, "c": c, "dh": dh, "page": page,
-             "m": m, "window": window, "sinks": sinks}
+             "m": m, "window": window, "sinks": sinks,
+             "splits": HK.decode_splits(b, h, kv, c, dh, m),
+             "live_pages": sum(pages)}
     if not timed:
         return {"kernel": "paged_flash_decode", "shape": shape,
-                "max_abs_err": err}
+                "max_abs_err": err, "no_host_sync": True,
+                "bit_equal_repeat": True}
     pools = [(kp, vp)] + [(kp.clone(), vp.clone()) for _ in range(COPIES - 1)]
     ms = time_ms([lambda k=k, v=v: HK.paged_flash_decode(
         q, k, v, ptab, pos, window, sinks) for k, v in pools], torch)
@@ -336,13 +361,12 @@ def decode_case(torch, HK, A, b=8, h=8, kv=8, c=1, dh=64, page=32, m=16,
     library_ms = time_ms([lambda kx=kx, vx=vx: sdpa(q, kx, vx,
                                                     attn_mask=mask)
                           for kx, vx in views], torch)
-    pages = sum(live_pages(m, page, pos_h, c, window, sinks))
     n_bytes = (2 * q.numel() * 4 + ptab.numel() * 4 + pos.numel() * 4
-               + pages * 2 * kv * page * dh * 4)
-    n_flops = 4 * (h // kv) * c * pages * kv * page * dh
+               + sum(pages) * 2 * kv * page * dh * 4)
+    n_flops = 4 * (h // kv) * c * sum(pages) * kv * page * dh
     bound_ms, bound_by = bound(n_bytes, n_flops)
-    return {"kernel": "paged_flash_decode",
-            "shape": dict(shape, live_pages=pages),
+    return {"kernel": "paged_flash_decode", "shape": shape,
+            "no_host_sync": True, "bit_equal_repeat": True,
             "max_abs_err": err, "kernel_ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_max_abs_err": library_err,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes}
@@ -641,13 +665,22 @@ def dropout_case(torch, HK, prng, name, shape, rate=0.5, seed=0,
 
 
 # ------------------------------------------------------- flash attention
+def tf32_round(torch, x):
+    """x rounded to TF32 (its top 19 bits, to nearest, ties away from
+    zero): the kernels' big part of a 3xTF32 split."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
 def flash_faults(torch, HK, q, k, v, do, causal, o_ref, grads_ref, limit):
-    """{fault: elements outside the limits} for four faulty plain
-    versions: the causal mask as col < row (the forward; its row 0 has no
-    key left, so NaN, which counts as outside), the backward without di,
-    dQ without sm_scale, and the backward's products as one TF32 product
-    each (what a kernel that dropped 3xTF32's small parts computes).  Each
-    count must be nonzero, or the checks could not see that fault."""
+    """{fault: elements outside the limits} for six faulty plain versions:
+    the causal mask as col < row (the forward; its row 0 has no key left,
+    so NaN, which counts as outside), the forward's two products as one
+    TF32 product each, the forward's o += P v without the small(P).big(v)
+    term (P rounded to TF32, as a kernel that dropped it computes), the
+    backward without di, dQ without sm_scale, and the backward's products
+    as one TF32 product each (what a kernel that dropped 3xTF32's small
+    parts computes).  Each count must be nonzero, or the checks could not
+    see that fault."""
     scale = float(1.0 / q.shape[-1] ** 0.5)
 
     def outside(got, want):
@@ -663,6 +696,15 @@ def flash_faults(torch, HK, q, k, v, do, causal, o_ref, grads_ref, limit):
     del o_bad
     o, lse = HK.flash_attention_ref(q, k, v, causal)
     p = torch.exp(HK._flash_scores(q, k, causal, scale) - lse[..., None])
+    out["fwd_without_small_big"] = outside(torch.matmul(tf32_round(torch, p),
+                                                        v), o_ref)
+    prior = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        out["fwd_tf32_single_product"] = outside(
+            HK.flash_attention_ref(q, k, v, causal)[0], o_ref)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prior
     dp = torch.matmul(do, v.transpose(-1, -2))
     ds = p * dp                                  # without di
     out["bwd_without_di"] = (outside(torch.matmul(ds, k) * scale,
@@ -687,9 +729,9 @@ def flash_case(torch, HK, b, h, s, dh, causal=True, seed=0, timed=True,
                peak=None):
     """Kernels 7a, 7b, 7c at (b, h, s, dh) against their plain versions
     (both backward kernels take the plain forward's o and lse, so each
-    is held alone); each backward kernel also against an fp64 plain
-    version beside the fp32 one, and launched twice (bit-equal); timed,
-    also against SDPA and its autograd backward.  ``peak`` scales q so
+    is held alone); each kernel also against an fp64 plain version beside
+    the fp32 one, and launched twice (bit-equal); timed, also against
+    SDPA and its autograd backward.  ``peak`` scales q so
     the largest score reaches it.  Returns three records: forward, dK/dV,
     dQ."""
     dev = torch.device("cuda")
@@ -704,6 +746,7 @@ def flash_case(torch, HK, b, h, s, dh, causal=True, seed=0, timed=True,
         q = q * (peak / (torch.matmul(q, k.transpose(-1, -2))
                          / dh ** 0.5).abs().max())
     o, lse = HK.flash_attention_fwd(q, k, v, causal)
+    o2, lse2 = HK.flash_attention_fwd(q, k, v, causal)
     o_ref, lse_ref = HK.flash_attention_ref(q, k, v, causal)
     inputs = (q, k, v, o_ref, lse_ref, do)
     dk, dv = HK.flash_attention_bwd_dkv(*inputs, causal)
@@ -714,10 +757,12 @@ def flash_case(torch, HK, b, h, s, dh, causal=True, seed=0, timed=True,
     grads_ref = HK.flash_attention_bwd_ref(*inputs, causal)
     torch.cuda.synchronize()
     shape = (b, h, s, dh, causal, peak)
+    fwd_repeat = torch.equal(o, o2) and torch.equal(lse, lse2)
+    check(fwd_repeat, "flash forward at %r: two launches differ" % (shape,))
     repeat = all(torch.equal(x, y) for x, y in ((dq, dq2), (dk, dk2),
                                                  (dv, dv2)))
     check(repeat, "flash backward at %r: two launches differ" % (shape,))
-    del dq2, dk2, dv2
+    del o2, lse2, dq2, dk2, dv2
     errs = {}
     for name, got, want in (("o", o, o_ref), ("lse", lse, lse_ref),
                             ("dq", dq, grads_ref[0]), ("dk", dk, grads_ref[1]),
@@ -728,13 +773,16 @@ def flash_case(torch, HK, b, h, s, dh, causal=True, seed=0, timed=True,
         check(bool(torch.isfinite(got).all()) and errs[name] <= limit,
               "flash %s at %r: max abs err %g > %g"
               % (name, shape, errs[name], limit))
-    # the same function in fp64 on the same inputs: the kernels' error
+    # the same functions in fp64 on the same inputs: the kernels' error
     # beside the fp32 plain version's
     grads64 = HK.flash_attention_bwd_ref(*(x.double() for x in inputs),
                                          causal)
+    fwd64 = HK.flash_attention_ref(q.double(), k.double(), v.double(), causal)
     fp64 = {}
-    for name, got, plain, want in zip(("dq", "dk", "dv"), (dq, dk, dv),
-                                      grads_ref, grads64):
+    for name, got, plain, want in zip(("o", "lse", "dq", "dk", "dv"),
+                                      (o, lse, dq, dk, dv),
+                                      (o_ref, lse_ref) + tuple(grads_ref),
+                                      fwd64 + tuple(grads64)):
         fp64[name] = {"kernel": (got.double() - want).abs().max().item(),
                       "plain_fp32": (plain.double() - want).abs().max()
                       .item()}
@@ -744,11 +792,13 @@ def flash_case(torch, HK, b, h, s, dh, causal=True, seed=0, timed=True,
               "plain version's %g" % (name, shape, fp64[name]["kernel"],
                                       FLASH_FP64_FACTOR,
                                       fp64[name]["plain_fp32"]))
-    del grads64
+    del grads64, fwd64
     shape = {"b": b, "h": h, "s": s, "dh": dh, "causal": causal,
              "peak": peak}
     recs = [{"kernel": "flash_attention_fwd", "shape": shape,
-             "max_abs_err": max(errs["o"], errs["lse"])},
+             "max_abs_err": max(errs["o"], errs["lse"]),
+             "fp64_err": {n: fp64[n] for n in ("o", "lse")},
+             "bit_equal_repeat": fwd_repeat},
             {"kernel": "flash_attention_bwd_dkv", "shape": shape,
              "max_abs_err": max(errs["dk"], errs["dv"]),
              "fp64_err": {n: fp64[n] for n in ("dk", "dv")},
@@ -762,7 +812,9 @@ def flash_case(torch, HK, b, h, s, dh, causal=True, seed=0, timed=True,
                           FLASH_ATOL)
     check(all(n > 0 for n in faults.values()), "flash: a fault would pass "
           "the limits: %r" % faults)
-    recs[0]["faults_caught"] = {"mask_col_lt_row": faults["mask_col_lt_row"]}
+    recs[0]["faults_caught"] = {n: faults[n] for n in (
+        "mask_col_lt_row", "fwd_without_small_big",
+        "fwd_tf32_single_product")}
     recs[1]["faults_caught"] = {n: faults[n] for n in (
         "bwd_without_di", "tf32_single_product")}
     recs[2]["faults_caught"] = {n: faults[n] for n in (
@@ -1567,6 +1619,13 @@ def main():
                           m=40, seed=6, timed=False),
               decode_case(torch, HK, A, b=2, h=4, kv=4, dh=320, page=64,
                           m=8, seed=7, timed=False),
+              # split-KV edges on a 16384-token view: lanes short of their
+              # first page's end (every split but the first empty), and a
+              # window with sinks (the splits between empty)
+              decode_case(torch, HK, A, m=512, seed=9, timed=False,
+                          shallow=True),
+              decode_case(torch, HK, A, m=512, window=256, sinks=4,
+                          seed=10, timed=False),
               prefill_case(torch, HK, A, 400, kv=2, dh=128, m=512, seed=8,
                            timed=False)]
     sgd = sgd_cases(torch, HK)

@@ -17,10 +17,10 @@ double-rounding tie).  The LRN kernels sum each window in the plain
 version's order, and differ from it only where CUDA's powf and PyTorch's
 pow round differently: forward rtol/atol 2e-6, backward rtol 3e-5 /
 atol 3e-6 (the reference's Pallas-vs-XLA tolerances).  Dropout is
-bit-equal to its plain version.  The flash backward kernels (3xTF32 on
-the tensor cores) repeat bit for bit from launch to launch, and their
-error against an fp64 plain version is at most 4x the fp32 plain
-version's.
+bit-equal to its plain version.  The flash kernels (3xTF32 on the
+tensor cores) and the split-KV decode repeat bit for bit from launch to
+launch, and the flash kernels' error against an fp64 plain version is at
+most 4x the fp32 plain version's.
 """
 
 import numpy
@@ -148,6 +148,59 @@ def test_any_table_width_and_head_dim(kernel, h, kv, c, dh, page, m,
                                                pos, window, sinks)
         assert torch.equal(kp, kr) and torch.equal(vp, vr)
     torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,c,dh,page,m,window,sinks,shallow", [
+    (8, 8, 8, 1, 64, 32, 512, None, 0, True),   # every split but one empty
+    (8, 8, 8, 1, 64, 32, 512, 256, 4, False),   # middle splits empty
+    (4, 8, 2, 4, 128, 16, 300, 700, 3, False),
+    (2, 4, 2, 3, 40, 8, 17, None, 0, True),
+])
+def test_decode_split_edges_and_repeat(b, h, kv, c, dh, page, m, window,
+                                       sinks, shallow):
+    """The split-KV decode over ranges whose pages are all dead matches
+    the plain version, and repeats bit for bit (the splits meet in a
+    fixed order)."""
+    dev = _card()
+    rng = numpy.random.RandomState(m + c)
+    n_pages = b * m + 1
+    q = _randn(rng, b, h, c, dh, dev=dev)
+    kp = _randn(rng, n_pages, kv, page, dh, dev=dev)
+    vp = _randn(rng, n_pages, kv, page, dh, dev=dev)
+    ptab = _tables(rng, b, m, n_pages, dev)
+    top = page - c + 1 if shallow else m * page - c + 1
+    pos = torch.as_tensor(rng.randint(top - min(top, 40), top, b)
+                          .astype(numpy.int32), device=dev)
+    assert HK.decode_splits(b, h, kv, c, dh, m) > 1
+    got = HK.paged_flash_decode(q, kp, vp, ptab, pos, window, sinks)
+    again = HK.paged_flash_decode(q, kp, vp, ptab, pos, window, sinks)
+    ref = HK.paged_flash_decode_ref(q, kp, vp, ptab, pos, window, sinks)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= ATOL
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_decode_makes_no_host_sync():
+    """pos stays on the card: the wrapper (split count, workspace, both
+    launches) never waits for the card."""
+    dev = _card()
+    rng = numpy.random.RandomState(3)
+    q = _randn(rng, 8, 8, 1, 64, dev=dev)
+    kp = _randn(rng, 129, 8, 32, 64, dev=dev)
+    vp = _randn(rng, 129, 8, 32, 64, dev=dev)
+    ptab = _tables(rng, 8, 16, 129, dev)
+    pos = torch.full((8,), 500, dtype=torch.int32, device=dev)
+    HK.paged_flash_decode(q, kp, vp, ptab, pos)      # builds the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = HK.paged_flash_decode(q, kp, vp, ptab, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref = HK.paged_flash_decode_ref(q, kp, vp, ptab, pos)
     assert (got - ref).abs().max().item() <= ATOL
 
 
@@ -424,6 +477,30 @@ def test_flash_backward_fp32_accurate(sq, sk, dh, causal):
     exact = HK.flash_attention_bwd_ref(*(t.double() for t in inputs), causal)
     torch.cuda.synchronize()
     for got, fp32, want in zip((dq, dk, dv), plain, exact):
+        err = (got.double() - want).abs().max().item()
+        assert err <= 4.0 * (fp32.double() - want).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,dh,causal", [(512, 512, 64, True),
+                                             (200, 200, 37, False),
+                                             (96, 160, 128, True),
+                                             (130, 70, 200, False)])
+def test_flash_forward_fp32_accurate_and_repeats(sq, sk, dh, causal):
+    """The forward on the tensor cores: o and lse against an fp64 plain
+    version within 4x the fp32 plain version's error, and a second
+    launch bit-equal to the first."""
+    dev = _card()
+    q, k, v, _ = _flash_operands(numpy.random.RandomState(sq + dh), 2, 4,
+                                 sq, sk, dh, dev)
+    first = HK.flash_attention_fwd(q, k, v, causal)
+    second = HK.flash_attention_fwd(q, k, v, causal)
+    plain = HK.flash_attention_ref(q, k, v, causal)
+    exact = HK.flash_attention_ref(q.double(), k.double(), v.double(),
+                                   causal)
+    torch.cuda.synchronize()
+    for got, again, fp32, want in zip(first, second, plain, exact):
+        assert torch.equal(got, again)
         err = (got.double() - want).abs().max().item()
         assert err <= 4.0 * (fp32.double() - want).abs().max().item()
 

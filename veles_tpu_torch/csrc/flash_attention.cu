@@ -35,16 +35,7 @@
 // product (below): 0.052 / 0.104 / 0.078 ms at the dense 495 TFLOP/s TF32
 // rate, against 0.128 / 0.257 / 0.193 ms as fp32 FMA on the CUDA cores.
 //
-// Forward (fp32 FMA on the CUDA cores, simple and exact before fast):
-// - a block of 256 threads owns one 64-row query tile and walks the key tiles
-//   in ascending order inside the block (the TPU grid's sequential axis
-//   become a loop), skipping tiles wholly above the diagonal (the bundled
-//   kernel's below_or_on_diag); blocks are issued longest-first.
-// - tiles are staged in shared memory as 64 x 65 floats (the odd stride keeps
-//   its access patterns free of bank conflicts); each thread holds a 4 x 4
-//   strided piece of the score and accumulator tiles in registers.
-//
-// Backward (the two passes on the tensor cores):
+// All three kernels run every product on the tensor cores:
 // - products are mma.sync m16n8k8 in 3xTF32: each fp32 operand x splits into
 //   big = tf32(x) and small = tf32(x - big) (rounded to nearest by integer
 //   arithmetic: cvt issues at a quarter of its rate and was the first
@@ -56,8 +47,35 @@
 //   plain version's accuracy on the card, while this keeps it.  One TF32
 //   product alone keeps ~3 decimal digits and would change the result.
 //   wgmma is not used: in TF32 it takes B only K-major from shared memory,
-//   and three of the five products (dv += P^T do, dk += dS^T q, dq += dS k)
-//   have B the other way.
+//   and four of the seven products (o += P v, dv += P^T do, dk += dS^T q,
+//   dq += dS k) have B the other way.
+//
+// Forward (7a):
+// - a block of 4 warps owns 64 query rows and walks the key tiles in
+//   ascending order inside the block (the TPU grid's sequential axis
+//   becomes a loop), skipping tiles wholly above the diagonal (the bundled
+//   kernel's below_or_on_diag); blocks are issued longest walk first.
+// - FlashAttention-2's forward layout: warp w owns 16 query rows across
+//   all 64 keys of a tile, so a row's running max and sum need only the
+//   four lanes of its quad (two shuffles), never another warp.  S = q k^T
+//   lands in 32 accumulators a thread; the online softmax turns them into
+//   P in place; P feeds o += P v as A operands straight from those
+//   registers, split there, in the permuted k order of store_c (no trip
+//   through shared memory).  64 accumulators a thread (S and o), and the
+//   partial sums of all eight fragments of a product, issued interleaved.
+// - the rescale by alpha = exp(m_old - m_new) touches only the fp32 o
+//   accumulators; every 16-deep partial sum still starts from zero and is
+//   added in fp32.  P lies in [0, 1], so its small part is tiny, but the
+//   small.big term stays (without it o carries P's TF32 rounding).
+// - q is staged once, split once and kept fragment-native in shared memory;
+//   k and v tiles are double-buffered by 16-byte cp.async (4-byte where
+//   D % 4 != 0), 100 KB a block, two blocks an SM.  Key blocks past sk or
+//   wholly after the warp's last row (causal) skip P v; the diagonal tile
+//   is masked with -inf before the max.
+// - D > 64 contracts S over 64-wide chunks staged in turn and accumulates
+//   one 64-wide chunk of o a block (grid.z), as the backward does.
+//
+// Backward (7b, 7c):
 // - a block of 8 warps owns 64 rows: keys in dK/dV (S^T = k q^T and dP^T =
 //   v do^T, FlashAttention-2's layout), query rows in dQ (S = q k^T, dP =
 //   do v^T).  Each warp forms a 32 x 16 piece of S and dP, turns it into P
@@ -104,82 +122,15 @@
 
 namespace {
 
-constexpr int kThreads = 256;       // forward block
 constexpr int kT = 64;              // tile rows = tile keys = D chunk
-constexpr int kLd = kT + 1;         // padded row stride of a forward tile
-constexpr int kTile = kT * kLd;     // floats in one forward tile
+constexpr int kFwdThreads = 128;    // forward block: 4 warps of 16 rows
 constexpr int kBwdThreads = 256;    // backward block: 8 warps, each
 constexpr int kWM = 2;              //   owning 2 16-row blocks
 constexpr int kWN = 2;              //   x 2 8-wide column blocks of a tile
-constexpr int kBLd = kT + 4;        // row stride of a backward tile (16 B rows)
-constexpr int kBTile = kT * kBLd;   // floats in one backward tile
+constexpr int kBLd = kT + 4;        // row stride of a staged tile (16 B rows)
+constexpr int kBTile = kT * kBLd;   // floats in one staged tile
 constexpr int kN8 = kT / 8;         // 8-wide column blocks of a tile
 constexpr size_t kMaxSmem = 227 * 1024;
-
-// Rows [row0, row0 + 64) x columns [col0, col0 + 64) of a (rows, dh)
-// row-major matrix into a shared tile; zero outside the matrix.
-__device__ __forceinline__ void load_tile(float* dst,
-                                          const float* __restrict__ src,
-                                          int row0, int rows, int col0,
-                                          int dh) {
-    for (int idx = threadIdx.x; idx < kT * kT; idx += kThreads) {
-        const int r = idx >> 6, c = idx & (kT - 1);
-        const int gr = row0 + r, gc = col0 + c;
-        dst[r * kLd + c] =
-            (gr < rows && gc < dh) ? __ldg(src + (int64_t)gr * dh + gc) : 0.f;
-    }
-}
-
-// acc[i][j] += sum_d a[ty + 16i][d] * b[tx + 16j][d]        (a b^T)
-__device__ __forceinline__ void mma_nt(float acc[4][4], const float* a,
-                                       const float* b, int ty, int tx) {
-#pragma unroll 8
-    for (int d = 0; d < kT; ++d) {
-        float av[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            av[i] = a[(ty + 16 * i) * kLd + d];
-            bv[i] = b[(tx + 16 * i) * kLd + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-}
-
-// acc[i][j] += sum_k a[ty + 16i][k] * b[k][tx + 16j]        (a b)
-__device__ __forceinline__ void mma_nn(float acc[4][4], const float* a,
-                                       const float* b, int ty, int tx) {
-#pragma unroll 8
-    for (int k = 0; k < kT; ++k) {
-        float av[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            av[i] = a[(ty + 16 * i) * kLd + k];
-            bv[i] = b[k * kLd + tx + 16 * i];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-}
-
-// Reduce over the 16 lanes that share a row (a half warp: tx = lane & 15).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-    return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-        x += __shfl_xor_sync(0xffffffffu, x, off);
-    return x;
-}
 
 // The block's (head, tile) from blockIdx.x = tile * bh + head: every
 // head's tile t is issued before any head's tile t + 1.  With reverse, the
@@ -191,97 +142,7 @@ __device__ __forceinline__ void block_coords(int bh, int tiles, bool reverse,
     *tile = reverse ? tiles - 1 - t : t;
 }
 
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int bh, int sq, int sk, int dh,
-                 int causal, float scale) {
-    extern __shared__ float smem[];
-    float* qs = smem;
-    float* ks = qs + kTile;
-    float* vs = ks + kTile;
-    float* ps = vs + kTile;
-    const int tiles = (sq + kT - 1) / kT;
-    int head, qt;
-    block_coords(bh, tiles, causal != 0, &head, &qt);
-    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-    const int q0 = qt * kT, c0 = blockIdx.z * kT;
-    const float* qh = q + (int64_t)head * sq * dh;
-    const float* kh = k + (int64_t)head * sk * dh;
-    const float* vh = v + (int64_t)head * sk * dh;
-    const bool resident = dh <= kT;
-    const int k_end = causal ? min(sk, q0 + kT) : sk;
-
-    float m[4], l[4], acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        m[i] = -INFINITY;
-        l[i] = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    }
-    if (resident) load_tile(qs, qh, q0, sq, 0, dh);
-
-    for (int k0 = 0; k0 < k_end; k0 += kT) {
-        float s[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-        for (int d0 = 0; d0 < dh; d0 += kT) {
-            if (!resident) load_tile(qs, qh, q0, sq, d0, dh);
-            load_tile(ks, kh, k0, sk, d0, dh);
-            __syncthreads();
-            mma_nt(s, qs, ks, ty, tx);
-            __syncthreads();
-        }
-        load_tile(vs, vh, k0, sk, c0, dh);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int row = q0 + ty + 16 * i;
-            float mx = -INFINITY;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int col = k0 + tx + 16 * j;
-                const bool live = col < sk && (!causal || col <= row);
-                s[i][j] = live ? s[i][j] * scale : -INFINITY;
-                mx = fmaxf(mx, s[i][j]);
-            }
-            const float m_new = fmaxf(m[i], row_max(mx));
-            // a row with no live key yet keeps p = 0 and alpha = 1
-            const float m_use = m_new == -INFINITY ? 0.f : m_new;
-            const float alpha = expf(m[i] - m_use);
-            l[i] *= alpha;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                acc[i][j] *= alpha;
-                const float p = expf(s[i][j] - m_use);
-                l[i] += p;
-                ps[(ty + 16 * i) * kLd + tx + 16 * j] = p;
-            }
-            m[i] = m_new;
-        }
-        __syncthreads();
-        mma_nn(acc, ps, vs, ty, tx);
-        __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const float lsum = row_sum(l[i]);
-        const int row = q0 + ty + 16 * i;
-        if (row >= sq) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int col = c0 + tx + 16 * j;
-            if (col < dh) o[((int64_t)head * sq + row) * dh + col] = acc[i][j] / lsum;
-        }
-        if (blockIdx.z == 0 && tx == 0)
-            lse[(int64_t)head * sq + row] = m[i] + logf(lsum);
-    }
-}
-
-// ------------------------------------------------------------------ backward
+// --------------------------------------------- tensor-core building blocks
 // cp.async of 16 or 4 bytes; with in == false nothing is read and the
 // destination is zero-filled.
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -312,12 +173,13 @@ __device__ __forceinline__ void cp_wait() {
 // row-major matrix into a backward tile (stride kBLd), zero outside the
 // matrix; vec: 16-byte copies (dh % 4 == 0 and src 16-byte aligned, so a
 // group of 4 columns is wholly in or out).
+template <int kN = kBwdThreads>
 __device__ __forceinline__ void stage_tile(float* dst,
                                            const float* __restrict__ src,
                                            int row0, int rows, int col0,
                                            int dh, bool vec) {
     if (vec) {
-        for (int idx = threadIdx.x; idx < kT * kT / 4; idx += kBwdThreads) {
+        for (int idx = threadIdx.x; idx < kT * kT / 4; idx += kN) {
             const int r = idx >> 4, c = (idx & 15) << 2;
             const int gr = row0 + r, gc = col0 + c;
             const bool in = gr < rows && gc < dh;
@@ -325,7 +187,7 @@ __device__ __forceinline__ void stage_tile(float* dst,
                        in ? src + (int64_t)gr * dh + gc : src, in);
         }
     } else {
-        for (int idx = threadIdx.x; idx < kT * kT; idx += kBwdThreads) {
+        for (int idx = threadIdx.x; idx < kT * kT; idx += kN) {
             const int r = idx >> 6, c = idx & (kT - 1);
             const int gr = row0 + r, gc = col0 + c;
             const bool in = gr < rows && gc < dh;
@@ -389,10 +251,11 @@ __device__ __forceinline__ void store_split(float4* big, float4* small,
 
 // A staged 64-row tile as fragment-native A operands in natural k order
 // (lane g, t: (g, t), (g+8, t), (g, t+4), (g+8, t+4) of its block); all
-// threads of the block take part.
+// kN threads of the block take part.
+template <int kN = kBwdThreads>
 __device__ __forceinline__ void frag_from_tile(float4* big, float4* small,
                                                const float* tile) {
-    for (int u = threadIdx.x; u < kFrag; u += kBwdThreads) {
+    for (int u = threadIdx.x; u < kFrag; u += kN) {
         const int lane = u & 31, m = u >> 8, kb = (u >> 5) & (kN8 - 1);
         const float* p =
             tile + (16 * m + (lane >> 2)) * kBLd + 8 * kb + (lane & 3);
@@ -493,6 +356,243 @@ __device__ __forceinline__ void product(float acc[kWM][kWN][4],
             for (int i = 0; i < kWN; ++i)
 #pragma unroll
                 for (int e = 0; e < 4; ++e) acc[mi][i][e] += part[mi][i][e];
+    }
+}
+
+// ------------------------------------------------------------------ forward
+// One warp, lane = 4 g + t: acc[i] (the 16 x 8 accumulator fragment of the
+// warp's 16 rows, output columns 8i..) += A . B over the 8-wide k blocks
+// [kb0, kb1), in 3xTF32.  fetch(kb, big, small) gives the lane's A fragment
+// of k block kb, split; B is read from a staged tile in the pattern of
+// product() (kPairs false: B = b[8i .. +8][8kb .. +8]^T; kPairs true: B =
+// b[8kb .. +8][8i .. +8] in store_c's permuted k order) and split on the
+// fly.  As in product(), two k steps at a time sum as.bb + ab.bs + ab.bb
+// from zero in the tensor cores and the sum is added to acc in fp32.  The
+// eight accumulator fragments are independent, so their products issue
+// interleaved (one fragment at a time would chain six dependent mma.sync).
+template <bool kPairs, typename FetchA>
+__device__ __forceinline__ void row_product(float acc[kN8][4], FetchA fetch,
+                                            int kb0, int kb1, const float* b,
+                                            int g, int t) {
+    const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kp = 0; kp < kN8; kp += 2) {
+        if (kp + 2 <= kb0 || kp >= kb1) continue;
+        uint32_t ab[2][4], as[2][4];
+        fetch(kp, ab[0], as[0]);
+        fetch(kp + 1, ab[1], as[1]);
+        float part[kN8][4];
+#pragma unroll
+        for (int step = 0; step < 2; ++step) {
+            const int kb = kp + step;
+            uint32_t bb[kN8][2], bs[kN8][2];
+#pragma unroll
+            for (int i = 0; i < kN8; ++i) {
+                const float* br =
+                    kPairs ? b + (8 * kb + 2 * t) * kBLd + 8 * i + g
+                           : b + (8 * i + g) * kBLd + 8 * kb + t;
+                split(br[0], bb[i][0], bs[i][0]);
+                split(br[kPairs ? kBLd : 4], bb[i][1], bs[i][1]);
+            }
+#pragma unroll
+            for (int i = 0; i < kN8; ++i)
+                mma_tf32(part[i], as[step], bb[i], step ? part[i] : zero);
+#pragma unroll
+            for (int i = 0; i < kN8; ++i)
+                mma_tf32(part[i], ab[step], bs[i], part[i]);
+#pragma unroll
+            for (int i = 0; i < kN8; ++i)
+                mma_tf32(part[i], ab[step], bb[i], part[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < kN8; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][e] += part[i][e];
+    }
+}
+
+// The forward: a block of 4 warps owns 64 query rows and walks the key
+// tiles; warp w owns rows 16w.. across all 64 keys of a tile
+// (FlashAttention-2's forward layout), so a row's max and sum stay within
+// the lane quad that holds it.  Per key tile the warp forms S = q k^T
+// (q fragment-native and pre-split in shared memory, k from the staged
+// tile), folds it into its rows' online softmax in registers, and adds
+// P v with P taken straight from the S accumulators as A operands (the
+// permuted k order of store_c), v from the staged tile.
+// Shared memory: q fragment-native (big, small), two stages of (k tile,
+// v tile); the second stage first takes the raw q tile.
+constexpr int kFwdStage = 2 * kBTile;
+constexpr size_t kFwdSmem =
+    2 * kFrag * sizeof(float4) + 2 * kFwdStage * sizeof(float);
+
+__global__ void __launch_bounds__(kFwdThreads, 2)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int bh, int sq, int sk, int dh,
+                 int causal, float scale, int vec) {
+    extern __shared__ __align__(16) float4 smem16[];
+    float4* qf_big = smem16;
+    float4* qf_small = qf_big + kFrag;
+    float* stages = reinterpret_cast<float*>(qf_small + kFrag);
+    const int tiles = (sq + kT - 1) / kT;
+    int head, qt;
+    // the last query tile has the longest causal walk: issued first
+    block_coords(bh, tiles, causal != 0, &head, &qt);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2,
+              t = lane & 3;
+    const int q0 = qt * kT, c0 = blockIdx.z * kT;
+    const int64_t qoff = (int64_t)head * sq * dh, koff = (int64_t)head * sk * dh;
+    const float* kh = k + koff;
+    const float* vh = v + koff;
+    const bool resident = dh <= kT, v16 = vec != 0;
+    const int k_end = causal ? min(sk, q0 + kT) : sk;
+    // the warp's last row: causal keys past it are dead for the whole warp
+    const int last_row = q0 + 16 * warp + 15;
+
+    auto fetch_q = [&](int kb, uint32_t big[4], uint32_t small[4]) {
+        const int at = (warp * kN8 + kb) * 32 + lane;
+        const float4 fb = qf_big[at], fs = qf_small[at];
+        big[0] = __float_as_uint(fb.x);
+        big[1] = __float_as_uint(fb.y);
+        big[2] = __float_as_uint(fb.z);
+        big[3] = __float_as_uint(fb.w);
+        small[0] = __float_as_uint(fs.x);
+        small[1] = __float_as_uint(fs.y);
+        small[2] = __float_as_uint(fs.z);
+        small[3] = __float_as_uint(fs.w);
+    };
+
+    if (resident) {
+        float* scratch = stages + kFwdStage;
+        stage_tile<kFwdThreads>(scratch, q + qoff, q0, sq, 0, dh, v16);
+        stage_tile<kFwdThreads>(stages, kh, 0, sk, 0, dh, v16);
+        stage_tile<kFwdThreads>(stages + kBTile, vh, 0, sk, 0, dh, v16);
+        cp_commit();
+        cp_wait<0>();
+        __syncthreads();
+        frag_from_tile<kFwdThreads>(qf_big, qf_small, scratch);
+        // the loop's first barrier orders the split before its readers and
+        // before the prefetch into the same stage
+        __syncthreads();
+    }
+
+    // rows g and g + 8 of the warp's 16: running max, this lane's share of
+    // the sum, and the accumulator fragments of o (columns 8i..)
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float acc[kN8][4] = {};
+    int buf = 0;
+    for (int k0 = 0; k0 < k_end; k0 += kT, buf ^= 1) {
+        float* ks = stages + buf * kFwdStage;
+        float* vs = ks + kBTile;
+        if (resident) {
+            if (k0 + kT < k_end) {
+                float* next = stages + (buf ^ 1) * kFwdStage;
+                stage_tile<kFwdThreads>(next, kh, k0 + kT, sk, 0, dh, v16);
+                stage_tile<kFwdThreads>(next + kBTile, vh, k0 + kT, sk, 0,
+                                        dh, v16);
+                cp_commit();
+                cp_wait<1>();
+            } else {
+                cp_wait<0>();
+            }
+            __syncthreads();
+        }
+        // key blocks past sk, or (causal) wholly after the warp's last row:
+        // their scores are masked and their P is exactly 0, so P v skips
+        // them
+        int nb1 = min(kN8, (sk - k0 + 7) / 8);
+        if (causal) nb1 = min(nb1, (last_row - k0) / 8 + 1);
+        float s[kN8][4] = {};
+        for (int d0 = 0; d0 < dh; d0 += kT) {
+            if (!resident) {
+                float* scratch = stages + (buf ^ 1) * kFwdStage;
+                stage_tile<kFwdThreads>(scratch, q + qoff, q0, sq, d0, dh,
+                                        v16);
+                stage_tile<kFwdThreads>(ks, kh, k0, sk, d0, dh, v16);
+                cp_commit();
+                cp_wait<0>();
+                __syncthreads();
+                frag_from_tile<kFwdThreads>(qf_big, qf_small, scratch);
+                __syncthreads();
+            }
+            // head columns past dh are zero in both operands
+            row_product<false>(s, fetch_q, 0, min(kN8, (dh - d0 + 7) / 8),
+                               ks, g, t);
+            if (!resident) __syncthreads();
+        }
+        if (!resident) {
+            stage_tile<kFwdThreads>(vs, vh, k0, sk, c0, dh, v16);
+            cp_commit();
+        }
+        // online softmax over the tile, in registers: s becomes p
+        float alpha[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int row = q0 + 16 * warp + g + 8 * h;
+            float mx = -INFINITY;
+#pragma unroll
+            for (int i = 0; i < kN8; ++i)
+#pragma unroll
+                for (int e = 2 * h; e < 2 * h + 2; ++e) {
+                    const int col = k0 + 8 * i + 2 * t + (e & 1);
+                    const bool live = col < sk && (!causal || col <= row);
+                    s[i][e] = live ? s[i][e] * scale : -INFINITY;
+                    mx = fmaxf(mx, s[i][e]);
+                }
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+            const float m_new = fmaxf(m[h], mx);
+            // a row with no live key yet keeps p = 0 and a zero state
+            const float m_use = m_new == -INFINITY ? 0.f : m_new;
+            alpha[h] = expf(m[h] - m_use);
+            float sum = 0.f;
+#pragma unroll
+            for (int i = 0; i < kN8; ++i)
+#pragma unroll
+                for (int e = 2 * h; e < 2 * h + 2; ++e) {
+                    s[i][e] = expf(s[i][e] - m_use);
+                    sum += s[i][e];
+                }
+            l[h] = l[h] * alpha[h] + sum;
+            m[h] = m_new;
+        }
+#pragma unroll
+        for (int i = 0; i < kN8; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][e] *= alpha[e >> 1];
+        if (!resident) {
+            cp_wait<0>();
+            __syncthreads();
+        }
+        // P as A operands: k block kb is S's column block kb, taken as
+        // store_c stores it
+        auto fetch_p = [&](int kb, uint32_t big[4], uint32_t small[4]) {
+            split(s[kb][0], big[0], small[0]);
+            split(s[kb][2], big[1], small[1]);
+            split(s[kb][1], big[2], small[2]);
+            split(s[kb][3], big[3], small[3]);
+        };
+        row_product<true>(acc, fetch_p, 0, nb1, vs, g, t);
+        __syncthreads();
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        float lsum = l[h];
+        lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+        lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+        const int row = q0 + 16 * warp + g + 8 * h;
+        if (row >= sq) continue;
+#pragma unroll
+        for (int i = 0; i < kN8; ++i)
+#pragma unroll
+            for (int e = 2 * h; e < 2 * h + 2; ++e) {
+                const int col = c0 + 8 * i + 2 * t + (e & 1);
+                if (col < dh)
+                    o[qoff + (int64_t)row * dh + col] = acc[i][e] / lsum;
+            }
+        if (blockIdx.z == 0 && t == 0)
+            lse[(int64_t)head * sq + row] = m[h] + logf(lsum);
     }
 }
 
@@ -851,11 +951,12 @@ int flash_attention_fwd_f32(const float* q, const float* k, const float* v,
                             int dh, int causal, float scale, void* stream) {
     dim3 grid;
     if (sk < 1 || !plan(bh, sq, dh, &grid)) return (int)cudaErrorInvalidValue;
-    const size_t smem = 4 * kTile * sizeof(float);
-    int code = prepare(flash_fwd_kernel, smem);
+    int code = prepare(flash_fwd_kernel, kFwdSmem);
     if (code) return code;
-    flash_fwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        q, k, v, o, lse, bh, sq, sk, dh, causal, scale);
+    const float* staged[] = {q, k, v};
+    flash_fwd_kernel<<<grid, kFwdThreads, kFwdSmem, (cudaStream_t)stream>>>(
+        q, k, v, o, lse, bh, sq, sk, dh, causal, scale,
+        rows_of_16_bytes(dh, staged, 3));
     return (int)cudaGetLastError();
 }
 
@@ -891,6 +992,12 @@ int flash_attention_bwd_dq_f32(const float* q, const float* k, const float* v,
         q, k, v, di, lse, dout, dq, bh, sq, sk, dh, causal, scale,
         rows_of_16_bytes(dh, staged, 4));
     return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of a block: 0 forward, 1 dK/dV, 2 dQ.
+int flash_attention_smem_bytes(int kernel) {
+    const size_t bytes[] = {kFwdSmem, kDkvSmem, kDqSmem};
+    return kernel >= 0 && kernel < 3 ? (int)bytes[kernel] : -1;
 }
 
 const char* flash_attention_error_string(int code) {

@@ -23,14 +23,25 @@
 // frontier or behind the window are skipped), each K and V row is read
 // from device memory once per block, and o is the only output written.
 //
-// Layout of the work (simple first; wgmma/TMA come later):
+// Decode (decode_split_kernel + combine_kernel, split-KV): a serving
+// batch has few (lane, kv head) pairs (64 at b 8, kv 8), too few blocks for
+// 132 SMs, so each lane's table is cut into contiguous ranges of pages
+// (the count chosen on the host from the geometry alone; pos stays on the
+// card).  A one-warp block walks its range in 32-key tiles, stages K and V
+// through shared memory by coalesced cp.async with the next slab in
+// flight, and leaves its (m, l, acc) in a workspace; a second kernel,
+// launched with programmatic dependent launch, meets the ranges in a fixed
+// order (no atomics: results repeat bit for bit).  One wrapper call, one
+// launch count.
+//
+// Prefill (paged_flash_kernel<true, R, E>; simple first, wgmma/TMA later):
 //   grid  (b, kv, n_row_blocks * n_feature_blocks), block WARPS warps;
-//   a block owns R query rows of kv head j (R = 1 for plain decode,
-//   g*c == 1, else 4): row r is query head j*g + r / c at chunk offset
+//   a block owns R query rows of kv head j (R = 1 when g*c == 1, else
+//   4): row r is query head j*g + r / c at chunk offset
 //   r % c (the reference's GQA fold, equal to jnp.repeat's head
 //   mapping), and 32*E output features (feature blocks only split a
 //   head_dim above 256, each block recomputing the full-width scores);
-//   the lane's keys — its table's history, then (prefill) the chunk —
+//   the lane's keys — its table's history, then the chunk —
 //   are walked in tiles of 32, tile w, w + WARPS, ... by warp w: lane t
 //   scores key t of the tile against the R rows (the key row read
 //   straight from device memory), the warp folds the tile into its
@@ -39,7 +50,8 @@
 //   lane e holding output features e, e+32, ... of coalesced V rows;
 //   at the end the warps' (m, l, acc) meet in shared memory.
 //   Nothing in the block grows with the table width: there is no score
-//   row, so max_len is bounded only by the pool.
+//   row, so max_len is bounded only by the pool.  (The template's decode
+//   branches, PREFILL false, are no longer instantiated.)
 //
 // Masking follows the reference exactly: NEG_INF is finite (-1e30) and
 // ADDED to the scaled score s = (q.k) / sqrt(dh), so a row's masked
@@ -55,6 +67,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -308,6 +323,382 @@ paged_flash_kernel(const float* __restrict__ q,
     }
 }
 
+// cp.async of 16 or 4 bytes; with in == false nothing is read and the
+// destination is zero-filled.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(src), "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most n of this thread's committed groups are in flight.
+template <int n>
+__device__ __forceinline__ void cp_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
+}
+
+// Programmatic dependent launch (Hopper): the combine kernel is launched
+// while the split kernel runs and waits here for it to complete and its
+// writes to be visible; the split kernel lets it launch at once.
+__device__ __forceinline__ void grid_dependency_wait() {
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void launch_dependents() {
+    asm volatile("griddepcontrol.launch_dependents;\n" ::);
+}
+
+// Decode, split over the lane's pages (split-KV).  A block is one warp and
+// owns (lane i, kv head, R query rows, 32 E output features, one split: a
+// contiguous range of the table's pages).  It walks the split's keys in
+// tiles of 32 (lane t scores key t), tiles with no live key skipped before
+// anything is read, and stages each tile through shared memory in slabs
+// of 32 rows x 32 E columns: the K slabs that cover dh (one when dh <= 256),
+// then the V slab of the block's features.  Slabs are double-buffered:
+// 16-byte cp.async (4-byte when dh % 4 != 0), one key row of a page a
+// contiguous run, so the warp's copies are coalesced, while the slab
+// before is scored or summed.  Slab rows are 32 E + 4 floats apart (16-byte
+// path) or 32 E + 1 (4-byte path), so lane-per-key reads of float4s, or of
+// floats, are free of bank conflicts.  The split's (m, l, acc) go to the
+// workspace (rows x splits, then combine_kernel), or straight to o when
+// there is one split.
+template <int R, int E>
+__global__ void __launch_bounds__(32)
+decode_split_kernel(const float* __restrict__ q,
+                    const float* __restrict__ k_pool,
+                    const float* __restrict__ v_pool,
+                    const int* __restrict__ ptab,
+                    const int* __restrict__ pos, float* __restrict__ o,
+                    float* __restrict__ ws, int h, int kv, int c, int dh,
+                    int page, int m, int window, int sinks,
+                    int n_row_blocks, int splits, int vec) {
+    constexpr int FB = 32 * E;                  // features of one block
+    const int ld = vec ? FB + 4 : FB + 1;       // slab row stride
+    extern __shared__ __align__(16) float smem[];   // two slabs, then q
+    float* q_s = smem + 2 * TILE * ld;          // R * dh
+
+    launch_dependents();
+    const int lane = threadIdx.x;
+    const int i = blockIdx.x;
+    const int kvh = blockIdx.y;
+    const int split = blockIdx.z % splits;
+    const int rb = (blockIdx.z / splits) % n_row_blocks;
+    const int f0 = (blockIdx.z / splits / n_row_blocks) * FB;
+    const int g = h / kv;
+    const int row0 = rb * R;
+    const int nrows = min(R, g * c - row0);
+    const int nf = min(FB, dh - f0);
+    const int* ptab_row = ptab + (size_t)i * m;
+    // the split: pages [pg0, pg1) of the table.  The first tile's table
+    // entries are read before pos (a table read, not a pool read), so the
+    // two reads overlap
+    const int per = (m + splits - 1) / splits;
+    const int pg0 = split * per, pg1 = min(m, pg0 + per);
+    const int key0 = pg0 * page;
+    const int pid0 = key0 + lane < pg1 * page ? ptab_row[(key0 + lane) / page]
+                                              : 0;
+    const int p0 = pos[i];
+    const float scale = sqrtf((float)dh);
+
+    for (int x = lane; x < R * dh; x += TILE) {
+        const int r = x / dh, e = x - r * dh;
+        float v = 0.f;
+        if (r < nrows) {
+            const int row = row0 + r;
+            const int head = kvh * g + row / c;
+            v = q[(((size_t)i * h + head) * c + row % c) * dh + e];
+        }
+        q_s[x] = v;
+    }
+    __syncwarp();
+
+    // the split's keys, cut at the last page that can hold a key at or
+    // below the lane's last query
+    const int key1 = min(pg1, (p0 + c - 1) / page + 1) * page;
+    const int n_kc = (dh + FB - 1) / FB;        // K slabs a tile
+
+    // the first tile at or after k0 holding a live key: lane t's key row
+    // in the pool and whether it is live; present = the live lanes
+    struct Tile {
+        int k0;
+        size_t off;
+        bool has;
+        unsigned present;
+    };
+    auto find = [&](int k0) {
+        for (; k0 < key1; k0 += TILE) {
+            const int key = k0 + lane;
+            const int j = key / page;
+            const bool has = key < key1
+                && page_live(j, page, p0, c, false, window, sinks);
+            const int pid = k0 == key0 ? pid0 : has ? ptab_row[j] : 0;
+            const size_t off = has
+                ? (((size_t)pid * kv + kvh) * page + (key - j * page)) * dh
+                : 0;
+            const unsigned present = __ballot_sync(FULL, has);
+            if (present) return Tile{k0, off, has, present};
+        }
+        return Tile{key1, 0, false, 0u};
+    };
+    // slab sidx of tile tl into dst: K columns [sidx FB, +FB) for sidx <
+    // n_kc, else V columns [f0, f0 + FB); zero outside the live rows and dh
+    auto stage = [&](const Tile& tl, int sidx, float* dst) {
+        const float* pool = sidx < n_kc ? k_pool : v_pool;
+        const int col0 = sidx < n_kc ? sidx * FB : f0;
+        if (vec) {
+            constexpr int n4 = FB / 4;
+            for (int x = lane; x < TILE * n4; x += TILE) {
+                const int r = x / n4, cc = (x - r * n4) * 4;
+                const size_t off = __shfl_sync(FULL, tl.off, r);
+                const bool in = __shfl_sync(FULL, tl.has, r)
+                                && col0 + cc < dh;
+                cp_async16(dst + r * ld + cc, in ? pool + off + col0 + cc
+                                                 : pool, in);
+            }
+        } else {
+            for (int x = lane; x < TILE * FB; x += TILE) {
+                const int r = x / FB, cc = x - r * FB;
+                const size_t off = __shfl_sync(FULL, tl.off, r);
+                const bool in = __shfl_sync(FULL, tl.has, r)
+                                && col0 + cc < dh;
+                cp_async4(dst + r * ld + cc, in ? pool + off + col0 + cc
+                                                : pool, in);
+            }
+        }
+    };
+
+    float m_r[R], l_r[R], acc[R][E], s[R], p[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        m_r[r] = NEG_INF;
+        l_r[r] = 0.f;                          // this lane's share of l
+#pragma unroll
+        for (int u = 0; u < E; ++u) acc[r][u] = 0.f;
+    }
+
+    Tile cur = find(key0);
+    if (cur.present) {
+        stage(cur, 0, smem);
+        cp_commit();
+    }
+    int buf = 0;
+    while (cur.present) {
+        const Tile nxt = find(cur.k0 + TILE);
+#pragma unroll
+        for (int r = 0; r < R; ++r) s[r] = 0.f;
+        for (int sidx = 0; sidx <= n_kc; ++sidx, buf ^= 1) {
+            // the slab after this one (the next tile's first) in flight
+            const bool last = sidx == n_kc;
+            const Tile& ahead = last ? nxt : cur;
+            if (ahead.present) {
+                stage(ahead, last ? 0 : sidx + 1,
+                      smem + (buf ^ 1) * TILE * ld);
+                cp_commit();
+                cp_wait<1>();
+            } else {
+                cp_wait<0>();
+            }
+            __syncwarp();
+            const float* sl = smem + buf * TILE * ld;
+            if (!last) {
+                // scores: lane t's key row against each query row, over
+                // this slab's head columns
+                const float* kr = sl + lane * ld;
+                const int col0 = sidx * FB, w = min(FB, dh - col0);
+                if (vec) {
+#pragma unroll 8
+                    for (int e4 = 0; e4 < w / 4; ++e4) {
+                        const float4 k4 =
+                            reinterpret_cast<const float4*>(kr)[e4];
+#pragma unroll
+                        for (int r = 0; r < R; ++r) {
+                            const float4 q4 = reinterpret_cast<const float4*>(
+                                q_s + r * dh + col0)[e4];
+                            s[r] += q4.x * k4.x;
+                            s[r] += q4.y * k4.y;
+                            s[r] += q4.z * k4.z;
+                            s[r] += q4.w * k4.w;
+                        }
+                    }
+                } else {
+                    for (int e = 0; e < w; ++e) {
+                        const float kx = kr[e];
+#pragma unroll
+                        for (int r = 0; r < R; ++r)
+                            s[r] += q_s[r * dh + col0 + e] * kx;
+                    }
+                }
+            } else {
+                // P.V: key t's V row, lane e holding features e, e+32, ...
+                // (absent keys have p = 0 and zero rows)
+#pragma unroll 8
+                for (int t = 0; t < TILE; ++t) {
+                    const float* vr = sl + t * ld;
+                    float v[E];
+#pragma unroll
+                    for (int u = 0; u < E; ++u) v[u] = vr[lane + 32 * u];
+#pragma unroll
+                    for (int r = 0; r < R; ++r) {
+                        const float pt = __shfl_sync(FULL, p[r], t);
+#pragma unroll
+                        for (int u = 0; u < E; ++u) acc[r][u] += pt * v[u];
+                    }
+                }
+            }
+            if (sidx == n_kc - 1) {
+                // online softmax: fold the tile into each row's (m, l, acc)
+                const int key = cur.k0 + lane;
+#pragma unroll
+                for (int r = 0; r < R; ++r) {
+                    const int q_pos = p0 + (row0 + r) % c;
+                    const float sr = cur.has
+                        ? s[r] / scale + (band_live(key, q_pos, p0, false,
+                                                    window, sinks)
+                                          ? 0.f : NEG_INF)
+                        : -INFINITY;
+                    const float m_new = fmaxf(m_r[r], warp_max(sr));
+                    const float alpha = expf(m_r[r] - m_new);
+                    p[r] = expf(sr - m_new);       // 0 for an absent key
+                    l_r[r] = l_r[r] * alpha + p[r];
+                    m_r[r] = m_new;
+#pragma unroll
+                    for (int u = 0; u < E; ++u) acc[r][u] *= alpha;
+                }
+            }
+            __syncwarp();
+        }
+        cur = nxt;
+    }
+
+    // the split's state: o itself when there is one split, else (m, l)
+    // and acc in the workspace; a split with no live key writes m =
+    // NEG_INF, l = 0, acc = 0, which the combine weighs exp(NEG_INF - M)
+    // == 0
+    const int rows = g * c;
+    float* ws_acc = ws + (size_t)2 * gridDim.x * kv * rows * splits;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        if (r >= nrows) break;
+        const float l_w = warp_sum(l_r[r]);
+        const int row = row0 + r;
+        const int head = kvh * g + row / c;
+        const size_t state = (((size_t)i * kv + kvh) * rows + row) * splits
+                             + split;
+        if (splits > 1 && f0 == 0 && lane == 0) {
+            ws[2 * state] = m_r[r];
+            ws[2 * state + 1] = l_w;
+        }
+#pragma unroll
+        for (int u = 0; u < E; ++u) {
+            const int e = lane + 32 * u;
+            if (e >= nf) continue;
+            if (splits == 1)
+                o[(((size_t)i * h + head) * c + row % c) * dh + f0 + e] =
+                    acc[r][u] / l_w;
+            else
+                ws_acc[state * dh + f0 + e] = acc[r][u];
+        }
+    }
+}
+
+// The splits' states meet, in split order (no atomics, so results repeat
+// bit for bit): o = sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M), M the
+// largest m_s.  One thread an output element.
+__global__ void __launch_bounds__(256)
+combine_kernel(const float* __restrict__ ws, float* __restrict__ o, int b,
+               int h, int kv, int c, int dh, int splits) {
+    grid_dependency_wait();
+    const int rows = (h / kv) * c;
+    const size_t n = (size_t)b * kv * rows * dh;
+    const size_t x = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (x >= n) return;
+    const size_t st = x / dh;                   // (lane, kv head, row)
+    const int e = (int)(x - st * dh);
+    const float* ml = ws + 2 * st * splits;
+    const float* acc = ws + 2 * n / dh * splits + st * splits * dh + e;
+    // unrolled, so that each pass's reads are in flight together
+    float mx = NEG_INF;
+#pragma unroll 8
+    for (int s = 0; s < splits; ++s) mx = fmaxf(mx, ml[2 * s]);
+    float num = 0.f, den = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < splits; ++s) {
+        const float a = expf(ml[2 * s] - mx);
+        num += acc[(size_t)s * dh] * a;
+        den += ml[2 * s + 1] * a;
+    }
+    const int row = (int)(st % rows);
+    const size_t lk = st / rows;                // lane * kv + kv head
+    const int kvh = (int)(lk % kv), i = (int)(lk / kv);
+    const int head = kvh * (h / kv) + row / c;
+    o[(((size_t)i * h + head) * c + row % c) * dh + e] = num / den;
+}
+
+// The decode launch's row and feature blocks: R query rows a block (1 for
+// plain decode without GQA, g c == 1, else 4) and 32 E features, E the
+// fewest registers that cover dh (feature blocks of 256 above that).
+struct DecodeShape {
+    int r, e, row_blocks, feature_blocks;
+};
+
+DecodeShape decode_shape(int h, int kv, int c, int dh) {
+    const int rows = (h / kv) * c;
+    const int r = rows == 1 ? 1 : 4;
+    const int e = dh <= 64 ? 2 : dh <= 128 ? 4 : 8;
+    return {r, e, (rows + r - 1) / r, (dh + 32 * e - 1) / (32 * e)};
+}
+
+// Warps that fill the card: 4 an SM on the H100's 132 SMs.
+constexpr long kDecodeWarps = 132 * 4;
+
+template <int R, int E>
+int launch_decode(const float* q, const float* k_pool, const float* v_pool,
+                  const int* ptab, const int* pos, float* o, float* ws,
+                  int b, int h, int kv, int c, int dh, int page, int m,
+                  int window, int sinks, int splits, int vec,
+                  void* stream) {
+    const DecodeShape ds = decode_shape(h, kv, c, dh);
+    const int ld = vec ? 32 * E + 4 : 32 * E + 1;
+    const size_t smem = sizeof(float) * ((size_t)2 * TILE * ld
+                                         + (size_t)R * dh);
+    if (smem > 48 * 1024) {
+        cudaError_t err = cudaFuncSetAttribute(
+            decode_split_kernel<R, E>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    dim3 grid(b, kv, ds.row_blocks * ds.feature_blocks * splits);
+    decode_split_kernel<R, E><<<grid, 32, smem, (cudaStream_t)stream>>>(
+        q, k_pool, v_pool, ptab, pos, o, ws, h, kv, c, dh, page, m, window,
+        sinks, ds.row_blocks, splits, vec);
+    int code = (int)cudaGetLastError();
+    if (code || splits == 1) return code;
+    const size_t n = (size_t)b * h * c * dh;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)((n + 255) / 256));
+    cfg.blockDim = dim3(256);
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return (int)cudaLaunchKernelEx(&cfg, combine_kernel, (const float*)ws, o,
+                                   b, h, kv, c, dh, splits);
+}
+
 template <bool PREFILL, int R, int E>
 int launch_rows(const float* q, const float* k_new, const float* v_new,
                 float* k_pool, float* v_pool, const int* ptab,
@@ -363,16 +754,51 @@ int launch(const float* q, const float* k_new, const float* v_new,
 
 extern "C" {
 
+int paged_flash_decode_splits(int b, int h, int kv, int c, int dh, int m) {
+    if (b < 1 || kv < 1 || h < kv || c < 1 || dh < 1 || m < 1) return 1;
+    const DecodeShape ds = decode_shape(h, kv, c, dh);
+    const long blocks = (long)b * kv * ds.row_blocks * ds.feature_blocks;
+    long want = (kDecodeWarps + blocks - 1) / blocks;
+    want = std::max(1L, std::min(want, 65535L / (ds.row_blocks
+                                                 * ds.feature_blocks)));
+    // as many splits as there are ranges of ceil(m / want) pages
+    const long per = (m + std::min(want, (long)m) - 1)
+                     / std::min(want, (long)m);
+    return (int)((m + per - 1) / per);
+}
+
+// Dynamic shared memory of a decode block (16-byte copies when dh % 4 == 0).
+int paged_flash_decode_smem_bytes(int h, int kv, int c, int dh) {
+    const DecodeShape ds = decode_shape(h, kv, c, dh);
+    const int ld = dh % 4 == 0 ? 32 * ds.e + 4 : 32 * ds.e + 1;
+    return (int)(sizeof(float) * (2 * TILE * ld + ds.r * dh));
+}
+
 int paged_flash_decode_f32(const float* q, const float* k_pool,
                            const float* v_pool, const int* ptab,
-                           const int* pos, float* o, int b, int h, int kv,
-                           int c, int dh, int page, int m, int window,
-                           int sinks, void* stream) {
-    // the decode kernel never writes the pool; the shared template takes
-    // mutable pool pointers for the prefill install
-    return launch<false>(q, nullptr, nullptr, const_cast<float*>(k_pool),
-                         const_cast<float*>(v_pool), ptab, pos, o, b, h,
-                         kv, c, dh, page, m, window, sinks, stream);
+                           const int* pos, float* o, float* workspace,
+                           int b, int h, int kv, int c, int dh, int page,
+                           int m, int window, int sinks, int splits,
+                           void* stream) {
+    if (splits < 1 || (splits > 1 && !workspace))
+        return (int)cudaErrorInvalidValue;
+    // 16-byte copies: rows of whole float4s and 16-byte aligned pools
+    const int vec = dh % 4 == 0 && (uintptr_t)k_pool % 16 == 0
+                    && (uintptr_t)v_pool % 16 == 0;
+    const DecodeShape ds = decode_shape(h, kv, c, dh);
+#define PFD_LAUNCH(R, E)                                                  \
+    return launch_decode<R, E>(q, k_pool, v_pool, ptab, pos, o, workspace, \
+                               b, h, kv, c, dh, page, m, window, sinks,   \
+                               splits, vec, stream)
+    if (ds.r == 1) {
+        if (ds.e == 2) PFD_LAUNCH(1, 2);
+        if (ds.e == 4) PFD_LAUNCH(1, 4);
+        PFD_LAUNCH(1, 8);
+    }
+    if (ds.e == 2) PFD_LAUNCH(4, 2);
+    if (ds.e == 4) PFD_LAUNCH(4, 4);
+    PFD_LAUNCH(4, 8);
+#undef PFD_LAUNCH
 }
 
 int paged_flash_prefill_f32(const float* q, const float* k_new,

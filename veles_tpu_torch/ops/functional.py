@@ -26,9 +26,19 @@ Precision modes:
   (``torch.backends.cuda.matmul.allow_tf32`` and
   ``torch.backends.cudnn.allow_tf32`` both False); the mode sets both,
   and ``LMEngine`` sets them again where it is built.
+- ``"default"``: fp32 operands, with cuBLAS and cuDNN allowed TF32 (both
+  ``allow_tf32`` flags True) — the libraries' reduced-precision fp32
+  pass, the counterpart of the reference's ``Precision.DEFAULT`` with
+  no bf16 cast.  On the CPU the flags change nothing: products stay
+  fp32, as XLA's CPU products do under ``Precision.DEFAULT``.
 - ``"bfloat16"`` (fast): operands are cast to bf16, the product
   accumulates in fp32 inside the library, and the result is cast back
-  to the operands' type — what the reference's bf16 mode does.
+  to the operands' type — what the reference's bf16 mode does.  Any
+  fp32 product left uncast runs as under ``"default"`` (TF32 allowed),
+  as the reference's bf16 mode keeps ``Precision.DEFAULT``.
+
+Every mode sets both ``allow_tf32`` flags, so a switch back to
+``"float32"`` turns TF32 off again.
 
 Large products stay ``torch.matmul`` (cuBLAS), as the reference left
 them to XLA.
@@ -41,7 +51,8 @@ import contextlib
 import numpy
 import torch
 
-_MODES = ("float32", "bfloat16")
+#: mode -> whether cuBLAS and cuDNN may run fp32 products in TF32
+_MODES = {"float32": False, "default": True, "bfloat16": True}
 
 
 class _Policy:
@@ -49,18 +60,22 @@ class _Policy:
     mode = "float32"
 
 
+def _allow_tf32(allow):
+    torch.backends.cuda.matmul.allow_tf32 = allow
+    torch.backends.cudnn.allow_tf32 = allow
+
+
 def pin_fp32_matmul():
     """Full-precision fp32 products in cuBLAS and cuDNN (TF32 off)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _allow_tf32(False)
 
 
 def set_matmul_precision(mode):
-    """mode: 'float32' (default, parity) | 'bfloat16' (fast)."""
+    """mode: 'float32' (default, parity) | 'default' (fp32 operands, TF32
+    allowed in the libraries) | 'bfloat16' (fast)."""
     if mode not in _MODES:
         raise ValueError("unknown matmul precision mode %r" % (mode,))
-    if mode == "float32":
-        pin_fp32_matmul()
+    _allow_tf32(_MODES[mode])
     _Policy.mode = mode
 
 
@@ -421,6 +436,20 @@ def avg_pooling_backward(x, err, window=(2, 2), stride=None):
 
 
 # ------------------------------------------------- local response norm (LRN)
+_BACKENDS = ("xla", "pallas")
+
+
+def set_lrn_backend(mode):
+    """mode: 'xla' | 'pallas', the reference's names and errors.  The
+    port's route does not depend on it: a CUDA tensor goes through the
+    hand-written kernel (its one route on the card) and a CPU tensor
+    through the kernel's plain version, which equals the reference's
+    'xla' route within fp32 roundoff and its 'pallas' route bit for
+    bit."""
+    if mode not in _BACKENDS:
+        raise ValueError("unknown lrn backend %r" % (mode,))
+
+
 def lrn_forward(x, alpha=1e-4, beta=0.75, n=5, k=2.0):
     """AlexNet cross-channel LRN over the last axis, through the
     hand-written kernel's wrapper: returns (y, d), d the denominator
@@ -502,6 +531,17 @@ def random_crop_flip_backward(x, err, rng, out_hw, flip=True, train=True):
 
 
 # ------------------------------------------------------------------- updates
+def set_sgd_backend(mode):
+    """mode: 'xla' | 'pallas', the reference's names and errors.  The
+    port's route does not depend on it: every momentum update goes
+    through the fused kernel on the card and its plain version on the
+    CPU, which equals the reference's 'pallas' route bit for bit (its
+    'xla' route divides by the batch where the kernel multiplies, ≤ 2
+    ulps apart)."""
+    if mode not in _BACKENDS:
+        raise ValueError("unknown sgd backend %r" % (mode,))
+
+
 def sgd_update(param, velocity, grad, batch_size, learning_rate, momentum,
                weight_decay, l1_vs_l2, gradient_clip):
     """Momentum-SGD with mixed L1/L2 decay and optional clipping, through

@@ -40,26 +40,32 @@ dropout
 paged_flash_decode
     Replaces ``veles_tpu/ops/pallas_kernels.py:367`` (paged_flash_decode).
     Bound on the H100: bytes — every live K/V page is read once for
-    about 0.5 flop per byte.  The kernel skips pages that hold no live
-    key for the lane and reads each live K and V row once per block:
-    warps walk 32-key tiles of the lane's keys with the reference's
-    online softmax (running max, sum and accumulator per query row), so
-    nothing in a block grows with the table width, and the warps' states
-    meet once at the end.  o is the only output written.
+    about 0.5 flop per byte.  Split-KV: each lane's table is cut into
+    ranges of pages (:func:`decode_splits`, from the geometry alone) so
+    that the (lane, kv head) pairs of a serving batch fill the card; a
+    one-warp block walks its range in 32-key tiles with the reference's
+    online softmax, skipping pages that hold no live key before
+    anything is read, and stages K and V through shared memory by
+    coalesced 16-byte ``cp.async`` with the next slab in flight.  A
+    second small kernel combines the ranges' states in a fixed order
+    (no atomics); both are one call and one count.
 paged_flash_prefill
     Replaces ``veles_tpu/ops/pallas_kernels.py:443`` (paged_flash_prefill).
-    Bound: bytes (history pages plus the chunk's K/V, read once).  Same
-    design, with the chunk's own K/V as the last keys walked, installed
-    into its pool page by the same kernel.
+    Bound: bytes (history pages plus the chunk's K/V, read once).  Warps
+    of one block walk 32-key tiles of the lane's keys, reading key rows
+    straight from device memory, and meet once at the end; the chunk's
+    own K/V are the last keys walked and are installed into their pool
+    page by the same kernel.
 flash_attention_fwd / flash_attention_bwd_dkv / flash_attention_bwd_dq
     Replace jax's bundled TPU Pallas flash attention, which
     ``veles_tpu/ops/attention.py:176`` (flash_attention_tpu) calls for
     training: its forward and its dK/dV and dQ passes (three
     ``pallas_call`` s), in ``csrc/flash_attention.cu``.  Bound:
-    operations (fp32 products of s²·dh per head).  A block owns a 64-row
+    operations (fp32 products of s²·dh per head), run on the tensor
+    cores as 3xTF32 ``mma.sync`` (fp32 accuracy).  A block owns a 64-row
     tile and walks the other side's tiles with an online softmax (the
     forward) or the row residual lse (the backward), skipping tiles above
-    the diagonal; the two backward passes need no atomics.
+    the diagonal; no kernel uses atomics, so results repeat bit for bit.
     :class:`FlashAttention` ties the three into a
     ``torch.autograd.Function``.
 """
@@ -306,8 +312,10 @@ def _lib():
         from veles_tpu_torch.ops import _build
         lib = _build.load("paged_flash_attention")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.paged_flash_decode_f32.argtypes = [ptr] * 6 + [i32] * 9 + [ptr]
+        lib.paged_flash_decode_f32.argtypes = [ptr] * 7 + [i32] * 10 + [ptr]
         lib.paged_flash_decode_f32.restype = i32
+        lib.paged_flash_decode_splits.argtypes = [i32] * 6
+        lib.paged_flash_decode_splits.restype = i32
         lib.paged_flash_prefill_f32.argtypes = \
             [ptr] * 8 + [i32] * 9 + [ptr]
         lib.paged_flash_prefill_f32.restype = i32
@@ -343,21 +351,36 @@ def paged_flash_decode(q, k_pool, v_pool, ptab, pos, window=None,
     _check_operands((("q", q), ("k_pool", k_pool), ("v_pool", v_pool)),
                     (("ptab", ptab), ("pos", pos)))
     b, h, c, dh = q.shape
-    kv, page = k_pool.shape[1], k_pool.shape[2]
+    kv, page, m = k_pool.shape[1], k_pool.shape[2], ptab.shape[1]
+    splits = decode_splits(b, h, kv, c, dh, m)
     o = torch.empty_like(q)
-    lib = _lib()
+    # each split's (m, l) and accumulator rows, for the combine
+    workspace = (torch.empty(b * h * c * splits * (dh + 2),
+                             dtype=torch.float32, device=q.device)
+                 if splits > 1 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.paged_flash_decode_f32(
+        code = _lib().paged_flash_decode_f32(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            ptab.data_ptr(), pos.data_ptr(), o.data_ptr(), b, h, kv, c,
-            dh, page, ptab.shape[1], int(window or 0), int(sinks), stream)
+            ptab.data_ptr(), pos.data_ptr(), o.data_ptr(),
+            None if workspace is None else workspace.data_ptr(), b, h, kv,
+            c, dh, page, m, int(window or 0), int(sinks), splits, stream)
     _raise_on(code, "paged_flash_decode")
+    # one call: the split kernel and, with more than one split, the combine
     paged_flash_decode.launches += 1
     return o
 
 
 paged_flash_decode.launches = 0
+
+
+def decode_splits(b, h, kv, c, dh, m):
+    """How many ranges of a lane's table :func:`paged_flash_decode`
+    splits the walk into on the card, from the geometry alone (never
+    from ``pos``, which lives on the card): enough blocks to fill the
+    H100's 132 SMs, each split at least one page.  Builds the kernels'
+    library on first use."""
+    return _lib().paged_flash_decode_splits(b, h, kv, c, dh, m)
 
 
 def paged_flash_prefill(q, k_new, v_new, k_pool, v_pool, ptab, pos,
@@ -959,7 +982,7 @@ __all__ = ["NEG_INF", "serving_kernels_supported", "fused_sgd_update",
            "fused_sgd_update_ref", "lrn_forward", "lrn_forward_ref",
            "lrn_backward", "lrn_backward_ref", "LRN", "LRN_MAX_CHANNELS",
            "dropout", "dropout_ref", "paged_flash_decode",
-           "paged_flash_decode_ref", "paged_flash_prefill",
+           "paged_flash_decode_ref", "decode_splits", "paged_flash_prefill",
            "paged_flash_prefill_ref", "flash_attention_fwd",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
            "flash_attention_ref", "flash_attention_bwd_ref",

@@ -1,25 +1,35 @@
-"""What bounds the flash backward kernels (7b dK/dV, 7c dQ) on the card.
+"""What bounds the tensor-core flash kernels (7a forward, 7b dK/dV, 7c
+dQ) on the card, and what every attention kernel costs in registers.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 -m veles_tpu_torch.tools.flash_bwd_profile
 
-Prints one JSON object with
+(The module keeps its first name; it now covers the forward and the
+decode kernels too.)  Prints one JSON object with
 - the card's name and power limit;
+- ``ptxas`` resources of every kernel in ``csrc/flash_attention.cu`` and
+  ``csrc/paged_flash_attention.cu`` as built for ``sm_90a`` (``nvcc
+  -Xptxas -v``): registers a thread, spill stores and loads in bytes,
+  static shared memory; beside them each flash kernel's dynamic shared
+  memory, and the decode kernel's at the serving shape (8 heads, kv 8,
+  c 1, head_dim 64);
 - the rate ``mma.sync.m16n8k8`` TF32 products reach on this card when
   nothing else is issued (a microbenchmark built here with nvcc: eight
   independent accumulators a warp, 4, 8 or 16 warps a block, two blocks
   an SM): the ceiling of the instruction the kernels use, beside the
   data sheet's dense TF32 rate, which only ``wgmma`` reaches;
-- the instruction mix of each backward kernel as compiled (SASS opcodes
+- the instruction mix of each flash kernel as compiled (SASS opcodes
   counted by ``cuobjdump``): tensor-core products against everything
   else the warps issue to feed them;
-- each kernel's card time at the LM's train shape (32 x 8 heads, s 512,
-  head_dim 64, causal) and its fp32-accurate TF32 rate, against the
-  3xTF32 bound at the data-sheet rate and at the measured mma.sync rate.
+- each flash kernel's card time at the LM's train shape (32 x 8 heads,
+  s 512, head_dim 64, causal) and its fp32-accurate TF32 rate, against
+  the 3xTF32 bound at the data-sheet rate and at the measured mma.sync
+  rate.
 """
 
 import collections
+import ctypes
 import json
 import re
 import subprocess
@@ -96,9 +106,58 @@ def mma_rates(build):
             (line.split() for line in out.splitlines())}
 
 
+def ptxas_resources(build):
+    """{kernel: {"registers", "spill_stores", "spill_loads", "smem_static"}}
+    for every kernel of the two attention sources, from ``nvcc -Xptxas
+    -v`` with the build's own flags (names demangled by cu++filt)."""
+    from veles_tpu_torch.ops import _build
+    out = {}
+    for name in ("flash_attention", "paged_flash_attention"):
+        proc = subprocess.run(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             str(build / ("ptxas_%s.so" % name)),
+             str(_build.CSRC_DIR / (name + ".cu"))],
+            check=True, capture_output=True, text=True)
+        entry = None
+        for line in (proc.stdout + proc.stderr).splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = demangle(m.group(1))
+                out[entry] = {}
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and entry:
+                out[entry].update(spill_stores=int(m.group(1)),
+                                  spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                smem = re.search(r"(\d+) bytes smem", line)
+                out[entry].update(registers=int(m.group(1)),
+                                  smem_static=int(smem.group(1))
+                                  if smem else 0)
+    return out
+
+
+def demangle(symbol):
+    """``symbol`` demangled by the toolkit's cu++filt, shortened to the
+    kernel's name and template arguments; as it is when that fails."""
+    from veles_tpu_torch.ops import _build
+    filt = Path(_build.nvcc_path()).with_name("cu++filt")
+    try:
+        name = subprocess.run([str(filt), symbol], check=True,
+                              capture_output=True, text=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        return symbol
+    name = re.sub(r"\((?:bool|int)\)", "", name)
+    name = name.replace("(anonymous namespace)::", "").replace("<unnamed>::",
+                                                                "")
+    return name.split("(")[0].replace("void ", "")
+
+
 def sass_mix(library):
-    """{kernel: {opcode: static count}} for the backward kernels of the
-    built library, from ``cuobjdump -sass``."""
+    """{kernel: {opcode: static count}} for the three flash kernels of
+    the built library, from ``cuobjdump -sass``."""
     from veles_tpu_torch.ops import _build
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
     text = subprocess.run([str(cuobjdump), "-sass", str(library)],
@@ -118,8 +177,7 @@ def sass_mix(library):
                        line)
         if name and op:
             mix[name][op.group(1).split(".")[0]] += 1
-    return {k: dict(v.most_common()) for k, v in mix.items()
-            if k != "flash_fwd_kernel"}
+    return {k: dict(v.most_common()) for k, v in mix.items()}
 
 
 def main():
@@ -134,9 +192,19 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()[0]
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    resources = ptxas_resources(_build.BUILD_DIR)
     rates = mma_rates(_build.BUILD_DIR)
     library = _build.compile_source(_build.CSRC_DIR / "flash_attention.cu")
     mix = sass_mix(library)
+    flash_lib = HK._flash_lib()
+    flash_lib.flash_attention_smem_bytes.restype = ctypes.c_int
+    paged_lib = HK._lib()
+    paged_lib.paged_flash_decode_smem_bytes.restype = ctypes.c_int
+    smem = {name: flash_lib.flash_attention_smem_bytes(i) for i, name in
+            enumerate(("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                       "flash_bwd_dq_kernel"))}
+    smem["decode_split_kernel (8 heads, kv 8, c 1, head_dim 64)"] = \
+        paged_lib.paged_flash_decode_smem_bytes(8, 8, 1, 64)
 
     b, h, s, dh = 32, 8, 512, 64
     rng = numpy.random.RandomState(0)
@@ -145,15 +213,18 @@ def main():
                    for _ in range(4))
     o, lse = HK.flash_attention_ref(q, k, v, True)
     di = HK.flash_attention_di(o, do)
-    calls = {"flash_bwd_dkv_kernel": lambda: HK.flash_attention_bwd_dkv(
+    calls = {"flash_fwd_kernel": lambda: HK.flash_attention_fwd(
+                 q, k, v, True),
+             "flash_bwd_dkv_kernel": lambda: HK.flash_attention_bwd_dkv(
                  q, k, v, o, lse, do, True, di=di),
              "flash_bwd_dq_kernel": lambda: HK.flash_attention_bwd_dq(
                  q, k, v, o, lse, do, True, di=di)}
     product = 2 * b * h * (s * (s + 1) // 2) * dh
-    report = {"card": smi, "mma_sync_tf32_flop_s": rates,
+    report = {"card": smi, "ptxas": resources, "smem_dynamic": smem,
+              "mma_sync_tf32_flop_s": rates,
               "datasheet_tf32_flop_s": TF32_FLOP_S, "kernels": {}}
     ceiling = max(rates.values())
-    for (name, call), n_products in zip(calls.items(), (4, 3)):
+    for (name, call), n_products in zip(calls.items(), (2, 4, 3)):
         for _ in range(3):
             call()
         torch.cuda.synchronize()

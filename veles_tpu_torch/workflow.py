@@ -185,8 +185,8 @@ class Workflow(Unit):
     def print_stats(self):
         """Per-unit wall-time accounting (ref: veles/timeit2.py [M]).  The
         reference's device time of one fused train step
-        (``measure_device_step_time``) is not ported (ROADMAP Queue 2,
-        item 6), so fused workflows say so instead of printing it."""
+        (``measure_device_step_time``) is not ported (ROADMAP Queue 2a,
+        item 3), so fused workflows say so instead of printing it."""
         rows = sorted(self._units, key=lambda u: -u.run_time)
         total = sum(u.run_time for u in self._units)
         self.info("unit run-time breakdown (total %.3fs):", total)
@@ -197,7 +197,7 @@ class Workflow(Unit):
                       unit.run_time)
         if getattr(self, "_fused_runner", None) is not None:
             self.info("  fused train step (device): not measured in the "
-                      "port (ROADMAP Queue 2, item 6)")
+                      "port (ROADMAP Queue 2a, item 3)")
 
     def graph_data(self):
         """(node_labels, edge_index_pairs) of the unit graph — the one
