@@ -25,10 +25,16 @@ Phases (any failure exits nonzero before the final line is printed):
    (lanes short of their first page's end, a window with sinks that
    empties the splits between); each decode call's split count, one
    call under ``set_sync_debug_mode("error")`` (the wrapper never reads
-   the card on the host) and a bit-equal second launch; the fused SGD
-   kernel at MNIST-FC's four parameters,
+   the card on the host) and a bit-equal second launch; the split-KV
+   prefill's edges (no history, one page, GQA, head_dim 18 with page 8,
+   head_dim 320 with page 64, a window with sinks), each with its split
+   count, a bit-equal install and a bit-equal second launch; the time of
+   an empty launch, the floor of a one-launch call; the fused SGD
+   kernel, one launch for a whole list, at MNIST-FC's four parameters,
    AlexNet's sixteen, a 4096x4096 weight, odd sizes, weight decay with
-   an L1 mix and a clip (no library call computes that function); the
+   an L1 mix, a clip, per-tensor scalars, mixed alignment and 50 tensors
+   (two launches), each list also timed as one launch per tensor (no
+   library call computes that function); the
    LRN forward and backward kernels at AlexNet's two LRN layers (library:
    ``local_response_norm`` on the NCHW view and its autograd backward),
    checked, not timed, at C = 200 with n = 4; dropout at AlexNet's two
@@ -43,7 +49,7 @@ Phases (any failure exits nonzero before the final line is printed):
    60,000 train / 10,000 validation synthetic samples, 2 epochs, fused
    mode) through ``samples.mnist.train`` on the card: validation error
    below 5%, validation loss falling, every dispatched train minibatch's
-   four momentum updates through the kernel; then the same seed on the
+   four momentum updates in one kernel launch; then the same seed on the
    card and on the CPU for 50 committed updates, weights within 1e-4;
 6. alexnet — the ImageNet sample at full AlexNet width
    (``alexnet_layers()``: crop 227, five conv blocks with two LRN and
@@ -51,8 +57,9 @@ Phases (any failure exits nonzero before the final line is printed):
    minibatch 128; the synthetic loader at 256x256, 640 train / 128
    validation, 2 epochs) through ``samples.imagenet.train`` on the card:
    finite losses, and per dispatched train step exactly 2 LRN forward
-   (plus 2 per validation minibatch), 2 LRN backward, 4 dropout and 16
-   fused SGD launches; then the same seed on the card and on the CPU at
+   (plus 2 per validation minibatch), 2 LRN backward, 4 dropout and 1
+   fused SGD launch (all 16 parameters); then the same seed on the card
+   and on the CPU at
    minibatch 16 for 3 committed updates, each layer's weight gap within
    its limit (``ALEXNET_*_SHARE``) after the first update and after the
    third, and two faulty card runs rejected by the same limits;
@@ -144,6 +151,9 @@ SOURCES = {
 #: fused SGD kernel vs plain version: at most 1 ulp per element (the
 #: plain version rounds each fused multiply-add once from float64)
 SGD_MAX_ULPS = 1.0
+#: history: PR 6's card time of a step's updates, one launch per tensor
+#: (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W)
+SGD_PR6_MS = {"mnist_fc_step": 0.0089664, "alexnet_step": 0.48084}
 #: MNIST-FC's parameters: (784, 100) and (100,) tanh, (100, 10) and (10,)
 MNIST_PARAMS = ((784, 100), (100,), (100, 10), (10,))
 #: AlexNet's sixteen: five HWIO convs and three FC layers, with biases
@@ -374,6 +384,10 @@ def decode_case(torch, HK, A, b=8, h=8, kv=8, c=1, dh=64, page=32, m=16,
 
 def prefill_case(torch, HK, A, n_hist, b=1, h=8, kv=8, dh=64, page=32,
                  m=16, window=None, sinks=0, seed=1, timed=True):
+    """Kernel 6 against its plain version, lanes ``n_hist`` pages deep:
+    the output within ``KERNEL_ATOL``, the install bit-equal, and a
+    second launch bit-equal to the first (the splits meet in a fixed
+    order); the record names the split count."""
     dev = torch.device("cuda")
     rng = numpy.random.RandomState(seed)
     n_pages = b * m + 1
@@ -392,6 +406,8 @@ def prefill_case(torch, HK, A, n_hist, b=1, h=8, kv=8, dh=64, page=32,
     kr, vr = kp.clone(), vp.clone()
     got, _, _ = HK.paged_flash_prefill(q, kn, vn, kp, vp, ptab, pos,
                                        window, sinks)
+    again, _, _ = HK.paged_flash_prefill(q, kn, vn, kp, vp, ptab, pos,
+                                         window, sinks)
     ref, _, _ = HK.paged_flash_prefill_ref(q, kn, vn, kr, vr, ptab, pos,
                                            window, sinks)
     torch.cuda.synchronize()
@@ -400,11 +416,13 @@ def prefill_case(torch, HK, A, n_hist, b=1, h=8, kv=8, dh=64, page=32,
           % (err, KERNEL_ATOL))
     check(torch.equal(kp, kr) and torch.equal(vp, vr),
           "prefill install is not bit-equal to the plain version's")
+    check(torch.equal(got, again), "prefill: two launches differ")
     shape = {"b": b, "h": h, "kv": kv, "c": c, "dh": dh, "page": page,
-             "m": m, "window": window, "sinks": sinks, "n_hist": n_hist}
+             "m": m, "window": window, "sinks": sinks, "n_hist": n_hist,
+             "splits": HK.prefill_splits(b, h, kv, c, dh, m)}
     if not timed:
         return {"kernel": "paged_flash_prefill", "shape": shape,
-                "max_abs_err": err}
+                "max_abs_err": err, "bit_equal_repeat": True}
     pools = [(kp, vp)] + [(kp.clone(), vp.clone()) for _ in range(COPIES - 1)]
     ms = time_ms([lambda k=k, v=v: HK.paged_flash_prefill(
         q, kn, vn, k, v, ptab, pos, window, sinks) for k, v in pools], torch)
@@ -428,26 +446,29 @@ def prefill_case(torch, HK, A, n_hist, b=1, h=8, kv=8, dh=64, page=32,
     bound_ms, bound_by = bound(n_bytes, n_flops)
     return {"kernel": "paged_flash_prefill",
             "shape": dict(shape, history_pages=hist),
+            "bit_equal_repeat": True,
             "max_abs_err": err, "kernel_ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_max_abs_err": library_err,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes}
 
 
 # ---------------------------------------------------------------- fused SGD
-def sgd_operands(torch, shape, seed, copies=1):
+def sgd_operands(torch, shape, seed, copies=1, offset=0):
     """``copies`` sets of (p, v, g) of ``shape`` on the card (g a batch
-    sum of 100 samples)."""
+    sum of 100 samples); ``offset`` > 0 starts each tensor that many
+    floats into its buffer (16-byte alignment lost: the scalar path)."""
     rng = numpy.random.RandomState(seed)
     n = int(numpy.prod(shape))
     dev = torch.device("cuda")
 
     def t(a):
-        return torch.as_tensor(a.astype(numpy.float32).reshape(shape),
-                               device=dev)
+        buf = torch.empty(n + offset, device=dev)
+        buf[offset:] = torch.as_tensor(a.astype(numpy.float32), device=dev)
+        return buf[offset:].view(shape)
 
     out = [(t(rng.uniform(-0.3, 0.3, n)), t(rng.randn(n) * 0.01),
             t(rng.randn(n) * 5))]
-    return out + [tuple(x.clone() for x in out[0])
+    return out + [tuple(t(x.cpu().numpy().reshape(-1)) for x in out[0])
                   for _ in range(copies - 1)]
 
 
@@ -459,47 +480,67 @@ def sgd_ulps(torch, got, ref):
 
 
 def sgd_case(torch, HK, shapes, name, wd=0.0, l1=0.0, clip=None, seed=0,
-             copies=1):
+             copies=1, scalars=None, offsets=None):
     """One update of each of ``shapes`` (momentum 0.9, lr 0.03, batch
-    100): checked against the plain version, then timed as one call that
-    updates them all."""
-    sets = [sgd_operands(torch, shape, seed + i, copies)
-            for i, shape in enumerate(shapes)]
-    args = (100, 0.03, 0.9, wd, l1, clip)
-    worst, unequal = 0.0, 0
-    for ops in sets:
-        p, v, g = ops[0]
-        got = HK.fused_sgd_update(p, v, g, *args)
-        ref = HK.fused_sgd_update_ref(p, v, g, *args)
-        torch.cuda.synchronize()
-        for x, y in zip(got, ref):
-            ulps, neq = sgd_ulps(torch, x, y)
-            worst, unequal = max(worst, ulps), unequal + neq
+    100, unless ``scalars`` gives each tensor its own) as ONE
+    ``fused_sgd_update_multi`` call: checked against the plain version
+    per tensor, the launch count read, then timed as that one call and,
+    beside it, as one single-tensor call per tensor (the PR 6 route)."""
+    offsets = offsets or [0] * len(shapes)
+    sets = [sgd_operands(torch, shape, seed + i, copies, off)
+            for i, (shape, off) in enumerate(zip(shapes, offsets))]
+    scalars = scalars or [(100, 0.03, 0.9, wd, l1, clip)] * len(shapes)
+    ps, vs, gs = (list(x) for x in zip(*[ops[0] for ops in sets]))
+    before = HK.fused_sgd_update.launches
+    got = HK.fused_sgd_update_multi(ps, vs, gs, scalars)
+    launches = HK.fused_sgd_update.launches - before
+    ref = HK.fused_sgd_update_multi_ref(ps, vs, gs, scalars)
+    torch.cuda.synchronize()
+    check(launches == -(-len(shapes) // HK.SGD_MAX_TENSORS),
+          "fused_sgd_update %s: %d launches for %d tensors"
+          % (name, launches, len(shapes)))
+    worst, unequal, err = 0.0, 0, 0.0
+    for x, y in zip(got[0] + got[1], ref[0] + ref[1]):
+        ulps, neq = sgd_ulps(torch, x, y)
+        worst, unequal = max(worst, ulps), unequal + neq
+        err = max(err, (x - y).abs().max().item())
     check(worst <= SGD_MAX_ULPS, "fused_sgd_update %s: %g ulps > %g"
           % (name, worst, SGD_MAX_ULPS))
 
-    def step(fn, k):
-        return lambda: [fn(*ops[k], *args) for ops in sets]
+    def multi(fn, k):
+        ops = [o[k] for o in sets]
+        return lambda: fn(*[list(x) for x in zip(*ops)], scalars)
 
-    ms = time_ms([step(HK.fused_sgd_update, k) for k in range(copies)],
-                 torch)
-    plain_ms = time_ms([step(HK.fused_sgd_update_ref, k)
+    def per_tensor(k):
+        return lambda: [HK.fused_sgd_update(*o[k], *sc)
+                        for o, sc in zip(sets, scalars)]
+
+    ms = time_ms([multi(HK.fused_sgd_update_multi, k)
+                  for k in range(copies)], torch)
+    per_tensor_ms = time_ms([per_tensor(k) for k in range(copies)], torch)
+    plain_ms = time_ms([multi(HK.fused_sgd_update_multi_ref, k)
                         for k in range(copies)], torch, calls=3, reps=5)
     n = sum(int(numpy.prod(s)) for s in shapes)
     # read p, v, g and write p', v' once: 20 bytes; ~10 flops an element
     bound_ms, bound_by = bound(20 * n, 10 * n)
     return {"kernel": "fused_sgd_update", "case": name,
             "shapes": [list(s) for s in shapes], "elements": n,
-            "weight_decay": wd, "l1_vs_l2": l1, "clip": clip,
-            "max_abs_err": max((x - y).abs().max().item()
-                               for x, y in zip(got, ref)),
+            "scalars": [list(x) for x in scalars], "offsets": offsets,
+            "launches": launches, "max_abs_err": err,
             "max_ulps": worst, "unequal": unequal, "kernel_ms": ms,
+            "per_tensor_launches_ms": per_tensor_ms,
+            "pr6_per_tensor_ms": SGD_PR6_MS.get(name),
             "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def sgd_cases(torch, HK):
     big = (4096, 4096)
+    # a weight and its bias with their own learning rate and decay
+    own = [(100, 0.03, 0.9, 0.0005, 0.3, None), (100, 0.06, 0.9, 0.0, 0.3,
+                                                 None)] * 2
+    many = [(int(n),) for n in
+            numpy.random.RandomState(60).randint(1, 5000, 50)]
     return [sgd_case(torch, HK, MNIST_PARAMS, "mnist_fc_step"),
             sgd_case(torch, HK, ALEXNET_PARAMS, "alexnet_step", wd=0.0005,
                      seed=50),
@@ -509,7 +550,12 @@ def sgd_cases(torch, HK):
             sgd_case(torch, HK, MNIST_PARAMS, "decay_l1_mix", wd=0.0005,
                      l1=0.3, seed=30),
             sgd_case(torch, HK, MNIST_PARAMS, "clip", wd=0.0005, l1=0.3,
-                     clip=0.05, seed=40)]
+                     clip=0.05, seed=40),
+            sgd_case(torch, HK, MNIST_PARAMS, "per_tensor_scalars",
+                     scalars=own, seed=70),
+            sgd_case(torch, HK, MNIST_PARAMS, "mixed_alignment", seed=80,
+                     offsets=[0, 1, 0, 3]),
+            sgd_case(torch, HK, many, "two_tables", seed=90)]
 
 
 # ---------------------------------------------------------------------- LRN
@@ -1078,7 +1124,7 @@ def train(torch, HK, card, device="cuda"):
           % val[-1]["err_pct"])
     check(val[1]["loss"] < val[0]["loss"], "validation loss did not fall: "
           "%r" % [v["loss"] for v in val])
-    check(steps == 2 * 600 and launches["fused_sgd_update"] == 4 * steps,
+    check(steps == 2 * 600 and launches["fused_sgd_update"] == steps,
           "fused_sgd_update launches %d for %d train minibatches"
           % (launches["fused_sgd_update"], steps))
     weights = [f.weights.mem for f in wf.forwards]
@@ -1235,15 +1281,15 @@ def alexnet(torch, HK, card, device="cuda", layers=None, small=None,
     check(steps == 2 * -(-ld.class_lengths[2] // mb),
           "%d train steps dispatched" % steps)
     # per train step: each LRN forward and backward once, each dropout
-    # forward and backward, each parameter (weights, bias) one update;
-    # each validation minibatch runs the LRN forwards (AlexNet: 2, 2, 4,
-    # 16 per step)
+    # forward and backward, and one update launch for every parameter
+    # (weights, bias) of the step; each validation minibatch runs the LRN
+    # forwards (AlexNet: 2, 2, 4, 1 per step)
     n_lrn = sum(1 for f in wf.forwards if f.layer_type == "norm")
     n_drop = sum(1 for f in wf.forwards if f.layer_type == "dropout")
     n_params = sum(2 for f in wf.forwards if f.has_params)
     want = {"lrn_forward": n_lrn * (steps + valid_mbs),
             "lrn_backward": n_lrn * steps, "dropout": 2 * n_drop * steps,
-            "fused_sgd_update": n_params * steps}
+            "fused_sgd_update": -(-n_params // HK.SGD_MAX_TENSORS) * steps}
     got = {k: launches[k] for k in want}
     check(got == want, "alexnet launches %r, expected %r" % (got, want))
     losses = [m[s]["loss"] for m in metrics for s in ("validation", "train")]
@@ -1627,6 +1673,18 @@ def main():
               decode_case(torch, HK, A, m=512, window=256, sinks=4,
                           seed=10, timed=False),
               prefill_case(torch, HK, A, 400, kv=2, dh=128, m=512, seed=8,
+                           timed=False),
+              # split-KV prefill edges: one history page, GQA, a head_dim
+              # not a multiple of 4, feature blocks with page 64, and a
+              # window with sinks that empties the splits between
+              prefill_case(torch, HK, A, 1, seed=11, timed=False),
+              prefill_case(torch, HK, A, 15, kv=2, seed=12, timed=False),
+              prefill_case(torch, HK, A, 23, b=2, h=4, kv=2, dh=18, page=8,
+                           m=40, seed=13, timed=False),
+              prefill_case(torch, HK, A, 5, h=4, kv=4, dh=320, page=64,
+                           m=8, seed=14, timed=False),
+              prefill_case(torch, HK, A, 50, b=2, kv=2, dh=128, page=8,
+                           m=64, window=100, sinks=4, seed=15,
                            timed=False)]
     sgd = sgd_cases(torch, HK)
     lrn = [c for i, (name, shape) in enumerate(LRN_SHAPES.items())
@@ -1647,6 +1705,10 @@ def main():
     # rows not 16-byte aligned: the backward stages by 4-byte copies
     flash_checks += flash_case(torch, HK, 2, 4, 200, 37, causal=False,
                                seed=37, timed=False)
+    # the floor of a one-launch call: back-to-back empty launches
+    floor_ms = time_ms([lambda: torch.cuda._sleep(0)], torch)
+    print(json.dumps({"empty_launch_ms": floor_ms, "card": smi}),
+          flush=True)
     for case in (cases + checks + sgd + lrn + lrn_checks + drop + drop_checks
                  + flash + flash_checks):
         print(json.dumps(dict(case, card=smi)), flush=True)
@@ -1683,6 +1745,11 @@ def main():
                 "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
                for k, c in main_case.items()]
+    # beside the calls that are one or two short launches, the floor
+    for row in kernels:
+        if row["name"] in ("fused_sgd_update", "paged_flash_decode",
+                           "paged_flash_prefill"):
+            row["empty_launch_ms"] = floor_ms
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,16 +10,16 @@ conftest:
 Tolerances: fp32 outputs are O(1) and the kernel sums up to 16384 keys
 in another order than the plain version (~1e-7 apart on the card), so
 max abs error <= 1e-4; the prefill install is a row copy, bit-equal.
-The fused SGD kernel is held within 1 ulp per element of its plain
-version (the plain version forms each fused multiply-add in float64 and
+The fused SGD kernel (one launch for a list of up to 48 tensors) is
+held within 1 ulp per element of its plain version (the plain version forms each fused multiply-add in float64 and
 rounds once, which can differ from the hardware fma only on a rare
 double-rounding tie).  The LRN kernels sum each window in the plain
 version's order, and differ from it only where CUDA's powf and PyTorch's
 pow round differently: forward rtol/atol 2e-6, backward rtol 3e-5 /
 atol 3e-6 (the reference's Pallas-vs-XLA tolerances).  Dropout is
 bit-equal to its plain version.  The flash kernels (3xTF32 on the
-tensor cores) and the split-KV decode repeat bit for bit from launch to
-launch, and the flash kernels' error against an fp64 plain version is at
+tensor cores) and the split-KV decode and prefill repeat bit for bit
+from launch to launch, and the flash kernels' error against an fp64 plain version is at
 most 4x the fp32 plain version's.
 """
 
@@ -183,6 +183,56 @@ def test_decode_split_edges_and_repeat(b, h, kv, c, dh, page, m, window,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,dh,page,m,n_hist,window,sinks", [
+    (1, 8, 8, 64, 32, 16, 0, None, 0),      # the serving shape, first chunk
+    (1, 8, 8, 64, 32, 16, 1, None, 0),
+    (1, 8, 8, 64, 32, 16, 15, None, 0),     # every split one live page
+    (2, 8, 2, 128, 32, 512, 400, None, 0),  # 16384-token view, GQA
+    (2, 4, 2, 18, 8, 40, 23, None, 0),      # head_dim % 4 != 0
+    (1, 4, 4, 320, 64, 8, 5, None, 0),      # feature blocks, page 64
+    (2, 8, 2, 128, 8, 64, 50, 100, 4),      # window + sinks: middle dead
+    (1, 8, 2, 64, 64, 40, 30, 300, 2),
+])
+def test_prefill_split_edges_and_repeat(b, h, kv, dh, page, m, n_hist,
+                                        window, sinks):
+    """The split-KV prefill over ranges whose pages are all dead (no
+    history, a window with sinks) matches the plain version, installs
+    the chunk bit for bit, and repeats bit for bit (the splits meet in a
+    fixed order)."""
+    dev = _card()
+    rng = numpy.random.RandomState(n_hist * 7 + dh + page)
+    n_pages = b * m + 1
+    q = _randn(rng, b, h, page, dh, dev=dev)
+    kn = _randn(rng, b, kv, page, dh, dev=dev)
+    vn = _randn(rng, b, kv, page, dh, dev=dev)
+    kp = _randn(rng, n_pages, kv, page, dh, dev=dev)
+    vp = _randn(rng, n_pages, kv, page, dh, dev=dev)
+    ptab = _tables(rng, b, m, n_pages, dev)
+    pos = torch.as_tensor([n_hist * page] + [(n_hist // 2) * page] * (b - 1),
+                          dtype=torch.int32, device=dev)
+    kr, vr = kp.clone(), vp.clone()
+    got, _, _ = HK.paged_flash_prefill(q, kn, vn, kp, vp, ptab, pos, window,
+                                       sinks)
+    again, _, _ = HK.paged_flash_prefill(q, kn, vn, kp, vp, ptab, pos,
+                                         window, sinks)
+    ref, _, _ = HK.paged_flash_prefill_ref(q, kn, vn, kr, vr, ptab, pos,
+                                           window, sinks)
+    torch.cuda.synchronize()
+    assert HK.prefill_splits(b, h, kv, page, dh, m) >= 1
+    assert (got - ref).abs().max().item() <= ATOL
+    assert torch.equal(got, again)
+    assert torch.equal(kp, kr) and torch.equal(vp, vr)
+
+
+@pytest.mark.cuda
+def test_prefill_serving_shape_splits():
+    """At the serving shape (one lane, 8 kv heads, 32 rows, 16 pages) the
+    walk is cut into one range a page: 128 blocks for 132 SMs."""
+    _card()
+    assert HK.prefill_splits(1, 8, 8, 32, 64, 16) == 16
+
+
+@pytest.mark.cuda
 def test_decode_makes_no_host_sync():
     """pos stays on the card: the wrapper (split count, workspace, both
     launches) never waits for the card."""
@@ -270,6 +320,42 @@ def test_fused_sgd_matches_plain(shape, wd, l1, clip, offset):
         ulp = torch.as_tensor(numpy.spacing(numpy.abs(ref.cpu().numpy())),
                               device=dev)
         assert ((got - ref).abs() / ulp).max().item() <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count,offsets", [
+    (4, (0, 0, 0, 0)),            # MNIST-FC's four tensors
+    (4, (0, 1, 0, 3)),            # two tensors unaligned: scalar path
+    (50, None),                   # more than one launch's table
+])
+def test_fused_sgd_multi_matches_plain(count, offsets):
+    """One launch updates every tensor of the list (two when it is
+    longer than SGD_MAX_TENSORS), each with its own scalars, each within
+    1 ulp of the plain version."""
+    dev = _card()
+    rng = numpy.random.RandomState(count)
+    shapes = [(784, 100), (100,), (100, 10), (10,)] if count == 4 else [
+        (int(rng.randint(1, 3000)),) for _ in range(count)]
+    offsets = offsets or [int(o) for o in rng.randint(0, 4, count)]
+    ops = [_sgd_operands(rng, shape, dev, off)
+           for shape, off in zip(shapes, offsets)]
+    scalars = [(100, 0.03 if k % 2 == 0 else 0.05, 0.9,
+                0.0005 * (k % 3), 0.3 * (k % 2), 0.05 if k % 5 == 4 else None)
+               for k in range(count)]
+    ps, vs, gs = (list(x) for x in zip(*ops))
+    before = HK.fused_sgd_update.launches
+    got_p, got_v = HK.fused_sgd_update_multi(ps, vs, gs, scalars)
+    launches = -(-count // HK.SGD_MAX_TENSORS)
+    assert HK.fused_sgd_update.launches == before + launches
+    ref_p, ref_v = HK.fused_sgd_update_multi_ref(ps, vs, gs, scalars)
+    torch.cuda.synchronize()
+    for got, ref in zip(got_p + got_v, ref_p + ref_v):
+        ulp = torch.as_tensor(numpy.spacing(numpy.abs(ref.cpu().numpy())),
+                              device=dev)
+        assert ((got - ref).abs() / ulp).max().item() <= 1.0
+    again_p, again_v = HK.fused_sgd_update_multi(ps, vs, gs, scalars)
+    assert all(torch.equal(a, b) for a, b in zip(again_p + again_v,
+                                                 got_p + got_v))
 
 
 @pytest.mark.cuda

@@ -8,8 +8,10 @@ minibatch (plus an ``eval_step``), composed from the SAME ``forward_fn``
 in unit mode, so fused and unit mode are numerically identical by
 construction.  The unit graph stays intact — the accelerated units are
 gate-skipped and a ``FusedStep`` node runs in their place — so Decision
-gating keeps working unchanged.  PyTorch runs the step eagerly; every
-momentum update in it is one launch of the fused SGD kernel.
+gating keeps working unchanged.  PyTorch runs the step eagerly; all the
+momentum updates of a step are one launch of the fused SGD kernel (each
+tensor's arithmetic is the same as in unit mode, where a unit updates
+its weights and bias in one launch).
 
 Stochastic layers (dropout, random crop) get their keys as the reference
 threads them: one ``prng.get("dropout").key()`` per train minibatch when
@@ -33,6 +35,7 @@ from veles_tpu_torch import prng
 from veles_tpu_torch.device import resolve_device
 from veles_tpu_torch.loader.base import TRAIN
 from veles_tpu_torch.mutable import Bool
+from veles_tpu_torch.ops import functional as F
 from veles_tpu_torch.units import Unit
 
 
@@ -118,11 +121,26 @@ class FusedRunner:
         return all_grads, metrics
 
     def _apply_updates(self, state, all_grads, batch_size, step):
+        """Every momentum-solver layer's tensors in ONE fused-SGD call
+        (one kernel launch on the card); the adaptive solvers per layer."""
         new_state = list(state)
+        joint, items = [], []
         for i, grads in enumerate(all_grads):
-            if grads is not None:
-                new_state[i] = self.gds[i].update_fused(
-                    state[i], grads, batch_size, step)
+            if grads is None:
+                continue
+            gd = self.gds[i]
+            mine = gd.sgd_items_fused(state[i], grads, batch_size)
+            if mine is None:
+                new_state[i] = gd.update_fused(state[i], grads, batch_size,
+                                               step)
+            else:
+                joint.append((i, len(items), len(mine)))
+                items.extend(mine)
+        if items:
+            results = F.sgd_update_multi(items)
+            for i, first, n in joint:
+                new_state[i] = self.gds[i].sgd_finish_fused(
+                    state[i], results[first:first + n])
         return new_state
 
     def _train_step(self, state, x, y_ref, mask, batch_size, rng=None,

@@ -13,8 +13,9 @@ gets from ``jax.vjp``.  Activation semantics follow the reference exactly:
 ``tanh`` is the LeCun-scaled ``1.7159 * tanh(0.6666 x)``, ``relu`` the
 smooth ``log(1 + exp(x))``, ``strict_relu`` is ``max(0, x)``.  Every
 momentum update goes through the hand-written kernel's wrapper
-(:func:`veles_tpu_torch.ops.hopper_kernels.fused_sgd_update`), clipped or
-not, and every LRN and dropout through theirs; the adaptive solvers,
+(:func:`veles_tpu_torch.ops.hopper_kernels.fused_sgd_update_multi`, a
+step's tensors in one launch), clipped or not, and every LRN and
+dropout through theirs; the adaptive solvers,
 convolutions and pooling are PyTorch ops (cuBLAS, cuDNN), as the
 reference left them to XLA.  Convolutions run on NHWC tensors' NCHW
 views, which are channels_last, with HWIO weights.
@@ -551,6 +552,16 @@ def sgd_update(param, velocity, grad, batch_size, learning_rate, momentum,
     return fused_sgd_update(param, velocity, grad, batch_size,
                             learning_rate, momentum, weight_decay, l1_vs_l2,
                             gradient_clip)
+
+
+def sgd_update_multi(items):
+    """:func:`sgd_update` of several tensors at once: ``items`` are
+    (param, velocity, grad, scalars) with each tensor's own ``scalars``
+    (``(batch_size, learning_rate, momentum, weight_decay, l1_vs_l2,
+    gradient_clip)``), one launch of the fused kernel on the card for the
+    whole list.  Returns [(new param, new velocity), ...]."""
+    from veles_tpu_torch.ops.hopper_kernels import fused_sgd_update_multi
+    return list(zip(*fused_sgd_update_multi(*zip(*items))))
 
 
 def _effective_grad(param, grad, batch_size, weight_decay, l1_vs_l2,

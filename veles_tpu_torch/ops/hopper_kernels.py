@@ -18,12 +18,14 @@ the kernel and adds one to the wrapper's ``launches`` count, and any
 other device raises.  There is no fallback from the kernel to the plain
 version.
 
-fused_sgd_update
-    Replaces ``veles_tpu/ops/pallas_kernels.py:92`` (fused_sgd_update).
+fused_sgd_update / fused_sgd_update_multi
+    Replace ``veles_tpu/ops/pallas_kernels.py:92`` (fused_sgd_update).
     Bound on the H100: bytes (p, v, g read once, p' and v' written once:
-    20 bytes per element).  One elementwise pass with 16-byte accesses;
-    the outputs are new tensors, because the fused training step holds
-    an update pending until Decision commits it.
+    20 bytes per element).  One launch updates a whole list of tensors
+    (a training step's, each with its own scalars) from a table passed
+    by value, one elementwise pass with 16-byte accesses; the outputs are
+    new tensors, because the fused training step holds an update
+    pending until Decision commits it.  One count: ``fused_sgd_update``.
 lrn_forward / lrn_backward
     Replace ``veles_tpu/ops/pallas_kernels.py:226`` (``_lrn_fwd``) and
     ``:244`` (``_lrn_bwd_vjp``).  Bound: bytes (12 and 16 bytes an
@@ -51,11 +53,17 @@ paged_flash_decode
     (no atomics); both are one call and one count.
 paged_flash_prefill
     Replaces ``veles_tpu/ops/pallas_kernels.py:443`` (paged_flash_prefill).
-    Bound: bytes (history pages plus the chunk's K/V, read once).  Warps
-    of one block walk 32-key tiles of the lane's keys, reading key rows
-    straight from device memory, and meet once at the end; the chunk's
-    own K/V are the last keys walked and are installed into their pool
-    page by the same kernel.
+    Bound: bytes (history pages plus the chunk's K/V, read once).
+    Split-KV as decode (:func:`prefill_splits`): a block of 8 warps owns
+    a kv head's tile of up to 64 query rows and one range of the lane's
+    pages (the last range also takes the chunk's own keys), stages each
+    32-key tile's K and V through shared memory by coalesced ``cp.async``
+    with two slabs in flight, and scores the whole row tile against it;
+    the ranges' states meet in the same combine kernel, and the same call
+    installs the chunk into its pool page.
+    :func:`paged_flash_prefill_split_ref` and
+    :func:`paged_flash_combine_ref` are the two phases' contract in plain
+    PyTorch.
 flash_attention_fwd / flash_attention_bwd_dkv / flash_attention_bwd_dq
     Replace jax's bundled TPU Pallas flash attention, which
     ``veles_tpu/ops/attention.py:176`` (flash_attention_tpu) calls for
@@ -101,8 +109,8 @@ def serving_kernels_supported(paged, n_heads, kv_heads, head_dim, page,
 
 
 # ---------------------------------------------------------- fused SGD update
-def _sgd_scalars(batch_size, learning_rate, momentum, weight_decay,
-                 l1_vs_l2, gradient_clip):
+def _sgd_scalars(batch_size, learning_rate, momentum=0.0, weight_decay=0.0,
+                 l1_vs_l2=0.0, gradient_clip=None):
     """The update's scalars as fp32 values, rounded the way JAX rounds
     them: inv_batch = float32(1) / float32(max(batch, 1)) in fp32, the
     others rounded to fp32 once from Python doubles (``1 - l1_vs_l2``
@@ -251,6 +259,72 @@ def paged_flash_prefill_ref(q, k_new, v_new, k_pool, v_pool, ptab, pos,
     return o, k_pool, v_pool
 
 
+def split_ranges(m, splits):
+    """The split kernels' cut of a table of ``m`` pages into ``splits``
+    contiguous ranges of ceil(m / splits) pages (the last ones shorter or
+    empty): a list of (first page, end page)."""
+    per = -(-m // splits)
+    return [(s * per, min(m, (s + 1) * per)) for s in range(splits)]
+
+
+def paged_flash_prefill_split_ref(q, k_new, v_new, k_pool, v_pool, ptab,
+                                  pos, splits, window=None, sinks=0):
+    """The prefill split kernel's contract in plain PyTorch (no
+    install): range s of :func:`split_ranges` (m, splits) leaves the
+    online-softmax state of its history pages that hold a key live for
+    the lane (a page with none is skipped, as the kernel never reads
+    it), the last range also of the chunk's own keys; a range with no
+    live page leaves the empty state (NEG_INF, 0, 0).  Returns (m, l)
+    (b, kv, g·c, splits) and acc (b, kv, g·c, splits, dh), which
+    :func:`paged_flash_combine_ref` meets."""
+    c = q.shape[2]
+    page = k_pool.shape[2]
+    qg, rows = _fold(q, k_pool.shape[1])
+    lane_pos = pos.long()
+    front = lane_pos[:, None, None]
+    q_pos = front + rows[None, :, None]
+    states = []
+    for s, (pg0, pg1) in enumerate(split_ranges(ptab.shape[1], splits)):
+        state = _init_state(qg)
+        for j in range(pg0, pg1):
+            kb = j * page
+            lane_live = kb < lane_pos
+            if window:
+                lane_live = lane_live & ((kb + page - 1 > lane_pos - window)
+                                         | (kb < sinks))
+            if not bool(lane_live.any()):
+                continue
+            pid = ptab[:, j].long()
+            k_pos = kb + torch.arange(page, device=q.device)
+            live = _band(k_pos, q_pos, window, sinks, k_pos < front)
+            new = _flash_step(qg, k_pool[pid], v_pool[pid], live, state)
+            keep = lane_live[:, None, None]
+            state = (torch.where(keep[..., None], new[0], state[0]),
+                     torch.where(keep, new[1], state[1]),
+                     torch.where(keep, new[2], state[2]))
+        if s == splits - 1:
+            k_pos = front + torch.arange(c, device=q.device)
+            live = _band(k_pos, q_pos, window, sinks, k_pos <= q_pos)
+            state = _flash_step(qg, k_new, v_new, live, state)
+        states.append(state)
+    acc, l, m = (torch.stack(x, dim=3) for x in zip(*states))
+    return m, l, acc
+
+
+def paged_flash_combine_ref(m, l, acc):
+    """The combine kernel in plain PyTorch: the splits' states meet in
+    split order, o = Σ_s acc_s e^(m_s − M) / Σ_s l_s e^(m_s − M) with M
+    the largest m_s (a split left empty weighs exp(NEG_INF − M) = 0).
+    Takes :func:`paged_flash_prefill_split_ref`'s states; returns the
+    (b, kv, g·c, dh) rows, which reshape to o (b, h, c, dh)."""
+    a = torch.exp(m - m.amax(dim=-1, keepdim=True))
+    num, den = acc[..., 0, :] * a[..., 0, None], l[..., 0] * a[..., 0]
+    for s in range(1, acc.shape[3]):
+        num = num + acc[..., s, :] * a[..., s, None]
+        den = den + l[..., s] * a[..., s]
+    return num / den[..., None]
+
+
 # ----------------------------------------------------------------- wrappers
 def _check_chunk(c, page):
     if c != page:
@@ -317,8 +391,10 @@ def _lib():
         lib.paged_flash_decode_splits.argtypes = [i32] * 6
         lib.paged_flash_decode_splits.restype = i32
         lib.paged_flash_prefill_f32.argtypes = \
-            [ptr] * 8 + [i32] * 9 + [ptr]
+            [ptr] * 9 + [i32] * 9 + [ptr]
         lib.paged_flash_prefill_f32.restype = i32
+        lib.paged_flash_prefill_splits.argtypes = [i32] * 6
+        lib.paged_flash_prefill_splits.restype = i32
         lib.paged_flash_error_string.argtypes = [i32]
         lib.paged_flash_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -412,16 +488,23 @@ def paged_flash_prefill(q, k_new, v_new, k_pool, v_pool, ptab, pos,
     _check_operands((("q", q), ("k_new", k_new), ("v_new", v_new),
                      ("k_pool", k_pool), ("v_pool", v_pool)),
                     (("ptab", ptab), ("pos", pos)))
+    m = ptab.shape[1]
+    splits = prefill_splits(b, h, kv, c, dh, m)
     o = torch.empty_like(q)
-    lib = _lib()
+    # each split's (m, l) and accumulator rows, for the combine
+    workspace = (torch.empty(b * h * c * splits * (dh + 2),
+                             dtype=torch.float32, device=q.device)
+                 if splits > 1 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.paged_flash_prefill_f32(
+        code = _lib().paged_flash_prefill_f32(
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_pool.data_ptr(), v_pool.data_ptr(), ptab.data_ptr(),
-            pos.data_ptr(), o.data_ptr(), b, h, kv, c, dh, c,
-            ptab.shape[1], int(window or 0), int(sinks), stream)
+            pos.data_ptr(), o.data_ptr(),
+            None if workspace is None else workspace.data_ptr(), b, h, kv,
+            c, dh, c, m, int(window or 0), int(sinks), stream)
     _raise_on(code, "paged_flash_prefill")
+    # one call: the split kernel and, with more than one split, the combine
     paged_flash_prefill.launches += 1
     return o, k_pool, v_pool
 
@@ -429,10 +512,21 @@ def paged_flash_prefill(q, k_new, v_new, k_pool, v_pool, ptab, pos,
 paged_flash_prefill.launches = 0
 
 
+def prefill_splits(b, h, kv, c, dh, m):
+    """How many ranges of a lane's table :func:`paged_flash_prefill`
+    splits the walk into on the card (the last range also takes the
+    chunk's own keys), from the geometry alone, as
+    :func:`decode_splits`.  Builds the kernels' library on first use."""
+    return _lib().paged_flash_prefill_splits(b, h, kv, c, dh, m)
+
+
 _SGD_LIB = None
-#: the kernel's scalar arguments, in order (exact fp32 values as doubles)
+#: the kernel's scalar arguments, in order (exact fp32 values)
 _SGD_ORDER = ("inv_batch", "lr", "momentum", "weight_decay", "l1",
               "one_minus_l1", "clip")
+#: the most tensors one launch updates (the kernel's table is a launch
+#: parameter of at most 4 KB); a longer list takes several launches
+SGD_MAX_TENSORS = 48
 
 
 def _sgd_lib():
@@ -441,56 +535,116 @@ def _sgd_lib():
     if _SGD_LIB is None:
         from veles_tpu_torch.ops import _build
         lib = _build.load("fused_sgd")
-        ptr, f32 = ctypes.c_void_p, ctypes.c_float
-        lib.fused_sgd_update_f32.argtypes = ([ptr] * 5 + [ctypes.c_longlong]
-                                             + [f32] * 7 + [ptr])
-        lib.fused_sgd_update_f32.restype = ctypes.c_int
+        ptr = ctypes.c_void_p
+        lib.fused_sgd_update_multi_f32.argtypes = [ptr] * 3 + [ctypes.c_int,
+                                                               ptr]
+        lib.fused_sgd_update_multi_f32.restype = ctypes.c_int
+        lib.fused_sgd_max_tensors.restype = ctypes.c_int
         lib.fused_sgd_error_string.argtypes = [ctypes.c_int]
         lib.fused_sgd_error_string.restype = ctypes.c_char_p
+        if lib.fused_sgd_max_tensors() != SGD_MAX_TENSORS:
+            raise RuntimeError("fused_sgd.cu takes %d tensors a launch, "
+                               "the wrapper expects %d" % (
+                                   lib.fused_sgd_max_tensors(),
+                                   SGD_MAX_TENSORS))
         _SGD_LIB = lib
     return _SGD_LIB
+
+
+def fused_sgd_update_multi_ref(params, velocities, grads, scalars):
+    """Plain PyTorch version of :func:`fused_sgd_update_multi`:
+    :func:`fused_sgd_update_ref` on each tensor.  Returns (new params,
+    new velocities) as lists."""
+    out = [fused_sgd_update_ref(p, v, g, *s)
+           for p, v, g, s in zip(params, velocities, grads, scalars)]
+    return [p for p, _ in out], [v for _, v in out]
+
+
+def fused_sgd_update_multi(params, velocities, grads, scalars):
+    """Momentum-SGD updates of several tensors in ONE kernel launch (up
+    to :data:`SGD_MAX_TENSORS` tensors a launch; a longer list takes
+    several, each counted).  ``scalars[i]`` is tensor i's update
+    arguments as :func:`fused_sgd_update` takes them after its three
+    tensors: ``(batch_size, learning_rate[, momentum[, weight_decay[,
+    l1_vs_l2[, gradient_clip]]]])`` — a weight and its bias may differ
+    (the bias's own learning rate and weight decay).  Returns NEW
+    tensors (new params, new velocities) as lists, leaving the inputs
+    untouched.
+
+    CPU tensors run :func:`fused_sgd_update_multi_ref`; CUDA tensors
+    launch the kernel (fp32, equal shapes per tensor, contiguous, all on
+    one card — anything else raises).  A tensor whose pointers are not
+    16-byte aligned takes the kernel's scalar loop.  Scalars are Python
+    or numpy numbers, passed by value in the launch's table, so nothing
+    is copied to or read back from the card."""
+    params, velocities, grads = list(params), list(velocities), list(grads)
+    scalars = list(scalars)
+    if not (len(params) == len(velocities) == len(grads) == len(scalars)):
+        raise ValueError("%d params, %d velocities, %d grads and %d scalar "
+                         "sets differ in number" % (
+                             len(params), len(velocities), len(grads),
+                             len(scalars)))
+    for p, v, g in zip(params, velocities, grads):
+        if p.shape != v.shape or p.shape != g.shape:
+            raise ValueError("param %s, velocity %s and grad %s differ in "
+                             "shape" % (tuple(p.shape), tuple(v.shape),
+                                        tuple(g.shape)))
+    values = [_sgd_scalars(*s) for s in scalars]
+    if not params or not _on_card(*params, *velocities, *grads):
+        return fused_sgd_update_multi_ref(params, velocities, grads,
+                                          scalars)
+    for name, ts in (("param", params), ("velocity", velocities),
+                     ("grad", grads)):
+        for t in ts:
+            if t.dtype != torch.float32:
+                raise TypeError("%s must be float32 (got %s)"
+                                % (name, t.dtype))
+            if not t.is_contiguous():
+                raise ValueError("%s must be contiguous" % name)
+    new_p = [torch.empty_like(p) for p in params]
+    new_v = [torch.empty_like(v) for v in velocities]
+    lib = _sgd_lib()
+    device = params[0].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for lo in range(0, len(params), SGD_MAX_TENSORS):
+            part = range(lo, min(lo + SGD_MAX_TENSORS, len(params)))
+            ptrs = numpy.array(
+                [t.data_ptr() for i in part for t in (
+                    params[i], velocities[i], grads[i], new_p[i], new_v[i])],
+                numpy.uint64)
+            lengths = numpy.array([params[i].numel() for i in part],
+                                  numpy.int64)
+            scal = numpy.array([values[i][k] for i in part
+                                for k in _SGD_ORDER], numpy.float32)
+            code = lib.fused_sgd_update_multi_f32(
+                ptrs.ctypes.data, lengths.ctypes.data, scal.ctypes.data,
+                len(part), stream)
+            if code:
+                raise RuntimeError("fused_sgd_update launch failed: %s"
+                                   % lib.fused_sgd_error_string(code)
+                                   .decode())
+            if lengths.any():
+                fused_sgd_update.launches += 1
+    return new_p, new_v
 
 
 def fused_sgd_update(param, velocity, grad, batch_size, learning_rate,
                      momentum=0.0, weight_decay=0.0, l1_vs_l2=0.0,
                      gradient_clip=None):
-    """Momentum-SGD update as ONE kernel: returns NEW (param, velocity)
+    """Momentum-SGD update of one tensor: returns NEW (param, velocity)
     tensors, leaving the inputs untouched.  ``grad`` is the batch SUM;
-    ``gradient_clip`` None or <= 0 means no clipping.
+    ``gradient_clip`` None or <= 0 means no clipping.  A one-entry
+    :func:`fused_sgd_update_multi` (one launch on the card).
 
     CPU tensors run :func:`fused_sgd_update_ref`; CUDA tensors launch
     the kernel (fp32, equal shapes, contiguous — anything else raises).
     Scalars are Python or numpy numbers, passed to the kernel by value,
     so nothing is read back from the card."""
-    if param.shape != velocity.shape or param.shape != grad.shape:
-        raise ValueError("param %s, velocity %s and grad %s differ in shape"
-                         % (tuple(param.shape), tuple(velocity.shape),
-                            tuple(grad.shape)))
-    if not _on_card(param, velocity, grad):
-        return fused_sgd_update_ref(param, velocity, grad, batch_size,
-                                    learning_rate, momentum, weight_decay,
-                                    l1_vs_l2, gradient_clip)
-    for name, t in (("param", param), ("velocity", velocity),
-                    ("grad", grad)):
-        if t.dtype != torch.float32:
-            raise TypeError("%s must be float32 (got %s)" % (name, t.dtype))
-        if not t.is_contiguous():
-            raise ValueError("%s must be contiguous" % name)
-    s = _sgd_scalars(batch_size, learning_rate, momentum, weight_decay,
-                     l1_vs_l2, gradient_clip)
-    new_p = torch.empty_like(param)
-    new_v = torch.empty_like(velocity)
-    lib = _sgd_lib()
-    with torch.cuda.device(param.device):
-        stream = torch.cuda.current_stream(param.device).cuda_stream
-        code = lib.fused_sgd_update_f32(
-            param.data_ptr(), velocity.data_ptr(), grad.data_ptr(),
-            new_p.data_ptr(), new_v.data_ptr(), param.numel(),
-            *[float(s[k]) for k in _SGD_ORDER], stream)
-    if code:
-        raise RuntimeError("fused_sgd_update launch failed: %s"
-                           % lib.fused_sgd_error_string(code).decode())
-    fused_sgd_update.launches += 1
+    (new_p,), (new_v,) = fused_sgd_update_multi(
+        [param], [velocity], [grad],
+        [(batch_size, learning_rate, momentum, weight_decay, l1_vs_l2,
+          gradient_clip)])
     return new_p, new_v
 
 
@@ -979,11 +1133,15 @@ def launch_counts():
 
 
 __all__ = ["NEG_INF", "serving_kernels_supported", "fused_sgd_update",
-           "fused_sgd_update_ref", "lrn_forward", "lrn_forward_ref",
+           "fused_sgd_update_ref", "fused_sgd_update_multi",
+           "fused_sgd_update_multi_ref", "SGD_MAX_TENSORS", "lrn_forward",
+           "lrn_forward_ref",
            "lrn_backward", "lrn_backward_ref", "LRN", "LRN_MAX_CHANNELS",
            "dropout", "dropout_ref", "paged_flash_decode",
            "paged_flash_decode_ref", "decode_splits", "paged_flash_prefill",
-           "paged_flash_prefill_ref", "flash_attention_fwd",
+           "paged_flash_prefill_ref", "prefill_splits", "split_ranges",
+           "paged_flash_prefill_split_ref", "paged_flash_combine_ref",
+           "flash_attention_fwd",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
            "flash_attention_ref", "flash_attention_bwd_ref",
            "flash_attention_di",

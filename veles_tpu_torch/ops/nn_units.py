@@ -372,10 +372,26 @@ class GradientDescentBase(AcceleratedUnit):
 
     def update_fused(self, entry, grads, batch_size, step=0):
         grad_w, grad_b = grads
-        new = self.update_fn(
+        return self.entry_from(self.update_fn(
             entry["w"], entry.get("b"), entry["vw"], entry.get("vb"),
             grad_w, grad_b, batch_size, step,
-            entry.get("aw"), entry.get("ab"))
+            entry.get("aw"), entry.get("ab")))
+
+    def sgd_items_fused(self, entry, grads, batch_size):
+        """:meth:`sgd_items` of a fused state entry and its grads."""
+        grad_w, grad_b = grads
+        return self.sgd_items(entry["w"], entry.get("b"), entry["vw"],
+                              entry.get("vb"), grad_w, grad_b, batch_size)
+
+    def sgd_finish_fused(self, entry, results):
+        """The new fused state entry from this unit's results of a joint
+        momentum update (:meth:`sgd_finish`)."""
+        return self.entry_from(self.sgd_finish(results, entry.get("aw"),
+                                               entry.get("ab")))
+
+    @staticmethod
+    def entry_from(new):
+        """A fused state entry from :meth:`update_fn`'s six results."""
         new_w, new_b, new_vw, new_vb, new_aw, new_ab = new
         new_entry = {"w": new_w, "vw": new_vw}
         if new_b is not None:
@@ -428,10 +444,46 @@ class GradientDescentBase(AcceleratedUnit):
             if fwd.include_bias:
                 self.accum_bias.assign_device(entry["ab"])
 
+    def sgd_items(self, weights, bias, vel_w, vel_b, grad_w, grad_b,
+                  batch_size):
+        """The momentum solver's updates as (param, velocity, grad,
+        scalars) entries for :func:`F.sgd_update_multi` — the weights',
+        then the bias's (its own learning rate and weight decay) — or
+        None under another solver."""
+        if self.solver != "momentum":
+            return None
+        momentum = 0.0 if self.momentum is None else self.momentum
+        items = [(weights, vel_w, grad_w,
+                  (batch_size, self.learning_rate, momentum,
+                   self.weight_decay, self.l1_vs_l2, self.gradient_clip))]
+        if grad_b is not None:
+            items.append((bias, vel_b, grad_b,
+                          (batch_size, self.learning_rate_bias, momentum,
+                           self.weight_decay_bias, self.l1_vs_l2,
+                           self.gradient_clip)))
+        return items
+
+    def sgd_finish(self, results, acc_w=None, acc_b=None):
+        """:meth:`update_fn`'s six results from the (param, velocity)
+        pairs of :meth:`sgd_items`' entries (the weights mask applied)."""
+        (new_w, new_vw), *rest = results
+        if self._mask_t is not None:
+            new_w = new_w * self._mask_t
+        if not rest:
+            return new_w, None, new_vw, None, acc_w, None
+        (new_b, new_vb), = rest
+        return new_w, new_b, new_vw, new_vb, acc_w, acc_b
+
     def update_fn(self, weights, bias, vel_w, vel_b, grad_w, grad_b,
                   batch_size, step=0, acc_w=None, acc_b=None):
         """New (w, b, vw, vb, aw, ab); ``batch_size`` and ``step`` are
-        Python ints (nothing is staged to the device per update)."""
+        Python ints (nothing is staged to the device per update).  Under
+        the momentum solver the weights and the bias take one joint
+        update (one kernel launch on the card)."""
+        items = self.sgd_items(weights, bias, vel_w, vel_b, grad_w, grad_b,
+                               batch_size)
+        if items is not None:
+            return self.sgd_finish(F.sgd_update_multi(items), acc_w, acc_b)
         new_w, new_vw, new_aw = F.adaptive_update(
             weights, vel_w, acc_w, grad_w, batch_size, self.learning_rate,
             self.momentum, self.weight_decay, self.l1_vs_l2,

@@ -5,15 +5,17 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 -m veles_tpu_torch.tools.flash_bwd_profile
 
-(The module keeps its first name; it now covers the forward and the
-decode kernels too.)  Prints one JSON object with
+(The module keeps its first name; it now covers the forward, the paged
+decode and prefill kernels and the fused SGD kernel too.)  Prints one
+JSON object with
 - the card's name and power limit;
-- ``ptxas`` resources of every kernel in ``csrc/flash_attention.cu`` and
-  ``csrc/paged_flash_attention.cu`` as built for ``sm_90a`` (``nvcc
-  -Xptxas -v``): registers a thread, spill stores and loads in bytes,
-  static shared memory; beside them each flash kernel's dynamic shared
-  memory, and the decode kernel's at the serving shape (8 heads, kv 8,
-  c 1, head_dim 64);
+- ``ptxas`` resources of every kernel in ``csrc/flash_attention.cu``,
+  ``csrc/paged_flash_attention.cu`` (every decode and prefill instance)
+  and ``csrc/fused_sgd.cu`` as built for ``sm_90a`` (``nvcc -Xptxas
+  -v``): registers a thread, spill stores and loads in bytes, static
+  shared memory; beside them each flash kernel's dynamic shared memory,
+  and the decode and prefill kernels' at the serving shapes (8 heads,
+  kv 8, head_dim 64; decode c 1, prefill c 32);
 - the rate ``mma.sync.m16n8k8`` TF32 products reach on this card when
   nothing else is issued (a microbenchmark built here with nvcc: eight
   independent accumulators a warp, 4, 8 or 16 warps a block, two blocks
@@ -108,11 +110,12 @@ def mma_rates(build):
 
 def ptxas_resources(build):
     """{kernel: {"registers", "spill_stores", "spill_loads", "smem_static"}}
-    for every kernel of the two attention sources, from ``nvcc -Xptxas
-    -v`` with the build's own flags (names demangled by cu++filt)."""
+    for every kernel of the two attention sources and the fused SGD
+    source, from ``nvcc -Xptxas -v`` with the build's own flags (names
+    demangled by cu++filt)."""
     from veles_tpu_torch.ops import _build
     out = {}
-    for name in ("flash_attention", "paged_flash_attention"):
+    for name in ("flash_attention", "paged_flash_attention", "fused_sgd"):
         proc = subprocess.run(
             [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
              str(build / ("ptxas_%s.so" % name)),
@@ -200,11 +203,14 @@ def main():
     flash_lib.flash_attention_smem_bytes.restype = ctypes.c_int
     paged_lib = HK._lib()
     paged_lib.paged_flash_decode_smem_bytes.restype = ctypes.c_int
+    paged_lib.paged_flash_prefill_smem_bytes.restype = ctypes.c_int
     smem = {name: flash_lib.flash_attention_smem_bytes(i) for i, name in
             enumerate(("flash_fwd_kernel", "flash_bwd_dkv_kernel",
                        "flash_bwd_dq_kernel"))}
     smem["decode_split_kernel (8 heads, kv 8, c 1, head_dim 64)"] = \
         paged_lib.paged_flash_decode_smem_bytes(8, 8, 1, 64)
+    smem["prefill_split_kernel (8 heads, kv 8, c 32, head_dim 64)"] = \
+        paged_lib.paged_flash_prefill_smem_bytes(8, 8, 32, 64)
 
     b, h, s, dh = 32, 8, 512, 64
     rng = numpy.random.RandomState(0)
