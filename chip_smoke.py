@@ -37,9 +37,13 @@ Phases (any failure exits nonzero before the final line is printed):
    library call computes that function); the
    LRN forward and backward kernels at AlexNet's two LRN layers (library:
    ``local_response_norm`` on the NCHW view and its autograd backward),
-   checked, not timed, at C = 200 with n = 4; dropout at AlexNet's two
-   dropout inputs and at sizes 1, 127 and 2**16 + 3, bit-equal to its
-   plain version (no library call draws jax's mask);
+   each also against an fp64 plain version and launched twice
+   (bit-equal), then checked, not timed, on every path the kernels
+   split on (C = 200 with n = 4, C = 98, pointers 4 bytes off
+   alignment, C = 3 with n = 5, n = 1 and 7, C = 3000, a partial last
+   tile and ring stage, rows too wide for the ring); dropout at
+   AlexNet's two dropout inputs and at sizes 1, 127 and 2**16 + 3,
+   bit-equal to its plain version (no library call draws jax's mask);
 4. serve — the paged LM engine at the full width of the repo's LM
    config (vocab 256, d_model 512, 8 heads, 8 layers, learned positions,
    max_len 512, fp32, random weights from a seed) answers 16 requests
@@ -166,6 +170,9 @@ ALEXNET_PARAMS = ((11, 11, 3, 96), (96,), (5, 5, 96, 256), (256,),
 #: the reference's own Pallas-vs-XLA tolerances
 LRN_FWD_TOL = (2e-6, 2e-6)           # (rtol, atol)
 LRN_BWD_TOL = (3e-5, 3e-6)
+#: the LRN kernels against an fp64 plain version on the same inputs:
+#: their max abs error at most this many times the fp32 plain version's
+LRN_FP64_FACTOR = 2.0
 #: AlexNet's LRN inputs: conv1's and conv2's NHWC outputs
 LRN_SHAPES = {"lrn1": (128, 55, 55, 96), "lrn2": (128, 27, 27, 256)}
 #: AlexNet's dropout inputs: pool5 flattened, and fc6's output
@@ -598,26 +605,55 @@ def lrn_faults(torch, HK, x, dy, y_ref, d_ref, dx_ref, hyper, k):
     return out, ((direct - dx_ref).norm() / dx_ref.norm()).item()
 
 
-def lrn_case(torch, HK, name, shape, n=5, seed=0, timed=True):
+def lrn_case(torch, HK, name, shape, n=5, seed=0, timed=True, offset=0):
     """Kernels 2 and 3 on an NHWC ``shape`` against their plain versions
-    (and, timed, against local_response_norm on the NCHW view)."""
+    (and, timed, against local_response_norm on the NCHW view); each also
+    against an fp64 plain version (``LRN_FP64_FACTOR``) and launched
+    twice (bit-equal).  ``offset`` > 0 starts x and dy that many floats
+    into their buffers (16-byte alignment lost: the 4-byte instance).
+    The records name the launch plan (``HK.lrn_plan``)."""
     dev = torch.device("cuda")
     rng = numpy.random.RandomState(seed)
     c = shape[-1]
     rows = int(numpy.prod(shape[:-1]))
+
+    def place(a):
+        buf = torch.empty(a.size + offset, device=dev)
+        buf[offset:] = torch.as_tensor(a.reshape(-1), device=dev)
+        return buf[offset:].view(shape)
+
     # non-negative inputs (post-ReLU) of rms 3 and an O(1) cotangent, so
     # that the window term of d and the backward's cross-channel term
     # both sit well above the limits (``lrn_faults`` counts by how much)
-    x = torch.as_tensor(3 * numpy.abs(rng.randn(*shape)).astype(
-        numpy.float32), device=dev)
-    dy = torch.as_tensor(rng.randn(*shape).astype(numpy.float32),
-                         device=dev)
+    x = place(3 * numpy.abs(rng.randn(*shape)).astype(numpy.float32))
+    dy = place(rng.randn(*shape).astype(numpy.float32))
     hyper = (1e-4, 0.75, n)
     y, d = HK.lrn_forward(x, *hyper, 2.0)
     dx = HK.lrn_backward(x, d, dy, *hyper)
+    y2, d2 = HK.lrn_forward(x, *hyper, 2.0)
+    dx2 = HK.lrn_backward(x, d, dy, *hyper)
     y_ref, d_ref = HK.lrn_forward_ref(x, *hyper, 2.0)
     dx_ref = HK.lrn_backward_ref(x, d_ref, dy, *hyper)
     torch.cuda.synchronize()
+    check(torch.equal(y, y2) and torch.equal(d, d2),
+          "lrn_forward %s: two launches differ" % name)
+    check(torch.equal(dx, dx2), "lrn_backward %s: two launches differ"
+          % name)
+    # the same functions in fp64 on the same inputs
+    y64, d64 = HK.lrn_forward_ref(x.double(), *hyper, 2.0)
+    dx64 = HK.lrn_backward_ref(x.double(), d64, dy.double(), *hyper)
+    fp64 = {}
+    for what, got, plain, want in (("y", y, y_ref, y64), ("d", d, d_ref, d64),
+                                   ("dx", dx, dx_ref, dx64)):
+        fp64[what] = {"kernel": (got.double() - want).abs().max().item(),
+                      "plain_fp32": (plain.double() - want).abs().max()
+                      .item()}
+        check(fp64[what]["kernel"]
+              <= LRN_FP64_FACTOR * fp64[what]["plain_fp32"],
+              "lrn %s %s against fp64: kernel %g > %g x the fp32 plain "
+              "version's %g" % (name, what, fp64[what]["kernel"],
+                                LRN_FP64_FACTOR, fp64[what]["plain_fp32"]))
+    vec = offset % 4 == 0
     fwd_err, fwd_ok = within(torch, y, y_ref, LRN_FWD_TOL)
     d_err, d_ok = within(torch, d, d_ref, LRN_FWD_TOL)
     bwd_err, bwd_ok = within(torch, dx, dx_ref, LRN_BWD_TOL)
@@ -629,14 +665,19 @@ def lrn_case(torch, HK, name, shape, n=5, seed=0, timed=True):
                                      hyper, 2.0)
     check(all(v > 0 for v in faults.values()), "lrn %s: a fault would pass "
           "the limits: %r" % (name, faults))
-    shape = {"rows": rows, "c": c, "n": n}
+    shape = {"rows": rows, "c": c, "n": n, "offset": offset}
     fwd = {"kernel": "lrn_forward", "case": name, "shape": shape,
+           "plan": HK.lrn_plan(rows, c, n, vec),
            "max_abs_err": max(fwd_err, d_err), "faults_caught": {
-               k: v for k, v in faults.items() if k.startswith("fwd")}}
+               k: v for k, v in faults.items() if k.startswith("fwd")},
+           "fp64_err": {k: fp64[k] for k in ("y", "d")},
+           "bit_equal_repeat": True}
     bwd = {"kernel": "lrn_backward", "case": name, "shape": shape,
+           "plan": HK.lrn_plan(rows, c, n, vec, backward=True),
            "max_abs_err": bwd_err, "cross_term_rms_share": cross_share,
            "faults_caught": {k: v for k, v in faults.items()
-                             if k.startswith("bwd")}}
+                             if k.startswith("bwd")},
+           "fp64_err": {"dx": fp64["dx"]}, "bit_equal_repeat": True}
     if not timed:
         return fwd, bwd
     xs = [x] + [x.clone() for _ in range(COPIES - 1)]
@@ -673,6 +714,62 @@ def lrn_case(torch, HK, name, shape, n=5, seed=0, timed=True):
         bytes=16 * elems)
     bwd["bound_ms"], bwd["bound_by"] = bound(16 * elems, (n + 8) * elems)
     return fwd, bwd
+
+
+def lrn_ragged_rows(HK, c=96):
+    """A row count of ``c`` channels whose forward and backward plans
+    both end in a partial tile, with the busiest block's last ring stage
+    only partly used (its tiles not a multiple of the stages): the
+    first such count from four full rounds of the LRN1 grid upwards."""
+    base = HK.lrn_plan(LRN_SHAPES["lrn1"][0] * 55 * 55, c)
+    start = 4 * base["blocks"] * base["rows_per_tile"]
+
+    def ragged(rows, plan):
+        tiles = -(-rows // plan["rows_per_tile"])
+        busiest = -(-tiles // plan["blocks"])
+        return rows % plan["rows_per_tile"] and busiest % plan["stages"]
+
+    for rows in range(start + 1, start + 4000):
+        if all(ragged(rows, HK.lrn_plan(rows, c, backward=b))
+               for b in (False, True)):
+            return rows
+    check(False, "no ragged LRN row count found")
+
+
+def lrn_edge_cases(torch, HK):
+    """Kernels 2 and 3, checked not timed, on every path they split on:
+    C % 4 != 0, pointers 4 bytes off 16-byte alignment, n > C, the
+    runtime-n instance (n 1 and 7, and even n 4), one row a tile, a
+    partial last tile and ring stage, and rows too wide for the ring
+    (backward at C 12000, forward at C 30000)."""
+    ragged = lrn_ragged_rows(HK)
+    cases = [("c200_n4", (4, 32, 32, 200), 4, 0),
+             ("c98", (8, 13, 13, 98), 5, 0),
+             ("unaligned", (16, 27, 27, 256), 5, 1),
+             ("c3_n5", (8, 27, 27, 3), 5, 0),
+             ("n1", (8, 27, 27, 96), 1, 0),
+             ("n7", (8, 27, 27, 96), 7, 0),
+             ("c3000", (4, 7, 3000), 5, 0),
+             ("ragged", (ragged, 96), 5, 0),
+             ("bwd_wide_c12000", (16, 12000), 5, 0),
+             ("fwd_wide_c30000", (8, 30000), 3, 0)]
+    out = [rec for i, (name, shape, n, offset) in enumerate(cases)
+           for rec in lrn_case(torch, HK, name, shape, n=n, seed=5 + i,
+                               timed=False, offset=offset)]
+    paths = {r["case"] + "/" + r["kernel"]: r["plan"] for r in out}
+    want = {"c98/lrn_forward": (1, 5, 0), "unaligned/lrn_backward": (1, 5, 0),
+            "c3_n5/lrn_forward": (1, 5, 0), "n7/lrn_forward": (4, 0, 0),
+            "n1/lrn_backward": (4, 0, 0),
+            "bwd_wide_c12000/lrn_backward": (4, 0, 1),
+            "fwd_wide_c30000/lrn_forward": (4, 0, 1)}
+    for key, w in want.items():
+        p = paths[key]
+        check((p["width"], p["template_n"], p["wide"]) == w,
+              "lrn %s took the plan %r, not %r" % (key, p, w))
+    check(paths["c3000/lrn_forward"]["rows_per_tile"] == 1
+          and paths["c3000/lrn_backward"]["rows_per_tile"] == 1,
+          "lrn c3000: not one row a tile")
+    return out
 
 
 # ------------------------------------------------------------------ dropout
@@ -1689,8 +1786,7 @@ def main():
     sgd = sgd_cases(torch, HK)
     lrn = [c for i, (name, shape) in enumerate(LRN_SHAPES.items())
            for c in lrn_case(torch, HK, name, shape, seed=i)]
-    lrn_checks = list(lrn_case(torch, HK, "c200_n4", (4, 32, 32, 200),
-                               n=4, seed=5, timed=False))
+    lrn_checks = lrn_edge_cases(torch, HK)
     drop = [dropout_case(torch, HK, prng, name, shape, seed=i)
             for i, (name, shape) in enumerate(DROPOUT_SHAPES.items())]
     drop_checks = [dropout_case(torch, HK, prng, "n%d" % n, (n,), rate,

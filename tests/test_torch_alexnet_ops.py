@@ -134,6 +134,38 @@ def test_lrn_even_and_odd_window_vjp(n):
                                   rtol=3e-5, atol=3e-6)
 
 
+#: the geometries the card kernels split on: C % 4 != 0 (the scalar
+#: instance), n other than 5 (the runtime-n instance, odd and even), and
+#: windows wider than the row (n > C)
+LRN_EDGES = [(3, 5), (98, 5), (96, 1), (96, 7), (98, 7), (3, 7), (4, 9),
+             (98, 4)]
+
+
+@pytest.mark.parametrize("c,n", LRN_EDGES)
+def test_lrn_edge_forward_matches_pallas(c, n):
+    x = _lrn_x((2, 3, 3, c), 100 + c + n, scale=3.0)
+    y, d = HK.lrn_forward(torch.as_tensor(x), 1e-4, 0.75, n, 2.0)
+    y_ref, (_, d_ref) = PK._lrn_fwd(jnp.asarray(x), 1e-4, 0.75, n, 2.0,
+                                    None)
+    numpy.testing.assert_allclose(y.numpy(), _np(y_ref), rtol=2e-6,
+                                  atol=2e-6)
+    numpy.testing.assert_allclose(d.numpy().reshape(-1, c), _np(d_ref),
+                                  rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("c,n", LRN_EDGES)
+def test_lrn_edge_vjp_matches_pallas(c, n):
+    x = _lrn_x((2, 3, 3, c), 100 + c + n, scale=3.0)
+    dy = _lrn_x((2, 3, 3, c), 200 + c + n)
+    _, vjp = jax.vjp(lambda a: PK.lrn_forward(a, n=n), jnp.asarray(x))
+    xt = torch.as_tensor(x)
+    _, d = HK.lrn_forward(xt, 1e-4, 0.75, n, 2.0)
+    got = HK.lrn_backward(xt, d, torch.as_tensor(dy), 1e-4, 0.75, n)
+    numpy.testing.assert_allclose(got.numpy(),
+                                  _np(vjp(jnp.asarray(dy))[0]),
+                                  rtol=3e-5, atol=3e-6)
+
+
 def test_lrn_gradient_other_hyperparameters():
     x = _lrn_x((2, 4, 4, 32), 1, scale=2.0)
     dy = _lrn_x((2, 4, 4, 32), 2)

@@ -371,20 +371,39 @@ def test_fused_sgd_rejects_bad_operands():
         HK.fused_sgd_update(p, p.cpu(), p, 1, 0.1, 0.9)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,n", [
-    ((2, 55, 55, 96), 5),         # AlexNet LRN1's channels
-    ((2, 27, 27, 256), 5),        # LRN2's
-    ((3, 5, 5, 200), 4),          # even window: asymmetric
-    ((7, 16), 5),
-    ((2, 3, 3000), 5),            # one row per tile
-    ((1, 24), 1),
-])
-def test_lrn_matches_plain(shape, n):
-    dev = _card()
+def _lrn_operands(shape, n, offset, dev):
+    """x (rms 3) and dy (rms 1) of ``shape``; with ``offset`` > 0 each
+    starts that many floats into its buffer (16-byte alignment lost)."""
     rng = numpy.random.RandomState(shape[-1] + n)
-    x = _randn(rng, *shape, dev=dev) * 3.0
-    dy = _randn(rng, *shape, dev=dev)
+
+    def place(t):
+        buf = torch.empty(t.numel() + offset, device=dev)
+        buf[offset:] = t.reshape(-1)
+        return buf[offset:].view(shape)
+
+    return (place(_randn(rng, *shape, dev=dev) * 3.0),
+            place(_randn(rng, *shape, dev=dev)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n,offset", [
+    ((2, 55, 55, 96), 5, 0),      # AlexNet LRN1's channels
+    ((2, 27, 27, 256), 5, 0),     # LRN2's
+    ((3, 5, 5, 200), 4, 0),       # even window: asymmetric
+    ((7, 16), 5, 0),
+    ((2, 3, 3000), 5, 0),         # one row per tile
+    ((1, 24), 1, 0),
+    ((2, 27, 27, 256), 5, 1),     # pointers 4 bytes off: 4-byte copies
+    ((4, 9, 9, 98), 5, 0),        # C % 4 != 0: the scalar instance
+    ((3, 5, 5, 96), 7, 0),        # the runtime-n instance
+    ((5, 7, 3), 5, 0),            # n > C
+    ((7, 13, 17, 96), 5, 0),      # a partial last tile
+    ((3, 12000), 5, 0),           # backward rows too wide for the ring
+    ((2, 30000), 3, 0),           # forward rows too wide for the ring
+])
+def test_lrn_matches_plain(shape, n, offset):
+    dev = _card()
+    x, dy = _lrn_operands(shape, n, offset, dev)
     before = (HK.lrn_forward.launches, HK.lrn_backward.launches)
     y, d = HK.lrn_forward(x, 1e-4, 0.75, n, 2.0)
     dx = HK.lrn_backward(x, d, dy, 1e-4, 0.75, n)
@@ -396,6 +415,42 @@ def test_lrn_matches_plain(shape, n):
     torch.testing.assert_close(y, y_ref, rtol=2e-6, atol=2e-6)
     torch.testing.assert_close(d, d_ref, rtol=2e-6, atol=2e-6)
     torch.testing.assert_close(dx, dx_ref, rtol=3e-5, atol=3e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n,offset", [
+    ((2, 55, 55, 96), 5, 0), ((2, 27, 27, 256), 5, 1), ((4, 9, 9, 98), 7, 0),
+])
+def test_lrn_repeats_bit_equal(shape, n, offset):
+    dev = _card()
+    x, dy = _lrn_operands(shape, n, offset, dev)
+    y, d = HK.lrn_forward(x, 1e-4, 0.75, n, 2.0)
+    y2, d2 = HK.lrn_forward(x, 1e-4, 0.75, n, 2.0)
+    dx = HK.lrn_backward(x, d, dy, 1e-4, 0.75, n)
+    dx2 = HK.lrn_backward(x, d, dy, 1e-4, 0.75, n)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(d, d2) and torch.equal(dx, dx2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,c,n,vec,backward,want", [
+    (387200, 96, 5, True, False, (4, 5, 0)),    # AlexNet LRN1
+    (93312, 256, 5, True, True, (4, 5, 0)),     # LRN2
+    (93312, 256, 5, False, True, (1, 5, 0)),    # an unaligned pointer
+    (324, 98, 5, True, False, (1, 5, 0)),       # C % 4 != 0
+    (75, 96, 7, True, True, (4, 0, 0)),         # runtime n
+    (3, 12000, 5, True, False, (4, 5, 0)),      # forward: still the ring
+    (3, 12000, 5, True, True, (4, 0, 1)),       # backward: too wide
+    (2, 30000, 3, True, False, (4, 0, 1)),
+])
+def test_lrn_plan_paths(rows, c, n, vec, backward, want):
+    _card()
+    plan = HK.lrn_plan(rows, c, n, vec, backward)
+    assert (plan["width"], plan["template_n"], plan["wide"]) == want
+    if not plan["wide"]:
+        tiles = -(-rows // plan["rows_per_tile"])
+        assert plan["stages"] >= 2 and 1 <= plan["blocks"] <= tiles
+        assert plan["smem"] <= 227 * 1024
 
 
 @pytest.mark.cuda

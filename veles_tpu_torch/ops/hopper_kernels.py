@@ -724,10 +724,32 @@ def _lrn_lib():
         lib.lrn_backward_f32.argtypes = ([ptr] * 4 + [i64, i32, i32]
                                          + [f32] * 2 + [ptr])
         lib.lrn_backward_f32.restype = i32
+        lib.lrn_plan_info.argtypes = [i64, i32, i32, i32, i32,
+                                      ctypes.POINTER(i64)]
+        lib.lrn_plan_info.restype = i32
         lib.lrn_error_string.argtypes = [i32]
         lib.lrn_error_string.restype = ctypes.c_char_p
         _LRN_LIB = lib
     return _LRN_LIB
+
+
+def lrn_plan(rows, c, n=5, vec=True, backward=False):
+    """How the LRN kernels launch a call of ``rows`` rows of ``c``
+    channels (card only): the quad width (4: 16-byte accesses, C % 4 == 0
+    and every pointer 16-byte aligned, as ``vec`` says; else 1), the
+    template's n (0: the runtime window loop), whether the row is too
+    wide for the ring of stages, rows a tile, stages, blocks and shared
+    bytes a block."""
+    lib = _lrn_lib()
+    out = (ctypes.c_longlong * 7)()
+    code = lib.lrn_plan_info(int(rows), int(c), int(n), int(bool(vec)),
+                             int(bool(backward)), out)
+    if code:
+        raise RuntimeError("lrn_plan: %s" % lib.lrn_error_string(code)
+                           .decode())
+    keys = ("width", "template_n", "wide", "rows_per_tile", "stages",
+            "blocks", "smem")
+    return dict(zip(keys, (int(v) for v in out)))
 
 
 def lrn_forward(x, alpha=1e-4, beta=0.75, n=5, k=2.0):
