@@ -78,7 +78,22 @@ Phases (any failure exits nonzero before the final line is printed):
    teacher-forced plain pass; then card vs CPU at 2 layers, s 128,
    minibatch 4 after the first and the third Adam update
    (``LM_*_SHARE``), and two faulty card runs rejected by those limits;
-8. one JSON line listing every ported kernel, then the JSON result line.
+8. the conv zoo — first the transposed conv and its backward (stride 2,
+   k 5, SAME and int padding) on the card against the CPU (checked, not
+   timed); then each of ``cifar`` (``BASELINE.json`` configs[1]: 3
+   conv_str, 3 pools, softmax; 50,000 / 10,000 synthetic 32x32x3),
+   ``mnist_conv``, ``cifar_resnet`` (stem, identity block, downsampling
+   block with a projected skip, identity block) and ``mnist_ae`` (conv,
+   avg pool, depooling, deconv; MSE) through its sample's own ``train``
+   on the card at the default, full-width config for 2 epochs (minibatch
+   100): falling validation loss (RMSE for the AE), CIFAR's validation
+   error below 10%, exactly one fused-SGD launch a dispatched train step
+   covering every parameter (``ZOO``), wall and run seconds, samples/s
+   and the card's busy share of two steady steps; then, but for
+   MNIST-conv, card vs CPU at minibatch 100 after the first and third
+   committed update (``ZOO_*_SHARE``) and the faulty card runs
+   (``ZOO_FAULTS``) rejected by the first-update limit;
+9. one JSON line listing every ported kernel, then the JSON result line.
 
 The kernels phase also holds the three flash-attention kernels (forward,
 dK/dV pass, dQ pass; ``flash_attention.cu``) at the LM's train shape
@@ -243,6 +258,41 @@ LM_THIRD_SHARE = 0.05
 #: faulty card runs the first-update limit must reject: the flash backward
 #: launched with causal=False, and given the sm_scale of head_dim / 2
 LM_FAULTS = ("bwd_not_causal", "bwd_other_scale")
+#: the conv-zoo phases, each through its sample's own ``train`` at the
+#: default (full-width) config for 2 epochs, and the tensors that one
+#: fused-SGD launch a train step updates: weights and biases of every
+#: parameterized layer (``residual_proj`` is bias-free)
+ZOO = {"cifar": 8, "mnist_conv": 8, "cifar_resnet": 17, "mnist_ae": 4}
+#: the reference's own bar for CIFAR's default topology
+#: (``tests/test_cifar.py:52``)
+CIFAR_MAX_ERR_PCT = 10.0
+#: card vs CPU at the default width and minibatch 100: 400 train / 100
+#: validation samples, one epoch, so 4 train minibatches, the last gated
+#: by Decision: 3 committed updates
+ZOO_SMALL = {"n_train": 400, "n_valid": 100}
+#: a layer's gap as a share of its movement (``weight_gaps``), after the
+#: first and after the third committed update.  cuDNN (TF32 off) and the
+#: CPU sum ~1e-6 apart (relative), so a max-pool argmax or a ReLU gate
+#: whose inputs are that close to a tie flips on one side and moves one
+#: term of a weight gradient's sum.  Set from one sound card run (NVIDIA
+#: H100 80GB HBM3, 700.00 W; worst layer after the first update: cifar
+#: 1.96e-4, cifar_resnet 9.7e-4, mnist_ae 4.5e-6; after the third: 9.0e-4,
+#: 2.85e-3, 2.4e-6) and the faulty runs below (worst layer after the
+#: first: 0.59, 1.22, 1.0): 10x above the sound reading, 59x below the
+#: weakest fault; the third-update limit 17x above its sound reading
+ZOO_FIRST_SHARE = 0.01
+ZOO_THIRD_SHARE = 0.05
+#: faulty card runs the first-update limit must reject: every conv weight
+#: gradient spatially flipped (CIFAR), the skip error left unstashed, and
+#: the projection's weight gradient dropped (ResNet).  A dropped
+#: strict-ReLU tie mask is not among them: the phases count the exact
+#: z == 0 ties their card runs meet (``strict_relu_ties``, 0 in every run
+#: so far), and a fault that no input exercises cannot fail a limit
+ZOO_FAULTS = {"cifar": ("conv_wgrad_flipped",),
+              "cifar_resnet": ("skip_unstashed", "proj_wgrad_dropped")}
+#: deconv on the card vs the CPU, outputs and gradients: max gap as a
+#: share of the largest CPU element (cuDNN's sums in another order)
+DECONV_SHARE = 1e-5
 
 
 def check(cond, what):
@@ -1716,6 +1766,253 @@ def lm_train(torch, HK, card, device="cuda", cfg=None, small=None,
     return launches
 
 
+# ------------------------------------------------------------------ the zoo
+@contextlib.contextmanager
+def update_sizes(F):
+    """Within the block, the number of tensors each fused update call
+    (``F.sgd_update_multi``, one kernel launch on the card) takes."""
+    inner, sizes = F.sgd_update_multi, []
+
+    def counted(items):
+        sizes.append(len(items))
+        return inner(items)
+
+    F.sgd_update_multi = counted
+    try:
+        yield sizes
+    finally:
+        F.sgd_update_multi = inner
+
+
+@contextlib.contextmanager
+def strict_relu_ties(F):
+    """Within the block, the number of exact z == 0 ties each strict-ReLU
+    conv backward meets (its ``tie`` mask, the 8th argument)."""
+    inner, ties = F.conv2d_backward, []
+
+    def counted(*args):
+        if len(args) > 7 and args[7] is not None:
+            ties.append(int(args[7].sum()))
+        return inner(*args)
+
+    F.conv2d_backward = counted
+    try:
+        yield ties
+    finally:
+        F.conv2d_backward = inner
+
+
+@contextlib.contextmanager
+def zoo_fault(name):
+    """Within the block, ``name`` of ``ZOO_FAULTS`` is planted (the units
+    look the patched functions up per call)."""
+    from veles_tpu_torch.ops import functional as F
+    from veles_tpu_torch.ops.residual import Residual, ResidualProjection
+    owner, attr, inner = F, "conv2d_backward", F.conv2d_backward
+    if name == "conv_wgrad_flipped":
+        def planted(*args, **kwargs):
+            err_in, grad_w, grad_b = inner(*args, **kwargs)
+            return err_in, grad_w.flip((0, 1)), grad_b
+    elif name == "skip_unstashed":
+        owner, attr = Residual, "chain_backward"
+        inner = owner.chain_backward
+
+        def planted(self, *args, **kwargs):
+            err, src, d_src, grads = inner(self, *args, **kwargs)
+            return err, src, d_src * 0.0, grads
+    else:
+        owner, attr = ResidualProjection, "chain_backward"
+        inner = owner.chain_backward
+
+        def planted(self, *args, **kwargs):
+            err, src, d_src, (d_w, d_b) = inner(self, *args, **kwargs)
+            return err, src, d_src, (d_w * 0.0, d_b)
+    setattr(owner, attr, planted)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, inner)
+
+
+def zoo_build(prng, root, module, name, **loader):
+    """A seeded workflow of the sample ``module`` at its default config
+    (``loader`` overrides; ``epochs`` its max_epochs, default 1)."""
+    prng.reset()
+    prng.seed_all(SEED)
+    root.__dict__.pop(name, None)
+    module.default_config()
+    epochs = loader.pop("epochs", 1)
+    return module.build(fused=True, loader=loader,
+                        decision={"max_epochs": epochs})
+
+
+def zoo(torch, HK, card, name, device="cuda", small=None, **loader):
+    """The conv-zoo sample ``name`` through its own ``train`` at its
+    default config on the card (2 epochs; ``loader`` overrides only for
+    a rehearsal), then, where ``ZOO_FAULTS`` or the AE ask for it, card
+    vs CPU at minibatch 100 after the first and third committed update
+    and the faulty card runs."""
+    import importlib
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.ops import functional as F
+    module = importlib.import_module("veles_tpu_torch.samples." + name)
+    began = time.monotonic()
+    prng.reset()
+    prng.seed_all(SEED)
+    root.__dict__.pop(name, None)
+    module.default_config()
+    HK.reset_launch_counts()
+    t0 = time.monotonic()
+    with update_sizes(F) as sizes:
+        wf = module.train(device=None if device == "cuda" else device,
+                          loader=loader, decision={"max_epochs": 2})
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    launches = HK.launch_counts()
+    run_s = sum(u.run_time for u in wf.units)
+    metrics = wf.decision.epoch_metrics
+    check(len(metrics) == 2, "%s: %d epochs ran, not 2"
+          % (name, len(metrics)))
+    ld, mse = wf.loader, wf.loss_function == "mse"
+    val = [m["validation"] for m in metrics]
+    key = "rmse" if mse else "loss"
+    falls = [v[key] for v in val]
+    check(all(numpy.isfinite(falls)) and falls[1] < falls[0],
+          "%s: validation %s did not fall: %r" % (name, key, falls))
+    if not mse:
+        check(val[1]["err_pct"] <= val[0]["err_pct"],
+              "%s: validation error rose: %r"
+              % (name, [v["err_pct"] for v in val]))
+    if name == "cifar":
+        check(val[-1]["err_pct"] < CIFAR_MAX_ERR_PCT,
+              "cifar: validation err_pct %g >= %g"
+              % (val[-1]["err_pct"], CIFAR_MAX_ERR_PCT))
+    steps = wf.fused_step.train_steps
+    n_tensors = sum(1 + bool(f.include_bias) for f in wf.forwards
+                    if f.has_params)
+    check(steps == 2 * -(-ld.class_lengths[2] // ld.max_minibatch_size),
+          "%s: %d train steps dispatched" % (name, steps))
+    check(launches["fused_sgd_update"] == steps == len(sizes)
+          and set(sizes) == {n_tensors} and n_tensors == ZOO[name],
+          "%s: %d fused_sgd_update launches, %d update calls of %r tensors "
+          "for %d train steps (%d tensors, expected %d)"
+          % (name, launches["fused_sgd_update"], len(sizes), sorted(
+              set(sizes)), steps, n_tensors, ZOO[name]))
+    check(all(numpy.isfinite(f.weights.mem).all() for f in wf.forwards
+              if f.has_params), "%s: non-finite weights" % name)
+
+    # two steady train steps: host clock and the card's busy share
+    runner, mb = wf._fused_runner, ld.max_minibatch_size
+    x = ld.original_data.devmem[:mb]
+    y = x if mse else ld.original_labels.devmem[:mb]
+    mask = torch.ones(mb, device=x.device)
+
+    def step():
+        runner._train_step(runner.state, x, y, mask, mb)
+        torch.cuda.synchronize()
+
+    step()
+    t0 = time.monotonic()
+    for _ in range(5):
+        step()
+    step_s = (time.monotonic() - t0) / 5
+    busy, per_kernel = profile_steps(torch, step, 2)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    report = {"phase": name, "card": card,
+              "config": {"layers": [f.layer_type for f in wf.forwards],
+                         "minibatch": mb, "n_train": ld.class_lengths[2],
+                         "n_valid": ld.class_lengths[1], "epochs": 2,
+                         "fused": True},
+              "wall_s": wall_s, "run_s": run_s, "setup_s": wall_s - run_s,
+              "s_per_epoch": run_s / 2,
+              "train_samples_per_s": 2 * ld.class_lengths[2] / run_s,
+              "train_steps": steps, "launches": launches,
+              "update_tensors": n_tensors, "s_per_step": step_s,
+              "step_samples_per_s": mb / step_s,
+              "step_device_busy_share": busy,
+              "step_card_us": sum(per_kernel.values()),
+              "step_top_kernels_us": [[k[:80], v] for k, v in top],
+              "validation": [{k: x for k, x in v.items()
+                              if isinstance(x, (int, float))} for v in val]}
+    if name == "mnist_conv":
+        report["phase_s"] = time.monotonic() - began
+        print(json.dumps(report), flush=True)
+        return launches
+
+    # the same seed on the card and on the CPU at minibatch 100 (3
+    # committed updates); then the faulty card runs
+    small = dict(small or ZOO_SMALL)
+
+    def small_run(dev):
+        return committed_weights(zoo_build(prng, root, module, name,
+                                           **small), dev)
+
+    with strict_relu_ties(F) as ties:
+        on_card = small_run(device)
+    on_cpu = small_run("cpu")
+    sound = weight_gaps(on_card, on_cpu)
+    faults = {}
+    for fault in ZOO_FAULTS.get(name, ()):
+        with zoo_fault(fault):
+            gaps = weight_gaps(small_run(device), on_cpu)
+        faults[fault] = {"abs": gaps["abs"], "share": gaps["share"]}
+    report["card_vs_cpu"] = {
+        "minibatch": mb, "committed_updates": len(on_cpu) - 1,
+        "layers": [f.layer_type for f in wf.forwards if f.has_params],
+        "first_update_limit": ZOO_FIRST_SHARE,
+        "third_update_limit": ZOO_THIRD_SHARE,
+        "strict_relu_ties": sum(ties), "sound": sound, "faults": faults}
+    report["phase_s"] = time.monotonic() - began
+    print(json.dumps(report), flush=True)
+    check(len(on_cpu) == 4, "%s: %d committed updates, not 3"
+          % (name, len(on_cpu) - 1))
+    check(max(sound["share"][0]) <= ZOO_FIRST_SHARE
+          and max(sound["share"][-1]) <= ZOO_THIRD_SHARE,
+          "%s: card vs CPU weight gaps beyond their limits: %r"
+          % (name, sound["share"]))
+    for fault, gaps in faults.items():
+        check(max(gaps["share"][0]) > ZOO_FIRST_SHARE,
+              "%s: the card-vs-CPU check passed the faulty run %r: %r"
+              % (name, fault, gaps["share"][0]))
+    return launches
+
+
+def deconv_check(torch, F, card, device="cuda"):
+    """The transposed conv and its backward at stride 2, k 5 (the AE
+    mirror of a 28 -> 14 conv), SAME and int padding, on the card against
+    the CPU on the same inputs (checked, not timed)."""
+    F.pin_fp32_matmul()
+    rs = numpy.random.RandomState(SEED)
+    x = rs.randn(100, 14, 14, 16).astype(numpy.float32)
+    w = (0.1 * rs.randn(5, 5, 16, 8)).astype(numpy.float32)
+    b = rs.randn(8).astype(numpy.float32)
+    g = rs.randn(100, 28, 28, 8).astype(numpy.float32)
+    out = []
+    for padding, extra in (("SAME", 0), (2, 1)):
+        runs = []
+        for dev in (device, "cpu"):
+            xt, wt, bt, gt = (torch.as_tensor(a, device=dev)
+                              for a in (x, w, b, g))
+            y = F.deconv2d_forward(xt, wt, bt, (2, 2), padding, "tanh",
+                                   extra)
+            runs.append([t.cpu().numpy() for t in (y,) + tuple(
+                F.deconv2d_backward(xt, y, gt, wt, (2, 2), padding, "tanh",
+                                    extra))])
+        shares = [float(numpy.abs(a - b_).max() / numpy.abs(b_).max())
+                  for a, b_ in zip(*runs)]
+        out.append({"padding": padding, "output_padding": extra,
+                    "shape": list(runs[0][0].shape),
+                    "shares_y_dx_dw_db": shares})
+        check(runs[0][0].shape == (100, 28, 28, 8)
+              and max(shares) <= DECONV_SHARE,
+              "deconv card vs CPU at padding %r: shares %r"
+              % (padding, shares))
+    report = {"phase": "deconv_check", "card": card, "limit": DECONV_SHARE,
+              "cases": out}
+    print(json.dumps(report), flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1819,6 +2116,7 @@ def main():
     alex = alexnet(torch, HK, smi)
     for k in ("lrn_forward", "lrn_backward", "dropout"):
         launches[k] = alex[k]
+    launches["fused_sgd_update"] += alex["fused_sgd_update"]
 
     # 7. train the full-width LM through the char-LM sample
     lm = lm_train(torch, HK, smi)
@@ -1826,7 +2124,14 @@ def main():
               "flash_attention_bwd_dq"):
         launches[k] = lm[k]
 
-    # 8. the kernels line and the result
+    # 8. the conv zoo through the samples' own train
+    from veles_tpu_torch.ops import functional as F
+    deconv_check(torch, F, smi)
+    for sample in ZOO:
+        launches["fused_sgd_update"] += zoo(torch, HK, smi, sample)[
+            "fused_sgd_update"]
+
+    # 9. the kernels line and the result
     main_case = {"flash_attention_fwd": flash[0],
                  "flash_attention_bwd_dkv": flash[1],
                  "flash_attention_bwd_dq": flash[2],

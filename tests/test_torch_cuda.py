@@ -681,3 +681,114 @@ def test_flash_rejects_bad_operands():
     lse = torch.zeros(1, 2, 16, device=dev)
     with pytest.raises(ValueError, match="does not match"):
         HK.flash_attention_bwd_dq(q, q, q, q, lse[..., :8], q)
+
+
+# ------------------------------------------------- the conv zoo (no kernel)
+#: deconv and depool on the card vs the CPU: max gap as a share of the
+#: largest CPU element (cuDNN, TF32 off, sums in another order)
+ZOO_SHARE = 1e-5
+
+
+def _share(got, want):
+    got, want = got.cpu(), want.cpu()
+    assert got.shape == want.shape
+    return ((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride,k,padding,extra", [
+    (1, 5, "SAME", 0), (2, 5, "SAME", 0), (2, 3, "VALID", 0),
+    (2, 5, 2, 1), (2, 4, (1, 2), 0), (1, 3, 0, 0)])
+def test_deconv_backward_card_vs_cpu(stride, k, padding, extra):
+    from veles_tpu_torch.ops import functional as F
+    dev = _card()
+    F.pin_fp32_matmul()
+    rng = numpy.random.RandomState(k * 10 + stride)
+    x = _randn(rng, 8, 9, 7, 6, dev="cpu")
+    w = _randn(rng, k, k, 6, 5, dev="cpu")
+    b = _randn(rng, 5, dev="cpu")
+    s = (stride, stride)
+    outs = []
+    for where in (dev, "cpu"):
+        xt, wt, bt = (t.to(where) for t in (x, w, b))
+        y = F.deconv2d_forward(xt, wt, bt, s, padding, "tanh", extra)
+        g = torch.as_tensor(numpy.random.RandomState(1).randn(
+            *y.shape).astype(numpy.float32), device=where)
+        outs.append((y,) + tuple(F.deconv2d_backward(
+            xt, y, g, wt, s, padding, "tanh", extra)))
+    torch.cuda.synchronize()
+    for got, want in zip(*outs):
+        assert _share(got, want) <= ZOO_SHARE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["nearest", "zero"])
+def test_depool_backward_card_vs_cpu(mode):
+    from veles_tpu_torch.ops import functional as F
+    dev = _card()
+    rng = numpy.random.RandomState(5)
+    x = _randn(rng, 4, 7, 5, 3, dev="cpu")
+    g = _randn(rng, 4, 14, 10, 3, dev="cpu")
+    y = F.depool(x.to(dev), (2, 2), mode)
+    dx = F.depool_backward(g.to(dev), (2, 2), mode)
+    torch.cuda.synchronize()
+    assert torch.equal(y.cpu(), F.depool(x, (2, 2), mode))
+    assert _share(dx, F.depool_backward(g, (2, 2), mode)) <= ZOO_SHARE
+
+
+def _residual_workflow():
+    """conv -> [conv(s=2) -> conv -> residual_proj(s=2)] -> [conv -> conv
+    -> residual] -> softmax, 8 channels, on CIFAR-shaped data."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples.cifar import CifarLoader
+    from veles_tpu_torch.standard_workflow import StandardWorkflow
+    prng.reset()
+    prng.seed_all(9)
+    conv = {"type": "conv_str", "n_kernels": 8, "kx": 3, "ky": 3,
+            "padding": "SAME", "learning_rate": 0.02, "momentum": 0.9}
+    return StandardWorkflow(
+        None, name="resnet", loader_factory=CifarLoader,
+        loader_config={"minibatch_size": 16, "n_train": 32, "n_valid": 16},
+        layers=[dict(conv), dict(conv, sliding=2), dict(conv),
+                {"type": "residual_proj", "skip": 2, "n_kernels": 8,
+                 "sliding": 2, "learning_rate": 0.02, "momentum": 0.9},
+                dict(conv), dict(conv), {"type": "residual", "skip": 2},
+                {"type": "softmax", "output_sample_shape": 10,
+                 "learning_rate": 0.02, "momentum": 0.9}],
+        decision_config={"max_epochs": 1, "fail_iterations": 5})
+
+
+@pytest.mark.cuda
+def test_residual_train_step_card_vs_cpu():
+    """One fused train step of a residual net with a projected skip from
+    the same state on the card and on the CPU: one SGD launch for all 13
+    tensors, each new tensor's gap within 1e-2 of its movement (the
+    first-update limit of ``chip_smoke.py``'s conv-zoo phases: a ReLU
+    gate or a max-pool argmax whose inputs sit ~1e-6 from a tie flips on
+    one side)."""
+    dev = _card()
+    rng = numpy.random.RandomState(3)
+    x = rng.randn(16, 32, 32, 3).astype(numpy.float32)
+    labels = rng.randint(0, 10, 16).astype(numpy.int32)
+    runs = []
+    for where in (dev, "cpu"):
+        wf = _residual_workflow()
+        wf.initialize(device=where)
+        runner = wf._fused_runner
+        before = HK.launch_counts()["fused_sgd_update"]
+        new, _ = runner._train_step(
+            runner.state, torch.as_tensor(x, device=where),
+            torch.as_tensor(labels, device=where),
+            torch.ones(16, device=where), 16)
+        runs.append((runner.state, new,
+                     HK.launch_counts()["fused_sgd_update"] - before))
+    torch.cuda.synchronize()
+    (old, card, launched), (old_cpu, cpu, _) = runs
+    assert launched == 1
+    assert sum(len([k for k in e if k in ("w", "b")]) for e in card) == 13
+    for e_old, e_card, e_cpu in zip(old_cpu, card, cpu):
+        for name in e_cpu:
+            moved = (e_cpu[name] - e_old[name]).abs().max()
+            gap = (e_card[name].cpu() - e_cpu[name]).abs().max()
+            assert gap <= 1e-2 * moved, (name, gap.item(), moved.item())

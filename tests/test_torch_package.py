@@ -61,7 +61,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from veles_tpu_torch.device import resolve_device
     from veles_tpu_torch.ops.transformer import (TransformerLM,
                                                  params_from_jax)
-    from veles_tpu_torch.samples import char_lm, imagenet, mnist
+    from veles_tpu_torch.samples import (char_lm, cifar, cifar_resnet,
+                                         imagenet, mnist, mnist_ae,
+                                         mnist_conv)
     from veles_tpu_torch.serving import LMEngine
     from veles_tpu_torch.workflow import Workflow
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -83,6 +85,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                  lambda: mnist.train(),
                  lambda: imagenet.build().initialize(),
                  lambda: imagenet.train(),
+                 lambda: cifar.train(),
+                 lambda: mnist_conv.train(),
+                 lambda: cifar_resnet.train(),
+                 lambda: mnist_ae.train(),
                  lambda: char_lm.build().initialize(),
                  lambda: char_lm.train(),
                  lambda: lm.trainer.initialize(),

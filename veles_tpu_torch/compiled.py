@@ -13,6 +13,11 @@ momentum updates of a step are one launch of the fused SGD kernel (each
 tensor's arithmetic is the same as in unit mode, where a unit updates
 its weights and bias in one launch).
 
+Skip-edge layers (``residual``, ``residual_proj``; ``HAS_SKIP_EDGE``)
+take the whole activation list in the forward, and the backward walk
+stashes the error they return for their source and adds it when it
+reaches that layer (``veles_tpu/compiled.py:81-93, 111-143``).
+
 Stochastic layers (dropout, random crop) get their keys as the reference
 threads them: one ``prng.get("dropout").key()`` per train minibatch when
 a forward is ``STOCHASTIC``, folded with the layer index per layer
@@ -85,8 +90,15 @@ class FusedRunner:
         explicitly."""
         acts, saved = [x], []
         for i, (fwd, entry) in enumerate(zip(self.forwards, state)):
-            y, res = fwd.apply_fused(acts[-1], entry,
-                                     self._layer_rng(rng, i), train)
+            if getattr(fwd, "HAS_SKIP_EDGE", False):
+                # skip-edge layers (residual / residual_proj) see the
+                # whole activation list and keep no residuals
+                y, res = fwd.chain_forward(i, acts, entry,
+                                           self._layer_rng(rng, i),
+                                           train), None
+            else:
+                y, res = fwd.apply_fused(acts[-1], entry,
+                                         self._layer_rng(rng, i), train)
             acts.append(y)
             saved.append(res)
         return acts, saved
@@ -108,11 +120,24 @@ class FusedRunner:
         acts, saved = self._forward_chain(state, x, rng=rng, train=True)
         err, metrics = self._loss(acts[-1], y_ref, mask)
         all_grads = [None] * len(self.forwards)
+        # a skip edge makes acts[src] the input of two consumers, so its
+        # error has two parts: the main chain's and the stashed skip
+        # error, added when the walk reaches src
+        pending = {}
         for i in range(len(self.forwards) - 1, -1, -1):
+            if err is not None and (i + 1) in pending:
+                err = err + pending.pop(i + 1)
             if err is None:
                 # the first parameterized gd skipped err_input; everything
                 # below it is weightless — nothing to do
                 break
+            fwd = self.forwards[i]
+            if getattr(fwd, "HAS_SKIP_EDGE", False):
+                err, src, d_src, all_grads[i] = fwd.chain_backward(
+                    i, acts, state[i], err, self._layer_rng(rng, i))
+                pending[src] = (pending[src] + d_src if src in pending
+                                else d_src)
+                continue
             err_in, grads = self.gds[i].backward_fused(
                 acts[i], acts[i + 1], err, state[i],
                 self._layer_rng(rng, i), saved[i])
@@ -256,7 +281,10 @@ def state_from_jax(state, device=None):
     (``w``/``vw``/``b``/``vb``[/``aw``/``ab``]) of arrays, numpy or
     anything ``numpy.asarray`` reads — as this runner's state: the same
     list of dicts of fp32 tensors on ``device`` (None = the CUDA card,
-    raising without one)."""
+    raising without one).  A weightless layer's entry (pooling,
+    residual, depooling, an activation) stays empty; ``residual_proj``'s
+    is ``w``/``vw`` alone (bias-free), a deconv's ``w``/``vw``/``b``/
+    ``vb`` with HWIO weights, as a conv's."""
     device = resolve_device(device)
     return [{key: torch.tensor(numpy.asarray(value), device=device)
              for key, value in entry.items()} for entry in state]
@@ -265,7 +293,19 @@ def state_from_jax(state, device=None):
 def load_fused_state(wf, state):
     """Load a per-layer state (as :func:`state_from_jax` returns) into a
     built, initialized workflow: the unit Vectors take it, and a fused
-    runner steps from it next."""
+    runner steps from it next.  Each entry must hold the keys and shapes
+    of its layer's own state (empty for a weightless layer); anything
+    else raises ValueError before a Vector is touched."""
+    if len(state) != len(wf.forwards):
+        raise ValueError("%d state entries for %d layers"
+                         % (len(state), len(wf.forwards)))
+    for i, (entry, fwd, gd) in enumerate(zip(state, wf.forwards, wf.gds)):
+        own = gd.state_entry() if fwd.has_params else {}
+        want = {k: tuple(v.shape) for k, v in own.items()}
+        got = {k: tuple(v.shape) for k, v in entry.items()}
+        if got != want:
+            raise ValueError("layer %d (%s): state %r, the layer's %r"
+                             % (i, fwd.name, got, want))
     for entry, fwd, gd in zip(state, wf.forwards, wf.gds):
         if fwd.has_params:
             gd.absorb_entry(entry)

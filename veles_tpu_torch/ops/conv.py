@@ -47,18 +47,26 @@ class ConvBase(ForwardBase):
                 (self.ky, self.kx, in_c, self.n_kernels), fan_in, fan_out))
             if self.include_bias:
                 self.bias.reset(numpy.zeros(self.n_kernels, self.dtype))
-        oh, ow = F.conv2d_output_hw((in_h, in_w), (self.ky, self.kx),
-                                    self.sliding, self.padding)
+        oh, ow = self.output_hw((in_h, in_w))
         self.output_sample_shape = (oh, ow, self.n_kernels)
         self.output.reset(numpy.zeros((batch, oh, ow, self.n_kernels),
                                       self.dtype))
         # skip ForwardBase.initialize's dense-specific weight init
         AcceleratedUnit.initialize(self, device=device, **kwargs)
 
+    def output_hw(self, in_hw):
+        """(oh, ow) for an input of ``in_hw``, from arithmetic."""
+        return F.conv2d_output_hw(in_hw, (self.ky, self.kx), self.sliding,
+                                  self.padding)
+
+    def preact(self, x, weights, bias):
+        """The pure op behind the layer (DeconvBase swaps in the
+        transposed conv and inherits everything else)."""
+        return F.conv2d_preact(x, weights, bias, self.sliding, self.padding)
+
     def _forward(self, x, weights, bias):
         """(y, the z == 0 mask or None)."""
-        z = F.conv2d_preact(x, weights, bias if self.include_bias else None,
-                            self.sliding, self.padding)
+        z = self.preact(x, weights, bias if self.include_bias else None)
         tie = (z == 0.0) if self.ACTIVATION == "strict_relu" else None
         return F.activate(z, self.ACTIVATION), tie
 

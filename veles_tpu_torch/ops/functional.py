@@ -1,6 +1,6 @@
 """Pure numeric functions behind every accelerated unit.
 
-Port of ``veles_tpu/ops/functional.py``, three subsets so far: the
+Port of ``veles_tpu/ops/functional.py``, four subsets so far: the
 matmul precision policy every op routes its products through
 (``:37-90``); the MNIST-FC training path — activations and their
 derivatives from the forward output (``:103-138``), the dense
@@ -8,8 +8,10 @@ forward/backward (``:142-169``), the softmax and MSE evaluators
 (``:173-216``) and the update rules (``:624-719``); and the AlexNet path
 — convolution (``:220-248``), ceil-padded max/maxabs/avg pooling
 (``:311-395``), LRN (``:450``), dropout (``:473``) and the random crop
-and mirror (``:485``), each with the explicit backward the reference
-gets from ``jax.vjp``.  Activation semantics follow the reference exactly:
+and mirror (``:485``); and the conv zoo — the transposed conv
+(``:252-286``), positional depooling (``:289-308``) and the standalone
+activations' vjp — each with the explicit backward the reference gets
+from ``jax.vjp``.  Activation semantics follow the reference exactly:
 ``tanh`` is the LeCun-scaled ``1.7159 * tanh(0.6666 x)``, ``relu`` the
 smooth ``log(1 + exp(x))``, ``strict_relu`` is ``max(0, x)``.  Every
 momentum update goes through the hand-written kernel's wrapper
@@ -330,6 +332,169 @@ def conv2d_backward(x, y, err_output, weights, stride=(1, 1),
             h, w) else grad_in
         err_input = grad_in.to(x.dtype).permute(0, 2, 3, 1).contiguous()
     return err_input, grad_w, grad_b
+
+
+# ---------------------------------------------------------- transposed conv
+def deconv_pads(k_hw, stride, padding, output_padding=0):
+    """Per-dimension (lo, hi) pads of the stride-dilated input of a
+    transposed conv, as ``lax.conv_transpose`` takes them.  "SAME" and
+    "VALID" follow its ``_conv_transpose_padding``; an int or pairs are
+    the forward conv's pads p, so the dilated input is padded k − 1 − p
+    (raw), plus ``output_padding`` on the high side."""
+    padding = _norm_padding(padding)
+    if padding in ("SAME", "VALID"):
+        pads = []
+        for k, s in zip(k_hw, stride):
+            if padding == "SAME":
+                pad_len = k + s - 2
+                pad_a = k - 1 if s > k - 1 else -(-pad_len // 2)
+            else:
+                pad_len = k + s - 2 + max(k - s, 0)
+                pad_a = k - 1
+            pads.append((pad_a, pad_len - pad_a))
+        return pads
+    if isinstance(padding, str):
+        raise ValueError("unknown padding %r" % (padding,))
+    extra = ((output_padding, output_padding)
+             if isinstance(output_padding, int) else output_padding)
+    return [(k - 1 - lo, k - 1 - hi + op)
+            for k, (lo, hi), op in zip(k_hw, padding, extra)]
+
+
+def deconv2d_output_hw(in_hw, k_hw, stride, padding, output_padding=0):
+    """(oh, ow) of a transposed conv, from arithmetic."""
+    pads = deconv_pads(k_hw, stride, padding, output_padding)
+    return tuple((size - 1) * s + 1 + lo + hi - k + 1 for size, k, s, (lo, hi)
+                 in zip(in_hw, k_hw, stride, pads))
+
+
+def _deconv_weight(weights):
+    """HWIO weights as ``conv_transpose2d``'s (in, out, kh, kw) kernel,
+    spatially flipped: its transposed conv then correlates the dilated
+    input with the weights unflipped, as ``lax.conv_transpose`` with
+    ``transpose_kernel=False`` does."""
+    return torch.flip(weights, (0, 1)).permute(2, 3, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+
+
+def _edge_pads(pads, k_hw):
+    """``F.pad``'s (w lo, w hi, h lo, h hi) that turn conv_transpose2d's
+    unpadded output (the dilated input padded k − 1 a side) into the one
+    under ``pads``: negative entries crop, positive ones add zeros."""
+    (lh, hh), (lw, hw) = pads
+    kh, kw = k_hw
+    return (lw - kw + 1, hw - kw + 1, lh - kh + 1, hh - kh + 1)
+
+
+def deconv2d_preact(x, weights, bias, stride=(1, 1), padding="SAME",
+                    output_padding=0):
+    """The pre-activation of a transposed conv (``lax.conv_transpose``,
+    HWIO weights, I the input's channels, the kernel unflipped): cuDNN's
+    transposed conv with the flipped kernel, then cropped or zero-padded
+    to the reference's pads.  NHWC in and out."""
+    k_hw = tuple(weights.shape[:2])
+    pads = deconv_pads(k_hw, stride, padding, output_padding)
+    xc, wc = _conv_operands(x.permute(0, 3, 1, 2), _deconv_weight(weights))
+    z = torch.nn.functional.conv_transpose2d(xc, wc, None, tuple(stride))
+    z = torch.nn.functional.pad(z, _edge_pads(pads, k_hw))
+    z = z.to(x.dtype).permute(0, 2, 3, 1)
+    if bias is not None:
+        z = z + bias
+    return z.contiguous()
+
+
+def deconv2d_forward(x, weights, bias, stride=(1, 1), padding="SAME",
+                     activation="linear", output_padding=0):
+    """Transposed 2-D convolution + activation (the reference's
+    ``deconv2d_forward``): upsamples by ``stride``; int padding means the
+    transpose of a conv with that padding, ``output_padding`` extra
+    high-side pixels (``(in + 2p − k) % s`` recovers the conv's input
+    size)."""
+    return activate(deconv2d_preact(x, weights, bias, stride, padding,
+                                    output_padding), activation)
+
+
+def deconv2d_backward(x, y, err_output, weights, stride=(1, 1),
+                      padding="SAME", activation="linear", output_padding=0,
+                      include_bias=True, need_err_input=True):
+    """Transposed-conv backward: (err_input, grad_weights (HWIO),
+    grad_bias), batch sums.  err·activation' from the output, the pad or
+    crop undone (its adjoint is the opposite pad), then ATen's transposed
+    convolution backward: a strided conv for the input's error and the
+    weight gradient in the flipped kernel's layout, flipped back."""
+    dz = (err_output.reshape(y.shape)
+          * activation_derivative_from_output(y, activation))
+    k_hw = tuple(weights.shape[:2])
+    pads = deconv_pads(k_hw, stride, padding, output_padding)
+    g = torch.nn.functional.pad(dz.permute(0, 3, 1, 2),
+                                [-p for p in _edge_pads(pads, k_hw)])
+    gc, xc, wc = _conv_operands(g, x.permute(0, 3, 1, 2),
+                                _deconv_weight(weights))
+    grad_in, grad_w, _ = torch.ops.aten.convolution_backward(
+        gc, xc, wc, None, list(stride), [0, 0], [1, 1], True, [0, 0], 1,
+        [need_err_input, True, False])
+    grad_w = torch.flip(grad_w.to(weights.dtype),
+                        (2, 3)).permute(2, 3, 0, 1).contiguous()
+    grad_b = dz.sum(dim=(0, 1, 2)) if include_bias else None
+    err_input = (grad_in.to(x.dtype).permute(0, 2, 3, 1).contiguous()
+                 if need_err_input else None)
+    return err_input, grad_w, grad_b
+
+
+# ------------------------------------------------------------------ depooling
+def depool(x, window=(2, 2), mode="nearest"):
+    """Positional unpooling (the reference's ``depool``): "nearest"
+    repeats each value over its window, "zero" puts it top-left and
+    zero-fills."""
+    kh, kw = window
+    b, h, w, c = x.shape
+    if mode == "nearest":
+        return x[:, :, None, :, None, :].expand(b, h, kh, w, kw, c).reshape(
+            b, h * kh, w * kw, c)
+    if mode == "zero":
+        out = x.new_zeros((b, h, kh, w, kw, c))
+        out[:, :, 0, :, 0, :] = x
+        return out.reshape(b, h * kh, w * kw, c)
+    raise ValueError("unknown depooling mode %r" % (mode,))
+
+
+def depool_backward(err, window=(2, 2), mode="nearest"):
+    """The unpooling's vjp: each window's sum ("nearest"), or its
+    top-left element ("zero")."""
+    kh, kw = window
+    b, hh, ww, c = err.shape
+    e = err.reshape(b, hh // kh, kh, ww // kw, kw, c)
+    if mode == "nearest":
+        return e.sum(dim=(2, 4))
+    if mode == "zero":
+        return e[:, :, 0, :, 0, :].contiguous()
+    raise ValueError("unknown depooling mode %r" % (mode,))
+
+
+# ------------------------------------------------ standalone activation units
+def activation_backward(x, err, activation):
+    """The vjp of :func:`activate` at its INPUT x, as ``jax.vjp`` forms
+    it (the standalone activation units' backward).  At exactly x = 0
+    ``max(x, 0)`` sends half the cotangent each way (0.5 for
+    ``strict_relu``), and ``abs`` takes the positive side, so the smooth
+    relu's two terms cancel there (−0.5 + 0.5 = 0), as in the
+    reference."""
+    if activation == "tanh":
+        t = torch.tanh(TANH_B * x)
+        ct = err * TANH_A
+        return (ct + ct * t) * (1.0 - t) * TANH_B
+    if activation == "sigmoid":
+        s = torch.sigmoid(x)
+        return err * (s * (1.0 - s))
+    if activation in ("relu", "strict_relu"):
+        half = torch.where(x > 0.0, 1.0, torch.where(x == 0.0, 0.5, 0.0))
+        ct_max = err * half.to(err.dtype)
+        if activation == "strict_relu":
+            return ct_max
+        e = torch.exp(-torch.abs(x))
+        ct_e = err / (e + 1.0) * e
+        return torch.where(x >= 0.0, -ct_e, ct_e) + ct_max
+    raise ValueError("unknown activation %r" % (activation,))
 
 
 # ------------------------------------------------------------------- pooling

@@ -345,9 +345,6 @@ class GradientDescentBase(AcceleratedUnit):
             if fwd.include_bias:
                 self.accum_bias.reset(
                     numpy.zeros(fwd.bias.shape, self.dtype))
-        if self.weights_mask is not None:
-            self._mask_t = torch.as_tensor(
-                numpy.asarray(self.weights_mask, self.dtype)).to(device)
         self._bwd = self.jit("bwd", self.backward_fn)
         self._upd = self.jit("upd", self.update_fn)
         super().initialize(device=device, **kwargs)
@@ -463,12 +460,23 @@ class GradientDescentBase(AcceleratedUnit):
                            self.gradient_clip)))
         return items
 
+    def _masked(self, new_w):
+        """``new_w`` times ``weights_mask`` as it is at this update (a
+        ZeroFiller sets it after this unit initializes; the reference
+        reads it when its step is traced), or ``new_w`` without one."""
+        if self.weights_mask is None:
+            return new_w
+        if self._mask_t is None or self._mask_t[0] is not self.weights_mask:
+            self._mask_t = (self.weights_mask, torch.as_tensor(
+                numpy.asarray(self.weights_mask, self.dtype)).to(
+                    new_w.device))
+        return new_w * self._mask_t[1]
+
     def sgd_finish(self, results, acc_w=None, acc_b=None):
         """:meth:`update_fn`'s six results from the (param, velocity)
         pairs of :meth:`sgd_items`' entries (the weights mask applied)."""
         (new_w, new_vw), *rest = results
-        if self._mask_t is not None:
-            new_w = new_w * self._mask_t
+        new_w = self._masked(new_w)
         if not rest:
             return new_w, None, new_vw, None, acc_w, None
         (new_b, new_vb), = rest
@@ -489,8 +497,7 @@ class GradientDescentBase(AcceleratedUnit):
             self.momentum, self.weight_decay, self.l1_vs_l2,
             self.gradient_clip, self.solver, self.solver_rho,
             self.solver_epsilon, step)
-        if self._mask_t is not None:
-            new_w = new_w * self._mask_t
+        new_w = self._masked(new_w)
         if grad_b is None:
             return new_w, None, new_vw, None, new_aw, None
         new_b, new_vb, new_ab = F.adaptive_update(

@@ -16,7 +16,9 @@ Execution: the classic unit graph runs under the host scheduler (unit mode).
 When ``fused=True`` (default) the accelerated segment (forwards + evaluator +
 gds) runs as one train/eval step call per minibatch
 (``veles_tpu_torch.compiled``) instead of the individual unit runs — same
-numerics (identical pure functions).  The Snapshotter and the plotters are
+numerics (identical pure functions).  Skip-edge layers (``residual``,
+``residual_proj``) need the fused engine: a ``fused=False`` build with
+one raises ValueError.  The Snapshotter and the plotters are
 not ported yet and raise (ROADMAP Queue 2a, items 4 and 5).
 """
 
@@ -26,10 +28,7 @@ import inspect
 
 from veles_tpu_torch.config import get
 from veles_tpu_torch.workflow import Repeater
-# importing a unit module registers its layer types
-from veles_tpu_torch.ops import (  # noqa: F401
-    all2all, augmentation, conv, dropout, gd, gd_conv, normalization,
-    pooling)
+# importing the ops package registers every layer type
 from veles_tpu_torch.ops.nn_units import (NNWorkflow, LAYER_TYPES,
                                           gd_class_for)
 from veles_tpu_torch.ops.evaluator import EvaluatorSoftmax, EvaluatorMSE
@@ -106,6 +105,14 @@ class StandardWorkflowBase(NNWorkflow):
             self.warning("grad_accum=%s is inert in unit (non-fused) "
                          "mode — the per-unit path dispatches whole "
                          "minibatches", grad_accum)
+        skip_kinds = sorted({layer.get("type") for layer in self.layers_config
+                             if layer.get("type") in ("residual",
+                                                      "residual_proj")})
+        if not fused and skip_kinds:
+            raise ValueError(
+                "layer type(s) %s need the fused engine (a skip edge "
+                "cannot ride the per-unit err chain) — build with "
+                "fused=True" % ", ".join("'%s'" % k for k in skip_kinds))
         self.snapshotter = None
         self._build(loader_factory, dict(loader_config or {}),
                     dict(decision_config or {}), snapshotter_config)
@@ -140,6 +147,22 @@ class StandardWorkflowBase(NNWorkflow):
             else:
                 unit.link_from(prev)
                 unit.link_attrs(prev, ("input", "output"))
+            if getattr(unit, "IS_RESIDUAL_PROJ", False):
+                # the projection's weights take their shape from the SKIP
+                # source: acts[src], the output of layer src - 1, or the
+                # loader's data for src 0
+                src = len(self.forwards) - unit.skip
+                if src < 0:
+                    raise ValueError(
+                        "residual_proj at layer %d skips %d back — "
+                        "before the chain input"
+                        % (len(self.forwards), unit.skip))
+                if src == 0:
+                    unit.link_attrs(self.loader,
+                                    ("skip_input", "minibatch_data"))
+                else:
+                    unit.link_attrs(self.forwards[src - 1],
+                                    ("skip_input", "output"))
             self.forwards.append(unit)
             prev = unit
 
