@@ -13,7 +13,8 @@ Phases (any failure exits nonzero before the final line is printed):
    (``paged_flash_attention.cu``, ``fused_sgd.cu``, ``lrn.cu``,
    ``dropout.cu``, ``flash_attention.cu``; one nvcc per source, all
    started together) into
-   ``build/kernels/``;
+   ``build/kernels/``, and the loader's ``native/dataio.cpp`` with g++
+   into ``build/native/`` (it must build: no numpy fallback here);
 3. kernels — each kernel against its plain PyTorch version on the card
    at its main path's shapes, with kernel, plain-version and library
    card times (CUDA events; see ``time_ms``) and the card's bound for
@@ -66,7 +67,26 @@ Phases (any failure exits nonzero before the final line is printed):
    and on the CPU at
    minibatch 16 for 3 committed updates, each layer's weight gap within
    its limit (``ALEXNET_*_SHARE``) after the first update and after the
-   third, and two faulty card runs rejected by the same limits;
+   third, and two faulty card runs rejected by the same limits; then
+   records — the same sample trained from a record file, the way
+   ``configs[2]`` reads real data: a seeded 256x256x3 uint8 file (1,280
+   train / 256 validation, labels in [0, 1000), 302 MB) and its train
+   mean written to a temporary directory outside the repo, only
+   ``records_path``/``mean_path`` set so ``default_config`` picks
+   ``alexnet_layers()``; 2 epochs (20 steps, 4 validation minibatches)
+   with prefetch off and on: the native library live, the AlexNet launch
+   formula, one native gather, mean and label call a minibatch, a bit
+   digest of every device minibatch equal on and off, the first one
+   equal to numpy's ``u8 * scale + offset - mean``; samples/s over
+   whole epochs, the steady minibatch's host ms (gather+convert, mean,
+   pinned and pageable upload, step), the unit loop's (loader, fused
+   step, commit) host ms and busy share, with prefetch off and on; card
+   vs CPU at minibatch 16 within the ``ALEXNET_*`` limits, broken by two
+   planted loader faults (mean not subtracted, labels shifted by one);
+   64 Datums written with ``mdb.write_env`` and converted by
+   ``lmdb_to_records``, byte-equal to ``write_records``; then wine at its
+   defaults through ``wine.train`` (one fused-SGD launch a step,
+   validation n_err at most the reference's bar);
 7. lm_train — the char-LM sample at the repo's full LM width (vocab 256,
    d_model 512, 8 heads, 8 layers, s 512, minibatch 32; 10 train steps
    and 2 validation minibatches) through ``samples.char_lm.train``'s
@@ -90,10 +110,12 @@ Phases (any failure exits nonzero before the final line is printed):
    error below 10%, exactly one fused-SGD launch a dispatched train step
    covering every parameter (``ZOO``), wall and run seconds, samples/s
    and the card's busy share of two steady steps; then, but for
-   MNIST-conv, card vs CPU at minibatch 100 after the first and third
+   MNIST-conv, a seeded rerun of the small card run that must repeat
+   bit for bit, card vs CPU at minibatch 100 after the first and third
    committed update (``ZOO_*_SHARE``) and the faulty card runs
    (``ZOO_FAULTS``) rejected by the first-update limit;
-9. one JSON line listing every ported kernel, then the JSON result line.
+9. the script's seconds, the card's name and power limit, one JSON line
+   listing every ported kernel, then the JSON result line.
 
 The kernels phase also holds the three flash-attention kernels (forward,
 dK/dV pass, dQ pass; ``flash_attention.cu``) at the LM's train shape
@@ -1526,6 +1548,480 @@ def alexnet(torch, HK, card, device="cuda", layers=None, small=None,
         check(any(g > lim for g, lim in zip(gaps["share"][0], limits)),
               "the card-vs-CPU check passed the faulty run %r: %r"
               % (name, gaps["share"][0]))
+    synthetic = {"s_per_step": step_s, "step_samples_per_s": mb / step_s,
+                 "run_s": run_s,
+                 "epoch_train_samples_per_s": steps * mb / run_s,
+                 "step_device_busy_share": busy}
+    return launches, synthetic
+
+
+# ------------------------------------------------------------------ records
+#: the records phase's sets as (validation, train) counts: 256x256x3
+#: uint8, labels in [0, 1000); "full" at minibatch 128 is 2 validation
+#: and 10 train minibatches an epoch (20 steps in 2 epochs), "small" is
+#: the card-vs-CPU set at minibatch 16 (1 + 4 minibatches, the last
+#: gated by Decision: 3 committed updates)
+RECORDS_SETS = {"full": (256, 1280), "small": (16, 64)}
+RECORDS_HW = 256
+RECORDS_CLASSES = 1000
+#: ImageNet's RGB channel means (0-255): the class prototypes sit around
+#: them, so the train mean the loader subtracts is far from zero
+IMAGENET_RGB_MEAN = (123.68, 116.78, 103.94)
+#: RecordsLoader's uint8 scaling: float(u8) * (1/127.5) + (-1)
+RECORDS_SCALE, RECORDS_OFFSET = 1.0 / 127.5, -1.0
+RECORDS_FAULTS = ("mean_not_subtracted", "labels_shifted")
+#: the LMDB leg: Datums of the full set's first images, converted
+LMDB_DATUMS = 64
+#: wine's validation bar, the reference's (tests/test_loader_extra.py)
+WINE_MAX_N_ERR = 3
+
+
+def write_record_set(directory, name, n_valid, n_train, hw=RECORDS_HW,
+                     n_classes=RECORDS_CLASSES, seed=SEED, chunk=128):
+    """A seeded uint8 record file laid out [0 | n_valid | n_train] of
+    hw x hw x 3 images — class prototypes (8 x 8 cells blown up to hw,
+    around ImageNet's channel means) plus noise, labels in
+    [0, n_classes) — and its train mean image (float32 .npy, in the
+    loader's [-1, 1] scale).  Returns (record path, mean path)."""
+    import os
+    from veles_tpu_torch.loader.records import write_records
+    rng = numpy.random.default_rng(seed)
+    n, cell = n_valid + n_train, hw // 8
+    protos = numpy.clip(numpy.asarray(IMAGENET_RGB_MEAN).round()
+                        + rng.integers(-72, 73, (n_classes, 8, 8, 3)),
+                        0, 255).astype(numpy.int16)
+    labels = rng.integers(0, n_classes, n).astype(numpy.int32)
+    data = numpy.empty((n, hw, hw, 3), numpy.uint8)
+    for at in range(0, n, chunk):
+        up = protos[labels[at:at + chunk]].repeat(cell, 1).repeat(cell, 2)
+        up += rng.integers(-32, 33, up.shape, dtype=numpy.int16)
+        data[at:at + len(up)] = numpy.clip(up, 0, 255)
+    mean = (data[n_valid:].mean(axis=0, dtype=numpy.float64)
+            * RECORDS_SCALE + RECORDS_OFFSET).astype(numpy.float32)
+    path = write_records(os.path.join(directory, name + ".rec"), data,
+                         labels, [0, n_valid, n_train])
+    mean_path = os.path.join(directory, name + "_mean.npy")
+    numpy.save(mean_path, mean)
+    return path, mean_path
+
+
+def records_build(prng, root, imagenet, files, layers=None, epochs=2,
+                  **loader):
+    """A seeded ImageNet-sample workflow on a record file: only
+    ``records_path``/``mean_path`` (and ``loader``) are set, so
+    ``default_config`` picks ``alexnet_layers()`` itself unless
+    ``layers`` is given (a rehearsal)."""
+    prng.reset()
+    prng.seed_all(SEED)
+    root.__dict__.pop("imagenet", None)
+    cfg = {"loader": dict(loader, records_path=files[0],
+                          mean_path=files[1]),
+           "decision": {"max_epochs": epochs, "fail_iterations": 10}}
+    if layers is not None:
+        cfg["layers"] = layers
+    root.imagenet.update(cfg)
+    return imagenet.build(fused=True)
+
+
+def bit_digest(torch, tensors, cache):
+    """One int64 per tensor, on its device: the position-weighted sum of
+    its 32-bit words (wrapping), so equal digests mean equal bits but
+    for a 2**-64 chance.  ``cache`` keeps the weights by length."""
+    out = []
+    for t in tensors:
+        bits = t.reshape(-1).view(torch.int32).to(torch.int64)
+        key = (bits.numel(), str(bits.device))
+        w = cache.get(key)
+        if w is None:
+            w = (torch.arange(bits.numel(), dtype=torch.int64,
+                              device=bits.device) * 2654435761
+                 % 2147483647 + 1)
+            cache[key] = w
+        out.append((bits * w).sum())
+    return out
+
+
+@contextlib.contextmanager
+def records_fault(name):
+    """Within the block, ``name`` of ``RECORDS_FAULTS`` is planted in the
+    port's record loaders (host side, before the upload)."""
+    from veles_tpu_torch.loader import records as R
+    from veles_tpu_torch.samples import imagenet
+    if name == "mean_not_subtracted":
+        cls = imagenet.ImagenetRecordsLoader
+
+        def planted(self, indices, batch=None, labels=None):
+            return R.RecordsLoader._gather(self, indices, batch, labels)
+    else:
+        cls = R.RecordsLoader
+        inner = cls._gather
+
+        def planted(self, indices, batch=None, labels=None):
+            batch, labels = inner(self, indices, batch, labels)
+            labels += 1
+            labels %= RECORDS_CLASSES
+            return batch, labels
+    saved = cls.__dict__["_gather"]
+    cls._gather = planted
+    try:
+        yield
+    finally:
+        cls._gather = saved
+
+
+def records_run(torch, HK, native, prng, root, imagenet, files, device,
+                layers, prefetch):
+    """One 2-epoch run of the ImageNet sample on the record file
+    ``files`` through build + initialize + run, a bit digest of every
+    minibatch the step reads and the first minibatch kept; returns the
+    workflow and what was counted."""
+    t0 = time.monotonic()
+    wf = records_build(prng, root, imagenet, files, layers,
+                       prefetch=prefetch)
+    wf.initialize(device=device)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    ld = wf.loader
+    check(isinstance(ld, imagenet.ImagenetRecordsLoader),
+          "the records run loads through %s" % type(ld).__name__)
+    check((ld._ring is not None) == (torch.device(device).type == "cuda"),
+          "the pinned staging ring %s on %s"
+          % ("is missing" if ld._ring is None else "exists", device))
+    digests, first, cache = [], [], {}
+    inner = ld.fill_minibatch
+
+    def fill(indices, actual):
+        inner(indices, actual)
+        x, y = ld.minibatch_data.devmem, ld.minibatch_labels.devmem
+        check(x.device.type == torch.device(device).type,
+              "a records minibatch lies on %s" % x.device)
+        digests.append(bit_digest(torch, (x, y), cache))
+        if not first:
+            first.append((numpy.array(indices), x.clone()))
+
+    ld.fill_minibatch = fill
+    HK.reset_launch_counts()
+    native.reset_call_counts()
+    t0 = time.monotonic()
+    wf.run()
+    torch.cuda.synchronize()
+    run_s = time.monotonic() - t0
+    launches, calls = HK.launch_counts(), native.call_counts()
+    del ld.fill_minibatch
+    return wf, {"setup_s": setup_s, "run_s": run_s, "launches": launches,
+                "native_calls": calls,
+                "digests": [[int(d) for d in pair] for pair in digests],
+                "first": first[0]}
+
+
+def median_ms(fn, reps=5):
+    """Median host milliseconds of ``fn`` over ``reps`` calls after one
+    warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def unit_loop(torch, wf, n_valid_mbs):
+    """One train minibatch of the whole unit loop — loader (gather,
+    mean, upload), fused step, commit — ended by a synchronize; and a
+    reset that puts the loader back at the first train minibatch of a
+    fresh plan (10 train minibatches at full size)."""
+    ld, fused, commit = wf.loader, wf.fused_step, wf.fused_commit
+
+    def reset():
+        ld._plan_epoch()
+        ld._position = n_valid_mbs
+
+    def step():
+        ld.run()
+        fused.run()
+        commit.run()
+        torch.cuda.synchronize()
+    return reset, step
+
+
+def host_split(torch, native, wf, device):
+    """Host ms of one steady train minibatch's parts: gather+convert
+    (pixels and labels, into a pinned buffer on the card), mean, upload
+    (pinned, and pageable for comparison) and the fused step."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.loader.base import TRAIN
+    ld, runner = wf.loader, wf._fused_runner
+    idx = next(chunk for cls, chunk, _ in ld._order if cls == TRAIN)
+    mb = len(idx)
+    shape = (mb,) + ld._data.shape[1:]
+    card = torch.device(device).type == "cuda"
+    pinned = torch.empty(shape, dtype=torch.float32, pin_memory=card)
+    host, labels = pinned.numpy(), numpy.empty(mb, numpy.int32)
+    source = numpy.asarray(ld._labels)
+
+    def gather():
+        native.gather_convert(ld._data, idx, RECORDS_SCALE, RECORDS_OFFSET,
+                              out=host)
+        native.gather_labels(source, idx, out=labels)
+
+    gather()
+    dev = torch.empty(shape, dtype=torch.float32, device=device)
+    pageable = numpy.array(host)
+    y = torch.as_tensor(labels.copy()).to(device)
+    mask = torch.ones(mb, device=device)
+    key = prng.PRNGKey(SEED)
+    out = {"gather_convert_ms": median_ms(gather),
+           "mean_ms": median_ms(lambda: native.subtract_mean(host,
+                                                             ld._mean)),
+           "upload_pinned_ms": median_ms(lambda: (
+               dev.copy_(pinned, non_blocking=True),
+               torch.cuda.synchronize())),
+           "upload_pageable_ms": median_ms(lambda: (
+               torch.as_tensor(pageable).to(device),
+               torch.cuda.synchronize())),
+           "step_ms": median_ms(lambda: (
+               runner._train_step(runner.state, dev, y, mask, mb, key),
+               torch.cuda.synchronize()))}
+    out["bytes"] = {"uint8_gathered": int(host.size),
+                    "float32_converted": int(host.nbytes),
+                    "uploaded": int(host.nbytes)}
+    return out
+
+
+def lmdb_leg(directory, files, n=LMDB_DATUMS):
+    """``n`` Datums of the record file's first images written with the
+    port's ``mdb.write_env``; ``lmdb_to_records`` must write the same
+    bytes as ``write_records`` of the same HWC arrays."""
+    import filecmp
+    import os
+    from veles_tpu_torch.loader import lmdb, mdb
+    from veles_tpu_torch.loader import records as R
+    _, data, labels = R.open_records(files[0])
+    hwc, lab = numpy.array(data[:n]), numpy.array(labels[:n])
+    lengths = [0, n // 4, n - n // 4]
+    t0 = time.monotonic()
+    env = mdb.write_env(os.path.join(directory, "lmdb"), [
+        (b"%08d" % i, lmdb.serialize_datum(hwc[i].transpose(2, 0, 1),
+                                           lab[i])) for i in range(n)])
+    converted = lmdb.lmdb_to_records(os.path.dirname(env),
+                                     os.path.join(directory, "lmdb.rec"),
+                                     class_lengths=lengths)
+    took = time.monotonic() - t0
+    direct = R.write_records(os.path.join(directory, "direct.rec"), hwc,
+                             lab, lengths)
+    same = filecmp.cmp(converted, direct, shallow=False)
+    check(same, "lmdb_to_records differs from write_records of the same "
+          "HWC arrays")
+    return {"datums": n, "shape": list(hwc.shape[1:]),
+            "env_bytes": os.path.getsize(env),
+            "record_bytes": os.path.getsize(converted),
+            "write_and_convert_s": took, "byte_equal": same}
+
+
+def records(torch, HK, card, device="cuda", layers=None, sets=None,
+            hw=RECORDS_HW, synthetic=None):
+    """The ImageNet sample trained from a record file at full AlexNet
+    width (the records branch of ``make_loader``), with prefetch off and
+    on; the host ms split, the unit loop's busy share; card vs CPU at
+    minibatch 16 with two planted loader faults; the LMDB leg."""
+    import shutil
+    import tempfile
+    from veles_tpu_torch import native, prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.loader import records as R
+    from veles_tpu_torch.samples import imagenet
+    began = time.monotonic()
+    sets = sets or RECORDS_SETS
+    check(native.available(), "the native dataio library is not live: %s"
+          % native.build_error())
+    directory = tempfile.mkdtemp(prefix="veles_records_")
+    try:
+        t0 = time.monotonic()
+        full = write_record_set(directory, "full", *sets["full"], hw=hw)
+        small = write_record_set(directory, "small", *sets["small"], hw=hw,
+                                 seed=SEED + 1)
+        write_s = time.monotonic() - t0
+        runs, wfs = {}, {}
+        for prefetch in (False, True):
+            wfs[prefetch], runs[prefetch] = records_run(
+                torch, HK, native, prng, root, imagenet, full, device,
+                layers, prefetch)
+        wf = wfs[False]
+        ld, mb = wf.loader, wf.loader.max_minibatch_size
+        steps = wf.fused_step.train_steps
+        valid_mbs = 2 * -(-ld.class_lengths[1] // mb)
+        minibatches = steps + valid_mbs
+        check(steps == 2 * -(-ld.class_lengths[2] // mb),
+              "%d train steps dispatched" % steps)
+        n_lrn = sum(1 for f in wf.forwards if f.layer_type == "norm")
+        n_drop = sum(1 for f in wf.forwards if f.layer_type == "dropout")
+        n_params = sum(2 for f in wf.forwards if f.has_params)
+        want = {"lrn_forward": n_lrn * (steps + valid_mbs),
+                "lrn_backward": n_lrn * steps,
+                "dropout": 2 * n_drop * steps,
+                "fused_sgd_update": -(-n_params // HK.SGD_MAX_TENSORS)
+                * steps}
+        want_calls = {"gather_u8_to_f32": minibatches, "gather_f32": 0,
+                      "subtract_mean": minibatches,
+                      "gather_i32": minibatches}
+        for prefetch, run in runs.items():
+            got = {k: run["launches"][k] for k in want}
+            check(got == want, "records (prefetch %s) launches %r, "
+                  "expected %r" % (prefetch, got, want))
+            check(run["native_calls"] == want_calls,
+                  "records (prefetch %s) native calls %r, expected %r"
+                  % (prefetch, run["native_calls"], want_calls))
+            check(len(run["digests"]) == minibatches,
+                  "%d minibatches read" % len(run["digests"]))
+        check(runs[False]["digests"] == runs[True]["digests"],
+              "the device minibatches differ with prefetch on and off")
+        # the first device minibatch against numpy on the mapped file
+        idx, first = runs[False]["first"]
+        _, mapped, _ = R.open_records(full[0])
+        want_x = (mapped[idx].astype(numpy.float32)
+                  * numpy.float32(RECORDS_SCALE)
+                  + numpy.float32(RECORDS_OFFSET)) - numpy.load(full[1])
+        got_x = first.cpu().numpy()
+        first_equal = bool(numpy.array_equal(got_x.view(numpy.int32),
+                                             want_x.view(numpy.int32)))
+        check(first_equal, "the first device minibatch is not numpy's "
+              "u8 * scale + offset - mean bit for bit (max gap %g)"
+              % float(numpy.abs(got_x - want_x).max()))
+        for prefetch, w in wfs.items():
+            losses = [m[s]["loss"] for m in w.decision.epoch_metrics
+                      for s in ("validation", "train")]
+            check(len(w.decision.epoch_metrics) == 2
+                  and all(numpy.isfinite(v) for v in losses),
+                  "records (prefetch %s) losses %r" % (prefetch, losses))
+            check(all(numpy.isfinite(f.weights.mem).all()
+                      for f in w.forwards if f.has_params),
+                  "records (prefetch %s): non-finite weights" % prefetch)
+
+        # the steady step's host split, then the unit loop (loader, fused
+        # step, commit) with prefetch off and on: host ms and busy share
+        split = host_split(torch, native, wf, device)
+        loop = {}
+        for prefetch, w in wfs.items():
+            reset, step = unit_loop(torch, w, valid_mbs // 2)
+            reset()
+            loop_ms = median_ms(step)
+            reset()
+            busy, per_kernel = profile_steps(torch, step, 5)
+            w.loader.stop()
+            loop[prefetch] = {"step_ms": loop_ms,
+                              "samples_per_s": mb / loop_ms * 1e3,
+                              "device_busy_share": busy,
+                              "card_us": sum(per_kernel.values())}
+
+        # the same seed on the card and on the CPU at minibatch 16: 3
+        # committed updates; then the faulty card runs
+        def small_run(dev):
+            return committed_weights(records_build(
+                prng, root, imagenet, small, layers, epochs=1,
+                minibatch_size=16), dev)
+
+        on_card, on_cpu = small_run(device), small_run("cpu")
+        under_pool = [any(g.layer_type == "max_pooling"
+                          for g in wf.forwards[i + 1:])
+                      for i, f in enumerate(wf.forwards) if f.has_params]
+        limits = [ALEXNET_CONV_SHARE if u else ALEXNET_FC_SHARE
+                  for u in under_pool]
+        sound = weight_gaps(on_card, on_cpu)
+        faults = {}
+        for name in RECORDS_FAULTS:
+            with records_fault(name):
+                gaps = weight_gaps(small_run(device), on_cpu)
+            faults[name] = {"abs": gaps["abs"], "share": gaps["share"]}
+        lmdb = lmdb_leg(directory, full)
+    finally:
+        shutil.rmtree(directory)
+    report = {
+        "phase": "records", "card": card,
+        "config": {"layers": "alexnet_layers()" if layers is None
+                   else "given", "crop": 227, "minibatch": mb,
+                   "image_hw": list(ld._data.shape[1:3]),
+                   "n_classes": RECORDS_CLASSES,
+                   "n_train": ld.class_lengths[2],
+                   "n_valid": ld.class_lengths[1], "epochs": 2,
+                   "fused": True, "record_bytes": int(ld._data.nbytes)},
+        "write_s": write_s, "train_steps": steps,
+        "validation_minibatches": valid_mbs,
+        "native_calls": runs[False]["native_calls"],
+        "first_minibatch_bit_equal": first_equal,
+        "digests_equal_prefetch_on_off": True,
+        "host_split_ms": split, "unit_loop": {
+            "prefetch_off": loop[False], "prefetch_on": loop[True]},
+        "synthetic": synthetic,
+        "lmdb": lmdb,
+        "card_vs_cpu": {"minibatch": 16,
+                        "committed_updates": len(on_cpu) - 1,
+                        "first_update_limits": limits,
+                        "third_update_limit": ALEXNET_DRIFT_SHARE,
+                        "sound": sound, "faults": faults}}
+    for prefetch, run in runs.items():
+        n_samples = 2 * (ld.class_lengths[1] + ld.class_lengths[2])
+        report["prefetch_on" if prefetch else "prefetch_off"] = {
+            "setup_s": run["setup_s"], "run_s": run["run_s"],
+            "samples_per_s": n_samples / run["run_s"],
+            "train_samples_per_s": steps * mb / run["run_s"],
+            "launches": run["launches"],
+            "losses": [{s: m[s]["loss"] for s in ("validation", "train")}
+                       for m in wfs[prefetch].decision.epoch_metrics]}
+    report["phase_s"] = time.monotonic() - began
+    print(json.dumps(report), flush=True)
+    check(len(on_cpu) == 4, "%d committed updates, not 3"
+          % (len(on_cpu) - 1))
+    check(all(g <= lim for g, lim in zip(sound["share"][0], limits))
+          and max(sound["share"][-1]) <= ALEXNET_DRIFT_SHARE,
+          "card vs CPU records weight gaps beyond their limits: %r"
+          % sound["share"])
+    for name, gaps in faults.items():
+        check(any(g > lim for g, lim in zip(gaps["share"][0], limits)),
+              "the card-vs-CPU check passed the faulty run %r: %r"
+              % (name, gaps["share"][0]))
+    total = dict(runs[False]["launches"])
+    for k, v in runs[True]["launches"].items():
+        total[k] += v
+    return total
+
+
+def wine_phase(torch, HK, card, device="cuda"):
+    """The wine sample (13 -> 8 tanh -> 3 softmax) through its own
+    ``train`` at its defaults on the card: one fused-SGD launch a train
+    step, the reference's validation bar."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.samples import wine
+    prng.reset()
+    prng.seed_all(SEED)
+    root.__dict__.pop("wine", None)
+    wine.default_config()
+    HK.reset_launch_counts()
+    t0 = time.monotonic()
+    wf = wine.train(device=None if device == "cuda" else device)
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    launches = HK.launch_counts()
+    steps = wf.fused_step.train_steps
+    metrics = wf.decision.epoch_metrics
+    val = metrics[-1]["validation"]
+    report = {"phase": "wine", "card": card,
+              "config": {"layers": "13-8tanh-3softmax", "minibatch":
+                         wf.loader.max_minibatch_size,
+                         "n_train": wf.loader.class_lengths[2],
+                         "n_valid": wf.loader.class_lengths[1],
+                         "epochs": len(metrics), "fused": True},
+              "wall_s": wall_s, "train_steps": steps, "launches": launches,
+              "validation_n_err": [m["validation"]["n_err"]
+                                   for m in metrics],
+              "max_n_err": WINE_MAX_N_ERR}
+    print(json.dumps(report), flush=True)
+    check(steps > 0 and launches["fused_sgd_update"] == steps,
+          "wine: %d fused_sgd_update launches for %d train steps"
+          % (launches["fused_sgd_update"], steps))
+    check(val["n_err"] <= WINE_MAX_N_ERR, "wine: validation n_err %d > %d"
+          % (val["n_err"], WINE_MAX_N_ERR))
     return launches
 
 
@@ -1950,6 +2446,11 @@ def zoo(torch, HK, card, name, device="cuda", small=None, **loader):
 
     with strict_relu_ties(F) as ties:
         on_card = small_run(device)
+    # a seeded rerun on the card repeats bit for bit (cuDNN's
+    # deterministic algorithms, which every precision mode pins)
+    repeat = all(numpy.array_equal(a, b) for x, y in zip(
+        on_card, small_run(device)) for u, v in zip(x, y)
+        for a, b in zip(u, v))
     on_cpu = small_run("cpu")
     sound = weight_gaps(on_card, on_cpu)
     faults = {}
@@ -1962,9 +2463,12 @@ def zoo(torch, HK, card, name, device="cuda", small=None, **loader):
         "layers": [f.layer_type for f in wf.forwards if f.has_params],
         "first_update_limit": ZOO_FIRST_SHARE,
         "third_update_limit": ZOO_THIRD_SHARE,
-        "strict_relu_ties": sum(ties), "sound": sound, "faults": faults}
+        "strict_relu_ties": sum(ties), "card_rerun_bit_equal": repeat,
+        "sound": sound, "faults": faults}
     report["phase_s"] = time.monotonic() - began
     print(json.dumps(report), flush=True)
+    check(repeat, "%s: a seeded rerun on the card changed the weights"
+          % name)
     check(len(on_cpu) == 4, "%s: %d committed updates, not 3"
           % (name, len(on_cpu) - 1))
     check(max(sound["share"][0]) <= ZOO_FIRST_SHARE
@@ -2014,6 +2518,7 @@ def deconv_check(torch, F, card, device="cuda"):
 
 
 def main():
+    started = time.monotonic()
     import torch
     if not torch.cuda.is_available():
         print("chip smoke: no CUDA device", file=sys.stderr)
@@ -2022,7 +2527,7 @@ def main():
     from veles_tpu_torch.ops import attention as A
     from veles_tpu_torch.ops import hopper_kernels as HK
     from veles_tpu_torch.ops import transformer as T
-    from veles_tpu_torch import prng, serving as S
+    from veles_tpu_torch import native, prng, serving as S
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -2040,6 +2545,11 @@ def main():
     _build.load_all(names)
     libs = [str(_build.library_path(_build.CSRC_DIR / (n + ".cu"))
                 .relative_to(_build.PACKAGE_DIR.parent)) for n in names]
+    # the loader's host library, with g++ (no fallback on this path)
+    check(native.available(), "the native dataio library did not build: %s"
+          % native.build_error())
+    libs.append(str(native.library_path().relative_to(
+        _build.PACKAGE_DIR.parent)))
     print("build: %.2f s -> %s" % (time.monotonic() - t0, ", ".join(libs)),
           flush=True)
 
@@ -2112,11 +2622,17 @@ def main():
     # 5. train MNIST-FC through the sample's entry point
     launches["fused_sgd_update"] = train(torch, HK, smi)["fused_sgd_update"]
 
-    # 6. train full-width AlexNet through the ImageNet sample
-    alex = alexnet(torch, HK, smi)
+    # 6. train full-width AlexNet through the ImageNet sample, on the
+    # synthetic set, then from a record file (and the LMDB leg)
+    alex, synthetic = alexnet(torch, HK, smi)
     for k in ("lrn_forward", "lrn_backward", "dropout"):
         launches[k] = alex[k]
     launches["fused_sgd_update"] += alex["fused_sgd_update"]
+    rec = records(torch, HK, smi, synthetic=synthetic)
+    for k in ("lrn_forward", "lrn_backward", "dropout", "fused_sgd_update"):
+        launches[k] += rec[k]
+    launches["fused_sgd_update"] += wine_phase(torch, HK, smi)[
+        "fused_sgd_update"]
 
     # 7. train the full-width LM through the char-LM sample
     lm = lm_train(torch, HK, smi)
@@ -2151,6 +2667,7 @@ def main():
         if row["name"] in ("fused_sgd_update", "paged_flash_decode",
                            "paged_flash_prefill"):
             row["empty_launch_ms"] = floor_ms
+    print("chip smoke: %.1f s" % (time.monotonic() - started), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

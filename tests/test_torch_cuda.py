@@ -20,7 +20,10 @@ atol 3e-6 (the reference's Pallas-vs-XLA tolerances).  Dropout is
 bit-equal to its plain version.  The flash kernels (3xTF32 on the
 tensor cores) and the split-KV decode and prefill repeat bit for bit
 from launch to launch, and the flash kernels' error against an fp64 plain version is at
-most 4x the fp32 plain version's.
+most 4x the fp32 plain version's.  The record loader's device
+minibatches (two pinned staging buffers, prefetch on and off) equal its
+host gather bit for bit, also with every copy held back behind a spin.
+Two seeded training runs of a residual net end with bit-equal weights.
 """
 
 import numpy
@@ -792,3 +795,104 @@ def test_residual_train_step_card_vs_cpu():
             moved = (e_cpu[name] - e_old[name]).abs().max()
             gap = (e_card[name].cpu() - e_cpu[name]).abs().max()
             assert gap <= 1e-2 * moved, (name, gap.item(), moved.item())
+
+
+
+@pytest.mark.cuda
+def test_seeded_residual_runs_repeat_bit_for_bit():
+    """Two seeded runs of the residual net's whole epoch on the card end
+    with bit-equal weights: every precision mode pins cuDNN's
+    deterministic algorithms (its default weight-gradient algorithms sum
+    with atomics, and two runs drift apart from the first update)."""
+    dev = _card()
+    runs = []
+    for _ in range(2):
+        wf = _residual_workflow()
+        wf.initialize(device=dev)
+        assert torch.backends.cudnn.deterministic
+        wf.run()
+        runs.append([[e[k].cpu() for k in ("w", "b") if k in e]
+                     for e in wf._fused_runner.state if e])
+    for a, b in zip(*runs):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+def _record_loader(tmp_path, prefetch, mean=False):
+    """A seeded 40-sample uint8 record file (12 validation, 28 train,
+    16x16x3) behind a card-side ImagenetRecordsLoader at minibatch 8."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.loader.records import write_records
+    from veles_tpu_torch.samples.imagenet import ImagenetRecordsLoader
+    from veles_tpu_torch.workflow import Workflow
+    rng = numpy.random.RandomState(9)
+    data = rng.randint(0, 256, (40, 16, 16, 3)).astype(numpy.uint8)
+    path = str(tmp_path / "set.rec")
+    write_records(path, data, rng.randint(0, 10, 40).astype(numpy.int32),
+                  [0, 12, 28])
+    mean_path = None
+    if mean:
+        mean_path = str(tmp_path / "mean.npy")
+        numpy.save(mean_path, rng.randn(16, 16, 3).astype(numpy.float32))
+    prng.reset()
+    prng.seed_all(9)
+    loader = ImagenetRecordsLoader(Workflow(None), path=path,
+                                   mean_path=mean_path, prefetch=prefetch,
+                                   minibatch_size=8, name="loader")
+    loader.initialize(device=torch.device("cuda"))
+    return loader
+
+
+def _record_epochs(loader, delay):
+    """Two epochs of (host gather, device minibatch) pairs.  With
+    ``delay`` every copy queues behind a spin on its stream, so a
+    staging buffer refilled before its copy has read it would show."""
+    pairs = []
+    try:
+        while loader.epoch_number < 2:
+            if delay:
+                torch.cuda._sleep(2000000)
+                with torch.cuda.stream(loader._copy_stream):
+                    torch.cuda._sleep(2000000)
+            loader.run()
+            x = loader.minibatch_data.devmem
+            y = loader.minibatch_labels.devmem
+            host = loader._gather(loader.minibatch_indices.mem)
+            pairs.append((host, x.clone(), y.clone()))
+    finally:
+        loader.stop()
+    torch.cuda.synchronize()
+    return pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefetch", [False, True], ids=["sync", "prefetch"])
+def test_records_pinned_upload_equals_host_gather(tmp_path, prefetch):
+    """The record loader's device minibatch is its host gather (with the
+    mean subtracted) bit for bit, uploaded from two pinned buffers."""
+    _card()
+    loader = _record_loader(tmp_path, prefetch, mean=True)
+    assert all(slot[0].is_pinned() and slot[1].is_pinned()
+               for slot in loader._ring.slots)
+    pairs = _record_epochs(loader, delay=False)
+    assert len(pairs) == 2 * (2 + 4)
+    for (batch, labels), x, y in pairs:
+        assert x.device.type == "cuda" and x.dtype == torch.float32
+        assert torch.equal(x.cpu().view(torch.int32),
+                           torch.as_tensor(batch).view(torch.int32))
+        assert torch.equal(y.cpu(), torch.as_tensor(labels))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefetch", [False, True], ids=["sync", "prefetch"])
+def test_records_buffer_reuse_waits_for_its_copy(tmp_path, prefetch):
+    """Copies held back behind a spin on their stream: the ring waits
+    for the copy that last read a buffer before refilling it, so every
+    device minibatch still equals its host gather, and the stream is the
+    same with prefetch on and off."""
+    _card()
+    pairs = _record_epochs(_record_loader(tmp_path, prefetch), delay=True)
+    sync = _record_epochs(_record_loader(tmp_path, False), delay=False)
+    for ((batch, labels), x, y), (_, x0, y0) in zip(pairs, sync):
+        assert torch.equal(x.cpu(), torch.as_tensor(batch))
+        assert torch.equal(y.cpu(), torch.as_tensor(labels))
+        assert torch.equal(x, x0) and torch.equal(y, y0)

@@ -54,16 +54,29 @@ def test_no_jax_or_reference_import_anywhere():
         assert not roots & {"jax", "jaxlib", "veles_tpu"}, path
 
 
-def test_entry_points_raise_without_a_card(monkeypatch):
+def test_new_data_path_modules_are_checked():
+    """The data-path modules are among those the two checks above
+    import and parse."""
+    names = set(_modules())
+    assert {"veles_tpu_torch.native", "veles_tpu_torch.loader.records",
+            "veles_tpu_torch.loader.mdb", "veles_tpu_torch.loader.lmdb",
+            "veles_tpu_torch.loader.pickles", "veles_tpu_torch.loader.image",
+            "veles_tpu_torch.samples.wine",
+            "veles_tpu_torch.samples.image_dir"} <= names
+
+
+def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    import numpy
     from veles_tpu_torch import prng
     from veles_tpu_torch.compiled import state_from_jax
     from veles_tpu_torch.config import root
     from veles_tpu_torch.device import resolve_device
     from veles_tpu_torch.ops.transformer import (TransformerLM,
                                                  params_from_jax)
+    from veles_tpu_torch.loader.records import write_records
     from veles_tpu_torch.samples import (char_lm, cifar, cifar_resnet,
-                                         imagenet, mnist, mnist_ae,
-                                         mnist_conv)
+                                         image_dir, imagenet, mnist,
+                                         mnist_ae, mnist_conv, wine)
     from veles_tpu_torch.serving import LMEngine
     from veles_tpu_torch.workflow import Workflow
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -76,6 +89,18 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     tree = {"embed": torch.zeros(4, 8).numpy(), "blocks": [],
             "ln_f": {"g": torch.ones(8).numpy(),
                      "b": torch.zeros(8).numpy()}}
+    records = str(tmp_path / "set.rec")
+    write_records(records, numpy.zeros((4, 8, 8, 3), numpy.uint8),
+                  numpy.zeros(4, numpy.int32), [0, 2, 2])
+
+    def imagenet_records():
+        root.__dict__.pop("imagenet", None)
+        root.imagenet.loader.records_path = records
+        try:
+            imagenet.train()
+        finally:
+            root.__dict__.pop("imagenet", None)
+
     for call in (lambda: resolve_device(None),
                  lambda: params_from_jax(tree),
                  lambda: TransformerLM.from_jax(tree),
@@ -85,6 +110,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                  lambda: mnist.train(),
                  lambda: imagenet.build().initialize(),
                  lambda: imagenet.train(),
+                 imagenet_records,
+                 lambda: wine.train(),
+                 lambda: image_dir.train(loader={"directory": str(tmp_path)}),
                  lambda: cifar.train(),
                  lambda: mnist_conv.train(),
                  lambda: cifar_resnet.train(),

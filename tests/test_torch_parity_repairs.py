@@ -85,6 +85,49 @@ def test_default_then_float32_turns_tf32_off():
         assert _flags() == (False, False)
 
 
+
+@pytest.mark.parametrize("mode", MODES)
+def test_every_mode_pins_cudnn_deterministic(mode):
+    """Every mode, and the parity pin a workflow makes at initialize,
+    sets cuDNN's deterministic switch: seeded runs on the card repeat
+    bit for bit, as the reference's seeded runs do."""
+    before = torch.backends.cudnn.deterministic
+    try:
+        with _restored():
+            torch.backends.cudnn.deterministic = False
+            F.set_matmul_precision(mode)
+            assert torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = False
+            F.pin_fp32_matmul()
+            assert torch.backends.cudnn.deterministic
+            assert _flags() == (False, False)
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def test_workflow_initialize_pins_cudnn_deterministic():
+    """A workflow's initialize in the parity mode sets the switch (CPU
+    here: the flag is process state, read by cuDNN on the card)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.samples.cifar import CifarLoader
+    from veles_tpu_torch.standard_workflow import StandardWorkflow
+    before = torch.backends.cudnn.deterministic
+    try:
+        with _restored():
+            torch.backends.cudnn.deterministic = False
+            prng.reset()
+            prng.seed_all(9)
+            wf = StandardWorkflow(
+                None, name="pin", loader_factory=CifarLoader,
+                loader_config={"minibatch_size": 4, "n_train": 8,
+                               "n_valid": 4},
+                layers=[{"type": "softmax", "output_sample_shape": 10}],
+                decision_config={"max_epochs": 1})
+            wf.initialize(device="cpu")
+            assert torch.backends.cudnn.deterministic
+    finally:
+        torch.backends.cudnn.deterministic = before
+
 @pytest.mark.parametrize("mode", ["tf32", "highest", "", None])
 def test_unknown_precision_raises_as_the_reference(mode):
     with _restored():

@@ -9,10 +9,13 @@ handling: every minibatch is padded to ``max_minibatch_size`` with a 0/1
 ``minibatch_mask`` marking live rows.
 
 The mask lives on the loader's device and is built once per distinct
-live count, so the only host→device traffic of a minibatch is its index
-vector.  Multi-process sharding (``shard``, ``shard_spmd``) and the
-streaming/epoch-scan hooks (``gather_window``, ``plan_arrays``) are not
-ported yet and raise (ROADMAP Queue 2a, items 3 and 8).
+live count, so the only host→device traffic of a FullBatchLoader
+minibatch is its index vector (a RecordsLoader uploads its gathered
+minibatch too).  ``local_minibatch_size`` and ``local_chunk`` are the
+reference's unsharded forms (the identity); multi-process sharding
+(``shard``, ``shard_spmd``) and the epoch-scan hooks (``plan_arrays``,
+and ``gather_window`` but on the record and LMDB loaders, which have
+it) are not ported yet and raise (ROADMAP Queue 2a, items 8 and 3).
 """
 
 from __future__ import annotations
@@ -85,6 +88,18 @@ class Loader(Unit):
 
     def shard_spmd(self, process_index, process_count):
         _not_ported("loader sharding (shard_spmd)", 8)
+
+    @property
+    def local_minibatch_size(self):
+        """Rows this process holds per minibatch: ``max_minibatch_size``
+        (the reference's value when not SPMD-sharded; sharding is not
+        ported)."""
+        return self.max_minibatch_size
+
+    def local_chunk(self, chunk):
+        """This process's slice of a plan chunk: the chunk itself (the
+        reference's identity when not SPMD-sharded)."""
+        return chunk
 
     @property
     def total_samples(self):

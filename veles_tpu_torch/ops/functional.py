@@ -41,7 +41,13 @@ Precision modes:
   as the reference's bf16 mode keeps ``Precision.DEFAULT``.
 
 Every mode sets both ``allow_tf32`` flags, so a switch back to
-``"float32"`` turns TF32 off again.
+``"float32"`` turns TF32 off again.  Every mode (and
+:func:`pin_fp32_matmul`) also sets ``torch.backends.cudnn.deterministic``:
+cuDNN's default weight-gradient algorithms sum with atomics, so two
+seeded runs on the card drift apart from the first update, where the
+reference's seeded runs repeat bit for bit.  With the switch on they
+repeat too, at a cost that
+``python3 -m veles_tpu_torch.tools.determinism_probe`` measures.
 
 Large products stay ``torch.matmul`` (cuBLAS), as the reference left
 them to XLA.
@@ -66,10 +72,13 @@ class _Policy:
 def _allow_tf32(allow):
     torch.backends.cuda.matmul.allow_tf32 = allow
     torch.backends.cudnn.allow_tf32 = allow
+    # seeded runs repeat bit for bit on the card, as the reference's do
+    torch.backends.cudnn.deterministic = True
 
 
 def pin_fp32_matmul():
-    """Full-precision fp32 products in cuBLAS and cuDNN (TF32 off)."""
+    """Full-precision fp32 products in cuBLAS and cuDNN (TF32 off), and
+    cuDNN's deterministic algorithms."""
     _allow_tf32(False)
 
 

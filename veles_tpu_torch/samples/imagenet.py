@@ -5,10 +5,13 @@ imagenet/ [M]): the AlexNet-era pipeline — 256×256 images, random
 227-crop + mirror, five conv blocks with LRN and max-pooling, two
 dropout-FC layers, softmax-1000 — trained through the port's
 StandardWorkflow.  Augmentation is a stochastic layer inside the step
-(``ops/augmentation.py``); the data is the sample's synthetic stand-in
-(bit-equal to the reference's for the same sizes).  Real record files
-need ``loader/records.py``, which is not ported yet: a ``records_path``
-that exists raises (ROADMAP Queue 2a, item 11).
+(``ops/augmentation.py``).  The data comes from a record file
+(``loader/records.py``, memmap gathered by the native library, the mean
+image subtracted at fill time, uploaded through pinned staging buffers
+on the card) when ``loader.records_path`` names one — and then
+``default_config`` picks the full ``alexnet_layers()`` — or else from
+the sample's synthetic stand-in (bit-equal to the reference's for the
+same sizes) at the tiny shape.
 """
 
 from __future__ import annotations
@@ -17,9 +20,10 @@ import os
 
 import numpy
 
-from veles_tpu_torch import prng
+from veles_tpu_torch import native, prng
 from veles_tpu_torch.config import root, get
 from veles_tpu_torch.loader.fullbatch import FullBatchLoader
+from veles_tpu_torch.loader.records import RecordsLoader
 from veles_tpu_torch.standard_workflow import StandardWorkflow
 
 
@@ -71,6 +75,31 @@ def tiny_layers(n_classes=10, crop=(28, 28), lr=0.01, momentum=0.9):
           "learning_rate": lr, "momentum": momentum}])
 
 
+class ImagenetRecordsLoader(RecordsLoader):
+    """Record-file ImageNet with mean-image subtraction at fill time.
+
+    The mean is subtracted in place right after the gather, on the host
+    (in the pinned staging buffer on the card), so the prefetch worker
+    and ``gather_window`` see the same pixels as the reference's
+    per-minibatch path."""
+
+    def __init__(self, workflow, mean_path=None, **kwargs):
+        super().__init__(workflow, **kwargs)
+        self.mean_path = mean_path
+        self._mean = None
+
+    def load_data(self):
+        super().load_data()
+        if self.mean_path and os.path.exists(self.mean_path):
+            self._mean = numpy.load(self.mean_path).astype(numpy.float32)
+
+    def _gather(self, indices, batch=None, labels=None):
+        batch, labels = super()._gather(indices, batch, labels)
+        if self._mean is not None:
+            batch = native.subtract_mean(batch, self._mean)
+        return batch, labels
+
+
 class ImagenetSyntheticLoader(FullBatchLoader):
     """Synthetic ImageNet-shaped stand-in (stream "imagenet_synth") so the
     sample and its tests run hermetically; shape/classes configurable."""
@@ -100,12 +129,11 @@ class ImagenetSyntheticLoader(FullBatchLoader):
 
 
 def make_loader(workflow, records_path=None, **kwargs):
-    """The synthetic loader; real records raise until
-    ``loader/records.py`` is ported."""
+    """Real records when available, synthetic otherwise (cifar convention)."""
     if records_path and os.path.exists(records_path):
-        raise NotImplementedError(
-            "ImageNet record files need loader/records.py, which is not "
-            "ported yet: ROADMAP Queue 2a, item 11")
+        for synth_only in ("image_hw", "n_classes", "n_train", "n_valid"):
+            kwargs.pop(synth_only, None)
+        return ImagenetRecordsLoader(workflow, path=records_path, **kwargs)
     kwargs.pop("mean_path", None)
     return ImagenetSyntheticLoader(workflow, **kwargs)
 
