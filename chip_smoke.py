@@ -45,6 +45,10 @@ Phases (any failure exits nonzero before the final line is printed):
    tile and ring stage, rows too wide for the ring); dropout at
    AlexNet's two dropout inputs and at sizes 1, 127 and 2**16 + 3,
    bit-equal to its plain version (no library call draws jax's mask);
+   the RBM's Bernoulli draw (``dropout.cu``'s second entry, no TPU
+   kernel's port) at 100x784 and 100x256 (timed) and sizes 1, 127 and
+   2**16 + 3, each with uniform p and with exact 0.0 and 1.0 entries,
+   bit-equal to its plain version and to a second launch;
 4. serve — the paged LM engine at the full width of the repo's LM
    config (vocab 256, d_model 512, 8 heads, 8 layers, learned positions,
    max_len 512, fp32, random weights from a seed) answers 16 requests
@@ -55,7 +59,8 @@ Phases (any failure exits nonzero before the final line is printed):
    mode) through ``samples.mnist.train`` on the card: validation error
    below 5%, validation loss falling, every dispatched train minibatch's
    four momentum updates in one kernel launch; then the same seed on the
-   card and on the CPU for 50 committed updates, weights within 1e-4;
+   card and on the CPU for 50 committed updates, weights within 1e-4,
+   and a seeded rerun of that card run bit-equal;
 6. alexnet — the ImageNet sample at full AlexNet width
    (``alexnet_layers()``: crop 227, five conv blocks with two LRN and
    three max-pooling layers, two dropout-FC 4096 layers, softmax 1000;
@@ -81,12 +86,14 @@ Phases (any failure exits nonzero before the final line is printed):
    whole epochs, the steady minibatch's host ms (gather+convert, mean,
    pinned and pageable upload, step), the unit loop's (loader, fused
    step, commit) host ms and busy share, with prefetch off and on; card
-   vs CPU at minibatch 16 within the ``ALEXNET_*`` limits, broken by two
-   planted loader faults (mean not subtracted, labels shifted by one);
+   vs CPU at minibatch 16 within the ``ALEXNET_*`` limits (the small
+   card run rerun bit-equal), broken by two planted loader faults (mean
+   not subtracted, labels shifted by one);
    64 Datums written with ``mdb.write_env`` and converted by
    ``lmdb_to_records``, byte-equal to ``write_records``; then wine at its
    defaults through ``wine.train`` (one fused-SGD launch a step,
-   validation n_err at most the reference's bar);
+   validation n_err at most the reference's bar; the whole seeded run
+   repeated, bit-equal weights and epoch metrics);
 7. lm_train — the char-LM sample at the repo's full LM width (vocab 256,
    d_model 512, 8 heads, 8 layers, s 512, minibatch 32; 10 train steps
    and 2 validation minibatches) through ``samples.char_lm.train``'s
@@ -97,7 +104,8 @@ Phases (any failure exits nonzero before the final line is printed):
    under 'xla'; greedy ``sample_tokens`` on the card checked against a
    teacher-forced plain pass; then card vs CPU at 2 layers, s 128,
    minibatch 4 after the first and the third Adam update
-   (``LM_*_SHARE``), and two faulty card runs rejected by those limits;
+   (``LM_*_SHARE``; that card run rerun, bit-equal after every update),
+   and two faulty card runs rejected by those limits;
 8. the conv zoo — first the transposed conv and its backward (stride 2,
    k 5, SAME and int padding) on the card against the CPU (checked, not
    timed); then each of ``cifar`` (``BASELINE.json`` configs[1]: 3
@@ -109,13 +117,35 @@ Phases (any failure exits nonzero before the final line is printed):
    100): falling validation loss (RMSE for the AE), CIFAR's validation
    error below 10%, exactly one fused-SGD launch a dispatched train step
    covering every parameter (``ZOO``), wall and run seconds, samples/s
-   and the card's busy share of two steady steps; then, but for
-   MNIST-conv, a seeded rerun of the small card run that must repeat
-   bit for bit, card vs CPU at minibatch 100 after the first and third
+   and the card's busy share of two steady steps; then a seeded rerun
+   of the small card run that must repeat bit for bit and, but for
+   MNIST-conv, card vs CPU at minibatch 100 after the first and third
    committed update (``ZOO_*_SHARE``) and the faulty card runs
    (``ZOO_FAULTS``) rejected by the first-update limit;
-9. the script's seconds, the card's name and power limit, one JSON line
-   listing every ported kernel, then the JSON result line.
+9. the non-SGD trainers and the streams — ``kohonen`` (``BASELINE.json``
+   configs[3]'s SOM: 8x8 map, 2,000 points, minibatch 100, 10 epochs)
+   through ``kohonen.train``: falling qerr, 200 updates, wins on at
+   least 4 neurons, no kernel launched, a bit-equal seeded rerun, the
+   steady step's host ms and busy share, card vs CPU codebook after the
+   first and third update (``SOM_*_SHARE``) and a planted fault (σ for
+   σ²) rejected; ``mnist_rbm`` at its default widths (784 -> 256, 60,000
+   synthetic samples, minibatch 100, cd_k 1; ``RBM_EPOCHS`` epochs):
+   falling recon_err, 1 + cd_k Bernoulli launches a train step, the
+   steady step, then small runs (``RBM_SMALL``) with none drawn on
+   validation, a bit-equal rerun (parameters and draws), card vs CPU
+   (``RBM_*_SHARE``, visible draws equal, hidden flips counted) and a
+   planted fault (the Gibbs key not folded) rejected; ``lines`` and
+   ``video_ae`` through their own ``train`` at their defaults (10
+   epochs): lines' validation error below 15%, video_ae's validation
+   loss falling, one fused-SGD launch a train step, the whole seeded run
+   repeated bit-equal, the steady step; the streams — a small RBM's
+   first epoch captured on the card by ``MinibatchesSaver`` and replayed
+   by ``MinibatchesLoader`` into a fresh RBM (bit-equal parameters), and
+   the SOM's points fed through ``InteractiveLoader`` into a
+   ``KohonenForward`` (winners equal to a direct pass); then the
+   Bernoulli draw's JSON line (its times, bound and launches);
+10. the script's seconds, the card's name and power limit, one JSON line
+   listing every ported TPU kernel, then the JSON result line.
 
 The kernels phase also holds the three flash-attention kernels (forward,
 dK/dV pass, dQ pass; ``flash_attention.cu``) at the LM's train shape
@@ -315,6 +345,38 @@ ZOO_FAULTS = {"cifar": ("conv_wgrad_flipped",),
 #: deconv on the card vs the CPU, outputs and gradients: max gap as a
 #: share of the largest CPU element (cuDNN's sums in another order)
 DECONV_SHARE = 1e-5
+#: the Bernoulli draw (the RBM's visible and hidden shapes at minibatch
+#: 100), timed; then sizes 1, 127 and 2**16 + 3, checked only
+BERNOULLI_SHAPES = {"rbm_visible": (100, 784), "rbm_hidden": (100, 256)}
+#: the reference's bar for the SOM's spread (``tests/test_kohonen.py:73``)
+KOHONEN_MIN_NEURONS = 4
+#: card vs CPU SOM codebook after the first and third update (minibatch
+#: 100, 3 updates), as a share of its movement: the update's products
+#: sum 100 rows in another order (~1e-7 relative), and a winner picked
+#: differently at a near tie moves one row's pull (~1e-2 of the
+#: movement).  The planted fault, a neighbourhood divided by 2σ where
+#: it should be 2σ² (σ = 4 at the start), reshapes every pull (~0.5)
+SOM_FIRST_SHARE = 0.01
+SOM_THIRD_SHARE = 0.05
+#: the RBM phase: epochs at the sample's default widths (cut for time;
+#: the sample's default is 10), and its small card-vs-CPU runs: 300 train
+#: samples (3 updates) and 100 validation (one minibatch, no draw)
+RBM_EPOCHS = 2
+RBM_SMALL = {"n_train": 300, "n_valid": 100}
+#: card vs CPU RBM parameters after the first and third update, the
+#: worst tensor's gap as a share of its movement: the products differ
+#: ~1e-7 relative (~1e-6 of the movement), and a hidden sample that flips
+#: (u between the two sides' p) moves one row's reconstruction by
+#: ~W (0.01): ~3e-5 of the movement.  The planted fault, Gibbs samples
+#: drawn with an unfolded key (another sample for every hidden unit),
+#: moves the negative phase by ~1e-2 of the movement
+RBM_FIRST_SHARE = 1e-3
+RBM_THIRD_SHARE = 1e-2
+#: the reference's bar for lines (``tests/test_lines.py:40``)
+LINES_MAX_ERR_PCT = 15.0
+#: the streams phase: one train epoch of a small MNIST-RBM captured (5
+#: minibatches of 100, the last padded to 30 live rows)
+STREAM_RBM = {"n_train": 430, "n_valid": 0}
 
 
 def check(cond, what):
@@ -879,6 +941,52 @@ def dropout_case(torch, HK, prng, name, shape, rate=0.5, seed=0,
     return out
 
 
+def bernoulli_case(torch, HK, prng, name, shape, exact, seed=0,
+                   timed=True):
+    """The Bernoulli draw against its plain version: bit-equal, and a
+    second launch bit-equal to the first.  ``exact`` puts exact 0.0 and
+    1.0 among the probabilities (every third element each)."""
+    dev = torch.device("cuda")
+    p = numpy.random.RandomState(seed).rand(*shape).astype(numpy.float32)
+    if exact:
+        flat = p.reshape(-1)
+        flat[::3], flat[1::3] = 0.0, 1.0
+    p = torch.as_tensor(p, device=dev)
+    key = prng.fold_in(prng.PRNGKey(SEED), 0xB1 + seed)
+    got = HK.bernoulli(key, p)
+    again = HK.bernoulli(key, p)
+    ref = HK.bernoulli_ref(key, p)
+    torch.cuda.synchronize()
+    unequal = int((got != ref).sum().item())
+    check(unequal == 0, "bernoulli %s: %d elements differ from the plain "
+          "version" % (name, unequal))
+    check(torch.equal(got, again), "bernoulli %s: a second launch differs"
+          % name)
+    if exact:
+        flat = got.reshape(-1)
+        check(not flat[::3].any().item() and flat[1::3].all().item(),
+              "bernoulli %s: p = 0 drew 1 or p = 1 drew 0" % name)
+    n = p.numel()
+    out = {"kernel": "bernoulli", "case": name, "shape": list(shape),
+           "exact_0_1": exact, "unequal": unequal,
+           "max_abs_err": (got - ref).abs().max().item(),
+           "repeat_bit_equal": True, "ones_share": got.mean().item()}
+    if not timed:
+        return out
+    ps = [p] + [p.clone() for _ in range(COPIES - 1)]
+    out.update(
+        kernel_ms=time_ms([lambda t=t: HK.bernoulli(key, t) for t in ps],
+                          torch),
+        plain_ms=time_ms([lambda t=t: HK.bernoulli_ref(key, t) for t in ps],
+                         torch, calls=3, reps=5),
+        library_ms=None, bytes=8 * n, int_ops=DROPOUT_OPS * n)
+    t_bytes = 8 * n / HBM_BYTES_S * 1e3
+    t_ops = DROPOUT_OPS * n / INT32_OP_S * 1e3
+    out["bound_ms"], out["bound_by"] = ((t_bytes, "bytes") if t_bytes >= t_ops
+                                        else (t_ops, "operations"))
+    return out
+
+
 # ------------------------------------------------------- flash attention
 def tf32_round(torch, x):
     """x rounded to TF32 (its top 19 bits, to nearest, ties away from
@@ -1314,6 +1422,11 @@ def train(torch, HK, card, device="cuda"):
     small = {"loader": {"n_train": 5100, "n_valid": 1000},
              "decision": {"max_epochs": 1}}
     on_card = mnist_run(prng, root, mnist, device, **small)
+    # a seeded rerun on the card repeats bit for bit
+    repeat = all(numpy.array_equal(va.mem, vb.mem) for a, b in zip(
+        on_card.forwards, mnist_run(prng, root, mnist, device,
+                                    **small).forwards)
+        for va, vb in ((a.weights, b.weights), (a.bias, b.bias)))
     on_cpu = mnist_run(prng, root, mnist, "cpu", **small)
     worst = 0.0
     for a, b in zip(on_card.forwards, on_cpu.forwards):
@@ -1334,8 +1447,9 @@ def train(torch, HK, card, device="cuda"):
                              for v in val],
               "card_vs_cpu_max_abs_weight_diff": worst,
               "card_vs_cpu_committed_updates": 50,
-              "tolerance": TRAIN_ATOL}
+              "tolerance": TRAIN_ATOL, "card_rerun_bit_equal": repeat}
     print(json.dumps(report), flush=True)
+    check(repeat, "train: a seeded rerun on the card changed the weights")
     return launches
 
 
@@ -1397,6 +1511,28 @@ def weight_gaps(card, cpu):
         out["movement"].append(moved)
         out["share"].append([g / m for g, m in zip(gaps, moved)])
     return out
+
+
+def same_metrics(a, b):
+    """True when two runs' epoch metrics (lists of dicts of dicts of
+    numbers and arrays) are bit-equal."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_metrics(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (len(a) == len(b)
+                and all(same_metrics(x, y) for x, y in zip(a, b)))
+    if isinstance(a, numpy.ndarray):
+        return numpy.array_equal(a, b)
+    return a == b
+
+
+def same_weights(a, b):
+    """True when two runs' kept weights (``committed_weights``) are
+    bit-equal at every committed update."""
+    return len(a) == len(b) and all(
+        numpy.array_equal(u, v) for x, y in zip(a, b) for p, q in zip(x, y)
+        for u, v in zip(p, q))
 
 
 @contextlib.contextmanager
@@ -1922,6 +2058,8 @@ def records(torch, HK, card, device="cuda", layers=None, sets=None,
                 minibatch_size=16), dev)
 
         on_card, on_cpu = small_run(device), small_run("cpu")
+        # a seeded rerun of the small card run repeats bit for bit
+        repeat = same_weights(on_card, small_run(device))
         under_pool = [any(g.layer_type == "max_pooling"
                           for g in wf.forwards[i + 1:])
                       for i, f in enumerate(wf.forwards) if f.has_params]
@@ -1958,6 +2096,7 @@ def records(torch, HK, card, device="cuda", layers=None, sets=None,
                         "committed_updates": len(on_cpu) - 1,
                         "first_update_limits": limits,
                         "third_update_limit": ALEXNET_DRIFT_SHARE,
+                        "card_rerun_bit_equal": repeat,
                         "sound": sound, "faults": faults}}
     for prefetch, run in runs.items():
         n_samples = 2 * (ld.class_lengths[1] + ld.class_lengths[2])
@@ -1970,6 +2109,7 @@ def records(torch, HK, card, device="cuda", layers=None, sets=None,
                        for m in wfs[prefetch].decision.epoch_metrics]}
     report["phase_s"] = time.monotonic() - began
     print(json.dumps(report), flush=True)
+    check(repeat, "records: a seeded rerun on the card changed the weights")
     check(len(on_cpu) == 4, "%d committed updates, not 3"
           % (len(on_cpu) - 1))
     check(all(g <= lim for g, lim in zip(sound["share"][0], limits))
@@ -1993,19 +2133,29 @@ def wine_phase(torch, HK, card, device="cuda"):
     from veles_tpu_torch import prng
     from veles_tpu_torch.config import root
     from veles_tpu_torch.samples import wine
-    prng.reset()
-    prng.seed_all(SEED)
-    root.__dict__.pop("wine", None)
-    wine.default_config()
+
+    def seeded():
+        prng.reset()
+        prng.seed_all(SEED)
+        root.__dict__.pop("wine", None)
+        wine.default_config()
+        return wine.train(device=None if device == "cuda" else device)
+
     HK.reset_launch_counts()
     t0 = time.monotonic()
-    wf = wine.train(device=None if device == "cuda" else device)
+    wf = seeded()
     torch.cuda.synchronize()
     wall_s = time.monotonic() - t0
     launches = HK.launch_counts()
     steps = wf.fused_step.train_steps
     metrics = wf.decision.epoch_metrics
     val = metrics[-1]["validation"]
+    # the whole seeded run again: bit-equal weights and epoch metrics
+    again = seeded()
+    repeat = same_metrics(again.decision.epoch_metrics, metrics) and all(
+        numpy.array_equal(u.mem, v.mem) for a, b in zip(wf.forwards,
+                                                        again.forwards)
+        for u, v in ((a.weights, b.weights), (a.bias, b.bias)))
     report = {"phase": "wine", "card": card,
               "config": {"layers": "13-8tanh-3softmax", "minibatch":
                          wf.loader.max_minibatch_size,
@@ -2015,8 +2165,10 @@ def wine_phase(torch, HK, card, device="cuda"):
               "wall_s": wall_s, "train_steps": steps, "launches": launches,
               "validation_n_err": [m["validation"]["n_err"]
                                    for m in metrics],
-              "max_n_err": WINE_MAX_N_ERR}
+              "max_n_err": WINE_MAX_N_ERR, "card_rerun_bit_equal": repeat}
     print(json.dumps(report), flush=True)
+    check(repeat, "wine: a seeded rerun on the card changed the weights or "
+          "the epoch metrics")
     check(steps > 0 and launches["fused_sgd_update"] == steps,
           "wine: %d fused_sgd_update launches for %d train steps"
           % (launches["fused_sgd_update"], steps))
@@ -2215,6 +2367,11 @@ def lm_train(torch, HK, card, device="cuda", cfg=None, small=None,
         # card vs CPU at 2 layers, then the faulty card runs
         A.set_attention_backend("flash_pallas")
         on_card = lm_committed(prng, root, char_lm, device, small)
+        # a seeded rerun on the card: bit-equal params after every update
+        rerun = lm_committed(prng, root, char_lm, device, small)
+        repeat = len(rerun) == len(on_card) and all(
+            numpy.array_equal(a[k], b[k]) for a, b in zip(on_card, rerun)
+            for k in a)
         on_cpu = lm_committed(prng, root, char_lm, "cpu", small)
         sound = lm_shares(on_card, on_cpu)
         faults = {}
@@ -2247,10 +2404,12 @@ def lm_train(torch, HK, card, device="cuda", cfg=None, small=None,
               "card_vs_cpu": {
                   "config": small, "limits": [LM_FIRST_SHARE,
                                               LM_THIRD_SHARE],
+                  "card_rerun_bit_equal": repeat,
                   "sound_worst": worst(sound), "sound": sound,
                   "faults_worst": {k: worst(v) for k, v in faults.items()},
                   "faults_first": {k: v[0] for k, v in faults.items()}}}
     print(json.dumps(report), flush=True)
+    check(repeat, "lm_train: a seeded rerun on the card changed the params")
     check(len(sound) == 3, "%d committed updates, not 3" % len(sound))
     check(worst(sound)[0] <= LM_FIRST_SHARE
           and worst(sound)[-1] <= LM_THIRD_SHARE,
@@ -2431,13 +2590,6 @@ def zoo(torch, HK, card, name, device="cuda", small=None, **loader):
               "step_top_kernels_us": [[k[:80], v] for k, v in top],
               "validation": [{k: x for k, x in v.items()
                               if isinstance(x, (int, float))} for v in val]}
-    if name == "mnist_conv":
-        report["phase_s"] = time.monotonic() - began
-        print(json.dumps(report), flush=True)
-        return launches
-
-    # the same seed on the card and on the CPU at minibatch 100 (3
-    # committed updates); then the faulty card runs
     small = dict(small or ZOO_SMALL)
 
     def small_run(dev):
@@ -2448,9 +2600,18 @@ def zoo(torch, HK, card, name, device="cuda", small=None, **loader):
         on_card = small_run(device)
     # a seeded rerun on the card repeats bit for bit (cuDNN's
     # deterministic algorithms, which every precision mode pins)
-    repeat = all(numpy.array_equal(a, b) for x, y in zip(
-        on_card, small_run(device)) for u, v in zip(x, y)
-        for a, b in zip(u, v))
+    repeat = same_weights(on_card, small_run(device))
+    if name == "mnist_conv":
+        report["card_rerun"] = {"committed_updates": len(on_card) - 1,
+                                "bit_equal": repeat}
+        report["phase_s"] = time.monotonic() - began
+        print(json.dumps(report), flush=True)
+        check(repeat, "%s: a seeded rerun on the card changed the weights"
+              % name)
+        return launches
+
+    # the same seed on the CPU at minibatch 100 (3 committed updates);
+    # then the faulty card runs
     on_cpu = small_run("cpu")
     sound = weight_gaps(on_card, on_cpu)
     faults = {}
@@ -2515,6 +2676,506 @@ def deconv_check(torch, F, card, device="cuda"):
     report = {"phase": "deconv_check", "card": card, "limit": DECONV_SHARE,
               "cases": out}
     print(json.dumps(report), flush=True)
+
+
+# ------------------------------------------------- the non-SGD trainers
+def shares(card, cpu):
+    """Per update (after the first, ...) the worst tensor's gap as a
+    share of its movement (``weight_gaps``, one tensor a "layer")."""
+    return [max(s) for s in weight_gaps(card, cpu)["share"]]
+
+
+def trainer_committed(wf, device, keys):
+    """Initialize ``wf`` on ``device`` and run it; returns its trainer's
+    ``keys`` tensors on the host, each as a one-tensor layer, at set-up
+    and after every train step (``committed_weights``' layout)."""
+    wf.initialize(device=device)
+    trainer = wf.trainer
+    inner = trainer.run
+
+    def grab():
+        return [[getattr(trainer, k).mem.copy()] for k in keys]
+
+    def run_and_keep():
+        train = trainer.is_train_minibatch()
+        inner()
+        if train:
+            kept.append(grab())
+
+    kept = [grab()]
+    trainer.run = run_and_keep
+    wf.run()
+    return kept
+
+
+def steady_steps(torch, step, n=5):
+    """Host ms of one synchronous ``step`` (median of ``n``) and the
+    card's busy share over two more."""
+    step()
+    times = []
+    for _ in range(n):
+        t0 = time.monotonic()
+        step()
+        times.append((time.monotonic() - t0) * 1e3)
+    busy, per_kernel = profile_steps(torch, step, 2)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    return {"host_ms": statistics.median(times),
+            "device_busy_share": busy,
+            "card_us": sum(per_kernel.values()),
+            "top_kernels_us": [[k[:80], v] for k, v in top]}
+
+
+@contextlib.contextmanager
+def som_fault(F):
+    """Within the block, the SOM's neighbourhood divides by 2σ, not 2σ²:
+    the trainer's σ is handed to ``kohonen_update`` as √σ."""
+    inner = F.kohonen_update
+
+    def planted(weights, x, mask, grid, learning_rate, sigma):
+        return inner(weights, x, mask, grid, learning_rate, sigma ** 0.5)
+
+    F.kohonen_update = planted
+    try:
+        yield
+    finally:
+        F.kohonen_update = inner
+
+
+def kohonen_phase(torch, HK, card, device="cuda", **loader):
+    """The Kohonen SOM sample through ``kohonen.train`` at its defaults
+    (8x8 map, 2,000 points, minibatch 100, 10 epochs), a seeded rerun,
+    the steady step, card vs CPU after the first and third update and a
+    planted fault.  Returns the trained workflow (the streams phase
+    feeds its points back)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.ops import functional as F
+    from veles_tpu_torch.samples import kohonen
+    began = time.monotonic()
+
+    def seeded(**overrides):
+        prng.reset()
+        prng.seed_all(SEED)
+        root.__dict__.pop("kohonen", None)
+        kohonen.default_config()
+        return kohonen.build(loader=dict(loader, **overrides.pop(
+            "loader", {})), **overrides)
+
+    def train(dev):
+        wf = seeded()
+        wf.initialize(device=None if dev == "cuda" else dev)
+        wf.run()
+        return wf
+
+    HK.reset_launch_counts()
+    t0 = time.monotonic()
+    wf = train(device)
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    launches = HK.launch_counts()
+    run_s = sum(u.run_time for u in wf.units)
+    ld, trainer = wf.loader, wf.trainer
+    mb, n = ld.max_minibatch_size, ld.class_lengths[2]
+    qerr = [m["train"]["qerr"] for m in wf.decision.epoch_metrics]
+    epochs, updates = len(qerr), trainer.time
+    hits = wf.forward.hits
+    again = train(device)
+    repeat = (numpy.array_equal(again.trainer.weights.mem,
+                                trainer.weights.mem)
+              and [m["train"]["qerr"] for m in again.decision.epoch_metrics]
+              == qerr and numpy.array_equal(again.forward.hits, hits))
+    steady = steady_steps(torch, lambda: (trainer.run(),
+                                          torch.cuda.synchronize()))
+
+    # card vs CPU: 3 updates at minibatch 100, then the planted fault
+    def small(dev):
+        return trainer_committed(seeded(loader={"n_train": 3 * mb},
+                                        decision={"max_epochs": 1}),
+                                 dev, ("weights",))
+
+    on_card, on_cpu = small(device), small("cpu")
+    sound = shares(on_card, on_cpu)
+    with som_fault(F):
+        fault = shares(small(device), on_cpu)
+    report = {"phase": "kohonen", "card": card,
+              "config": {"shape": list(trainer.shape), "n_train": n,
+                         "minibatch": mb, "epochs": epochs,
+                         "decay_steps": trainer.decay_steps},
+              "wall_s": wall_s, "run_s": run_s, "setup_s": wall_s - run_s,
+              "s_per_epoch": run_s / epochs,
+              "train_samples_per_s": epochs * n / run_s,
+              "updates": updates, "launches": launches, "qerr": qerr,
+              "neurons_hit": int((hits > 0).sum()),
+              "hits_total": int(hits.sum()), "steady_step": steady,
+              "card_rerun_bit_equal": repeat,
+              "card_vs_cpu": {"updates": len(on_cpu) - 1,
+                              "limits": [SOM_FIRST_SHARE, SOM_THIRD_SHARE],
+                              "sound": sound,
+                              "faults": {"sigma_not_squared": fault}},
+              "phase_s": time.monotonic() - began}
+    print(json.dumps(report), flush=True)
+    check(epochs == 10 and qerr[-1] < qerr[0],
+          "kohonen: qerr over %d epochs did not fall: %r" % (epochs, qerr))
+    check(updates == epochs * -(-n // mb) == 200,
+          "kohonen: %d updates" % updates)
+    check((hits > 0).sum() >= KOHONEN_MIN_NEURONS and hits.sum() == mb,
+          "kohonen: wins %r" % hits.tolist())
+    check(not any(launches.values()), "kohonen launched kernels: %r"
+          % launches)
+    check(repeat, "kohonen: a seeded rerun on the card changed the codebook")
+    check(len(sound) == 3 and sound[0] <= SOM_FIRST_SHARE
+          and sound[-1] <= SOM_THIRD_SHARE,
+          "kohonen: card vs CPU codebook gaps %r" % sound)
+    check(fault[0] > SOM_FIRST_SHARE, "kohonen: the card-vs-CPU check "
+          "passed the faulty neighbourhood: %r" % fault)
+    return wf
+
+
+@contextlib.contextmanager
+def recorded_draws(F):
+    """Within the block, every Bernoulli draw's output, on the host, in
+    order (the RBM looks ``F.bernoulli`` up per call; the kernel's
+    wrapper below it still counts its launches)."""
+    inner, draws = F.bernoulli, []
+
+    def recording(key, p):
+        out = inner(key, p)
+        draws.append(out.cpu().numpy())
+        return out
+
+    F.bernoulli = recording
+    try:
+        yield draws
+    finally:
+        F.bernoulli = inner
+
+
+@contextlib.contextmanager
+def rbm_fault(F):
+    """Within the block, every Gibbs step draws with the step key itself,
+    not ``fold_in(key, i)``."""
+    inner_step = F.rbm_cd_step
+
+    def planted(weights, vbias, hbias, v0, mask, rng, *args):
+        draw = F.bernoulli
+        F.bernoulli = lambda key, p: draw(rng, p)
+        try:
+            return inner_step(weights, vbias, hbias, v0, mask, rng, *args)
+        finally:
+            F.bernoulli = draw
+
+    F.rbm_cd_step = planted
+    try:
+        yield
+    finally:
+        F.rbm_cd_step = inner_step
+
+
+def rbm_phase(torch, HK, card, device="cuda", **loader):
+    """The MNIST-RBM sample through ``mnist_rbm.train`` at its default
+    widths (784 -> 256, 60,000 synthetic samples, minibatch 100, cd_k 1)
+    for ``RBM_EPOCHS`` epochs: falling reconstruction error, 1 + cd_k
+    Bernoulli launches a train step; the steady step; then small runs:
+    a seeded rerun, card vs CPU after the first and third update with
+    the flipped hidden samples counted, and a planted fault."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.ops import functional as F
+    from veles_tpu_torch.samples import mnist_rbm
+    began = time.monotonic()
+
+    def seeded(**overrides):
+        prng.reset()
+        prng.seed_all(SEED)
+        root.__dict__.pop("mnist_rbm", None)
+        mnist_rbm.default_config()
+        return mnist_rbm.build(loader=dict(loader, **overrides.pop(
+            "loader", {})), **overrides)
+
+    wf = seeded(decision={"max_epochs": RBM_EPOCHS})
+    t0 = time.monotonic()
+    wf.initialize(device=None if device == "cuda" else device)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    HK.reset_launch_counts()
+    t0 = time.monotonic()
+    wf.run()
+    torch.cuda.synchronize()
+    run_s = time.monotonic() - t0
+    launches = HK.launch_counts()
+    ld, trainer = wf.loader, wf.trainer
+    mb, n = ld.max_minibatch_size, ld.class_lengths[2]
+    errs = [m["train"]["recon_err"] for m in wf.decision.epoch_metrics]
+    steps, draws_per_step = trainer.time, 1 + trainer.cd_k
+    params = [getattr(trainer, k).mem for k in ("weights", "vbias", "hbias")]
+    steady = steady_steps(torch, lambda: (trainer.run(),
+                                          torch.cuda.synchronize()))
+
+    # small runs: 3 train minibatches and one validation minibatch
+    keys = ("weights", "vbias", "hbias")
+
+    def small(dev):
+        before = HK.launch_counts()["bernoulli"]
+        with recorded_draws(F) as draws:
+            kept = trainer_committed(
+                seeded(loader=dict(RBM_SMALL, minibatch_size=mb),
+                       decision={"max_epochs": 1}), dev, keys)
+        return kept, draws, HK.launch_counts()["bernoulli"] - before
+
+    on_card, card_draws, small_launches = small(device)
+    rerun, rerun_draws, _ = small(device)
+    repeat = same_weights(on_card, rerun) and all(
+        numpy.array_equal(a, b) for a, b in zip(card_draws, rerun_draws))
+    on_cpu, cpu_draws, _ = small("cpu")
+    sound = shares(on_card, on_cpu)
+    binarize_equal = all(numpy.array_equal(card_draws[i], cpu_draws[i])
+                         for i in range(0, len(cpu_draws), draws_per_step))
+    flips = [int((card_draws[i] != cpu_draws[i]).sum())
+             for i in range(len(cpu_draws)) if i % draws_per_step]
+    with rbm_fault(F):
+        fault_run, _, _ = small(device)
+    fault = shares(fault_run, on_cpu)
+    report = {"phase": "mnist_rbm", "card": card,
+              "config": {"n_visible": params[0].shape[0],
+                         "n_hidden": trainer.n_hidden, "n_train": n,
+                         "n_valid": ld.class_lengths[1], "minibatch": mb,
+                         "cd_k": trainer.cd_k, "epochs": len(errs)},
+              "setup_s": setup_s, "run_s": run_s,
+              "s_per_epoch": run_s / len(errs),
+              "train_samples_per_s": len(errs) * n / run_s,
+              "updates": steps, "launches": launches,
+              "recon_err": errs, "steady_step": steady,
+              "card_rerun_bit_equal": repeat,
+              "card_vs_cpu": {
+                  "config": RBM_SMALL, "updates": len(on_cpu) - 1,
+                  "bernoulli_launches": small_launches,
+                  "limits": [RBM_FIRST_SHARE, RBM_THIRD_SHARE],
+                  "sound": sound, "binarize_draws_equal": binarize_equal,
+                  "hidden_draws": int(sum(d.size for i, d in
+                                          enumerate(cpu_draws)
+                                          if i % draws_per_step)),
+                  "hidden_flips": flips,
+                  "faults": {"gibbs_key_not_folded": fault}},
+              "phase_s": time.monotonic() - began}
+    print(json.dumps(report), flush=True)
+    check(len(errs) == RBM_EPOCHS and errs[-1] < errs[0],
+          "mnist_rbm: recon_err did not fall: %r" % errs)
+    check(steps == RBM_EPOCHS * -(-n // mb) == 1200,
+          "mnist_rbm: %d train steps" % steps)
+    check(launches["bernoulli"] == draws_per_step * steps,
+          "mnist_rbm: %d bernoulli launches for %d train steps"
+          % (launches["bernoulli"], steps))
+    check(all(numpy.isfinite(p).all() for p in params),
+          "mnist_rbm: non-finite parameters")
+    check(small_launches == draws_per_step * (len(on_card) - 1) == 6,
+          "mnist_rbm: %d bernoulli launches in 3 train steps and one "
+          "validation minibatch" % small_launches)
+    check(repeat, "mnist_rbm: a seeded rerun on the card changed the "
+          "parameters or the draws")
+    check(binarize_equal, "mnist_rbm: the visible draws differ card vs CPU")
+    check(len(sound) == 3 and sound[0] <= RBM_FIRST_SHARE
+          and sound[-1] <= RBM_THIRD_SHARE,
+          "mnist_rbm: card vs CPU parameter gaps %r" % sound)
+    check(fault[0] > RBM_FIRST_SHARE, "mnist_rbm: the card-vs-CPU check "
+          "passed the unfolded Gibbs key: %r" % fault)
+    return launches
+
+
+def sgd_sample_phase(torch, HK, card, name, device="cuda", **loader):
+    """``lines`` or ``video_ae`` through its own ``train`` at its
+    defaults (10 epochs): the sample's bar, one fused-SGD launch a train
+    step covering every parameter, the whole seeded run repeated bit for
+    bit, and the steady step."""
+    import importlib
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.ops import functional as F
+    module = importlib.import_module("veles_tpu_torch.samples." + name)
+    began = time.monotonic()
+
+    def seeded():
+        prng.reset()
+        prng.seed_all(SEED)
+        root.__dict__.pop(name, None)
+        module.default_config()
+        return module.train(device=None if device == "cuda" else device,
+                            loader=loader)
+
+    HK.reset_launch_counts()
+    t0 = time.monotonic()
+    with update_sizes(F) as sizes:
+        wf = seeded()
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    launches = HK.launch_counts()
+    run_s = sum(u.run_time for u in wf.units)
+    ld, mse = wf.loader, wf.loss_function == "mse"
+    mb, n = ld.max_minibatch_size, ld.class_lengths[2]
+    metrics = wf.decision.epoch_metrics
+    val = [{k: x for k, x in m["validation"].items()
+            if isinstance(x, (int, float))} for m in metrics]
+    steps = wf.fused_step.train_steps
+    n_tensors = sum(1 + bool(f.include_bias) for f in wf.forwards
+                    if f.has_params)
+    weights = [f.weights.mem.copy() for f in wf.forwards if f.has_params]
+    again = seeded()
+    repeat = same_metrics(again.decision.epoch_metrics, metrics) and all(
+        numpy.array_equal(a, f.weights.mem) for a, f in zip(
+            weights, [f for f in again.forwards if f.has_params]))
+    runner = wf._fused_runner
+    x = ld.original_data.devmem[:mb]
+    y = x if mse else ld.original_labels.devmem[:mb]
+    mask = torch.ones(mb, device=x.device)
+    steady = steady_steps(torch, lambda: (
+        runner._train_step(runner.state, x, y, mask, mb),
+        torch.cuda.synchronize()))
+    report = {"phase": name, "card": card,
+              "config": {"layers": [f.layer_type for f in wf.forwards],
+                         "minibatch": mb, "n_train": n,
+                         "n_valid": ld.class_lengths[1],
+                         "epochs": len(metrics), "fused": True},
+              "wall_s": wall_s, "run_s": run_s, "setup_s": wall_s - run_s,
+              "s_per_epoch": run_s / len(metrics),
+              "train_samples_per_s": len(metrics) * n / run_s,
+              "train_steps": steps, "launches": launches,
+              "update_tensors": n_tensors, "steady_step": steady,
+              "validation": val, "card_rerun_bit_equal": repeat,
+              "phase_s": time.monotonic() - began}
+    print(json.dumps(report), flush=True)
+    check(len(metrics) == 10, "%s: %d epochs" % (name, len(metrics)))
+    if mse:
+        losses = [v["loss"] for v in val]
+        check(all(numpy.isfinite(losses)) and losses[-1] < losses[0],
+              "%s: validation loss %r" % (name, losses))
+    else:
+        check(val[-1]["err_pct"] < LINES_MAX_ERR_PCT,
+              "%s: validation err_pct %g >= %g"
+              % (name, val[-1]["err_pct"], LINES_MAX_ERR_PCT))
+    check(steps == len(metrics) * -(-n // mb)
+          and launches["fused_sgd_update"] == steps == len(sizes)
+          and set(sizes) == {n_tensors},
+          "%s: %d fused_sgd_update launches, %d update calls of %r tensors "
+          "for %d train steps" % (name, launches["fused_sgd_update"],
+                                  len(sizes), sorted(set(sizes)), steps))
+    check(repeat, "%s: a seeded rerun on the card changed the weights or "
+          "the epoch metrics" % name)
+    return launches
+
+
+def rbm_replay(path, trainer_config, epochs=1):
+    """An RBM cycle whose loader replays the capture at ``path``:
+    Repeater -> MinibatchesLoader -> RBMTrainer -> RBMDecision."""
+    from veles_tpu_torch.loader.saver import MinibatchesLoader
+    from veles_tpu_torch.ops.nn_units import NNWorkflow
+    from veles_tpu_torch.ops.rbm import RBMDecision, RBMTrainer
+    from veles_tpu_torch.workflow import Repeater
+    wf = NNWorkflow(None, name="replay")
+    wf.repeater = Repeater(wf, name="repeater")
+    wf.repeater.link_from(wf.start_point)
+    wf.loader = MinibatchesLoader(wf, path=path, name="loader")
+    wf.loader.link_from(wf.repeater)
+    wf.trainer = RBMTrainer(wf, name="trainer", **trainer_config)
+    wf.trainer.link_from(wf.loader)
+    wf.trainer.link_attrs(wf.loader, ("input", "minibatch_data"),
+                          ("mask", "minibatch_mask"), "minibatch_class")
+    wf.decision = RBMDecision(wf, name="decision", max_epochs=epochs)
+    wf.decision.link_from(wf.trainer)
+    wf.decision.link_attrs(wf.loader, "minibatch_class", "minibatch_size",
+                           "last_minibatch", "class_lengths", "epoch_number")
+    wf.decision.link_attrs(wf.trainer, "metrics")
+    wf.repeater.link_from(wf.decision)
+    wf.end_point.link_from(wf.decision)
+    wf.end_point.gate_block = ~wf.decision.complete
+    return wf
+
+
+def streams_phase(torch, card, som, device="cuda"):
+    """The first train epoch of a small MNIST-RBM captured on the card
+    with ``MinibatchesSaver`` and replayed through ``MinibatchesLoader``
+    into a fresh RBM (bit-equal parameters); the trained SOM's points
+    fed through ``InteractiveLoader`` into a ``KohonenForward`` (winners
+    equal to a direct pass over the same rows)."""
+    import shutil
+    import tempfile
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.loader.interactive import InteractiveLoader
+    from veles_tpu_torch.loader.saver import MinibatchesSaver
+    from veles_tpu_torch.ops import functional as F
+    from veles_tpu_torch.ops.kohonen import KohonenForward
+    from veles_tpu_torch.samples import mnist_rbm
+    began = time.monotonic()
+    dev = None if device == "cuda" else device
+    keys = ("weights", "vbias", "hbias")
+    directory = tempfile.mkdtemp(prefix="veles_stream_")
+    try:
+        path = directory + "/capture.pickle"
+        prng.reset()
+        prng.seed_all(SEED)
+        root.__dict__.pop("mnist_rbm", None)
+        mnist_rbm.default_config()
+        wf = mnist_rbm.build(loader=STREAM_RBM, decision={"max_epochs": 1})
+        MinibatchesSaver.attach_to(wf.loader, path)
+        wf.initialize(device=dev)
+        wf.run()
+        direct = [getattr(wf.trainer, k).mem for k in keys]
+        captured = wf.loader.epoch_number, wf.trainer.time
+        capture_bytes = len(open(path, "rb").read())
+        prng.reset()
+        prng.seed_all(SEED)
+        replay = rbm_replay(path, {k: getattr(wf.trainer, k) for k in (
+            "n_hidden", "learning_rate", "cd_k")})
+        replay.initialize(device=dev)
+        replay.run()
+        replayed = [getattr(replay.trainer, k).mem for k in keys]
+        replay_equal = all(numpy.array_equal(a, b)
+                           for a, b in zip(direct, replayed))
+        replay_steps = replay.trainer.time
+        replay.loader.stop()
+    finally:
+        shutil.rmtree(directory)
+
+    # the SOM's points through the interactive loader
+    points = som.loader.original_data.mem
+    weights = som.trainer.weights
+    mb = som.loader.max_minibatch_size
+    feed = InteractiveLoader(None, sample_shape=points.shape[1:],
+                             minibatch_size=mb)
+    fwd = KohonenForward(None)
+    fwd.link_attrs(feed, ("input", "minibatch_data"),
+                   ("mask", "minibatch_mask"))
+    fwd.weights = weights
+    feed.initialize(device=weights.devmem.device)
+    fwd.initialize(device=weights.devmem.device)
+    feed.feed(points)
+    same, rows = True, 0
+    for at in range(0, len(points), mb):
+        feed.run()
+        fwd.run()
+        live = feed.minibatch_size
+        direct_win, _ = F.kohonen_winners(
+            torch.as_tensor(points[at:at + mb], device=weights.devmem.device),
+            weights.devmem)
+        same = same and numpy.array_equal(fwd.output.mem[:live],
+                                          direct_win.cpu().numpy()[:live])
+        rows += live
+    report = {"phase": "streams", "card": card,
+              "capture": {"config": STREAM_RBM, "minibatches": captured[1],
+                          "bytes": capture_bytes,
+                          "replay_steps": replay_steps,
+                          "replay_bit_equal": replay_equal},
+              "interactive": {"points": rows, "minibatch": mb,
+                              "winners_equal_direct": same,
+                              "hits_total": int(fwd.hits.sum())},
+              "phase_s": time.monotonic() - began}
+    print(json.dumps(report), flush=True)
+    check(captured == (1, 5) and replay_steps == 5,
+          "streams: %r epochs/steps captured, %d replayed"
+          % (captured, replay_steps))
+    check(replay_equal, "streams: the replayed RBM differs from the direct "
+          "run")
+    check(rows == len(points) and same and fwd.hits.sum() == len(points),
+          "streams: the interactive SOM forward differs from a direct pass")
 
 
 def main():
@@ -2599,6 +3260,12 @@ def main():
     drop_checks = [dropout_case(torch, HK, prng, "n%d" % n, (n,), rate,
                                 seed=10 + n, timed=False)
                    for n, rate in ((1, 0.5), (127, 0.3), (2 ** 16 + 3, 0.7))]
+    draws = [bernoulli_case(torch, HK, prng, name, shape, exact, seed=i)
+             for i, (name, shape) in enumerate(BERNOULLI_SHAPES.items())
+             for exact in (False, True)]
+    draws += [bernoulli_case(torch, HK, prng, "n%d" % n, (n,), exact,
+                             seed=20 + n, timed=False)
+              for n in (1, 127, 2 ** 16 + 3) for exact in (False, True)]
     flash = flash_case(torch, HK, *FLASH_MAIN)
     flash_checks = [rec for kw in (dict(dh=32), dict(dh=40), dict(dh=128))
                     for rec in flash_case(torch, HK, 2, 4, 200, causal=False,
@@ -2613,7 +3280,7 @@ def main():
     print(json.dumps({"empty_launch_ms": floor_ms, "card": smi}),
           flush=True)
     for case in (cases + checks + sgd + lrn + lrn_checks + drop + drop_checks
-                 + flash + flash_checks):
+                 + draws + flash + flash_checks):
         print(json.dumps(dict(case, card=smi)), flush=True)
 
     # 4. serve through the engine
@@ -2647,7 +3314,24 @@ def main():
         launches["fused_sgd_update"] += zoo(torch, HK, smi, sample)[
             "fused_sgd_update"]
 
-    # 9. the kernels line and the result
+    # 9. the non-SGD trainers, the lines and video_ae samples, the streams
+    som = kohonen_phase(torch, HK, smi)
+    rbm = rbm_phase(torch, HK, smi)
+    for sample in ("lines", "video_ae"):
+        launches["fused_sgd_update"] += sgd_sample_phase(
+            torch, HK, smi, sample)["fused_sgd_update"]
+    streams_phase(torch, smi, som)
+    # the Bernoulli draw is no TPU kernel's port: a line of its own
+    print(json.dumps({"bernoulli": {
+        "route": "cuda", "source": SOURCES["dropout"],
+        "replaces": None, "launches": rbm["bernoulli"],
+        "cases": [{k: c[k] for k in ("case", "shape", "exact_0_1",
+                                     "max_abs_err", "kernel_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")}
+                  for c in draws if "kernel_ms" in c],
+        "empty_launch_ms": floor_ms, "card": smi}}), flush=True)
+
+    # 10. the kernels line and the result
     main_case = {"flash_attention_fwd": flash[0],
                  "flash_attention_bwd_dkv": flash[1],
                  "flash_attention_bwd_dq": flash[2],

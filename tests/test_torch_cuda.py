@@ -16,8 +16,9 @@ rounds once, which can differ from the hardware fma only on a rare
 double-rounding tie).  The LRN kernels sum each window in the plain
 version's order, and differ from it only where CUDA's powf and PyTorch's
 pow round differently: forward rtol/atol 2e-6, backward rtol 3e-5 /
-atol 3e-6 (the reference's Pallas-vs-XLA tolerances).  Dropout is
-bit-equal to its plain version.  The flash kernels (3xTF32 on the
+atol 3e-6 (the reference's Pallas-vs-XLA tolerances).  Dropout and the
+Bernoulli draw are bit-equal to their plain versions, and a seeded RBM
+sample run repeats bit for bit.  The flash kernels (3xTF32 on the
 tensor cores) and the split-KV decode and prefill repeat bit for bit
 from launch to launch, and the flash kernels' error against an fp64 plain version is at
 most 4x the fp32 plain version's.  The record loader's device
@@ -496,6 +497,62 @@ def test_dropout_bit_equal_to_plain(shape, rate, seed):
         assert abs(kept - (1.0 - rate)) < 0.01
 
 
+def _probabilities(rng, shape, exact, dev):
+    p = rng.rand(*shape).astype(numpy.float32)
+    if exact:
+        flat = p.reshape(-1)
+        flat[::3] = 0.0
+        flat[1::3] = 1.0
+    return torch.as_tensor(p, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(100, 784), (100, 256), (1,), (127,),
+                                   (2 ** 16 + 3,)])
+@pytest.mark.parametrize("exact", [False, True])
+def test_bernoulli_bit_equal_to_plain(shape, exact):
+    dev = _card()
+    from veles_tpu_torch import prng
+    p = _probabilities(numpy.random.RandomState(shape[0]), shape, exact, dev)
+    key = prng.fold_in(prng.PRNGKey(shape[0]), 0xB1)
+    before = HK.bernoulli.launches
+    got = HK.bernoulli(key, p)
+    assert HK.bernoulli.launches == before + 1
+    ref = HK.bernoulli_ref(key, p)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, ref)
+    assert torch.equal(HK.bernoulli(key, p), got)
+    if exact:
+        flat = got.reshape(-1)
+        assert not flat[::3].any() and bool(flat[1::3].all())
+
+
+@pytest.mark.cuda
+def test_rbm_sample_launches_two_draws_a_step_and_repeats():
+    _card()
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.samples import mnist_rbm
+    runs = []
+    for _ in range(2):
+        prng.reset()
+        prng.seed_all(5)
+        root.__dict__.pop("mnist_rbm", None)
+        root.mnist_rbm.update({
+            "loader": {"minibatch_size": 50, "n_train": 230,
+                       "n_valid": 100},
+            "trainer": {"n_hidden": 64}, "decision": {"max_epochs": 2}})
+        before = HK.bernoulli.launches
+        wf = mnist_rbm.train()
+        root.__dict__.pop("mnist_rbm", None)
+        assert wf.trainer.time == 10
+        assert HK.bernoulli.launches - before == 2 * 10
+        runs.append([getattr(wf.trainer, k).mem.copy()
+                     for k in ("weights", "vbias", "hbias")])
+    for a, b in zip(*runs):
+        assert numpy.array_equal(a, b)
+
+
 @pytest.mark.cuda
 def test_lrn_and_dropout_reject_bad_operands():
     dev = _card()
@@ -510,6 +567,10 @@ def test_lrn_and_dropout_reject_bad_operands():
         HK.dropout(x.double(), 1, 0.5)
     with pytest.raises(ValueError, match="contiguous"):
         HK.dropout(torch.zeros(4, 8, device=dev)[:, ::2], 1, 0.5)
+    with pytest.raises(TypeError, match="float32"):
+        HK.bernoulli(1, x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        HK.bernoulli(1, torch.zeros(4, 8, device=dev)[:, ::2])
 
 
 def _flash_operands(rng, b, h, sq, sk, dh, dev, peak=1.0):

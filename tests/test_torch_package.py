@@ -65,18 +65,36 @@ def test_new_data_path_modules_are_checked():
             "veles_tpu_torch.samples.image_dir"} <= names
 
 
+def test_non_sgd_slice_modules_are_checked():
+    """The non-SGD trainers, their samples and the stream modules are
+    among those the two checks above import and parse."""
+    names = set(_modules())
+    assert {"veles_tpu_torch.ops.kohonen", "veles_tpu_torch.ops.rbm",
+            "veles_tpu_torch.samples.kohonen",
+            "veles_tpu_torch.samples.mnist_rbm",
+            "veles_tpu_torch.samples.lines",
+            "veles_tpu_torch.samples.video_ae",
+            "veles_tpu_torch.loader.stream",
+            "veles_tpu_torch.loader.interactive",
+            "veles_tpu_torch.loader.saver",
+            "veles_tpu_torch.input_joiner"} <= names
+
+
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     import numpy
     from veles_tpu_torch import prng
-    from veles_tpu_torch.compiled import state_from_jax
+    from veles_tpu_torch.compiled import (state_from_jax,
+                                          trainer_state_from_jax)
     from veles_tpu_torch.config import root
     from veles_tpu_torch.device import resolve_device
     from veles_tpu_torch.ops.transformer import (TransformerLM,
                                                  params_from_jax)
     from veles_tpu_torch.loader.records import write_records
     from veles_tpu_torch.samples import (char_lm, cifar, cifar_resnet,
-                                         image_dir, imagenet, mnist,
-                                         mnist_ae, mnist_conv, wine)
+                                         image_dir, imagenet, kohonen,
+                                         lines, mnist, mnist_ae,
+                                         mnist_conv, mnist_rbm, video_ae,
+                                         wine)
     from veles_tpu_torch.serving import LMEngine
     from veles_tpu_torch.workflow import Workflow
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -120,7 +138,12 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
                  lambda: char_lm.build().initialize(),
                  lambda: char_lm.train(),
                  lambda: lm.trainer.initialize(),
-                 lambda: state_from_jax([{"w": torch.zeros(2).numpy()}])):
+                 lambda: state_from_jax([{"w": torch.zeros(2).numpy()}]),
+                 lambda: kohonen.train(),
+                 lambda: mnist_rbm.train(),
+                 lambda: lines.train(),
+                 lambda: video_ae.train(),
+                 lambda: trainer_state_from_jax({"time": 0})):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
@@ -144,6 +167,8 @@ def test_kernel_wrappers_refuse_other_devices():
         HK.lrn_backward(x, x, x)
     with pytest.raises(ValueError, match="no kernel for device"):
         HK.dropout(x, 3, 0.5)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        HK.bernoulli(3, x)
     q = torch.zeros(1, 2, 8, 4, device="meta")
     lse = torch.zeros(1, 2, 8, device="meta")
     for call in (lambda: HK.flash_attention_fwd(q, q, q),

@@ -312,3 +312,38 @@ def load_fused_state(wf, state):
     runner = getattr(wf, "_fused_runner", None)
     if runner is not None:
         runner.state = runner._pull_state()
+
+
+def trainer_state_from_jax(state, device=None):
+    """A reference non-SGD trainer's ``snapshot_attrs`` — the SOM's
+    ``weights`` and ``time``, the RBM's ``weights``, ``vbias``,
+    ``hbias`` and ``time`` — as numpy arrays (or anything
+    ``numpy.asarray`` reads) and an int: the same dict with fp32
+    tensors on ``device`` (None = the CUDA card, raising without one)
+    and ``time`` an int."""
+    device = resolve_device(device)
+    return {key: int(value) if key == "time"
+            else torch.tensor(numpy.asarray(value), device=device)
+            for key, value in state.items()}
+
+
+def load_trainer_state(unit, state):
+    """Load a trainer state (as :func:`trainer_state_from_jax` returns)
+    into a built, initialized trainer unit: every name of the unit's
+    ``snapshot_attrs`` must be present, each Vector's shape must match,
+    and nothing else may be; anything else raises ValueError before a
+    Vector is touched."""
+    want = set(unit.snapshot_attrs)
+    if set(state) != want:
+        raise ValueError("%s: state keys %s, the unit's %s"
+                         % (unit.name, sorted(state), sorted(want)))
+    for key in sorted(want - {"time"}):
+        have = tuple(getattr(unit, key).shape)
+        got = tuple(state[key].shape)
+        if got != have:
+            raise ValueError("%s: %s has shape %s, the unit's %s"
+                             % (unit.name, key, got, have))
+    for key in want - {"time"}:
+        getattr(unit, key).assign_device(state[key])
+    if "time" in want:
+        unit.time = int(state["time"])

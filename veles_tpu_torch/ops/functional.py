@@ -1,6 +1,6 @@
 """Pure numeric functions behind every accelerated unit.
 
-Port of ``veles_tpu/ops/functional.py``, four subsets so far: the
+Port of ``veles_tpu/ops/functional.py``, five subsets so far: the
 matmul precision policy every op routes its products through
 (``:37-90``); the MNIST-FC training path — activations and their
 derivatives from the forward output (``:103-138``), the dense
@@ -11,7 +11,10 @@ forward/backward (``:142-169``), the softmax and MSE evaluators
 and mirror (``:485``); and the conv zoo — the transposed conv
 (``:252-286``), positional depooling (``:289-308``) and the standalone
 activations' vjp — each with the explicit backward the reference gets
-from ``jax.vjp``.  Activation semantics follow the reference exactly:
+from ``jax.vjp``; and the non-SGD trainers — the Kohonen SOM's distances,
+winners and batch update and the RBM's CD-k step (``:516-600``), whose
+Bernoulli draws go through the hand-written kernel's wrapper.
+Activation semantics follow the reference exactly:
 ``tanh`` is the LeCun-scaled ``1.7159 * tanh(0.6666 x)``, ``relu`` the
 smooth ``log(1 + exp(x))``, ``strict_relu`` is ``max(0, x)``.  Every
 momentum update goes through the hand-written kernel's wrapper
@@ -703,6 +706,110 @@ def random_crop_flip_backward(x, err, rng, out_hw, flip=True, train=True):
     batch = torch.arange(b, device=x.device)[:, None, None]
     grad[batch, rows[:, :, None], cols[:, None, :]] = err
     return grad
+
+
+# ----------------------------------------------------------------- kohonen
+def _device_scalar(value, like):
+    """``value`` as a 0-dim tensor of ``like``'s type and device: a
+    tensor passes through, a number becomes a fill on the device (no
+    host copy), rounded to fp32 once, as the reference's ``jnp.asarray``
+    of a host schedule value."""
+    if isinstance(value, torch.Tensor):
+        return value
+    return torch.full((), float(numpy.float32(value)), dtype=like.dtype,
+                      device=like.device)
+
+
+def kohonen_distances(x, weights):
+    """Squared euclidean distances (mb, n_neurons) between samples and
+    SOM codebook vectors, ``x² − 2x·w + w²`` with the cross term through
+    :func:`matmul` (the reference's ``functional.py:516``)."""
+    x = x.reshape(x.shape[0], -1)
+    x2 = (x * x).sum(dim=1)[:, None]
+    w2 = (weights * weights).sum(dim=1)[None, :]
+    return x2 - 2.0 * matmul(x, weights.T) + w2
+
+
+def kohonen_winners(x, weights):
+    """(winner_index, min_sq_distance) per sample — the SOM forward.
+    ``argmin`` takes the first minimum, as ``jnp.argmin`` does."""
+    d = kohonen_distances(x, weights)
+    return torch.argmin(d, dim=1), d.min(dim=1).values
+
+
+def kohonen_update(weights, x, mask, grid, learning_rate, sigma):
+    """One batch SOM update (the reference's ``functional.py:538``):
+
+        w_n += lr/B * Σ_b h(b, n) (x_b - w_n),
+        h(b, n) = exp(-||grid_n - grid_win(b)||² / (2σ²))
+
+    with B the live rows; masked rows move nothing.  ``learning_rate``
+    and ``sigma`` are fp32 0-dim tensors or numbers (see
+    :func:`_device_scalar`).  Returns (new_weights, metrics) with the
+    quantization-error sum as a device tensor."""
+    lr = _device_scalar(learning_rate, weights)
+    sigma = _device_scalar(sigma, weights)
+    x = x.reshape(x.shape[0], -1)
+    d = kohonen_distances(x, weights)
+    winners = torch.argmin(d, dim=1)
+    qe_sum = (torch.sqrt(torch.clamp_min(d.min(dim=1).values, 0.0))
+              * mask).sum()
+    wcoord = grid[winners]                               # (mb, 2)
+    gd2 = ((grid[None, :, :] - wcoord[:, None, :]) ** 2).sum(-1)
+    h = torch.exp(-gd2 / (2.0 * sigma * sigma)) * mask[:, None]
+    batch = torch.clamp_min(mask.sum(), 1.0)
+    num = matmul(h.T, x)                                 # (n_neurons, n_in)
+    den = h.sum(dim=0)[:, None]
+    new_w = weights + lr * (num - den * weights) / batch
+    return new_w, {"qe_sum": qe_sum, "loss_sum": qe_sum}
+
+
+# ---------------------------------------------------------------------- rbm
+def rbm_hidden(v, weights, hbias):
+    """P(h=1 | v) — sigmoid(v @ W + hb) (the reference's
+    ``functional.py:561``)."""
+    return torch.sigmoid(matmul(v.reshape(v.shape[0], -1), weights) + hbias)
+
+
+def rbm_visible(h, weights, vbias):
+    """P(v=1 | h) — sigmoid(h @ W^T + vb)."""
+    return torch.sigmoid(matmul(h, weights.T) + vbias)
+
+
+def bernoulli(key, p):
+    """``jax.random.bernoulli(key, p).astype(float32)`` for a tensor
+    ``p`` through the kernel's wrapper (its plain version on the CPU);
+    ``key`` is a host key."""
+    from veles_tpu_torch.ops.hopper_kernels import bernoulli as kernel
+    return kernel(key, p.contiguous())
+
+
+def rbm_cd_step(weights, vbias, hbias, v0, mask, rng, learning_rate,
+                cd_k=1):
+    """One contrastive-divergence (CD-k) update (the reference's
+    ``functional.py:575``): positive phase from the data, negative phase
+    from ``cd_k`` Gibbs steps, step i drawing its hidden samples with
+    ``fold_in(rng, i)`` (``rng`` a host key; the fold is host work);
+    the final statistics use probabilities.  Gradients are batch means
+    over live rows.  Returns (new_w, new_vb, new_hb, metrics) with the
+    summed per-sample reconstruction error as a device tensor."""
+    from veles_tpu_torch import prng
+    lr = _device_scalar(learning_rate, weights)
+    v0 = v0.reshape(v0.shape[0], -1)
+    m = mask[:, None]
+    batch = torch.clamp_min(mask.sum(), 1.0)
+    h0 = rbm_hidden(v0, weights, hbias)
+    vk, hk = v0, h0
+    for i in range(cd_k):
+        h_samp = bernoulli(prng.fold_in(rng, i), hk)
+        vk = rbm_visible(h_samp, weights, vbias)
+        hk = rbm_hidden(vk, weights, hbias)
+    grad_w = (matmul((v0 * m).T, h0) - matmul((vk * m).T, hk)) / batch
+    grad_vb = ((v0 - vk) * m).sum(dim=0) / batch
+    grad_hb = ((h0 - hk) * m).sum(dim=0) / batch
+    recon = torch.sqrt((((v0 - vk) * m) ** 2).sum(dim=1)).sum()
+    return (weights + lr * grad_w, vbias + lr * grad_vb,
+            hbias + lr * grad_hb, {"recon_sum": recon, "loss_sum": recon})
 
 
 # ------------------------------------------------------------------- updates

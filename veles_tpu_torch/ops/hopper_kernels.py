@@ -3,9 +3,9 @@
 Counterpart of ``veles_tpu/ops/pallas_kernels.py``.  Each kernel is CUDA
 C++ for ``sm_90a`` under ``csrc/``, built at first use by :mod:`._build`:
 the training update in ``csrc/fused_sgd.cu``, the AlexNet LRN forward and
-backward in ``csrc/lrn.cu``, dropout with its threefry mask in
-``csrc/dropout.cu``, and the serving hot loop's two paged attention
-kernels in ``csrc/paged_flash_attention.cu``.  The
+backward in ``csrc/lrn.cu``, dropout with its threefry mask and the
+RBM's Bernoulli draws in ``csrc/dropout.cu``, and the serving hot loop's
+two paged attention kernels in ``csrc/paged_flash_attention.cu``.  The
 attention kernels share the TPU kernels' geometry: the KV pool is
 (n_pages, kv_heads, page, head_dim), a lane's page-table row maps its linear positions [0, m·page) onto pool
 pages, and queries arrive as (b, heads, c, head_dim).  Grouped-query
@@ -39,6 +39,11 @@ dropout
     operations (the threefry hash, ~80 integer operations an element).
     The mask is jax's ``bernoulli(key, 1 - rate, shape)`` bit for bit;
     the backward is the same kernel on dy with the same key.
+bernoulli
+    No TPU kernel's port: ``jax.random.bernoulli(key, p)`` for a tensor
+    ``p``, which the reference leaves to XLA (the RBM's visible
+    binarization and Gibbs samples, one launch a draw).  The same
+    threefry hash as dropout, compared with p[i]; bound: operations.
 paged_flash_decode
     Replaces ``veles_tpu/ops/pallas_kernels.py:367`` (paged_flash_decode).
     Bound on the H100: bytes — every live K/V page is read once for
@@ -841,7 +846,7 @@ def _as_key(key):
         return prng.PRNGKey(int(key))
     key = numpy.asarray(key)
     if key.shape != (2,) or key.dtype != numpy.uint32:
-        raise ValueError("a dropout key is two uint32 words (got %s %s)"
+        raise ValueError("a threefry key is two uint32 words (got %s %s)"
                          % (key.dtype, key.shape))
     return key
 
@@ -850,15 +855,10 @@ def dropout_ref(x, key, rate):
     """Plain PyTorch version of :func:`dropout`: the threefry bits of
     every flat index hashed on tensors, u = uniform(bits), out = x / p
     where u < p, else 0 (p = float32(1 − rate))."""
-    from veles_tpu_torch.prng import threefry2x32
     if rate <= 0.0:
         return x
-    k0, k1 = (int(w) for w in _as_key(key))
     keep = float(numpy.float32(1.0 - rate))
-    idx = torch.arange(x.numel(), dtype=torch.int64, device=x.device)
-    o0, o1 = threefry2x32(k0, k1, idx >> 32, idx & 0xFFFFFFFF)
-    u = (((o0 ^ o1) >> 9) | 0x3F800000).to(torch.int32).view(
-        torch.float32) - 1.0
+    u = _uniform_ref(key, x.numel(), x.device)
     # a 0-dim tensor divisor: a true division on every device (a Python
     # scalar divisor becomes a multiply by its reciprocal on the card)
     divisor = torch.tensor(keep, dtype=torch.float32, device=x.device)
@@ -878,6 +878,9 @@ def _dropout_lib():
         lib.dropout_f32.argtypes = [ptr, ptr, ctypes.c_longlong, u32, u32,
                                     ctypes.c_float, ptr]
         lib.dropout_f32.restype = ctypes.c_int
+        lib.bernoulli_f32.argtypes = [ptr, ptr, ctypes.c_longlong, u32, u32,
+                                      ptr]
+        lib.bernoulli_f32.restype = ctypes.c_int
         lib.dropout_error_string.argtypes = [ctypes.c_int]
         lib.dropout_error_string.restype = ctypes.c_char_p
         _DROPOUT_LIB = lib
@@ -918,6 +921,61 @@ def dropout(x, key, rate):
 
 
 dropout.launches = 0
+
+
+def _uniform_ref(key, n, device):
+    """The float32 uniforms in [0, 1) of flat indices 0..n-1 under
+    ``key``, on ``device``: jax's partitionable threefry bits, top 23
+    bits as the mantissa of a float in [1, 2), minus 1."""
+    from veles_tpu_torch.prng import threefry2x32
+    k0, k1 = (int(w) for w in _as_key(key))
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    o0, o1 = threefry2x32(k0, k1, idx >> 32, idx & 0xFFFFFFFF)
+    return (((o0 ^ o1) >> 9) | 0x3F800000).to(torch.int32).view(
+        torch.float32) - 1.0
+
+
+def bernoulli_ref(key, p):
+    """Plain PyTorch version of :func:`bernoulli`: 1.0 where the flat
+    index's threefry uniform is below ``p``, else 0.0 (float32, p's
+    shape)."""
+    u = _uniform_ref(key, p.numel(), p.device).reshape(p.shape)
+    return (u < p).to(torch.float32)
+
+
+def bernoulli(key, p):
+    """``jax.random.bernoulli(key, p).astype(float32)`` for a tensor of
+    probabilities ``p``, bit for bit: element i is 1.0 where the
+    uniform of its flat (row-major) index is below p[i].  ``key`` is a
+    (2,) uint32 host key (``veles_tpu_torch.prng``) or an int seed.
+    Not a TPU kernel's port: the reference leaves this draw to XLA (the
+    RBM's visible binarization and Gibbs samples).
+
+    CPU tensors run :func:`bernoulli_ref`; CUDA tensors launch the
+    kernel in ``csrc/dropout.cu`` (fp32, contiguous — anything else
+    raises); the key goes by value."""
+    if not _on_card(p):
+        return bernoulli_ref(key, p)
+    if p.dtype != torch.float32:
+        raise TypeError("p must be float32 (got %s)" % p.dtype)
+    if not p.is_contiguous():
+        raise ValueError("p must be contiguous: the flat index is jax's "
+                         "row-major counter")
+    k0, k1 = (int(w) for w in _as_key(key))
+    out = torch.empty_like(p)
+    lib = _dropout_lib()
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        code = lib.bernoulli_f32(p.data_ptr(), out.data_ptr(), p.numel(),
+                                 k0, k1, stream)
+    if code:
+        raise RuntimeError("bernoulli launch failed: %s"
+                           % lib.dropout_error_string(code).decode())
+    bernoulli.launches += 1
+    return out
+
+
+bernoulli.launches = 0
 
 # ---------------------------------------------------- flash attention (train)
 def _flash_scale(q, sm_scale):
@@ -1139,8 +1197,9 @@ class FlashAttention(torch.autograd.Function):
 
 
 _WRAPPERS = (fused_sgd_update, lrn_forward, lrn_backward, dropout,
-             paged_flash_decode, paged_flash_prefill, flash_attention_fwd,
-             flash_attention_bwd_dkv, flash_attention_bwd_dq)
+             bernoulli, paged_flash_decode, paged_flash_prefill,
+             flash_attention_fwd, flash_attention_bwd_dkv,
+             flash_attention_bwd_dq)
 
 
 def reset_launch_counts():
@@ -1159,7 +1218,8 @@ __all__ = ["NEG_INF", "serving_kernels_supported", "fused_sgd_update",
            "fused_sgd_update_multi_ref", "SGD_MAX_TENSORS", "lrn_forward",
            "lrn_forward_ref",
            "lrn_backward", "lrn_backward_ref", "LRN", "LRN_MAX_CHANNELS",
-           "dropout", "dropout_ref", "paged_flash_decode",
+           "dropout", "dropout_ref", "bernoulli", "bernoulli_ref",
+           "paged_flash_decode",
            "paged_flash_decode_ref", "decode_splits", "paged_flash_prefill",
            "paged_flash_prefill_ref", "prefill_splits", "split_ranges",
            "paged_flash_prefill_split_ref", "paged_flash_combine_ref",

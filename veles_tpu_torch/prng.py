@@ -34,9 +34,10 @@ def threefry2x32(k0, k1, x0, x1):
     """The Threefry-2x32 hash (20 rounds) of counter words ``(x0, x1)``
     under key ``(k0, k1)``, as ``jax._src.prng._threefry2x32_lowering``.
 
-    Works on numpy uint64 arrays and on torch int64 tensors alike (every
-    operand holds a value below 2**32; each step masks back to 32 bits),
-    so the host keys and the dropout kernel's plain version share it.
+    Works on Python ints, numpy uint64 arrays and torch int64 tensors
+    alike (every operand holds a value below 2**32; each step masks back
+    to 32 bits), so the host keys and the dropout kernel's plain version
+    share it.
     Returns the two output words."""
     ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
     x0 = (x0 + ks[0]) & _MASK32
@@ -68,9 +69,11 @@ def PRNGKey(seed):
 
 
 def fold_in(key, data):
-    """``jax.random.fold_in``: the hash of the counter (0, data)."""
-    o0, o1 = _hash(key, [0], [int(data) & _MASK32])
-    return _key([o0[0], o1[0]])
+    """``jax.random.fold_in``: the hash of the counter (0, data), on
+    Python ints (one counter: ~10x faster than the numpy path, and a
+    train step folds a few keys)."""
+    k0, k1 = (int(w) for w in key)
+    return _key(threefry2x32(k0, k1, 0, int(data) & _MASK32))
 
 
 def _counters(n):

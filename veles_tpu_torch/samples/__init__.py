@@ -92,9 +92,9 @@ def make_sample(config_name, workflow_cls, loader_cls, default_config,
 
 def make_trainer_sample(config_name, workflow_cls, default_config,
                         sections=("loader", "trainer", "decision")):
-    """Scaffolding for non-StandardWorkflow samples (the char LM): the
-    workflow constructor takes one ``<section>_config`` dict per
-    section.  Returns (build, train, run); ``train(device=None, ...)``
+    """Scaffolding for non-StandardWorkflow samples (the Kohonen SOM, the
+    MNIST RBM, the char LM): the workflow constructor takes one
+    ``<section>_config`` dict per section.  Returns (build, train, run); ``train(device=None, ...)``
     runs on the CUDA card unless the caller passes ``device="cpu"``."""
 
     def _workflow_kwargs():
