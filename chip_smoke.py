@@ -144,8 +144,38 @@ Phases (any failure exits nonzero before the final line is printed):
    the SOM's points fed through ``InteractiveLoader`` into a
    ``KohonenForward`` (winners equal to a direct pass); then the
    Bernoulli draw's JSON line (its times, bound and launches);
-10. the script's seconds, the card's name and power limit, one JSON line
-   listing every ported TPU kernel, then the JSON result line.
+10. harness — the run harness through the CLI (``veles_tpu_torch.
+   __main__``): MNIST-FC at ``configs[0]``'s widths for 3 epochs (59,950
+   train samples, so each epoch ends in a 50-row minibatch) trained by
+   the graph loop in a ``python -m veles_tpu_torch`` subprocess (its
+   result file and per-epoch snapshots read back), then in this process
+   by the epoch scan (captured CUDA-graph steps) in chunks of 1 and 3:
+   final weights and velocities bit-equal to the loop's, equal
+   ``n_err``, losses within 1e-6 relative, one fused-SGD launch a step
+   counted through the replays; an ``exp`` lr policy bit-equal between
+   loop and scan; runs resumed at epoch 1 through ``--snapshot auto``
+   bit-equal to the uninterrupted ones on both drivers; ``--evaluate``
+   from the final snapshot leaving the weights bit-equal; a
+   ``grad_accum=4`` step within rtol 1e-5 / atol 1e-6 of the monolithic
+   one; cifar (``configs[1]``, 49,950 / 10,000, 2 epochs) scan bit-equal
+   to its loop; full-width AlexNet (600 / 128, minibatch 128, 2 epochs)
+   scanned twice, bit-equal, with exact LRN / dropout / SGD launch
+   counts, and card vs the port's CPU scan at minibatch 16 step by step
+   (``ALEXNET_*`` limits); AlexNet from a 1,208 / 256 record file
+   streamed in windows of 4, stage-ahead 1 and 2 bit-equal, exact
+   launches, and a dense net on the same file streamed bit-equal to its
+   loop; four planted faults (``HARNESS_FAULTS``: inv_batch frozen at
+   capture, keys not folded per step, the policy read at step + 1, a
+   snapshot without velocities), each caught; steady steps loop vs scan
+   (ms, samples/s, busy share) for MNIST-FC, cifar and AlexNet, capture
+   seconds, the graphs' launches per replay; its JSON line
+   (``{"harness": ...}``).  The kernels phase also checks and times
+   kernels 1 and 4's device-operand entries (the ones a captured step
+   replays) against their by-value entries;
+11. the script's seconds, the card's name and power limit, one JSON line
+   listing every ported TPU kernel (kernels 1 and 4 with their
+   device-operand entries' times, bounds and launches), then the JSON
+   result line.
 
 The kernels phase also holds the three flash-attention kernels (forward,
 dK/dV pass, dQ pass; ``flash_attention.cu``) at the LM's train shape
@@ -938,6 +968,77 @@ def dropout_case(torch, HK, prng, name, shape, rate=0.5, seed=0,
     t_ops = DROPOUT_OPS * n / INT32_OP_S * 1e3
     out["bound_ms"], out["bound_by"] = ((t_bytes, "bytes") if t_bytes >= t_ops
                                         else (t_ops, "operations"))
+    return out
+
+
+def device_entry_cases(torch, HK, prng):
+    """The device-operand entries of kernels 1 and 4 (operands read on
+    the card when the kernel runs, the entries a captured step replays)
+    against their by-value entries: bit-equal results, then both timed.
+    SGD at MNIST-FC's four and AlexNet's sixteen parameters (inv_batch
+    and the rates from a device row), dropout at AlexNet's dropout6
+    input (the key from two words on the card)."""
+    dev = torch.device("cuda")
+    out = []
+    for name, shapes, wd in (("mnist_fc_step", MNIST_PARAMS, 0.0),
+                             ("alexnet_step", ALEXNET_PARAMS, 0.0005)):
+        sets = [sgd_operands(torch, s, 100 + i, COPIES)
+                for i, s in enumerate(shapes)]
+        n_t = len(shapes)
+        host = numpy.zeros(3 + n_t, numpy.float32)
+        host[0] = 100
+        host[1] = numpy.float32(1) / numpy.float32(100)
+        host[3:] = 0.03
+        row = torch.as_tensor(host, device=dev)
+        at = [(1, 3 + i) for i in range(n_t)]
+        hyper = [(0.9, wd, 0.0, None)] * n_t
+        by_value = [(100, 0.03, 0.9, wd, 0.0, None)] * n_t
+
+        def call(k, dev_entry):
+            ps, vs, gs = (list(x) for x in zip(*[o[k] for o in sets]))
+            if dev_entry:
+                return lambda: HK.fused_sgd_update_multi_dev(
+                    ps, vs, gs, row, at, hyper)
+            return lambda: HK.fused_sgd_update_multi(ps, vs, gs, by_value)
+
+        got, want = call(0, True)(), call(0, False)()
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in zip(got[0] + got[1],
+                                                      want[0] + want[1]))
+        check(equal, "fused_sgd_update %s: the device-operand entry "
+              "differs from the by-value entry" % name)
+        n = sum(int(numpy.prod(s)) for s in shapes)
+        bound_ms, bound_by = bound(20 * n, 10 * n)
+        out.append({"kernel": "fused_sgd_update", "entry": "device_operands",
+                    "case": name, "elements": n, "bit_equal": equal,
+                    "device_operand_ms": time_ms(
+                        [call(k, True) for k in range(COPIES)], torch),
+                    "by_value_ms": time_ms(
+                        [call(k, False) for k in range(COPIES)], torch),
+                    "bound_ms": bound_ms, "bound_by": bound_by})
+    shape = DROPOUT_SHAPES["dropout6"]
+    xs = [torch.as_tensor(numpy.random.RandomState(k).randn(*shape)
+                          .astype(numpy.float32), device=dev)
+          for k in range(COPIES)]
+    key = prng.fold_in(prng.PRNGKey(SEED), 6)
+    words = torch.as_tensor(key.view(numpy.int32), device=dev)
+    equal = torch.equal(HK.dropout(xs[0], words, 0.5),
+                        HK.dropout(xs[0], key, 0.5))
+    check(equal, "dropout: the device-key entry differs from the by-value "
+          "entry")
+    n = xs[0].numel()
+    t_bytes = 8 * n / HBM_BYTES_S * 1e3
+    t_ops = DROPOUT_OPS * n / INT32_OP_S * 1e3
+    out.append({"kernel": "dropout", "entry": "device_key",
+                "case": "dropout6", "shape": list(shape), "bit_equal": equal,
+                "device_operand_ms": time_ms(
+                    [lambda t=t: HK.dropout(t, words, 0.5) for t in xs],
+                    torch),
+                "by_value_ms": time_ms(
+                    [lambda t=t: HK.dropout(t, key, 0.5) for t in xs],
+                    torch),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
     return out
 
 
@@ -2428,9 +2529,9 @@ def update_sizes(F):
     (``F.sgd_update_multi``, one kernel launch on the card) takes."""
     inner, sizes = F.sgd_update_multi, []
 
-    def counted(items):
+    def counted(items, *rest):
         sizes.append(len(items))
-        return inner(items)
+        return inner(items, *rest)
 
     F.sgd_update_multi = counted
     try:
@@ -3178,6 +3279,529 @@ def streams_phase(torch, card, som, device="cuda"):
           "streams: the interactive SOM forward differs from a direct pass")
 
 
+# ------------------------------------------------------------------ harness
+#: the harness phase's MNIST-FC: configs[0]'s widths (784→100 tanh→10
+#: softmax, minibatch 100, 10,000 validation) for 3 epochs, the train set
+#: cut from 60,000 to 59,950 so that each epoch ends in a short minibatch
+#: (50 live rows: a frozen inv_batch shows there)
+HARNESS_MNIST = ["root.mnist.loader.n_train=59950",
+                 "root.mnist.decision.max_epochs=3"]
+#: the exp policy run: every layer's rate decays 0.9995 a step
+HARNESS_POLICY = ("root.mnist.layers=[{'type': 'all2all_tanh', "
+                  "'output_sample_shape': 100, 'learning_rate': 0.03, "
+                  "'momentum': 0.9, 'lr_policy': {'policy': 'exp', "
+                  "'gamma': 0.9995}}, {'type': 'softmax', "
+                  "'output_sample_shape': 10, 'learning_rate': 0.03, "
+                  "'momentum': 0.9, 'lr_policy': {'policy': 'exp', "
+                  "'gamma': 0.9995}}]")
+#: scan vs loop: losses within this relative gap (the metric sums are
+#: the same reduction, so they are expected equal)
+HARNESS_LOSS_RTOL = 1e-6
+#: grad_accum=4 against the monolithic step: the CPU tests' tolerance
+#: (tests/test_torch_epoch_scan.py::test_accum_step_matches_monolithic)
+ACCUM_RTOL, ACCUM_ATOL = 1e-5, 1e-6
+#: cifar (configs[1]) at the sample's defaults but 2 epochs and 49,950
+#: train samples (a short last minibatch)
+HARNESS_CIFAR = 49950
+#: AlexNet on the synthetic set: 600 train (4 full minibatches of 128 and
+#: one of 88) / 128 validation, 2 epochs
+HARNESS_ALEXNET = {"n_train": 600, "n_valid": 128}
+#: AlexNet card vs CPU scan: minibatch 16, 56 train (3 full minibatches
+#: and one of 8), 1 epoch; every train step's weights compared
+HARNESS_ALEXNET_SMALL = {"minibatch_size": 16, "n_train": 56,
+                         "n_valid": 16}
+#: the record-file leg: the records phase's full set cut to 1,208 train
+#: (9 full minibatches and one of 56) / 256 validation, windows of 4
+HARNESS_RECORDS = (256, 1208)
+HARNESS_WINDOW = 4
+HARNESS_FAULTS = ("inv_batch_frozen", "key_not_folded",
+                  "policy_step_plus_1", "snapshot_drops_velocities")
+
+
+@contextlib.contextmanager
+def harness_fault(name):
+    """Within the block, ``name`` of ``HARNESS_FAULTS`` is planted in the
+    epoch scan or the snapshotter."""
+    from veles_tpu_torch import compiled, epoch_driver
+    from veles_tpu_torch.ops.nn_units import GradientDescentBase
+    if name == "inv_batch_frozen":
+        cls, attr = compiled.ScanProgram, "operand_tables"
+        inner = cls.operand_tables
+
+        def planted(self, ops_list):
+            scal, keys, crops = inner(self, ops_list)
+            scal[:, 1] = scal[0, 1]          # the value at capture
+            return scal, keys, crops
+    elif name == "key_not_folded":
+        cls, attr = epoch_driver.EpochScanDriver, "_operands"
+        inner = cls._operands
+
+        def planted(self, mask, step0, key, window=None):
+            out = inner(self, mask, step0, key, window)
+            if key is not None and not window:
+                for ops in out:
+                    ops.keys = [self.runner._stochastic_keys(key)]
+            return out
+    elif name == "policy_step_plus_1":
+        cls, attr = epoch_driver.EpochScanDriver, "_operands"
+        inner = cls._operands
+
+        def planted(self, mask, step0, key, window=None):
+            return inner(self, mask, step0 + 1, key, window)
+    else:
+        cls, attr = GradientDescentBase, "snapshot_attrs"
+        inner = cls.snapshot_attrs
+        planted = tuple(a for a in inner if not a.startswith("velocity"))
+    setattr(cls, attr, planted)
+    try:
+        yield
+    finally:
+        setattr(cls, attr, inner)
+
+
+def cli_run(argv, sample="mnist", config=None):
+    """One CLI run in this process (``veles_tpu_torch.__main__.main``),
+    from a fresh PRNG and config subtree (``config`` installed first);
+    returns (workflow, launcher)."""
+    from veles_tpu_torch import __main__ as cli, prng
+    from veles_tpu_torch.config import root
+    prng.reset()
+    root.__dict__.pop(sample, None)
+    if config:
+        getattr(root, sample).update(config)
+    check(cli.main(list(argv)) == 0, "CLI run %r failed" % (argv,))
+    return cli.main.workflow, cli.main.launcher
+
+
+def wf_params(wf):
+    """Every parameterized layer's weights, bias and velocities (host)."""
+    wf._fused_runner.sync_to_units()
+    return [numpy.array(v.mem) for f, g in zip(wf.forwards, wf.gds)
+            if f.has_params for v in (f.weights, f.bias,
+                                      g.velocity_weights, g.velocity_bias)]
+
+
+def snap_params(path, wf):
+    """The same arrays as ``wf_params`` from a snapshot file, for the
+    layers of ``wf``."""
+    from veles_tpu_torch import snapshotter
+    units = snapshotter.import_(path)["state"]["units"]
+    return [units[u.name][attr][1] for f, g in zip(wf.forwards, wf.gds)
+            if f.has_params for u, attr in ((f, "weights"), (f, "bias"),
+                                            (g, "velocity_weights"),
+                                            (g, "velocity_bias"))]
+
+
+def bit_equal(a, b):
+    return len(a) == len(b) and all(numpy.array_equal(x, y)
+                                    for x, y in zip(a, b))
+
+
+def metric_rows(epoch_metrics):
+    return [{s: {k: m[s][k] for k in ("n_err", "loss")} for s in m}
+            for m in epoch_metrics]
+
+
+def same_run_metrics(a, b, rtol=HARNESS_LOSS_RTOL):
+    """Equal n_err in every set and epoch, losses within ``rtol``."""
+    return len(a) == len(b) and all(
+        ma.keys() == mb.keys() and all(
+            ma[s]["n_err"] == mb[s]["n_err"]
+            and abs(ma[s]["loss"] - mb[s]["loss"])
+            <= rtol * max(abs(mb[s]["loss"]), 1e-30) for s in ma)
+        for ma, mb in zip(a, b))
+
+
+def window_steps(torch, step, n):
+    """(ms a step, card busy share) of ``n`` steps enqueued back to back
+    and waited for once: the host clock over the window, and the union
+    of the profiler's kernel intervals over the profiled window's wall
+    time (None when the trace holds no kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA):
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return ms, (busy / wall_us if end is not None else None)
+
+
+def loop_vs_scan_steps(torch, loop_wf, scan_launcher, n):
+    """One train step of the graph loop (its key drawn and host operands
+    built, then the fused step, eager) against one replay of the scan's
+    captured step, ``n`` of each: ms, samples/s and busy share.  The
+    loop's step reruns its last minibatch; the replays restart the scan's
+    tables at row 0 and write its scratch buffers (the run is over)."""
+    from veles_tpu_torch import prng
+    runner = loop_wf._fused_runner
+    x, y, mask, ops = runner._last_train_args
+    mb = x.shape[0]
+
+    def loop_step():
+        key = (prng.get("dropout").key() if runner._has_stochastic
+               else None)
+        runner._step(runner.state, x, y, mask, runner.host_operands(
+            ops.batch_size, ops.step, key))
+
+    loop_ms, loop_busy = window_steps(torch, loop_step, n)
+    program = scan_launcher.driver.program
+    left = [0]
+
+    def replay():
+        if left[0] == 0:
+            program.train.t.zero_()
+            left[0] = program.train.rows
+        program.replay_train()
+        left[0] -= 1
+
+    scan_ms, scan_busy = window_steps(torch, replay, n)
+    return {"loop": {"ms": loop_ms, "samples_per_s": mb / loop_ms * 1e3,
+                     "busy_share": loop_busy},
+            "scan": {"ms": scan_ms, "samples_per_s": mb / scan_ms * 1e3,
+                     "busy_share": scan_busy},
+            "steps": n, "minibatch": mb}
+
+
+def alexnet_launches(wf):
+    """The launch formula of an ImageNet-sample run ``wf``: per train
+    step each LRN layer's forward and backward, each dropout layer's
+    two launches and one fused SGD launch; each LRN forward again per
+    validation minibatch (AlexNet: 2, 2, 4, 1 and 2)."""
+    steps = wf.fused_step.train_steps
+    ld = wf.loader
+    valid_mbs = len(wf.decision.epoch_metrics) * -(
+        -ld.class_lengths[1] // ld.max_minibatch_size)
+    n_lrn = sum(1 for f in wf.forwards if f.layer_type == "norm")
+    n_drop = sum(1 for f in wf.forwards if f.layer_type == "dropout")
+    return {"lrn_forward": n_lrn * (steps + valid_mbs),
+            "lrn_backward": n_lrn * steps, "dropout": 2 * n_drop * steps,
+            "fused_sgd_update": steps}
+
+
+def scan_step_weights(torch, argv, config):
+    """A CLI epoch-scan run of the ImageNet sample whose every train
+    step's weights are kept: [initial, after step 1, ...] as
+    ``committed_weights`` gives them (the last step's too, which the
+    completion gate then drops)."""
+    from veles_tpu_torch.compiled import ScanProgram
+    kept, inner = [], ScanProgram.replay_train
+
+    def grab(program):
+        kept.append([[e[k].cpu().numpy().copy() for k in ("w", "b")
+                      if k in e] for e in program.state if e])
+
+    def replay_train(self, data_at=0):
+        if not kept:
+            grab(self)
+        inner(self, data_at)
+        grab(self)
+
+    ScanProgram.replay_train = replay_train
+    try:
+        cli_run(argv + ["--epoch-scan", "1"], "imagenet", config)
+    finally:
+        ScanProgram.replay_train = inner
+    return kept
+
+
+def harness(torch, HK, card, device="cuda"):
+    """Phase 11: the run harness through the CLI (see the module
+    docstring); returns the kernels' launch counts of its runs."""
+    import os
+    import shutil
+    import tempfile
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.samples import imagenet, mnist
+    began = time.monotonic()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="veles_harness_")
+    dev = [] if device == "cuda" else ["-d", device]
+    base = (["veles_tpu_torch.samples.mnist", "--random-seed", str(SEED),
+             "--no-stats"] + dev + HARNESS_MNIST)
+    launches, checks, faults, report = {}, {}, {}, {"card": card}
+
+    def counted(fn):
+        """fn() with the kernels' counts of its run: (result, counts)."""
+        HK.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = HK.launch_counts()
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return out, counts
+
+    def resumed(src_dir, extra):
+        """A run resumed at epoch 1 from ``src_dir``'s epoch-1 snapshot
+        through ``--snapshot auto``."""
+        first = [n for n in os.listdir(src_dir) if n.startswith("mnist_1_")]
+        d = tempfile.mkdtemp(dir=tmp)
+        shutil.copyfile(os.path.join(src_dir, first[0]),
+                        os.path.join(d, "mnist_current.pickle.gz"))
+        wf, la = cli_run(base + extra + ["--snapshot", "auto",
+                                         "--snapshot-dir", d])
+        check(la.restored_payload["epoch"] == 1, "resumed at epoch %r"
+              % la.restored_payload["epoch"])
+        return wf
+
+    try:
+        # MNIST-FC: the graph loop through `python -m veles_tpu_torch`,
+        # read back from its result file and its snapshots
+        d_loop = os.path.join(tmp, "loop")
+        result = os.path.join(tmp, "loop.json")
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "veles_tpu_torch"] + base + [
+                "--snapshot-dir", d_loop, "--result-file", result],
+            cwd=repo, capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=repo))
+        loop_cli_s = time.monotonic() - t0
+        check(proc.returncode == 0, "python -m veles_tpu_torch failed:\n%s"
+              % proc.stderr[-3000:])
+        with open(result, encoding="utf-8") as f:
+            summary = json.load(f)
+        final = os.path.join(d_loop, "mnist_3_%g.pickle.gz"
+                             % summary["best_metric"])
+        check(os.path.exists(final), "no epoch-3 snapshot %s" % final)
+
+        # the scan, chunk 1 (with snapshots) and chunk 3
+        d_scan = os.path.join(tmp, "scan")
+        (scan1, la1), counts = counted(lambda: cli_run(
+            base + ["--epoch-scan", "1", "--snapshot-dir", d_scan]))
+        scan3, _ = cli_run(base + ["--epoch-scan", "3"])
+        from veles_tpu_torch import snapshotter
+        state = snapshotter.import_(final)["state"]["units"]
+        w_loop = snap_params(final, scan1)
+        m_loop = metric_rows(state["decision"]["epoch_metrics"])
+        checks["result_file_read_back"] = (
+            summary["best_epoch"] == state["decision"]["best_epoch"]
+            and summary["last_epoch_metrics"]["validation"]["n_err"]
+            == m_loop[-1]["validation"]["n_err"])
+        checks["scan1_equals_loop"] = bit_equal(wf_params(scan1), w_loop)
+        checks["scan3_equals_loop"] = bit_equal(wf_params(scan3), w_loop)
+        checks["scan_metrics_equal_loop"] = all(
+            same_run_metrics(metric_rows(wf.decision.epoch_metrics),
+                             m_loop) for wf in (scan1, scan3))
+        checks["scan_launches_exact"] = (
+            counts["fused_sgd_update"] == scan1.fused_step.train_steps
+            == state["fused_step"]["train_steps"]
+            == 3 * -(-scan1.loader.class_lengths[2] // 100))
+        program = la1.driver.program
+        report["mnist"] = {
+            "config": {"layers": "784-100tanh-10softmax", "minibatch": 100,
+                       "n_train": 59950, "n_valid": 10000, "epochs": 3},
+            "loop_cli_s": loop_cli_s, "scan_run_s": la1.run_seconds,
+            "capture_s": program.capture_s,
+            "graph_launches": {repr(k): v for k, v in
+                               program.graph_launches.items()},
+            "replays": {repr(k): v for k, v in program.replays.items()},
+            "launches": counts,
+            "validation": [m["validation"] for m in m_loop]}
+
+        # the exp lr policy, loop and scan
+        pol_loop, pla = cli_run(base + [HARNESS_POLICY])
+        pol_scan, _ = cli_run(base + [HARNESS_POLICY, "--epoch-scan", "1"])
+        w_pol = wf_params(pol_loop)
+        checks["policy_scan_equals_loop"] = bit_equal(wf_params(pol_scan),
+                                                      w_pol)
+        checks["policy_moves_training"] = not bit_equal(w_pol, w_loop)
+        report["mnist"]["loop_run_s"] = pla.run_seconds
+
+        # resume at epoch 1 through --snapshot auto, both drivers
+        checks["resume_loop_bit_equal"] = bit_equal(
+            wf_params(resumed(d_loop, [])), w_loop)
+        checks["resume_scan_bit_equal"] = bit_equal(
+            wf_params(resumed(d_scan, ["--epoch-scan", "1"])),
+            wf_params(scan1))
+
+        # --evaluate from the final snapshot: the weights do not move
+        ev, _ = cli_run(base + ["--snapshot", final, "--evaluate"])
+        checks["evaluate_keeps_weights"] = bit_equal(wf_params(ev), w_loop)
+
+        # grad_accum=4 against the monolithic step at full width
+        steps = []
+        for accum in (1, 4):
+            prng.reset()
+            prng.seed_all(SEED)
+            root.__dict__.pop("mnist", None)
+            mnist.default_config()
+            wf = mnist.build(fused=True, grad_accum=accum)
+            wf.initialize(device=None if device == "cuda" else device)
+            runner, ld = wf._fused_runner, wf.loader
+            x = ld.original_data.devmem[:100]
+            y = ld.original_labels.devmem[:100]
+            steps.append(runner._train_step(
+                runner.state, x, y, torch.ones(100, device=x.device), 100))
+        (s1, m1), (s4, m4) = steps
+        excess = max(float(((a[k] - b[k]).abs() - ACCUM_RTOL
+                            * b[k].abs()).max())
+                     for a, b in zip(s4, s1) for k in a)
+        checks["grad_accum_within_tolerance"] = (
+            excess <= ACCUM_ATOL and int(m1["n_err"]) == int(m4["n_err"]))
+        report["mnist"]["grad_accum_max_excess_over_rtol"] = excess
+
+        # planted faults: each must break its check
+        with harness_fault("inv_batch_frozen"):
+            bad, _ = cli_run(base + ["--epoch-scan", "1"])
+        faults["inv_batch_frozen"] = not bit_equal(wf_params(bad), w_loop)
+        with harness_fault("policy_step_plus_1"):
+            bad, _ = cli_run(base + [HARNESS_POLICY, "--epoch-scan", "1"])
+        faults["policy_step_plus_1"] = not bit_equal(wf_params(bad), w_pol)
+        with harness_fault("snapshot_drops_velocities"):
+            d_bad = os.path.join(tmp, "bad")
+            cli_run(base + ["--epoch-scan", "1", "--snapshot-dir", d_bad])
+            bad = resumed(d_bad, ["--epoch-scan", "1"])
+        faults["snapshot_drops_velocities"] = not bit_equal(
+            wf_params(bad), wf_params(scan1))
+        report["mnist"]["steady"] = loop_vs_scan_steps(torch, pol_loop,
+                                                       la1, 200)
+        report["mnist"]["measure_device_step_time_ms"] = (
+            scan1._fused_runner.measure_device_step_time(20) * 1e3)
+
+        # cifar (configs[1]): loop and scan
+        cifar_argv = ["veles_tpu_torch.samples.cifar", "--random-seed",
+                      str(SEED), "--no-stats",
+                      "root.cifar.decision.max_epochs=2",
+                      "root.cifar.loader.n_train=%d" % HARNESS_CIFAR] + dev
+        c_loop, cla = cli_run(cifar_argv, "cifar")
+        (c_scan, csa), counts = counted(lambda: cli_run(
+            cifar_argv + ["--epoch-scan", "1"], "cifar"))
+        checks["cifar_scan_equals_loop"] = (
+            bit_equal(wf_params(c_scan), wf_params(c_loop))
+            and same_run_metrics(metric_rows(c_scan.decision.epoch_metrics),
+                                 metric_rows(c_loop.decision.epoch_metrics)))
+        checks["cifar_launches_exact"] = (counts["fused_sgd_update"]
+                                          == c_scan.fused_step.train_steps)
+        report["cifar"] = {
+            "config": {"n_train": HARNESS_CIFAR, "n_valid": 10000,
+                       "minibatch": 100, "epochs": 2},
+            "loop_run_s": cla.run_seconds, "scan_run_s": csa.run_seconds,
+            "capture_s": csa.driver.program.capture_s, "launches": counts,
+            "steady": loop_vs_scan_steps(torch, c_loop, csa, 100)}
+
+        # AlexNet at full width on the synthetic set: the scan, a seeded
+        # rerun, the loop
+        alex = {"loader": dict({"minibatch_size": 128, "records_path": None,
+                                "image_hw": (256, 256), "n_classes": 1000},
+                               **HARNESS_ALEXNET),
+                "decision": {"max_epochs": 2, "fail_iterations": 10},
+                "layers": imagenet.alexnet_layers()}
+        alex_argv = ["veles_tpu_torch.samples.imagenet", "--random-seed",
+                     str(SEED), "--no-stats"]
+        (a_scan, asa), counts = counted(lambda: cli_run(
+            alex_argv + dev + ["--epoch-scan", "1"], "imagenet", alex))
+        a_again, _ = cli_run(alex_argv + dev + ["--epoch-scan", "1"],
+                             "imagenet", alex)
+        a_loop, ala = cli_run(alex_argv + dev, "imagenet", alex)
+        checks["alexnet_scan_rerun_bit_equal"] = bit_equal(
+            wf_params(a_scan), wf_params(a_again))
+        want = alexnet_launches(a_scan)
+        checks["alexnet_launches_exact"] = all(counts[k] == v
+                                               for k, v in want.items())
+        # card vs the port's CPU scan at minibatch 16, every train step
+        small = dict(alex, loader=dict(alex["loader"],
+                                       **HARNESS_ALEXNET_SMALL),
+                     decision={"max_epochs": 1, "fail_iterations": 10})
+        on_card = scan_step_weights(torch, alex_argv + dev, small)
+        on_cpu = scan_step_weights(torch, alex_argv + ["-d", "cpu"], small)
+        with harness_fault("key_not_folded"):
+            bad = scan_step_weights(torch, alex_argv + dev, small)
+        under_pool = [any(g.layer_type == "max_pooling"
+                          for g in a_scan.forwards[i + 1:])
+                      for i, f in enumerate(a_scan.forwards) if f.has_params]
+        limits = [ALEXNET_CONV_SHARE if u else ALEXNET_FC_SHARE
+                  for u in under_pool]
+
+        def within(gaps):
+            return (all(g <= lim for g, lim in zip(gaps["share"][0], limits))
+                    and max(gaps["share"][2]) <= ALEXNET_DRIFT_SHARE)
+
+        sound, planted = (weight_gaps(on_card, on_cpu),
+                          weight_gaps(bad, on_cpu))
+        checks["alexnet_card_vs_cpu_within_limits"] = within(sound)
+        faults["key_not_folded"] = not within(planted)
+        report["alexnet"] = {
+            "config": dict(HARNESS_ALEXNET, minibatch=128, epochs=2,
+                           layers="alexnet_layers()"),
+            "loop_run_s": ala.run_seconds, "scan_run_s": asa.run_seconds,
+            "capture_s": asa.driver.program.capture_s, "launches": counts,
+            "graph_launches": {repr(k): v for k, v in
+                               asa.driver.program.graph_launches.items()},
+            "card_vs_cpu": {"minibatch": 16, "steps": len(on_cpu) - 1,
+                            "first_update_limits": limits,
+                            "third_update_limit": ALEXNET_DRIFT_SHARE,
+                            "share": sound["share"],
+                            "fault_key_not_folded_share": planted["share"]},
+            "steady": loop_vs_scan_steps(torch, a_loop, asa, 10)}
+
+        # AlexNet from a record file, streamed in windows of 4
+        files = write_record_set(tmp, "harness", *HARNESS_RECORDS)
+        rec_argv = (["veles_tpu_torch.samples.imagenet", "--random-seed",
+                     str(SEED), "--no-stats",
+                     "root.imagenet.loader.records_path=%s" % files[0],
+                     "root.imagenet.loader.mean_path=%s" % files[1],
+                     "root.imagenet.decision.max_epochs=2"] + dev)
+        window = ["--stream-window", str(HARNESS_WINDOW)]
+        (r1, rla), counts = counted(lambda: cli_run(rec_argv + window,
+                                                    "imagenet"))
+        r2, _ = cli_run(rec_argv + window + ["--stage-ahead", "2"],
+                        "imagenet")
+        checks["records_stream_stage_ahead_invariant"] = bit_equal(
+            wf_params(r1), wf_params(r2))
+        want = alexnet_launches(r1)
+        checks["records_launches_exact"] = all(counts[k] == v
+                                               for k, v in want.items())
+        # the parity tests/test_streaming.py pins, on this record file: a
+        # network with no stochastic layer streams bit-equal to the loop
+        dense = ("root.imagenet.layers=[{'type': 'all2all_tanh', "
+                 "'output_sample_shape': 64, 'learning_rate': 0.01, "
+                 "'momentum': 0.9}, {'type': 'softmax', "
+                 "'output_sample_shape': 1000, 'learning_rate': 0.01, "
+                 "'momentum': 0.9}]")
+        streamed, _ = cli_run(rec_argv + window + [dense], "imagenet")
+        looped, _ = cli_run(rec_argv + [dense], "imagenet")
+        checks["records_stream_equals_loop"] = bit_equal(
+            wf_params(streamed), wf_params(looped))
+        report["records"] = {
+            "config": {"n_valid": HARNESS_RECORDS[0],
+                       "n_train": HARNESS_RECORDS[1], "minibatch": 128,
+                       "window": HARNESS_WINDOW, "epochs": 2},
+            "run_s": rla.run_seconds, "stream_stats": r1._stream_stats,
+            "capture_s": rla.driver.program.capture_s, "launches": counts}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        prng.reset()
+        for name in ("mnist", "cifar", "imagenet"):
+            root.__dict__.pop(name, None)
+    report.update(checks=checks, faults_caught=faults, launches=launches,
+                  phase_s=time.monotonic() - began)
+    print(json.dumps({"harness": report}, default=str), flush=True)
+    failed = [k for k, v in checks.items() if not v]
+    check(not failed, "harness checks failed: %s" % failed)
+    missed = [k for k in HARNESS_FAULTS if not faults.get(k)]
+    check(not missed, "planted harness faults passed their checks: %s"
+          % missed)
+    return launches
+
+
 def main():
     started = time.monotonic()
     import torch
@@ -3279,8 +3903,9 @@ def main():
     floor_ms = time_ms([lambda: torch.cuda._sleep(0)], torch)
     print(json.dumps({"empty_launch_ms": floor_ms, "card": smi}),
           flush=True)
+    dev_entries = device_entry_cases(torch, HK, prng)
     for case in (cases + checks + sgd + lrn + lrn_checks + drop + drop_checks
-                 + draws + flash + flash_checks):
+                 + draws + flash + flash_checks + dev_entries):
         print(json.dumps(dict(case, card=smi)), flush=True)
 
     # 4. serve through the engine
@@ -3331,7 +3956,13 @@ def main():
                   for c in draws if "kernel_ms" in c],
         "empty_launch_ms": floor_ms, "card": smi}}), flush=True)
 
-    # 10. the kernels line and the result
+    # 10. the run harness through the CLI: the graph loop, the epoch
+    # scan (captured steps) and the streaming scan
+    harnessed = harness(torch, HK, smi)
+    for k, v in harnessed.items():
+        launches[k] = launches.get(k, 0) + v
+
+    # 11. the kernels line and the result
     main_case = {"flash_attention_fwd": flash[0],
                  "flash_attention_bwd_dkv": flash[1],
                  "flash_attention_bwd_dq": flash[2],
@@ -3346,6 +3977,18 @@ def main():
                 "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
                for k, c in main_case.items()]
+    # kernels 1 and 4: their device-operand entries (what the captured
+    # steps launch, counted by replay in the harness phase)
+    entries = {c["kernel"]: c for c in dev_entries
+               if c["case"] in ("alexnet_step", "dropout6")}
+    for row in kernels:
+        entry = entries.get(row["name"])
+        if entry is not None:
+            row.update(device_operand_ms=entry["device_operand_ms"],
+                       device_operand_by_value_ms=entry["by_value_ms"],
+                       device_operand_bound_ms=entry["bound_ms"],
+                       device_operand_launches=harnessed.get(row["name"],
+                                                             0))
     # beside the calls that are one or two short launches, the floor
     for row in kernels:
         if row["name"] in ("fused_sgd_update", "paged_flash_decode",

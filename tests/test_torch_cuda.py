@@ -25,6 +25,11 @@ most 4x the fp32 plain version's.  The record loader's device
 minibatches (two pinned staging buffers, prefetch on and off) equal its
 host gather bit for bit, also with every copy held back behind a spin.
 Two seeded training runs of a residual net end with bit-equal weights.
+The device-operand entries of the fused SGD and dropout kernels,
+captured in a CUDA graph and replayed with new operands, equal the
+by-value entries bit for bit, and the epoch scan's captured train step
+equals the eager step with host operands over an epoch whose last
+minibatch is short.
 """
 
 import numpy
@@ -957,3 +962,115 @@ def test_records_buffer_reuse_waits_for_its_copy(tmp_path, prefetch):
         assert torch.equal(x.cpu(), torch.as_tensor(batch))
         assert torch.equal(y.cpu(), torch.as_tensor(labels))
         assert torch.equal(x, x0) and torch.equal(y, y0)
+
+
+# ------------------------------------------------- the captured train step
+def _captured(fn, side):
+    """``fn`` warmed up on ``side`` and captured into a CUDA graph."""
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    return graph
+
+
+@pytest.mark.cuda
+def test_device_operand_entries_bit_equal_inside_a_graph():
+    """The fused SGD entry that reads inv_batch and the learning rates
+    from the card, and the dropout entry that reads its key there, each
+    captured once and replayed with new operands, equal the by-value
+    entries bit for bit."""
+    from veles_tpu_torch import prng
+    dev = _card()
+    rng = numpy.random.RandomState(0)
+    shapes = [(784, 100), (100,), (100, 10), (10,)]
+    ps = [_randn(rng, *s, dev=dev) for s in shapes]
+    vs = [_randn(rng, *s, dev=dev) for s in shapes]
+    gs = [_randn(rng, *s, dev=dev) for s in shapes]
+    row = torch.zeros(8, device=dev)
+    outs = ([torch.empty_like(p) for p in ps],
+            [torch.empty_like(p) for p in ps])
+    at = [(1, 3), (1, 4), (1, 5), (1, 6)]
+    hyper = (0.9, 5e-4, 0.25, None)
+    side = torch.cuda.Stream()
+    sgd = _captured(lambda: HK.fused_sgd_update_multi_dev(
+        ps, vs, gs, row, at, [hyper] * 4, out=outs), side)
+    x = _randn(rng, 128, 4096, dev=dev)
+    key = torch.zeros(2, dtype=torch.int32, device=dev)
+    dropped = []
+    drop = _captured(lambda: dropped.append(HK.dropout(x, key, 0.5)), side)
+    y = dropped[-1]
+    for n, (bs, lrs) in enumerate(((100, (0.03, 0.01, 0.02, 0.5)),
+                                   (37, (0.1, 0.2, 0.3, 0.4)),
+                                   (1, (1e-3,) * 4))):
+        host = numpy.zeros(8, numpy.float32)
+        host[0] = bs
+        host[1] = numpy.float32(1) / numpy.float32(bs)
+        host[3:7] = lrs
+        row.copy_(torch.as_tensor(host))
+        k = prng.PRNGKey(n + 1)
+        key.copy_(torch.as_tensor(k.view(numpy.int32)))
+        sgd.replay()
+        drop.replay()
+        torch.cuda.synchronize()
+        want = HK.fused_sgd_update_multi(
+            ps, vs, gs, [(bs, lr) + hyper for lr in lrs])
+        for got, ref in zip(outs[0] + outs[1], want[0] + want[1]):
+            assert torch.equal(got, ref)
+        assert torch.equal(y, HK.dropout(x, k, 0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers", ["momentum", "adam"])
+def test_captured_step_short_last_minibatch_equals_eager(layers):
+    """The captured train step over an epoch whose last minibatch is
+    short (inv_batch and the adam step read from the operand table at
+    each replay) equals the eager step with the host operands, step by
+    step, bit for bit."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.compiled import ScanProgram
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.loader.base import TRAIN
+    from veles_tpu_torch.samples import mnist
+    dev = _card()
+    prng.reset()
+    prng.seed_all(3)
+    root.__dict__.pop("mnist", None)
+    first = {"type": "all2all_tanh", "output_sample_shape": 32,
+             "learning_rate": 0.03, "momentum": 0.9}
+    if layers == "adam":
+        first = dict(first, solver="adam", momentum=None,
+                     lr_policy={"policy": "exp", "gamma": 0.9})
+    root.mnist.update({
+        "loader": {"minibatch_size": 50, "n_train": 130, "n_valid": 50},
+        "decision": {"max_epochs": 1},
+        "layers": [first, {"type": "softmax", "output_sample_shape": 10,
+                           "learning_rate": 0.03, "momentum": 0.9}]})
+    wf = mnist.build(fused=True)
+    root.__dict__.pop("mnist", None)
+    wf.initialize(device=dev)
+    runner, loader = wf._fused_runner, wf.loader
+    idx, mask = loader.plan_arrays(TRAIN)
+    assert mask[-1].sum() == 30
+    data = loader.original_data.devmem
+    labels = loader.original_labels.devmem
+    program = ScanProgram(runner, dev, [data], [labels], len(idx), 50,
+                          len(idx), 1)
+    ops = [runner.host_operands(int(m.sum()), s) for s, m in enumerate(mask)]
+    program.train.load(idx, mask, program.operand_tables(ops))
+    program.train.reset()
+    state = runner.state
+    for s in range(len(idx)):
+        program.replay_train()
+        i = torch.as_tensor(idx[s], device=dev).long()
+        state, _ = runner._step(state, data[i], labels[i],
+                                torch.as_tensor(mask[s], device=dev),
+                                ops[s])
+        torch.cuda.synchronize()
+        for got, want in zip(program.state, state):
+            for k in want:
+                assert torch.equal(got[k], want[k]), (s, k)
+    assert program.captured

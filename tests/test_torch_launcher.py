@@ -1,0 +1,225 @@
+"""The port's Launcher and CLI (``python -m veles_tpu_torch``) on the CPU:
+the reference's launcher and CLI tests (``tests/test_launcher.py``,
+``tests/test_snapshot.py::test_cli_*``) run on the port, in process
+(``main(argv)`` with ``-d cpu``), and one run in a subprocess that shows
+the CLI never imports ``jax`` or ``veles_tpu``."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy
+import pytest
+import torch
+
+from veles_tpu_torch import __main__ as cli
+from veles_tpu_torch import prng
+from veles_tpu_torch.config import root
+from veles_tpu_torch.launcher import Launcher
+from veles_tpu_torch.samples import mnist
+
+ROOT = Path(__file__).resolve().parent.parent
+SMALL = ["root.mnist.loader.n_train=230", "root.mnist.loader.n_valid=70",
+         "root.mnist.loader.minibatch_size=50",
+         "root.mnist.decision.max_epochs=2",
+         "root.mnist.layers=[{'type': 'all2all_tanh', "
+         "'output_sample_shape': 16, 'learning_rate': 0.03, "
+         "'momentum': 0.9}, {'type': 'softmax', 'output_sample_shape': 10, "
+         "'learning_rate': 0.03, 'momentum': 0.9}]"]
+
+
+@pytest.fixture(autouse=True)
+def _fresh():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    prng.reset()
+    root.__dict__.pop("mnist", None)
+    yield
+    root.__dict__.pop("mnist", None)
+    torch.set_num_threads(threads)
+
+
+def _cli(*argv):
+    assert cli.main(["veles_tpu_torch.samples.mnist", "-d", "cpu",
+                     "--random-seed", "3", "--no-stats", *argv,
+                     *SMALL]) == 0
+    return cli.main.workflow, cli.main.launcher
+
+
+def _weights(wf):
+    return [numpy.array(v.mem) for f in wf.forwards if f.has_params
+            for v in (f.weights, f.bias)]
+
+
+def test_cli_trains_writes_result_and_snapshots(tmp_path):
+    result = tmp_path / "r.json"
+    wf, launcher = _cli("--epoch-scan", "1", "--snapshot-dir",
+                        str(tmp_path / "snaps"), "--result-file", str(result))
+    assert wf.is_finished and int(wf.loader.epoch_number) == 2
+    summary = json.loads(result.read_text())
+    assert summary["workflow"] == "mnist"
+    assert summary["best_epoch"] == wf.decision.best_epoch
+    assert summary["last_epoch_metrics"]["validation"]["n_err"] == \
+        wf.decision.epoch_metrics[-1]["validation"]["n_err"]
+    assert summary["snapshot"].startswith(str(tmp_path / "snaps"))
+    assert launcher.driver is not None
+
+
+def test_cli_overrides_after_flags_and_config_file(tmp_path):
+    config = tmp_path / "cfg.py"
+    config.write_text("root.mnist.decision.fail_iterations = 7\n")
+    argv = ["veles_tpu_torch.samples.mnist", str(config), "-d", "cpu",
+            "--no-stats", "--graph", str(tmp_path / "g.dot")] + SMALL
+    assert cli.main(argv) == 0
+    wf = cli.main.workflow
+    assert wf.decision.fail_iterations == 7
+    assert (tmp_path / "g.dot").read_text().startswith("digraph")
+
+
+def test_cli_dump_config_list_units_version(capsys):
+    assert cli.main(["veles_tpu_torch.samples.mnist", "--dump-config",
+                     "root.mnist.loader.n_train=123"]) == 0
+    assert "123" in capsys.readouterr().out
+    assert cli.main(["x", "--list-units"]) == 0
+    units = capsys.readouterr().out.split()
+    assert "veles_tpu_torch.ops.decision.DecisionGD" in units
+    with pytest.raises(SystemExit):
+        cli.main(["x", "--version"])
+    assert capsys.readouterr().out.startswith("veles_tpu_torch ")
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--distributed"], "Queue 2, item 5"),
+    (["--num-processes", "2"], "Queue 2, item 5"),
+    (["--optimize", "3"], "Queue 2, item 4"),
+    (["--web-status", "0"], "Queue 2, item 6"),
+    (["--serve", "0"], "Queue 2a, item 13"),
+    (["--serve-slots", "4"], "Queue 2a, item 13"),
+    (["--serve-health"], "Queue 2a, item 13"),
+    (["--events-file", "e.jsonl"], "Queue 2a, item 14"),
+    (["--fault-plan", "p.json"], "Queue 2a, item 15"),
+])
+def test_unported_flags_raise_before_training(flags, item):
+    with pytest.raises(NotImplementedError, match=item):
+        cli.main(["veles_tpu_torch.samples.mnist", "-d", "cpu", *flags])
+    assert "mnist" not in root.__dict__ or "layers" not in root.mnist
+
+
+def test_every_reference_flag_parses():
+    """Any reference command line parses: every reference option is an
+    option here too."""
+    from veles_tpu.__main__ import build_argparser as reference
+    ours = {a for action in cli.build_argparser()._actions
+            for a in action.option_strings}
+    theirs = {a for action in reference()._actions
+              for a in action.option_strings}
+    assert theirs <= ours
+
+
+def test_evaluate_leaves_weights_bit_equal(tmp_path):
+    snaps = tmp_path / "snaps"
+    trained, _ = _cli("--snapshot-dir", str(snaps))
+    before = _weights(trained)
+    prng.reset()
+    root.__dict__.pop("mnist", None)
+    wf, launcher = _cli("--snapshot", "auto", "--snapshot-dir", str(snaps),
+                        "--evaluate")
+    assert launcher.restored_payload["epoch"] == 2
+    assert wf.fused_step.train_steps == trained.fused_step.train_steps
+    for a, b in zip(before, _weights(wf)):
+        numpy.testing.assert_array_equal(a, b)
+    assert len(wf.decision.epoch_metrics) == 3
+    assert wf.decision.best_epoch == trained.decision.best_epoch
+
+
+def test_snapshot_auto_fresh_run_and_missing_snapshotter(tmp_path):
+    wf, launcher = _cli("--snapshot", "auto", "--snapshot-dir",
+                        str(tmp_path / "empty"))
+    assert launcher.restored_payload is None and wf.is_finished
+    prng.reset()
+    root.__dict__.pop("mnist", None)
+    with pytest.raises(ValueError, match="snapshotter"):
+        _cli("--snapshot", "auto")
+
+
+def _tiny(seed=1, max_epochs=2):
+    prng.reset()
+    prng.seed_all(seed)
+    root.mnist.update({
+        "loader": {"minibatch_size": 50, "n_train": 210, "n_valid": 100},
+        "decision": {"max_epochs": max_epochs, "fail_iterations": 5},
+        "layers": [{"type": "all2all_tanh", "output_sample_shape": 16,
+                    "learning_rate": 0.03, "momentum": 0.9},
+                   {"type": "softmax", "output_sample_shape": 10,
+                    "learning_rate": 0.03, "momentum": 0.9}]})
+    return mnist.build(fused=True)
+
+
+@pytest.mark.parametrize("scan", [0, 1])
+def test_device_step_time_never_moves_weights(scan):
+    wf = _tiny()
+    Launcher(wf, stats=False, epoch_scan=scan, device="cpu").boot()
+    runner = wf._fused_runner
+    before = [{k: v.clone() for k, v in e.items()} for e in runner.state]
+    step = runner.measure_device_step_time(iters=2)
+    if scan:
+        assert step is None        # the CPU captures nothing to replay
+    else:
+        assert step is not None and 0.0 < step < 60.0
+    wf.print_stats()
+    for a, b in zip(before, runner.state):
+        for k in a:
+            assert torch.equal(a[k], b[k])
+
+
+def test_profile_writes_chrome_trace(tmp_path):
+    wf = _tiny(max_epochs=1)
+    Launcher(wf, stats=False, profile=str(tmp_path / "trace"),
+             device="cpu").boot()
+    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    assert trace["traceEvents"]
+
+
+def test_launcher_refuses_distributed_and_scan_with_evaluate():
+    wf = _tiny()
+    with pytest.raises(NotImplementedError, match="Queue 2, item 5"):
+        Launcher(wf, distributed=True)
+    with pytest.raises(ValueError, match="TRAINING driver"):
+        Launcher(wf, stats=False, evaluate=True, epoch_scan=1,
+                 device="cpu").boot()
+
+
+def test_cli_needs_a_card_or_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in ([], ["-d", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["veles_tpu_torch.samples.mnist", "--no-stats",
+                      *device, *SMALL])
+
+
+def test_python_m_runs_without_jax(tmp_path):
+    """``python -m veles_tpu_torch`` end to end in a fresh process on the
+    CPU, the epoch scan writing snapshots and a result file: it never
+    imports jax or the JAX package."""
+    code = ("import runpy, sys\n"
+            "sys.argv = ['veles_tpu_torch'] + sys.argv[1:]\n"
+            "try:\n"
+            "    runpy.run_module('veles_tpu_torch', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert not e.code, e.code\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'veles_tpu')"
+            " or m.startswith(('jax.', 'jaxlib', 'veles_tpu.')))\n"
+            "print('BAD=%s' % bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-c", code, "veles_tpu_torch.samples.mnist",
+         "-d", "cpu", "--epoch-scan", "1", "--snapshot-dir",
+         str(tmp_path / "d"), "--result-file", str(tmp_path / "r.json"),
+         *SMALL], env=env, cwd=tmp_path, capture_output=True, text=True,
+        timeout=240)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "BAD=[]" in out.stdout, out.stdout
+    assert json.loads((tmp_path / "r.json").read_text())["best_epoch"] >= 1
+    assert os.path.exists(tmp_path / "d" / "mnist_current.pickle.gz")

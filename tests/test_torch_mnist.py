@@ -210,12 +210,23 @@ def test_snapshot_state_roundtrip_weights():
 
 
 def test_unported_options_raise():
+    """Queue 2a items 1 (lr policies), 2 (grad_accum) and 4 (the
+    Snapshotter) are ported: those options build and run; items 5 (the
+    plotters) and 8 (loader sharding) still raise, naming their item."""
     _seed(prng)
-    _configure(root)
-    with pytest.raises(NotImplementedError, match="Queue 2a, item 2"):
-        mnist.build(fused=True, grad_accum=2).initialize(device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 2a, item 1"):
-        mnist.build(layers=[{"type": "softmax", "output_sample_shape": 10,
-                             "lr_policy": {"name": "exp"}}])
-    with pytest.raises(NotImplementedError, match="Queue 2a, item 4"):
-        mnist.build(snapshotter_config={"prefix": "x"})
+    _configure(root, n_train=200, n_valid=100, max_epochs=1, hidden=16)
+    accum = mnist.build(fused=True, grad_accum=2)
+    accum.initialize(device="cpu")
+    assert accum._fused_runner.grad_accum == 2
+    policy = mnist.build(layers=[{"type": "softmax",
+                                  "output_sample_shape": 10,
+                                  "lr_policy": {"policy": "exp"}}])
+    assert policy.gds[0]._live_lrs(1)[0] < policy.gds[0]._live_lrs(0)[0]
+    snap = mnist.build(snapshotter_config={"prefix": "x"})
+    assert snap.snapshotter.prefix == "x"
+    with pytest.raises(NotImplementedError, match="Queue 2a, item 5"):
+        mnist.build().link_plotters()
+    with pytest.raises(NotImplementedError, match="Queue 2a, item 8"):
+        mnist.build().loader.shard(0, 2)
+    with pytest.raises(NotImplementedError, match="Queue 2a, item 8"):
+        mnist.build().loader.shard_spmd(0, 2)

@@ -80,6 +80,16 @@ def test_non_sgd_slice_modules_are_checked():
             "veles_tpu_torch.input_joiner"} <= names
 
 
+def test_harness_modules_are_checked():
+    """The run harness — the CLI, launcher, snapshotter, lr policies and
+    the epoch-scan driver — is among the modules the two checks above
+    import and parse."""
+    names = set(_modules())
+    assert {"veles_tpu_torch.__main__", "veles_tpu_torch.launcher",
+            "veles_tpu_torch.snapshotter", "veles_tpu_torch.epoch_driver",
+            "veles_tpu_torch.ops.lr_adjust"} <= names
+
+
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     import numpy
     from veles_tpu_torch import prng
@@ -97,6 +107,8 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
                                          wine)
     from veles_tpu_torch.serving import LMEngine
     from veles_tpu_torch.workflow import Workflow
+    from veles_tpu_torch import __main__ as cli
+    from veles_tpu_torch.launcher import Launcher
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     prng.reset()
     root.mnist.update({"loader": {"n_train": 200, "n_valid": 100}})
@@ -143,7 +155,12 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
                  lambda: mnist_rbm.train(),
                  lambda: lines.train(),
                  lambda: video_ae.train(),
-                 lambda: trainer_state_from_jax({"time": 0})):
+                 lambda: trainer_state_from_jax({"time": 0}),
+                 lambda: Launcher(mnist.build(), stats=False).boot(),
+                 lambda: cli.main(["veles_tpu_torch.samples.mnist",
+                                   "--no-stats"]),
+                 lambda: cli.main(["veles_tpu_torch.samples.mnist",
+                                   "--no-stats", "--epoch-scan", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")

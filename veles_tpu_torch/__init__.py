@@ -12,6 +12,9 @@ Ported so far: the paged LM serving path (``serving.LMEngine`` over
 kernels), MNIST-FC training through the Unit/Workflow graph (the fused
 SGD kernel) and AlexNet training through ``samples.imagenet`` (the LRN
 and dropout kernels); the kernels' wrappers are ``ops.hopper_kernels``.
+``python -m veles_tpu_torch <sample>`` runs a sample through the
+Launcher (snapshots, lr policies, ``grad_accum``), on the graph loop or
+the epoch scan's captured CUDA-graph steps (``--epoch-scan``).
 """
 
 __version__ = "0.1.0"

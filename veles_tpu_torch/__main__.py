@@ -1,0 +1,308 @@
+"""CLI entry point: ``python -m veles_tpu_torch <workflow> [<config>] [flags]``.
+
+Port of ``veles_tpu/__main__.py`` (ref: veles/__main__.py::Main +
+scripts/velescli.py [H], SURVEY §2.1, §3.1):
+
+- ``<workflow>`` is a Python file or a dotted module (e.g.
+  ``veles_tpu_torch.samples.mnist``) exposing ``run(load, main)``;
+- ``<config>`` is a Python file executed against the port's ``root``;
+- any argument of the form ``root.a.b=value`` overrides a config leaf
+  (before or after the flags);
+- ``--random-seed`` seeds every named PRNG stream; ``-s/--snapshot``
+  resumes from a snapshot file or ``auto``;
+- ``-d/--device`` is ``cuda`` (the default: the card, raising without
+  one) or ``cpu``.
+
+The parser takes every flag of the reference, so any reference command
+line parses.  The flags whose machinery is not ported yet (multi-process
+runs, the genetic optimizer, the web status, serving after training,
+the event sinks, fault plans) raise NotImplementedError naming their
+ROADMAP item before anything is built or trained.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import importlib.util
+import json
+import os
+import sys
+
+#: flags not ported yet: (argparse dest, its default, ROADMAP item)
+_UNPORTED = (
+    ("distributed", False, "Queue 2, item 5"),
+    ("coordinator_address", None, "Queue 2, item 5"),
+    ("num_processes", None, "Queue 2, item 5"),
+    ("process_id", None, "Queue 2, item 5"),
+    ("optimize", None, "Queue 2, item 4"),
+    ("web_status", None, "Queue 2, item 6"),
+    ("web_status_url", None, "Queue 2, item 6"),
+    ("web_status_host", "127.0.0.1", "Queue 2, item 6"),
+    ("events_file", None, "Queue 2a, item 14"),
+    ("events_mongo", None, "Queue 2a, item 14"),
+    ("fault_plan", None, "Queue 2a, item 15"),
+)
+
+
+def build_argparser():
+    parser = argparse.ArgumentParser(
+        prog="veles_tpu_torch",
+        description="the PyTorch/CUDA port of the dataflow ML framework")
+    parser.add_argument("workflow",
+                        help="workflow .py file or dotted module with "
+                             "run(load, main)")
+    parser.add_argument("config", nargs="?", default=None,
+                        help="config .py file executed against `root`")
+    parser.add_argument("overrides", nargs="*", metavar="root.a.b=value",
+                        help="config leaf overrides")
+    parser.add_argument("--random-seed", type=int, default=None,
+                        help="seed every named PRNG stream")
+    parser.add_argument("-s", "--snapshot", default=None,
+                        help="resume from this snapshot file, or 'auto' "
+                             "for the latest snapshot in the workflow's "
+                             "snapshot directory (a fresh run if none)")
+    parser.add_argument("-d", "--device", default=None,
+                        choices=("cuda", "cpu"),
+                        help="where to run (default: the CUDA card; "
+                             "without one the run raises)")
+    parser.add_argument("--epoch-scan", type=int, default=0, nargs="?",
+                        const=1, metavar="CHUNK",
+                        help="train through the epoch-scan driver: a "
+                             "captured step replayed a minibatch, the "
+                             "metrics read every CHUNK epochs (bare flag: "
+                             "1); snapshot granularity = CHUNK epochs")
+    parser.add_argument("--stream-window", type=int, default=0,
+                        metavar="MINIBATCHES",
+                        help="stream the dataset through device memory "
+                             "in windows of this many minibatches, the "
+                             "next window staged while the card trains "
+                             "(implies --epoch-scan)")
+    parser.add_argument("--stage-ahead", type=int, default=1,
+                        metavar="N",
+                        help="with --stream-window: windows staged ahead "
+                             "(default 1, double buffering)")
+    parser.add_argument("--no-fused", action="store_true",
+                        help="run the unit graph without the fused step")
+    parser.add_argument("--precision", default=None,
+                        choices=("float32", "default", "bfloat16"),
+                        help="matmul/conv precision mode "
+                             "(ops.functional.set_matmul_precision)")
+    parser.add_argument("--distributed", action="store_true",
+                        help="join a multi-process run (not ported yet)")
+    parser.add_argument("--coordinator-address", default=None)
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
+    parser.add_argument("--snapshot-dir", default=None,
+                        help="enable periodic snapshotting into this dir")
+    parser.add_argument("--snapshot-interval", type=int, default=1)
+    parser.add_argument("--snapshot-compression", default="gz",
+                        choices=("", "gz", "bz2", "xz"))
+    parser.add_argument("--snapshot-keep-last", type=int, default=0,
+                        help="retain only the newest N epoch snapshots "
+                             "(0 keeps all; *_current always survives)")
+    parser.add_argument("--result-file", default=None,
+                        help="write a JSON run summary here")
+    parser.add_argument("--dump-config", action="store_true",
+                        help="print the effective config tree and exit")
+    parser.add_argument("--graph", default=None, metavar="FILE.dot",
+                        help="write the unit graph as graphviz dot")
+    parser.add_argument("--no-stats", action="store_true",
+                        help="skip the per-unit run-time table")
+    parser.add_argument("--profile", default=None, metavar="DIR",
+                        help="write a torch.profiler Chrome trace of the "
+                             "run to DIR/trace.json")
+    parser.add_argument("--optimize", default=None, metavar="GENERATIONS",
+                        help="genetic hyperparameter search (not ported "
+                             "yet)")
+    parser.add_argument("--list-units", action="store_true",
+                        help="list registered unit classes and exit")
+
+    class _Version(argparse.Action):
+        def __call__(self, parser, *unused_a, **unused_k):
+            import veles_tpu_torch
+            print("veles_tpu_torch %s" % veles_tpu_torch.__version__)
+            parser.exit()
+
+    parser.add_argument("--version", action=_Version, nargs=0,
+                        help="print the framework version and exit")
+    parser.add_argument("--events-file", default=None, metavar="FILE",
+                        help="structured log events (not ported yet)")
+    parser.add_argument("--events-mongo", default=None, metavar="ADDR",
+                        help="structured log events (not ported yet)")
+    parser.add_argument("--evaluate", action="store_true",
+                        help="evaluation only: one pass over every set "
+                             "with weight updates gated off (pair with "
+                             "--snapshot)")
+    parser.add_argument("--web-status", type=int, default=None,
+                        metavar="PORT", help="(not ported yet)")
+    parser.add_argument("--web-status-url", default=None, metavar="URL",
+                        help="(not ported yet)")
+    parser.add_argument("--web-status-host", default="127.0.0.1",
+                        metavar="HOST", help="(not ported yet)")
+    # serving after training: every --serve* flag of the reference,
+    # with its type and default (not ported yet: ROADMAP Queue 2a,
+    # item 13)
+    for flag, kind, default in _SERVE_FLAGS:
+        if kind is bool:
+            parser.add_argument(flag, action="store_true",
+                                help="(not ported yet)")
+        elif flag == "--serve-telemetry":
+            parser.add_argument(flag, type=float, default=default,
+                                nargs="?", const=1.0,
+                                help="(not ported yet)")
+        else:
+            parser.add_argument(flag, type=kind, default=default,
+                                help="(not ported yet)")
+    parser.add_argument("--fault-plan", default=None, metavar="FILE",
+                        help="(not ported yet)")
+    return parser
+
+
+#: the reference's serving flags: (flag, type, default)
+_SERVE_FLAGS = (
+    ("--serve", int, None), ("--serve-batch", int, 0),
+    ("--serve-slots", int, 0), ("--serve-prefix-cache", int, 0),
+    ("--serve-prefill-chunk", int, 0), ("--serve-spec-k", int, 0),
+    ("--serve-paged-kv", int, 0), ("--serve-megastep", int, 0),
+    ("--serve-attn-kernel", str, "off"), ("--serve-tp", int, 0),
+    ("--serve-replicas", int, 1), ("--serve-router", str, "metrics"),
+    ("--serve-health", bool, False), ("--serve-hedge", float, 0.0),
+    ("--serve-retries", int, 0), ("--serve-model-dir", str, None),
+    ("--serve-canary", int, 1), ("--serve-publish-interval", float, 5.0),
+    ("--serve-canary-watch", float, 2.0), ("--serve-trace", str, "off"),
+    ("--serve-trace-last", int, 256), ("--serve-telemetry", float, 0.0),
+    ("--serve-slo", str, None), ("--serve-no-auto-rollback", bool, False),
+)
+
+
+def refuse_unported(args):
+    """NotImplementedError naming the ROADMAP item of the first flag
+    given that is not ported yet (before anything is built)."""
+    unported = list(_UNPORTED) + [
+        (flag[2:].replace("-", "_"), default, "Queue 2a, item 13")
+        for flag, _, default in _SERVE_FLAGS]
+    for dest, default, item in unported:
+        if getattr(args, dest) != default:
+            raise NotImplementedError(
+                "--%s is not ported yet: ROADMAP %s"
+                % (dest.replace("_", "-"), item))
+
+
+def load_workflow_module(spec):
+    """Import the workflow module from a file path or dotted name."""
+    if spec.endswith(".py") or os.path.sep in spec:
+        name = os.path.splitext(os.path.basename(spec))[0]
+        mod_spec = importlib.util.spec_from_file_location(name, spec)
+        if mod_spec is None:
+            raise ImportError("cannot load workflow file %r" % spec)
+        module = importlib.util.module_from_spec(mod_spec)
+        sys.modules[name] = module
+        mod_spec.loader.exec_module(module)
+        return module
+    return importlib.import_module(spec)
+
+
+def exec_config_file(path):
+    """Execute a config file against the port's root (reference
+    semantics)."""
+    from veles_tpu_torch.config import root, Tune
+    namespace = {"root": root, "Tune": Tune, "__file__": path}
+    with open(path, "r", encoding="utf-8") as f:
+        code = compile(f.read(), path, "exec")
+    exec(code, namespace)
+
+
+def main(argv=None):
+    """Parse ``argv`` and run; returns the exit code.  The last run's
+    workflow and launcher are kept as ``main.workflow`` and
+    ``main.launcher`` for callers in the same process."""
+    parser = build_argparser()
+    # positionals that trail optionals are collected by hand
+    # ("prog wf --flag x root.a.b=1"): argparse rejects them otherwise
+    args, extra = parser.parse_known_args(argv)
+    bad = [t for t in extra if t.startswith("-") or "=" not in t]
+    if bad:
+        parser.error("unrecognized arguments: %s" % " ".join(bad))
+    args.overrides = list(args.overrides) + extra
+    refuse_unported(args)
+
+    if args.list_units:
+        from veles_tpu_torch.units import UnitRegistry
+        import veles_tpu_torch.ops  # noqa: F401 — populate the registry
+        for name in sorted(UnitRegistry.units):
+            print(name)
+        return 0
+
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root, parse_override
+    from veles_tpu_torch.launcher import Launcher
+
+    if args.random_seed is not None:
+        prng.seed_all(args.random_seed)
+    if args.precision:
+        from veles_tpu_torch.ops import functional as F
+        F.set_matmul_precision(args.precision)
+
+    # overrides swallowed into `config` when no config file is given
+    overrides = list(args.overrides)
+    if args.config and "=" in args.config and not os.path.exists(args.config):
+        overrides.insert(0, args.config)
+        args.config = None
+    if args.config:
+        exec_config_file(args.config)
+    for token in overrides:
+        parse_override(token)
+
+    if args.dump_config:
+        root.print_()
+        return 0
+
+    module = load_workflow_module(args.workflow)
+    if not hasattr(module, "run"):
+        raise SystemExit("workflow module %r has no run(load, main)"
+                         % args.workflow)
+    holder = {}
+
+    def load(workflow_cls, **kwargs):
+        if args.snapshot_dir:
+            # flags win over a config file's snapshotter section, key by
+            # key
+            cfg_snap = dict(kwargs.get("snapshotter_config") or {})
+            cfg_snap.update({
+                "directory": args.snapshot_dir,
+                "interval": args.snapshot_interval,
+                "compression": args.snapshot_compression,
+            })
+            if args.snapshot_keep_last:
+                cfg_snap["keep_last"] = args.snapshot_keep_last
+            kwargs["snapshotter_config"] = cfg_snap
+        kwargs.setdefault("fused", not args.no_fused)
+        wf = workflow_cls(None, **kwargs)
+        holder["workflow"] = wf
+        return wf
+
+    def main_():
+        wf = holder["workflow"]
+        if args.graph:
+            wf.generate_graph(args.graph)
+        launcher = Launcher(
+            wf, snapshot=args.snapshot, stats=not args.no_stats,
+            profile=args.profile, evaluate=args.evaluate,
+            epoch_scan=args.epoch_scan, stream_window=args.stream_window,
+            stage_ahead=args.stage_ahead,
+            device=None if args.device == "cuda" else args.device)
+        holder["launcher"] = launcher
+        launcher.boot()
+
+    module.run(load, main_)
+    main.workflow = holder.get("workflow")
+    main.launcher = launcher = holder.get("launcher")
+    if launcher is not None and args.result_file:
+        with open(args.result_file, "w", encoding="utf-8") as f:
+            json.dump(launcher.result_summary(), f, indent=2, default=str)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

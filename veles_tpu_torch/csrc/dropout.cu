@@ -20,7 +20,12 @@
 // The backward is this kernel on dy with the same key: no mask is stored.
 //
 // The key comes in as two uint32 values by value (a host value; nothing is
-// read back from the card).  Bound on the H100: operations — about 80
+// read back from the card), or, through dropout_dev_f32, as a pointer to two
+// uint32 words on the card that each thread reads before its loop: the same
+// kernel body, so the mask is bit-equal for an equal key.  That entry is for
+// a CUDA graph, which keeps by-value parameters as they were at capture; the
+// Pallas kernel takes its seed as a scalar-prefetch operand the same way
+// (pallas_kernels.py:260).  Bound on the H100: operations — about 80
 // integer operations an element for the hash against 8 bytes moved.
 // Design: one element per thread per grid-stride step, rotations by
 // __funnelshift_l, the key schedule in registers.
@@ -72,9 +77,15 @@ __device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
     return x0 ^ x1;
 }
 
+// key: null for the by-value words k0, k1, else two words on the card.
 __global__ void dropout_kernel(const float* __restrict__ x,
                                float* __restrict__ out, int64_t n,
-                               uint32_t k0, uint32_t k1, float keep) {
+                               uint32_t k0, uint32_t k1, float keep,
+                               const uint32_t* __restrict__ key) {
+    if (key != nullptr) {
+        k0 = key[0];
+        k1 = key[1];
+    }
     const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;
     for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -115,7 +126,18 @@ int dropout_f32(const float* x, float* out, long long n, unsigned k0,
                 unsigned k1, float keep, void* stream) {
     if (n <= 0) return 0;
     dropout_kernel<<<(unsigned)grid_for(n), kThreads, 0,
-                     (cudaStream_t)stream>>>(x, out, n, k0, k1, keep);
+                     (cudaStream_t)stream>>>(x, out, n, k0, k1, keep,
+                                             nullptr);
+    return (int)cudaGetLastError();
+}
+
+// dropout_f32 with the key read on the card from key[0], key[1].
+int dropout_dev_f32(const float* x, float* out, long long n,
+                    const unsigned* key, float keep, void* stream) {
+    if (n <= 0) return 0;
+    if (key == nullptr) return (int)cudaErrorInvalidValue;
+    dropout_kernel<<<(unsigned)grid_for(n), kThreads, 0,
+                     (cudaStream_t)stream>>>(x, out, n, 0u, 0u, keep, key);
     return (int)cudaGetLastError();
 }
 

@@ -39,16 +39,30 @@
 // (its ragged tail, n % 4 elements, by its first block); any other tensor
 // takes the scalar loop alone.  Each element is read and written once.
 //
-// Plain C interface (loaded with ctypes): the entry point launches on the
-// given stream and returns cudaGetLastError() as an int.
+// Device operands (fused_sgd_update_multi_dev_f32): the same kernel, with
+// each tensor's inv_batch and lr read from a device fp32 array (the training
+// step's operand row) at two offsets the table holds in place of the two
+// values; the other five scalars stay by value.  The arithmetic is the
+// by-value entry's, so equal values give bit-equal results.  A CUDA graph
+// keeps a kernel's parameters as they were at capture: a captured step whose
+// batch size or learning rate changes from replay to replay must read them
+// from the card, and this entry does (the reference's Pallas kernel reads
+// them from its SMEM operand the same way, pallas_kernels.py:79).
+//
+// Plain C interface (loaded with ctypes): the entry points launch on the
+// given stream and return cudaGetLastError() as an int.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+// inv_batch and lr by value, or (the device-operand entry) as offsets into
+// the table's operand array: the same 8 bytes either way.
 struct SgdScalars {
-    float inv_batch, lr, momentum, weight_decay, l1, one_minus_l1, clip;
+    union { float inv_batch; unsigned inv_batch_at; };
+    union { float lr; unsigned lr_at; };
+    float momentum, weight_decay, l1, one_minus_l1, clip;
 };
 
 // One tensor of a launch: 80 bytes.
@@ -68,9 +82,10 @@ constexpr int kThreads = 256;
 constexpr int kUnroll = 4;                   // float4 groups (or floats) a thread
 constexpr int kChunk = kThreads * kUnroll;   // units a block
 
-// The launch's parameter: 4 + 49 * 4 + 48 * 80 = 4040 bytes, inside the
-// 4 KB that a kernel parameter may take on every CUDA 12 toolkit.
+// The launch's parameter: 8 + 4 + 49 * 4 + 48 * 80 = 4048 bytes, inside
+// the 4 KB that a kernel parameter may take on every CUDA 12 toolkit.
 struct SgdTable {
+    const float* operands;                   // device operand array, or null
     int count;
     int block_start[kMaxTensors + 1];        // prefix of per-tensor blocks
     SgdTensor t[kMaxTensors];
@@ -105,6 +120,8 @@ __device__ __forceinline__ void sgd_element(float p, float v, float g,
 
 // Block b updates chunk (b - block_start[k]) of tensor k, the k with
 // block_start[k] <= b < block_start[k + 1].
+// kDevice: inv_batch and lr come from table.operands at the tensor's offsets.
+template <bool kDevice>
 __global__ void __launch_bounds__(kThreads)
 fused_sgd_kernel(const __grid_constant__ SgdTable table) {
     const int b = blockIdx.x;
@@ -116,7 +133,11 @@ fused_sgd_kernel(const __grid_constant__ SgdTable table) {
         else hi = mid - 1;
     }
     const SgdTensor& t = table.t[k];
-    const SgdScalars s = t.s;
+    SgdScalars s = t.s;
+    if (kDevice) {
+        s.inv_batch = table.operands[t.s.inv_batch_at];
+        s.lr = table.operands[t.s.lr_at];
+    }
     const long long first =
         (long long)(b - table.block_start[k]) * kChunk + threadIdx.x;
     if (t.vec) {
@@ -180,15 +201,14 @@ extern "C" {
 // The most tensors one launch takes; a longer list is split by the caller.
 int fused_sgd_max_tensors() { return kMaxTensors; }
 
-// Update `count` tensors in one launch.  ptrs holds five pointers a tensor
-// (p, v, g, p_out, v_out), n the lengths, scalars seven a tensor (inv_batch,
-// lr, momentum, weight_decay, l1, one_minus_l1, clip).  Tensors of length 0
-// take no block; a list of only those launches nothing.
-int fused_sgd_update_multi_f32(const unsigned long long* ptrs,
-                               const long long* n, const float* scalars,
-                               int count, void* stream) {
+// Fill the table from the caller's arrays and launch; operands null means
+// the scalars hold inv_batch and lr by value, else their offsets.
+static int launch_table(const unsigned long long* ptrs, const long long* n,
+                        const float* scalars, const unsigned* at,
+                        const float* operands, int count, void* stream) {
     if (count < 0 || count > kMaxTensors) return (int)cudaErrorInvalidValue;
     SgdTable table = {};
+    table.operands = operands;
     long long blocks = 0;
     for (int k = 0; k < count; ++k) {
         SgdTensor& t = table.t[table.count];
@@ -201,7 +221,18 @@ int fused_sgd_update_multi_f32(const unsigned long long* ptrs,
         t.p_out = reinterpret_cast<float*>(pk[3]);
         t.v_out = reinterpret_cast<float*>(pk[4]);
         t.n = n[k];
-        t.s = SgdScalars{sk[0], sk[1], sk[2], sk[3], sk[4], sk[5], sk[6]};
+        t.s.momentum = sk[2];
+        t.s.weight_decay = sk[3];
+        t.s.l1 = sk[4];
+        t.s.one_minus_l1 = sk[5];
+        t.s.clip = sk[6];
+        if (operands) {
+            t.s.inv_batch_at = at[2 * k];
+            t.s.lr_at = at[2 * k + 1];
+        } else {
+            t.s.inv_batch = sk[0];
+            t.s.lr = sk[1];
+        }
         t.vec = ((pk[0] | pk[1] | pk[2] | pk[3] | pk[4]) % 16) == 0;
         const long long units = t.vec ? t.n / 4 : t.n;
         const long long tb = units > 0 ? (units + kChunk - 1) / kChunk : 1;
@@ -212,9 +243,34 @@ int fused_sgd_update_multi_f32(const unsigned long long* ptrs,
     }
     if (table.count == 0) return 0;
     table.block_start[table.count] = (int)blocks;
-    fused_sgd_kernel<<<(unsigned)blocks, kThreads, 0,
-                       (cudaStream_t)stream>>>(table);
+    if (operands)
+        fused_sgd_kernel<true><<<(unsigned)blocks, kThreads, 0,
+                                 (cudaStream_t)stream>>>(table);
+    else
+        fused_sgd_kernel<false><<<(unsigned)blocks, kThreads, 0,
+                                  (cudaStream_t)stream>>>(table);
     return (int)cudaGetLastError();
+}
+
+// Update `count` tensors in one launch.  ptrs holds five pointers a tensor
+// (p, v, g, p_out, v_out), n the lengths, scalars seven a tensor (inv_batch,
+// lr, momentum, weight_decay, l1, one_minus_l1, clip).  Tensors of length 0
+// take no block; a list of only those launches nothing.
+int fused_sgd_update_multi_f32(const unsigned long long* ptrs,
+                               const long long* n, const float* scalars,
+                               int count, void* stream) {
+    return launch_table(ptrs, n, scalars, nullptr, nullptr, count, stream);
+}
+
+// The same, with tensor k's inv_batch and lr read on the card from
+// operands[at[2k]] and operands[at[2k + 1]] (scalars' first two values a
+// tensor are ignored).  operands must not be null.
+int fused_sgd_update_multi_dev_f32(const unsigned long long* ptrs,
+                                   const long long* n, const float* scalars,
+                                   const unsigned* at, const float* operands,
+                                   int count, void* stream) {
+    if (operands == nullptr) return (int)cudaErrorInvalidValue;
+    return launch_table(ptrs, n, scalars, at, operands, count, stream);
 }
 
 const char* fused_sgd_error_string(int code) {

@@ -11,11 +11,12 @@ handling: every minibatch is padded to ``max_minibatch_size`` with a 0/1
 The mask lives on the loader's device and is built once per distinct
 live count, so the only host→device traffic of a FullBatchLoader
 minibatch is its index vector (a RecordsLoader uploads its gathered
-minibatch too).  ``local_minibatch_size`` and ``local_chunk`` are the
-reference's unsharded forms (the identity); multi-process sharding
-(``shard``, ``shard_spmd``) and the epoch-scan hooks (``plan_arrays``,
-and ``gather_window`` but on the record and LMDB loaders, which have
-it) are not ported yet and raise (ROADMAP Queue 2a, items 8 and 3).
+minibatch too).  The epoch scan reads a set's plan as matrices
+(``plan_arrays``) and a streaming loader's samples a window at a time
+(``gather_window``: the record, LMDB and full-batch loaders have it).
+``local_minibatch_size`` and ``local_chunk`` are the reference's
+unsharded forms (the identity); multi-process sharding (``shard``,
+``shard_spmd``) is not ported yet and raises (ROADMAP Queue 2a, item 8).
 """
 
 from __future__ import annotations
@@ -76,13 +77,45 @@ class Loader(Unit):
         """Fill minibatch Vectors for the given global sample indices."""
         raise NotImplementedError
 
-    # -- not ported yet ------------------------------------------------------
+    # -- window gather (streaming epoch-scan) --------------------------------
     def gather_window(self, indices):
-        _not_ported("the streaming epoch-scan (gather_window)", 3)
+        """``(data float32 (len(indices), ...), labels int32 or None)``
+        for a FLAT vector of global sample indices, on the host — the
+        streaming epoch scan's staging hook, with the same conversion
+        ``fill_minibatch`` applies.  Loaders with a random-access backing
+        store override it; this one has none."""
+        raise NotImplementedError(
+            "%s cannot gather sample windows — the streaming epoch-scan "
+            "needs a loader with a random-access backing store "
+            "(RecordsLoader, LMDBLoader, any FullBatchLoader)"
+            % type(self).__name__)
+
+    @property
+    def can_gather_windows(self):
+        """True when this loader implements :meth:`gather_window`."""
+        return type(self).gather_window is not Loader.gather_window
 
     def plan_arrays(self, wanted_cls=None, order=None):
-        _not_ported("the epoch-scan plan (plan_arrays)", 3)
+        """(idx, mask) matrices of one set from a minibatch plan — the
+        epoch scan's input: the loader's CURRENT plan, or ``order``.
+        Returns (None, None) when the set is empty."""
+        if wanted_cls is None:
+            wanted_cls = TRAIN
+        if order is None:
+            order = self._order
+        idx, mask = [], []
+        for cls, chunk, actual in order:
+            if cls != wanted_cls:
+                continue
+            idx.append(chunk)
+            m = numpy.zeros(len(chunk), numpy.float32)
+            m[:actual] = 1.0
+            mask.append(m)
+        if not idx:
+            return None, None
+        return numpy.stack(idx), numpy.stack(mask)
 
+    # -- not ported yet ------------------------------------------------------
     def shard(self, process_index, process_count):
         _not_ported("loader sharding (shard)", 8)
 

@@ -47,13 +47,32 @@ class FullBatchLoader(Loader):
             return
         data = self.original_data.mem
         begin, end = self.class_offsets()[2]   # TRAIN slice
-        if end <= begin:
-            raise NotImplementedError(
-                "%s: a loader with no train data needs a fitted normalizer "
-                "from a snapshot, and the Snapshotter is not ported yet "
-                "(ROADMAP Queue 2a, item 4)" % self.name)
-        self.normalizer.analyze(data[begin:end])
+        if end > begin:
+            self.normalizer.analyze(data[begin:end])
+        elif not self.normalizer.is_fitted:
+            # no train data (a serving or evaluation loader): the
+            # statistics must come from training time — a snapshot
+            # restored after initialize delivers the fitted normalizer
+            # (load_state_dict applies it), and run() refuses without
+            self._normalize_deferred = True
+            return
         self.original_data.reset(self.normalizer.apply(data))
+
+    def load_state_dict(self, d):
+        super().load_state_dict(d)
+        if getattr(self, "_normalize_deferred", False) and \
+                self.normalizer.is_fitted:
+            self.original_data.reset(
+                self.normalizer.apply(self.original_data.mem))
+            self._normalize_deferred = False
+
+    def run(self):
+        if getattr(self, "_normalize_deferred", False):
+            raise ValueError(
+                "%s: normalizer is unfitted and there is no train data to "
+                "fit it on; restore a snapshot holding the fitted "
+                "normalizer or pass a pre-fitted one" % self.name)
+        super().run()
 
     def create_minibatch_data(self):
         mb = self.max_minibatch_size
@@ -70,3 +89,17 @@ class FullBatchLoader(Loader):
         if self.has_labels:
             self.minibatch_labels.assign_device(
                 torch.index_select(self.original_labels.devmem, 0, idx))
+
+    def gather_window(self, indices):
+        """The streaming epoch scan's staging hook: the rows of the
+        (normalized) host dataset at ``indices`` as float32, and their
+        labels.  A full-batch loader never needs windows — its data is
+        on the device already — but having the hook keeps
+        ``--stream-window`` runnable on every sample and gives the
+        streaming path a like-for-like check against the chunked one."""
+        data = numpy.asarray(self.original_data.mem)[indices].astype(
+            numpy.float32)
+        labels = (numpy.ascontiguousarray(
+            numpy.asarray(self.original_labels.mem)[indices], numpy.int32)
+            if self.has_labels else None)
+        return data, labels

@@ -203,8 +203,7 @@ class RecordsLoader(Loader):
     def gather_window(self, indices):
         """Window-sized gather straight off the mapped pages — the
         streaming epoch-scan staging hook (same fused gather+convert as
-        the per-minibatch path, so numerics match exactly; the scan
-        itself is ROADMAP Queue 2a item 3)."""
+        the per-minibatch path, so numerics match exactly)."""
         return self._gather(numpy.ascontiguousarray(indices, numpy.int32))
 
     def _fetch(self, indices, worker=False):

@@ -19,6 +19,9 @@ class RandomCropFlip(TransformUnit):
     """Config: crop (H, W) output size; flip enables horizontal mirroring."""
 
     STOCHASTIC = True
+    #: a captured step hands this layer its draws, made on the host from
+    #: its key (:meth:`step_operand`), in place of the key
+    DRAWS_OPERAND = True
 
     def __init__(self, workflow, crop=(24, 24), flip=True, **kwargs):
         super().__init__(workflow, **kwargs)
@@ -31,6 +34,11 @@ class RandomCropFlip(TransformUnit):
 
     def transform(self, x, rng=None, train=False):
         return F.random_crop_flip(x, rng, self.crop, self.flip, train), None
+
+    def step_operand(self, key, shape):
+        """The draws the key makes for an input of ``shape``: (b, oh +
+        ow) int64 source rows then columns (``F.crop_draws``)."""
+        return F.crop_draws(key, shape, self.crop, self.flip)
 
     def backward(self, x, y, err, saved, rng=None):
         return F.random_crop_flip_backward(x, err, rng, self.crop,

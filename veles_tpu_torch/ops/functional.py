@@ -653,15 +653,23 @@ def dropout(x, rng, rate, train):
 
 
 # -------------------------------------------------------------- augmentation
-def _crop_index(x, rng, out_hw, flip, train):
-    """Per-sample (rows (b, oh), cols (b, ow)) source indices, or None for
-    the eval center crop.  The draws — ``split(rng, 3)``, ``randint`` for
-    the tops and lefts, ``bernoulli(0.5)`` for the mirrors — are made on
-    the host from the key, jax's bits exactly, and uploaded once."""
-    if not train or rng is None:
-        return None
+class CropDraws(tuple):
+    """A random crop's draws already made: (rows (b, oh), cols (b, ow))
+    int64 source indices on the input's device — what a crop layer takes
+    in place of its key inside a captured step (the epoch scan makes
+    them on the host from the same key, a chunk at a time)."""
+
+    __slots__ = ()
+
+
+def crop_draws(rng, shape, out_hw, flip):
+    """The crop's per-sample source indices for an input of ``shape``
+    (b, h, w, ...) under the host key ``rng``, as one (b, oh + ow) int64
+    numpy array (rows then cols).  The draws — ``split(rng, 3)``,
+    ``randint`` for the tops and lefts, ``bernoulli(0.5)`` for the
+    mirrors — are jax's bits exactly."""
     from veles_tpu_torch import prng
-    b, h, w = x.shape[:3]
+    b, h, w = shape[:3]
     oh, ow = out_hw
     k_top, k_left, k_flip = prng.split(rng, 3)
     tops = prng.randint(k_top, (b,), 0, h - oh + 1).astype(numpy.int64)
@@ -670,9 +678,21 @@ def _crop_index(x, rng, out_hw, flip, train):
     if flip:
         mirror = prng.bernoulli(k_flip, 0.5, (b,))
         cols[mirror] = cols[mirror][:, ::-1]
-    index = numpy.concatenate([tops[:, None] + numpy.arange(oh)[None, :],
-                               lefts[:, None] + cols], axis=1)
-    index = torch.as_tensor(index).to(x.device)
+    return numpy.concatenate([tops[:, None] + numpy.arange(oh)[None, :],
+                              lefts[:, None] + cols], axis=1)
+
+
+def _crop_index(x, rng, out_hw, flip, train):
+    """Per-sample (rows (b, oh), cols (b, ow)) source indices, or None for
+    the eval center crop: ``rng`` itself when it is :class:`CropDraws`,
+    else :func:`crop_draws` of the host key, uploaded once."""
+    if not train or rng is None:
+        return None
+    if isinstance(rng, CropDraws):
+        return rng
+    oh = out_hw[0]
+    index = torch.as_tensor(crop_draws(rng, x.shape, out_hw, flip)).to(
+        x.device)
     return index[:, :oh], index[:, oh:]
 
 
@@ -835,21 +855,49 @@ def sgd_update(param, velocity, grad, batch_size, learning_rate, momentum,
                             gradient_clip)
 
 
-def sgd_update_multi(items):
+def sgd_update_multi(items, operands=None, out=None):
     """:func:`sgd_update` of several tensors at once: ``items`` are
     (param, velocity, grad, scalars) with each tensor's own ``scalars``
     (``(batch_size, learning_rate, momentum, weight_decay, l1_vs_l2,
     gradient_clip)``), one launch of the fused kernel on the card for the
-    whole list.  Returns [(new param, new velocity), ...]."""
-    from veles_tpu_torch.ops.hopper_kernels import fused_sgd_update_multi
-    return list(zip(*fused_sgd_update_multi(*zip(*items))))
+    whole list.  With ``operands`` (a step's 1-D fp32 operand row on the
+    tensors' device) the first two scalars are instead the offsets of
+    the tensor's inv_batch and learning rate in it, which the kernel
+    reads on the card.  ``out``: (new params, new velocities) to write.
+    Returns [(new param, new velocity), ...]."""
+    from veles_tpu_torch.ops import hopper_kernels as HK
+    params, velocities, grads, scalars = zip(*items)
+    if operands is None and out is None:
+        new = HK.fused_sgd_update_multi(params, velocities, grads, scalars)
+    elif operands is None:
+        new = HK.fused_sgd_update_multi(params, velocities, grads, scalars,
+                                        out=out)
+    else:
+        new = HK.fused_sgd_update_multi_dev(
+            params, velocities, grads, operands,
+            [s[:2] for s in scalars], [s[2:] for s in scalars], out=out)
+    return list(zip(*new))
+
+
+def _as_scalar(value, like):
+    """``value`` as an fp32 0-dim tensor on ``like``'s device: a tensor
+    passes through, a number becomes a fill (no host copy)."""
+    if isinstance(value, torch.Tensor):
+        return value
+    return torch.full((), float(numpy.float32(value)), dtype=like.dtype,
+                      device=like.device)
 
 
 def _effective_grad(param, grad, batch_size, weight_decay, l1_vs_l2,
                     gradient_clip):
     """Batch-normalized gradient + mixed L1/L2 decay + optional clipping
-    — the preprocessing the adaptive solvers share."""
-    g = grad / float(max(int(batch_size), 1))
+    — the preprocessing the adaptive solvers share.  ``batch_size`` is an
+    int, or an fp32 0-dim tensor already holding max(batch, 1) (a step
+    operand); either way the division is a true fp32 division, as the
+    reference's."""
+    if not isinstance(batch_size, torch.Tensor):
+        batch_size = _as_scalar(max(int(batch_size), 1), grad)
+    g = grad / batch_size
     if gradient_clip is not None and gradient_clip > 0.0:
         g = g.clamp(-gradient_clip, gradient_clip)
     if weight_decay:
@@ -865,7 +913,9 @@ def adaptive_update(param, velocity, accum, grad, batch_size, learning_rate,
     ``adaptive_update``): ``momentum`` (the fused kernel; ``accum``
     ignored), ``adagrad``, ``adadelta`` (velocity doubles as E[Δx²]) and
     ``adam`` (β1 = momentum, None meaning 0.9; β2 = rho; bias correction
-    from the global ``step``).  Returns ``(param, velocity, accum)``."""
+    from the global ``step``).  ``batch_size``, ``learning_rate`` and
+    ``step`` may be fp32 0-dim tensors on the param's device (a step's
+    operands).  Returns ``(param, velocity, accum)``."""
     if solver == "momentum":
         new_p, new_v = sgd_update(param, velocity, grad, batch_size,
                                   learning_rate,
@@ -887,8 +937,7 @@ def adaptive_update(param, velocity, accum, grad, batch_size, learning_rate,
     if solver == "adam":
         beta1 = 0.9 if momentum is None else momentum
         # fp32 step on the param's device (a fill, not a host copy)
-        t = torch.full((), float(step) + 1.0, dtype=param.dtype,
-                       device=param.device)
+        t = _as_scalar(step, param) + 1.0
         velocity = beta1 * velocity + (1.0 - beta1) * g
         accum = rho * accum + (1.0 - rho) * g * g
         m_hat = velocity / (1.0 - beta1 ** t)

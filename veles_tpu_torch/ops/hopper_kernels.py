@@ -25,7 +25,11 @@ fused_sgd_update / fused_sgd_update_multi
     (a training step's, each with its own scalars) from a table passed
     by value, one elementwise pass with 16-byte accesses; the outputs are
     new tensors, because the fused training step holds an update
-    pending until Decision commits it.  One count: ``fused_sgd_update``.
+    pending until Decision commits it (or ``out=`` tensors: the epoch
+    scan's static state buffers).  ``fused_sgd_update_multi_dev`` is the
+    same kernel reading each tensor's inv_batch and learning rate from
+    a device row when it runs — what a captured CUDA-graph step
+    replays.  One count: ``fused_sgd_update``.
 lrn_forward / lrn_backward
     Replace ``veles_tpu/ops/pallas_kernels.py:226`` (``_lrn_fwd``) and
     ``:244`` (``_lrn_bwd_vjp``).  Bound: bytes (12 and 16 bytes an
@@ -38,7 +42,9 @@ dropout
     Replaces ``veles_tpu/ops/pallas_kernels.py:272`` (dropout).  Bound:
     operations (the threefry hash, ~80 integer operations an element).
     The mask is jax's ``bernoulli(key, 1 - rate, shape)`` bit for bit;
-    the backward is the same kernel on dy with the same key.
+    the backward is the same kernel on dy with the same key.  A key
+    given as two int32 words on the card is read there when the kernel
+    runs (a captured step's entry).
 bernoulli
     No TPU kernel's port: ``jax.random.bernoulli(key, p)`` for a tensor
     ``p``, which the reference leaves to XLA (the RBM's visible
@@ -115,7 +121,7 @@ def serving_kernels_supported(paged, n_heads, kv_heads, head_dim, page,
 
 # ---------------------------------------------------------- fused SGD update
 def _sgd_scalars(batch_size, learning_rate, momentum=0.0, weight_decay=0.0,
-                 l1_vs_l2=0.0, gradient_clip=None):
+                 l1_vs_l2=0.0, gradient_clip=None, inv_batch=None):
     """The update's scalars as fp32 values, rounded the way JAX rounds
     them: inv_batch = float32(1) / float32(max(batch, 1)) in fp32, the
     others rounded to fp32 once from Python doubles (``1 - l1_vs_l2``
@@ -130,7 +136,9 @@ def _sgd_scalars(batch_size, learning_rate, momentum=0.0, weight_decay=0.0,
     f32 = numpy.float32
     clip = (f32(gradient_clip) if gradient_clip is not None
             and gradient_clip > 0.0 else f32(0.0))
-    return {"inv_batch": f32(1.0) / f32(max(int(batch_size), 1)),
+    if inv_batch is None:
+        inv_batch = f32(1.0) / f32(max(int(batch_size), 1))
+    return {"inv_batch": f32(inv_batch),
             "lr": f32(learning_rate), "momentum": f32(momentum),
             "weight_decay": f32(weight_decay), "l1": f32(l1_vs_l2),
             "one_minus_l1": f32(1.0 - float(l1_vs_l2)), "clip": clip}
@@ -150,8 +158,14 @@ def fused_sgd_update_ref(param, velocity, grad, batch_size, learning_rate,
     order of operations (see ``csrc/fused_sgd.cu``); each fused
     multiply-add is one float64 multiply-add rounded once to fp32.
     Returns new (param, velocity)."""
-    s = _sgd_scalars(batch_size, learning_rate, momentum, weight_decay,
-                     l1_vs_l2, gradient_clip)
+    return _sgd_apply_ref(param, velocity, grad, _sgd_scalars(
+        batch_size, learning_rate, momentum, weight_decay, l1_vs_l2,
+        gradient_clip))
+
+
+def _sgd_apply_ref(param, velocity, grad, s):
+    """The kernel's element function on tensors, for the scalars ``s``
+    (:func:`_sgd_scalars`)."""
     wd, clip = float(s["weight_decay"]), float(s["clip"])
     if wd:
         decay = _fma(param, float(s["one_minus_l1"]),
@@ -544,6 +558,9 @@ def _sgd_lib():
         lib.fused_sgd_update_multi_f32.argtypes = [ptr] * 3 + [ctypes.c_int,
                                                                ptr]
         lib.fused_sgd_update_multi_f32.restype = ctypes.c_int
+        lib.fused_sgd_update_multi_dev_f32.argtypes = [ptr] * 5 + [
+            ctypes.c_int, ptr]
+        lib.fused_sgd_update_multi_dev_f32.restype = ctypes.c_int
         lib.fused_sgd_max_tensors.restype = ctypes.c_int
         lib.fused_sgd_error_string.argtypes = [ctypes.c_int]
         lib.fused_sgd_error_string.restype = ctypes.c_char_p
@@ -565,49 +582,54 @@ def fused_sgd_update_multi_ref(params, velocities, grads, scalars):
     return [p for p, _ in out], [v for _, v in out]
 
 
-def fused_sgd_update_multi(params, velocities, grads, scalars):
-    """Momentum-SGD updates of several tensors in ONE kernel launch (up
-    to :data:`SGD_MAX_TENSORS` tensors a launch; a longer list takes
-    several, each counted).  ``scalars[i]`` is tensor i's update
-    arguments as :func:`fused_sgd_update` takes them after its three
-    tensors: ``(batch_size, learning_rate[, momentum[, weight_decay[,
-    l1_vs_l2[, gradient_clip]]]])`` — a weight and its bias may differ
-    (the bias's own learning rate and weight decay).  Returns NEW
-    tensors (new params, new velocities) as lists, leaving the inputs
-    untouched.
-
-    CPU tensors run :func:`fused_sgd_update_multi_ref`; CUDA tensors
-    launch the kernel (fp32, equal shapes per tensor, contiguous, all on
-    one card — anything else raises).  A tensor whose pointers are not
-    16-byte aligned takes the kernel's scalar loop.  Scalars are Python
-    or numpy numbers, passed by value in the launch's table, so nothing
-    is copied to or read back from the card."""
+def _sgd_check(params, velocities, grads, n_scalars, out):
+    """The lists as lists, their lengths and shapes checked; ``out``
+    (new params, new velocities) checked against them when given."""
     params, velocities, grads = list(params), list(velocities), list(grads)
-    scalars = list(scalars)
-    if not (len(params) == len(velocities) == len(grads) == len(scalars)):
+    if not (len(params) == len(velocities) == len(grads) == n_scalars):
         raise ValueError("%d params, %d velocities, %d grads and %d scalar "
                          "sets differ in number" % (
                              len(params), len(velocities), len(grads),
-                             len(scalars)))
+                             n_scalars))
     for p, v, g in zip(params, velocities, grads):
         if p.shape != v.shape or p.shape != g.shape:
             raise ValueError("param %s, velocity %s and grad %s differ in "
                              "shape" % (tuple(p.shape), tuple(v.shape),
                                         tuple(g.shape)))
-    values = [_sgd_scalars(*s) for s in scalars]
-    if not params or not _on_card(*params, *velocities, *grads):
-        return fused_sgd_update_multi_ref(params, velocities, grads,
-                                          scalars)
-    for name, ts in (("param", params), ("velocity", velocities),
-                     ("grad", grads)):
+    if out is not None:
+        out = [list(o) for o in out]
+        if len(out) != 2 or any(len(o) != len(params) for o in out):
+            raise ValueError("out must be (new params, new velocities), "
+                             "one of each per param")
+        for o, p in zip(out[0] + out[1], params + params):
+            if o.shape != p.shape:
+                raise ValueError("out %s for param %s" % (
+                    tuple(o.shape), tuple(p.shape)))
+    return params, velocities, grads, out
+
+
+def _sgd_outputs(params, velocities, out):
+    """The output lists: ``out``'s tensors, or new ones."""
+    if out is not None:
+        return out
+    return ([torch.empty_like(p) for p in params],
+            [torch.empty_like(v) for v in velocities])
+
+
+def _sgd_launch(params, velocities, grads, new_p, new_v, values, at=None,
+                operands=None):
+    """Launch the kernel over the lists, SGD_MAX_TENSORS at a time:
+    by value, or (``operands`` given) with each tensor's inv_batch and lr
+    read on the card from ``operands`` at ``at[i]``."""
+    tensors = (("param", params), ("velocity", velocities), ("grad", grads),
+               ("out", new_p + new_v))
+    for name, ts in tensors:
         for t in ts:
             if t.dtype != torch.float32:
                 raise TypeError("%s must be float32 (got %s)"
                                 % (name, t.dtype))
             if not t.is_contiguous():
                 raise ValueError("%s must be contiguous" % name)
-    new_p = [torch.empty_like(p) for p in params]
-    new_v = [torch.empty_like(v) for v in velocities]
     lib = _sgd_lib()
     device = params[0].device
     with torch.cuda.device(device):
@@ -622,15 +644,114 @@ def fused_sgd_update_multi(params, velocities, grads, scalars):
                                   numpy.int64)
             scal = numpy.array([values[i][k] for i in part
                                 for k in _SGD_ORDER], numpy.float32)
-            code = lib.fused_sgd_update_multi_f32(
-                ptrs.ctypes.data, lengths.ctypes.data, scal.ctypes.data,
-                len(part), stream)
+            if operands is None:
+                code = lib.fused_sgd_update_multi_f32(
+                    ptrs.ctypes.data, lengths.ctypes.data, scal.ctypes.data,
+                    len(part), stream)
+            else:
+                offsets = numpy.array([at[i] for i in part], numpy.uint32)
+                code = lib.fused_sgd_update_multi_dev_f32(
+                    ptrs.ctypes.data, lengths.ctypes.data, scal.ctypes.data,
+                    offsets.ctypes.data, operands.data_ptr(), len(part),
+                    stream)
             if code:
                 raise RuntimeError("fused_sgd_update launch failed: %s"
                                    % lib.fused_sgd_error_string(code)
                                    .decode())
             if lengths.any():
                 fused_sgd_update.launches += 1
+
+
+def fused_sgd_update_multi(params, velocities, grads, scalars, out=None):
+    """Momentum-SGD updates of several tensors in ONE kernel launch (up
+    to :data:`SGD_MAX_TENSORS` tensors a launch; a longer list takes
+    several, each counted).  ``scalars[i]`` is tensor i's update
+    arguments as :func:`fused_sgd_update` takes them after its three
+    tensors: ``(batch_size, learning_rate[, momentum[, weight_decay[,
+    l1_vs_l2[, gradient_clip]]]])`` — a weight and its bias may differ
+    (the bias's own learning rate and weight decay).  Returns (new
+    params, new velocities) as lists, leaving the inputs untouched: NEW
+    tensors, or ``out``'s (two lists of tensors of the params' shapes,
+    which must not overlap the inputs).
+
+    CPU tensors run :func:`fused_sgd_update_multi_ref`; CUDA tensors
+    launch the kernel (fp32, equal shapes per tensor, contiguous, all on
+    one card — anything else raises).  A tensor whose pointers are not
+    16-byte aligned takes the kernel's scalar loop.  Scalars are Python
+    or numpy numbers, passed by value in the launch's table, so nothing
+    is copied to or read back from the card."""
+    scalars = list(scalars)
+    params, velocities, grads, out = _sgd_check(params, velocities, grads,
+                                                len(scalars), out)
+    values = [_sgd_scalars(*s) for s in scalars]
+    if not params or not _on_card(*params, *velocities, *grads):
+        new_p, new_v = fused_sgd_update_multi_ref(params, velocities, grads,
+                                                  scalars)
+        return _into(new_p, new_v, out)
+    new_p, new_v = _sgd_outputs(params, velocities, out)
+    _sgd_launch(params, velocities, grads, new_p, new_v, values)
+    return new_p, new_v
+
+
+def _into(new_p, new_v, out):
+    """The plain versions' results, copied into ``out`` when given."""
+    if out is None:
+        return new_p, new_v
+    for dst, src in zip(out[0] + out[1], new_p + new_v):
+        dst.copy_(src)
+    return out
+
+
+def fused_sgd_update_multi_dev_ref(params, velocities, grads, operands, at,
+                                   scalars):
+    """Plain PyTorch version of :func:`fused_sgd_update_multi_dev`: each
+    tensor's inv_batch and lr read from the (CPU) ``operands`` at
+    ``at[i]``, then :func:`fused_sgd_update_ref`'s arithmetic."""
+    new_p, new_v = [], []
+    for p, v, g, (ib, lr), (m, wd, l1, clip) in zip(params, velocities,
+                                                   grads, at, scalars):
+        s = _sgd_scalars(1, float(operands[lr]), m, wd, l1, clip,
+                         inv_batch=numpy.float32(float(operands[ib])))
+        p2, v2 = _sgd_apply_ref(p, v, g, s)
+        new_p.append(p2)
+        new_v.append(v2)
+    return new_p, new_v
+
+
+def fused_sgd_update_multi_dev(params, velocities, grads, operands, at,
+                               scalars, out=None):
+    """:func:`fused_sgd_update_multi` with each tensor's inv_batch
+    (= 1/max(batch, 1) in fp32) and learning rate read on the card: they
+    are ``operands[at[i][0]]`` and ``operands[at[i][1]]``, ``operands``
+    a 1-D fp32 tensor on the tensors' device (a training step's operand
+    row), which the wrapper never reads on the host.  ``scalars[i]`` is
+    ``(momentum, weight_decay, l1_vs_l2, gradient_clip)`` by value.  The
+    kernel and its arithmetic are the by-value entry's, so equal values
+    give bit-equal results; the launch is one of ``fused_sgd_update``'s.
+    A CUDA graph that captures this call reads the operands as they are
+    at each replay.  CPU tensors run
+    :func:`fused_sgd_update_multi_dev_ref`."""
+    scalars, at = list(scalars), [tuple(int(i) for i in a) for a in at]
+    params, velocities, grads, out = _sgd_check(params, velocities, grads,
+                                                len(scalars), out)
+    if len(at) != len(params):
+        raise ValueError("%d offset pairs for %d params"
+                         % (len(at), len(params)))
+    if operands.dim() != 1 or operands.dtype != torch.float32:
+        raise ValueError("operands must be a 1-D float32 tensor")
+    if any(not 0 <= i < operands.numel() for a in at for i in a):
+        raise ValueError("an offset lies outside the %d operands"
+                         % operands.numel())
+    if not params or not _on_card(operands, *params, *velocities, *grads):
+        new_p, new_v = fused_sgd_update_multi_dev_ref(
+            params, velocities, grads, operands, at, scalars)
+        return _into(new_p, new_v, out)
+    if not operands.is_contiguous():
+        raise ValueError("operands must be contiguous")
+    values = [_sgd_scalars(1, 0.0, *s) for s in scalars]
+    new_p, new_v = _sgd_outputs(params, velocities, out)
+    _sgd_launch(params, velocities, grads, new_p, new_v, values, at=at,
+                operands=operands)
     return new_p, new_v
 
 
@@ -840,10 +961,14 @@ class LRN(torch.autograd.Function):
 
 # ------------------------------------------------------------------ dropout
 def _as_key(key):
-    """A (2,) uint32 key from a key or an int seed (``PRNGKey(seed)``)."""
+    """A (2,) uint32 key from a key, an int seed (``PRNGKey(seed)``) or a
+    CPU tensor of the two words (any integer type; its bits are read)."""
     from veles_tpu_torch import prng
     if isinstance(key, (int, numpy.integer)):
         return prng.PRNGKey(int(key))
+    if isinstance(key, torch.Tensor):
+        key = numpy.asarray([int(w) & 0xFFFFFFFF for w in key.tolist()],
+                            numpy.uint32)
     key = numpy.asarray(key)
     if key.shape != (2,) or key.dtype != numpy.uint32:
         raise ValueError("a threefry key is two uint32 words (got %s %s)"
@@ -878,6 +1003,9 @@ def _dropout_lib():
         lib.dropout_f32.argtypes = [ptr, ptr, ctypes.c_longlong, u32, u32,
                                     ctypes.c_float, ptr]
         lib.dropout_f32.restype = ctypes.c_int
+        lib.dropout_dev_f32.argtypes = [ptr, ptr, ctypes.c_longlong, ptr,
+                                        ctypes.c_float, ptr]
+        lib.dropout_dev_f32.restype = ctypes.c_int
         lib.bernoulli_f32.argtypes = [ptr, ptr, ctypes.c_longlong, u32, u32,
                                       ptr]
         lib.bernoulli_f32.restype = ctypes.c_int
@@ -896,23 +1024,42 @@ def dropout(x, key, rate):
     <= 0 returns x.  The backward is this function on dy with the same
     key.
 
+    ``key`` may also be a tensor of two 32-bit words (int32 or int64, the
+    bits of the key) on ``x``'s device: on the card the kernel then reads
+    the words there when it runs (the entry a captured CUDA graph
+    replays with a new key each time), which the wrapper never reads on
+    the host; the mask is the by-value entry's bit for bit.
+
     CPU tensors run :func:`dropout_ref`; CUDA tensors launch the kernel
-    (fp32, contiguous — anything else raises); the key goes by value."""
+    (fp32, contiguous — anything else raises); a host key goes by
+    value."""
     if rate <= 0.0:
         return x
-    if not _on_card(x):
+    on_device_key = isinstance(key, torch.Tensor)
+    if not _on_card(x, *((key,) if on_device_key else ())):
         return dropout_ref(x, key, rate)
     if x.dtype != torch.float32:
         raise TypeError("x must be float32 (got %s)" % x.dtype)
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    k0, k1 = (int(w) for w in _as_key(key))
     out = torch.empty_like(x)
     lib = _dropout_lib()
+    keep = float(numpy.float32(1.0 - rate))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.dropout_f32(x.data_ptr(), out.data_ptr(), x.numel(), k0,
-                               k1, float(numpy.float32(1.0 - rate)), stream)
+        if on_device_key:
+            if (key.dtype != torch.int32 or key.numel() != 2
+                    or not key.is_contiguous()):
+                raise ValueError("a key on the card is two contiguous "
+                                 "int32 words (got %s %s)"
+                                 % (key.dtype, tuple(key.shape)))
+            code = lib.dropout_dev_f32(x.data_ptr(), out.data_ptr(),
+                                       x.numel(), key.data_ptr(), keep,
+                                       stream)
+        else:
+            k0, k1 = (int(w) for w in _as_key(key))
+            code = lib.dropout_f32(x.data_ptr(), out.data_ptr(), x.numel(),
+                                   k0, k1, keep, stream)
     if code:
         raise RuntimeError("dropout launch failed: %s"
                            % lib.dropout_error_string(code).decode())
@@ -1215,7 +1362,8 @@ def launch_counts():
 
 __all__ = ["NEG_INF", "serving_kernels_supported", "fused_sgd_update",
            "fused_sgd_update_ref", "fused_sgd_update_multi",
-           "fused_sgd_update_multi_ref", "SGD_MAX_TENSORS", "lrn_forward",
+           "fused_sgd_update_multi_ref", "fused_sgd_update_multi_dev",
+           "fused_sgd_update_multi_dev_ref", "SGD_MAX_TENSORS", "lrn_forward",
            "lrn_forward_ref",
            "lrn_backward", "lrn_backward_ref", "LRN", "LRN_MAX_CHANNELS",
            "dropout", "dropout_ref", "bernoulli", "bernoulli_ref",

@@ -13,8 +13,8 @@ bit-equal weights in both packages.  Weightless units (pooling, LRN,
 dropout, augmentation) derive from ``TransformUnit``; their one generic
 gradient unit, ``TransformGD``, calls the forward unit's explicit
 ``backward`` where the reference takes ``jax.vjp`` of the transform.
-Not ported yet, and raising when asked for: lr policies (ROADMAP Queue
-2a, item 1).
+Learning-rate policies (``lr_policy``, ``bias_lr_policy``) are host
+functions of the global step (:mod:`veles_tpu_torch.ops.lr_adjust`).
 """
 
 from __future__ import annotations
@@ -323,11 +323,27 @@ class GradientDescentBase(AcceleratedUnit):
         self.time = 0
 
     def set_lr_policy(self, lr_policy, bias_lr_policy=None):
-        if lr_policy is not None or bias_lr_policy is not None:
-            raise NotImplementedError(
-                "learning-rate policies are not ported yet: ROADMAP "
-                "Queue 2a, item 1")
-        self.lr_policy = self.bias_lr_policy = None
+        """Attach lr(t) decay policies (see
+        :mod:`veles_tpu_torch.ops.lr_adjust`); the bias takes the weight
+        policy unless it has its own."""
+        from veles_tpu_torch.ops.lr_adjust import make_policy
+        self.lr_policy = lr_policy
+        self.bias_lr_policy = bias_lr_policy
+        self._lr_fn = make_policy(lr_policy)
+        self._lr_bias_fn = (make_policy(bias_lr_policy)
+                            if bias_lr_policy is not None else self._lr_fn)
+
+    def _live_lrs(self, step):
+        """(lr_weights, lr_bias) at global train step ``step``: the
+        configured constants, or the policies' fp32 values.  Weight and
+        bias policies are independent (either may be unset)."""
+        if self._lr_fn is None and self._lr_bias_fn is None:
+            return self.learning_rate, self.learning_rate_bias
+        lr_w = (self._lr_fn(self.learning_rate, int(step))
+                if self._lr_fn is not None else self.learning_rate)
+        lr_b = (self._lr_bias_fn(self.learning_rate_bias, int(step))
+                if self._lr_bias_fn is not None else self.learning_rate_bias)
+        return lr_w, lr_b
 
     def initialize(self, device=None, **kwargs):
         fwd = self.forward
@@ -367,18 +383,22 @@ class GradientDescentBase(AcceleratedUnit):
             x, y, err_output, entry["w"], entry.get("b"), saved)
         return err_in, (grad_w, grad_b)
 
-    def update_fused(self, entry, grads, batch_size, step=0):
+    def update_fused(self, entry, grads, batch_size, lrs, step=0):
+        """The fused chain's update of one layer under an adaptive
+        solver: ``batch_size``, ``lrs`` (lr_w, lr_b) and ``step`` as
+        numbers or fp32 0-dim tensors (a step's operands)."""
         grad_w, grad_b = grads
-        return self.entry_from(self.update_fn(
+        return self.entry_from(self._adaptive(
             entry["w"], entry.get("b"), entry["vw"], entry.get("vb"),
-            grad_w, grad_b, batch_size, step,
+            grad_w, grad_b, batch_size, lrs, step,
             entry.get("aw"), entry.get("ab")))
 
-    def sgd_items_fused(self, entry, grads, batch_size):
+    def sgd_items_fused(self, entry, grads, batch_size, lrs):
         """:meth:`sgd_items` of a fused state entry and its grads."""
         grad_w, grad_b = grads
         return self.sgd_items(entry["w"], entry.get("b"), entry["vw"],
-                              entry.get("vb"), grad_w, grad_b, batch_size)
+                              entry.get("vb"), grad_w, grad_b, batch_size,
+                              lrs)
 
     def sgd_finish_fused(self, entry, results):
         """The new fused state entry from this unit's results of a joint
@@ -442,20 +462,23 @@ class GradientDescentBase(AcceleratedUnit):
                 self.accum_bias.assign_device(entry["ab"])
 
     def sgd_items(self, weights, bias, vel_w, vel_b, grad_w, grad_b,
-                  batch_size):
+                  batch_size, lrs):
         """The momentum solver's updates as (param, velocity, grad,
         scalars) entries for :func:`F.sgd_update_multi` — the weights',
         then the bias's (its own learning rate and weight decay) — or
-        None under another solver."""
+        None under another solver.  ``batch_size`` and ``lrs`` (lr_w,
+        lr_b) fill the first two scalars as given: numbers, or the
+        offsets of inv_batch and the rates in a step's operand row."""
         if self.solver != "momentum":
             return None
         momentum = 0.0 if self.momentum is None else self.momentum
+        lr_w, lr_b = lrs
         items = [(weights, vel_w, grad_w,
-                  (batch_size, self.learning_rate, momentum,
+                  (batch_size, lr_w, momentum,
                    self.weight_decay, self.l1_vs_l2, self.gradient_clip))]
         if grad_b is not None:
             items.append((bias, vel_b, grad_b,
-                          (batch_size, self.learning_rate_bias, momentum,
+                          (batch_size, lr_b, momentum,
                            self.weight_decay_bias, self.l1_vs_l2,
                            self.gradient_clip)))
         return items
@@ -485,15 +508,23 @@ class GradientDescentBase(AcceleratedUnit):
     def update_fn(self, weights, bias, vel_w, vel_b, grad_w, grad_b,
                   batch_size, step=0, acc_w=None, acc_b=None):
         """New (w, b, vw, vb, aw, ab); ``batch_size`` and ``step`` are
-        Python ints (nothing is staged to the device per update).  Under
+        Python ints, the learning rates this unit's at ``step``.  Under
         the momentum solver the weights and the bias take one joint
         update (one kernel launch on the card)."""
+        lrs = self._live_lrs(step)
         items = self.sgd_items(weights, bias, vel_w, vel_b, grad_w, grad_b,
-                               batch_size)
+                               batch_size, lrs)
         if items is not None:
             return self.sgd_finish(F.sgd_update_multi(items), acc_w, acc_b)
+        return self._adaptive(weights, bias, vel_w, vel_b, grad_w, grad_b,
+                              batch_size, lrs, step, acc_w, acc_b)
+
+    def _adaptive(self, weights, bias, vel_w, vel_b, grad_w, grad_b,
+                  batch_size, lrs, step, acc_w, acc_b):
+        """An adaptive solver's six results (see :meth:`update_fn`)."""
+        lr_w, lr_b = lrs
         new_w, new_vw, new_aw = F.adaptive_update(
-            weights, vel_w, acc_w, grad_w, batch_size, self.learning_rate,
+            weights, vel_w, acc_w, grad_w, batch_size, lr_w,
             self.momentum, self.weight_decay, self.l1_vs_l2,
             self.gradient_clip, self.solver, self.solver_rho,
             self.solver_epsilon, step)
@@ -501,7 +532,7 @@ class GradientDescentBase(AcceleratedUnit):
         if grad_b is None:
             return new_w, None, new_vw, None, new_aw, None
         new_b, new_vb, new_ab = F.adaptive_update(
-            bias, vel_b, acc_b, grad_b, batch_size, self.learning_rate_bias,
+            bias, vel_b, acc_b, grad_b, batch_size, lr_b,
             self.momentum, self.weight_decay_bias, self.l1_vs_l2,
             self.gradient_clip, self.solver, self.solver_rho,
             self.solver_epsilon, step)

@@ -18,8 +18,9 @@ gds) runs as one train/eval step call per minibatch
 (``veles_tpu_torch.compiled``) instead of the individual unit runs — same
 numerics (identical pure functions).  Skip-edge layers (``residual``,
 ``residual_proj``) need the fused engine: a ``fused=False`` build with
-one raises ValueError.  The Snapshotter and the plotters are
-not ported yet and raise (ROADMAP Queue 2a, items 4 and 5).
+one raises ValueError.  ``snapshotter_config`` links a Snapshotter at
+the tail of the backward chain; the plotters are not ported yet and
+raise (ROADMAP Queue 2a, item 5).
 """
 
 from __future__ import annotations
@@ -222,8 +223,18 @@ class StandardWorkflowBase(NNWorkflow):
                                 else self.decision)
 
     def link_snapshotter(self, config):
-        raise NotImplementedError(
-            "the Snapshotter is not ported yet: ROADMAP Queue 2a, item 4")
+        """Snapshotter at the tail of the backward chain: capturing the
+        state AFTER the epoch's last weight commit is what makes resume
+        bit-exact (the reference's placement, ``veles_tpu/
+        standard_workflow.py:222``)."""
+        from veles_tpu_torch.snapshotter import Snapshotter
+        config.setdefault("prefix", self.name)
+        snap = Snapshotter(self, name="snapshotter", **config)
+        snap.link_from(self.gds[0] if self.gds else self.decision)
+        snap.link_attrs(self.decision, "improved", "complete")
+        snap.link_attrs(self.loader, "epoch_number", "epoch_ended")
+        self.snapshotter = snap
+        return snap
 
     def link_plotters(self, output_dir="plots", weights_2d=True):
         raise NotImplementedError(

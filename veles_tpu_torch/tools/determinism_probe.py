@@ -115,8 +115,8 @@ def resnet_run(torch, F, prng, root, seed):
     from veles_tpu_torch.samples import cifar_resnet
     inner, seen = F.sgd_update_multi, []
 
-    def watched(items):
-        out = inner(items)
+    def watched(items, *rest):
+        out = inner(items, *rest)
         seen.append(torch.stack(
             [torch.isfinite(it[2]).all() for it in items]
             + [torch.isfinite(p).all() for p, _ in out]).all())

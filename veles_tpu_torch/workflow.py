@@ -183,10 +183,10 @@ class Workflow(Unit):
 
     # -------------------------------------------------------------- reporting
     def print_stats(self):
-        """Per-unit wall-time accounting (ref: veles/timeit2.py [M]).  The
-        reference's device time of one fused train step
-        (``measure_device_step_time``) is not ported (ROADMAP Queue 2a,
-        item 3), so fused workflows say so instead of printing it."""
+        """Per-unit wall-time accounting (ref: veles/timeit2.py [M]) plus,
+        for fused workflows, the measured device time of one train step
+        (host wall-time per unit cannot see it: dispatch is async), and
+        the streaming epoch scan's staging line."""
         rows = sorted(self._units, key=lambda u: -u.run_time)
         total = sum(u.run_time for u in self._units)
         self.info("unit run-time breakdown (total %.3fs):", total)
@@ -195,9 +195,24 @@ class Workflow(Unit):
                 continue
             self.info("  %-30s %8d runs %10.3fs", unit.name, unit.run_count,
                       unit.run_time)
-        if getattr(self, "_fused_runner", None) is not None:
-            self.info("  fused train step (device): not measured in the "
-                      "port (ROADMAP Queue 2a, item 3)")
+        runner = getattr(self, "_fused_runner", None)
+        if runner is not None:
+            step_time = runner.measure_device_step_time(iters=3)
+            if step_time is not None:
+                self.info("  fused train step (device)      %10.3f ms/step",
+                          step_time * 1e3)
+            runner._last_train_args = None
+        stream = getattr(self, "_stream_stats", None)
+        if stream:
+            self.info("  streaming: %d windows (%d mb each, stage-ahead "
+                      "%d), %d epochs", stream["windows"],
+                      stream["window_minibatches"], stream["stage_ahead"],
+                      stream["epochs"])
+            self.info("  streaming: %.1f samples/s, staging stall "
+                      "%.3fs of %.3fs busy (%.1f%%)",
+                      stream["samples_per_sec"], stream["staging_stall_s"],
+                      stream["staging_stall_s"] + stream["compute_s"],
+                      100.0 * stream["staging_stall_fraction"])
 
     def graph_data(self):
         """(node_labels, edge_index_pairs) of the unit graph — the one
