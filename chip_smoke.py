@@ -172,10 +172,35 @@ Phases (any failure exits nonzero before the final line is printed):
    (``{"harness": ...}``).  The kernels phase also checks and times
    kernels 1 and 4's device-operand entries (the ones a captured step
    replays) against their by-value entries;
-11. the script's seconds, the card's name and power limit, one JSON line
+11. parallel — data- and tensor-parallel training of full-width AlexNet
+   (``configs[4]``'s model; ``alexnet_layers()``, crop 227, minibatch
+   128, the seeded 256x256 synthetic images): (a) NCCL at world 1
+   through the CLI (``--distributed --num-processes 1 --process-id 0
+   --coordinator-address 127.0.0.1:<port>``), the graph loop and
+   ``--epoch-scan 1`` (the all-reduce captured in the CUDA graph), each
+   bit-equal in weights and epoch metrics to the harness's run of the
+   same command without ``--distributed``, one gradient all-reduce a
+   train step (counted at capture and per replay), exact kernel
+   launches, backend ``nccl``; then two gloo ranks sharing ``cuda:0``
+   (this script with ``--parallel-rank``; NCCL refuses two ranks on one
+   device): (b) data-parallel through the launcher, 64 rows a rank, 10
+   steps, both ranks' weights bit-equal after every step, within the
+   ``ALEXNET_*_SHARE`` limits of the single-process graph loop after the
+   first and third update, exact launches; (c) tensor parallelism of the
+   two 4096-wide FC layers (2048-wide slices), 3 steps on fixed batches,
+   within the same limits of a single-process trajectory; (d) a record
+   file sharded two ways, each rank's device minibatch its rows of the
+   global minibatch bit for bit; (e) three planted faults (the gradient
+   all-reduce skipped, rank 1's dropout at offset 0, the split layers'
+   input gradient not reduced) that must break those limits; steady step
+   ms and busy share of each run and the gloo all-reduce's ms; its JSON
+   line (``{"parallel": ...}``).  The kernels phase also checks kernel
+   4's element-offset entry (rank 1's rows of dropout6) against the
+   global launch's rows and times it;
+12. the script's seconds, the card's name and power limit, one JSON line
    listing every ported TPU kernel (kernels 1 and 4 with their
-   device-operand entries' times, bounds and launches), then the JSON
-   result line.
+   device-operand entries' times, bounds and launches, kernel 4 with its
+   offset entry's), then the JSON result line.
 
 The kernels phase also holds the three flash-attention kernels (forward,
 dK/dV pass, dQ pass; ``flash_attention.cu``) at the LM's train shape
@@ -1036,6 +1061,34 @@ def device_entry_cases(torch, HK, prng):
                     torch),
                 "by_value_ms": time_ms(
                     [lambda t=t: HK.dropout(t, key, 0.5) for t in xs],
+                    torch),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    # the element-offset entry: data rank 1's 64 rows of dropout6 under
+    # the global kernel's key, against those rows of the global launch
+    # (by value and through the key on the card), then timed against
+    # the same rows at offset 0
+    rows = shape[0] // 2
+    halves = [t[rows:].contiguous() for t in xs]
+    offset = rows * shape[1]
+    whole = HK.dropout(xs[0], key, 0.5)
+    equal = (torch.equal(HK.dropout(halves[0], key, 0.5, offset=offset),
+                         whole[rows:])
+             and torch.equal(HK.dropout(halves[0], words, 0.5,
+                                        offset=offset), whole[rows:]))
+    check(equal, "dropout: the offset entry differs from its rows of the "
+          "global launch")
+    n = halves[0].numel()
+    t_bytes = 8 * n / HBM_BYTES_S * 1e3
+    t_ops = DROPOUT_OPS * n / INT32_OP_S * 1e3
+    out.append({"kernel": "dropout", "entry": "offset",
+                "case": "dropout6_rank1_of_2", "shape": [rows, shape[1]],
+                "offset": offset, "bit_equal_to_global_rows": equal,
+                "offset_ms": time_ms(
+                    [lambda t=t: HK.dropout(t, key, 0.5, offset=offset)
+                     for t in halves], torch),
+                "by_value_ms": time_ms(
+                    [lambda t=t: HK.dropout(t, key, 0.5) for t in halves],
                     torch),
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
@@ -3522,9 +3575,11 @@ def scan_step_weights(torch, argv, config):
     return kept
 
 
-def harness(torch, HK, card, device="cuda"):
+def harness(torch, HK, card, device="cuda", keep=None):
     """Phase 11: the run harness through the CLI (see the module
-    docstring); returns the kernels' launch counts of its runs."""
+    docstring); returns the kernels' launch counts of its runs.  The
+    full-width AlexNet loop and scan runs' weights and epoch metrics go
+    into ``keep`` (the parallel phase holds its runs against them)."""
     import os
     import shutil
     import tempfile
@@ -3713,6 +3768,11 @@ def harness(torch, HK, card, device="cuda"):
         a_loop, ala = cli_run(alex_argv + dev, "imagenet", alex)
         checks["alexnet_scan_rerun_bit_equal"] = bit_equal(
             wf_params(a_scan), wf_params(a_again))
+        if keep is not None:
+            keep["alexnet"] = {
+                "argv": alex_argv + dev, "config": alex,
+                "loop": (wf_params(a_loop), a_loop.decision.epoch_metrics),
+                "scan": (wf_params(a_scan), a_scan.decision.epoch_metrics)}
         want = alexnet_launches(a_scan)
         checks["alexnet_launches_exact"] = all(counts[k] == v
                                                for k, v in want.items())
@@ -3798,6 +3858,617 @@ def harness(torch, HK, card, device="cuda"):
     check(not failed, "harness checks failed: %s" % failed)
     missed = [k for k in HARNESS_FAULTS if not faults.get(k)]
     check(not missed, "planted harness faults passed their checks: %s"
+          % missed)
+    return launches
+
+
+# ---------------------------------------------------------------- parallel
+#: the parallel phase: full-width AlexNet (configs[4]'s model) at
+#: minibatch 128 on the seeded 256x256 synthetic images.  (b) two gloo
+#: ranks sharing cuda:0 train data-parallel through the launcher, 64 rows
+#: a rank, 2 epochs of 640 train = 10 steps
+PARALLEL_DP = {"n_train": 640, "n_valid": 128}
+#: (c) tensor parallelism of the two 4096-wide FC layers and (e) the
+#: planted faults: steps from the initial state on fixed global batches
+PARALLEL_STEPS = 3
+PARALLEL_FAULTS = ("all_reduce_skipped", "dropout_offset_zero_rank1",
+                   "tp_input_grad_not_reduced")
+#: (d) the record file sharded two ways: (validation, train) 256x256
+#: images, minibatch 128, one epoch's minibatches compared
+PARALLEL_RECORDS = (64, 256)
+#: steady steps timed a run
+PARALLEL_TIMED_STEPS = 5
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def host_weights(state):
+    """Each parameterized layer's (weights, bias) on the host."""
+    return [[e[k].detach().cpu().numpy().copy() for k in ("w", "b")
+             if k in e] for e in state if e]
+
+
+def weight_digest(state):
+    """crc32 over every layer's weights and bias bits."""
+    import zlib
+    crc = 0
+    for e in state:
+        for k in ("w", "b"):
+            if k in e:
+                crc = zlib.crc32(e[k].detach().cpu().numpy().tobytes(), crc)
+    return crc
+
+
+@contextlib.contextmanager
+def parallel_fault(name, rank):
+    """Within the block, ``name`` of ``PARALLEL_FAULTS`` is planted: the
+    gradient all-reduce skipped, rank 1's dropout drawn at element
+    offset 0, or a split layer's input gradient not reduced."""
+    from veles_tpu_torch import parallel
+    from veles_tpu_torch.ops import functional as F
+    if name == "dropout_offset_zero_rank1":
+        mod, attr, inner = F, "dropout", F.dropout
+
+        def planted(x, rng, rate, train):
+            if rank == 1 and isinstance(rng, F.RowShard):
+                rng = rng[0]
+            return inner(x, rng, rate, train)
+    else:
+        mod = parallel
+        attr = ("grad_all_reduce" if name == "all_reduce_skipped"
+                else "tp_input_grad_all_reduce")
+        inner = getattr(parallel, attr)
+
+        def planted(*args):
+            return None
+    setattr(mod, attr, planted)
+    try:
+        yield
+    finally:
+        setattr(mod, attr, inner)
+
+
+class SplitReference:
+    """The plain single-process version of two ranks' arithmetic, set as
+    the runner's hook (``runner.shard``) with no collective: as two data
+    ranks (:meth:`dp_step`: each half of the rows with its rank's draws,
+    the two gradient sums added in rank order) or as two model ranks
+    (``split`` dense layers: each column half's product, concatenated;
+    each half's partial input gradient, added in rank order)."""
+
+    def __init__(self, runner, split=()):
+        self.runner = runner
+        self.split = {i: None for i in split}
+        self.rank = None
+
+    def layer_rngs(self, rngs):
+        from veles_tpu_torch.ops import functional as F
+        if self.rank is None:
+            return rngs
+        return [k if k is None or isinstance(k, F.CropDraws)
+                else F.RowShard((k, self.rank, 2)) for k in rngs]
+
+    @staticmethod
+    def _halves(entry):
+        h = entry["w"].shape[-1] // 2
+        return [{k: v[..., lo:lo + h].contiguous() for k, v in entry.items()}
+                for lo in (0, h)], h
+
+    def tp_forward(self, i, fwd, x, entry, rng, train):
+        import torch
+        from veles_tpu_torch.ops import functional as F
+        halves, _ = self._halves(entry)
+        y = torch.cat([F.dense_forward(x, e["w"], e.get("b"),
+                                       fwd.ACTIVATION) for e in halves], -1)
+        return y.reshape((x.shape[0],) + tuple(fwd.output_sample_shape)), \
+            None
+
+    def tp_backward(self, i, gd, x, y, err, entry, rng, saved):
+        import torch
+        halves, h = self._halves(entry)
+        y = y.reshape(y.shape[0], -1)
+        err = err.reshape(err.shape[0], -1)
+        parts = [gd.backward_fused(
+            x, y[:, r * h:(r + 1) * h].contiguous(),
+            err[:, r * h:(r + 1) * h].contiguous(), e, rng, saved)
+            for r, e in enumerate(halves)]
+        (e0, g0), (e1, g1) = parts
+        err_in = None if e0 is None else e0 + e1
+        return err_in, tuple(None if a is None else torch.cat([a, b], -1)
+                             for a, b in zip(g0, g1))
+
+    def reduce(self, all_grads, metrics):
+        return all_grads, metrics
+
+    def reduce_metrics(self, metrics):
+        return metrics
+
+    def step(self, state, x, y, mask, ops):
+        """One train step: the runner's own (split layers) or, with no
+        split, two data halves."""
+        runner = self.runner
+        runner.shard = self
+        try:
+            if self.split:
+                return runner._step(state, x, y, mask, ops)[0]
+            n, grads = x.shape[0] // 2, None
+            for r in (0, 1):
+                self.rank = r
+                rows = slice(r * n, (r + 1) * n)
+                g, _ = runner._grads_and_metrics(
+                    state, x[rows], y[rows], mask[rows],
+                    layer_rngs=runner._layer_rngs(ops, 0))
+                grads = g if grads is None else [
+                    None if a is None else tuple(
+                        None if u is None else u + v for u, v in zip(a, b))
+                    for a, b in zip(grads, g)]
+            self.rank = None
+            return runner._apply_updates(state, grads, ops)
+        finally:
+            runner.shard = None
+
+
+def parallel_rank(rank, port, tmp, out_path):
+    """One of the two gloo ranks sharing cuda:0 (``python3 chip_smoke.py
+    --parallel-rank R PORT TMPDIR OUT``): (b) data-parallel AlexNet
+    through the launcher, every step's weight digest; rank 0 also the
+    single-process graph-loop run of the same seed; (c) tensor
+    parallelism of the FC trunk and (e) the planted faults from one
+    initial state on fixed batches, against a single-process trajectory
+    (rank 0); (d) a record file sharded two ways.  Writes its report to
+    ``out_path`` as JSON."""
+    import os
+    import torch
+    from veles_tpu_torch import parallel, prng
+    from veles_tpu_torch.compiled import FusedCommit, load_fused_state
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.ops import hopper_kernels as HK
+    from veles_tpu_torch.samples import imagenet
+    from veles_tpu_torch.workflow import Workflow
+    began = time.monotonic()
+    addr = "127.0.0.1:%d" % port
+    _, _, backend = parallel.initialize_multihost(addr, 2, rank)
+    dev = parallel._JOINED["device"]
+    report = {"rank": rank, "backend": backend, "device": str(dev),
+              "join_s": time.monotonic() - began}
+    layers = imagenet.alexnet_layers()
+
+    # (b) data parallelism through the launcher: 10 steps, each step's
+    # weights digested, the first PARALLEL_STEPS kept
+    kept, digests, init = [], [], []
+    inner = FusedCommit.run
+
+    def commit(self):
+        trainer = self.runner.wf._sharded_trainer
+        pending = self.runner.wf.fused_step.pending_state is not None
+        if not kept:
+            init.extend({k: v.clone() for k, v in e.items()}
+                        for e in trainer.state)
+            kept.append(host_weights(trainer.state))
+        inner(self)
+        if pending:
+            digests.append(weight_digest(trainer.state))
+            if len(kept) <= PARALLEL_STEPS:
+                kept.append(host_weights(trainer.state))
+
+    wf = imagenet_build(prng, root, imagenet, layers, **PARALLEL_DP)
+    HK.reset_launch_counts()
+    parallel.reset_collective_counts()
+    FusedCommit.run = commit
+    try:
+        t0 = time.monotonic()
+        Launcher(wf, distributed=True, coordinator_address=addr,
+                 num_processes=2, process_id=rank, stats=False).boot()
+        torch.cuda.synchronize()
+        run_s = time.monotonic() - t0
+    finally:
+        FusedCommit.run = inner
+    launches = HK.launch_counts()
+    want = alexnet_launches(wf)
+    trainer = wf._sharded_trainer
+    ld = wf.loader
+    report["dp"] = {
+        "run_s": run_s, "train_steps": wf.fused_step.train_steps,
+        "local_rows": ld.local_minibatch_size, "digests": digests,
+        "launches": launches, "launches_want": want,
+        "launches_exact": all(launches[k] == v for k, v in want.items()),
+        "collectives": parallel.collective_counts(),
+        "losses": [{s_: m[s_]["loss"] for s_ in ("validation", "train")}
+                   for m in wf.decision.epoch_metrics]}
+
+    # fixed global batches (train rows) and keys for (c), (e) and the
+    # steady steps
+    n_valid, mb = PARALLEL_DP["n_valid"], ld.max_minibatch_size
+    data, labels = ld.original_data.devmem, ld.original_labels.devmem
+    xs = [data[n_valid + s * mb:n_valid + (s + 1) * mb]
+          for s in range(PARALLEL_STEPS)]
+    ys = [labels[n_valid + s * mb:n_valid + (s + 1) * mb]
+          for s in range(PARALLEL_STEPS)]
+    ones = torch.ones(mb, device=dev)
+    keys = [prng.fold_in(prng.PRNGKey(SEED), s)
+            for s in range(PARALLEL_STEPS)]
+
+    def dp_step():
+        trainer.train_step_pending(trainer.local_rows(xs[0]),
+                                   trainer.local_rows(ys[0]),
+                                   trainer.local_rows(ones), mb, keys[0])
+
+    ms, busy = window_steps(torch, dp_step, PARALLEL_TIMED_STEPS)
+    n_params = sum(v.numel() for e in trainer.state for k, v in e.items()
+                   if k in ("w", "b"))
+    bucket = torch.zeros(n_params + 1000 * 1000 + 2, device=dev)
+    group = trainer.mesh.data_group
+    torch.distributed.all_reduce(bucket, group=group)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(3):
+        torch.distributed.all_reduce(bucket, group=group)
+    torch.cuda.synchronize()
+    report["dp"].update(step_ms=ms, busy_share=busy,
+                        gloo_all_reduce_ms=(time.monotonic() - t0) * 1e3 / 3,
+                        bucket_floats=bucket.numel())
+    del bucket
+
+    runner = wf._fused_runner
+    fc = parallel.model_shard_candidates(runner, min_width=4096)
+    dp_mesh, tp_mesh = trainer.mesh, parallel.make_mesh(model_parallel=2)
+
+    def trajectory(mesh, split):
+        """PARALLEL_STEPS steps from the initial state on the fixed
+        batches: each step's full weights (host)."""
+        load_fused_state(wf, init)
+        tr = parallel.ShardedTrainer(runner, mesh, split)
+        out = [host_weights(init)]
+        for s in range(PARALLEL_STEPS):
+            tr.train_step(tr.local_rows(xs[s]), tr.local_rows(ys[s]),
+                          tr.local_rows(ones), mb, keys[s], s)
+            tr.sync_to_runner()
+            out.append(host_weights(runner.state))
+        return tr, out
+
+    dp = trajectory(dp_mesh, ())[1]
+    tp_trainer, tp = trajectory(tp_mesh, fc)
+
+    def tp_step():
+        tp_trainer.train_step_pending(xs[0], ys[0], ones, mb, keys[0])
+
+    tp_ms, tp_busy = window_steps(torch, tp_step, PARALLEL_TIMED_STEPS)
+    report["tp"] = {"layers": fc, "local_widths": [
+        int(tp_trainer.state[i]["w"].shape[-1]) for i in fc],
+        "step_ms": tp_ms, "busy_share": tp_busy}
+    faulty = {}
+    for name in PARALLEL_FAULTS:
+        with parallel_fault(name, rank):
+            split = fc if name.startswith("tp_") else ()
+            faulty[name] = trajectory(tp_mesh if split else dp_mesh,
+                                      split)[1]
+
+    # (d) a record file sharded two ways: each rank's device minibatch
+    # against its rows of the unsharded host loader's
+    if rank == 0:
+        files = write_record_set(tmp, "sharded", *PARALLEL_RECORDS)
+        with open(os.path.join(tmp, "files.json"), "w") as f:
+            json.dump(files, f)
+    torch.distributed.barrier()
+    with open(os.path.join(tmp, "files.json")) as f:
+        files = json.load(f)
+
+    def records_loader(device, shard):
+        prng.reset()
+        prng.seed_all(SEED)
+        loader = imagenet.ImagenetRecordsLoader(
+            Workflow(None), path=files[0], mean_path=files[1],
+            minibatch_size=mb, prefetch=True)
+        if shard:
+            loader.shard_spmd(rank, 2)
+        loader.initialize(device=device)
+        return loader
+
+    sharded, whole = records_loader(dev, True), records_loader("cpu", False)
+    rows = slice(rank * mb // 2, (rank + 1) * mb // 2)
+    equal, n_mbs = True, 0
+    while True:
+        sharded.run()
+        whole.run()
+        n_mbs += 1
+        equal = equal and (
+            numpy.array_equal(sharded.minibatch_data.devmem.cpu().numpy(),
+                              numpy.asarray(whole.minibatch_data.mem)[rows])
+            and numpy.array_equal(
+                sharded.minibatch_labels.devmem.cpu().numpy(),
+                numpy.asarray(whole.minibatch_labels.mem)[rows])
+            and numpy.array_equal(
+                sharded.minibatch_mask.devmem.cpu().numpy(),
+                numpy.asarray(whole.minibatch_mask.mem)[rows])
+            and sharded.minibatch_size == whole.minibatch_size)
+        if sharded.last_minibatch:
+            break
+    sharded.stop()
+    whole.stop()
+    report["records"] = {"minibatches": n_mbs, "bit_equal": bool(equal),
+                         "local_rows": sharded.local_minibatch_size}
+
+    # rank 0: the single-process runs the two ranks are held against:
+    # the same arithmetic in one process (the same row halves, or column
+    # halves, summed in rank order), and the plain step on whole rows
+    if rank == 0:
+        def single(hook):
+            state = [dict(e) for e in init]
+            out = [host_weights(init)]
+            for s in range(PARALLEL_STEPS):
+                ops = runner.host_operands(mb, s, keys[s])
+                if hook is None:
+                    runner.shard = None
+                    state = runner._step(state, xs[s], ys[s], ones, ops)[0]
+                else:
+                    state = hook.step(state, xs[s], ys[s], ones, ops)
+                out.append(host_weights(state))
+            return out
+
+        alone = single(None)
+        split_dp = single(SplitReference(runner))
+        split_tp = single(SplitReference(runner, fc))
+        report["kinks"] = kink_flips(runner, init, xs[0], keys[0], fc)
+        loop = committed_weights(imagenet_build(
+            prng, root, imagenet, layers, **PARALLEL_DP), dev)
+        under_pool = [any(g.layer_type == "max_pooling"
+                          for g in wf.forwards[i + 1:])
+                      for i, f in enumerate(wf.forwards) if f.has_params]
+        limits = [ALEXNET_CONV_SHARE if u else ALEXNET_FC_SHARE
+                  for u in under_pool]
+
+        def within(gaps):
+            return (all(g <= lim for g, lim in zip(gaps["share"][0],
+                                                     limits))
+                    and max(gaps["share"][-1]) <= ALEXNET_DRIFT_SHARE)
+
+        gaps = {"dp_split": weight_gaps(dp, split_dp),
+                "tp_split": weight_gaps(tp, split_tp),
+                "dp_plain": weight_gaps(dp, alone),
+                "tp_plain": weight_gaps(tp, alone),
+                "launcher_dp_plain_loop": weight_gaps(
+                    kept, loop[:PARALLEL_STEPS + 1])}
+        refs = {"all_reduce_skipped": split_dp,
+                "dropout_offset_zero_rank1": split_dp,
+                "tp_input_grad_not_reduced": split_tp}
+        fault_gaps = {name: weight_gaps(w, refs[name])
+                      for name, w in faulty.items()}
+        report.update(
+            limits={"first_update": limits,
+                    "third_update": ALEXNET_DRIFT_SHARE},
+            shares={k: v["share"] for k, v in gaps.items()},
+            within={k: within(v) for k, v in gaps.items()},
+            bit_equal_to_split={"dp": bit_equal(flat(dp), flat(split_dp)),
+                                "tp": bit_equal(flat(tp), flat(split_tp))},
+            fault_share={k: v["share"] for k, v in fault_gaps.items()},
+            faults_caught={k: not within(v) for k, v in fault_gaps.items()})
+    report["collectives"] = parallel.collective_counts()
+    report["rank_s"] = time.monotonic() - began
+    with open(out_path, "w") as f:
+        json.dump(report, f, default=str)
+    parallel.shutdown()
+    return 0
+
+
+def kink_flips(runner, state, x, key, fc):
+    """Where the split arithmetic turns rounding into a strict-ReLU
+    kink: the first step's forward from ``state`` in one process as the
+    plain 128-row chain, as two model ranks (the FC trunk in column
+    halves) and as two data ranks (two 64-row halves with their ranks'
+    draws); for each FC trunk layer the largest |dy| of its output
+    against the plain chain's and the elements whose max(0, z) is 0 in
+    one and not in the other."""
+    import torch
+    rngs = runner._stochastic_keys(key)
+    runner.shard = None
+    plain, _ = runner._forward_chain(state, x, train=True, layer_rngs=rngs)
+    cols = SplitReference(runner, fc)
+    runner.shard = cols
+    tp, _ = runner._forward_chain(state, x, train=True, layer_rngs=rngs)
+    rows = SplitReference(runner)
+    runner.shard = rows
+    n, halves = x.shape[0] // 2, []
+    for r in (0, 1):
+        rows.rank = r
+        halves.append(runner._forward_chain(
+            state, x[r * n:(r + 1) * n], train=True,
+            layer_rngs=rows.layer_rngs(rngs))[0])
+    runner.shard = None
+    out = {}
+    for i in fc:
+        ref = plain[i + 1]
+        dp = torch.cat([h[i + 1] for h in halves])
+        out[str(i)] = {name: {"max_abs_dy": float((got - ref).abs().max()),
+                              "relu_flips": int(((got > 0) != (ref > 0))
+                                                .sum())}
+                       for name, got in (("tp_cols", tp[i + 1]),
+                                         ("dp_rows", dp))}
+    return out
+
+
+def flat(trajectory):
+    """Every array of a list of per-step host weights, in order."""
+    return [a for step in trajectory for layer in step for a in layer]
+
+
+def dist_steps(torch, wf, launcher, n):
+    """(ms, busy share) of a steady step of a distributed run: the
+    trainer's graph-loop step on the last train minibatch, or one replay
+    of the scan's captured step."""
+    from veles_tpu_torch import prng
+    if launcher.driver is None:
+        trainer, ld = wf._sharded_trainer, wf.loader
+        mb = ld.max_minibatch_size
+        x = ld.original_data.devmem[-mb:]
+        y = ld.original_labels.devmem[-mb:]
+        mask = torch.ones(mb, device=x.device)
+        return window_steps(torch, lambda: trainer.train_step_pending(
+            x, y, mask, mb, prng.PRNGKey(SEED)), n)
+    program = launcher.driver.program
+    left = [0]
+
+    def replay():
+        if left[0] == 0:
+            program.train.t.zero_()
+            left[0] = program.train.rows
+        program.replay_train()
+        left[0] -= 1
+
+    return window_steps(torch, replay, n)
+
+
+def parallel_phase(torch, HK, card, keep):
+    """Phase 12: data- and tensor-parallel AlexNet (see the module
+    docstring); returns the kernels' launch counts of this process's
+    runs."""
+    import os
+    import shutil
+    import tempfile
+    import gc
+    from veles_tpu_torch import __main__ as cli, parallel
+    began = time.monotonic()
+    alex = keep["alexnet"]
+    launches, checks, report = {}, {}, {"card": card}
+    # the earlier phases' runs (and their captured graphs' memory pools)
+    # go before this phase's runs and the two ranks take the card (the
+    # CLI keeps its last run)
+    cli.main.workflow = cli.main.launcher = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) NCCL at world 1 through the CLI: the graph loop and the scan
+    # bit-equal to the harness's runs of the same command without
+    # --distributed; one gradient all-reduce a train step
+    dist = ["--distributed", "--num-processes", "1", "--process-id", "0",
+            "--coordinator-address", "127.0.0.1:%d" % free_port()]
+    runs = {}
+    for name, extra in (("loop", []), ("scan", ["--epoch-scan", "1"])):
+        HK.reset_launch_counts()
+        parallel.reset_collective_counts()
+        wf, la = cli_run(alex["argv"] + dist + extra, "imagenet",
+                         alex["config"])
+        torch.cuda.synchronize()
+        counts, coll = HK.launch_counts(), parallel.collective_counts()
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        want = alexnet_launches(wf)
+        params, metrics = alex[name]
+        steps = wf.fused_step.train_steps
+        checks["nccl_%s_bit_equal" % name] = (
+            bit_equal(wf_params(wf), params)
+            and same_metrics(wf.decision.epoch_metrics, metrics))
+        checks["nccl_%s_all_reduce_per_step" % name] = (
+            coll["grad_all_reduce"] == steps)
+        checks["nccl_%s_launches_exact" % name] = all(
+            counts[k] == v for k, v in want.items())
+        checks["nccl_%s_backend" % name] = la.backend == "nccl"
+        ms, busy = dist_steps(torch, wf, la, PARALLEL_TIMED_STEPS)
+        runs[name] = {"backend": la.backend, "train_steps": steps,
+                      "run_s": la.run_seconds, "collectives": coll,
+                      "launches": counts, "step_ms": ms, "busy_share": busy}
+        if la.driver is not None:
+            runs[name].update(capture_s=la.driver.program.capture_s,
+                              graph_launches={
+                                  repr(k): v for k, v in
+                                  la.driver.program.graph_launches.items()})
+        del wf, la
+    # the captured graphs go before the communicator they launch on, and
+    # their memory back to the card before the two ranks start
+    cli.main.workflow = cli.main.launcher = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    parallel.shutdown()
+    report["nccl_world_1"] = runs
+
+    # (b)-(e): two gloo ranks sharing cuda:0
+    tmp = tempfile.mkdtemp(prefix="veles_parallel_")
+    try:
+        port = free_port()
+        outs = [os.path.join(tmp, "rank%d.json" % r) for r in range(2)]
+        here = os.path.abspath(__file__)
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(here))
+        t0 = time.monotonic()
+        procs = [subprocess.Popen(
+            [sys.executable, here, "--parallel-rank", str(r), str(port),
+             tmp, outs[r]], env=env, cwd=os.path.dirname(here),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+        errs = []
+        try:
+            for p in procs:
+                _, err = p.communicate(timeout=600)
+                errs.append((p.returncode, err))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_s = time.monotonic() - t0
+        for code, err in errs:
+            check(code == 0, "a parallel rank failed:\n%s" % err[-4000:])
+        ranks = []
+        for path in outs:
+            with open(path, encoding="utf-8") as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0, r1 = ranks
+    steps = r0["dp"]["train_steps"]
+    checks["gloo_backend_on_one_card"] = all(
+        r["backend"] == "gloo" and r["device"] == "cuda:0" for r in ranks)
+    # the completion gate drops the stopping epoch's last update: 9
+    # commits of 10 steps
+    checks["dp_ranks_bit_equal_every_step"] = (
+        steps == 10 and len(r0["dp"]["digests"]) == steps - 1
+        and r0["dp"]["digests"] == r1["dp"]["digests"])
+    checks["dp_64_rows_a_rank"] = all(r["dp"]["local_rows"] == 64
+                                      for r in ranks)
+    checks["dp_launches_exact"] = all(r["dp"]["launches_exact"]
+                                      for r in ranks)
+    checks["dp_all_reduce_per_step"] = all(
+        r["dp"]["collectives"]["grad_all_reduce"] == steps for r in ranks)
+    checks["dp_within_alexnet_shares"] = r0["within"]["dp_split"]
+    checks["tp_within_alexnet_shares"] = r0["within"]["tp_split"]
+    checks["tp_2048_wide_slices"] = all(
+        r["tp"]["local_widths"] == [2048, 2048] for r in ranks)
+    checks["records_shards_bit_equal"] = all(r["records"]["bit_equal"]
+                                             for r in ranks)
+    faults = r0["faults_caught"]
+    report.update(
+        config={"layers": "alexnet_layers()", "crop": 227, "minibatch": 128,
+                "image_hw": [256, 256], "dp": dict(PARALLEL_DP, epochs=2),
+                "tp_and_fault_steps": PARALLEL_STEPS,
+                "records": PARALLEL_RECORDS},
+        backends={"world_1": runs["loop"]["backend"],
+                  "two_ranks_one_card": r0["backend"]},
+        gloo_ranks={
+            "dp": {k: r0["dp"][k] for k in (
+                "run_s", "train_steps", "step_ms", "busy_share",
+                "gloo_all_reduce_ms", "bucket_floats", "launches",
+                "collectives", "losses")},
+            "dp_rank1_step_ms": r1["dp"]["step_ms"],
+            "gloo_all_reduce_share_of_step": (
+                r0["dp"]["gloo_all_reduce_ms"] / r0["dp"]["step_ms"]),
+            "tp": r0["tp"], "records": r0["records"],
+            "limits": r0["limits"], "shares": r0["shares"],
+            "within": r0["within"],
+            "bit_equal_to_split": r0["bit_equal_to_split"],
+            "kinks": r0["kinks"],
+            "fault_share": r0["fault_share"],
+            "rank_s": [r["rank_s"] for r in ranks], "ranks_s": ranks_s},
+        checks=checks, faults_caught=faults,
+        phase_s=time.monotonic() - began)
+    print(json.dumps({"parallel": report}, default=str), flush=True)
+    failed = [k for k, v in checks.items() if not v]
+    check(not failed, "parallel checks failed: %s" % failed)
+    missed = [k for k in PARALLEL_FAULTS if not faults.get(k)]
+    check(not missed, "planted parallel faults passed their checks: %s"
           % missed)
     return launches
 
@@ -3958,11 +4629,19 @@ def main():
 
     # 10. the run harness through the CLI: the graph loop, the epoch
     # scan (captured steps) and the streaming scan
-    harnessed = harness(torch, HK, smi)
+    kept = {}
+    harnessed = harness(torch, HK, smi, keep=kept)
     for k, v in harnessed.items():
         launches[k] = launches.get(k, 0) + v
 
-    # 11. the kernels line and the result
+    # 11. data- and tensor-parallel AlexNet: NCCL at world 1 through the
+    # CLI, then two gloo ranks sharing the card
+    shared = parallel_phase(torch, HK, smi, kept)
+    del kept
+    for k, v in shared.items():
+        launches[k] = launches.get(k, 0) + v
+
+    # 12. the kernels line and the result
     main_case = {"flash_attention_fwd": flash[0],
                  "flash_attention_bwd_dkv": flash[1],
                  "flash_attention_bwd_dq": flash[2],
@@ -3989,6 +4668,16 @@ def main():
                        device_operand_bound_ms=entry["bound_ms"],
                        device_operand_launches=harnessed.get(row["name"],
                                                              0))
+    # kernel 4's element-offset entry (a data-parallel rank's rows),
+    # checked against the global launch's rows
+    offset = [c for c in dev_entries if c.get("entry") == "offset"][0]
+    for row in kernels:
+        if row["name"] == "dropout":
+            row.update(offset_entry_ms=offset["offset_ms"],
+                       offset_entry_by_value_ms=offset["by_value_ms"],
+                       offset_entry_bound_ms=offset["bound_ms"],
+                       offset_entry_bit_equal=offset[
+                           "bit_equal_to_global_rows"])
     # beside the calls that are one or two short launches, the floor
     for row in kernels:
         if row["name"] in ("fused_sgd_update", "paged_flash_decode",
@@ -4004,4 +4693,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank(int(sys.argv[2]), int(sys.argv[3]),
+                               sys.argv[4], sys.argv[5]))
     sys.exit(main())

@@ -502,6 +502,33 @@ def test_dropout_bit_equal_to_plain(shape, rate, seed):
         assert abs(kept - (1.0 - rate)) < 0.01
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,features,ranks", [(64, 9216, 2), (64, 4096, 2),
+                                                 (3, 127, 4)])
+def test_dropout_offset_rows_equal_the_global_kernel(rows, features, ranks):
+    """A data rank's dropout (its rows, element offset rank·rows·f)
+    equals its rows of the global kernel's output and of the plain
+    version with the offset, by value and through the key on the
+    card."""
+    dev = _card()
+    from veles_tpu_torch import prng
+    x = _randn(numpy.random.RandomState(rows), ranks * rows, features,
+               dev=dev)
+    key = prng.fold_in(prng.PRNGKey(features), 3)
+    whole = HK.dropout(x, key, 0.5)
+    on_card = torch.as_tensor(key.view(numpy.int32)).to(dev)
+    for r in range(ranks):
+        part = x[r * rows:(r + 1) * rows].contiguous()
+        offset = r * rows * features
+        before = HK.dropout.launches
+        got = HK.dropout(part, key, 0.5, offset=offset)
+        dev_got = HK.dropout(part, on_card, 0.5, offset=offset)
+        assert HK.dropout.launches == before + 2
+        want = whole[r * rows:(r + 1) * rows]
+        assert torch.equal(got, want) and torch.equal(dev_got, want)
+        assert torch.equal(got, HK.dropout_ref(part, key, 0.5, offset))
+
+
 def _probabilities(rng, shape, exact, dev):
     p = rng.rand(*shape).astype(numpy.float32)
     if exact:
@@ -1074,3 +1101,37 @@ def test_captured_step_short_last_minibatch_equals_eager(layers):
             for k in want:
                 assert torch.equal(got[k], want[k]), (s, k)
     assert program.captured
+
+
+@pytest.mark.cuda
+def test_epoch_scan_under_gloo_on_the_card_raises(tmp_path):
+    """A gloo collective stages through the host and cannot be captured
+    in a CUDA graph: under a gloo ShardedTrainer the scan refuses the
+    card (naming the reason) instead of running uncaptured."""
+    import torch.distributed as dist
+    from veles_tpu_torch import parallel, prng
+    from veles_tpu_torch.compiled import ScanProgram
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.samples import mnist
+    dev = _card()
+    prng.reset()
+    prng.seed_all(3)
+    root.__dict__.pop("mnist", None)
+    root.mnist.update({
+        "loader": {"minibatch_size": 50, "n_train": 100, "n_valid": 50},
+        "decision": {"max_epochs": 1, "fail_iterations": 5},
+        "layers": [{"type": "softmax", "output_sample_shape": 10,
+                    "learning_rate": 0.03, "momentum": 0.9}]})
+    wf = mnist.build(fused=True)
+    wf.initialize(device=dev)
+    runner, ld = wf._fused_runner, wf.loader
+    dist.init_process_group("gloo", init_method="file://%s"
+                            % (tmp_path / "store"), rank=0, world_size=1)
+    try:
+        parallel.ShardedTrainer(runner, parallel.make_mesh())
+        with pytest.raises(ValueError, match="needs the nccl backend"):
+            ScanProgram(runner, dev, [ld.original_data.devmem],
+                        [ld.original_labels.devmem], 2, 50, 2, 1)
+    finally:
+        parallel.shutdown()
+        root.__dict__.pop("mnist", None)

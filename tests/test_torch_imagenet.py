@@ -218,14 +218,14 @@ def test_full_alexnet_topology_builds():
 def test_unported_parts_raise(tmp_path):
     from veles_tpu_torch.standard_workflow import StandardWorkflow
     from veles_tpu_torch.workflow import Workflow
-    # record files are ported (ImagenetRecordsLoader); loader sharding
-    # is not, and a file that is not a record file is refused
+    # record files and loader sharding are ported (ImagenetRecordsLoader
+    # shards as every loader does); a file that is not a record file is
+    # refused
     records = tmp_path / "set.rec"
     records.write_bytes(b"")
     loader = imagenet.make_loader(Workflow(None), records_path=str(records))
     assert isinstance(loader, imagenet.ImagenetRecordsLoader)
-    with pytest.raises(NotImplementedError, match="Queue 2a, item 8"):
-        loader.shard(0, 2)
+    assert loader.shard(0, 2) is loader and loader._shard == (0, 2)
     with pytest.raises(ValueError, match="not a record file"):
         loader.initialize(device="cpu")
     _seed(prng)

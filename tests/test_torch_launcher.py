@@ -91,8 +91,8 @@ def test_cli_dump_config_list_units_version(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--distributed"], "Queue 2, item 5"),
-    (["--num-processes", "2"], "Queue 2, item 5"),
+    (["--web-status-url", "http://localhost:1"], "Queue 2, item 6"),
+    (["--events-mongo", "mongodb://localhost"], "Queue 2a, item 14"),
     (["--optimize", "3"], "Queue 2, item 4"),
     (["--web-status", "0"], "Queue 2, item 6"),
     (["--serve", "0"], "Queue 2a, item 13"),
@@ -184,8 +184,10 @@ def test_profile_writes_chrome_trace(tmp_path):
 
 def test_launcher_refuses_distributed_and_scan_with_evaluate():
     wf = _tiny()
-    with pytest.raises(NotImplementedError, match="Queue 2, item 5"):
-        Launcher(wf, distributed=True)
+    # a distributed run needs its coordinator, size and rank: no cluster
+    # environment is read
+    with pytest.raises(ValueError, match="coordinator-address"):
+        Launcher(wf, distributed=True, stats=False, device="cpu").boot()
     with pytest.raises(ValueError, match="TRAINING driver"):
         Launcher(wf, stats=False, evaluate=True, epoch_scan=1,
                  device="cpu").boot()

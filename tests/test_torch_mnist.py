@@ -210,9 +210,9 @@ def test_snapshot_state_roundtrip_weights():
 
 
 def test_unported_options_raise():
-    """Queue 2a items 1 (lr policies), 2 (grad_accum) and 4 (the
-    Snapshotter) are ported: those options build and run; items 5 (the
-    plotters) and 8 (loader sharding) still raise, naming their item."""
+    """Queue 2a items 1 (lr policies), 2 (grad_accum), 4 (the
+    Snapshotter) and 8 (loader sharding) are ported: those options build
+    and run; item 5 (the plotters) still raises, naming its item."""
     _seed(prng)
     _configure(root, n_train=200, n_valid=100, max_epochs=1, hidden=16)
     accum = mnist.build(fused=True, grad_accum=2)
@@ -226,7 +226,7 @@ def test_unported_options_raise():
     assert snap.snapshotter.prefix == "x"
     with pytest.raises(NotImplementedError, match="Queue 2a, item 5"):
         mnist.build().link_plotters()
-    with pytest.raises(NotImplementedError, match="Queue 2a, item 8"):
-        mnist.build().loader.shard(0, 2)
-    with pytest.raises(NotImplementedError, match="Queue 2a, item 8"):
-        mnist.build().loader.shard_spmd(0, 2)
+    assert mnist.build().loader.shard(1, 2)._shard == (1, 2)
+    spmd = mnist.build().loader.shard_spmd(1, 2)
+    assert spmd._spmd_shard == (1, 2)
+    assert spmd.local_minibatch_size == spmd.max_minibatch_size // 2

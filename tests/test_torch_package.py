@@ -193,3 +193,20 @@ def test_kernel_wrappers_refuse_other_devices():
                  lambda: HK.flash_attention_bwd_dq(q, q, q, q, lse, q)):
         with pytest.raises(ValueError, match="no kernel for device"):
             call()
+
+
+def test_parallel_slice_modules_are_checked(monkeypatch):
+    """The data- and tensor-parallel module is among those the two
+    checks above import and parse; importing it joins no run, and
+    joining one without a card raises unless the CPU is asked for."""
+    assert "veles_tpu_torch.parallel" in set(_modules())
+    import torch.distributed as dist
+    from veles_tpu_torch import parallel
+    assert not dist.is_initialized()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        parallel.initialize_multihost("127.0.0.1:1", 1, 0)
+    assert not dist.is_initialized()
+    assert set(parallel.collective_counts()) == {
+        "grad_all_reduce", "metric_all_reduce", "tp_all_gather",
+        "tp_input_grad_all_reduce"}

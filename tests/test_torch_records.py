@@ -259,10 +259,13 @@ def test_unsharded_shard_api(record_file):
     assert loader.local_minibatch_size == 8
     chunk = numpy.arange(8, dtype=numpy.int32)
     assert loader.local_chunk(chunk) is chunk
-    with pytest.raises(NotImplementedError, match="Queue 2a, item 8"):
-        loader.shard(0, 2)
-    with pytest.raises(NotImplementedError, match="Queue 2a, item 8"):
-        loader.shard_spmd(0, 2)
+    # sharded (tests/test_torch_parallel.py holds the rows): the SPMD
+    # shard's local rows are its contiguous slice of the global chunk
+    loader.shard_spmd(1, 2)
+    assert loader.local_minibatch_size == 4
+    numpy.testing.assert_array_equal(loader.local_chunk(chunk), chunk[4:])
+    with pytest.raises(ValueError, match="not divisible"):
+        loader.shard_spmd(0, 3)
 
 
 def test_make_loader_and_default_config_pick_records(record_file):

@@ -13,11 +13,15 @@ scripts/velescli.py [H], SURVEY §2.1, §3.1):
 - ``-d/--device`` is ``cuda`` (the default: the card, raising without
   one) or ``cpu``.
 
+- ``--distributed --coordinator-address HOST:PORT --num-processes N
+  --process-id R`` joins a data-parallel run of N processes (one a
+  card; gloo when ranks share a card or run on the CPU).
+
 The parser takes every flag of the reference, so any reference command
-line parses.  The flags whose machinery is not ported yet (multi-process
-runs, the genetic optimizer, the web status, serving after training,
-the event sinks, fault plans) raise NotImplementedError naming their
-ROADMAP item before anything is built or trained.
+line parses.  The flags whose machinery is not ported yet (the genetic
+optimizer, the web status, serving after training, the event sinks,
+fault plans) raise NotImplementedError naming their ROADMAP item before
+anything is built or trained.
 """
 
 from __future__ import annotations
@@ -31,10 +35,6 @@ import sys
 
 #: flags not ported yet: (argparse dest, its default, ROADMAP item)
 _UNPORTED = (
-    ("distributed", False, "Queue 2, item 5"),
-    ("coordinator_address", None, "Queue 2, item 5"),
-    ("num_processes", None, "Queue 2, item 5"),
-    ("process_id", None, "Queue 2, item 5"),
     ("optimize", None, "Queue 2, item 4"),
     ("web_status", None, "Queue 2, item 6"),
     ("web_status_url", None, "Queue 2, item 6"),
@@ -89,8 +89,12 @@ def build_argparser():
                         help="matmul/conv precision mode "
                              "(ops.functional.set_matmul_precision)")
     parser.add_argument("--distributed", action="store_true",
-                        help="join a multi-process run (not ported yet)")
-    parser.add_argument("--coordinator-address", default=None)
+                        help="join a multi-process data-parallel run "
+                             "(torch.distributed: NCCL when every rank "
+                             "has a card of its own, else gloo)")
+    parser.add_argument("--coordinator-address", default=None,
+                        metavar="HOST:PORT",
+                        help="rank 0's TCP store (with --distributed)")
     parser.add_argument("--num-processes", type=int, default=None)
     parser.add_argument("--process-id", type=int, default=None)
     parser.add_argument("--snapshot-dir", default=None,
@@ -291,7 +295,10 @@ def main(argv=None):
             profile=args.profile, evaluate=args.evaluate,
             epoch_scan=args.epoch_scan, stream_window=args.stream_window,
             stage_ahead=args.stage_ahead,
-            device=None if args.device == "cuda" else args.device)
+            device=None if args.device == "cuda" else args.device,
+            distributed=args.distributed,
+            coordinator_address=args.coordinator_address,
+            num_processes=args.num_processes, process_id=args.process_id)
         holder["launcher"] = launcher
         launcher.boot()
 
@@ -304,5 +311,17 @@ def main(argv=None):
     return 0
 
 
+def _run_process():
+    """The process entry: ``main`` and, when it joined a distributed
+    run, leaving it (an in-process caller of ``main`` stays joined, as
+    the reference's ``jax.distributed`` does, and may call
+    ``parallel.shutdown`` itself)."""
+    try:
+        return main()
+    finally:
+        from veles_tpu_torch import parallel
+        parallel.shutdown()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(_run_process())

@@ -42,6 +42,16 @@ the driver replays it once a minibatch.  A second graph holds one eval
 step.  On the CPU the same step functions run eagerly; on the card a
 capture that fails raises (no eager fallback).
 
+**Under a ShardedTrainer** (``veles_tpu_torch/parallel``; the
+reference's ``wf._sharded_trainer`` hooks, ``veles_tpu/compiled.py:
+555-625``) the runner's ``shard`` is the trainer: the gradient and
+metric sums of a step are all-reduced over the data group between the
+gradients and the update (one flat bucket), split layers gather their
+outputs and reduce their input gradients, each stochastic layer draws
+its data rank's rows of the global draws, and FusedStep / FusedCommit /
+``stop`` go through the trainer's state.  A captured step holds the
+collectives (NCCL); under gloo on the card the scan raises.
+
 The updated state of a graph-loop train minibatch is held PENDING;
 ``FusedCommit`` adopts it only after Decision lets the backward pass run
 (a minibatch gated by ``decision.complete`` is computed and dropped, as
@@ -175,6 +185,10 @@ class FusedRunner:
         self._last_train_args = None
         #: the epoch scan's captured steps (set by the driver)
         self.scan = None
+        #: the ShardedTrainer this runner runs under (None: one
+        #: process): its collectives between the gradients and the
+        #: update, around split layers, and on the metrics
+        self.shard = None
 
     # ----------------------------------------------------------------- state
     def _pull_state(self):
@@ -196,6 +210,12 @@ class FusedRunner:
         return [prng.fold_in(rng, i)
                 if rng is not None and getattr(f, "STOCHASTIC", False)
                 else None for i, f in enumerate(self.forwards)]
+
+    def _layer_rngs(self, ops, micro):
+        """Microbatch ``micro``'s per-layer keys of ``ops`` (a data
+        rank's rows of the global draws under a ShardedTrainer)."""
+        rngs = ops.layer_rngs(micro)
+        return rngs if self.shard is None else self.shard.layer_rngs(rngs)
 
     def host_operands(self, batch_size, step, rng=None):
         """Every step-varying input of one train step, as host values:
@@ -222,6 +242,7 @@ class FusedRunner:
         which stands for ``fold_in(rng, i)`` per stochastic layer."""
         if layer_rngs is None:
             layer_rngs = self._stochastic_keys(rng)
+        split = {} if self.shard is None else self.shard.split
         acts, saved = [x], []
         for i, (fwd, entry) in enumerate(zip(self.forwards, state)):
             if getattr(fwd, "HAS_SKIP_EDGE", False):
@@ -229,6 +250,9 @@ class FusedRunner:
                 # whole activation list and keep no residuals
                 y, res = fwd.chain_forward(i, acts, entry, layer_rngs[i],
                                            train), None
+            elif i in split:
+                y, res = self.shard.tp_forward(i, fwd, acts[-1], entry,
+                                               layer_rngs[i], train)
             else:
                 y, res = fwd.apply_fused(acts[-1], entry, layer_rngs[i],
                                          train)
@@ -245,6 +269,8 @@ class FusedRunner:
     def _eval_step(self, state, x, y_ref, mask):
         acts, _ = self._forward_chain(state, x, rng=None, train=False)
         _, metrics = self._loss(acts[-1], y_ref, mask)
+        if self.shard is not None:
+            metrics = self.shard.reduce_metrics(metrics)
         return metrics
 
     def _grads_and_metrics(self, state, x, y_ref, mask, rng=None,
@@ -256,6 +282,7 @@ class FusedRunner:
         acts, saved = self._forward_chain(state, x, train=True,
                                           layer_rngs=layer_rngs)
         err, metrics = self._loss(acts[-1], y_ref, mask)
+        split = {} if self.shard is None else self.shard.split
         all_grads = [None] * len(self.forwards)
         # a skip edge makes acts[src] the input of two consumers, so its
         # error has two parts: the main chain's and the stashed skip
@@ -275,9 +302,14 @@ class FusedRunner:
                 pending[src] = (pending[src] + d_src if src in pending
                                 else d_src)
                 continue
-            err_in, grads = self.gds[i].backward_fused(
-                acts[i], acts[i + 1], err, state[i], layer_rngs[i],
-                saved[i])
+            if i in split:
+                err_in, grads = self.shard.tp_backward(
+                    i, self.gds[i], acts[i], acts[i + 1], err, state[i],
+                    layer_rngs[i], saved[i])
+            else:
+                err_in, grads = self.gds[i].backward_fused(
+                    acts[i], acts[i + 1], err, state[i], layer_rngs[i],
+                    saved[i])
             all_grads[i] = grads
             err = err_in
         return all_grads, metrics
@@ -299,8 +331,9 @@ class FusedRunner:
         xs, ys, ms = split(x), split(y_ref), split(mask)
         total_g = total_m = None
         for j in range(k):
-            g, m = self._grads_and_metrics(state, xs[j], ys[j], ms[j],
-                                           layer_rngs=ops.layer_rngs(j))
+            g, m = self._grads_and_metrics(
+                state, xs[j], ys[j], ms[j],
+                layer_rngs=self._layer_rngs(ops, j))
             if total_g is None:
                 total_g, total_m = g, dict(m)
                 continue
@@ -355,13 +388,17 @@ class FusedRunner:
     def _step(self, state, x, y_ref, mask, ops, out=None):
         """(new state, metrics) of one train step with the operands
         ``ops`` (:class:`HostOperands` or :class:`DeviceOperands`);
-        ``state`` is left untouched."""
+        ``state`` is left untouched.  Under a ShardedTrainer the
+        gradient and metric sums are reduced over the data group between
+        the gradients and the update."""
         if self.grad_accum == 1:
             all_grads, metrics = self._grads_and_metrics(
-                state, x, y_ref, mask, layer_rngs=ops.layer_rngs(0))
+                state, x, y_ref, mask, layer_rngs=self._layer_rngs(ops, 0))
         else:
             all_grads, metrics = self._accumulated(state, x, y_ref, mask,
                                                    ops)
+        if self.shard is not None:
+            all_grads, metrics = self.shard.reduce(all_grads, metrics)
         return self._apply_updates(state, all_grads, ops, out), metrics
 
     def _train_step(self, state, x, y_ref, mask, batch_size, rng=None,
@@ -449,6 +486,10 @@ class FusedStep(Unit):
     def run(self):
         runner = self.runner
         loader = runner.wf.loader
+        # attached by the launcher under --distributed: minibatches (this
+        # rank's rows) go through the trainer, the same pending/commit
+        # order
+        trainer = getattr(runner.wf, "_sharded_trainer", None)
         x = loader.minibatch_data.devmem
         mask = loader.minibatch_mask.devmem
         if runner._is_mse:
@@ -459,20 +500,32 @@ class FusedStep(Unit):
                 and not getattr(runner.wf, "eval_only", False)):
             rng = (prng.get("dropout").key() if runner._has_stochastic
                    else None)
-            ops = runner.host_operands(loader.minibatch_size,
-                                       self.train_steps, rng)
-            self.pending_state, metrics = runner._step(runner.state, x,
-                                                       y_ref, mask, ops)
-            runner._last_train_args = (x, y_ref, mask, ops)
+            if trainer is not None:
+                self.pending_state, metrics = trainer.train_step_pending(
+                    x, y_ref, mask, loader.minibatch_size, rng,
+                    self.train_steps)
+            else:
+                ops = runner.host_operands(loader.minibatch_size,
+                                           self.train_steps, rng)
+                self.pending_state, metrics = runner._step(
+                    runner.state, x, y_ref, mask, ops)
+                runner._last_train_args = (x, y_ref, mask, ops)
             self.train_steps += 1
         else:
             self.pending_state = None
-            metrics = runner._eval_step(runner.state, x, y_ref, mask)
+            if trainer is not None:
+                metrics = trainer.eval_step(x, y_ref, mask)
+            else:
+                metrics = runner._eval_step(runner.state, x, y_ref, mask)
         # decision reads these through its link_attrs alias on the evaluator
         runner.evaluator.metrics = metrics
 
     def stop(self):
-        self.runner.sync_to_units()
+        trainer = getattr(self.runner.wf, "_sharded_trainer", None)
+        if trainer is not None:
+            trainer.sync_to_runner()
+        else:
+            self.runner.sync_to_units()
 
 
 class FusedCommit(Unit):
@@ -486,14 +539,21 @@ class FusedCommit(Unit):
     def run(self):
         fused = self.runner.wf.fused_step
         if fused.pending_state is not None:
-            self.runner.state = fused.pending_state
+            trainer = getattr(self.runner.wf, "_sharded_trainer", None)
+            if trainer is not None:
+                trainer.state = fused.pending_state
+            else:
+                self.runner.state = fused.pending_state
             fused.pending_state = None
 
 
 # ------------------------------------------------------------ the scan step
 def _launch_counts():
+    """{counted function: its count}: the kernel wrappers' launches and
+    the collectives of a sharded step."""
+    from veles_tpu_torch import parallel
     from veles_tpu_torch.ops import hopper_kernels as HK
-    return {fn: fn.launches for fn in HK._WRAPPERS}
+    return {fn: fn.launches for fn in HK._WRAPPERS + parallel.COUNTED}
 
 
 class StepTables:
@@ -621,19 +681,28 @@ class ScanProgram:
     the kernels' counts stay exact."""
 
     def __init__(self, runner, device, datas, labels, train_rows, mb,
-                 group, groups, eval_rows=None):
+                 group, groups, eval_rows=None, state=None):
         self.runner = runner
         self.device = device
         self.datas = list(datas)
         self.labels = list(labels)
         self.cuda = device.type == "cuda"
+        if self.cuda and runner.shard is not None and \
+                runner.shard.mesh.backend != "nccl":
+            raise ValueError(
+                "the epoch scan on the card needs the nccl backend: a "
+                "%s collective stages through the host and cannot be "
+                "captured in a CUDA graph (run the graph loop, or give "
+                "every rank a card of its own)"
+                % runner.shard.mesh.backend)
         micro = mb // runner.grad_accum
         self.train = StepTables(runner, device, train_rows, mb, group,
                                 groups, True, micro)
         self.evals = {cls: StepTables(runner, device, rows * groups, mb,
                                       rows, groups, False)
                       for cls, rows in (eval_rows or {}).items()}
-        state = runner.state
+        if state is None:
+            state = runner.state
         self.buffers = [[{k: v.detach().clone() for k, v in e.items()}
                          for e in state] for _ in range(2)]
         self.cur = 0
@@ -693,9 +762,14 @@ class ScanProgram:
                     keys[n, j * layout.n_keys + slot] = layer_keys[i]
             for i, slot in layout.crop_slot.items():
                 fwd = runner.forwards[i]
-                shape = (micro,) + tuple(fwd.input.shape[1:])
+                # a data rank's draws: its rows of the global batch's
+                parts = 1 if runner.shard is None else \
+                    runner.shard.data_parts
+                rank = 0 if parts == 1 else runner.shard.mesh.data_index
+                shape = (micro * parts,) + tuple(fwd.input.shape[1:])
                 crops[slot].append(numpy.stack([
-                    fwd.step_operand(layer_keys[i], shape)
+                    fwd.step_operand(layer_keys[i], shape)[
+                        rank * micro:(rank + 1) * micro]
                     for layer_keys in ops.keys]))
         if keys is not None:
             keys = keys.view(numpy.int32)

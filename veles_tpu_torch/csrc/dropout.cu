@@ -19,6 +19,12 @@
 // (not the TPU branch's multiply by 1/p), so the output is bit-equal too.
 // The backward is this kernel on dy with the same key: no mask is stored.
 //
+// An element offset o (int64, 0 for a whole tensor) makes element i hash
+// the counter of i + o: a data-parallel rank whose rows start at flat
+// element o of the global batch draws exactly those rows of the global
+// mask, as a sharded run of jax's partitionable threefry does
+// (veles_tpu/compat.py:11-26).
+//
 // The key comes in as two uint32 values by value (a host value; nothing is
 // read back from the card), or, through dropout_dev_f32, as a pointer to two
 // uint32 words on the card that each thread reads before its loop: the same
@@ -81,7 +87,8 @@ __device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
 __global__ void dropout_kernel(const float* __restrict__ x,
                                float* __restrict__ out, int64_t n,
                                uint32_t k0, uint32_t k1, float keep,
-                               const uint32_t* __restrict__ key) {
+                               const uint32_t* __restrict__ key,
+                               int64_t offset) {
     if (key != nullptr) {
         k0 = key[0];
         k1 = key[1];
@@ -90,8 +97,9 @@ __global__ void dropout_kernel(const float* __restrict__ x,
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;
     for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
          i += stride) {
-        const uint32_t bits = threefry_bits(
-            k0, k1, k2, (uint32_t)((uint64_t)i >> 32), (uint32_t)i);
+        const uint64_t c = (uint64_t)(i + offset);
+        const uint32_t bits =
+            threefry_bits(k0, k1, k2, (uint32_t)(c >> 32), (uint32_t)c);
         const float u =
             __fsub_rn(__uint_as_float((bits >> 9) | 0x3f800000u), 1.0f);
         out[i] = u < keep ? __fdiv_rn(x[i], keep) : 0.0f;
@@ -123,21 +131,24 @@ int64_t grid_for(int64_t n) {
 extern "C" {
 
 int dropout_f32(const float* x, float* out, long long n, unsigned k0,
-                unsigned k1, float keep, void* stream) {
+                unsigned k1, float keep, long long offset, void* stream) {
     if (n <= 0) return 0;
+    if (offset < 0) return (int)cudaErrorInvalidValue;
     dropout_kernel<<<(unsigned)grid_for(n), kThreads, 0,
                      (cudaStream_t)stream>>>(x, out, n, k0, k1, keep,
-                                             nullptr);
+                                             nullptr, offset);
     return (int)cudaGetLastError();
 }
 
 // dropout_f32 with the key read on the card from key[0], key[1].
 int dropout_dev_f32(const float* x, float* out, long long n,
-                    const unsigned* key, float keep, void* stream) {
+                    const unsigned* key, float keep, long long offset,
+                    void* stream) {
     if (n <= 0) return 0;
-    if (key == nullptr) return (int)cudaErrorInvalidValue;
+    if (key == nullptr || offset < 0) return (int)cudaErrorInvalidValue;
     dropout_kernel<<<(unsigned)grid_for(n), kThreads, 0,
-                     (cudaStream_t)stream>>>(x, out, n, 0u, 0u, keep, key);
+                     (cudaStream_t)stream>>>(x, out, n, 0u, 0u, keep, key,
+                                             offset);
     return (int)cudaGetLastError();
 }
 

@@ -31,6 +31,14 @@ then with the layer index.  With no stochastic layers the driver's
 epoch metrics and final weights equal the graph loop's at any chunk
 size.
 
+**Under ``--distributed``** (a ``ShardedTrainer`` on the workflow):
+every rank holds the whole dataset on its device and replays the same
+captured step on its columns of the global plan (its rows of every
+minibatch); the step's collectives are inside the graph (NCCL only: a
+gloo collective cannot be captured, so the scan raises there on the
+card).  The step operands come from the GLOBAL plan (the live batch
+size of the whole minibatch).  Streaming does not combine with it.
+
 **Streaming mode** (``stream_window`` W > 0; out-of-core record and
 LMDB datasets, or any loader with ``gather_window``): an epoch's plan is
 cut into windows of W minibatches; a worker thread gathers the next
@@ -221,6 +229,12 @@ class EpochScanDriver(Logger):
         dec._reset_epoch()
 
     def run(self):
+        if self.streaming and getattr(self.wf, "_sharded_trainer",
+                                      None) is not None:
+            raise ValueError(
+                "--stream-window does not combine with --distributed "
+                "yet: the windowed path is single-process (multi-host "
+                "runs keep the device-resident chunk driver)")
         try:
             if self.streaming:
                 self._run_streaming()
@@ -251,11 +265,18 @@ class EpochScanDriver(Logger):
 
     def _finish(self, program):
         """The run's end: the final state out of the static buffers into
-        the runner and the units, the final snapshot."""
+        the runner (through the trainer) and the units, the final
+        snapshot."""
         runner = self.runner
-        runner.state = [{k: v.clone() for k, v in e.items()}
-                        for e in program.state]
-        runner.sync_to_units()
+        state = [{k: v.clone() for k, v in e.items()}
+                 for e in program.state]
+        trainer = getattr(self.wf, "_sharded_trainer", None)
+        if trainer is not None:
+            trainer.state = state
+            trainer.sync_to_runner()
+        else:
+            runner.state = state
+            runner.sync_to_units()
         snap = getattr(self.wf, "snapshotter", None)
         if snap is not None:
             snap.stop()
@@ -263,8 +284,12 @@ class EpochScanDriver(Logger):
 
     def _commit(self, program):
         """A chunk or epoch boundary: the state is addressable — the
-        runner takes it, then the snapshot gates fire."""
-        self.runner.state = program.state
+        runner (or the trainer) takes it, then the snapshot gates fire."""
+        trainer = getattr(self.wf, "_sharded_trainer", None)
+        if trainer is not None:
+            trainer.state = program.state
+        else:
+            self.runner.state = program.state
         snap = getattr(self.wf, "snapshotter", None)
         if snap is not None:
             self.loader.epoch_ended = True
@@ -289,17 +314,25 @@ class EpochScanDriver(Logger):
         device = self._device()
         data = loader.original_data.devmem
         labels = None if runner._is_mse else loader.original_labels.devmem
+        # --distributed: every rank holds the whole (digest-checked)
+        # dataset and trains on its columns of the global plan
+        trainer = getattr(wf, "_sharded_trainer", None)
+        local = (lambda a: a) if trainer is None else trainer.local_columns
+        if trainer is not None:
+            trainer.place_dataset(data, labels)
         evals = self._eval_sets(loader)
         counts = {cls: int(m.sum()) for cls, (_, m) in evals.items()}
         first_plan_fresh = loader._position == 0
         steps = loader.plan_arrays(TRAIN)[0].shape[0]
-        mb = loader.max_minibatch_size
+        mb = loader.max_minibatch_size // (
+            1 if trainer is None else trainer.data_parts)
         program = self.program = ScanProgram(
             runner, device, [data], [labels], k * steps, mb, steps, k,
-            {cls: len(idx) for cls, (idx, _) in evals.items()})
+            {cls: len(idx) for cls, (idx, _) in evals.items()},
+            state=None if trainer is None else trainer.state)
         for cls, (idx, mask) in evals.items():
-            program.evals[cls].load(numpy.tile(idx, (k, 1)),
-                                    numpy.tile(mask, (k, 1)))
+            program.evals[cls].load(numpy.tile(local(idx), (k, 1)),
+                                    numpy.tile(local(mask), (k, 1)))
         stream = prng.get("dropout") if runner._has_stochastic else None
         fused = getattr(wf, "fused_step", None)
         while not bool(dec.complete):
@@ -324,7 +357,11 @@ class EpochScanDriver(Logger):
                 ops += self._operands(
                     mask[e * steps:(e + 1) * steps], off,
                     None if key is None else prng.fold_in(key, off))
-            program.train.load(idx, mask, program.operand_tables(ops))
+            if trainer is not None:
+                # the divisibility check and the cross-process plan guard
+                trainer._place_plan(idx, mask, key)
+            program.train.load(local(idx), local(mask),
+                               program.operand_tables(ops))
             program.train.reset()
             for tab in program.evals.values():
                 tab.reset()
@@ -360,6 +397,10 @@ class EpochScanDriver(Logger):
                 program.train.t.zero_()
                 for _ in range((done_row + 1) * steps - 1):
                     program.replay_train()
+            if trainer is not None:
+                # the graph loop counts the stopping epoch's last step too
+                trainer.step_count = step0 + (
+                    k if done_row is None else done_row + 1) * steps
             self._commit(program)
         self._finish(program)
 

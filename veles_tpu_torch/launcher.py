@@ -7,8 +7,15 @@ snapshot (a path, or ``"auto"``: the latest ``*_current`` one of the
 workflow's snapshotter), gates an evaluation-only run, then trains
 through the epoch-scan driver (``epoch_scan`` > 0 or ``stream_window``
 > 0) or the unit-graph loop, and prints the run's statistics.
-Multi-process runs (``distributed=True``) are not ported yet (ROADMAP
-Queue 2 item 5).
+
+``distributed=True`` (``veles_tpu/launcher.py:80-130``) first joins the
+run (:func:`veles_tpu_torch.parallel.initialize_multihost`: rank r on
+``cuda:(r % device_count)``, NCCL when every rank has a card of its own,
+gloo otherwise), shards the loader with ``shard_spmd`` from the mesh,
+and drives the fused step through a data-parallel ``ShardedTrainer``
+(every rank plans the same global minibatches and trains on its rows;
+the gradient sums are all-reduced).  A restore is pushed back out to the
+trainer (``reload_from_runner``).
 """
 
 from __future__ import annotations
@@ -35,15 +42,16 @@ class Launcher(Logger):
         this many epochs; ``stream_window`` > 0 streams the dataset in
         windows of this many minibatches (implies ``epoch_scan``), with
         ``stage_ahead`` windows staged ahead.
+    distributed: join a multi-process data-parallel run at
+        ``coordinator_address`` (``host:port``) as process
+        ``process_id`` of ``num_processes``.
     """
 
     def __init__(self, workflow, snapshot=None, distributed=False,
                  stats=True, profile=None, evaluate=False, epoch_scan=0,
-                 stream_window=0, stage_ahead=1, device=None):
-        if distributed:
-            raise NotImplementedError(
-                "multi-process runs (--distributed) are not ported yet: "
-                "ROADMAP Queue 2, item 5")
+                 stream_window=0, stage_ahead=1, device=None,
+                 coordinator_address=None, num_processes=None,
+                 process_id=None):
         self.workflow = workflow
         self.snapshot = snapshot
         self.device = device
@@ -53,6 +61,12 @@ class Launcher(Logger):
             self.epoch_scan = 1
         self.stage_ahead = int(stage_ahead or 1)
         self.evaluate = evaluate
+        self.distributed = distributed
+        self.coordinator_address = coordinator_address
+        self.num_processes = num_processes
+        self.process_id = process_id
+        #: the backend the distributed run joined with (None otherwise)
+        self.backend = None
         self.stats = stats
         self.profile = profile
         self.restored_payload = None
@@ -63,7 +77,30 @@ class Launcher(Logger):
     def boot(self, **kwargs):
         """Bring everything up and run; returns the workflow."""
         wf = self.workflow
-        wf.initialize(device=self.device, **kwargs)
+        device, mesh = self.device, None
+        if self.distributed:
+            from veles_tpu_torch import parallel
+            index, count, self.backend = parallel.initialize_multihost(
+                self.coordinator_address, self.num_processes,
+                self.process_id, device)
+            # lock-step data parallelism over every rank of the run:
+            # each plans the same global minibatches and feeds its rows
+            mesh = parallel.make_mesh()
+            if mesh.device is not None:
+                device = mesh.device
+            loader = getattr(wf, "loader", None)
+            if loader is not None:
+                loader.shard_spmd(*parallel.spmd_loader_shard(mesh))
+            self.info("joined distributed run as process %d/%d (%d-rank "
+                      "mesh, %s)", index, count, mesh.size, self.backend)
+        wf.initialize(device=device, **kwargs)
+        if mesh is not None:
+            runner = getattr(wf, "_fused_runner", None)
+            if runner is None:
+                raise ValueError("--distributed training needs a fused "
+                                 "workflow (drop --no-fused)")
+            from veles_tpu_torch.parallel import ShardedTrainer
+            wf._sharded_trainer = ShardedTrainer(runner, mesh)
         snapshot = self.snapshot
         if snapshot == "auto":
             # resume from the latest published snapshot of this
@@ -83,6 +120,11 @@ class Launcher(Logger):
             self.restored_payload = snapshotter.restore(wf, snapshot)
             self.info("resumed from %s (epoch %s)", snapshot,
                       self.restored_payload.get("epoch"))
+            trainer = getattr(wf, "_sharded_trainer", None)
+            if trainer is not None:
+                # the restore rewrote the units and the runner's state:
+                # push it back out to this rank's trainer
+                trainer.reload_from_runner()
         if self.evaluate:
             self._gate_evaluation(wf)
         if self.epoch_scan and self.evaluate:

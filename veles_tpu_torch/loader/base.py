@@ -14,9 +14,13 @@ minibatch is its index vector (a RecordsLoader uploads its gathered
 minibatch too).  The epoch scan reads a set's plan as matrices
 (``plan_arrays``) and a streaming loader's samples a window at a time
 (``gather_window``: the record, LMDB and full-batch loaders have it).
-``local_minibatch_size`` and ``local_chunk`` are the reference's
-unsharded forms (the identity); multi-process sharding (``shard``,
-``shard_spmd``) is not ported yet and raises (ROADMAP Queue 2a, item 8).
+
+Multi-process sharding (``veles_tpu/loader/base.py:99-170``): ``shard``
+gives each process its own plan over a strided subset of every set (the
+independent-shard model); ``shard_spmd`` keeps ONE global plan on every
+process and yields the process's contiguous rows of each global
+minibatch (``local_chunk``, ``local_minibatch_size``) with the global
+live count as ``minibatch_size`` — what a data-parallel run consumes.
 """
 
 from __future__ import annotations
@@ -32,15 +36,11 @@ TEST, VALID, TRAIN = 0, 1, 2
 CLASS_NAME = ["test", "validation", "train"]
 
 
-def _not_ported(what, item):
-    raise NotImplementedError("%s is not ported yet: ROADMAP Queue 2a, "
-                              "item %d" % (what, item))
-
-
 class Loader(Unit):
     """Abstract minibatch engine; subclasses provide the data."""
 
-    snapshot_attrs = ("epoch_number", "_position", "_order")
+    snapshot_attrs = ("epoch_number", "_position", "_order", "_shard",
+                      "_spmd_shard")
 
     def __init__(self, workflow, minibatch_size=100, shuffle=True,
                  prng_stream="loader", **kwargs):
@@ -63,6 +63,8 @@ class Loader(Unit):
         self._order = None             # epoch plan: list of minibatch tuples
         self._masks = {}               # live count -> device 0/1 mask
         self._device = None
+        self._shard = (0, 1)           # (process_index, process_count)
+        self._spmd_shard = None        # SPMD slice-of-global-minibatch mode
 
     # -- to be provided by subclasses ---------------------------------------
     def load_data(self):
@@ -115,24 +117,73 @@ class Loader(Unit):
             return None, None
         return numpy.stack(idx), numpy.stack(mask)
 
-    # -- not ported yet ------------------------------------------------------
+    # -- sharding (multi-process) -------------------------------------------
     def shard(self, process_index, process_count):
-        _not_ported("loader sharding (shard)", 8)
+        """Restrict this loader to a strided shard of every set: each
+        process plans its OWN full-size minibatches over ``idx[pi::pc]``
+        (the independent-shard model: per-process evaluation,
+        screening); a lock-step data-parallel run uses
+        :meth:`shard_spmd`."""
+        self._shard = (int(process_index), int(process_count))
+        self._order = None
+        return self
 
     def shard_spmd(self, process_index, process_count):
-        _not_ported("loader sharding (shard_spmd)", 8)
+        """Every process plans the SAME global minibatch sequence (the
+        same seed gives the same shuffle) and this loader yields the
+        process's contiguous rows of each global minibatch;
+        ``minibatch_size`` stays the GLOBAL live count (the gradient
+        normalizer).  Needs ``minibatch_size % process_count == 0``."""
+        process_index, process_count = int(process_index), int(process_count)
+        if self.max_minibatch_size % process_count:
+            raise ValueError(
+                "minibatch_size %d is not divisible by process_count %d"
+                % (self.max_minibatch_size, process_count))
+        self._spmd_shard = (process_index, process_count)
+        self._order = None
+        self._masks = {}
+        return self
+
+    def load_state_dict(self, d):
+        """Snapshot restore, shard-aware.  Snapshots are written by
+        process 0 only, so the captured ``_shard``/``_spmd_shard`` are
+        process 0's; THIS process's identity (set by the launcher before
+        the restore) wins.  An SPMD plan holds GLOBAL chunks, valid for
+        every SPMD shard, so its plan and position survive (resume is
+        bit-exact on every process); a strided plan is the shard's own
+        and is rebuilt (epoch and PRNG streams still restored)."""
+        runtime = (self._shard, self._spmd_shard)
+        super().load_state_dict(d)
+        restored = (tuple(self._shard),
+                    None if self._spmd_shard is None
+                    else tuple(self._spmd_shard))
+        if restored != runtime:
+            spmd_only = (restored[0] == runtime[0]
+                         and restored[1] is not None
+                         and runtime[1] is not None
+                         and all(len(chunk) == self.max_minibatch_size
+                                 for _, chunk, _ in self._order or ()))
+            if not spmd_only:
+                self._order = None
+                self._position = 0
+        self._shard, self._spmd_shard = runtime
 
     @property
     def local_minibatch_size(self):
-        """Rows this process holds per minibatch: ``max_minibatch_size``
-        (the reference's value when not SPMD-sharded; sharding is not
-        ported)."""
-        return self.max_minibatch_size
+        """Rows this process holds per minibatch (``max_minibatch_size``
+        unless SPMD-sharded)."""
+        if self._spmd_shard is None:
+            return self.max_minibatch_size
+        return self.max_minibatch_size // self._spmd_shard[1]
 
     def local_chunk(self, chunk):
-        """This process's slice of a plan chunk: the chunk itself (the
-        reference's identity when not SPMD-sharded)."""
-        return chunk
+        """This process's contiguous slice of a GLOBAL plan chunk (the
+        identity when not SPMD-sharded)."""
+        if self._spmd_shard is None:
+            return chunk
+        pi, pc = self._spmd_shard
+        local = self.max_minibatch_size // pc
+        return chunk[pi * local:(pi + 1) * local]
 
     @property
     def total_samples(self):
@@ -165,11 +216,16 @@ class Loader(Unit):
 
     def _plan_epoch(self):
         """Build this epoch's minibatch plan: test → validation → train,
-        the train indices shuffled from the host stream."""
+        the train indices shuffled from the host stream.  A strided shard
+        plans over ``idx[pi::pc]``; an SPMD shard plans the GLOBAL index
+        space and keeps the global chunks (sliced at consumption)."""
         stream = prng.get(self.prng_stream)
+        pi, pc = self._shard
         plan = []
         for cls, (begin, end) in enumerate(self.class_offsets()):
             idx = numpy.arange(begin, end)
+            if self._spmd_shard is None:
+                idx = idx[pi::pc]
             if len(idx) == 0:
                 continue
             if cls == TRAIN and self.shuffle:
@@ -185,12 +241,14 @@ class Loader(Unit):
         self._order = plan
 
     def _mask(self, actual):
-        """The (max_minibatch_size,) float32 0/1 mask of ``actual`` live
-        rows, on the loader's device, uploaded once per live count."""
+        """The (local_minibatch_size,) float32 0/1 mask of this
+        process's rows of a minibatch of ``actual`` live rows, on the
+        loader's device, uploaded once per live count."""
         mask = self._masks.get(actual)
         if mask is None:
             host = numpy.zeros(self.max_minibatch_size, numpy.float32)
             host[:actual] = 1.0
+            host = self.local_chunk(host)
             mask = torch.as_tensor(host).to(self._device)
             self._masks[actual] = mask
         return mask
@@ -204,6 +262,7 @@ class Loader(Unit):
         self.minibatch_class = cls
         self.minibatch_size = actual
         self.minibatch_mask.assign_device(self._mask(actual))
+        indices = self.local_chunk(indices)
         self.minibatch_indices.reset(indices)
         self.fill_minibatch(indices, actual)
         self.last_minibatch = self._position >= len(self._order)

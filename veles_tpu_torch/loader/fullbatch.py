@@ -75,7 +75,7 @@ class FullBatchLoader(Loader):
         super().run()
 
     def create_minibatch_data(self):
-        mb = self.max_minibatch_size
+        mb = self.local_minibatch_size
         sample_shape = self.original_data.shape[1:]
         self.minibatch_data.reset(
             numpy.zeros((mb,) + sample_shape, self.original_data.dtype))

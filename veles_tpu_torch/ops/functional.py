@@ -642,14 +642,31 @@ def lrn_backward(x, d, err, alpha=1e-4, beta=0.75, n=5):
 
 
 # ------------------------------------------------------------------- dropout
+class RowShard(tuple):
+    """A stochastic layer's key on a data-parallel rank: ``(key, rank,
+    ranks)``.  The rank's batch is rows [rank·b, (rank + 1)·b) of a
+    global batch of ranks·b rows, and it draws exactly those rows of the
+    global batch's draws (as a sharded run of the reference's
+    partitionable threefry does): dropout hashes with the element offset
+    rank·numel, a crop makes the global batch's draws and keeps its
+    rows."""
+
+    __slots__ = ()
+
+
 def dropout(x, rng, rate, train):
     """Inverted Bernoulli dropout through the kernel's wrapper; the mask
     is regenerated from the same key in the backward (the same call on
-    the cotangent).  Eval, or rate <= 0, is the identity."""
+    the cotangent).  Eval, or rate <= 0, is the identity.  A
+    :class:`RowShard` key draws the rank's rows of the global mask."""
     if not train or rate <= 0.0:
         return x
     from veles_tpu_torch.ops.hopper_kernels import dropout as kernel
-    return kernel(x.contiguous(), rng, rate)
+    offset = 0
+    if isinstance(rng, RowShard):
+        rng, rank, _ = rng
+        offset = rank * x.numel()
+    return kernel(x.contiguous(), rng, rate, offset)
 
 
 # -------------------------------------------------------------- augmentation
@@ -685,14 +702,21 @@ def crop_draws(rng, shape, out_hw, flip):
 def _crop_index(x, rng, out_hw, flip, train):
     """Per-sample (rows (b, oh), cols (b, ow)) source indices, or None for
     the eval center crop: ``rng`` itself when it is :class:`CropDraws`,
-    else :func:`crop_draws` of the host key, uploaded once."""
+    else :func:`crop_draws` of the host key (a :class:`RowShard`'s rows of
+    the global batch's), uploaded once."""
     if not train or rng is None:
         return None
     if isinstance(rng, CropDraws):
         return rng
     oh = out_hw[0]
-    index = torch.as_tensor(crop_draws(rng, x.shape, out_hw, flip)).to(
-        x.device)
+    if isinstance(rng, RowShard):
+        rng, rank, ranks = rng
+        b = x.shape[0]
+        draws = crop_draws(rng, (b * ranks,) + tuple(x.shape[1:]), out_hw,
+                           flip)[rank * b:(rank + 1) * b]
+    else:
+        draws = crop_draws(rng, x.shape, out_hw, flip)
+    index = torch.as_tensor(draws).to(x.device)
     return index[:, :oh], index[:, oh:]
 
 

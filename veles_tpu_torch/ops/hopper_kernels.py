@@ -44,7 +44,9 @@ dropout
     The mask is jax's ``bernoulli(key, 1 - rate, shape)`` bit for bit;
     the backward is the same kernel on dy with the same key.  A key
     given as two int32 words on the card is read there when the kernel
-    runs (a captured step's entry).
+    runs (a captured step's entry).  An element ``offset`` hashes
+    element i as i + offset: a data-parallel rank draws its rows of the
+    global batch's mask.
 bernoulli
     No TPU kernel's port: ``jax.random.bernoulli(key, p)`` for a tensor
     ``p``, which the reference leaves to XLA (the RBM's visible
@@ -976,14 +978,15 @@ def _as_key(key):
     return key
 
 
-def dropout_ref(x, key, rate):
+def dropout_ref(x, key, rate, offset=0):
     """Plain PyTorch version of :func:`dropout`: the threefry bits of
-    every flat index hashed on tensors, u = uniform(bits), out = x / p
-    where u < p, else 0 (p = float32(1 − rate))."""
+    every flat index (plus ``offset``) hashed on tensors, u =
+    uniform(bits), out = x / p where u < p, else 0 (p = float32(1 −
+    rate))."""
     if rate <= 0.0:
         return x
     keep = float(numpy.float32(1.0 - rate))
-    u = _uniform_ref(key, x.numel(), x.device)
+    u = _uniform_ref(key, x.numel(), x.device, offset)
     # a 0-dim tensor divisor: a true division on every device (a Python
     # scalar divisor becomes a multiply by its reciprocal on the card)
     divisor = torch.tensor(keep, dtype=torch.float32, device=x.device)
@@ -1000,11 +1003,12 @@ def _dropout_lib():
         from veles_tpu_torch.ops import _build
         lib = _build.load("dropout")
         ptr, u32 = ctypes.c_void_p, ctypes.c_uint
-        lib.dropout_f32.argtypes = [ptr, ptr, ctypes.c_longlong, u32, u32,
-                                    ctypes.c_float, ptr]
+        i64 = ctypes.c_longlong
+        lib.dropout_f32.argtypes = [ptr, ptr, i64, u32, u32,
+                                    ctypes.c_float, i64, ptr]
         lib.dropout_f32.restype = ctypes.c_int
-        lib.dropout_dev_f32.argtypes = [ptr, ptr, ctypes.c_longlong, ptr,
-                                        ctypes.c_float, ptr]
+        lib.dropout_dev_f32.argtypes = [ptr, ptr, i64, ptr,
+                                        ctypes.c_float, i64, ptr]
         lib.dropout_dev_f32.restype = ctypes.c_int
         lib.bernoulli_f32.argtypes = [ptr, ptr, ctypes.c_longlong, u32, u32,
                                       ptr]
@@ -1015,14 +1019,19 @@ def _dropout_lib():
     return _DROPOUT_LIB
 
 
-def dropout(x, key, rate):
+def dropout(x, key, rate, offset=0):
     """Inverted dropout: out = x / p where the element's threefry draw
     is below p = 1 − rate, else 0, with jax's
     ``bernoulli(key, p, x.shape)`` mask bit for bit.  ``key`` is a (2,)
     uint32 host key (``veles_tpu_torch.prng``) or an int seed, which
     means ``PRNGKey(seed)`` as the Pallas wrapper takes it.  ``rate``
     <= 0 returns x.  The backward is this function on dy with the same
-    key.
+    key (and offset).
+
+    ``offset`` (>= 0, by value) makes flat element i draw as element
+    i + offset: x holding rows [r, r + b) of a global batch of rows of
+    f elements, offset r·f gives exactly those rows of the global
+    batch's mask (a data-parallel rank's share).
 
     ``key`` may also be a tensor of two 32-bit words (int32 or int64, the
     bits of the key) on ``x``'s device: on the card the kernel then reads
@@ -1035,9 +1044,12 @@ def dropout(x, key, rate):
     value."""
     if rate <= 0.0:
         return x
+    offset = int(offset)
+    if offset < 0:
+        raise ValueError("offset must be >= 0 (got %d)" % offset)
     on_device_key = isinstance(key, torch.Tensor)
     if not _on_card(x, *((key,) if on_device_key else ())):
-        return dropout_ref(x, key, rate)
+        return dropout_ref(x, key, rate, offset)
     if x.dtype != torch.float32:
         raise TypeError("x must be float32 (got %s)" % x.dtype)
     if not x.is_contiguous():
@@ -1055,11 +1067,11 @@ def dropout(x, key, rate):
                                  % (key.dtype, tuple(key.shape)))
             code = lib.dropout_dev_f32(x.data_ptr(), out.data_ptr(),
                                        x.numel(), key.data_ptr(), keep,
-                                       stream)
+                                       offset, stream)
         else:
             k0, k1 = (int(w) for w in _as_key(key))
             code = lib.dropout_f32(x.data_ptr(), out.data_ptr(), x.numel(),
-                                   k0, k1, keep, stream)
+                                   k0, k1, keep, offset, stream)
     if code:
         raise RuntimeError("dropout launch failed: %s"
                            % lib.dropout_error_string(code).decode())
@@ -1070,13 +1082,13 @@ def dropout(x, key, rate):
 dropout.launches = 0
 
 
-def _uniform_ref(key, n, device):
-    """The float32 uniforms in [0, 1) of flat indices 0..n-1 under
-    ``key``, on ``device``: jax's partitionable threefry bits, top 23
-    bits as the mantissa of a float in [1, 2), minus 1."""
+def _uniform_ref(key, n, device, offset=0):
+    """The float32 uniforms in [0, 1) of flat indices offset..offset+n-1
+    under ``key``, on ``device``: jax's partitionable threefry bits, top
+    23 bits as the mantissa of a float in [1, 2), minus 1."""
     from veles_tpu_torch.prng import threefry2x32
     k0, k1 = (int(w) for w in _as_key(key))
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     o0, o1 = threefry2x32(k0, k1, idx >> 32, idx & 0xFFFFFFFF)
     return (((o0 ^ o1) >> 9) | 0x3F800000).to(torch.int32).view(
         torch.float32) - 1.0

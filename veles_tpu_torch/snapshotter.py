@@ -111,9 +111,8 @@ class SnapshotterBase(Unit):
         # epoch_number, epoch_ended
 
     def _should_write(self):
-        if bool(self.skip) or not self._is_writer_process():
-            return False
-        if not bool(self.epoch_ended):
+        """True when a snapshot is due (on every rank alike)."""
+        if bool(self.skip) or not bool(self.epoch_ended):
             return False
         epoch = int(self.epoch_number)
         if not bool(self.improved) and (self.interval <= 0
@@ -129,17 +128,27 @@ class SnapshotterBase(Unit):
             return
         self._last_write = time.time()
         self._last_epoch_written = int(self.epoch_number)
-        self.export()
+        self._export_or_gather()
 
     def stop(self):
         # final snapshot on workflow completion (skipped if this epoch
         # was already written)
         if (self.is_initialized and not bool(self.skip)
-                and self._is_writer_process()
                 and bool(getattr(self, "complete", False))
                 and self._last_epoch_written != int(self.epoch_number)):
             self._last_epoch_written = int(self.epoch_number)
+            self._export_or_gather()
+
+    def _export_or_gather(self):
+        """Rank 0 writes; under tensor parallelism the other ranks take
+        part in the gather of the split layers that its snapshot
+        makes."""
+        if self._is_writer_process():
             self.export()
+            return
+        trainer = getattr(self.workflow, "_sharded_trainer", None)
+        if trainer is not None and trainer.split:
+            trainer.sync_to_runner()
 
     @staticmethod
     def _is_writer_process():
@@ -338,10 +347,9 @@ def restore(workflow, path_or_payload):
 
 
 # ------------------------------------------------------------ carry across
-#: the reference loader's sharding attributes and their unsharded
-#: values, the only form the port takes (sharding is ROADMAP Queue 2a,
-#: item 8)
-_SHARD_ATTRS = {"_shard": (0, 1), "_spmd_shard": None}
+#: the loader's sharding attributes, carried across as tuples (a
+#: reference snapshot may hold them as lists)
+_SHARD_ATTRS = ("_shard", "_spmd_shard")
 
 
 def _carry(value):
@@ -374,19 +382,17 @@ def state_from_reference(state):
     numpy) as this package's ``snapshot_state()``: the same units,
     attributes and PRNG streams, with each reference object (the
     loader's normalizer) rebuilt as the port's class of the same name
-    and the loader's sharding attributes dropped (they must say
-    unsharded).
+    and the loader's sharding attributes (``_shard``, ``_spmd_shard``:
+    a sharded run's process-0 snapshot) carried across; the restoring
+    process's own shard identity wins (``Loader.load_state_dict``).
     ``workflow.load_snapshot_state`` (or :func:`restore` of a payload
     holding it) then resumes the port where the reference stopped."""
     units = {}
     for name, attrs in state["units"].items():
         attrs = dict(attrs)
-        for key, unsharded in _SHARD_ATTRS.items():
-            value = attrs.pop(key, unsharded)
-            if value is not None and tuple(value) != unsharded:
-                raise ValueError("unit %r: a sharded loader's snapshot "
-                                 "(loader sharding is ROADMAP Queue 2a, "
-                                 "item 8)" % name)
+        for key in _SHARD_ATTRS:
+            if attrs.get(key) is not None:
+                attrs[key] = tuple(int(v) for v in attrs[key])
         units[name] = _carry(attrs)
     return {"workflow_class": state.get("workflow_class"), "units": units,
             "prng": _carry(state.get("prng", {}))}

@@ -270,8 +270,13 @@ class StandardWorkflowBase(NNWorkflow):
     def snapshot_state(self):
         # during a fused run the unit Vectors lag the device state; sync
         # before collecting so snapshots always see the live weights
+        # (under --distributed: the trainer gathers its split layers'
+        # slices first; its sync includes the unit sync)
+        trainer = getattr(self, "_sharded_trainer", None)
         runner = getattr(self, "_fused_runner", None)
-        if runner is not None:
+        if trainer is not None:
+            trainer.sync_to_runner()
+        elif runner is not None:
             runner.sync_to_units()
         return super().snapshot_state()
 
