@@ -197,8 +197,36 @@ Phases (any failure exits nonzero before the final line is printed):
    line (``{"parallel": ...}``).  The kernels phase also checks kernel
    4's element-offset entry (rank 1's rows of dropout6) against the
    global launch's rows and times it;
-12. the script's seconds, the card's name and power limit, one JSON line
-   listing every ported TPU kernel (kernels 1 and 4 with their
+12. moe — mixture of experts (``ops/moe.py``) at the full LM width:
+   (a) ``moe_train``, the char-LM sample with a top-1-routed mixture of 4
+   experts a block (``MOE_TRAIN``: ``LM_TRAIN`` with ``n_experts=4``,
+   ``moe_aux_coef=1e-2``) through its build + initialize + run under
+   'flash_pallas', 10 train steps and 2 validation minibatches: exact
+   flash launches (7a-7c), falling train loss, the validation loss
+   falling between the epoch's scoring and the trained weights', a
+   seeded rerun bit-equal (losses and params), the steady step's ms,
+   tokens/s, busy share, top kernels and peak card memory against the
+   dense LM step of phase 7; then card vs CPU at 2 layers
+   (``MOE_SMALL``) with every card MoE call in the CPU call's region
+   (its expert choices and its experts' ReLU signs; the card's own
+   other choices counted, expert flips at margins below
+   ``MOE_FLIP_MARGIN``) within ``LM_*_SHARE``, the run held to the
+   expert choices alone reported, and three faulty card
+   runs (``MOE_FAULTS``: gate dropped, aux term dropped, second-choice
+   expert) rejected; (b) ``moe_serve``, ``LMEngine`` over the same
+   config's seeded MoE weights answering 8 requests through kernels 5
+   and 6 (exact launches, every emitted token checked as in phase 4);
+   (c) ``moe_ep``, expert parallelism at the full block shape
+   (``MOE_EP``: 16,384 tokens, d 512, d_ff 2048, 4 experts): NCCL at
+   world 1 bit-equal to ``moe_ffn`` in values and gradients, then two
+   gloo ranks sharing cuda:0 (this script with ``--moe-rank``), each
+   with 2 experts, bit-equal to each other and to the same split
+   arithmetic in one process, within the reference's bars of
+   ``moe_ffn``, ``ep_all_reduce`` and ``ep_input_grad_all_reduce``
+   counted, their ms; its JSON line (``{"moe_ep": ...}``);
+13. the script's seconds, the card's name and power limit, one JSON line
+   listing every ported TPU kernel (kernels 5, 6 and 7a-7c with their
+   launches on the MoE runs, ``moe_launches``; kernels 1 and 4 with their
    device-operand entries' times, bounds and launches, kernel 4 with its
    offset entry's), then the JSON result line.
 
@@ -365,6 +393,40 @@ LM_THIRD_SHARE = 0.05
 #: faulty card runs the first-update limit must reject: the flash backward
 #: launched with causal=False, and given the sm_scale of head_dim / 2
 LM_FAULTS = ("bwd_not_causal", "bwd_other_scale")
+#: the MoE runs: the repo's LM config with a top-1-routed mixture of 4
+#: experts a block (the documented MoE run's count, docs/USAGE.md) and
+#: the reference trainer's load-balancing weight; trained at LM_TRAIN's
+#: loader (10 steps, 2 validation minibatches), card vs CPU at LM_SMALL's
+MOE = {"n_experts": 4, "moe_aux_coef": 1e-2}
+MOE_TRAIN = dict(LM_TRAIN, trainer=dict(LM_TRAIN["trainer"], **MOE))
+MOE_SMALL = dict(LM_SMALL, trainer=dict(LM_SMALL["trainer"], **MOE))
+#: faulty card runs the first-update limit (LM_FIRST_SHARE) must reject:
+#: each token's output not scaled by its gate, the load-balancing term
+#: left out of the train loss, and every token sent to its second-choice
+#: expert
+MOE_FAULTS = ("gate_dropped", "aux_dropped", "second_choice")
+#: card vs CPU runs each card MoE call in the region of the CPU's same
+#: call: its expert choices and its experts' ReLU signs (one ReLU kink
+#: flipped by roundoff moves a block's input gradient, and Adam's first
+#: update, ~lr·sign(g), spreads that over the tensors: the parallel
+#: phase's kink, here between the card and the CPU; the report's
+#: ``routing_only_worst`` is the run held to the expert choices alone).
+#: The card's own other choices are counted; a roundoff flip of an
+#: expert choice sits at a top-1/top-2 margin below this (the two runs'
+#: weights drift apart by up to LM_THIRD_SHARE of their movement over 3
+#: updates)
+MOE_FLIP_MARGIN = 1e-3
+#: requests the MoE serve answers (20-300 prompt, 32-64 new tokens)
+MOE_SERVE_REQUESTS = 8
+#: expert parallelism at the full-width block shape: tokens (minibatch
+#: 32 x s 512), d_model, d_ff, experts (2 a rank on two ranks)
+MOE_EP = (16384, 512, 2048, 4)
+#: EP vs one-device ``moe_ffn``: the reference's bars (tests/test_moe.py),
+#: (rtol, atol) of the output and of the gradients
+MOE_EP_VALUE_TOL = (2e-5, 1e-6)
+MOE_EP_GRAD_TOL = (2e-4, 1e-5)
+#: timed forward + backward calls of each EP run
+MOE_EP_TIMED = 5
 #: the conv-zoo phases, each through its sample's own ``train`` at the
 #: default (full-width) config for 2 epochs, and the tensors that one
 #: fused-SGD launch a train step updates: weights and biases of every
@@ -1426,14 +1488,20 @@ def teacher_forced(torch, T, engine, seq, true_len, emitted):
     return short, exact
 
 
-def serve(torch, HK, T, S, card):
+def serve(torch, HK, T, S, card, n_experts=0, n_requests=16):
+    """The paged engine at the full LM width (MoE blocks when
+    ``n_experts``) answering ``n_requests`` requests through kernels 5
+    and 6, every emitted token held against a teacher-forced plain pass;
+    the decode step alone timed.  Returns the kernels' launches."""
     from veles_tpu_torch import prng
+    from veles_tpu_torch.ops import moe
     cfg = LM_CONFIG
-    t0 = time.monotonic()
+    began = t0 = time.monotonic()
     host = T.init_transformer_params(
         prng.RandomGenerator("init", SEED), cfg["vocab"],
         d_model=cfg["d_model"], n_heads=cfg["n_heads"],
-        n_layers=cfg["n_layers"], max_len=cfg["max_len"])
+        n_layers=cfg["n_layers"], max_len=cfg["max_len"],
+        n_experts=n_experts)
     engine = S.LMEngine(host, cfg["n_heads"], cfg["max_len"], slots=8,
                         paged_kv=True, prefill_chunk=32, device="cuda",
                         name="chip_smoke")
@@ -1442,7 +1510,7 @@ def serve(torch, HK, T, S, card):
     rng = numpy.random.RandomState(SEED)
     reqs = [(rng.randint(0, cfg["vocab"], rng.randint(20, 301))
              .astype(numpy.int32), int(rng.randint(32, 65)))
-            for _ in range(16)]
+            for _ in range(n_requests)]
     HK.reset_launch_counts()
     t0 = time.monotonic()
     futures = [engine.submit(p, k) for p, k in reqs]
@@ -1468,7 +1536,10 @@ def serve(torch, HK, T, S, card):
           "pool did not get every page back: %r" % inv)
 
     worst, exact, total = 0.0, 0, 0
-    with torch.inference_mode():
+    # the teacher-forced pass's routing (MoE): its smallest top-1/top-2
+    # margin says how near a tie any token's expert choice sat
+    routes = MoeRouting(torch, moe)
+    with torch.inference_mode(), routes:
         for (prompt, _), out in zip(reqs, outs):
             seq = numpy.concatenate([prompt, out])
             short, n_exact = teacher_forced(torch, T, engine, seq,
@@ -1476,6 +1547,7 @@ def serve(torch, HK, T, S, card):
             worst = max(worst, short)
             exact += n_exact
             total += len(out)
+    with torch.inference_mode():
         check(worst <= LOGIT_TOL, "an emitted token's logit sits %g below "
               "its row max (tolerance %g)" % (worst, LOGIT_TOL))
         # decode step alone: all 8 lanes 16 pages deep, every table
@@ -1495,7 +1567,8 @@ def serve(torch, HK, T, S, card):
             ptabs, last, pos), 10)
     ttft = sorted(f.ttft_s for f in futures)
     tokens = sum(len(o) for o in outs)
-    report = {"phase": "serve", "card": card, "config": cfg,
+    report = {"phase": "moe_serve" if n_experts else "serve", "card": card,
+              "config": dict(cfg, n_experts=n_experts),
               "slots": 8, "page": 32, "requests": len(reqs),
               "tokens": tokens, "wall_s": wall,
               "tokens_per_s": tokens / wall,
@@ -1509,7 +1582,9 @@ def serve(torch, HK, T, S, card):
               "launches": launches, "setup_s": setup_s,
               "teacher_forced": {"worst_shortfall": worst,
                                  "exact_argmax": exact, "tokens": total,
-                                 "tolerance": LOGIT_TOL}}
+                                 "tolerance": LOGIT_TOL,
+                                 "min_router_margin": routes.min_margin()},
+              "phase_s": time.monotonic() - began}
     print(json.dumps(report), flush=True)
     return launches
 
@@ -2572,7 +2647,7 @@ def lm_train(torch, HK, card, device="cuda", cfg=None, small=None,
     for name, shares in faults.items():
         check(worst(shares)[0] > LM_FIRST_SHARE, "the card-vs-CPU check "
               "passed the faulty run %r: %r" % (name, worst(shares)))
-    return launches
+    return launches, steady
 
 
 # ------------------------------------------------------------------ the zoo
@@ -4473,6 +4548,558 @@ def parallel_phase(torch, HK, card, keep):
     return launches
 
 
+# ------------------------------------------------------- mixture of experts
+class MoeRouting:
+    """Within ``with``, every MoE call either records on the host its
+    router probabilities (``moe._route``) and, with ``signs``, its
+    experts' ReLU signs (``moe._expert_ffn``: which hidden units z pass,
+    z >= 0) — ``calls`` None: the run others are held against — or takes
+    the recorded call at the same index: each token goes to the expert
+    the recorded call chose, and with ``signs`` each hidden unit passes
+    as the recorded one did (h = z·mask, which is ``clamp_min(z, 0)``
+    where the signs agree, forward and backward).  Counted per call: the
+    tokens whose own top-1 differs (``flips``) with those tokens'
+    recorded top-1/top-2 margins, and the hidden units whose own sign
+    differs (``sign_flips``).  ``fault`` plants one of ``MOE_FAULTS``."""
+
+    def __init__(self, torch, moe, calls=None, fault=None, signs=False):
+        self.torch, self.moe, self.fault = torch, moe, fault
+        self.record, self.signs = calls is None, signs
+        self.calls = ({"probs": [], "signs": []} if calls is None
+                      else calls)
+        self.at = {"probs": 0, "signs": 0}
+        self.flips, self.margins, self.sign_flips = [], [], []
+
+    def min_margin(self):
+        """The smallest top-1/top-2 margin of the recorded calls."""
+        if not self.calls["probs"]:
+            return None
+        return min(float(numpy.diff(numpy.sort(c, axis=-1)[:, -2:],
+                                    axis=-1).min())
+                   for c in self.calls["probs"])
+
+    def _next(self, kind):
+        want = self.calls[kind][self.at[kind]]
+        self.at[kind] += 1
+        return want
+
+    def _route(self, params, flat):
+        torch = self.torch
+        probs, gate, onehot = self.real[0](params, flat)
+        if self.record:
+            self.calls["probs"].append(
+                probs.detach().to("cpu", copy=True).numpy())
+            return probs, gate, onehot
+        want = self._next("probs")
+        first = want.argmax(-1)
+        top = first
+        if self.fault == "second_choice":
+            rest = want.copy()
+            rest[numpy.arange(len(rest)), first] = -1.0
+            top = rest.argmax(-1)
+        flipped = probs.detach().argmax(-1).cpu().numpy() != first
+        top2 = numpy.sort(want, axis=-1)[:, -2:]
+        self.flips.append(int(flipped.sum()))
+        self.margins.extend((top2[:, 1] - top2[:, 0])[flipped].tolist())
+        top = torch.as_tensor(top, device=probs.device)
+        gate = probs.gather(-1, top[:, None])
+        if self.fault == "gate_dropped":
+            gate = torch.ones_like(gate)
+        experts = torch.arange(probs.shape[-1], device=probs.device)
+        return probs, gate, (top[:, None] == experts).to(flat.dtype)
+
+    def _expert_ffn(self, w1, b1, w2, b2, x):
+        torch, matmul = self.torch, self.moe.matmul
+        if self.record:
+            with torch.no_grad():
+                z = matmul(x.expand(w1.shape[0], *x.shape), w1) \
+                    + b1.unsqueeze(-2)
+                self.calls["signs"].append(
+                    (numpy.packbits((z >= 0).cpu().numpy()), z.shape))
+            return self.real[1](w1, b1, w2, b2, x)
+        packed, shape = self._next("signs")
+        z = matmul(x.expand(w1.shape[0], *x.shape), w1) + b1.unsqueeze(-2)
+        want = torch.as_tensor(numpy.unpackbits(
+            packed, count=int(numpy.prod(shape))).reshape(shape).astype(
+            bool), device=z.device)
+        self.sign_flips.append(int(((z >= 0) != want).sum()))
+        return matmul(z * want.to(z.dtype), w2) + b2.unsqueeze(-2)
+
+    def __enter__(self):
+        moe = self.moe
+        self.real = (moe._route, moe._expert_ffn, moe.load_balancing_loss)
+        moe._route = self._route
+        if self.signs:
+            moe._expert_ffn = self._expert_ffn
+        if self.fault == "aux_dropped":
+            moe.load_balancing_loss = (
+                lambda probs, onehot, token_mask=None: probs.sum() * 0.0)
+        return self
+
+    def __exit__(self, *exc):
+        moe = self.moe
+        moe._route, moe._expert_ffn, moe.load_balancing_loss = self.real
+
+
+def per_block(counts, n_layers):
+    """Per-call counts (the calls cycling through the blocks) summed a
+    block."""
+    return [sum(counts[b::n_layers]) for b in range(n_layers)]
+
+
+def moe_run(torch, HK, prng, root, char_lm, cfg, device):
+    """One seeded run of the MoE char-LM sample through its build +
+    initialize + run: (workflow, {train step losses, launches, run and
+    set-up s, peak card bytes, a copy of the final params})."""
+    from veles_tpu_torch.ops.transformer import tree_leaves
+    t0 = time.monotonic()
+    wf = lm_build(prng, root, char_lm, cfg)
+    wf.initialize(device=device)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    trainer = wf.trainer
+    inner, step_losses = trainer.run, []
+
+    def run_and_keep():
+        train = trainer.is_train_minibatch()
+        inner()
+        if train:
+            step_losses.append(trainer.metrics["loss_sum"]
+                               / trainer.metrics["tokens"])
+
+    trainer.run = run_and_keep
+    HK.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    wf.run()
+    torch.cuda.synchronize()
+    run_s = time.monotonic() - t0
+    trainer.run = inner
+    return wf, {"launches": HK.launch_counts(), "run_s": run_s,
+                "setup_s": setup_s,
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "losses": torch.stack(step_losses).cpu().numpy(),
+                "params": [t.detach().clone()
+                           for t in tree_leaves(trainer.params)]}
+
+
+def moe_train(torch, HK, card, dense_step_s, device="cuda", cfg=None,
+              small=None, steady_steps=3):
+    """The char-LM sample with MoE blocks at the repo's full LM width
+    through ``char_lm``'s build + initialize + run under 'flash_pallas'
+    (exact flash launches, falling train and validation losses, a seeded
+    rerun bit-equal), a steady step against the dense LM step of this
+    run (``dense_step_s``), then card vs CPU at 2 layers with the CPU's
+    routing, and three planted faults.  Returns the kernels' launches."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.ops import attention as A
+    from veles_tpu_torch.ops import moe
+    from veles_tpu_torch.samples import char_lm
+    cfg, small = cfg or MOE_TRAIN, small or MOE_SMALL
+    names = ("flash_attention_fwd", "flash_attention_bwd_dkv",
+             "flash_attention_bwd_dq")
+    began = time.monotonic()
+    A.set_attention_backend("flash_pallas")
+    try:
+        wf, run = moe_run(torch, HK, prng, root, char_lm, cfg, device)
+        trainer, ld = wf.trainer, wf.loader
+        launches = run["launches"]
+        mb, seq = ld.max_minibatch_size, ld.seq_len - 1
+        steps, n_layers = trainer.time, trainer.n_layers
+        n_valid = ld.class_lengths[1]
+        valid_mbs = -(-n_valid // mb)
+        check(steps == -(-ld.class_lengths[2] // mb),
+              "%d MoE train steps dispatched" % steps)
+        want = {names[0]: n_layers * (steps + valid_mbs),
+                names[1]: n_layers * steps, names[2]: n_layers * steps}
+        got = {k: launches[k] for k in names}
+        check(got == want, "moe_train launches %r, expected %r"
+              % (got, want))
+        losses = [float(x) for x in run["losses"]]
+        valid_before = wf.decision.epoch_metrics[0]["validation"]["loss"]
+        check(all(numpy.isfinite(losses)) and numpy.isfinite(valid_before),
+              "non-finite MoE loss %r" % losses)
+        check(numpy.mean(losses[-3:]) < numpy.mean(losses[:3]),
+              "MoE train loss did not fall: %r" % losses)
+        # the validation minibatches again with the trained weights (the
+        # epoch scored them before its first update)
+        data = ld.original_data.devmem
+        sums = [trainer._evalf(trainer.params, data[i:i + mb],
+                               torch.ones(min(mb, n_valid - i),
+                                          device=device))
+                for i in range(0, n_valid, mb)]
+        valid_after = float(sum(m["loss_sum"] for m in sums)
+                            / sum(m["tokens"] for m in sums))
+        check(valid_after < valid_before, "MoE validation loss did not "
+              "fall: %g -> %g" % (valid_before, valid_after))
+
+        # a steady train step: host clock, then the profiler's busy share
+        # and top kernels
+        tokens, mask = data[:mb], torch.ones(mb, device=device)
+
+        def step():
+            trainer._train(trainer.params, trainer.opt_state, tokens, mask,
+                           trainer.time)
+            torch.cuda.synchronize()
+
+        step()
+        t0 = time.monotonic()
+        for _ in range(steady_steps):
+            step()
+        step_s = (time.monotonic() - t0) / steady_steps
+        busy, per_kernel = profile_steps(torch, step, 2)
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
+        del wf, trainer, ld, data, sums, tokens, mask, step
+        gc_cuda(torch)
+        # the seeded rerun: the same losses and params, bit for bit
+        wf, rerun = moe_run(torch, HK, prng, root, char_lm, cfg, device)
+        del wf
+        repeat = (numpy.array_equal(run["losses"], rerun["losses"])
+                  and all(torch.equal(a, b) for a, b in
+                          zip(run.pop("params"), rerun.pop("params"))))
+        gc_cuda(torch)
+
+        # card vs CPU at 2 layers in the CPU run's region: the card
+        # routes as the CPU routed and its ReLUs pass as the CPU's did
+        on_cpu_routes = MoeRouting(torch, moe, signs=True)
+        with on_cpu_routes:
+            on_cpu = lm_committed(prng, root, char_lm, "cpu", small)
+        card_routes = MoeRouting(torch, moe, on_cpu_routes.calls,
+                                 signs=True)
+        with card_routes:
+            on_card = lm_committed(prng, root, char_lm, device, small)
+        sound = lm_shares(on_card, on_cpu)
+        # reported, not checked: the card held to the CPU's expert
+        # choices alone, its ReLU signs its own
+        with MoeRouting(torch, moe, on_cpu_routes.calls):
+            routing_only = lm_shares(lm_committed(
+                prng, root, char_lm, device, small), on_cpu)
+        faults = {}
+        for name in MOE_FAULTS:
+            with MoeRouting(torch, moe, on_cpu_routes.calls, fault=name,
+                            signs=True):
+                faults[name] = lm_shares(lm_committed(
+                    prng, root, char_lm, device, small), on_cpu)
+    finally:
+        A.set_attention_backend("xla")
+
+    def worst(shares):
+        return [max(d.values()) for d in shares]
+
+    report = {"phase": "moe_train", "card": card,
+              "config": {"vocab": 256, "d_model": cfg["trainer"]["d_model"],
+                         "n_heads": cfg["trainer"]["n_heads"],
+                         "n_layers": n_layers, "seq": seq, "minibatch": mb,
+                         "n_experts": cfg["trainer"]["n_experts"],
+                         "moe_aux_coef": cfg["trainer"]["moe_aux_coef"],
+                         "n_train": cfg["loader"]["n_train"],
+                         "n_valid": n_valid, "epochs": 1,
+                         "backend": "flash_pallas"},
+              "setup_s": run["setup_s"], "run_s": run["run_s"],
+              "train_steps": steps, "validation_minibatches": valid_mbs,
+              "launches": launches, "train_step_losses": losses,
+              "validation_loss_before": valid_before,
+              "validation_loss_after": valid_after,
+              "rerun_bit_equal": repeat, "rerun_run_s": rerun["run_s"],
+              "peak_memory_bytes": run["peak_bytes"],
+              "steady": {"step_s": step_s,
+                         "tokens_per_s": mb * seq / step_s,
+                         "step_device_busy_share": busy,
+                         "step_card_us": sum(per_kernel.values()),
+                         "step_top_kernels_us": [[k[:80], v]
+                                                 for k, v in top],
+                         "dense_step_s": dense_step_s,
+                         "over_dense": step_s / dense_step_s},
+              "card_vs_cpu": {
+                  "config": small, "limits": [LM_FIRST_SHARE,
+                                              LM_THIRD_SHARE],
+                  "moe_calls": len(on_cpu_routes.calls["probs"]),
+                  "cpu_min_router_margin": on_cpu_routes.min_margin(),
+                  "card_flips_per_block": per_block(
+                      card_routes.flips, small["trainer"]["n_layers"]),
+                  "card_flip_margins": card_routes.margins,
+                  "card_relu_sign_flips_per_block": per_block(
+                      card_routes.sign_flips, small["trainer"]["n_layers"]),
+                  "flip_margin_limit": MOE_FLIP_MARGIN,
+                  "sound_worst": worst(sound), "sound": sound,
+                  "routing_only_worst": worst(routing_only),
+                  "faults_worst": {k: worst(v) for k, v in faults.items()},
+                  "faults_first": {k: v[0] for k, v in faults.items()}},
+              "phase_s": time.monotonic() - began}
+    print(json.dumps(report), flush=True)
+    check(repeat, "moe_train: a seeded rerun on the card changed the "
+          "losses or the params")
+    check(card_routes.at == {k: len(v) for k, v in
+                             on_cpu_routes.calls.items()},
+          "the card run made %r MoE calls, the CPU run %r"
+          % (card_routes.at, {k: len(v) for k, v in
+                              on_cpu_routes.calls.items()}))
+    check(all(m < MOE_FLIP_MARGIN for m in card_routes.margins),
+          "the card routed a token otherwise than the CPU at a margin "
+          "of %r" % card_routes.margins)
+    check(len(sound) == 3, "%d committed MoE updates, not 3" % len(sound))
+    check(worst(sound)[0] <= LM_FIRST_SHARE
+          and worst(sound)[-1] <= LM_THIRD_SHARE,
+          "card vs CPU MoE weight gaps beyond their limits: %r"
+          % worst(sound))
+    for name, shares in faults.items():
+        check(worst(shares)[0] > LM_FIRST_SHARE, "the card-vs-CPU check "
+              "passed the faulty MoE run %r: %r" % (name, worst(shares)))
+    return launches
+
+
+def gc_cuda(torch):
+    """Collect the dropped runs and give their card memory back."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_ep_inputs(torch, device):
+    """The expert-parallel check's seeded inputs on ``device`` at
+    ``MOE_EP``'s widths: MoE params (``init_moe_params``, biases drawn
+    too so their gradients see every term), a block input x (T, d) and
+    the output's cotangent."""
+    from veles_tpu_torch.ops import moe
+    from veles_tpu_torch import prng
+    t, d, f, e = MOE_EP
+    host = moe.init_moe_params(prng.RandomGenerator("init", SEED), d, f, e)
+    rng = numpy.random.RandomState(SEED)
+    for k in ("b1", "b2"):
+        host[k] = rng.uniform(-0.1, 0.1, host[k].shape).astype(
+            numpy.float32)
+    params = {k: torch.tensor(v, device=device, requires_grad=True)
+              for k, v in host.items()}
+    x = torch.tensor(rng.randn(t, d).astype(numpy.float32), device=device,
+                     requires_grad=True)
+    g = torch.tensor(rng.randn(t, d).astype(numpy.float32), device=device)
+    return params, x, g
+
+
+def moe_ep_step(torch, fn, params, x, g):
+    """(output, {param name or "x": gradient}) of ``fn(params, x)`` with
+    the output's cotangent ``g``."""
+    out = fn(params, x)
+    grads = torch.autograd.grad(out, list(params.values()) + [x], g)
+    return out.detach(), dict(zip(list(params) + ["x"], grads))
+
+
+def moe_split(torch, moe, n):
+    """``moe_ffn_ep``'s arithmetic for ``n`` expert ranks in one process:
+    each rank's masked share, summed in rank order, times the gate."""
+    def fn(params, x):
+        _, gate, onehot = moe._route(params, x)
+        k = params["w1"].shape[0] // n
+        total = None
+        for r in range(n):
+            s = slice(r * k, (r + 1) * k)
+            share = torch.einsum("etd,te->td", moe._expert_ffn(
+                params["w1"][s], params["b1"][s], params["w2"][s],
+                params["b2"][s], x), onehot[:, s])
+            total = share if total is None else total + share
+        return total * gate
+    return fn
+
+
+def moe_ep_times(torch, fn, params, x, g):
+    """Median host ms of ``MOE_EP_TIMED`` synchronous forward + backward
+    calls."""
+    moe_ep_step(torch, fn, params, x, g)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(MOE_EP_TIMED):
+        t0 = time.perf_counter()
+        moe_ep_step(torch, fn, params, x, g)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def moe_ep_rank(rank, port, out_path):
+    """One of the two gloo ranks sharing cuda:0 (``python3 chip_smoke.py
+    --moe-rank R PORT OUT``): ``moe_ffn_ep`` over a ("data", "expert")
+    mesh of two at ``MOE_EP``'s shape, forward and backward, its
+    collective counts, then its time and the all-reduce's alone.  Writes
+    the output, the router and input gradients and this rank's expert
+    slices of the others to ``out_path`` (npz)."""
+    import torch
+    from veles_tpu_torch import parallel
+    from veles_tpu_torch.ops import moe
+    began = time.monotonic()
+    _, _, backend = parallel.initialize_multihost("127.0.0.1:%d" % port, 2,
+                                                  rank)
+    try:
+        dev = parallel._JOINED["device"]
+        mesh = parallel.make_mesh(model_parallel=2,
+                                  axis_names=("data", "expert"))
+        params, x, g = moe_ep_inputs(torch, dev)
+
+        def fn(p, xx):
+            return moe.moe_ffn_ep(p, xx, mesh)
+
+        parallel.reset_collective_counts()
+        out, grads = moe_ep_step(torch, fn, params, x, g)
+        counts = parallel.collective_counts()
+        step_ms = moe_ep_times(torch, fn, params, x, g)
+        group = mesh.group("expert")
+        times = []
+        for _ in range(MOE_EP_TIMED):
+            t0 = time.perf_counter()
+            parallel.ep_all_reduce(out, group)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        k = MOE_EP[3] // 2
+        lo = mesh.index("expert") * k
+        numpy.savez(out_path, out=out.cpu().numpy(), lo=lo,
+                    backend=backend, device=str(dev),
+                    step_ms=step_ms,
+                    all_reduce_ms=statistics.median(times),
+                    rank_s=time.monotonic() - began,
+                    **{"count/" + k_: v for k_, v in counts.items()},
+                    **{"grad/" + name: (v if name in ("router", "x")
+                                        else v[lo:lo + k]).cpu().numpy()
+                       for name, v in grads.items()})
+    finally:
+        parallel.shutdown()
+    return 0
+
+
+def moe_ep_phase(torch, card, device="cuda"):
+    """Expert parallelism at the full-width block shape: NCCL at world 1
+    in this process (``moe_ffn_ep`` bit-equal to ``moe_ffn``, values and
+    gradients), then two gloo ranks sharing cuda:0 (this script with
+    ``--moe-rank``) held against ``moe_ffn`` on the card by the
+    reference's bars and bit for bit against the same split arithmetic
+    done in one process."""
+    import os
+    import shutil
+    import tempfile
+    from veles_tpu_torch import parallel
+    from veles_tpu_torch.ops import moe
+    began = time.monotonic()
+    checks, report = {}, {"card": card, "shape": dict(zip(
+        ("tokens", "d_model", "d_ff", "experts"), MOE_EP))}
+
+    def single(p, xx):
+        return moe.moe_ffn(p, xx)
+
+    # (a) NCCL at world 1: the sum over one rank is the identity
+    _, _, backend = parallel.initialize_multihost(
+        "127.0.0.1:%d" % free_port(), 1, 0)
+    try:
+        mesh = parallel.make_mesh(model_parallel=1,
+                                  axis_names=("data", "expert"))
+        params, x, g = moe_ep_inputs(torch, device)
+        ref_out, ref_grads = moe_ep_step(torch, single, params, x, g)
+
+        def ep(p, xx):
+            return moe.moe_ffn_ep(p, xx, mesh)
+
+        parallel.reset_collective_counts()
+        out, grads = moe_ep_step(torch, ep, params, x, g)
+        counts = parallel.collective_counts()
+        checks["nccl_world_1_backend"] = backend == "nccl"
+        checks["nccl_world_1_bit_equal"] = torch.equal(out, ref_out) and all(
+            torch.equal(grads[k], ref_grads[k]) for k in grads)
+        checks["nccl_world_1_counted"] = (
+            counts["ep_all_reduce"] == counts["ep_input_grad_all_reduce"]
+            == 1)
+        report["nccl_world_1"] = {
+            "backend": backend, "collectives": counts,
+            "moe_ffn_ms": moe_ep_times(torch, single, params, x, g),
+            "moe_ffn_ep_ms": moe_ep_times(torch, ep, params, x, g)}
+    finally:
+        parallel.shutdown()
+    del out, grads
+    split_out, split_grads = moe_ep_step(torch, moe_split(torch, moe, 2),
+                                         params, x, g)
+
+    # (b) two gloo ranks sharing cuda:0
+    tmp = tempfile.mkdtemp(prefix="veles_moe_ep_")
+    try:
+        port = free_port()
+        outs = [os.path.join(tmp, "rank%d.npz" % r) for r in range(2)]
+        here = os.path.abspath(__file__)
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(here))
+        t0 = time.monotonic()
+        procs = [subprocess.Popen(
+            [sys.executable, here, "--moe-rank", str(r), str(port),
+             outs[r]], env=env, cwd=os.path.dirname(here),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+        errs = []
+        try:
+            for p in procs:
+                _, err = p.communicate(timeout=300)
+                errs.append((p.returncode, err))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_s = time.monotonic() - t0
+        for code, err in errs:
+            check(code == 0, "an expert-parallel rank failed:\n%s"
+                  % err[-4000:])
+        ranks = [dict(numpy.load(path)) for path in outs]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    k = MOE_EP[3] // 2
+
+    def gathered(name):
+        full = numpy.zeros(params[name].shape, numpy.float32)
+        for r in ranks:
+            lo = int(r["lo"])
+            full[lo:lo + k] = r["grad/" + name]
+        return full
+
+    got = {"out": ranks[0]["out"], "router": ranks[0]["grad/router"],
+           "x": ranks[0]["grad/x"]}
+    got.update({name: gathered(name) for name in ("w1", "b1", "w2", "b2")})
+    want = {"out": ref_out}
+    want.update(ref_grads)
+    split = {"out": split_out}
+    split.update(split_grads)
+    errs = {}
+    for name, a in got.items():
+        b = want[name].cpu().numpy()
+        rtol, atol = MOE_EP_VALUE_TOL if name == "out" else MOE_EP_GRAD_TOL
+        errs[name] = float(numpy.max(numpy.abs(a - b)
+                                     / (atol + rtol * numpy.abs(b))))
+    checks["gloo_backend_on_one_card"] = all(
+        str(r["backend"]) == "gloo" and str(r["device"]) == "cuda:0"
+        for r in ranks)
+    checks["gloo_ranks_bit_equal"] = all(
+        numpy.array_equal(ranks[1][key], ranks[0][key])
+        for key in ("out", "grad/router", "grad/x"))
+    checks["gloo_within_reference_bars"] = max(errs.values()) <= 1.0
+    checks["gloo_bit_equal_to_split"] = all(
+        numpy.array_equal(a, split[name].cpu().numpy())
+        for name, a in got.items())
+    checks["gloo_counted"] = all(
+        int(r["count/ep_all_reduce"]) == 1
+        and int(r["count/ep_input_grad_all_reduce"]) == 1 for r in ranks)
+    routed = (moe._route(params, x.detach())[2].sum(0)).tolist()
+    report.update(
+        gloo_two_ranks={
+            "step_ms": [float(r["step_ms"]) for r in ranks],
+            "all_reduce_ms": [float(r["all_reduce_ms"]) for r in ranks],
+            "rank_s": [float(r["rank_s"]) for r in ranks],
+            "ranks_s": ranks_s,
+            "worst_over_bar": errs,
+            "bit_equal_to_moe_ffn": all(
+                numpy.array_equal(a, want[name].cpu().numpy())
+                for name, a in got.items()),
+            "bars": {"values": MOE_EP_VALUE_TOL,
+                     "grads": MOE_EP_GRAD_TOL}},
+        tokens_per_expert=routed, checks=checks,
+        phase_s=time.monotonic() - began)
+    print(json.dumps({"moe_ep": report}, default=str), flush=True)
+    failed = [key for key, v in checks.items() if not v]
+    check(not failed, "expert-parallel checks failed: %s" % failed)
+
+
 def main():
     started = time.monotonic()
     import torch
@@ -4598,7 +5225,7 @@ def main():
         "fused_sgd_update"]
 
     # 7. train the full-width LM through the char-LM sample
-    lm = lm_train(torch, HK, smi)
+    lm, lm_steady = lm_train(torch, HK, smi)
     for k in ("flash_attention_fwd", "flash_attention_bwd_dkv",
               "flash_attention_bwd_dq"):
         launches[k] = lm[k]
@@ -4641,7 +5268,27 @@ def main():
     for k, v in shared.items():
         launches[k] = launches.get(k, 0) + v
 
-    # 12. the kernels line and the result
+    # 12. mixture of experts at the full LM width, trained and served,
+    # then expert parallelism; the earlier phases' runs go first
+    from veles_tpu_torch import __main__ as cli
+    cli.main.workflow = cli.main.launcher = None
+    gc_cuda(torch)
+    moe_lm = moe_train(torch, HK, smi,
+                       lm_steady["flash_pallas"]["step_s"])
+    gc_cuda(torch)
+    moe_served = serve(torch, HK, T, S, smi, n_experts=MOE["n_experts"],
+                       n_requests=MOE_SERVE_REQUESTS)
+    moe_launches = {k: moe_lm[k] for k in (
+        "flash_attention_fwd", "flash_attention_bwd_dkv",
+        "flash_attention_bwd_dq")}
+    moe_launches.update({k: moe_served[k] for k in (
+        "paged_flash_decode", "paged_flash_prefill")})
+    for k, v in moe_launches.items():
+        launches[k] += v
+    gc_cuda(torch)
+    moe_ep_phase(torch, smi)
+
+    # 13. the kernels line and the result
     main_case = {"flash_attention_fwd": flash[0],
                  "flash_attention_bwd_dkv": flash[1],
                  "flash_attention_bwd_dq": flash[2],
@@ -4678,6 +5325,10 @@ def main():
                        offset_entry_bound_ms=offset["bound_ms"],
                        offset_entry_bit_equal=offset[
                            "bit_equal_to_global_rows"])
+    # the MoE runs' share of the launches
+    for row in kernels:
+        if row["name"] in moe_launches:
+            row["moe_launches"] = moe_launches[row["name"]]
     # beside the calls that are one or two short launches, the floor
     for row in kernels:
         if row["name"] in ("fused_sgd_update", "paged_flash_decode",
@@ -4696,4 +5347,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:
         sys.exit(parallel_rank(int(sys.argv[2]), int(sys.argv[3]),
                                sys.argv[4], sys.argv[5]))
+    if sys.argv[1:2] == ["--moe-rank"]:
+        sys.exit(moe_ep_rank(int(sys.argv[2]), int(sys.argv[3]),
+                             sys.argv[4]))
     sys.exit(main())

@@ -149,6 +149,7 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
                  lambda: mnist_ae.train(),
                  lambda: char_lm.build().initialize(),
                  lambda: char_lm.train(),
+                 lambda: char_lm.train(trainer={"n_experts": 4}),
                  lambda: lm.trainer.initialize(),
                  lambda: state_from_jax([{"w": torch.zeros(2).numpy()}]),
                  lambda: kohonen.train(),
@@ -195,6 +196,12 @@ def test_kernel_wrappers_refuse_other_devices():
             call()
 
 
+def test_moe_module_is_checked():
+    """The mixture-of-experts module is among those the two checks above
+    import and parse."""
+    assert "veles_tpu_torch.ops.moe" in set(_modules())
+
+
 def test_parallel_slice_modules_are_checked(monkeypatch):
     """The data- and tensor-parallel module is among those the two
     checks above import and parse; importing it joins no run, and
@@ -209,4 +216,5 @@ def test_parallel_slice_modules_are_checked(monkeypatch):
     assert not dist.is_initialized()
     assert set(parallel.collective_counts()) == {
         "grad_all_reduce", "metric_all_reduce", "tp_all_gather",
-        "tp_input_grad_all_reduce"}
+        "tp_input_grad_all_reduce", "ep_all_reduce",
+        "ep_input_grad_all_reduce"}

@@ -48,11 +48,6 @@ def test_init_bit_equal(kwargs):
         numpy.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
-def test_moe_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_transformer_params(prng.get("init"), 16, n_experts=2)
-
-
 def _host(rope=False, n_kv_heads=None):
     return TT.init_transformer_params(
         prng.RandomGenerator("init", 3), 32, d_model=32, n_heads=4,

@@ -3,7 +3,9 @@ serving.
 
 Port of ``veles_tpu/ops/transformer.py``: host-side init (bit-equal to
 the reference for the same prng stream); the training forward
-(``transformer_forward``, ``lm_loss``) and the Adam step; KV-cached
+(``transformer_forward``, ``lm_loss``, with top-1-routed mixture-of-
+experts blocks and their load-balancing term, ``ops/moe.py``) and the
+Adam step; KV-cached
 greedy ``generate``; the decoder block over the paged KV pool;
 :class:`TransformerTrainer` with :class:`TransformerDecision`; and
 :class:`TransformerLM`, an ``nn.Module`` holding the weights under the
@@ -32,10 +34,8 @@ from veles_tpu_torch.ops.attention import (init_mha_params, mha_decode_step,
                                            mha_paged_chunk_step)
 from veles_tpu_torch.ops.decision import DecisionBase
 from veles_tpu_torch.ops.functional import matmul
+from veles_tpu_torch.ops.moe import init_moe_params, moe_ffn
 from veles_tpu_torch.workflow import DeferredInitError
-
-_MOE = ("mixture-of-experts blocks (n_experts > 0) are not ported yet: "
-        "ROADMAP Queue 2, item 3")
 
 
 def init_transformer_params(stream, vocab, d_model=64, n_heads=4,
@@ -44,10 +44,10 @@ def init_transformer_params(stream, vocab, d_model=64, n_heads=4,
                             n_kv_heads=None, rope=False):
     """Host (numpy) param tree drawn from ``stream`` in the reference's
     order — the same stream state gives bit-equal weights in both
-    packages.  ``n_kv_heads`` < n_heads makes attention grouped-query;
+    packages.  ``n_experts > 0`` gives every block a top-1-routed
+    mixture of experts (``blk["moe"]``, ops/moe.py) INSTEAD of the dense
+    FFN weights; ``n_kv_heads`` < n_heads makes attention grouped-query;
     ``rope=True`` drops the learned positional table."""
-    if n_experts > 0:
-        raise NotImplementedError(_MOE)
     d_ff = d_ff or 4 * d_model
     s_emb = d_model ** -0.5
 
@@ -73,12 +73,16 @@ def init_transformer_params(stream, vocab, d_model=64, n_heads=4,
             "ln2": {"g": numpy.ones(d_model, dtype),
                     "b": numpy.zeros(d_model, dtype)},
         }
-        blk.update({
-            "w1": dense(d_model, d_ff),
-            "b1": numpy.zeros(d_ff, dtype),
-            "w2": dense(d_ff, d_model),
-            "b2": numpy.zeros(d_model, dtype),
-        })
+        if n_experts > 0:
+            blk["moe"] = init_moe_params(stream, d_model, d_ff, n_experts,
+                                         dtype)
+        else:
+            blk.update({
+                "w1": dense(d_model, d_ff),
+                "b1": numpy.zeros(d_ff, dtype),
+                "w2": dense(d_ff, d_model),
+                "b2": numpy.zeros(d_model, dtype),
+            })
         blocks.append(blk)
     out = {"embed": embed, "blocks": blocks,
            "ln_f": {"g": numpy.ones(d_model, dtype),
@@ -95,9 +99,10 @@ def _layernorm(x, g, b, eps=1e-5):
 
 
 def _block_ffn(blk, hn):
-    """The dense FFN half of a block."""
+    """The FFN half of a block (dense or routed MoE), shared by the
+    training forward and every serving step."""
     if "moe" in blk:
-        raise NotImplementedError(_MOE)
+        return moe_ffn(blk["moe"], hn)
     ff = torch.clamp_min(matmul(hn, blk["w1"]) + blk["b1"], 0.0)
     return matmul(ff, blk["w2"]) + blk["b2"]
 
@@ -110,11 +115,15 @@ def head_logits(params, h):
 
 # ---------------------------------------------------------------- training
 def block_forward(blk, h, n_heads, block_size=None, attn_fn=None,
-                  rope=False, window=None, sinks=0):
+                  with_aux=False, token_mask=None, rope=False, window=None,
+                  sinks=0):
     """One decoder block (pre-LN attention + FFN with residuals).
     ``attn_fn(attn_params, hn)`` replaces the attention call (``prefill``
     captures K/V through it); it never rotates or windows, so rope and
-    window raise with it."""
+    window raise with it.  A block carrying ``moe`` params routes its
+    FFN through the experts; ``with_aux=True`` returns (h, the MoE
+    load-balancing loss) (0.0 for a dense block; ``token_mask`` keeps
+    padded rows out of the router statistics)."""
     hn = _layernorm(h, blk["ln1"]["g"], blk["ln1"]["b"])
     if attn_fn is not None:
         if rope or window or sinks:
@@ -126,7 +135,12 @@ def block_forward(blk, h, n_heads, block_size=None, attn_fn=None,
                             block_size=block_size, rope=rope,
                             window=window, sinks=sinks)
     hn = _layernorm(h, blk["ln2"]["g"], blk["ln2"]["b"])
-    return h + _block_ffn(blk, hn)
+    if "moe" in blk and with_aux:
+        out, aux = moe_ffn(blk["moe"], hn, return_aux=True,
+                           token_mask=token_mask)
+        return h + out, aux
+    h = h + _block_ffn(blk, hn)
+    return (h, 0.0) if with_aux else h
 
 
 def embed_tokens(params, tokens):
@@ -162,21 +176,37 @@ def lm_loss(params, tokens, mask, n_heads, block_size=None,
             moe_aux_coef=0.0, remat=False, rope=False, window=None,
             sinks=0):
     """Mean next-token cross-entropy of ``tokens`` (batch, seq + 1),
-    masked rows excluded.  ``remat=True`` checkpoints each block: its
-    activations are recomputed in the backward instead of stored (the
-    reference's ``jax.checkpoint``).  ``moe_aux_coef`` only weighs MoE
-    blocks, which are not ported."""
+    masked rows excluded.  ``moe_aux_coef > 0`` adds that weight times
+    the mean load-balancing loss of the MoE blocks over LIVE tokens
+    (``mask`` broadcast over the sequence).  ``remat=True`` checkpoints
+    each block (with its aux term): its activations are recomputed in
+    the backward instead of stored (the reference's
+    ``jax.checkpoint``)."""
     h = embed_tokens(params, tokens[:, :-1])
+    token_mask = mask[:, None].expand(h.shape[0], h.shape[1]).reshape(-1)
+    aux_total, n_moe = 0.0, 0
     for blk in params["blocks"]:
-        def run(x, blk=blk):
-            return block_forward(blk, x, n_heads, block_size, rope=rope,
-                                 window=window, sinks=sinks)
+        with_aux = bool(moe_aux_coef) and "moe" in blk
+
+        def run(x, blk=blk, with_aux=with_aux):
+            return block_forward(blk, x, n_heads, block_size,
+                                 with_aux=with_aux, token_mask=token_mask,
+                                 rope=rope, window=window, sinks=sinks)
         if remat:
-            h = torch.utils.checkpoint.checkpoint(run, h,
-                                                  use_reentrant=False)
+            out = torch.utils.checkpoint.checkpoint(run, h,
+                                                    use_reentrant=False)
         else:
-            h = run(h)
-    return nll_from_hidden(params, h, tokens[:, 1:], mask)
+            out = run(h)
+        if with_aux:
+            h, aux = out
+            aux_total = aux_total + aux
+            n_moe += 1
+        else:
+            h = out
+    loss = nll_from_hidden(params, h, tokens[:, 1:], mask)
+    if n_moe:
+        loss = loss + moe_aux_coef * aux_total / n_moe
+    return loss
 
 
 def tree_map(fn, *trees):
@@ -372,9 +402,10 @@ def trainer_sample_tokens(trainer, prompt, n_new=32, temperature=0.0,
 # ----------------------------------------------------------------- trainer
 class TransformerTrainer(AcceleratedUnit):
     """Whole-model trainer: an Adam update of the param tree per TRAIN
-    minibatch; other minibatches score the loss only.  Sequential path
-    only: MoE (``n_experts``) and the pipeline (``pipeline_stages``)
-    raise."""
+    minibatch; other minibatches score the loss only.  ``n_experts > 0``
+    makes every block's FFN a routed mixture of experts, whose
+    load-balancing term (``moe_aux_coef``) enters the train loss only.
+    Sequential path only: the pipeline (``pipeline_stages``) raises."""
 
     def __init__(self, workflow, vocab=64, d_model=64, n_heads=4,
                  n_layers=2, max_len=512, learning_rate=1e-3,
@@ -383,8 +414,6 @@ class TransformerTrainer(AcceleratedUnit):
                  pipeline_microbatches=4, remat=False, n_kv_heads=None,
                  rope=False, window=None, attn_sinks=0, **kwargs):
         super().__init__(workflow, **kwargs)
-        if n_experts > 0:
-            raise NotImplementedError(_MOE)
         if pipeline_stages > 0:
             raise NotImplementedError(
                 "the pipeline-parallel trainer (pipeline_stages > 0) is not "
@@ -443,11 +472,16 @@ class TransformerTrainer(AcceleratedUnit):
         self.params = tree_map(lambda x: leaf(x).requires_grad_(), params)
         self.opt_state = tuple(tree_map(leaf, t) for t in opt_state)
 
-    def _loss_fn(self):
+    def _loss_fn(self, training):
+        """(params, tokens, mask) -> loss.  The MoE load-balancing term
+        is a training regularizer only: the eval loss is the pure NLL
+        (comparable across coefficients), without remat (it keeps no
+        activations for a backward)."""
+        coef = self.moe_aux_coef if training and self.n_experts > 0 else 0.0
         return lambda params, tokens, mask: lm_loss(
             params, tokens, mask, self.n_heads, self.block_size,
-            remat=self.remat, rope=self.rope, window=self.window,
-            sinks=self.attn_sinks)
+            moe_aux_coef=coef, remat=self.remat and training,
+            rope=self.rope, window=self.window, sinks=self.attn_sinks)
 
     def initialize(self, device=None, **kwargs):
         if not hasattr(self, "input") or self.input.is_empty:
@@ -470,13 +504,14 @@ class TransformerTrainer(AcceleratedUnit):
         else:       # loaded before the device was known: move it there
             state = self.state_dict()
             self._set_state(state["params"], state["opt_state"])
-        loss_fn = self._loss_fn()
-        train_step = make_adam_train_step(loss_fn, self.learning_rate,
-                                          self.beta1, self.beta2, self.eps)
+        train_step = make_adam_train_step(self._loss_fn(training=True),
+                                          self.learning_rate, self.beta1,
+                                          self.beta2, self.eps)
+        eval_loss_fn = self._loss_fn(training=False)
 
         def eval_step(params, tokens, mask):
             with torch.no_grad():
-                loss = loss_fn(params, tokens, mask)
+                loss = eval_loss_fn(params, tokens, mask)
             count = mask.sum()
             return {"loss_sum": loss * count, "tokens": count}
 

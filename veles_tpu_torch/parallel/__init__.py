@@ -34,6 +34,11 @@ process group a row (the model group) and one a column (the data group).
   hashes with an element offset, a crop keeps its rows of the global
   batch's draws — the reference's partitionable threefry
   (``veles_tpu/compat.py:11-26``).
+- **Expert parallelism** (``ops/moe.py::moe_ffn_ep``, the reference's
+  ``moe_ffn_ep``): a mesh laid out as ``("data", "expert")`` names its
+  row group by the expert axis (:meth:`Mesh.group`); each rank's
+  experts' shares are summed by :func:`ep_all_reduce`, and their input
+  gradients by :func:`ep_input_grad_all_reduce`.
 
 Under NCCL the epoch scan's captured step holds the collectives inside
 the CUDA graph; a gloo collective stages through the host and cannot be
@@ -108,10 +113,62 @@ def tp_input_grad_all_reduce(err, group):
     tp_input_grad_all_reduce.launches += 1
 
 
+class _ExpertSum(torch.autograd.Function):
+    """The experts' shares summed over the expert group.  Its backward
+    passes the cotangent on as it is: the loss is replicated, so every
+    rank holds the sum's whole cotangent already (summing it again would
+    scale the experts' gradients by the group size)."""
+
+    @staticmethod
+    def forward(ctx, local, group):
+        out = local.contiguous().clone()
+        _collective(lambda: dist.all_reduce(out, op=dist.ReduceOp.SUM,
+                                            group=group), out, group)
+        ep_all_reduce.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _ExpertInput(torch.autograd.Function):
+    """The experts' input: the identity forward; the backward sums the
+    ranks' partial input gradients (each rank's experts give one share)
+    over the expert group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        _collective(lambda: dist.all_reduce(
+            grad, op=dist.ReduceOp.SUM, group=ctx.group), grad, ctx.group)
+        ep_input_grad_all_reduce.launches += 1
+        return grad, None
+
+
+def ep_all_reduce(local, group):
+    """The experts' masked shares (T, d) summed over the expert group,
+    one all-reduce; the backward keeps the cotangent (no collective)."""
+    return _ExpertSum.apply(local, group)
+
+
+def ep_input_grad_all_reduce(x, group):
+    """``x`` as the experts' input: in the backward its partial
+    gradients are summed over the expert group (one all-reduce, counted
+    here when it runs)."""
+    return _ExpertInput.apply(x, group)
+
+
 #: the counted collectives (each adds one to its ``launches`` a call; a
 #: captured step adds its collectives per replay, as the kernels do)
 COUNTED = (grad_all_reduce, metric_all_reduce, tp_all_gather,
-           tp_input_grad_all_reduce)
+           tp_input_grad_all_reduce, ep_all_reduce,
+           ep_input_grad_all_reduce)
 
 
 def reset_collective_counts():
@@ -212,14 +269,27 @@ class Mesh:
         self.model_group = model_group
         self.guard_group = guard_group
         where = numpy.argwhere(self.devices == self.process_index)
-        coords = (dict(zip(self.axis_names, (int(c) for c in where[0])))
-                  if len(where) == 1 else {})
-        self.data_index = coords.get("data")
-        self.model_index = coords.get("model")
+        #: this rank's coordinate on each axis (empty outside the mesh)
+        self.coords = (dict(zip(self.axis_names,
+                                (int(c) for c in where[0])))
+                       if len(where) == 1 else {})
+        self.data_index = self.coords.get("data")
+        self.model_index = self.coords.get("model")
 
     @property
     def shape(self):
         return dict(zip(self.axis_names, self.devices.shape))
+
+    def index(self, axis):
+        """This rank's coordinate along ``axis``."""
+        return self.coords[axis]
+
+    def group(self, axis):
+        """The process group of this rank's line along ``axis``: the
+        column (``data_group``) along the first axis, the row
+        (``model_group``) along the second."""
+        return (self.data_group, self.model_group)[
+            self.axis_names.index(axis)]
 
     @property
     def size(self):
@@ -233,11 +303,13 @@ def _group(ranks, world):
     return dist.new_group(ranks)
 
 
-def make_mesh(n_devices=None, model_parallel=1):
+def make_mesh(n_devices=None, model_parallel=1,
+              axis_names=("data", "model")):
     """The joined run's first ``n_devices`` ranks (default: all) as a
     (data, model) grid with ``model_parallel`` ranks a row, and its
     process groups (every rank of the run must call this, in the same
-    order)."""
+    order).  ``axis_names`` names the two axes: ``("data", "expert")``
+    is the expert-parallel layout, ``model_parallel`` ranks a row."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a joined run: call "
                            "initialize_multihost first")
@@ -264,8 +336,8 @@ def make_mesh(n_devices=None, model_parallel=1):
     device = _JOINED.get("device")
     if device is None and backend == "nccl":
         device = torch.device("cuda", torch.cuda.current_device())
-    return Mesh(grid, ("data", "model"), rank, device, backend,
-                data_group, model_group, guard)
+    return Mesh(grid, axis_names, rank, device, backend, data_group,
+                model_group, guard)
 
 
 def model_shard_candidates(runner, min_width=1024):
