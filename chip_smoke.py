@@ -224,9 +224,35 @@ Phases (any failure exits nonzero before the final line is printed):
    arithmetic in one process, within the reference's bars of
    ``moe_ffn``, ``ep_all_reduce`` and ``ep_input_grad_all_reduce``
    counted, their ms; its JSON line (``{"moe_ep": ...}``);
-13. the script's seconds, the card's name and power limit, one JSON line
+13. pipeline and ring — GPipe (``parallel/pipeline.py``) and ring
+   attention (``parallel/ring.py``) at the full LM width, under
+   'flash_pallas': (a) in this process at one stage (no joined run), the
+   char-LM sample at ``LM_TRAIN``'s size with 4 microbatches
+   (``PIPE_TRAIN``): exact flash launches (4 microbatches x 8 layers a
+   step), falling train loss, a seeded rerun bit-equal, the steady
+   step, and the params after the first and third update within
+   ``LM_*_SHARE`` of the sequential run (microbatching changes the GEMM
+   shapes); the MoE run of ``docs/USAGE.md`` (``PIPE_MOE``: 4 experts, 8
+   layers, 3 train steps) at one stage; (b) four gloo ranks sharing
+   cuda:0 (this script with ``--pipeline-rank``), 2 layers a stage:
+   the dense and the MoE runs, each rank's flash launches exact, its
+   losses and replicated leaves after every update bit-equal to (a)'s
+   and to each other, the gathered final params bit-equal to (a)'s;
+   three planted faults (``PIPE_FAULTS``) that must move the loss or a
+   gradient or make the ranks disagree; each rank's steady step (ms,
+   tokens/s, busy share), peak card memory, the host-staged hop of one
+   microbatch's activations and the outputs' all-reduce timed alone;
+   (c) ring attention on the same ranks (``RING_SHAPE``: b 1, 8 heads,
+   s 8192, head_dim 64, fp32) causal, and with window 1024 and sinks 4:
+   output and dq, dk, dv within ``RING_TOL`` of dense ``attention`` on
+   the card, the ranks bit-equal, the skipped attends exact
+   (``RING_LIVE``), ring and dense ms, two planted faults
+   (``RING_FAULTS``) outside the bars; its JSON line
+   (``{"pipeline": ...}``);
+14. the script's seconds, the card's name and power limit, one JSON line
    listing every ported TPU kernel (kernels 5, 6 and 7a-7c with their
-   launches on the MoE runs, ``moe_launches``; kernels 1 and 4 with their
+   launches on the MoE runs, ``moe_launches``, and 7a-7c with theirs on
+   the pipelined runs, ``pipeline_launches``; kernels 1 and 4 with their
    device-operand entries' times, bounds and launches, kernel 4 with its
    offset entry's), then the JSON result line.
 
@@ -5100,6 +5126,606 @@ def moe_ep_phase(torch, card, device="cuda"):
     check(not failed, "expert-parallel checks failed: %s" % failed)
 
 
+# ------------------------------------------------------ pipeline and ring
+#: GPipe at the LM's full width: LM_TRAIN's minibatch of 32 in 4
+#: microbatches of 8; (b) runs 4 stages of 2 layers, one a gloo rank,
+#: the 4 ranks sharing cuda:0 (NCCL refuses two ranks on one device)
+PIPE_STAGES = 4
+PIPE_TRAIN = dict(LM_TRAIN, trainer=dict(LM_TRAIN["trainer"],
+                                         pipeline_microbatches=4))
+#: docs/USAGE.md's MoE run (4 experts a block, 8 layers, 4 stages): 3
+#: train steps and 1 validation minibatch
+PIPE_MOE = dict(MOE_TRAIN,
+                loader=dict(MOE_TRAIN["loader"], n_train=96, n_valid=32),
+                trainer=dict(MOE_TRAIN["trainer"], pipeline_microbatches=4))
+#: planted pipeline faults: the final all-reduce's backward sums the
+#: cotangent over the stages, stage 0's input gradient is not shared,
+#: the last stage writes microbatch t into slot t
+PIPE_FAULTS = ("output_cotangent_summed", "input_grad_not_shared",
+               "slot_t")
+#: a fault is caught when the loss moves by more than this (relative) or
+#: a gradient leaf by more than PIPE_FAULT_GRAD of its norm
+PIPE_FAULT_LOSS = 1e-6
+PIPE_FAULT_GRAD = 1e-3
+#: timed steady steps of each pipelined run
+PIPE_TIMED = 3
+#: ring attention over the 4 ranks: (b, heads, s, head_dim), fp32,
+#: s_local 2048
+RING_SHAPE = (1, 8, 8192, 64)
+#: case -> (window, sinks), every case causal; and its live key blocks
+#: over the 4 ranks' 4 steps (causal: 1 + 2 + 3 + 4; window 1024 < 2048
+#: keeps a rank's own block and the one before, sinks keep block 0)
+RING_CASES = {"causal": (None, 0), "window1024_sinks4": (1024, 4)}
+RING_LIVE = {"causal": 10, "window1024_sinks4": 9}
+#: ring vs dense attention: the reference's bars (rtol, atol)
+RING_TOL = (1e-4, 1e-5)
+#: planted ring faults: the backward rotates forward, the early exit
+#: drops the sink block
+RING_FAULTS = ("backward_rotates_forward", "sink_block_dropped")
+
+
+def replicated_digest(params):
+    """crc32 over the bits of the replicated leaves (embedding,
+    positions, final LN)."""
+    import zlib
+    crc = 0
+    for t in (params["embed"], params["pos"], params["ln_f"]["g"],
+              params["ln_f"]["b"]):
+        crc = zlib.crc32(t.detach().cpu().numpy().tobytes(), crc)
+    return crc
+
+
+def leaf_digests(flat):
+    """{name: crc32 of the leaf's bits} of a ``flat_params`` dict."""
+    import zlib
+    return {k: zlib.crc32(numpy.ascontiguousarray(v).tobytes())
+            for k, v in flat.items()}
+
+
+def pipe_run(torch, HK, cfg, stages, device="cuda", keep=()):
+    """One seeded run of the char-LM sample at ``stages`` pipeline stages
+    through its build + initialize + run under 'flash_pallas': train
+    step losses, launches, set-up and run s, peak card bytes, the
+    replicated leaves' digest after every update, the portable params
+    after the updates in ``keep`` (0: at set-up), the final portable
+    params' digests (gathered from the stages: every stage runs this
+    alike) and the validation loss.
+    Returns (workflow, that dict)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.samples import char_lm
+    cuda = device == "cuda"
+    cfg = dict(cfg, trainer=dict(cfg["trainer"], pipeline_stages=stages))
+    t0 = time.monotonic()
+    wf = lm_build(prng, root, char_lm, cfg)
+    wf.initialize(device=device)
+    if cuda:
+        torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    trainer = wf.trainer
+    inner, losses, digests, kept = trainer.run, [], [], {}
+    if 0 in keep:
+        kept[0] = flat_params(trainer._to_portable(trainer.params))
+
+    def run_and_keep():
+        train = trainer.is_train_minibatch()
+        inner()
+        if train:
+            losses.append(float(trainer.metrics["loss_sum"]
+                                / trainer.metrics["tokens"]))
+            digests.append(replicated_digest(trainer.params))
+            if trainer.time in keep:
+                kept[trainer.time] = flat_params(
+                    trainer._to_portable(trainer.params))
+
+    trainer.run = run_and_keep
+    HK.reset_launch_counts()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    wf.run()
+    if cuda:
+        torch.cuda.synchronize()
+    run_s = time.monotonic() - t0
+    trainer.run = inner
+    launches = HK.launch_counts()
+    final = leaf_digests(flat_params(trainer._to_portable(trainer.params)))
+    return wf, {"launches": launches, "losses": losses,
+                "final_digests": final,
+                "setup_s": setup_s, "run_s": run_s,
+                "peak_bytes": (torch.cuda.max_memory_allocated() if cuda
+                               else None),
+                "replicated_digests": digests, "kept": kept,
+                "validation_loss": float(
+                    wf.decision.epoch_metrics[0]["validation"]["loss"]),
+                "train_steps": trainer.time}
+
+
+def flash_want(cfg, stages):
+    """The flash kernels' exact launches of one run of ``cfg`` at
+    ``stages`` stages on each stage: its layers times the microbatches,
+    a train step (7a-7c) and a validation minibatch (7a)."""
+    ld, tr = cfg["loader"], cfg["trainer"]
+    mb = ld["minibatch_size"]
+    steps, valid = -(-ld["n_train"] // mb), -(-ld["n_valid"] // mb)
+    per = tr["n_layers"] // stages * tr["pipeline_microbatches"]
+    return {"flash_attention_fwd": per * (steps + valid),
+            "flash_attention_bwd_dkv": per * steps,
+            "flash_attention_bwd_dq": per * steps}
+
+
+FLASH_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dkv",
+               "flash_attention_bwd_dq")
+
+
+def steady_pipe(torch, wf, device="cuda", n=PIPE_TIMED):
+    """A pipelined trainer's steady train step on the run's first
+    minibatch: host ms over ``n`` synchronous steps, tokens/s, and the
+    profiler's busy share of this process's kernels over 2 steps."""
+    trainer, ld = wf.trainer, wf.loader
+    mb = ld.max_minibatch_size
+    tokens = ld.original_data.devmem[:mb]
+    mask = torch.ones(mb, device=device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def step():
+        trainer._train(trainer.params, trainer.opt_state, tokens, mask,
+                       trainer.time)
+        sync()
+
+    step()
+    t0 = time.monotonic()
+    for _ in range(n):
+        step()
+    step_s = (time.monotonic() - t0) / n
+    busy, per_kernel = profile_steps(torch, step, 2)
+    return {"step_ms": step_s * 1e3,
+            "tokens_per_s": mb * (ld.seq_len - 1) / step_s,
+            "busy_share": busy,
+            "card_us": sum(per_kernel.values()) if per_kernel else None}
+
+
+@contextlib.contextmanager
+def pipeline_fault(name):
+    """Within the block, ``name`` of ``PIPE_FAULTS`` or ``RING_FAULTS``
+    is planted in ``parallel.pipeline`` or ``parallel.ring``."""
+    from veles_tpu_torch import parallel
+    from veles_tpu_torch.parallel import pipeline, ring
+    kept = {}
+
+    def plant(module, attr, fn):
+        kept[(module, attr)] = getattr(module, attr)
+        setattr(module, attr, fn)
+
+    if name == "output_cotangent_summed":
+        def summed(grad, group):
+            grad = grad.clone()
+            parallel.stage_output_all_reduce(grad, group)
+            return grad
+        plant(pipeline, "_output_cotangent", summed)
+    elif name == "input_grad_not_shared":
+        plant(pipeline, "_share_input_grad", lambda dx, group: dx)
+    elif name == "slot_t":
+        plant(pipeline, "_out_slot", lambda t, n_stages: t)
+    elif name == "backward_rotates_forward":
+        rotate = ring._rotate
+        plant(ring, "_rotate",
+              lambda tensors, mesh, axis, shift: rotate(tensors, mesh, axis,
+                                                        1))
+    elif name == "sink_block_dropped":
+        live = ring._live
+        plant(ring, "_live", lambda src, s_local, q_first, q_last, window,
+              sinks: live(src, s_local, q_first, q_last, window, 0))
+    else:
+        raise ValueError(name)
+    try:
+        yield
+    finally:
+        for (module, attr), fn in kept.items():
+            setattr(module, attr, fn)
+
+
+def pipe_faults(torch, wf):
+    """Each ``PIPE_FAULTS`` fault against the sound pipeline on this
+    stage: the train loss and every gradient leaf this stage holds, at
+    the trainer's params on the run's first minibatch; per fault the
+    loss's relative move and the worst leaf's ‖faulty − sound‖/‖sound‖,
+    and the replicated leaves' gradient digest (the stages must agree)."""
+    import zlib
+    from veles_tpu_torch.ops.transformer import tree_leaves
+    trainer, ld = wf.trainer, wf.loader
+    mb = ld.max_minibatch_size
+    tokens = ld.original_data.devmem[:mb]
+    mask = torch.ones(mb, device=tokens.device)
+    loss_fn = trainer._loss_fn(training=True)
+    params = trainer.params
+    leaves = tree_leaves(params)
+    replicated = {id(t) for t in (params["embed"], params["pos"],
+                                  params["ln_f"]["g"], params["ln_f"]["b"])}
+
+    def grads():
+        loss = loss_fn(trainer.params, tokens, mask)
+        return float(loss), torch.autograd.grad(loss, leaves)
+
+    sound_loss, sound = grads()
+    out = {}
+    for name in PIPE_FAULTS:
+        with pipeline_fault(name):
+            loss, got = grads()
+        rel = [float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b).clamp_min(1e-30))
+               for a, b in zip(got, sound)]
+        crc = 0
+        for leaf, g in zip(leaves, got):
+            if id(leaf) in replicated:
+                crc = zlib.crc32(g.cpu().numpy().tobytes(), crc)
+        out[name] = {"loss_rel": abs(loss - sound_loss) / abs(sound_loss),
+                     "grad_rel_worst": max(rel),
+                     "replicated_grad_digest": crc}
+    return out
+
+
+def ring_inputs(torch, device, shape=RING_SHAPE):
+    """Seeded q, k, v and the output's cotangent, (b, h, s, dh) fp32."""
+    rng = numpy.random.RandomState(SEED)
+    return [torch.tensor(rng.randn(*shape).astype(numpy.float32),
+                         device=device) for _ in range(4)]
+
+
+def ring_case(torch, ring, mesh, q, k, v, g, window, sinks):
+    """The ring's output and dq, dk, dv for the cotangent ``g``, with
+    this rank's attends."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = ring.ring_attention(q, k, v, mesh, causal=True, window=window,
+                              sinks=sinks)
+    grads = torch.autograd.grad(out, [q, k, v], g)
+    return ([out.detach()] + list(grads),
+            ring.ring_attention_local.counts["attends"])
+
+
+def over_bar(got, want, tol=RING_TOL):
+    """max |got − want| / (atol + rtol·|want|) over every tensor (≤ 1
+    within the bars)."""
+    rtol, atol = tol
+    return max(float(((a - b).abs() / (atol + rtol * b.abs())).max())
+               for a, b in zip(got, want))
+
+
+def ring_phase_rank(torch, rank, device, shape, timed=PIPE_TIMED):
+    """Ring attention on this rank of the joined run (mesh (1, n)): each
+    ``RING_CASES`` case against dense ``attention`` (rank 0), its
+    attends, a digest of its global results (the ranks must agree), its
+    ms, and the faults."""
+    import zlib
+    from veles_tpu_torch.ops import attention as A
+    from veles_tpu_torch.parallel import ring
+    mesh = ring.make_seq_mesh()
+    q, k, v, g = ring_inputs(torch, device, shape)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    out = {}
+    for case, (window, sinks) in RING_CASES.items():
+        got, attends = ring_case(torch, ring, mesh, q, k, v, g, window,
+                                 sinks)
+        crc = 0
+        for t in got:
+            crc = zlib.crc32(t.cpu().numpy().tobytes(), crc)
+        times = []
+        for _ in range(timed):
+            sync()
+            t0 = time.perf_counter()
+            ring_case(torch, ring, mesh, q, k, v, g, window, sinks)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        rec = {"attends": attends, "digest": crc,
+               "ring_ms": statistics.median(times)}
+        faults = {}
+        for name in RING_FAULTS:
+            with pipeline_fault(name):
+                faults[name] = ring_case(torch, ring, mesh, q, k, v, g,
+                                         window, sinks)[0]
+        if rank == 0:
+            def dense(q, k, v, window=window, sinks=sinks):
+                q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+                o = A.attention(q, k, v, causal=True, window=window,
+                                sinks=sinks)
+                return [o.detach()] + list(torch.autograd.grad(o, [q, k, v],
+                                                               g))
+            want = dense(q, k, v)
+            times = []
+            for _ in range(timed):
+                sync()
+                t0 = time.perf_counter()
+                dense(q, k, v)
+                sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+            rec.update(over_bar=over_bar(got, want),
+                       over_bar_each=[over_bar([a], [b])
+                                      for a, b in zip(got, want)],
+                       dense_ms=statistics.median(times),
+                       faults_over_bar={name: over_bar(f, want)
+                                        for name, f in faults.items()})
+            del want
+        del faults, got
+        out[case] = rec
+    return out
+
+
+def pipeline_rank(rank, port, spec_path, out_path):
+    """One of the four gloo ranks sharing cuda:0 (``python3
+    chip_smoke.py --pipeline-rank R PORT SPEC OUT``): (b) the dense and
+    the MoE char-LM runs at 4 pipeline stages, the planted pipeline
+    faults, the steady step, the host-staged hop and output sum timed
+    alone; (c) ring attention.  ``SPEC`` (JSON) holds the device and
+    the configs; writes its results to ``OUT`` (JSON)."""
+    import torch
+    from veles_tpu_torch import parallel
+    from veles_tpu_torch.ops import attention as A
+    from veles_tpu_torch.ops import functional as F
+    from veles_tpu_torch.ops import hopper_kernels as HK
+    with open(spec_path) as f:
+        spec = json.load(f)
+    device = spec["device"]
+    torch.set_num_threads(1)     # four ranks share the host's cores
+    began = time.monotonic()
+    _, _, backend = parallel.initialize_multihost(
+        "127.0.0.1:%d" % port, PIPE_STAGES, rank, device=device)
+    report = {"backend": backend, "device": str(parallel._JOINED["device"])}
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    try:
+        F.set_matmul_precision("float32")
+        A.set_attention_backend("flash_pallas")
+        parallel.reset_collective_counts()
+        wf, dense = pipe_run(torch, HK, spec["dense"], PIPE_STAGES, device)
+        dense["collectives"] = parallel.collective_counts()
+        dense["stage_layers"] = int(
+            wf.trainer.params["blocks"]["ln1"]["g"].shape[0])
+        dense["faults"] = pipe_faults(torch, wf)
+        dense["steady"] = steady_pipe(torch, wf, device)
+        report["dense"] = dense
+        # the host-staged hop of one microbatch's activations, and the
+        # output sum, timed alone
+        mb = spec["dense"]["loader"]["minibatch_size"] // spec["dense"][
+            "trainer"]["pipeline_microbatches"]
+        seq = spec["dense"]["loader"]["seq_len"] - 1
+        d = spec["dense"]["trainer"]["d_model"]
+        act = torch.zeros(mb, seq, d, device=device)
+        group = wf.trainer._pp_mesh.group("stage")
+        hop, total = [], []
+        for _ in range(PIPE_TIMED + 1):
+            sync()
+            t0 = time.perf_counter()
+            parallel.p2p_exchange(
+                [act] if rank < PIPE_STAGES - 1 else None, rank + 1,
+                [act] if rank > 0 else None, rank - 1, group)
+            sync()
+            hop.append((time.perf_counter() - t0) * 1e3)
+            outs = torch.zeros(PIPE_STAGES, mb, seq, d, device=device)
+            sync()
+            t0 = time.perf_counter()
+            parallel.stage_output_all_reduce(outs, group)
+            sync()
+            total.append((time.perf_counter() - t0) * 1e3)
+        report["hop_ms"] = statistics.median(hop[1:])
+        report["output_all_reduce_ms"] = statistics.median(total[1:])
+        report["hop_bytes"] = act.numel() * 4
+        del wf, act, outs
+        if device == "cuda":
+            gc_cuda(torch)
+        wf, report["moe"] = pipe_run(torch, HK, spec["moe"], PIPE_STAGES,
+                                     device)
+        report["moe"]["steady"] = steady_pipe(torch, wf, device)
+        del wf
+        if device == "cuda":
+            gc_cuda(torch)
+        report["ring"] = ring_phase_rank(torch, rank, device,
+                                         tuple(spec["ring"]))
+    finally:
+        parallel.shutdown()
+    for run in ("dense", "moe"):
+        del report[run]["kept"]
+    report["rank_s"] = time.monotonic() - began
+    with open(out_path, "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def pipeline_phase(torch, HK, card, dense_step_s, device="cuda",
+                   dense_cfg=None, moe_cfg=None, ring_shape=RING_SHAPE):
+    """GPipe and ring attention at the LM's full width: (a) in this
+    process at one stage (no joined run), the dense char-LM run (exact
+    flash launches, falling loss, a bit-equal rerun, the steady step)
+    held against the sequential run within ``LM_*_SHARE``, and the MoE
+    run; (b) four gloo ranks sharing the card (this script with
+    ``--pipeline-rank``) at 4 stages, bit-equal to (a) and to each other
+    after every update, dense and MoE, with the planted faults caught;
+    (c) ring attention on the same ranks within ``RING_TOL`` of dense
+    attention, exact skipped attends, the ring faults caught.  Returns
+    the flash kernels' launches of (a)'s and (b)'s runs."""
+    import os
+    import shutil
+    import tempfile
+    from veles_tpu_torch.ops import attention as A
+    dense_cfg, moe_cfg = dense_cfg or PIPE_TRAIN, moe_cfg or PIPE_MOE
+    cuda = device == "cuda"
+    began = time.monotonic()
+    checks, report = {}, {"card": card}
+    A.set_attention_backend("flash_pallas")
+    try:
+        wf, one = pipe_run(torch, HK, dense_cfg, 1, device, keep=(0, 1, 3))
+        one["steady"] = steady_pipe(torch, wf, device)
+        del wf
+        if cuda:
+            gc_cuda(torch)
+        _, again = pipe_run(torch, HK, dense_cfg, 1, device)
+        _, seq = pipe_run(torch, HK, dense_cfg, 0, device, keep=(0, 1, 3))
+        if cuda:
+            gc_cuda(torch)
+        _, moe_one = pipe_run(torch, HK, moe_cfg, 1, device)
+        if cuda:
+            gc_cuda(torch)
+    finally:
+        A.set_attention_backend("xla")
+    want = flash_want(dense_cfg, 1)
+    checks["a_launches_exact"] = all(one["launches"][k] == want[k]
+                                     for k in FLASH_NAMES)
+    checks["a_moe_launches_exact"] = all(
+        moe_one["launches"][k] == flash_want(moe_cfg, 1)[k]
+        for k in FLASH_NAMES)
+    losses = one["losses"]
+    checks["a_loss_falls"] = bool(all(numpy.isfinite(losses)) and numpy.mean(
+        losses[-3:]) < numpy.mean(losses[:3]))
+    checks["a_rerun_bit_equal"] = (
+        again["losses"] == losses
+        and again["replicated_digests"] == one["replicated_digests"]
+        and again["final_digests"] == one["final_digests"]
+        and again["validation_loss"] == one["validation_loss"])
+    shares = lm_shares([one["kept"][k] for k in (0, 1, 3)],
+                       [seq["kept"][k] for k in (0, 1, 3)])
+    worst = [max(d.values()) for d in shares]
+    top = [sorted(d.items(), key=lambda kv: -kv[1])[:3] for d in shares]
+    checks["a_within_sequential_shares"] = (worst[0] <= LM_FIRST_SHARE
+                                            and worst[1] <= LM_THIRD_SHARE)
+    report["a"] = {
+        "config": {"n_layers": dense_cfg["trainer"]["n_layers"],
+                   "d_model": dense_cfg["trainer"]["d_model"],
+                   "minibatch": dense_cfg["loader"]["minibatch_size"],
+                   "microbatches": dense_cfg["trainer"][
+                       "pipeline_microbatches"],
+                   "seq": dense_cfg["loader"]["seq_len"] - 1, "stages": 1},
+        "launches": {k: one["launches"][k] for k in FLASH_NAMES},
+        "want": want, "losses": losses,
+        "validation_loss": one["validation_loss"],
+        "sequential_validation_loss": seq["validation_loss"],
+        "sequential_losses": seq["losses"],
+        "shares_worst_after_1_3": worst,
+        "shares_top_tensors_after_1_3": top,
+        "limits": [LM_FIRST_SHARE, LM_THIRD_SHARE],
+        "steady": one["steady"],
+        "sequential_step_ms_phase_7": dense_step_s * 1e3,
+        "setup_s": one["setup_s"], "run_s": one["run_s"],
+        "peak_bytes": one["peak_bytes"],
+        "moe": {k: moe_one[k] for k in ("losses", "validation_loss",
+                                        "run_s", "peak_bytes")}}
+    del shares, seq, again
+
+    # (b), (c): four gloo ranks sharing the card
+    tmp = tempfile.mkdtemp(prefix="veles_pipeline_")
+    try:
+        spec = os.path.join(tmp, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"device": device, "dense": dense_cfg, "moe": moe_cfg,
+                       "ring": list(ring_shape)}, f)
+        port = free_port()
+        outs = [os.path.join(tmp, "rank%d.json" % r)
+                for r in range(PIPE_STAGES)]
+        here = os.path.abspath(__file__)
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(here))
+        t0 = time.monotonic()
+        procs = [subprocess.Popen(
+            [sys.executable, here, "--pipeline-rank", str(r), str(port),
+             spec, outs[r]], env=env, cwd=os.path.dirname(here),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(PIPE_STAGES)]
+        errs = []
+        try:
+            for p in procs:
+                _, err = p.communicate(timeout=600)
+                errs.append((p.returncode, err))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_s = time.monotonic() - t0
+        for code, err in errs:
+            check(code == 0, "a pipeline rank failed:\n%s" % err[-4000:])
+        ranks = []
+        for path in outs:
+            with open(path) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    b_want = flash_want(dense_cfg, PIPE_STAGES)
+    m_want = flash_want(moe_cfg, PIPE_STAGES)
+    checks["b_gloo_on_one_card"] = all(
+        r["backend"] == "gloo" and (not cuda or r["device"] == "cuda:0")
+        for r in ranks)
+    for run, ref, w in (("dense", one, b_want), ("moe", moe_one, m_want)):
+        checks["b_%s_launches_exact" % run] = all(
+            r[run]["launches"][k] == w[k] for r in ranks for k in FLASH_NAMES)
+        checks["b_%s_replicated_equal_every_step" % run] = all(
+            r[run]["replicated_digests"] == ref["replicated_digests"]
+            for r in ranks)
+        checks["b_%s_losses_bit_equal_to_a" % run] = all(
+            r[run]["losses"] == ref["losses"]
+            and r[run]["validation_loss"] == ref["validation_loss"]
+            for r in ranks)
+    checks["b_dense_params_bit_equal_to_a"] = (
+        ranks[0]["dense"]["final_digests"] == one["final_digests"])
+    checks["b_moe_params_bit_equal_to_a"] = (
+        ranks[0]["moe"]["final_digests"] == moe_one["final_digests"])
+    faults = {}
+    for name in PIPE_FAULTS:
+        per = [r["dense"]["faults"][name] for r in ranks]
+        moved = any(p["loss_rel"] > PIPE_FAULT_LOSS
+                    or p["grad_rel_worst"] > PIPE_FAULT_GRAD for p in per)
+        drift = len({p["replicated_grad_digest"] for p in per}) > 1
+        faults[name] = {"loss_rel": [p["loss_rel"] for p in per],
+                        "grad_rel_worst": [p["grad_rel_worst"] for p in per],
+                        "replicas_disagree": drift}
+        checks["b_fault_%s_caught" % name] = moved or drift
+    ring = {}
+    for case in RING_CASES:
+        per = [r["ring"][case] for r in ranks]
+        attends = sum(p["attends"] for p in per)
+        ring[case] = {"attends": attends, "of": PIPE_STAGES ** 2,
+                      "ring_ms": [p["ring_ms"] for p in per],
+                      "dense_ms": per[0]["dense_ms"],
+                      "over_bar": per[0]["over_bar"],
+                      "over_bar_out_dq_dk_dv": per[0]["over_bar_each"],
+                      "faults_over_bar": per[0]["faults_over_bar"]}
+        checks["c_%s_within_bars" % case] = per[0]["over_bar"] <= 1.0
+        checks["c_%s_skips_exact" % case] = attends == RING_LIVE[case]
+        checks["c_%s_ranks_bit_equal" % case] = len(
+            {p["digest"] for p in per}) == 1
+    checks["c_fault_backward_rotates_forward_caught"] = (
+        ring["causal"]["faults_over_bar"]["backward_rotates_forward"] > 1.0)
+    checks["c_fault_sink_block_dropped_caught"] = (
+        ring["window1024_sinks4"]["faults_over_bar"]["sink_block_dropped"]
+        > 1.0)
+    report["b"] = {
+        "stages": PIPE_STAGES, "backend": ranks[0]["backend"],
+        "launches_per_rank": {run: [{k: r[run]["launches"][k]
+                                     for k in FLASH_NAMES} for r in ranks]
+                              for run in ("dense", "moe")},
+        "want": {"dense": b_want, "moe": m_want},
+        "stage_layers": [r["dense"]["stage_layers"] for r in ranks],
+        "losses": ranks[0]["dense"]["losses"],
+        "moe_losses": ranks[0]["moe"]["losses"],
+        "steady": [r["dense"]["steady"] for r in ranks],
+        "moe_steady": [r["moe"]["steady"] for r in ranks],
+        "peak_bytes": {run: [r[run]["peak_bytes"] for r in ranks]
+                       for run in ("dense", "moe")},
+        "run_s": {run: [r[run]["run_s"] for r in ranks]
+                  for run in ("dense", "moe")},
+        "collectives_dense_run": [r["dense"]["collectives"] for r in ranks],
+        "hop_ms": [r["hop_ms"] for r in ranks],
+        "hop_bytes": ranks[0]["hop_bytes"],
+        "output_all_reduce_ms": [r["output_all_reduce_ms"] for r in ranks],
+        "faults": faults, "fault_limits": [PIPE_FAULT_LOSS, PIPE_FAULT_GRAD],
+        "rank_s": [r["rank_s"] for r in ranks], "ranks_s": ranks_s}
+    report["c"] = {"shape": list(ring_shape), "cases": ring,
+                   "bars": RING_TOL}
+    report.update(checks=checks, phase_s=time.monotonic() - began)
+    print(json.dumps({"pipeline": report}, default=str), flush=True)
+    failed = [key for key, v in checks.items() if not v]
+    check(not failed, "pipeline and ring checks failed: %s" % failed)
+    launches = {k: one["launches"][k] + moe_one["launches"][k]
+                + sum(r[run]["launches"][k] for r in ranks
+                      for run in ("dense", "moe")) for k in FLASH_NAMES}
+    return launches
+
+
 def main():
     started = time.monotonic()
     import torch
@@ -5288,7 +5914,16 @@ def main():
     gc_cuda(torch)
     moe_ep_phase(torch, smi)
 
-    # 13. the kernels line and the result
+    # 13. GPipe at one stage in this process and at four on gloo ranks
+    # sharing the card, then ring attention on those ranks
+    gc_cuda(torch)
+    pipe_launches = pipeline_phase(torch, HK, smi,
+                                   lm_steady["flash_pallas"]["step_s"])
+    for k, v in pipe_launches.items():
+        launches[k] += v
+    gc_cuda(torch)
+
+    # 14. the kernels line and the result
     main_case = {"flash_attention_fwd": flash[0],
                  "flash_attention_bwd_dkv": flash[1],
                  "flash_attention_bwd_dq": flash[2],
@@ -5325,10 +5960,12 @@ def main():
                        offset_entry_bound_ms=offset["bound_ms"],
                        offset_entry_bit_equal=offset[
                            "bit_equal_to_global_rows"])
-    # the MoE runs' share of the launches
+    # the MoE runs' and the pipelined runs' shares of the launches
     for row in kernels:
         if row["name"] in moe_launches:
             row["moe_launches"] = moe_launches[row["name"]]
+        if row["name"] in pipe_launches:
+            row["pipeline_launches"] = pipe_launches[row["name"]]
     # beside the calls that are one or two short launches, the floor
     for row in kernels:
         if row["name"] in ("fused_sgd_update", "paged_flash_decode",
@@ -5350,4 +5987,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--moe-rank"]:
         sys.exit(moe_ep_rank(int(sys.argv[2]), int(sys.argv[3]),
                              sys.argv[4]))
+    if sys.argv[1:2] == ["--pipeline-rank"]:
+        sys.exit(pipeline_rank(int(sys.argv[2]), int(sys.argv[3]),
+                               sys.argv[4], sys.argv[5]))
     sys.exit(main())

@@ -273,14 +273,69 @@ def test_greedy_generate_equals_reference(backend, prompt, n_new, kw):
 
 
 def test_generate_refuses_sampling():
-    params = _tensors(_host_params())
+    """Sampling raises; greedy decoding drops an in-range ``top_k`` as
+    the reference does ("greedy never reads top_k") and returns the
+    reference's tokens."""
+    host = _host_params()
+    params = _tensors(host)
     prompt = torch.tensor([[1, 2]], dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
         TT.generate(params, prompt, 3, 4, temperature=0.8)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        TT.generate(params, prompt, 3, 4, temperature=0, top_k=4)
+    want = numpy.asarray(JT.generate(jax.tree.map(jnp.asarray, host),
+                                     jnp.asarray(prompt.numpy()), 3, 4,
+                                     temperature=0, top_k=4))
+    got = TT.generate(params, prompt, 3, 4, temperature=0, top_k=4)
+    numpy.testing.assert_array_equal(got.numpy(), want)
+    numpy.testing.assert_array_equal(
+        got.numpy(), TT.generate(params, prompt, 3, 4, temperature=0).numpy())
     with pytest.raises(ValueError, match="exceeds the positional table"):
         TT.generate(params, prompt, 40, 4, temperature=0)
+
+
+@pytest.mark.parametrize("top_k", [0, 17, -1])
+def test_generate_range_checks_top_k(top_k):
+    """``top_k`` outside [1, vocab] raises the reference's ValueError,
+    greedy or not (vocab 16)."""
+    host = _host_params()
+    prompt = numpy.array([[1, 2]], numpy.int32)
+    with pytest.raises(ValueError, match="top_k .* out of range"):
+        JT.generate(jax.tree.map(jnp.asarray, host), jnp.asarray(prompt), 3,
+                    4, temperature=0, top_k=top_k)
+    with pytest.raises(ValueError, match="top_k .* out of range"):
+        TT.generate(_tensors(host), torch.from_numpy(prompt), 3, 4,
+                    temperature=0, top_k=top_k)
+
+
+@pytest.mark.parametrize("n_experts", [0, 4])
+def test_ffn_relu_tie_gradient_matches_reference(n_experts):
+    """A zero LN output row with b1 = 0 puts every FFN pre-activation
+    of that row at exactly 0: the reference's ``jnp.maximum`` passes
+    half the cotangent there, and so must the port (dense and MoE)."""
+    jprng.reset()
+    host = JT.init_transformer_params(jprng.RandomGenerator("init", 5), 16,
+                                      d_model=32, n_heads=4, n_layers=1,
+                                      max_len=24, n_experts=n_experts)
+    blk = {k: v for k, v in host["blocks"][0].items()
+           if k in ("moe", "w1", "b1", "w2", "b2")}
+    rng = numpy.random.RandomState(4)
+    hn = rng.randn(2, 5, 32).astype(numpy.float32)
+    hn[1, 2] = 0.0
+    cot = rng.randn(2, 5, 32).astype(numpy.float32)
+
+    def ref_loss(b):
+        return (JT._block_ffn(b, jnp.asarray(hn)) * cot).sum()
+
+    want = jax.grad(ref_loss)(jax.tree.map(jnp.asarray, blk))
+    mine = _tensors(blk, grad=True)
+    loss = (TT._block_ffn(mine, torch.from_numpy(hn))
+            * torch.from_numpy(cot)).sum()
+    got = _regrid(mine, torch.autograd.grad(loss, TT.tree_leaves(mine)))
+    sub = (lambda t: t["moe"]) if n_experts else (lambda t: t)
+    numpy.testing.assert_allclose(sub(got)["b1"].numpy(),
+                                  numpy.asarray(sub(want)["b1"]), **GRAD_TOL)
+    for name, value in _flat(want):
+        numpy.testing.assert_allclose(dict(_flat(got))[name], value,
+                                      err_msg=name, **GRAD_TOL)
 
 
 def test_state_dict_carries_across_both_ways(reference_run):
@@ -332,10 +387,12 @@ def test_state_dict_carries_across_both_ways(reference_run):
 
 
 def test_trainer_refuses_moe_pipeline_and_runs_nowhere_unasked():
-    """The pipeline trainer, with or without experts, is not ported; MoE
-    on the sequential path is (``tests/test_torch_moe.py``)."""
+    """The pipelined trainer builds, with or without experts
+    (``tests/test_torch_pipeline.py`` runs it); with no joined run of two
+    processes, a two-stage trainer cannot initialize."""
     assert TT.TransformerTrainer(None, n_experts=2).n_experts == 2
-    with pytest.raises(NotImplementedError, match="Queue 2, item 5"):
-        TT.TransformerTrainer(None, n_experts=2, pipeline_stages=2)
-    with pytest.raises(NotImplementedError, match="Queue 2, item 5"):
-        TT.TransformerTrainer(None, pipeline_stages=2)
+    for kw in ({"n_experts": 2}, {}):
+        tr = TT.TransformerTrainer(None, pipeline_stages=2, **kw)
+        assert tr.pipeline_stages == 2
+        with pytest.raises(ValueError, match="need 2 devices, have 1"):
+            tr._pipeline_mesh()

@@ -452,7 +452,11 @@ def test_expert_parallel_collectives_counted(ep_runs, n):
                           "tp_all_gather": 0,
                           "tp_input_grad_all_reduce": 0,
                           "ep_all_reduce": 1,
-                          "ep_input_grad_all_reduce": 1}
+                          "ep_input_grad_all_reduce": 1,
+                          "p2p_exchange": 0, "stage_output_all_reduce": 0,
+                          "stage_input_grad_all_reduce": 0,
+                          "ring_all_gather": 0,
+                          "ring_input_grad_all_reduce": 0}
 
 
 # ----------------------------------------------------- the MoE transformer

@@ -202,6 +202,13 @@ def test_moe_module_is_checked():
     assert "veles_tpu_torch.ops.moe" in set(_modules())
 
 
+def test_pipeline_and_ring_modules_are_checked():
+    """The GPipe and ring-attention modules are among those the two
+    checks above import and parse."""
+    assert {"veles_tpu_torch.parallel.pipeline",
+            "veles_tpu_torch.parallel.ring"} <= set(_modules())
+
+
 def test_parallel_slice_modules_are_checked(monkeypatch):
     """The data- and tensor-parallel module is among those the two
     checks above import and parse; importing it joins no run, and
@@ -217,4 +224,6 @@ def test_parallel_slice_modules_are_checked(monkeypatch):
     assert set(parallel.collective_counts()) == {
         "grad_all_reduce", "metric_all_reduce", "tp_all_gather",
         "tp_input_grad_all_reduce", "ep_all_reduce",
-        "ep_input_grad_all_reduce"}
+        "ep_input_grad_all_reduce", "p2p_exchange",
+        "stage_output_all_reduce", "stage_input_grad_all_reduce",
+        "ring_all_gather", "ring_input_grad_all_reduce"}

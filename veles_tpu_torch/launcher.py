@@ -15,7 +15,9 @@ gloo otherwise), shards the loader with ``shard_spmd`` from the mesh,
 and drives the fused step through a data-parallel ``ShardedTrainer``
 (every rank plans the same global minibatches and trains on its rows;
 the gradient sums are all-reduced).  A restore is pushed back out to the
-trainer (``reload_from_runner``).
+trainer (``reload_from_runner``).  A workflow whose trainer pipelines
+(``pipeline_stages`` > 0) is left whole: every rank reads the whole
+minibatch and runs its own stage.
 """
 
 from __future__ import annotations
@@ -83,16 +85,23 @@ class Launcher(Logger):
             index, count, self.backend = parallel.initialize_multihost(
                 self.coordinator_address, self.num_processes,
                 self.process_id, device)
-            # lock-step data parallelism over every rank of the run:
-            # each plans the same global minibatches and feeds its rows
             mesh = parallel.make_mesh()
             if mesh.device is not None:
                 device = mesh.device
-            loader = getattr(wf, "loader", None)
-            if loader is not None:
-                loader.shard_spmd(*parallel.spmd_loader_shard(mesh))
-            self.info("joined distributed run as process %d/%d (%d-rank "
-                      "mesh, %s)", index, count, mesh.size, self.backend)
+            if getattr(getattr(wf, "trainer", None), "pipeline_stages",
+                       0) > 0:
+                # one pipeline stage a rank: every rank reads the whole
+                # minibatch, and the trainer makes its stage mesh
+                mesh = None
+            else:
+                # lock-step data parallelism over every rank of the run:
+                # each plans the same global minibatches, feeds its rows
+                loader = getattr(wf, "loader", None)
+                if loader is not None:
+                    loader.shard_spmd(*parallel.spmd_loader_shard(mesh))
+            self.info("joined distributed run as process %d/%d (%s, %s)",
+                      index, count, "pipeline stages" if mesh is None
+                      else "%d-rank data mesh" % mesh.size, self.backend)
         wf.initialize(device=device, **kwargs)
         if mesh is not None:
             runner = getattr(wf, "_fused_runner", None)

@@ -119,6 +119,18 @@ def matmul(a, b):
     return torch.matmul(a, b)
 
 
+def relu(z):
+    """max(z, 0) with the reference's gradient: at z == 0 half the
+    cotangent passes (``jnp.maximum``'s tie rule, which
+    ``torch.maximum`` shares; ``clamp_min`` would pass all of it)."""
+    return torch.maximum(z, _ZERO)
+
+
+#: the 0-dim host zero ``relu`` compares against (a wrapped scalar on
+#: every device, never promoting z's dtype)
+_ZERO = torch.tensor(0.0)
+
+
 def _conv_operands(*tensors):
     """The conv operands under the precision policy: bf16 mode casts
     them, as ``matmul`` casts GEMM operands."""

@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy
 import torch
 
-from veles_tpu_torch.ops.functional import matmul
+from veles_tpu_torch.ops.functional import matmul, relu
 
 
 def init_moe_params(stream, d_model, d_ff, n_experts, dtype="float32"):
@@ -59,7 +59,7 @@ def _expert_ffn(w1, b1, w2, b2, x):
     whose weight gradient sums in another order for another E): an
     expert-parallel rank's share is the one-device share."""
     x = x.expand(w1.shape[0], *x.shape)
-    h = torch.clamp_min(matmul(x, w1) + b1.unsqueeze(-2), 0.0)
+    h = relu(matmul(x, w1) + b1.unsqueeze(-2))
     return matmul(h, w2) + b2.unsqueeze(-2)
 
 

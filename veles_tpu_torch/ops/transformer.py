@@ -7,7 +7,8 @@ the reference for the same prng stream); the training forward
 experts blocks and their load-balancing term, ``ops/moe.py``) and the
 Adam step; KV-cached
 greedy ``generate``; the decoder block over the paged KV pool;
-:class:`TransformerTrainer` with :class:`TransformerDecision`; and
+:class:`TransformerTrainer` (sequential, or GPipe stages through
+``parallel/pipeline.py``) with :class:`TransformerDecision`; and
 :class:`TransformerLM`, an ``nn.Module`` holding the weights under the
 reference tree's names and layouts (``wq`` is (d_model, d_model) used
 as ``x @ w`` — no transposes), so a param tree exported by the JAX
@@ -33,7 +34,7 @@ from veles_tpu_torch.ops.attention import (init_mha_params, mha_decode_step,
                                            mha_forward,
                                            mha_paged_chunk_step)
 from veles_tpu_torch.ops.decision import DecisionBase
-from veles_tpu_torch.ops.functional import matmul
+from veles_tpu_torch.ops.functional import matmul, relu
 from veles_tpu_torch.ops.moe import init_moe_params, moe_ffn
 from veles_tpu_torch.workflow import DeferredInitError
 
@@ -103,7 +104,7 @@ def _block_ffn(blk, hn):
     training forward and every serving step."""
     if "moe" in blk:
         return moe_ffn(blk["moe"], hn)
-    ff = torch.clamp_min(matmul(hn, blk["w1"]) + blk["b1"], 0.0)
+    ff = relu(matmul(hn, blk["w1"]) + blk["b1"])
     return matmul(ff, blk["w2"]) + blk["b2"]
 
 
@@ -313,14 +314,14 @@ def block_decode_step(blk, h, k_cache, v_cache, pos, n_heads, rope=False,
     return h + _block_ffn(blk, hn), k_cache, v_cache
 
 
-_SAMPLING = ("seeded sampling (temperature > 0, top_k) is not ported "
-             "yet: ROADMAP Queue 1, item 6")
+_SAMPLING = ("seeded sampling (temperature > 0) is not ported yet: "
+             "ROADMAP Queue 1, item 6")
 
 
-def _make_sampler(greedy, top_k, temperature):
+def _make_sampler(greedy):
     """The token sampler: greedy argmax (the first maximum, as
     ``jnp.argmax``).  Sampling raises."""
-    if not greedy or top_k is not None:
+    if not greedy:
         raise NotImplementedError(_SAMPLING)
 
     def sample(logits):
@@ -334,7 +335,8 @@ def generate(params, prompt, n_new, n_heads, rng=None, temperature=1.0,
              window=None, sinks=0):
     """Greedy autoregressive decoding with a KV cache: ``prompt``
     (batch, s) int; returns (batch, s + n_new) int32.  ``temperature``
-    must be 0 (sampling raises).  ``max_len`` pins the cache size
+    must be 0 (sampling raises); greedy decoding never reads ``top_k``
+    once it is in range.  ``max_len`` pins the cache size
     (default prompt + n_new); ``true_len`` says how many leading prompt
     positions are real when the prompt is right-padded to a bucket
     width — decoding continues from there and the continuation lands at
@@ -356,7 +358,10 @@ def generate(params, prompt, n_new, n_heads, rng=None, temperature=1.0,
     if "pos" in params and max_len > params["pos"].shape[0]:
         raise ValueError("max_len %d exceeds the positional table (%d)"
                          % (max_len, params["pos"].shape[0]))
-    sample = _make_sampler(not temperature, top_k, temperature)
+    if top_k is not None and not 1 <= top_k <= params["embed"].shape[0]:
+        raise ValueError("top_k %r out of range (vocab %d)"
+                         % (top_k, params["embed"].shape[0]))
+    sample = _make_sampler(not temperature)
     with torch.no_grad():
         h, caches = prefill(params, prompt, n_heads, max_len, rope=rope,
                             window=window, sinks=sinks)
@@ -385,9 +390,10 @@ def trainer_sample_tokens(trainer, prompt, n_new=32, temperature=0.0,
     """Continue token sequences with a trained :class:`TransformerTrainer`
     by greedy KV-cached :func:`generate` on the trainer's device, with
     its rope/window/sinks settings; ``prompt`` (batch, s) ints.  Returns
-    numpy int32 (batch, s + n_new)."""
+    numpy int32 (batch, s + n_new).  A pipelined trainer's blocks are
+    gathered from its stages first (every stage must call this)."""
     if params is None:
-        params = trainer.params
+        params = trainer._to_portable(trainer.params)
     device = tree_leaves(params)[0].device
     out = generate(params, torch.as_tensor(numpy.asarray(prompt, numpy.int32),
                                            device=device),
@@ -404,8 +410,15 @@ class TransformerTrainer(AcceleratedUnit):
     """Whole-model trainer: an Adam update of the param tree per TRAIN
     minibatch; other minibatches score the loss only.  ``n_experts > 0``
     makes every block's FFN a routed mixture of experts, whose
-    load-balancing term (``moe_aux_coef``) enters the train loss only.
-    Sequential path only: the pipeline (``pipeline_stages``) raises."""
+    load-balancing term (``moe_aux_coef``) enters the sequential train
+    loss only.  ``pipeline_stages`` S > 0 runs the blocks as a GPipe
+    pipeline (``parallel/pipeline.py``) in ``pipeline_microbatches``
+    microbatches, one stage a process: a joined run of exactly S
+    processes (S = 1 needs none), each keeping its stage's stacked
+    blocks and their Adam moments and reading the whole minibatch.
+    ``state_dict`` carries every block unstacked (gathered from the
+    stages), so pipelined and sequential trainers load each other's
+    state."""
 
     def __init__(self, workflow, vocab=64, d_model=64, n_heads=4,
                  n_layers=2, max_len=512, learning_rate=1e-3,
@@ -414,13 +427,14 @@ class TransformerTrainer(AcceleratedUnit):
                  pipeline_microbatches=4, remat=False, n_kv_heads=None,
                  rope=False, window=None, attn_sinks=0, **kwargs):
         super().__init__(workflow, **kwargs)
-        if pipeline_stages > 0:
-            raise NotImplementedError(
-                "the pipeline-parallel trainer (pipeline_stages > 0) is not "
-                "ported yet: ROADMAP Queue 2, item 5")
         if attn_sinks and not window:
             raise ValueError("attn_sinks only means something under a "
                              "window (set window=W)")
+        if pipeline_stages > 0 and (rope or window):
+            raise ValueError(
+                "rope/window are not threaded through the pipeline "
+                "stage scan yet — use the sequential path "
+                "(pipeline_stages=0) for these options")
         self.vocab = vocab
         self.d_model = d_model
         self.n_heads = n_heads
@@ -438,18 +452,59 @@ class TransformerTrainer(AcceleratedUnit):
         self.pipeline_stages = pipeline_stages
         self.pipeline_microbatches = pipeline_microbatches
         self.remat = remat
+        self._pp_mesh = None
         self.params = None
         self.opt_state = None
         self.time = 0
         self.metrics = {}
         self._device = None
 
+    # The trees travel in the portable form: blocks as a per-layer list.
+    # A pipelined trainer keeps its stage's blocks stacked.
+    def _to_portable(self, tree):
+        """``tree`` with every block unstacked; a stage's blocks are
+        gathered from all the stages (every stage must call this)."""
+        from veles_tpu_torch.parallel.pipeline import unstack_blocks
+        if self.pipeline_stages > 0 and isinstance(tree.get("blocks"), dict):
+            blocks = tree["blocks"]
+            if self.pipeline_stages > 1:
+                blocks = tree_map(self._gather_stages, blocks)
+            tree = dict(tree, blocks=unstack_blocks(blocks, self.n_layers))
+        return tree
+
+    def _gather_stages(self, x):
+        """A stacked leaf's stages joined along the layer axis, over the
+        mesh's gloo group (host copies)."""
+        import torch.distributed as dist
+        host = x.detach().to("cpu")
+        parts = [torch.empty_like(host) for _ in range(self.pipeline_stages)]
+        dist.all_gather(parts, host, group=self._pp_mesh.guard_group)
+        return torch.cat(parts).to(x.device)
+
+    def _from_portable(self, tree):
+        """``tree`` with this stage's blocks stacked (once the stage mesh
+        exists)."""
+        from veles_tpu_torch.parallel.pipeline import (StageBlocks,
+                                                       stack_blocks)
+        if self._pp_mesh is not None and isinstance(tree.get("blocks"),
+                                                    list):
+            n = self.pipeline_stages
+            if self.n_layers % n:
+                raise ValueError("n_layers %d %% n_stages %d != 0"
+                                 % (self.n_layers, n))
+            k = self.n_layers // n
+            stage = self._pp_mesh.coords["stage"]
+            tree = dict(tree, blocks=StageBlocks(stack_blocks(
+                tree["blocks"][stage * k:(stage + 1) * k]), self.n_layers))
+        return tree
+
     def state_dict(self):
         """The reference trainer's form: the portable numpy param tree,
-        the (m, v) moment trees and the step count."""
+        the (m, v) moment trees and the step count (a pipelined trainer
+        gathers its stages: every stage must call this)."""
         def marshal(tree):    # copies: training goes on in place
             return tree_map(lambda t: t.detach().to("cpu", copy=True)
-                            .numpy(), tree)
+                            .numpy(), self._to_portable(tree))
 
         return {"params": None if self.params is None
                 else marshal(self.params),
@@ -458,7 +513,8 @@ class TransformerTrainer(AcceleratedUnit):
                 "time": self.time}
 
     def load_state_dict(self, d):
-        """Take a ``state_dict()`` of either package's trainer."""
+        """Take a ``state_dict()`` of either package's trainer, pipelined
+        or not (a stage keeps its own blocks)."""
         if d.get("params") is not None:
             self._set_state(d["params"], d["opt_state"])
         self.time = d.get("time", 0)
@@ -469,19 +525,50 @@ class TransformerTrainer(AcceleratedUnit):
         def leaf(x):
             return torch.tensor(numpy.asarray(x), device=device)
 
-        self.params = tree_map(lambda x: leaf(x).requires_grad_(), params)
-        self.opt_state = tuple(tree_map(leaf, t) for t in opt_state)
+        self.params = self._from_portable(tree_map(leaf, params))
+        for t in tree_leaves(self.params):
+            t.requires_grad_()
+        self.opt_state = tuple(self._from_portable(tree_map(leaf, t))
+                               for t in opt_state)
 
     def _loss_fn(self, training):
-        """(params, tokens, mask) -> loss.  The MoE load-balancing term
-        is a training regularizer only: the eval loss is the pure NLL
-        (comparable across coefficients), without remat (it keeps no
-        activations for a backward)."""
+        """(params, tokens, mask) -> loss, sequential or pipelined.  The
+        MoE load-balancing term is a training regularizer only: the eval
+        loss is the pure NLL (comparable across coefficients), without
+        remat (it keeps no activations for a backward).  The pipeline
+        threads neither (warned): train and eval run the same loss."""
+        if self.pipeline_stages > 0:
+            from veles_tpu_torch.parallel.pipeline import pipeline_lm_loss
+            if training and self.remat:
+                self.warning("remat is not applied on the pipeline path "
+                             "(the stage scan already bounds live "
+                             "activations to one microbatch per stage)")
+            if training and self.n_experts > 0 and self.moe_aux_coef:
+                self.warning(
+                    "moe_aux_coef is not applied on the pipeline path "
+                    "(the stage scan does not thread the aux term); "
+                    "pipelined MoE trains without load balancing — set "
+                    "moe_aux_coef=0 to silence this warning")
+            return lambda params, tokens, mask: pipeline_lm_loss(
+                params, tokens, mask, self.n_heads, self._pp_mesh,
+                self.pipeline_microbatches, self.block_size)
         coef = self.moe_aux_coef if training and self.n_experts > 0 else 0.0
         return lambda params, tokens, mask: lm_loss(
             params, tokens, mask, self.n_heads, self.block_size,
             moe_aux_coef=coef, remat=self.remat and training,
             rope=self.rope, window=self.window, sinks=self.attn_sinks)
+
+    def _pipeline_mesh(self):
+        """The stage mesh: one stage a process of the joined run."""
+        import torch.distributed as dist
+        from veles_tpu_torch.parallel.pipeline import make_pipeline_mesh
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world > self.pipeline_stages:
+            raise ValueError(
+                "pipeline_stages=%d runs one stage a process: it needs a "
+                "joined run of exactly %d processes, have %d"
+                % (self.pipeline_stages, self.pipeline_stages, world))
+        return make_pipeline_mesh(self.pipeline_stages)
 
     def initialize(self, device=None, **kwargs):
         if not hasattr(self, "input") or self.input.is_empty:
@@ -494,6 +581,8 @@ class TransformerTrainer(AcceleratedUnit):
                 "root.<name>.trainer.vocab to cover the data source"
                 % (loader_vocab, self.vocab))
         self._device = resolve_device(device)
+        if self.pipeline_stages > 0 and self._pp_mesh is None:
+            self._pp_mesh = self._pipeline_mesh()
         if self.params is None:
             host = init_transformer_params(
                 prng_mod.get("init"), self.vocab, self.d_model,

@@ -39,6 +39,11 @@ process group a row (the model group) and one a column (the data group).
   row group by the expert axis (:meth:`Mesh.group`); each rank's
   experts' shares are summed by :func:`ep_all_reduce`, and their input
   gradients by :func:`ep_input_grad_all_reduce`.
+- **Pipeline stages and ring attention** (``parallel/pipeline.py``,
+  ``parallel/ring.py``): neighbours exchange activations, gradients and
+  K/V blocks through :func:`p2p_exchange`; the stages' outputs and
+  input gradients, and the ring's output blocks and input gradients,
+  through the counted collectives below.
 
 Under NCCL the epoch scan's captured step holds the collectives inside
 the CUDA graph; a gloo collective stages through the host and cannot be
@@ -164,11 +169,75 @@ def ep_input_grad_all_reduce(x, group):
     return _ExpertInput.apply(x, group)
 
 
+def p2p_exchange(sends, dst, likes, src, group):
+    """One neighbour exchange: the tensors ``sends`` go to global rank
+    ``dst``, and tensors shaped like ``likes`` come from global rank
+    ``src`` (either side may be None).  Every send and receive is posted
+    before any is waited on, so ranks that exchange at once cannot
+    deadlock.  gloo carries CPU tensors only: under gloo a card tensor
+    goes through a host copy each way.  Returns the received tensors on
+    the devices of ``likes`` (None when nothing is received)."""
+    if not sends and not likes:
+        return None
+    staged = dist.get_backend(group) == "gloo"
+    out = [(t.detach().to("cpu") if staged else t.detach()).contiguous()
+           for t in sends or ()]
+    got = [torch.empty(t.shape, dtype=t.dtype,
+                       device="cpu" if staged else t.device)
+           for t in likes or ()]
+    reqs = ([dist.isend(t, dst, group=group, tag=i)
+             for i, t in enumerate(out)]
+            + [dist.irecv(t, src, group=group, tag=i)
+               for i, t in enumerate(got)])
+    for req in reqs:
+        req.wait()
+    p2p_exchange.launches += 1
+    if not likes:
+        return None
+    return [t.to(like.device) for t, like in zip(got, likes)]
+
+
+def stage_output_all_reduce(outs, group):
+    """The pipeline's outputs summed over the stage group in place: the
+    last stage's, with zeros from the others."""
+    _collective(lambda: dist.all_reduce(outs, op=dist.ReduceOp.SUM,
+                                        group=group), outs, group)
+    stage_output_all_reduce.launches += 1
+
+
+def stage_input_grad_all_reduce(dx, group):
+    """The pipeline's input gradient summed over the stage group in
+    place: stage 0's, with zeros from the others."""
+    _collective(lambda: dist.all_reduce(dx, op=dist.ReduceOp.SUM,
+                                        group=group), dx, group)
+    stage_input_grad_all_reduce.launches += 1
+
+
+def ring_all_gather(block, group, parts, dim):
+    """Ring attention's output blocks gathered over ``group`` (``parts``
+    ranks) and joined along ``dim``."""
+    out = [torch.empty_like(block) for _ in range(parts)]
+    _collective(lambda: dist.all_gather(out, block.contiguous(),
+                                        group=group), block, group)
+    ring_all_gather.launches += 1
+    return torch.cat(out, dim=dim)
+
+
+def ring_input_grad_all_reduce(grad, group):
+    """Ring attention's zero-padded input-gradient blocks summed over
+    ``group`` in place."""
+    _collective(lambda: dist.all_reduce(grad, op=dist.ReduceOp.SUM,
+                                        group=group), grad, group)
+    ring_input_grad_all_reduce.launches += 1
+
+
 #: the counted collectives (each adds one to its ``launches`` a call; a
 #: captured step adds its collectives per replay, as the kernels do)
 COUNTED = (grad_all_reduce, metric_all_reduce, tp_all_gather,
            tp_input_grad_all_reduce, ep_all_reduce,
-           ep_input_grad_all_reduce)
+           ep_input_grad_all_reduce, p2p_exchange, stage_output_all_reduce,
+           stage_input_grad_all_reduce, ring_all_gather,
+           ring_input_grad_all_reduce)
 
 
 def reset_collective_counts():
