@@ -249,12 +249,42 @@ Phases (any failure exits nonzero before the final line is printed):
    (``RING_LIVE``), ring and dense ms, two planted faults
    (``RING_FAULTS``) outside the bars; its JSON line
    (``{"pipeline": ...}``);
-14. the script's seconds, the card's name and power limit, one JSON line
-   listing every ported TPU kernel (kernels 5, 6 and 7a-7c with their
-   launches on the MoE runs, ``moe_launches``, and 7a-7c with theirs on
-   the pipelined runs, ``pipeline_launches``; kernels 1 and 4 with their
-   device-operand entries' times, bounds and launches, kernel 4 with its
-   offset entry's), then the JSON result line.
+14. rolling decode, population training and ZeroMQ — (a) the
+   rolling-cache decode (``generate_rolling``) at the full LM width
+   built with RoPE (``LM_CONFIG``, no positional table, fp32, TF32 off;
+   ``ROLLING``: batch 8, seeded 128-token prompts, a 256-slot ring
+   behind 4 pinned sinks) for 384 new tokens (prompt + new = max_len
+   512: the tokens equal to ``generate``'s counted) and for 2048: every
+   step's logits within ``LOGIT_TOL`` of a teacher-forced plain
+   ``transformer_forward`` (rope, window 256, sinks 4, 'xla') over the
+   emitted sequence, the loop's peak card memory flat in ``n_new``
+   (``ROLLING_PEAK_SLACK``), ms a decode step and tokens/s, the card's
+   busy share over a 16-token decode (profiler), and two planted
+   faults (``ROLLING_FAULTS``, 192 new tokens) at least
+   ``FAULT_FACTOR`` times the limit; (b) the genetic optimizer and the
+   ensemble on MNIST-FC (``configs[0]``'s widths, minibatch 100 and
+   10,000 validation samples; the GA trains one minibatch an epoch,
+   see ``GA``, the ensemble the full 60,000): the GA over layer 0's
+   learning rate in this process and across 3 worker processes sharing
+   the card — equal winner, fitness and history, every worker's fitness
+   equal to the sequential one, the winner's direct ``run_sample``
+   scoring its fitness, kernel 1's launches in this process exact; a
+   2-member ensemble in this process and in 2 workers (restored from
+   their snapshots): equal summaries, weights and combined errors, each
+   member under 5% validation error; two planted faults
+   (``POP_FAULTS``: the workers skip ``set_leaf``, the restore skipped)
+   caught; set-up seconds and each worker batch's seconds beyond its
+   longest run in this process; (c) one seeded stream (``ZMQ``)
+   through ``ZeroMQLoader`` to the card, every device minibatch
+   bit-equal to the host samples, the end of the stream flipping
+   ``complete``;
+15. the script's seconds, the card's name and power limit, one JSON line
+   listing every ported TPU kernel (kernel 1 with its launches in phase
+   14's parent process, ``population_launches``; kernels 5, 6 and 7a-7c
+   with their launches on the MoE runs, ``moe_launches``, and 7a-7c with
+   theirs on the pipelined runs, ``pipeline_launches``; kernels 1 and 4
+   with their device-operand entries' times, bounds and launches, kernel
+   4 with its offset entry's), then the JSON result line.
 
 The kernels phase also holds the three flash-attention kernels (forward,
 dK/dV pass, dQ pass; ``flash_attention.cu``) at the LM's train shape
@@ -276,6 +306,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import numpy
 
@@ -5726,6 +5757,480 @@ def pipeline_phase(torch, HK, card, dense_step_s, device="cuda",
     return launches
 
 
+# --------------------------------------------------------------- phase 14
+#: (a) the rolling-cache decode: LM_CONFIG built with RoPE (no
+#: positional table), batch 8, seeded prompts of 128 tokens, a ring of
+#: 256 slots behind 4 pinned sinks; 384 new tokens fill the LM's max_len
+#: 512, 2048 go far past it
+ROLLING = {"batch": 8, "prompt": 128, "window": 256, "sinks": 4}
+ROLLING_NEW = (384, 2048)
+#: the 2048-token decode loop's peak card memory may exceed the 384
+#: one's by at most this many bytes (its token buffer is 53 KB larger)
+ROLLING_PEAK_SLACK = 1 << 20
+#: planted faults: the slot taken as pos % (sinks + window), so the
+#: sinks are evicted; q/k rotated at the slot instead of the position.
+#: Both show from position sinks + window = 260 on, so their runs decode
+#: ROLLING_FAULT_NEW tokens past the 128-token prompt (to position 319)
+ROLLING_FAULTS = ("sinks_evicted", "rope_at_slot")
+ROLLING_FAULT_NEW = 192
+#: new tokens of the decode whose card busy share is profiled
+ROLLING_PROFILED = 16
+#: a planted fault must read at least this many times LOGIT_TOL
+FAULT_FACTOR = 10.0
+#: (b) the GA over MNIST-FC's widths (784 -> 100 tanh -> 10 softmax,
+#: minibatch 100, 10,000 validation samples) with layer 0's learning
+#: rate as Tune(0.03, 0.005, 0.1).  A fitness is the best validation
+#: n_err, and an epoch scores the validation set before it trains.  The
+#: synthetic set is separable: after a few dozen steps at any rate in
+#: the range every individual scores 0 errors, so at 60,000 train
+#: samples the GA would compare ties.  The GA therefore trains ONE
+#: minibatch an epoch for 2 epochs: the fitness is the validation n_err
+#: after one SGD step, which falls with the rate.  The ensemble, scored
+#: on its trained weights by evaluate_combined, trains 1 epoch of the
+#: full 60,000
+GA = {"generations": 2, "population": 3, "workers": 3, "epochs": 2,
+      "n_train": 100, "tune": (0.03, 0.005, 0.1)}
+ENSEMBLE = {"size": 2, "workers": 2, "epochs": 1, "n_train": 60000}
+#: MNIST-FC's bar for every ensemble member (phase 5's)
+POP_MAX_ERR_PCT = 5.0
+POP_FAULTS = ("worker_skips_set_leaf", "restore_skipped")
+#: (c) one seeded MNIST-shaped stream pushed through the ZeroMQ loader
+ZMQ = {"n": 1000, "minibatch": 100, "shape": (784,)}
+
+
+@contextlib.contextmanager
+def patched(owner, name, value):
+    real = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield real
+    finally:
+        setattr(owner, name, real)
+
+
+def rolling_fault(T, name):
+    """A context planting one of ``ROLLING_FAULTS`` in the decode loop."""
+    if name == "sinks_evicted":
+        def faulty(slot_pos, pos, window, sinks=0):
+            slot = pos % (sinks + window)
+            slot_pos[slot] = pos
+            live = (slot_pos >= 0) & (slot_pos <= pos)
+            in_window = slot_pos > pos - window
+            if sinks:
+                in_window |= slot_pos < sinks
+            return slot, slot_pos, live & in_window
+        return patched(T, "rolling_slot_update", faulty)
+    real = T.mha_decode_step_rolling
+
+    def faulty(params, x, k_cache, v_cache, slot, live, pos, n_heads):
+        return real(params, x, k_cache, v_cache, slot, live, slot, n_heads)
+    return patched(T, "mha_decode_step_rolling", faulty)
+
+
+def rolling_run(torch, T, params, prompt, n_new, n_heads, device):
+    """One ``generate_rolling`` through the entry point.  Returns (tokens,
+    the loop's seconds from its first step's bookkeeping to the end,
+    card bytes allocated at the loop's start, the loop's peak, every
+    step's logits on the host).  The peak counter is reset at the
+    loop's start; each step's logits are copied to pinned host memory
+    (one small asynchronous copy a step; no card allocation grows with
+    the steps)."""
+    r = ROLLING
+    mark = {}
+    real_update = T.rolling_slot_update
+
+    def probe(slot_pos, pos, window, sinks=0):
+        if not mark:
+            torch.cuda.synchronize()
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+                mark["base"] = torch.cuda.memory_allocated()
+            mark["t0"] = time.perf_counter()
+        return real_update(slot_pos, pos, window, sinks=sinks)
+
+    host = torch.empty((n_new, prompt.shape[0], params["embed"].shape[0]),
+                       pin_memory=device == "cuda")
+    real_head = T.head_logits
+    calls = []
+
+    def head(p, h):
+        out = real_head(p, h)
+        host[len(calls)].copy_(out[:, -1], non_blocking=True)
+        calls.append(1)
+        return out
+
+    with patched(T, "rolling_slot_update", probe), \
+            patched(T, "head_logits", head):
+        toks = T.generate_rolling(params, prompt, n_new, n_heads,
+                                  r["window"], temperature=0,
+                                  sinks=r["sinks"])
+        torch.cuda.synchronize()
+    loop_s = time.perf_counter() - mark["t0"]
+    base = mark.get("base", 0)
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    return toks, loop_s, base, peak, host
+
+
+def rolling_logit_err(torch, T, params, toks, logits, s, n_heads):
+    """Max abs gap between each decode step's logits and a teacher-
+    forced plain forward (rope, the window and sinks) over the emitted
+    sequence, at the positions that chose tokens s..end."""
+    r = ROLLING
+    with torch.no_grad():
+        ref = T.transformer_forward(params, toks[:, :-1], n_heads,
+                                    rope=True, window=r["window"],
+                                    sinks=r["sinks"])[:, s - 1:]
+    got = logits.to(ref.device).transpose(0, 1)
+    return float((got - ref).abs().max())
+
+
+def rolling_phase(torch, T, card, device="cuda", cfg=None):
+    """(a) ``generate_rolling`` at the full LM width: tokens against
+    ``generate`` while its cache lasts, every step's logits against a
+    teacher-forced plain forward, flat peak memory, two planted faults,
+    ms a step and tokens/s.  Returns the report."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.ops import attention as A
+    from veles_tpu_torch.ops import functional as F
+    cfg = cfg or LM_CONFIG
+    r = ROLLING
+    F.set_matmul_precision("float32")
+    A.set_attention_backend("xla")
+    t0 = time.monotonic()
+    host = T.init_transformer_params(
+        prng.RandomGenerator("init", SEED), cfg["vocab"],
+        d_model=cfg["d_model"], n_heads=cfg["n_heads"],
+        n_layers=cfg["n_layers"], rope=True)
+    params = T.tree_map(lambda a: torch.as_tensor(a, device=device), host)
+    rng = numpy.random.RandomState(SEED)
+    prompt = torch.as_tensor(rng.randint(0, cfg["vocab"], (
+        r["batch"], r["prompt"])).astype(numpy.int32), device=device)
+    setup_s = time.monotonic() - t0
+    s, heads = r["prompt"], cfg["n_heads"]
+    runs = {}
+    for n_new in ROLLING_NEW:
+        toks, loop_s, base, peak, logits = rolling_run(
+            torch, T, params, prompt, n_new, heads, device)
+        check(toks.shape == (r["batch"], s + n_new)
+              and int(toks.min()) >= 0 and int(toks.max()) < cfg["vocab"],
+              "rolling: malformed output %r" % (tuple(toks.shape),))
+        err = rolling_logit_err(torch, T, params, toks, logits, s, heads)
+        steps = n_new - 1
+        runs[n_new] = {"loop_s": loop_s,
+                       "ms_per_step": loop_s / steps * 1e3,
+                       "tokens_per_s": r["batch"] * steps / loop_s,
+                       "loop_start_bytes": base, "loop_peak_bytes": peak,
+                       "loop_peak_growth_bytes": peak - base,
+                       "max_abs_logit_err": err}
+        if n_new + s <= cfg["max_len"]:
+            with torch.no_grad():
+                full = T.generate(params, prompt, n_new, heads,
+                                  temperature=0, max_len=cfg["max_len"],
+                                  rope=True, window=r["window"],
+                                  sinks=r["sinks"])
+            runs[n_new]["tokens_equal_generate"] = int(
+                (full[:, s:] == toks[:, s:]).sum())
+            runs[n_new]["tokens"] = r["batch"] * n_new
+        del toks, logits
+    # the card's busy share over a short decode (the prompt's prefill
+    # included), and its kernel time a call
+    busy, per_kernel = profile_steps(torch, lambda: (T.generate_rolling(
+        params, prompt, ROLLING_PROFILED, heads, r["window"], temperature=0,
+        sinks=r["sinks"]), torch.cuda.synchronize()), 1)
+    profiled = {"new_tokens": ROLLING_PROFILED, "busy_share": busy,
+                "kernel_ms": sum(per_kernel.values()) / 1e3,
+                "top_kernels_ms": {k: v / 1e3 for k, v in sorted(
+                    per_kernel.items(), key=lambda kv: -kv[1])[:5]}}
+    faults = {}
+    for name in ROLLING_FAULTS:
+        with rolling_fault(T, name):
+            toks, _, _, _, logits = rolling_run(
+                torch, T, params, prompt, ROLLING_FAULT_NEW, heads, device)
+        faults[name] = rolling_logit_err(torch, T, params, toks, logits, s,
+                                         heads)
+    short, long_ = (runs[n] for n in ROLLING_NEW)
+    report = {"phase": "rolling", "card": card,
+              "config": dict(cfg, rope=True, **r), "setup_s": setup_s,
+              "runs": {str(k): v for k, v in runs.items()},
+              "peak_2048_minus_384_bytes": (long_["loop_peak_bytes"]
+                                            - short["loop_peak_bytes"]),
+              "profiled": profiled, "logit_tol": LOGIT_TOL,
+              "faults": faults,
+              "phase_s": time.monotonic() - t0}
+    print(json.dumps(report), flush=True)
+    for n, run in runs.items():
+        check(run["max_abs_logit_err"] <= LOGIT_TOL,
+              "rolling n_new %d: logits %g from the plain forward > %g"
+              % (n, run["max_abs_logit_err"], LOGIT_TOL))
+    check(report["peak_2048_minus_384_bytes"] <= ROLLING_PEAK_SLACK,
+          "rolling: the loop's peak grew %d bytes with n_new"
+          % report["peak_2048_minus_384_bytes"])
+    for name, err in faults.items():
+        check(err >= FAULT_FACTOR * LOGIT_TOL,
+              "rolling fault %s read %g < %g x the limit" % (
+                  name, err, FAULT_FACTOR))
+    return report
+
+
+def population_phase(torch, HK, card, device="cuda", loader=None):
+    """(b) the GA and the ensemble on MNIST-FC, sequential in this
+    process and in worker processes sharing the card: equal winners,
+    fitnesses, histories, summaries, weights and combined errors; the
+    winner's direct run; kernel 1's launches in this process exact; two
+    planted faults caught.  Returns this process's kernel-1 launches."""
+    from veles_tpu_torch import (genetics, prng, samples, snapshotter,
+                                 subproc)
+    from veles_tpu_torch.config import Tune, root
+    from veles_tpu_torch.ensemble import train_ensemble
+    from veles_tpu_torch.samples import mnist
+    loader = dict(loader or {})
+    began = time.monotonic()
+    mb = 100
+
+    def configure(run, tune):
+        prng.reset()
+        prng.seed_all(SEED)
+        root.__dict__.pop("mnist", None)
+        mnist.default_config()
+        root.mnist.loader.update(dict(loader, n_train=run["n_train"]))
+        root.mnist.decision.max_epochs = run["epochs"]
+        if tune:
+            root.mnist.layers[0]["learning_rate"] = Tune(*GA["tune"])
+
+    evals = []
+    real_run = samples.run_sample
+
+    def recording(module, seed=None, build_kwargs=None, device=None):
+        t0 = time.monotonic()
+        wf = real_run(module, seed=seed, build_kwargs=build_kwargs,
+                      device=device)
+        torch.cuda.synchronize()
+        evals.append({"lr": float(root.mnist.layers[0]["learning_rate"]),
+                      "s": time.monotonic() - t0,
+                      "fitness": wf.decision.best_metric,
+                      "train_steps": wf.fused_step.train_steps})
+        return wf
+
+    batches = []
+    real_eval = genetics.evaluate_population
+
+    def timed_batch(module_name, genes, individuals, *args, **kwargs):
+        t0 = time.monotonic()
+        fits = real_eval(module_name, genes, individuals, *args, **kwargs)
+        batches.append({"lrs": [i[0] for i in individuals], "fitness": fits,
+                        "s": time.monotonic() - t0})
+        return fits
+
+    configure(ENSEMBLE, False)
+    t0 = time.monotonic()
+    wf = mnist.build()
+    wf.initialize(device=device)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    del wf
+
+    HK.reset_launch_counts()
+    with patched(samples, "run_sample", recording), \
+            patched(genetics, "evaluate_population", timed_batch):
+        configure(GA, True)
+        t0 = time.monotonic()
+        seq_fit, seq_genes, seq_pop = genetics.optimize_workflow(
+            mnist, GA["generations"], GA["population"], seed=SEED,
+            device=device)
+        seq_s = time.monotonic() - t0
+        ga_evals = list(evals)
+        ga_launches = HK.launch_counts()["fused_sgd_update"]
+        ga_steps = sum(e["train_steps"] for e in ga_evals)
+        # the winner, left in the config tree, trained directly
+        direct = samples.run_sample(mnist, seed=SEED, device=device)
+        direct_fit = direct.decision.best_metric
+        del direct
+        configure(GA, True)
+        t0 = time.monotonic()
+        par_fit, par_genes, par_pop = genetics.optimize_workflow(
+            mnist, GA["generations"], GA["population"], seed=SEED,
+            workers=GA["workers"], device=device)
+        par_s = time.monotonic() - t0
+        ga_batches = list(batches)
+        by_lr = {e["lr"]: e["fitness"] for e in ga_evals}
+        eval_s = {e["lr"]: e["s"] for e in ga_evals}
+        for b in ga_batches:
+            # a worker's start (python, torch, the card's context) and
+            # its spec's round trip: the batch beyond its longest run
+            b["overhead_s"] = b["s"] - max(eval_s[lr] for lr in b["lrs"])
+        batches_equal = all([by_lr[lr] for lr in b["lrs"]] == b["fitness"]
+                            for b in ga_batches)
+        # fault: the workers skip set_leaf (their specs carry no genes)
+        configure(GA, True)
+        genes = genetics.find_tunes()
+        picks = [[lr] for lr in by_lr if lr != GA["tune"][0]][:2]
+        real_workers = subproc.run_workers
+
+        def skip_genes(module_name, specs, workers, env_overrides=None):
+            return real_workers(module_name, [dict(s, genes={})
+                                              for s in specs], workers,
+                                env_overrides)
+
+        with patched(subproc, "run_workers", skip_genes):
+            skipped = genetics.evaluate_population(
+                mnist.__name__, genes, picks, SEED, len(picks),
+                device=device)
+        fault_ga = skipped != [by_lr[p[0]] for p in picks]
+
+        # the ensemble, sequential and in workers
+        def ensemble(workers):
+            configure(ENSEMBLE, False)
+            t0 = time.monotonic()
+            trainer, combined = train_ensemble(
+                mnist, size=ENSEMBLE["size"], base_seed=SEED,
+                workers=workers, device=device)
+            return trainer, combined, time.monotonic() - t0
+
+        seq_tr, seq_comb, ens_seq_s = ensemble(0)
+        summaries = []
+
+        def keep(module_name, specs, workers, env_overrides=None):
+            summaries[:] = real_workers(module_name, specs, workers,
+                                        env_overrides)
+            return summaries
+
+        with patched(subproc, "run_workers", keep):
+            par_tr, par_comb, ens_par_s = ensemble(ENSEMBLE["workers"])
+        # fault: the restore skipped.  What the workers send is then
+        # never read, so their summaries are handed back without
+        # training them again
+        with patched(snapshotter, "restore", lambda wf, path: None), \
+                patched(subproc, "run_workers", lambda *a, **k: summaries):
+            bad_tr, bad_comb, _ = ensemble(ENSEMBLE["workers"])
+    torch.cuda.synchronize()
+    launches = HK.launch_counts()["fused_sgd_update"]
+    steps = sum(e["train_steps"] for e in evals)
+
+    def weights(trainer):
+        return [[v.mem for f in wf.forwards for v in (f.weights, f.bias)]
+                for _, wf, _ in trainer.members]
+
+    def same(a, b):
+        return all(numpy.array_equal(x, y) for wa, wb in zip(a, b)
+                   for x, y in zip(wa, wb))
+
+    seq_w = weights(seq_tr)
+    ens_equal = (same(seq_w, weights(par_tr)) and seq_comb == par_comb
+                 and [m[2] for m in seq_tr.members]
+                 == [m[2] for m in par_tr.members])
+    fault_ens = not (same(seq_w, weights(bad_tr)) and bad_comb == seq_comb)
+    member_err = [100.0 * n / seq_comb["count"]
+                  for n in seq_comb["members"]]
+    report = {
+        "phase": "population", "card": card,
+        "config": {"layers": "784-100tanh-10softmax", "minibatch": mb,
+                   "n_valid": loader.get("n_valid", 10000),
+                   "ga": GA, "ensemble": ENSEMBLE, "loader": loader},
+        "setup_s": setup_s,
+        "ga": {"sequential_s": seq_s, "workers_s": par_s,
+               "best_fitness": seq_fit, "best_genes": seq_genes,
+               "history": seq_pop.history,
+               "workers_equal": (par_fit, par_genes, par_pop.history)
+               == (seq_fit, seq_genes, seq_pop.history),
+               "worker_fitness_equal_sequential": batches_equal,
+               "direct_run_fitness": direct_fit,
+               "evaluations": ga_evals, "worker_batches": ga_batches,
+               "launches": ga_launches, "train_steps": ga_steps},
+        "ensemble": {"sequential_s": ens_seq_s, "workers_s": ens_par_s,
+                     "combined": seq_comb, "member_err_pct": member_err,
+                     "summaries": [m[2] for m in seq_tr.members],
+                     "workers_equal": ens_equal},
+        "faults": {"worker_skips_set_leaf": {"fitness": skipped,
+                                             "caught": fault_ga},
+                   "restore_skipped": {"combined": bad_comb,
+                                       "caught": fault_ens}},
+        "launches": launches, "train_steps": steps,
+        "phase_s": time.monotonic() - began}
+    print(json.dumps(report), flush=True)
+    ga_runs = len(ga_evals)
+    check(ga_launches == ga_steps == ga_runs * GA["epochs"]
+          * -(-GA["n_train"] // mb) and ga_runs >= 3,
+          "GA: %d fused SGD launches for %d train steps in %d runs"
+          % (ga_launches, ga_steps, ga_runs))
+    check(report["ga"]["workers_equal"],
+          "GA: workers=%d gave %r, sequential %r" % (
+              GA["workers"], (par_fit, par_genes), (seq_fit, seq_genes)))
+    check(batches_equal, "GA: a worker's fitness differs from the "
+          "sequential one: %r vs %r" % (ga_batches, by_lr))
+    check(direct_fit == seq_fit, "GA: the winner's direct run scored %r, "
+          "its fitness %r" % (direct_fit, seq_fit))
+    check(ens_equal, "ensemble: workers=%d differs from sequential"
+          % ENSEMBLE["workers"])
+    check(max(member_err) < POP_MAX_ERR_PCT,
+          "ensemble: member validation error %r >= %g%%"
+          % (member_err, POP_MAX_ERR_PCT))
+    check(launches == steps, "population: %d fused SGD launches for %d "
+          "train steps" % (launches, steps))
+    check(fault_ga and fault_ens, "population: a planted fault went "
+          "unnoticed: %r" % report["faults"])
+    return launches
+
+
+def zmq_phase(torch, card, device="cuda"):
+    """(c) one seeded stream through ``ZeroMQLoader`` to the card: every
+    device minibatch (data, labels, mask) bit-equal to the host samples,
+    the live sizes, then the end of the stream and ``complete``."""
+    from veles_tpu_torch.zmq_loader import ZeroMQLoader, push_samples
+    z = ZMQ
+    rng = numpy.random.RandomState(SEED)
+    data = rng.standard_normal((z["n"],) + z["shape"]).astype(numpy.float32)
+    labels = rng.randint(0, 10, z["n"]).astype(numpy.int32)
+    loader = ZeroMQLoader(None, sample_shape=z["shape"],
+                          minibatch_size=z["minibatch"], timeout_ms=10000,
+                          name="zmq")
+    loader.initialize(device=device)
+    # the producer pushes from its own thread, as a separate process
+    # would: it blocks at the sockets' high-water marks until the loader
+    # drains them
+    producer = threading.Thread(target=push_samples, args=(
+        loader.endpoint, [{"data": d, "label": int(l)}
+                          for d, l in zip(data, labels)]))
+    sizes, equal, at = [], True, 0
+    t0 = time.monotonic()
+    producer.start()
+    try:
+        while not bool(loader.complete) and len(sizes) <= z["n"]:
+            loader.run()
+            size = loader.minibatch_size
+            sizes.append(size)
+            got = [getattr(loader, n).devmem for n in (
+                "minibatch_data", "minibatch_labels", "minibatch_mask")]
+            equal &= all(t.device.type == torch.device(device).type
+                         for t in got)
+            want_x = numpy.zeros((z["minibatch"],) + z["shape"],
+                                 numpy.float32)
+            want_y = numpy.zeros(z["minibatch"], numpy.int32)
+            want_m = numpy.zeros(z["minibatch"], numpy.float32)
+            want_x[:size] = data[at:at + size]
+            want_y[:size] = labels[at:at + size]
+            want_m[:size] = 1.0
+            for t, w in zip(got, (want_x, want_y, want_m)):
+                equal &= numpy.array_equal(t.cpu().numpy(), w)
+            at += size
+    finally:
+        producer.join(timeout=60)
+        loader.stop()
+    torch.cuda.synchronize()
+    run_s = time.monotonic() - t0
+    check(not producer.is_alive(), "zmq: the producer did not finish")
+    full = z["n"] // z["minibatch"]
+    report = {"phase": "zmq", "card": card, "config": {
+        "samples": z["n"], "shape": list(z["shape"]),
+        "minibatch": z["minibatch"]}, "run_s": run_s,
+        "ms_per_minibatch": run_s / len(sizes) * 1e3, "sizes": sizes,
+        "bit_equal": bool(equal), "complete": bool(loader.complete)}
+    print(json.dumps(report), flush=True)
+    check(sizes == [z["minibatch"]] * full + [0] and bool(loader.complete),
+          "zmq: minibatch sizes %r" % sizes)
+    check(equal, "zmq: a device minibatch differs from the host samples")
+    return report
+
+
 def main():
     started = time.monotonic()
     import torch
@@ -5923,7 +6428,20 @@ def main():
         launches[k] += v
     gc_cuda(torch)
 
-    # 14. the kernels line and the result
+    # 14. the rolling-cache decode at the full LM width, the GA and the
+    # ensemble on MNIST-FC in this process and in workers sharing the
+    # card, and the ZeroMQ loader
+    t0 = time.monotonic()
+    rolling_phase(torch, T, smi)
+    gc_cuda(torch)
+    pop_launches = population_phase(torch, HK, smi)
+    launches["fused_sgd_update"] += pop_launches
+    gc_cuda(torch)
+    zmq_phase(torch, smi)
+    print(json.dumps({"phase14_s": time.monotonic() - t0, "card": smi}),
+          flush=True)
+
+    # 15. the kernels line and the result
     main_case = {"flash_attention_fwd": flash[0],
                  "flash_attention_bwd_dkv": flash[1],
                  "flash_attention_bwd_dq": flash[2],
@@ -5966,6 +6484,8 @@ def main():
             row["moe_launches"] = moe_launches[row["name"]]
         if row["name"] in pipe_launches:
             row["pipeline_launches"] = pipe_launches[row["name"]]
+        if row["name"] == "fused_sgd_update":
+            row["population_launches"] = pop_launches
     # beside the calls that are one or two short launches, the floor
     for row in kernels:
         if row["name"] in ("fused_sgd_update", "paged_flash_decode",

@@ -93,7 +93,6 @@ def test_cli_dump_config_list_units_version(capsys):
 @pytest.mark.parametrize("flags,item", [
     (["--web-status-url", "http://localhost:1"], "Queue 2, item 6"),
     (["--events-mongo", "mongodb://localhost"], "Queue 2a, item 14"),
-    (["--optimize", "3"], "Queue 2, item 4"),
     (["--web-status", "0"], "Queue 2, item 6"),
     (["--serve", "0"], "Queue 2a, item 13"),
     (["--serve-slots", "4"], "Queue 2a, item 13"),

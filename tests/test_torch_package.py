@@ -196,6 +196,31 @@ def test_kernel_wrappers_refuse_other_devices():
             call()
 
 
+def test_population_and_rolling_slice_is_checked(monkeypatch):
+    """The worker pool, the genetic optimizer, the ensemble, their
+    workers and the ZeroMQ loader are among the modules the two checks
+    above import and parse; the GA and the ensemble run on the card
+    unless the CPU is asked for, and raise without one."""
+    assert {"veles_tpu_torch.subproc", "veles_tpu_torch.genetics",
+            "veles_tpu_torch.genetics.eval_worker",
+            "veles_tpu_torch.ensemble",
+            "veles_tpu_torch.ensemble.train_worker",
+            "veles_tpu_torch.zmq_loader"} <= set(_modules())
+    from veles_tpu_torch.ensemble import train_ensemble
+    from veles_tpu_torch.genetics import (evaluate_population,
+                                          optimize_workflow)
+    from veles_tpu_torch.samples import mnist
+    from veles_tpu_torch import __main__ as cli
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: optimize_workflow(mnist, 1, 2),
+                 lambda: evaluate_population("m", [], [[0.5]], 1, 1),
+                 lambda: train_ensemble(mnist, size=1),
+                 lambda: cli.main(["veles_tpu_torch.samples.mnist",
+                                   "--optimize", "1:2"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
 def test_moe_module_is_checked():
     """The mixture-of-experts module is among those the two checks above
     import and parse."""

@@ -15,12 +15,14 @@ scripts/velescli.py [H], SURVEY §2.1, §3.1):
 
 - ``--distributed --coordinator-address HOST:PORT --num-processes N
   --process-id R`` joins a data-parallel run of N processes (one a
-  card; gloo when ranks share a card or run on the CPU).
+  card; gloo when ranks share a card or run on the CPU);
+- ``--optimize GENERATIONS[:POPULATION[:WORKERS]]`` runs the genetic
+  optimizer over the config's ``Tune`` leaves instead of one training
+  run (``genetics.optimize_cli``), its workers on ``-d``'s device.
 
 The parser takes every flag of the reference, so any reference command
-line parses.  The flags whose machinery is not ported yet (the genetic
-optimizer, the web status, serving after training, the event sinks,
-fault plans) raise NotImplementedError naming their ROADMAP item before
+line parses.  The flags whose machinery is not ported yet (the web
+status, serving after training, the event sinks, fault plans) raise NotImplementedError naming their ROADMAP item before
 anything is built or trained.
 """
 
@@ -35,7 +37,6 @@ import sys
 
 #: flags not ported yet: (argparse dest, its default, ROADMAP item)
 _UNPORTED = (
-    ("optimize", None, "Queue 2, item 4"),
     ("web_status", None, "Queue 2, item 6"),
     ("web_status_url", None, "Queue 2, item 6"),
     ("web_status_host", "127.0.0.1", "Queue 2, item 6"),
@@ -117,8 +118,9 @@ def build_argparser():
                         help="write a torch.profiler Chrome trace of the "
                              "run to DIR/trace.json")
     parser.add_argument("--optimize", default=None, metavar="GENERATIONS",
-                        help="genetic hyperparameter search (not ported "
-                             "yet)")
+                        help="genetic hyperparameter search over the "
+                             "config's Tune leaves: GENERATIONS[:POPULATION"
+                             "[:WORKERS]] (workers on --device)")
     parser.add_argument("--list-units", action="store_true",
                         help="list registered unit classes and exit")
 
@@ -266,6 +268,12 @@ def main(argv=None):
     if not hasattr(module, "run"):
         raise SystemExit("workflow module %r has no run(load, main)"
                          % args.workflow)
+    if args.optimize and args.evaluate:
+        parser.error("--optimize cannot be combined with --evaluate (the "
+                     "GA drives its own training runs)")
+    if args.optimize:
+        from veles_tpu_torch.genetics import optimize_cli
+        return optimize_cli(module, args)
     holder = {}
 
     def load(workflow_cls, **kwargs):

@@ -440,6 +440,21 @@ class FusedRunner:
             self._step(self.state, *args)
         return (time.perf_counter() - begin) / iters
 
+    def eval_forward(self):
+        """The eval-mode forward ``(state, x) -> last activation`` under
+        ``torch.no_grad()``, built once and shared by every caller (the
+        reference's jitted ``eval_forward``): ensemble members of one
+        topology all run through member 0's, each with its own state."""
+        fn = getattr(self, "_eval_forward_fn", None)
+        if fn is None:
+            def fn(state, x):
+                with torch.no_grad():
+                    acts, _ = self._forward_chain(state, x, rng=None,
+                                                  train=False)
+                return acts[-1]
+            self._eval_forward_fn = fn
+        return fn
+
     # ------------------------------------------------------------ graph hook
     def install(self):
         """Rewire the graph: gate-skip the accelerated units; FusedStep

@@ -5,7 +5,8 @@ flash-style ``blockwise_attention`` (both masked through the one
 ``band_bias``), :func:`flash_attention` through the Hopper kernels,
 rotary embeddings (half-split "NeoX" layout), grouped-query helpers,
 ``mha_forward`` with its attention-backend flag, the linear-cache decode
-step, the paged KV view/write and :func:`mha_paged_chunk_step`, the one
+step and its ring-buffer sibling (``rolling_slot_update``,
+``mha_decode_step_rolling``), the paged KV view/write and :func:`mha_paged_chunk_step`, the one
 attention core of every paged serving program (decode step, prompt
 chunk).
 
@@ -282,7 +283,8 @@ def _decode_attend(params, x, k_cache, v_cache, write_idx, live, rope_pos,
     q = split(params["wq"], n_heads)            # (b, h, 1, dh)
     k_new = split(params["wk"], kv)
     if rope_pos is not None:
-        pos_arr = torch.tensor([int(rope_pos)], device=x.device)
+        pos_arr = (rope_pos if torch.is_tensor(rope_pos)
+                   else torch.tensor([int(rope_pos)], device=x.device))
         q = rope_rotate(q, pos_arr)
         k_new = rope_rotate(k_new, pos_arr)
     k_cache[:, :, write_idx:write_idx + 1] = k_new
@@ -311,6 +313,41 @@ def mha_decode_step(params, x, k_cache, v_cache, pos, n_heads, rope=False,
         live &= in_window
     return _decode_attend(params, x, k_cache, v_cache, pos, live,
                           pos if rope else None, n_heads)
+
+
+def rolling_slot_update(slot_pos, pos, window, sinks=0):
+    """Ring-buffer bookkeeping for one decode step, computed once a step
+    and shared by every block (they all write the same slot).  Cache
+    layout: ``sinks`` PINNED slots (positions 0..sinks-1, never
+    evicted) followed by a ``window``-slot ring where position
+    p >= sinks lands in slot sinks + (p - sinks) % window.
+    ``slot_pos`` (sinks + window,) int32 on the cache's device holds the
+    absolute position in each slot (-1: never written) and is updated
+    IN PLACE.  ``pos`` is a host int, so the write slot is computed on
+    the host and nothing is read back from the device.  Returns (write
+    slot, slot_pos, live mask): a slot is live iff it holds a real
+    position <= pos that is a sink or inside the window."""
+    pos = int(pos)
+    slot = pos if pos < sinks else sinks + (pos - sinks) % window
+    slot_pos[slot] = pos
+    live = (slot_pos >= 0) & (slot_pos <= pos)
+    in_window = slot_pos > pos - window
+    if sinks:
+        in_window |= slot_pos < sinks
+    return slot, slot_pos, live & in_window
+
+
+def mha_decode_step_rolling(params, x, k_cache, v_cache, slot, live, pos,
+                            n_heads):
+    """One decode step against a RING-BUFFER KV cache (batch, kv_heads,
+    sinks + window, head_dim): the core of :func:`mha_decode_step`,
+    writing position ``pos`` at the host int ``slot`` IN PLACE and
+    attending under ``live`` (both from :func:`rolling_slot_update`).
+    q/k rotate at the ABSOLUTE position ``pos`` — a host int, or a (1,)
+    int tensor on x's device, which spares the upload — never at the
+    slot.  Returns (out, k_cache, v_cache)."""
+    return _decode_attend(params, x, k_cache, v_cache, slot, live, pos,
+                          n_heads)
 
 
 # ------------------------------------------------------------- paged KV

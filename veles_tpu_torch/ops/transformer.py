@@ -6,7 +6,8 @@ the reference for the same prng stream); the training forward
 (``transformer_forward``, ``lm_loss``, with top-1-routed mixture-of-
 experts blocks and their load-balancing term, ``ops/moe.py``) and the
 Adam step; KV-cached
-greedy ``generate``; the decoder block over the paged KV pool;
+greedy ``generate`` and its unbounded ring-buffer sibling
+``generate_rolling``; the decoder block over the paged KV pool;
 :class:`TransformerTrainer` (sequential, or GPipe stages through
 ``parallel/pipeline.py``) with :class:`TransformerDecision`; and
 :class:`TransformerLM`, an ``nn.Module`` holding the weights under the
@@ -31,8 +32,10 @@ from veles_tpu_torch import prng as prng_mod
 from veles_tpu_torch.accel import AcceleratedUnit
 from veles_tpu_torch.device import resolve_device
 from veles_tpu_torch.ops.attention import (init_mha_params, mha_decode_step,
+                                           mha_decode_step_rolling,
                                            mha_forward,
-                                           mha_paged_chunk_step)
+                                           mha_paged_chunk_step,
+                                           rolling_slot_update)
 from veles_tpu_torch.ops.decision import DecisionBase
 from veles_tpu_torch.ops.functional import matmul, relu
 from veles_tpu_torch.ops.moe import init_moe_params, moe_ffn
@@ -383,6 +386,89 @@ def generate(params, prompt, n_new, n_heads, rng=None, temperature=1.0,
         return torch.cat([prompt.to(torch.int32), torch.stack(toks, 1)],
                          dim=1)
 
+
+
+def block_decode_step_rolling(blk, h, k_cache, v_cache, slot, live, pos,
+                              n_heads):
+    """One block over ONE position against its ring-buffer cache
+    (written in place): :func:`block_decode_step`'s wiring with the
+    precomputed ``slot``/``live`` of ``attention.rolling_slot_update``
+    (which encodes any sink pinning) and RoPE at the absolute ``pos``."""
+    hn = _layernorm(h, blk["ln1"]["g"], blk["ln1"]["b"])
+    attn, k_cache, v_cache = mha_decode_step_rolling(
+        blk["attn"], hn, k_cache, v_cache, slot, live, pos, n_heads)
+    h = h + attn
+    hn = _layernorm(h, blk["ln2"]["g"], blk["ln2"]["b"])
+    return h + _block_ffn(blk, hn), k_cache, v_cache
+
+
+def generate_rolling(params, prompt, n_new, n_heads, window, rng=None,
+                     temperature=1.0, top_k=None, sinks=0):
+    """UNBOUNDED greedy decoding in O(sinks + window) memory, for RoPE
+    models: ``prompt`` (batch, s) int; returns (batch, s + n_new) int32.
+    The prompt is prefilled at its own width (windowed, with sinks), its
+    K/V folded into each block's [sinks | window-ring] cache, and every
+    new position written at the ring slot of
+    ``attention.rolling_slot_update``, so ``n_new`` is bounded by
+    nothing.  Matches ``generate(..., rope=True, window=window,
+    sinks=sinks)`` while that one's full cache lasts.  The loop makes no
+    host-to-device copy: the rotary positions are uploaded once, the
+    slot is a host int and the tokens stay on the device until the
+    end.  ``temperature`` must be 0 (sampling raises); greedy decoding
+    never reads ``top_k`` once it is in range."""
+    if "pos" in params:
+        raise ValueError("generate_rolling needs a RoPE model (a learned "
+                         "positional table bounds the length anyway — "
+                         "use generate)")
+    if n_new < 1:
+        raise ValueError("n_new must be >= 1")
+    if not window or window < 1:
+        raise ValueError("generate_rolling needs window >= 1")
+    if top_k is not None and not 1 <= top_k <= params["embed"].shape[0]:
+        raise ValueError("top_k %r out of range (vocab %d)"
+                         % (top_k, params["embed"].shape[0]))
+    sample = _make_sampler(not temperature)
+    device = prompt.device
+    b, s = prompt.shape
+    with torch.no_grad():
+        h, caches = prefill(params, prompt, n_heads, s, rope=True,
+                            window=window, sinks=sinks)
+        logits = head_logits(params, h[:, -1:])[:, 0]
+        # the first min(sinks, s) positions pin to their own slots, the
+        # last min(window, s - kept sinks) land at sinks + (p - sinks) %
+        # window (consecutive, so distinct); other slots stay -1
+        ps = list(range(min(sinks, s))) + list(range(max(sinks, s - window),
+                                                     s))
+        slots = [p if p < sinks else sinks + (p - sinks) % window
+                 for p in ps]
+        cache_len = sinks + window
+        host_pos = numpy.full(cache_len, -1, numpy.int32)
+        host_pos[slots] = ps
+        slot_pos = torch.from_numpy(host_pos).to(device)
+        src = torch.tensor(ps, dtype=torch.long, device=device)
+        dst = torch.tensor(slots, dtype=torch.long, device=device)
+
+        def to_ring(c):
+            ring = c.new_zeros(c.shape[:2] + (cache_len,) + c.shape[3:])
+            ring[:, :, dst] = c[:, :, src]
+            return ring
+
+        caches = [(to_ring(k), to_ring(v)) for k, v in caches]
+        positions = torch.arange(s, s + n_new, device=device)
+        out = torch.empty((b, s + n_new), dtype=torch.int32, device=device)
+        out[:, :s] = prompt
+        for i in range(n_new - 1):
+            tok = sample(logits)
+            out[:, s + i] = tok
+            slot, slot_pos, live = rolling_slot_update(
+                slot_pos, s + i, window, sinks=sinks)
+            x = params["embed"][tok.long()][:, None, :]
+            for blk, (kc, vc) in zip(params["blocks"], caches):
+                x, _, _ = block_decode_step_rolling(
+                    blk, x, kc, vc, slot, live, positions[i:i + 1], n_heads)
+            logits = head_logits(params, x)[:, 0]
+        out[:, s + n_new - 1] = sample(logits)
+        return out
 
 def trainer_sample_tokens(trainer, prompt, n_new=32, temperature=0.0,
                           seed=0, params=None, max_len=None, top_k=None,
