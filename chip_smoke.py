@@ -278,9 +278,38 @@ Phases (any failure exits nonzero before the final line is printed):
    through ``ZeroMQLoader`` to the card, every device minibatch
    bit-equal to the host samples, the end of the stream flipping
    ``complete``;
-15. the script's seconds, the card's name and power limit, one JSON line
+15. deploy — full-width AlexNet (``alexnet_layers()``, crop 227, 1000
+   classes; ``DEPLOY_LOADER``: 3 train minibatches of 128 on the seeded
+   256x256 synthetic set) trained, then (a) exported with
+   ``export.export_model`` in fp32 and int8 (bytes and seconds), loaded
+   on the card with ``load_model``, ``predict`` at batch 1, 7 and 128
+   against the workflow's eval forward (equal argmax, max abs gap within
+   ``DEPLOY_ATOL``, whether bit-equal, exactly 2 LRN forward launches a
+   predict: the kernel inside the exported program), the same file
+   loaded on the CPU within ``DEPLOY_CROSS_ATOL`` of the card, the int8
+   artifact's exact check (stored arrays equal a plain per-output-channel
+   quantization, each loaded tensor scale x int8, outputs bit-equal to an
+   fp32 artifact of the dequantized weights) and its argmax agreement
+   with fp32 (reported); (b) ``serve_artifact`` direct and with
+   ``max_batch`` 32, 32 one-image requests from 8 client threads each:
+   every reply against a direct predict of its row, 2 LRN launches a
+   forward, the batched run's mean batch above 1, a 413 and a 400,
+   requests/s, p50/max and one request's JSON and forward seconds; (c)
+   ``export_native_bundle`` at batch 8 (AOTInductor, weights baked in)
+   run by the libtorch runner (``native/artifact_runner.cpp``, built
+   with g++) on 8 rows: within ``DEPLOY_CROSS_ATOL`` of predict, equal
+   argmax, exactly 2 LRN launches, the compile, build and run seconds
+   and the runner's card memory; (d) ``python -m veles_tpu_torch
+   veles_tpu_torch.samples.mnist --serve 0 --serve-batch 8`` at
+   ``configs[0]``'s widths (``DEPLOY_CLI``) in a subprocess, 16 rows
+   posted one a request, bit-equal to ``serve_snapshot`` of its final
+   snapshot; (e) four planted faults (``DEPLOY_FAULTS``) caught; its
+   JSON line (``{"deploy": ...}``);
+16. the script's seconds, the card's name and power limit, one JSON line
    listing every ported TPU kernel (kernel 1 with its launches in phase
-   14's parent process, ``population_launches``; kernels 5, 6 and 7a-7c
+   14's parent process, ``population_launches``; kernel 2 with its
+   launches on phase 15's deployment paths, ``deploy_launches``;
+   kernels 5, 6 and 7a-7c
    with their launches on the MoE runs, ``moe_launches``, and 7a-7c with
    theirs on the pipelined runs, ``pipeline_launches``; kernels 1 and 4
    with their device-operand entries' times, bounds and launches, kernel
@@ -303,6 +332,7 @@ It imports nothing of JAX and nothing of the ``veles_tpu`` package.
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -989,6 +1019,7 @@ def lrn_case(torch, HK, name, shape, n=5, seed=0, timed=True, offset=0):
     if not timed:
         return fwd, bwd
     xs = [x] + [x.clone() for _ in range(COPIES - 1)]
+    fwd["dispatch"] = lrn_dispatch(torch, HK, xs, hyper)
     ds = [d] + [d.clone() for _ in range(COPIES - 1)]
     # the library: local_response_norm on the NHWC tensor's NCHW view
     lib = torch.nn.functional.local_response_norm
@@ -1022,6 +1053,46 @@ def lrn_case(torch, HK, name, shape, n=5, seed=0, timed=True, offset=0):
         bytes=16 * elems)
     bwd["bound_ms"], bwd["bound_by"] = bound(16 * elems, (n + 8) * elems)
     return fwd, bwd
+
+
+def host_us(fns, torch, calls=10, reps=25):
+    """Median over ``reps`` of the host's time to enqueue one call, in
+    microseconds: a spin kernel keeps the card busy meanwhile, so no call
+    waits for the card and the reading is the host's work alone."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fns[0]()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(2 * 2.5e9 * host_s * calls) + 100000
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        for k in range(calls):
+            fns[k % len(fns)]()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def lrn_dispatch(torch, HK, xs, hyper):
+    """What the op ``veles_tpu_torch::lrn_forward`` adds to a forward
+    launch: ``HK.lrn_forward`` (through the dispatcher) against a direct
+    call of its CUDA implementation on the same inputs, the host's time
+    a call (``host_us``) and the card's (``time_ms``), read in the order
+    op, direct, direct, op."""
+    ways = {"op": [lambda t=t: HK.lrn_forward(t, *hyper, 2.0) for t in xs],
+            "direct": [lambda t=t: HK._lrn_forward_launch(t, *hyper, 2.0)
+                       for t in xs]}
+    out = {"%s_%s" % (w, unit): [] for w in ways for unit in ("host_us",
+                                                              "ms")}
+    for way in ("op", "direct", "direct", "op"):
+        out[way + "_host_us"].append(host_us(ways[way], torch))
+        out[way + "_ms"].append(time_ms(ways[way], torch))
+    return out
 
 
 def lrn_ragged_rows(HK, c=96):
@@ -6231,6 +6302,548 @@ def zmq_phase(torch, card, device="cuda"):
     return report
 
 
+# --------------------------------------------------------------- phase 15
+#: the deploy phase's model: full-width AlexNet (``alexnet_layers()``,
+#: crop 227, 1000 classes) on the seeded 256x256 synthetic set, minibatch
+#: 128, 384 train / 128 validation for 1 epoch: 3 train minibatches, the
+#: last gated by Decision, so 2 committed updates
+DEPLOY_LOADER = {"n_train": 384, "n_valid": 128, "epochs": 1}
+#: predict batches held against the workflow's eval forward
+DEPLOY_BATCHES = (1, 7, 128)
+#: the artifact on the card vs the eval forward: the program runs the
+#: same ATen ops on the same card
+DEPLOY_ATOL = 1e-6
+#: the card vs the CPU (cuDNN and the CPU sum the convolutions in other
+#: orders), a reply vs a direct predict (the batcher runs rows in other
+#: batch shapes), the native runner vs predict (AOTInductor's generated
+#: pointwise code): outputs are softmax probabilities, O(1e-3)
+DEPLOY_CROSS_ATOL = 1e-5
+#: REST: requests of one image each, from this many client threads;
+#: the batched run's max_batch.  32 latencies give a median and a
+#: maximum, no tail: a p99 of them would be the maximum by another name
+DEPLOY_REQUESTS, DEPLOY_CLIENTS, DEPLOY_MAX_BATCH = 32, 8, 32
+#: the native bundle's static batch
+DEPLOY_NATIVE_BATCH = 8
+#: the CLI leg: MNIST-FC at configs[0]'s widths (784->100 tanh->10,
+#: minibatch 100), the data cut to 6,000 / 1,000 for 2 epochs; rows
+#: posted one a request to it and to ``serve_snapshot`` of its snapshot
+DEPLOY_CLI = ["root.mnist.loader.n_train=6000",
+              "root.mnist.loader.n_valid=1000",
+              "root.mnist.decision.max_epochs=2"]
+DEPLOY_CLI_ROWS = 16
+#: planted faults, each of which a check of this phase must catch
+DEPLOY_FAULTS = ("int8_scale_over_input_axis", "lrn_k_altered",
+                 "batcher_rows_to_wrong_requests", "runner_op_skips_kernel")
+
+
+def plain_int8(flat):
+    """Per-output-channel symmetric int8 of every ``<layer>/w`` (the
+    scale over each weight's last axis), written out here independently
+    of ``export._quantize_int8``."""
+    out = {}
+    for key, arr in flat.items():
+        if not (key.endswith("/w") and arr.ndim >= 2):
+            out[key] = arr
+            continue
+        flat_w = arr.reshape(-1, arr.shape[-1])
+        scale = numpy.maximum(numpy.abs(flat_w).max(axis=0) / 127.0,
+                              1e-12).astype(numpy.float32)
+        out[key] = numpy.clip(numpy.rint(arr / scale), -127,
+                              127).astype(numpy.int8)
+        out[key + ".scale"] = scale
+    return out
+
+
+def faulty_runner_source(path):
+    """The runner's source with both of the LRN op's implementations
+    returning x (no window sum, no kernel), written to ``path``."""
+    from veles_tpu_torch import native
+    text = native.RUNNER_SOURCE.read_text()
+    for fn in ("lrn_forward_cpu", "lrn_forward_cuda"):
+        head = text.index("std::tuple<at::Tensor, at::Tensor> %s(" % fn)
+        body = text.index("{\n", head) + 2
+        text = (text[:body] + "  return {x.clone(), at::ones_like(x)};\n"
+                + text[body:])
+    check(text.count("return {x.clone(), at::ones_like(x)};") == 2,
+          "deploy: the runner fault was not planted")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(text)
+    return path
+
+
+@contextlib.contextmanager
+def deploy_fault(name, wf=None):
+    """Within the block, ``name`` of ``DEPLOY_FAULTS`` is planted (the
+    runner fault is a separate build: see ``faulty_runner_source``)."""
+    from veles_tpu_torch import export
+    from veles_tpu_torch.serving import batcher
+    if name == "int8_scale_over_input_axis":
+        owner, attr = export, "_quantize_int8"
+        inner = export._quantize_int8
+
+        def planted(flat):
+            out = {}
+            for key, arr in flat.items():
+                if key.endswith("/w") and arr.ndim >= 2:
+                    scale = numpy.maximum(numpy.abs(arr).max(
+                        axis=-1, keepdims=True) / 127.0, 1e-12).astype(
+                            numpy.float32)
+                    out[key] = numpy.clip(numpy.rint(arr / scale), -127,
+                                          127).astype(numpy.int8)
+                    out[key + ".scale"] = scale
+                else:
+                    out[key] = arr
+            return out
+    elif name == "lrn_k_altered":
+        norms = [f for f in wf.forwards if f.layer_type == "norm"]
+        saved = [f.k for f in norms]
+        for f in norms:
+            f.k = 1.0
+        try:
+            yield
+        finally:
+            for f, k in zip(norms, saved):
+                f.k = k
+        return
+    else:
+        owner, attr = batcher.MicroBatcher, "_dispatch"
+        inner = batcher.MicroBatcher._dispatch
+
+        def planted(self, items):
+            futures = [it.future for it in items]
+            for it, fut in zip(items, futures[1:] + futures[:1]):
+                it.future = fut
+            return inner(self, items)
+    setattr(owner, attr, planted)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, inner)
+
+
+def int8_exact(torch, export, runner, fp32_flat, q_path, rows, tmp, device):
+    """The int8 artifact's exact check: its stored arrays equal
+    ``plain_int8`` of the fp32 weights, each loaded tensor is scale x
+    int8, and its outputs equal, bit for bit, those of an fp32 artifact
+    exported from the dequantized weights.  Returns (ok, report)."""
+    import io
+    import tarfile
+    want = plain_int8(fp32_flat)
+    with tarfile.open(q_path, "r:gz") as tar:
+        npz = numpy.load(io.BytesIO(tar.extractfile(export.WEIGHTS).read()))
+        stored = {k: npz[k] for k in npz.files}
+    stored_equal = sorted(stored) == sorted(want) and all(
+        stored[k].dtype == want[k].dtype and stored[k].shape == want[k].shape
+        and numpy.array_equal(stored[k], want[k]) for k in want)
+    qm = export.load_model(q_path, device=device)
+    deq = {}
+    for key, arr in zip(qm.manifest["param_keys"], qm._params):
+        deq[key] = arr
+    deq_equal = all(numpy.array_equal(
+        deq[k], stored[k + ".scale"] * stored[k].astype(numpy.float32))
+        if stored[k].dtype == numpy.int8 else numpy.array_equal(
+            deq[k], stored[k]) for k in deq)
+    # an fp32 artifact from the dequantized weights
+    saved = runner.state
+    runner.state = [dict(e) for e in saved]
+    for key, arr in deq.items():
+        layer, pname = key.split("/", 1)
+        runner.state[int(layer)][pname] = torch.from_numpy(arr).to(
+            saved[int(layer)][pname].device)
+    try:
+        deq_path = export.export_model(runner.wf, os.path.join(
+            tmp, "dequantized.veles"))
+    finally:
+        runner.state = saved
+    q_out = qm.predict(rows)
+    d_out = export.load_model(deq_path, device=device).predict(rows)
+    outputs_equal = bool(numpy.array_equal(q_out, d_out))
+    ok = stored_equal and deq_equal and outputs_equal
+    return ok, {"stored_equal_plain_int8": bool(stored_equal),
+                "dequantized_equal_scale_x_int8": bool(deq_equal),
+                "outputs_bit_equal_dequantized_fp32": outputs_equal,
+                "q_out": q_out}
+
+
+def post_json(url, body, timeout=120):
+    """POST raw bytes; returns (status, parsed JSON body)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=body, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def rest_load(api, bodies, clients):
+    """``len(bodies)`` requests from ``clients`` threads started
+    together; returns ({i: reply}, [latency s], wall s)."""
+    url = "http://127.0.0.1:%d/predict" % api.port
+    replies, latencies, lock = {}, [], threading.Lock()
+    start = threading.Barrier(clients)
+
+    def client(ci):
+        start.wait()
+        for i in range(ci, len(bodies), clients):
+            t0 = time.monotonic()
+            status, out = post_json(url, bodies[i])
+            dt = time.monotonic() - t0
+            with lock:
+                replies[i] = (status, out)
+                latencies.append(dt)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return replies, latencies, time.monotonic() - t0
+
+
+def rest_leg(torch, HK, restful_api, path, rows, direct, n_lrn, device,
+             max_batch, n_requests=DEPLOY_REQUESTS):
+    """``serve_artifact`` direct (``max_batch`` 0) or batched: replies
+    against a direct predict of each row, the LRN launches a forward, the
+    413 and 400 errors.  Returns (report, rows wrong)."""
+    api = restful_api.serve_artifact(
+        path, port=0, max_batch=max_batch,
+        device=None if device == "cuda" else device)
+    try:
+        distinct = [json.dumps({"input": r[None].tolist()}).encode()
+                    for r in rows]
+        bodies = [distinct[i % len(rows)] for i in range(n_requests)]
+        HK.reset_launch_counts()
+        replies, latencies, wall = rest_load(api, bodies, DEPLOY_CLIENTS)
+        launches = HK.launch_counts()["lrn_forward"]
+        snap = api.metrics.snapshot() if api.metrics is not None else None
+        url = "http://127.0.0.1:%d/predict" % api.port
+        too_big, _ = post_json(url, b" " * (api.max_body + 1))
+        bad_shape, bad_body = post_json(url, json.dumps(
+            {"input": [[0.0] * 5]}).encode())
+    finally:
+        api.stop()
+    wrong, worst = 0, 0.0
+    for i, (status, out) in sorted(replies.items()):
+        want = direct[i % len(rows)]
+        got = numpy.asarray(out.get("output", [[numpy.nan]]), numpy.float32)
+        gap = (float(numpy.abs(got - want).max())
+               if status == 200 and got.shape == want.shape else numpy.inf)
+        worst = max(worst, gap)
+        if (status != 200 or gap > DEPLOY_CROSS_ATOL
+                or out.get("argmax") != want.argmax(1).tolist()):
+            wrong += 1
+    forwards = snap["dispatches"] if max_batch else n_requests
+    lat = sorted(latencies)
+    report = {"max_batch": max_batch, "requests": n_requests,
+              "clients": DEPLOY_CLIENTS, "wall_s": wall,
+              "requests_per_s": n_requests / wall,
+              "p50_s": statistics.median(lat),
+              "max_s": lat[-1],
+              "replies_wrong": wrong, "max_abs_gap": worst,
+              "forwards": forwards, "lrn_launches": launches,
+              "status_413": too_big, "status_400": bad_shape,
+              "error_400": bad_body.get("error")}
+    if max_batch:
+        report["mean_batch"] = snap["batch_size"]["mean"]
+    report["ok"] = bool(
+        wrong == 0 and len(replies) == n_requests and too_big == 413
+        and bad_shape == 400 and launches == n_lrn * forwards
+        and (not max_batch or report["mean_batch"] > 1))
+    return report, wrong
+
+
+def request_split(torch, model, row):
+    """One request's time split on the host clock: JSON decode (and the
+    list to array conversion), the forward on the card, JSON encode."""
+    body = json.dumps({"input": row[None].tolist()}).encode()
+    reps = 3
+    t0 = time.monotonic()
+    for _ in range(reps):
+        x = numpy.asarray(json.loads(body)["input"], numpy.float32)
+    decode = (time.monotonic() - t0) / reps
+    model.predict(x)
+    t0 = time.monotonic()
+    for _ in range(reps):
+        probs = model.predict(x)
+    forward = (time.monotonic() - t0) / reps
+    t0 = time.monotonic()
+    for _ in range(reps):
+        json.dumps({"output": probs.tolist(),
+                    "argmax": probs.argmax(1).tolist()}).encode()
+    encode = (time.monotonic() - t0) / reps
+    return {"request_bytes": len(body), "json_decode_s": decode,
+            "forward_s": forward, "json_encode_s": encode}
+
+
+def build_runners(tmp):
+    """Start the runner's build and the faulty runner's (g++ each) in
+    the background; returns {name: future of (path, seconds)}."""
+    from concurrent.futures import ThreadPoolExecutor
+    from veles_tpu_torch import native
+
+    def timed(source):
+        t0 = time.monotonic()
+        return native.build_runner(source), time.monotonic() - t0
+
+    pool = ThreadPoolExecutor(max_workers=2)
+    futures = {"sound": pool.submit(timed, native.RUNNER_SOURCE),
+               "faulty": pool.submit(timed, faulty_runner_source(
+                   os.path.join(tmp, "artifact_runner.cpp")))}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def cli_serve_leg(torch, device, tmp):
+    """(d) ``python -m veles_tpu_torch ... --serve 0 --serve-batch 8`` in
+    a subprocess; its replies to ``DEPLOY_CLI_ROWS`` rows (one a request)
+    against ``serve_snapshot`` of its final snapshot on the same rows."""
+    import signal
+    from veles_tpu_torch import prng, restful_api
+    from veles_tpu_torch.config import parse_override, root
+    from veles_tpu_torch.samples import mnist
+    snaps = os.path.join(tmp, "cli_snaps")
+    argv = [sys.executable, "-m", "veles_tpu_torch",
+            "veles_tpu_torch.samples.mnist", "--random-seed", str(SEED),
+            "--no-stats", "--serve", "0", "--serve-batch", "8",
+            "--snapshot-dir", snaps] + DEPLOY_CLI
+    if device != "cuda":
+        argv[4:4] = ["-d", device]
+    log = os.path.join(tmp, "cli.log")
+    t0 = time.monotonic()
+    with open(log, "w", encoding="utf-8") as err:
+        proc = subprocess.Popen(
+            argv, stdout=subprocess.PIPE, stderr=err, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        line = proc.stdout.readline()
+        serving_s = time.monotonic() - t0
+        if not line.startswith("SERVING http://127.0.0.1:"):
+            with open(log, encoding="utf-8") as f:
+                tail = f.read()[-3000:]
+            check(False, "deploy: the CLI printed %r, not its SERVING "
+                  "line:\n%s" % (line, tail))
+        url = line.split()[1]
+
+        def build():
+            prng.reset()
+            root.__dict__.pop("mnist", None)
+            mnist.default_config()
+            for token in DEPLOY_CLI:
+                parse_override(token)
+            wf = mnist.build()
+            wf.initialize(device=device)
+            return wf
+
+        api = restful_api.serve_snapshot(
+            os.path.join(snaps, "mnist_current.pickle.gz"), port=0,
+            build=build)
+        try:
+            data = api.workflow.loader.original_data.devmem
+            rows = data[:DEPLOY_CLI_ROWS].cpu().numpy()
+            equal = True
+            for row in rows:
+                body = json.dumps({"input": row[None].tolist()}).encode()
+                a = post_json(url, body)
+                b = post_json("http://127.0.0.1:%d/predict" % api.port, body)
+                equal &= a[0] == b[0] == 200 and a[1]["output"] == \
+                    b[1]["output"] and a[1]["argmax"] == b[1]["argmax"]
+        finally:
+            api.stop()
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    return {"argv": argv[2:], "seconds_to_serving": serving_s,
+            "rows": DEPLOY_CLI_ROWS, "bit_equal_to_serve_snapshot":
+            bool(equal), "exit_code": proc.returncode}
+
+
+def deploy_phase(torch, HK, card, device="cuda", layers=None, loader=None):
+    """Phase 15: export, REST serving and the native runner of a trained
+    full-width AlexNet, with the LRN forward kernel inside the exported
+    program; the CLI's ``--serve``; four planted faults.  Returns the LRN
+    forward launches of the deployment paths."""
+    import shutil
+    import tempfile
+    from veles_tpu_torch import export, native, prng, restful_api
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.samples import imagenet
+    began = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="veles_deploy_")
+    on = None if device == "cuda" else device
+    try:
+        runners = build_runners(tmp)
+        # (a) train, export, load, predict
+        layers = layers or imagenet.alexnet_layers()
+        t0 = time.monotonic()
+        wf = imagenet_build(prng, root, imagenet, layers,
+                            **dict(DEPLOY_LOADER, **(loader or {})))
+        wf.initialize(device=device)
+        wf.run()
+        torch.cuda.synchronize()
+        train_s = time.monotonic() - t0
+        runner = wf._fused_runner
+        n_lrn = sum(1 for f in wf.forwards if f.layer_type == "norm")
+        rows = wf.loader.original_data.devmem[:max(DEPLOY_BATCHES)].cpu() \
+            .numpy()
+
+        def eval_rows(x):
+            return runner.eval_forward()(
+                runner.state, torch.from_numpy(x).to(device)).cpu().numpy()
+
+        sizes, seconds = {}, {}
+        paths = {q: os.path.join(tmp, "alexnet_%s.veles" % (q or "fp32"))
+                 for q in (None, "int8")}
+        for q, p in paths.items():
+            t0 = time.monotonic()
+            export.export_model(wf, p, quantize=q)
+            seconds[q or "fp32"] = time.monotonic() - t0
+            sizes[q or "fp32"] = os.path.getsize(p)
+        t0 = time.monotonic()
+        model = export.load_model(paths[None], device=on)
+        load_s = time.monotonic() - t0
+        predicts, predict_ok = [], True
+        for b in DEPLOY_BATCHES:
+            x = rows[:b]
+            want = eval_rows(x)
+            HK.reset_launch_counts()
+            t0 = time.monotonic()
+            got = model.predict(x)
+            dt = time.monotonic() - t0
+            lrn = HK.launch_counts()["lrn_forward"]
+            gap = float(numpy.abs(got - want).max())
+            same_argmax = bool((got.argmax(1) == want.argmax(1)).all())
+            predicts.append({"batch": b, "lrn_launches": lrn,
+                             "max_abs_gap": gap, "argmax_equal": same_argmax,
+                             "bit_equal": bool(numpy.array_equal(got, want)),
+                             "predict_s": dt})
+            predict_ok &= (lrn == n_lrn and gap <= DEPLOY_ATOL
+                           and same_argmax and got.shape == want.shape)
+        card_7 = model.predict(rows[:7])
+        cpu_7 = export.load_model(paths[None], device="cpu").predict(
+            rows[:7])
+        cpu_gap = float(numpy.abs(cpu_7 - card_7).max())
+        fp32_flat = {k: v.detach().cpu().numpy() for k, v in
+                     export._flatten_state(
+                         [{k: v for k, v in e.items() if k in ("w", "b")}
+                          for e in runner.state]).items()}
+        int8_ok, int8 = int8_exact(torch, export, runner, fp32_flat,
+                                   paths["int8"], rows, tmp, on)
+        agree = float((int8.pop("q_out").argmax(1) ==
+                       model.predict(rows).argmax(1)).mean())
+        # (b) REST, direct and batched
+        direct = [model.predict(r[None]) for r in rows[:DEPLOY_CLIENTS]]
+        rest = {}
+        for mb in (0, DEPLOY_MAX_BATCH):
+            rest["direct" if not mb else "batched"], _ = rest_leg(
+                torch, HK, restful_api, paths[None], rows[:DEPLOY_CLIENTS],
+                direct, n_lrn, device, mb)
+        split = request_split(torch, model, rows[0])
+        # (c) the native runner
+        t0 = time.monotonic()
+        bundle = export.export_native_bundle(
+            wf, os.path.join(tmp, "bundle"), batch=DEPLOY_NATIVE_BATCH)
+        aoti_s = time.monotonic() - t0
+        runner_bin, runner_build_s = runners["sound"].result()
+        x8 = rows[:DEPLOY_NATIVE_BATCH]
+        want8 = model.predict(x8)
+        t0 = time.monotonic()
+        out8, native_lrn, _, stderr = native.run_artifact(
+            bundle, x8, runner=runner_bin)
+        native_s = time.monotonic() - t0
+        mem = [line.split()[2:] for line in stderr.splitlines()
+               if line.startswith("card bytes ")]
+        native_gap = float(numpy.abs(out8 - want8).max())
+        native_want = n_lrn if device == "cuda" else 0
+        native_ok = (native_gap <= DEPLOY_CROSS_ATOL and native_lrn ==
+                     native_want and (out8.argmax(1) ==
+                                      want8.argmax(1)).all())
+        # (d) the CLI's --serve
+        cli = cli_serve_leg(torch, device, tmp)
+        # (e) the planted faults
+        caught = {}
+        with deploy_fault("int8_scale_over_input_axis"):
+            bad = os.path.join(tmp, "bad_int8.veles")
+            export.export_model(wf, bad, quantize="int8")
+        caught["int8_scale_over_input_axis"] = not int8_exact(
+            torch, export, runner, fp32_flat, bad, rows[:8], tmp, on)[0]
+        with deploy_fault("lrn_k_altered", wf):
+            bad = export.export_model(wf, os.path.join(tmp, "bad_k.veles"))
+        gap_k = float(numpy.abs(export.load_model(bad, device=on).predict(
+            rows[:7]) - eval_rows(rows[:7])).max())
+        caught["lrn_k_altered"] = gap_k > DEPLOY_ATOL
+        with deploy_fault("batcher_rows_to_wrong_requests"):
+            _, wrong = rest_leg(torch, HK, restful_api, paths[None],
+                                rows[:DEPLOY_CLIENTS], direct, n_lrn,
+                                device, DEPLOY_MAX_BATCH,
+                                n_requests=2 * DEPLOY_CLIENTS)
+        caught["batcher_rows_to_wrong_requests"] = wrong > 0
+        faulty_bin, _ = runners["faulty"].result()
+        f_out, f_lrn, _, _ = native.run_artifact(bundle, x8,
+                                                 runner=faulty_bin)
+        f_gap = float(numpy.abs(f_out - want8).max())
+        caught["runner_op_skips_kernel"] = (f_gap > DEPLOY_CROSS_ATOL
+                                            or f_lrn != native_want)
+        deploy_launches = (sum(p["lrn_launches"] for p in predicts)
+                           + rest["direct"]["lrn_launches"]
+                           + rest["batched"]["lrn_launches"] + native_lrn)
+        report = {
+            "phase": "deploy", "card": card,
+            "config": {"layers": "alexnet_layers()" if layers is None
+                       else "given", "image_hw": list(wf.loader.image_hw),
+                       "minibatch": wf.loader.max_minibatch_size,
+                       "n_train": wf.loader.class_lengths[2],
+                       "train_steps": wf.fused_step.train_steps,
+                       "lrn_layers": n_lrn},
+            "train_s": train_s,
+            "export": {"bytes": sizes, "seconds": seconds,
+                       "load_s": load_s, "predict": predicts,
+                       "card_vs_cpu_max_abs_gap": cpu_gap,
+                       "int8": dict(int8, argmax_agreement_with_fp32=agree)},
+            "rest": dict(rest, one_request=split),
+            "native": {"aoti_compile_s": aoti_s,
+                       "runner_build_s": runner_build_s,
+                       "run_s": native_s, "max_abs_gap": native_gap,
+                       "lrn_launches": native_lrn,
+                       "card_bytes_used_and_allocator_peak":
+                       [int(v) for v in mem[0]] if mem else None,
+                       "bundle_bytes": os.path.getsize(
+                           os.path.join(bundle, "program.pt2"))},
+            "cli": cli,
+            "faults": {"caught": caught, "lrn_k_gap": gap_k,
+                       "runner_gap": f_gap, "runner_lrn_launches": f_lrn},
+            "deploy_launches": deploy_launches,
+            "phase_s": time.monotonic() - began}
+        print(json.dumps({"deploy": report}), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(predict_ok, "deploy: the artifact's predict disagrees with the "
+          "eval forward or launched the LRN kernel %r times: %r"
+          % (n_lrn, predicts))
+    check(cpu_gap <= DEPLOY_CROSS_ATOL, "deploy: the artifact on the CPU "
+          "is %g from the card's" % cpu_gap)
+    check(int8_ok, "deploy: the int8 artifact's exact check failed: %r"
+          % int8)
+    for name, leg in rest.items():
+        check(leg["ok"], "deploy: REST %s failed: %r" % (name, leg))
+    check(native_ok, "deploy: the native runner is %g from predict with %d "
+          "LRN launches" % (native_gap, native_lrn))
+    check(cli["bit_equal_to_serve_snapshot"], "deploy: the CLI's replies "
+          "differ from serve_snapshot's")
+    for name in DEPLOY_FAULTS:
+        check(caught[name], "deploy: the planted fault %r was not caught"
+              % name)
+    return deploy_launches
+
+
 def main():
     started = time.monotonic()
     import torch
@@ -6441,7 +7054,14 @@ def main():
     print(json.dumps({"phase14_s": time.monotonic() - t0, "card": smi}),
           flush=True)
 
-    # 15. the kernels line and the result
+    # 15. deployment: a trained full-width AlexNet exported (fp32, int8),
+    # served over REST and run by the native runner, the LRN forward
+    # kernel inside each; the CLI's --serve; the planted faults
+    gc_cuda(torch)
+    deploy_launches = deploy_phase(torch, HK, smi)
+    gc_cuda(torch)
+
+    # 16. the kernels line and the result
     main_case = {"flash_attention_fwd": flash[0],
                  "flash_attention_bwd_dkv": flash[1],
                  "flash_attention_bwd_dq": flash[2],
@@ -6486,6 +7106,8 @@ def main():
             row["pipeline_launches"] = pipe_launches[row["name"]]
         if row["name"] == "fused_sgd_update":
             row["population_launches"] = pop_launches
+        if row["name"] == "lrn_forward":
+            row["deploy_launches"] = deploy_launches
     # beside the calls that are one or two short launches, the floor
     for row in kernels:
         if row["name"] in ("fused_sgd_update", "paged_flash_decode",

@@ -30,7 +30,10 @@ captured in a CUDA graph and replayed with new operands, equal the
 by-value entries bit for bit, and the epoch scan's captured train step
 equals the eager step with host operands over an epoch whose last
 minibatch is short.  The rolling-cache decode's every step's logits lie
-within 1e-4 of a teacher-forced plain forward.
+within 1e-4 of a teacher-forced plain forward.  A narrow LRN net's
+exported artifact, loaded on the card, equals its eval forward within
+1e-6 and launches the LRN kernel once a predict; its native bundle, run
+by the libtorch runner, lies within 1e-5 of that and launches it once.
 """
 
 import numpy
@@ -1175,3 +1178,49 @@ def test_generate_rolling_matches_the_plain_forward(monkeypatch):
     got = torch.stack(seen, 1)
     assert got.shape == want.shape
     assert float((got - want).abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+def test_lrn_net_export_and_native_runner_on_the_card(tmp_path):
+    dev = _card()
+    from veles_tpu_torch import export, native, prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.samples import imagenet
+    prng.reset()
+    prng.seed_all(3)
+    saved = root.__dict__.pop("imagenet", None)
+    try:
+        root.imagenet.update({
+            "loader": {"minibatch_size": 16, "records_path": None,
+                       "n_train": 32, "n_valid": 16, "image_hw": (16, 16),
+                       "n_classes": 4},
+            "decision": {"max_epochs": 1},
+            "layers": [
+                {"type": "conv_str", "n_kernels": 8, "kx": 3, "ky": 3,
+                 "padding": "SAME"},
+                {"type": "norm"},
+                {"type": "max_pooling", "kx": 2, "ky": 2},
+                {"type": "all2all_str", "output_sample_shape": 16},
+                {"type": "softmax", "output_sample_shape": 4}]})
+        wf = imagenet.build(fused=True)
+        wf.initialize(device=dev)
+    finally:
+        root.__dict__.pop("imagenet", None)
+        if saved is not None:
+            root.__dict__["imagenet"] = saved
+    path = export.export_model(wf, str(tmp_path / "lrn.veles"))
+    model = export.load_model(path)
+    x = numpy.random.RandomState(11).uniform(0, 1, (8, 16, 16, 3)).astype(
+        numpy.float32)
+    runner = wf._fused_runner
+    want = runner.eval_forward()(runner.state,
+                                 torch.from_numpy(x).to(dev)).cpu().numpy()
+    HK.reset_launch_counts()
+    got = model.predict(x)
+    assert HK.launch_counts()["lrn_forward"] == 1
+    numpy.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    bundle = export.export_native_bundle(wf, str(tmp_path / "bundle"))
+    out, launches, _, _ = native.run_artifact(bundle, x)
+    assert launches == 1
+    numpy.testing.assert_allclose(out, got, rtol=0, atol=1e-5)
+    numpy.testing.assert_array_equal(out.argmax(1), got.argmax(1))

@@ -94,16 +94,26 @@ def test_cli_dump_config_list_units_version(capsys):
     (["--web-status-url", "http://localhost:1"], "Queue 2, item 6"),
     (["--events-mongo", "mongodb://localhost"], "Queue 2a, item 14"),
     (["--web-status", "0"], "Queue 2, item 6"),
-    (["--serve", "0"], "Queue 2a, item 13"),
+    (["--serve", "0"], "Queue 1, item 5"),
     (["--serve-slots", "4"], "Queue 2a, item 13"),
     (["--serve-health"], "Queue 2a, item 13"),
     (["--events-file", "e.jsonl"], "Queue 2a, item 14"),
     (["--fault-plan", "p.json"], "Queue 2a, item 15"),
 ])
-def test_unported_flags_raise_before_training(flags, item):
+def test_unported_flags_raise_before_training(flags, item, monkeypatch):
+    """Each unported flag raises naming its item before anything trains;
+    ``--serve`` is ported for forward chains and raises on an LM
+    workflow (its serving, ``serve_lm``, is not ported), so that case
+    runs the char-LM sample."""
+    sample = "veles_tpu_torch.samples.mnist"
+    if flags[0] == "--serve":
+        sample = "veles_tpu_torch.samples.char_lm"
+        monkeypatch.setattr(Launcher, "boot", lambda self: pytest.fail(
+            "the run started before --serve was refused"))
     with pytest.raises(NotImplementedError, match=item):
-        cli.main(["veles_tpu_torch.samples.mnist", "-d", "cpu", *flags])
+        cli.main([sample, "-d", "cpu", *flags])
     assert "mnist" not in root.__dict__ or "layers" not in root.mnist
+    root.__dict__.pop("char_lm", None)
 
 
 def test_every_reference_flag_parses():
@@ -224,3 +234,55 @@ def test_python_m_runs_without_jax(tmp_path):
     assert "BAD=[]" in out.stdout, out.stdout
     assert json.loads((tmp_path / "r.json").read_text())["best_epoch"] >= 1
     assert os.path.exists(tmp_path / "d" / "mnist_current.pickle.gz")
+
+
+def test_serve_after_training_answers_with_the_trained_weights(tmp_path):
+    """``--serve 0 --serve-batch 4`` on MNIST in a subprocess: the CLI
+    trains, prints the SERVING line and answers ``/predict`` through the
+    micro-batcher with the trained weights' eval forward (the final
+    snapshot restored here; one row a request, one thread each side)."""
+    import signal
+    import urllib.request
+    from veles_tpu_torch import snapshotter
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "veles_tpu_torch",
+         "veles_tpu_torch.samples.mnist", "-d", "cpu", "--random-seed", "3",
+         "--no-stats", "--serve", "0", "--serve-batch", "4",
+         "--snapshot-dir", str(tmp_path / "snaps"), *SMALL],
+        env=env, cwd=tmp_path, stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("SERVING http://127.0.0.1:"), line
+        url = line.split()[1]
+        for part in SMALL:
+            from veles_tpu_torch.config import parse_override
+            parse_override(part)
+        wf = mnist.build()
+        wf.initialize(device="cpu")
+        snapshotter.restore(wf, str(tmp_path / "snaps" /
+                                    "mnist_current.pickle.gz"))
+        runner = wf._fused_runner
+        x = numpy.asarray(wf.loader.original_data.mem[:6])
+        for row in x:
+            req = urllib.request.Request(
+                url, data=json.dumps({"input": [row.tolist()]}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                out = json.loads(resp.read())
+            want = runner.eval_forward()(
+                runner.state, torch.from_numpy(row[None])).numpy()
+            numpy.testing.assert_allclose(out["output"], want, rtol=0,
+                                          atol=1e-6)
+            assert out["argmax"] == want.argmax(1).tolist()
+        with urllib.request.urlopen(url.replace("/predict", "/metrics.json"),
+                                    timeout=10) as resp:
+            assert json.loads(resp.read())["responses"] == 6
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()

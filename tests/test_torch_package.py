@@ -90,9 +90,21 @@ def test_harness_modules_are_checked():
             "veles_tpu_torch.ops.lr_adjust"} <= names
 
 
+def test_deployment_modules_are_checked():
+    """The deployment slice — export, the native runner's build, the
+    REST predict path with its micro-batcher, and the forge — is among
+    the modules the two checks above import and parse."""
+    names = set(_modules())
+    assert {"veles_tpu_torch.export", "veles_tpu_torch.native",
+            "veles_tpu_torch.restful_api",
+            "veles_tpu_torch.serving.batcher", "veles_tpu_torch.forge",
+            "veles_tpu_torch.forge_server",
+            "veles_tpu_torch.forge_cli"} <= names
+
+
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     import numpy
-    from veles_tpu_torch import prng
+    from veles_tpu_torch import export, prng, restful_api
     from veles_tpu_torch.compiled import (state_from_jax,
                                           trainer_state_from_jax)
     from veles_tpu_torch.config import root
@@ -122,6 +134,13 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     records = str(tmp_path / "set.rec")
     write_records(records, numpy.zeros((4, 8, 8, 3), numpy.uint8),
                   numpy.zeros(4, numpy.int32), [0, 2, 2])
+
+    root.mnist.update({"loader": {"minibatch_size": 50},
+                       "decision": {"max_epochs": 1},
+                       "layers": [{"type": "softmax",
+                                   "output_sample_shape": 10}]})
+    on_cpu = mnist.train(device="cpu")
+    artifact = export.export_model(on_cpu, str(tmp_path / "a.veles"))
 
     def imagenet_records():
         root.__dict__.pop("imagenet", None)
@@ -157,6 +176,12 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
                  lambda: lines.train(),
                  lambda: video_ae.train(),
                  lambda: trainer_state_from_jax({"time": 0}),
+                 lambda: export.load_model(artifact),
+                 lambda: restful_api.serve_artifact(artifact, port=0),
+                 # a bundle is compiled for its workflow's device, and a
+                 # workflow reaches the card only through initialize
+                 lambda: export.export_native_bundle(
+                     mnist.build().initialize(), str(tmp_path / "bundle")),
                  lambda: Launcher(mnist.build(), stats=False).boot(),
                  lambda: cli.main(["veles_tpu_torch.samples.mnist",
                                    "--no-stats"]),

@@ -20,10 +20,17 @@ scripts/velescli.py [H], SURVEY §2.1, §3.1):
   optimizer over the config's ``Tune`` leaves instead of one training
   run (``genetics.optimize_cli``), its workers on ``-d``'s device.
 
+- ``--serve PORT`` (``--serve-batch N``) serves the trained forward
+  chain over HTTP after the run (``restful_api.RESTfulAPI`` with the
+  loader's normalizer, through the micro-batcher when N > 0), prints
+  ``SERVING http://127.0.0.1:<port>/predict`` and blocks until
+  interrupted.
+
 The parser takes every flag of the reference, so any reference command
 line parses.  The flags whose machinery is not ported yet (the web
-status, serving after training, the event sinks, fault plans) raise NotImplementedError naming their ROADMAP item before
-anything is built or trained.
+status, the LM and fleet serving flags, the event sinks, fault plans)
+raise NotImplementedError naming their ROADMAP item before anything is
+trained.
 """
 
 from __future__ import annotations
@@ -146,9 +153,15 @@ def build_argparser():
                         help="(not ported yet)")
     parser.add_argument("--web-status-host", default="127.0.0.1",
                         metavar="HOST", help="(not ported yet)")
-    # serving after training: every --serve* flag of the reference,
-    # with its type and default (not ported yet: ROADMAP Queue 2a,
-    # item 13)
+    parser.add_argument("--serve", type=int, default=None, metavar="PORT",
+                        help="after training, serve the forward chain "
+                             "over HTTP on PORT (0: any free port)")
+    parser.add_argument("--serve-batch", type=int, default=0, metavar="N",
+                        help="with --serve: coalesce concurrent requests "
+                             "into batches of up to N (0: one forward a "
+                             "request)")
+    # the rest of the reference's --serve-* flags, with their types and
+    # defaults (not ported yet: ROADMAP Queue 2a, item 13)
     for flag, kind, default in _SERVE_FLAGS:
         if kind is bool:
             parser.add_argument(flag, action="store_true",
@@ -165,9 +178,8 @@ def build_argparser():
     return parser
 
 
-#: the reference's serving flags: (flag, type, default)
+#: the reference's serving flags not ported yet: (flag, type, default)
 _SERVE_FLAGS = (
-    ("--serve", int, None), ("--serve-batch", int, 0),
     ("--serve-slots", int, 0), ("--serve-prefix-cache", int, 0),
     ("--serve-prefill-chunk", int, 0), ("--serve-spec-k", int, 0),
     ("--serve-paged-kv", int, 0), ("--serve-megastep", int, 0),
@@ -276,6 +288,16 @@ def main(argv=None):
         return optimize_cli(module, args)
     holder = {}
 
+    def _servable(wf):
+        """True when --serve will find a forward chain to serve after
+        training; an LM workflow raises (its serving is not ported)."""
+        if getattr(wf, "trainer", None) is not None and \
+                hasattr(wf.trainer, "n_heads"):
+            raise NotImplementedError(
+                "--serve on an LM workflow (serve_lm) is not ported yet: "
+                "ROADMAP Queue 1, item 5")
+        return bool(getattr(wf, "forwards", None))
+
     def load(workflow_cls, **kwargs):
         if args.snapshot_dir:
             # flags win over a config file's snapshotter section, key by
@@ -298,6 +320,11 @@ def main(argv=None):
         wf = holder["workflow"]
         if args.graph:
             wf.generate_graph(args.graph)
+        if args.serve is not None and not _servable(wf):
+            # fail before launcher.boot(): an unservable workflow is
+            # knowable before the training run, not only after it
+            parser.error("--serve: workflow %r has no forward chain to "
+                         "serve" % wf.name)
         launcher = Launcher(
             wf, snapshot=args.snapshot, stats=not args.no_stats,
             profile=args.profile, evaluate=args.evaluate,
@@ -316,7 +343,32 @@ def main(argv=None):
     if launcher is not None and args.result_file:
         with open(args.result_file, "w", encoding="utf-8") as f:
             json.dump(launcher.result_summary(), f, indent=2, default=str)
+    if launcher is not None and args.serve is not None:
+        serve(launcher.workflow, args.serve, args.serve_batch)
     return 0
+
+
+def serve(wf, port, batch=0):
+    """Serve a trained forward-chain workflow until interrupted (the
+    ``--serve`` tail of a run).  In a distributed run only process 0
+    serves (one endpoint, as one process writes snapshots)."""
+    import threading
+    import torch.distributed as dist
+    from veles_tpu_torch.restful_api import RESTfulAPI
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return
+    api = RESTfulAPI(wf, normalizer=getattr(wf.loader, "normalizer", None))
+    if batch > 0:
+        api.enable_batching(max_batch=batch)
+    api.start(port=port)
+    # parseable by wrappers and tests; flushed before blocking
+    print("SERVING http://127.0.0.1:%d/predict" % api.port, flush=True)
+    try:
+        threading.Event().wait()        # until SIGINT
+    except KeyboardInterrupt:
+        pass
+    finally:
+        api.stop()
 
 
 def _run_process():

@@ -1,8 +1,10 @@
-"""ctypes bindings for the native dataio library, with numpy fallbacks.
+"""ctypes bindings for the native dataio library, with numpy fallbacks,
+and the build of the native artifact runner.
 
-Port of ``veles_tpu/native/__init__.py`` (its ``dataio`` half; the PJRT
-plugin discovery belongs with the artifact runner, ROADMAP Queue 2
-item 6).  ``dataio.cpp`` is compiled with ``g++`` (no CUDA) at first use
+Port of ``veles_tpu/native/__init__.py``.  Its PJRT plugin discovery
+has no counterpart: the port's runner (``artifact_runner.cpp``, see
+:func:`build_runner`) links libtorch and needs no plugin.
+``dataio.cpp`` is compiled with ``g++`` (no CUDA) at first use
 into ``build/native/`` at the repository root, named by a hash of the
 source and the flags, written to a temporary name and renamed, so an
 edited source rebuilds and two processes never load a half-written
@@ -253,3 +255,116 @@ def subtract_mean(batch, mean):
     lib.subtract_mean(_as_ptr(batch, ctypes.c_float),
                       _as_ptr(mean, ctypes.c_float), len(batch), elems)
     return batch
+
+
+# ------------------------------------------------------- the artifact runner
+RUNNER_SOURCE = SOURCE.parent / "artifact_runner.cpp"
+#: the environment variable naming the LRN kernel library to the runner
+LRN_LIBRARY_ENV = "VELES_TPU_TORCH_LRN_LIBRARY"
+
+
+def _runner_flags():
+    """g++ flags for a libtorch program against the running torch: its
+    headers and libraries (rpath'd), its C++ ABI, and with a CUDA build
+    of torch its CUDA libraries and the toolkit's headers (the op's card
+    implementation reads the current stream)."""
+    import torch
+    root = Path(torch.__file__).resolve().parent
+    lib = root / "lib"
+    flags = ["-O2", "-std=c++17", "-fPIC",
+             "-D_GLIBCXX_USE_CXX11_ABI=%d" % int(torch._C._GLIBCXX_USE_CXX11_ABI),
+             "-I%s" % (root / "include"),
+             "-I%s" % (root / "include" / "torch" / "csrc" / "api" / "include")]
+    libs = ["-L%s" % lib, "-Wl,-rpath,%s" % lib, "-Wl,--no-as-needed",
+            "-ltorch", "-ltorch_cpu", "-lc10"]
+    if torch.version.cuda is not None:
+        from veles_tpu_torch.ops import _build
+        cuda = Path(_build.nvcc_path()).resolve().parent.parent
+        flags += ["-DARTIFACT_RUNNER_CUDA", "-I%s" % (cuda / "include")]
+        cudart = _cudart(root, cuda)
+        libs += ["-ltorch_cuda", "-lc10_cuda", str(cudart),
+                 "-Wl,-rpath,%s" % cudart.parent]
+    return flags, libs + ["-Wl,--as-needed", "-ldl", "-pthread"]
+
+
+def _cudart(torch_root, cuda):
+    """The CUDA runtime library torch runs on (its wheel's, else the
+    toolkit's): the inline stream and guard code of c10's CUDA headers
+    calls it."""
+    for directory in (torch_root.parent / "nvidia" / "cuda_runtime" / "lib",
+                      torch_root / "lib", cuda / "lib64"):
+        hits = sorted(directory.glob("libcudart.so*"))
+        if hits:
+            return hits[0]
+    raise RuntimeError("no libcudart.so beside torch or under %s" % cuda)
+
+
+def runner_path(source=RUNNER_SOURCE):
+    """Where the runner built from ``source`` lives (content hash of the
+    source text and the flags)."""
+    flags, libs = _runner_flags()
+    digest = hashlib.sha256(Path(source).read_bytes()
+                            + " ".join(flags + libs).encode()).hexdigest()
+    return BUILD_DIR / ("artifact_runner-%s" % digest[:16])
+
+
+def build_runner(source=RUNNER_SOURCE):
+    """Build the artifact runner from ``source`` with g++ unless it is
+    built already; returns its path.  Written to a temporary name and
+    renamed; a failed build raises with the compiler's output."""
+    out = runner_path(source)
+    if out.exists():
+        return out
+    flags, libs = _runner_flags()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".tmp", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(["g++", *flags, "-o", tmp, str(source), *libs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("g++ failed (%d) on %s:\n%s%s" % (
+                proc.returncode, source, proc.stdout, proc.stderr))
+        os.chmod(tmp, 0o755)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def run_artifact(bundle_dir, x, runner=None, timeout=600):
+    """Run the native runner on the bundle with input ``x`` (numpy, the
+    bundle's input shape); returns (output, lrn launches, the runner's
+    stdout and stderr).  ``runner`` defaults to :func:`build_runner`'s.
+    Raises RuntimeError, with the runner's stderr, when it fails."""
+    import json
+    bundle_dir = Path(bundle_dir)
+    manifest = json.loads((bundle_dir / "manifest.json").read_text())
+    x = numpy.ascontiguousarray(x, "<f4")
+    if list(x.shape) != manifest["input_shape"]:
+        raise ValueError("input %s, the bundle takes %s"
+                         % (list(x.shape), manifest["input_shape"]))
+    runner = str(runner or build_runner())
+    env = dict(os.environ)
+    if manifest["device"] == "cuda":
+        # the op's card implementation loads the built LRN kernel
+        from veles_tpu_torch.ops import _build
+        env[LRN_LIBRARY_ENV] = str(_build.compile_source(
+            _build.CSRC_DIR / "lrn.cu"))
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = Path(tmp) / "input.bin", Path(tmp) / "output.bin"
+        x.tofile(src)
+        proc = subprocess.run([runner, str(bundle_dir), str(src), str(dst)],
+                              capture_output=True, text=True,
+                              timeout=timeout, env=env)
+        if proc.returncode != 0:
+            raise RuntimeError("artifact_runner exited %d:\n%s"
+                               % (proc.returncode, proc.stderr))
+        out = numpy.fromfile(dst, "<f4").reshape(manifest["output_shape"])
+    launches = [int(line.split()[-1]) for line in proc.stderr.splitlines()
+                if line.startswith("lrn_forward launches ")]
+    if len(launches) != 1:
+        raise RuntimeError("artifact_runner printed no launch count:\n%s"
+                           % proc.stderr)
+    return out, launches[0], proc.stdout, proc.stderr

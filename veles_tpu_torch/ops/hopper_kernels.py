@@ -94,11 +94,24 @@ flash_attention_fwd / flash_attention_bwd_dkv / flash_attention_bwd_dq
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy
 import torch
 
 NEG_INF = -1e30
+
+#: guards the launch counts: a wrapper may launch from several threads
+#: at once (a threaded HTTP server's handlers), and ``+=`` on an
+#: attribute is a read and a write that another thread may come between
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(wrapper):
+    """Add one to ``wrapper.launches``: called where its kernel launches,
+    and nowhere else."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def serving_kernels_supported(paged, n_heads, kv_heads, head_dim, page,
@@ -464,7 +477,7 @@ def paged_flash_decode(q, k_pool, v_pool, ptab, pos, window=None,
             c, dh, page, m, int(window or 0), int(sinks), splits, stream)
     _raise_on(code, "paged_flash_decode")
     # one call: the split kernel and, with more than one split, the combine
-    paged_flash_decode.launches += 1
+    _count(paged_flash_decode)
     return o
 
 
@@ -526,7 +539,7 @@ def paged_flash_prefill(q, k_new, v_new, k_pool, v_pool, ptab, pos,
             c, dh, c, m, int(window or 0), int(sinks), stream)
     _raise_on(code, "paged_flash_prefill")
     # one call: the split kernel and, with more than one split, the combine
-    paged_flash_prefill.launches += 1
+    _count(paged_flash_prefill)
     return o, k_pool, v_pool
 
 
@@ -661,7 +674,7 @@ def _sgd_launch(params, velocities, grads, new_p, new_v, values, at=None,
                                    % lib.fused_sgd_error_string(code)
                                    .decode())
             if lengths.any():
-                fused_sgd_update.launches += 1
+                _count(fused_sgd_update)
 
 
 def fused_sgd_update_multi(params, velocities, grads, scalars, out=None):
@@ -880,14 +893,23 @@ def lrn_plan(rows, c, n=5, vec=True, backward=False):
     return dict(zip(keys, (int(v) for v in out)))
 
 
-def lrn_forward(x, alpha=1e-4, beta=0.75, n=5, k=2.0):
-    """Cross-channel LRN over the last axis: returns (y, d), y =
-    x·d^−β and d the denominator the backward takes.
+#: the registered op's schema; the native artifact runner registers the
+#: same one (``native/artifact_runner.cpp``)
+LRN_FORWARD_OP = "veles_tpu_torch::lrn_forward"
 
-    CPU tensors run :func:`lrn_forward_ref`; CUDA tensors launch the
-    kernel (fp32, contiguous — anything else raises)."""
-    if not _on_card(x):
-        return lrn_forward_ref(x, alpha, beta, n, k)
+
+@torch.library.custom_op(LRN_FORWARD_OP, mutates_args=(),
+                         device_types="cpu")
+def _lrn_forward_op(x: torch.Tensor, alpha: float, beta: float, n: int,
+                    k: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The LRN forward as one dispatcher op, so that ``torch.export``
+    keeps it as one node of an exported program: the CPU runs
+    :func:`lrn_forward_ref`, the card the kernel (below)."""
+    return lrn_forward_ref(x, alpha, beta, n, k)
+
+
+@_lrn_forward_op.register_kernel("cuda")
+def _lrn_forward_launch(x, alpha, beta, n, k):
     c = x.shape[-1]
     _check_lrn("x", x, c)
     s = _lrn_scalars(alpha, beta, n, k)
@@ -902,8 +924,25 @@ def lrn_forward(x, alpha=1e-4, beta=0.75, n=5, k=2.0):
     if code:
         raise RuntimeError("lrn_forward launch failed: %s"
                            % lib.lrn_error_string(code).decode())
-    lrn_forward.launches += 1
+    _count(lrn_forward)
     return y, d
+
+
+@_lrn_forward_op.register_fake
+def _lrn_forward_fake(x, alpha, beta, n, k):
+    return torch.empty_like(x), torch.empty_like(x)
+
+
+def lrn_forward(x, alpha=1e-4, beta=0.75, n=5, k=2.0):
+    """Cross-channel LRN over the last axis: returns (y, d), y =
+    x·d^−β and d the denominator the backward takes.
+
+    Goes through the op ``veles_tpu_torch::lrn_forward``: CPU tensors
+    run :func:`lrn_forward_ref`; CUDA tensors launch the kernel (fp32,
+    contiguous — anything else raises)."""
+    _on_card(x)
+    return torch.ops.veles_tpu_torch.lrn_forward(
+        x, float(alpha), float(beta), int(n), float(k))
 
 
 lrn_forward.launches = 0
@@ -935,7 +974,7 @@ def lrn_backward(x, d, dy, alpha=1e-4, beta=0.75, n=5):
     if code:
         raise RuntimeError("lrn_backward launch failed: %s"
                            % lib.lrn_error_string(code).decode())
-    lrn_backward.launches += 1
+    _count(lrn_backward)
     return dx
 
 
@@ -1075,7 +1114,7 @@ def dropout(x, key, rate, offset=0):
     if code:
         raise RuntimeError("dropout launch failed: %s"
                            % lib.dropout_error_string(code).decode())
-    dropout.launches += 1
+    _count(dropout)
     return out
 
 
@@ -1130,7 +1169,7 @@ def bernoulli(key, p):
     if code:
         raise RuntimeError("bernoulli launch failed: %s"
                            % lib.dropout_error_string(code).decode())
-    bernoulli.launches += 1
+    _count(bernoulli)
     return out
 
 
@@ -1270,7 +1309,7 @@ def flash_attention_fwd(q, k, v, causal=True, sm_scale=None):
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     _flash_launch("flash_attention_fwd", "flash_attention_fwd_f32",
                   (q, k, v, o, lse), geometry, causal, scale)
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd)
     return o, lse
 
 
@@ -1298,7 +1337,7 @@ def flash_attention_bwd_dkv(q, k, v, o, lse, do, causal=True, sm_scale=None,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _flash_launch("flash_attention_bwd_dkv", "flash_attention_bwd_dkv_f32",
                   (q, k, v, di, lse, do, dk, dv), geometry, causal, scale)
-    flash_attention_bwd_dkv.launches += 1
+    _count(flash_attention_bwd_dkv)
     return dk, dv
 
 
@@ -1324,7 +1363,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, causal=True, sm_scale=None,
     dq = torch.empty_like(q)
     _flash_launch("flash_attention_bwd_dq", "flash_attention_bwd_dq_f32",
                   (q, k, v, di, lse, do, dq), geometry, causal, scale)
-    flash_attention_bwd_dq.launches += 1
+    _count(flash_attention_bwd_dq)
     return dq
 
 
@@ -1377,7 +1416,7 @@ __all__ = ["NEG_INF", "serving_kernels_supported", "fused_sgd_update",
            "fused_sgd_update_multi_ref", "fused_sgd_update_multi_dev",
            "fused_sgd_update_multi_dev_ref", "SGD_MAX_TENSORS", "lrn_forward",
            "lrn_forward_ref",
-           "lrn_backward", "lrn_backward_ref", "LRN", "LRN_MAX_CHANNELS",
+           "LRN_FORWARD_OP", "lrn_backward", "lrn_backward_ref", "LRN", "LRN_MAX_CHANNELS",
            "dropout", "dropout_ref", "bernoulli", "bernoulli_ref",
            "paged_flash_decode",
            "paged_flash_decode_ref", "decode_splits", "paged_flash_prefill",

@@ -1,0 +1,366 @@
+"""REST serving — HTTP JSON in, forward pass out.
+
+Port of ``veles_tpu/restful_api.py`` (its predict path): feed JSON input
+through a trained forward pass over HTTP.  stdlib http.server on a
+background thread; the forward is the fused runner's eval forward (on
+the workflow's device), an exported artifact's program
+(:func:`serve_artifact`), or any ``forward`` callable.
+
+Two serving modes:
+
+- DIRECT (default) — each request runs its own forward;
+- BATCHED — :meth:`RESTfulAPI.enable_batching` routes ``/predict``
+  through :class:`veles_tpu_torch.serving.MicroBatcher`: concurrent
+  requests coalesce into one padded power-of-two-bucket forward, a full
+  queue answers HTTP 429 with ``Retry-After``, and requests queued past
+  their deadline are shed with 503.
+
+Error contract: every non-200 reply is structured JSON
+(``{"error": ...}``) with a meaningful status — 400 malformed request,
+404 unknown path, 413 oversized body (``max_body``, refused before the
+body is parsed), 429 overload (+ integer ``Retry-After`` seconds), 500
+server fault, 503 shed past deadline.  Every POST reply carries
+``X-Request-Id`` (the client's, or one minted here) and the same id as
+``request_id`` in its body.  ``GET /metrics.json`` (snapshot), ``GET
+/metrics`` (Prometheus text) and ``GET /status`` (a text panel) expose
+the serving counters on the serving port itself.
+
+Not ported yet: ``serve_lm`` (ROADMAP Queue 1 item 5), and the
+reference's fault plan (``faults=``, Queue 2a item 15), span tracer,
+telemetry store and SLO monitor (``tracer=``, ``telemetry=``, ``slo=``,
+Queue 1 item 7) — each raises NotImplementedError naming its item.
+
+Usage::
+
+    api = RESTfulAPI(workflow)          # a trained StandardWorkflow
+    api.start(port=0)                   # 0 → ephemeral
+    ... POST {"input": [[...]]} to http://host:port/predict ...
+    api.stop()
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+import urllib.parse
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy
+import torch
+
+from veles_tpu_torch.logger import Logger
+
+#: the reference's keyword arguments not ported yet, with their items
+_UNPORTED = (("faults", "Queue 2a item 15"), ("tracer", "Queue 1 item 7"),
+             ("telemetry", "Queue 1 item 7"), ("slo", "Queue 1 item 7"))
+
+
+def _retry_after(seconds):
+    """RFC 9110 delta-seconds: a whole number, at least 1."""
+    return "%d" % max(1, int(seconds + 0.999))
+
+
+class RESTfulAPI(Logger):
+    def __init__(self, workflow, normalizer=None, forward=None,
+                 handler=None, metrics=None, max_body=16 << 20,
+                 faults=None, tracer=None, telemetry=None, slo=None):
+        given = dict(faults=faults, tracer=tracer, telemetry=telemetry,
+                     slo=slo)
+        for knob, item in _UNPORTED:
+            if given[knob] is not None:
+                raise NotImplementedError(
+                    "RESTfulAPI(%s=) is not ported yet: ROADMAP %s"
+                    % (knob, item))
+        self.workflow = workflow
+        #: optional input normalizer (a loader's fitted normalizer) applied
+        #: before the forward, so clients send raw feature scale
+        self.normalizer = normalizer
+        self._server = None
+        self._thread = None
+        #: explicit forward callable (batch ndarray -> ndarray) — used by
+        #: artifact serving, where there is no workflow at all
+        self._forward = forward
+        #: full-request handler (payload dict -> response dict); when set
+        #: it replaces the predict flow entirely
+        self._handler = handler
+        #: serving counters (ServingMetrics) — end-to-end latency and
+        #: response counts are recorded here (the batcher owns queue and
+        #: dispatch facts), so sharing one instance double-counts nothing
+        self.metrics = metrics
+        #: request bodies beyond this are refused with 413 before parsing
+        self.max_body = int(max_body)
+        #: optional MicroBatcher the predict path routes through
+        self.batcher = None
+        self.port = None
+
+    # ------------------------------------------------------------- inference
+    def _ensure_forward(self):
+        if self._forward is not None:
+            return self._forward
+        wf = self.workflow
+        runner = getattr(wf, "_fused_runner", None)
+        if runner is not None:
+            fn = runner.eval_forward()
+
+            def forward(x):
+                x = torch.from_numpy(numpy.ascontiguousarray(x))
+                return fn(runner.state, x.to(wf.device)).cpu().numpy()
+        else:
+            units = wf.forwards
+
+            def forward(x):
+                h = torch.from_numpy(numpy.ascontiguousarray(x)).to(
+                    wf.device)
+                with torch.no_grad():
+                    for unit in units:
+                        entry = {}
+                        if unit.has_params:
+                            entry = {"w": unit.weights.devmem}
+                            if unit.include_bias:
+                                entry["b"] = unit.bias.devmem
+                        h, _ = unit.apply_fused(h, entry, None, False)
+                return h.cpu().numpy()
+        self._forward = forward
+        return forward
+
+    def _infer_sample_shape(self):
+        """Best-effort input sample shape (for bucket warmup): the
+        loader's minibatch row shape when a workflow is attached."""
+        data = getattr(getattr(self.workflow, "loader", None),
+                       "minibatch_data", None)
+        shape = getattr(data, "shape", None)
+        return tuple(shape[1:]) if shape and len(shape) > 1 else None
+
+    def enable_batching(self, max_batch=64, queue_depth=128,
+                        batch_wait_s=0.002, deadline_s=2.0,
+                        sample_shape=None, metrics=None,
+                        name="predict"):
+        """Route ``/predict`` through a :class:`MicroBatcher` (started
+        with the server).  Call before :meth:`start`.  ``name`` labels
+        this engine's metrics row — give each server its own when
+        several batched servers share one process (same-name engines
+        replace each other in the /metrics registry)."""
+        from veles_tpu_torch.serving import MicroBatcher
+        from veles_tpu_torch.serving import metrics as metrics_mod
+        if sample_shape is None:
+            sample_shape = self._infer_sample_shape()
+        # a fresh registered instance per enable: a (re)started server
+        # starts its counters at zero
+        m = metrics or metrics_mod.new(name)
+        self.batcher = MicroBatcher(
+            self._ensure_forward(), max_batch=max_batch,
+            queue_depth=queue_depth, batch_wait_s=batch_wait_s,
+            deadline_s=deadline_s, sample_shape=sample_shape,
+            metrics=m, name=name)
+        self.metrics = m
+        return self
+
+    def predict(self, batch):
+        x = numpy.asarray(batch, numpy.float32)
+        if self.normalizer is not None:
+            x = self.normalizer.apply(x)
+        if self.batcher is not None:
+            probs = self.batcher.submit(x)
+        else:
+            probs = self._ensure_forward()(x)
+        return {"output": probs.tolist(),
+                "argmax": probs.reshape(len(probs), -1)
+                               .argmax(axis=1).tolist()}
+
+    # ---------------------------------------------------------------- server
+    def start(self, host="127.0.0.1", port=8180):
+        from veles_tpu_torch.serving.batcher import (DeadlineExceeded,
+                                                     Overloaded)
+        api = self
+        if self.batcher is not None:
+            self.batcher.start()
+
+        class Handler(BaseHTTPRequestHandler):
+            def _drain(self, length, cap=64 << 20):
+                """Discard an unread request body (bounded) before an
+                early error reply — closing with bytes still in flight
+                resets the connection and the client never sees the
+                structured error it was owed."""
+                left = min(length, cap)
+                while left > 0:
+                    chunk = self.rfile.read(min(left, 1 << 16))
+                    if not chunk:
+                        return
+                    left -= len(chunk)
+
+            def _send(self, code, body, content_type, headers=()):
+                self.send_response(code)
+                self.send_header("Content-Type", content_type)
+                self.send_header("Content-Length", str(len(body)))
+                for k, v in headers:
+                    self.send_header(k, v)
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _reply(self, code, payload, headers=()):
+                self._send(code, json.dumps(payload).encode("utf-8"),
+                           "application/json", headers)
+
+            def do_GET(self):
+                path = urllib.parse.urlsplit(self.path).path.rstrip("/")
+                if path == "/metrics.json" and api.metrics is not None:
+                    self._reply(200, api.metrics.snapshot())
+                elif path == "/status":
+                    self._send(200, render_status(api.metrics).encode(),
+                               "text/plain; charset=utf-8")
+                elif path == "/metrics":
+                    from veles_tpu_torch.serving import metrics as \
+                        metrics_mod
+                    # merge this server's instance into the registry
+                    # render (one # TYPE line per family) even when a
+                    # later engine evicted it from the registry
+                    instances = metrics_mod.registered()
+                    if api.metrics is not None \
+                            and api.metrics not in instances:
+                        instances.append(api.metrics)
+                    self._send(200, metrics_mod.render_instances(
+                        instances).encode(), "text/plain; version=0.0.4")
+                else:
+                    self._reply(404, {"error": "unknown path %r"
+                                      % self.path})
+
+            def do_POST(self):
+                # echo the client's X-Request-Id (or mint one) on every
+                # reply — success and structured error alike
+                t0 = time.monotonic()
+                rid = (self.headers.get("X-Request-Id") or "").strip()
+                rid = rid[:64] or uuid.uuid4().hex[:16]
+                code, payload, headers = self._handle_post(t0)
+                if isinstance(payload, dict):
+                    payload.setdefault("request_id", rid)
+                self._reply(code, payload,
+                            list(headers) + [("X-Request-Id", rid)])
+
+            def _handle_post(self, t0):
+                """Run one POST; returns (code, json_payload, headers)."""
+                try:
+                    length = int(self.headers.get("Content-Length", 0))
+                except ValueError:
+                    return 400, {"error": "malformed "
+                                 "Content-Length header"}, []
+                if self.path.rstrip("/") != "/predict":
+                    self._drain(length)
+                    return 404, {"error": "unknown path %r — POST "
+                                 "/predict" % self.path}, []
+                if length > api.max_body:
+                    self._drain(length)
+                    return 413, {
+                        "error": "request body %d bytes exceeds the "
+                                 "%d limit" % (length, api.max_body)}, []
+                try:    # parse: malformed payloads are 400, full stop
+                    payload = json.loads(self.rfile.read(length))
+                    batch = payload["input"]
+                except (json.JSONDecodeError, KeyError, TypeError) as e:
+                    return 400, {"error": "%s: %s"
+                                 % (type(e).__name__, e)}, []
+                try:
+                    result = (api._handler(payload)
+                              if api._handler is not None
+                              else api.predict(batch))
+                except Overloaded as e:
+                    # Retry-After is integer delta-seconds (the exact
+                    # float rides in the JSON body)
+                    return 429, {"error": str(e),
+                                 "retry_after": e.retry_after}, \
+                        [("Retry-After", _retry_after(e.retry_after))]
+                except DeadlineExceeded as e:
+                    return 503, {"error": str(e)}, [("Retry-After", "1")]
+                except (TypeError, ValueError) as e:
+                    # shape/range complaints raised while processing the
+                    # payload (the batcher's shape check, a ragged or
+                    # mis-sized input) are the client's error
+                    return 400, {"error": "%s: %s"
+                                 % (type(e).__name__, e)}, []
+                except Exception as e:   # noqa: BLE001 — server fault
+                    if api.metrics is not None:
+                        api.metrics.record_error()
+                    api.warning("request failed: %s", e)
+                    return 500, {"error": "%s: %s"
+                                 % (type(e).__name__, e)}, []
+                if api.metrics is not None:
+                    api.metrics.record_response(time.monotonic() - t0)
+                return 200, result, []
+
+            def log_message(self, fmt, *args):
+                api.debug("restful: " + fmt, *args)
+
+        self._server = ThreadingHTTPServer((host, port), Handler)
+        self._thread = threading.Thread(target=self._server.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+        self.port = self._server.server_address[1]
+        self.info("REST serving on http://%s:%d/predict", host, self.port)
+        return self
+
+    def stop(self):
+        if self._server is not None:
+            self._server.shutdown()
+            self._server.server_close()
+            self._server = None
+        if self.batcher is not None:
+            self.batcher.stop()
+
+
+def render_status(metrics=None):
+    """The ``GET /status`` text panel: the engine's counters and gauges
+    (the reference's telemetry, SLO and cost-ledger sections need
+    modules not ported yet, ROADMAP Queue 1 item 7)."""
+    from veles_tpu_torch.serving.metrics import monotonic_offset
+    lines = ["veles_tpu_torch serving status",
+             "sampled_at %.3fs (monotonic offset)"
+             % monotonic_offset(), ""]
+    if metrics is not None:
+        snap = metrics.snapshot()
+        lines.append("[engine %s]" % snap["name"])
+        lines.append(
+            "  requests %d  responses %d  errors %d  429 %d  shed %d"
+            % (snap["requests"], snap["responses"], snap["errors"],
+               snap["rejected"], snap["shed"]))
+        g = snap["gauges"]
+        lines.append("  queue_depth %g  dispatches %d  mean batch %s"
+                     % (g.get("queue_depth", 0), snap["dispatches"],
+                        snap["batch_size"].get("mean", "-")))
+        lines.append("")
+    return "\n".join(lines) + "\n"
+
+
+def serve_lm(*unused_args, **unused_kwargs):
+    """Not ported yet: ROADMAP Queue 1 item 5."""
+    raise NotImplementedError("serve_lm is not ported yet: ROADMAP Queue 1 "
+                              "item 5")
+
+
+def serve_artifact(path, host="127.0.0.1", port=8180, max_batch=0,
+                   device=None):
+    """Serve an export artifact (``veles_tpu_torch.export``) without
+    constructing any training workflow: load weights and program, start
+    HTTP.  ``device`` None means the CUDA card (raising without one).
+    ``max_batch > 0`` coalesces concurrent requests through the
+    micro-batcher (the artifact's dynamic batch takes every bucket)."""
+    from veles_tpu_torch.export import load_model
+    model = load_model(path, device=device)
+    api = RESTfulAPI(None, forward=model.predict)
+    if max_batch > 0:
+        api.enable_batching(
+            max_batch=max_batch,
+            sample_shape=tuple(model.manifest["input_sample_shape"]))
+    return api.start(host=host, port=port)
+
+
+def serve_snapshot(path, host="127.0.0.1", port=8180, build=None):
+    """Restore a snapshot into a rebuilt workflow and serve it.
+
+    ``build`` is a zero-arg callable returning the (initialized) workflow —
+    usually a sample's ``build`` + ``initialize``; the snapshot then
+    restores the trained weights."""
+    from veles_tpu_torch import snapshotter
+    wf = build()
+    snapshotter.restore(wf, path)
+    return RESTfulAPI(wf).start(host=host, port=port)
