@@ -305,9 +305,34 @@ Phases (any failure exits nonzero before the final line is printed):
    posted one a request, bit-equal to ``serve_snapshot`` of its final
    snapshot; (e) four planted faults (``DEPLOY_FAULTS``) caught; its
    JSON line (``{"deploy": ...}``);
-16. the script's seconds, the card's name and power limit, one JSON line
+16. observe — MNIST-FC at ``configs[0]``'s widths (the sample's
+   defaults, 3 epochs) through the Launcher, graph loop and epoch scan,
+   each with and without the observers (``link_plotters`` into a
+   ``GraphicsServer`` with a subscriber here, a dashboard with its
+   ``StatusReporter``, an events file) and required bit-equal to the
+   unobserved run: (a) the specs received equal the plotters' history,
+   numpy only, the curve equals ``epoch_metrics``, the confusion matrix
+   the decision's (its sum the validation count, its trace count -
+   n_err), the last ``Weights2D`` spec the committed weights transposed
+   to 28x28 and no plot the initial weights; under the scan no plotter
+   fires (as in the reference); every spec rendered to a PNG when
+   matplotlib imports; each run's dashboard row is its result; (b) a
+   ``python -m veles_tpu_torch ... --web-status-url --events-file``
+   child reports into a dashboard here (row = its result file, the
+   graph as .dot and .svg, ``veles_workflow_*`` in ``/metrics``,
+   ``/timeseries.json`` 404, the events with the reference's keys), and
+   a ``--stream-window`` run puts the ``veles_stream_*`` gauges in
+   ``/metrics`` with one dispatch a graph replay; (c) ``Publisher``'s
+   Markdown, HTML and JSON (PDF with matplotlib) of the loop run, the
+   JSON epochs equal to ``epoch_metrics``; (d) four planted faults
+   (``OBSERVE_FAULTS``) caught; (e) the plotters' and the reporter's
+   host ms an epoch and the runs' seconds with and without them; one
+   SGD launch a train step in every run; its JSON line
+   (``{"observe": ...}``);
+17. the script's seconds, the card's name and power limit, one JSON line
    listing every ported TPU kernel (kernel 1 with its launches in phase
-   14's parent process, ``population_launches``; kernel 2 with its
+   14's parent process, ``population_launches``, and in phase 16's,
+   ``observe_launches``; kernel 2 with its
    launches on phase 15's deployment paths, ``deploy_launches``;
    kernels 5, 6 and 7a-7c
    with their launches on the MoE runs, ``moe_launches``, and 7a-7c with
@@ -6844,6 +6869,560 @@ def deploy_phase(torch, HK, card, device="cuda", layers=None, loader=None):
     return deploy_launches
 
 
+# --------------------------------------------------------------- phase 16
+#: the observe phase's runs: MNIST-FC at configs[0]'s widths (the
+#: sample's defaults: 784→100 tanh→10 softmax, minibatch 100, 60,000 /
+#: 10,000 synthetic samples), 3 epochs in process; 2 in the CLI child
+#: and in the streamed run (windows of 50 minibatches)
+OBSERVE_EPOCHS = 3
+OBSERVE_CLI_EPOCHS = 2
+OBSERVE_WINDOW = 50
+OBSERVE_FAULTS = ("weights_not_transposed", "confusion_transposed",
+                  "reporter_epoch_behind", "events_drop_levelname")
+#: the keys of one structured event (the reference's ``_event_dict``)
+EVENT_KEYS = ["t", "level", "logger", "msg"]
+
+
+def same_spec(a, b):
+    """Deep equality of two plot specs: dicts in key order, lists, numpy
+    arrays of the same dtype and shape, scalars of the same type."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and list(a) == list(b)
+                and all(same_spec(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(same_spec(x, y) for x, y in zip(a, b)))
+    if isinstance(a, numpy.ndarray):
+        return (isinstance(b, numpy.ndarray) and a.dtype == b.dtype
+                and a.shape == b.shape and numpy.array_equal(a, b))
+    return type(a) is type(b) and a == b
+
+
+def numpy_only(spec):
+    """True when every array in ``spec`` is a numpy array (lists of
+    Python numbers allowed), so another process can unpickle it."""
+    if isinstance(spec, dict):
+        return all(numpy_only(v) for v in spec.values())
+    if isinstance(spec, (list, tuple)):
+        return all(numpy_only(v) for v in spec)
+    return isinstance(spec, (numpy.ndarray, str, int, float, type(None)))
+
+
+def weights_ok(spec, committed, limit=64):
+    """``Weights2D``'s spec is the committed (n_in, n_out) weights,
+    transposed and reshaped to 28x28, bit for bit."""
+    want = committed.T[:limit].reshape(-1, 28, 28)
+    got = spec["images"] if spec else None
+    return (isinstance(got, numpy.ndarray) and got.shape == want.shape
+            and got.dtype == want.dtype and numpy.array_equal(got, want))
+
+
+def confusion_ok(matrix, metrics):
+    """The plotted confusion matrix is one set's of one epoch
+    (``metrics``: the decision's numbers for it), sums to its count and
+    holds count - n_err on its trace."""
+    return (isinstance(matrix, numpy.ndarray)
+            and numpy.array_equal(matrix, metrics["confusion"])
+            and int(matrix.sum()) == metrics["count"]
+            and int(numpy.trace(matrix)) == metrics["count"]
+            - metrics["n_err"])
+
+
+def row_ok(row, summary, epochs):
+    """A dashboard row holds the run's end: its epoch count, best metric
+    and last metrics (``Launcher.result_summary``'s)."""
+    return (row.get("epoch") == epochs and row.get("complete") is True
+            and row.get("best") == summary["best_metric"]
+            and row.get("metrics") == summary["last_epoch_metrics"])
+
+
+def events_ok(lines, epochs):
+    """Every line of an events file is one JSON object with the
+    reference's keys; the decision logged each epoch at INFO."""
+    try:
+        events = [json.loads(x) for x in lines]
+    except ValueError:
+        return False
+    decided = [e for e in events if e.get("logger", "").endswith(
+        ".decision") and e.get("msg", "").startswith("epoch ")]
+    return (bool(events) and all(list(e) == EVENT_KEYS for e in events)
+            and [e["level"] for e in decided] == ["INFO"] * epochs
+            and [int(e["msg"].split()[1]) for e in decided]
+            == list(range(1, epochs + 1)))
+
+
+def joined_collector(server, deadline_s=20.0):
+    """A SUB socket on ``server``, joined: a probe spec is resent until
+    one arrives (no fixed wait for the slow joiner); returns (socket,
+    seconds to join)."""
+    import pickle
+    import zmq
+    sock = zmq.Context.instance().socket(zmq.SUB)
+    sock.connect(server.endpoint)
+    sock.setsockopt(zmq.SUBSCRIBE, b"")
+    begin = time.monotonic()
+    while time.monotonic() - begin < deadline_s:
+        server.send({"kind": "probe", "name": "probe"})
+        if sock.poll(50, zmq.POLLIN):
+            while sock.poll(200, zmq.POLLIN):
+                pickle.loads(sock.recv())
+            return sock, time.monotonic() - begin
+    check(False, "observe: the graphics subscriber did not join")
+
+
+def drain(sock):
+    """Every spec the collector holds, up to the end of the stream."""
+    import pickle
+    import zmq
+    got = []
+    while sock.poll(2000, zmq.POLLIN):
+        spec = pickle.loads(sock.recv())
+        if spec is None:
+            return got, True
+        if spec.get("name") != "probe":
+            got.append(spec)
+    return got, False
+
+
+def observe_build(device, epochs=OBSERVE_EPOCHS):
+    """The seeded MNIST-FC workflow at the sample's defaults
+    (``configs[0]``'s widths) for ``epochs`` epochs, built."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.samples import mnist
+    prng.reset()
+    prng.seed_all(SEED)
+    root.__dict__.pop("mnist", None)
+    mnist.default_config()
+    return mnist.build(fused=True, decision={"max_epochs": epochs,
+                                             "fail_iterations": 50})
+
+
+def observe_run(torch, HK, device, scan, observed, tmp):
+    """One run of ``observe_build`` through the Launcher (graph loop, or
+    the epoch scan at chunk 1), with or without the observers: the
+    standard plotters into a graphics server with a subscriber, a
+    dashboard with its reporter, and an events file.  Returns a dict of
+    what the checks read."""
+    from veles_tpu_torch import logger, web_status
+    from veles_tpu_torch.graphics_server import GraphicsServer
+    from veles_tpu_torch.launcher import Launcher
+    wf = observe_build(device)
+    out = {"wf": wf}
+    if observed:
+        server = wf.graphics_server = GraphicsServer("tcp://127.0.0.1:0")
+        sock, out["join_s"] = joined_collector(server)
+        out["plotters"] = wf.link_plotters(output_dir=tmp)
+        out["status"] = web_status.attach_web_status(wf)
+        out["reporter"] = [u for u in wf
+                           if isinstance(u, web_status.StatusReporter)][0]
+        out["events"] = os.path.join(tmp, "events_%d.jsonl" % scan)
+        logger.setup_logging(events_file=out["events"])
+        # the epoch-end work alone (a unit's run_time also holds the
+        # minibatches its gate turns away)
+        out["epoch_end_s"] = {}
+        for unit, method in [(p, "redraw") for p in out["plotters"]] + [
+                (out["reporter"], "report")]:
+            out["epoch_end_s"][unit.name] = 0.0
+            inner = getattr(unit, method)
+
+            def timed(*args, _inner=inner, _name=unit.name):
+                t = time.perf_counter()
+                try:
+                    return _inner(*args)
+                finally:
+                    out["epoch_end_s"][_name] += time.perf_counter() - t
+            setattr(unit, method, timed)
+    launcher = Launcher(wf, stats=False, epoch_scan=1 if scan else 0,
+                        device=None if device == "cuda" else device)
+    HK.reset_launch_counts()
+    t0 = time.monotonic()
+    try:
+        launcher.boot()
+        torch.cuda.synchronize()
+    finally:
+        out["run_s"] = time.monotonic() - t0
+        out["launches"] = HK.launch_counts()["fused_sgd_update"]
+        if observed:
+            logger.setup_logging()
+            server.close()
+            out["received"], out["ended"] = drain(sock)
+            sock.close(linger=0)
+    out["launcher"] = launcher
+    out["summary"] = launcher.result_summary()
+    out["weights"] = [[e[k].cpu().numpy().copy() for k in ("w", "b")]
+                      for e in wf._fused_runner.state if e]
+    out["metrics"] = wf.decision.epoch_metrics
+    return out
+
+
+def cli_status_leg(device, tmp):
+    """(b) ``python -m veles_tpu_torch veles_tpu_torch.samples.mnist
+    --web-status-url ... --events-file ...`` in a subprocess, reporting
+    into a dashboard of this process."""
+    from veles_tpu_torch.web_status import WebStatus
+    status = WebStatus().start()
+    url = "http://127.0.0.1:%d" % status.port
+    events = os.path.join(tmp, "cli_events.jsonl")
+    result = os.path.join(tmp, "cli_result.json")
+    argv = [sys.executable, "-m", "veles_tpu_torch",
+            "veles_tpu_torch.samples.mnist", "--random-seed", str(SEED),
+            "--no-stats", "--web-status-url", url, "--events-file", events,
+            "--result-file", result,
+            "root.mnist.decision.max_epochs=%d" % OBSERVE_CLI_EPOCHS]
+    if device != "cuda":
+        argv[4:4] = ["-d", device]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    try:
+        proc = subprocess.run(argv, cwd=repo, capture_output=True,
+                              text=True, timeout=300,
+                              env=dict(os.environ, PYTHONPATH=repo))
+        child_s = time.monotonic() - t0
+        check(proc.returncode == 0, "observe: the CLI child failed:\n%s"
+              % proc.stderr[-3000:])
+        with open(result, encoding="utf-8") as f:
+            summary = json.load(f)
+        row = status.snapshot().get("mnist", {})
+        pages = {path: get_page(url + path) for path in (
+            "/graph/mnist.dot", "/graph/mnist.svg", "/metrics",
+            "/timeseries.json")}
+        with open(events, encoding="utf-8") as f:
+            lines = f.read().splitlines()
+    finally:
+        status.stop()
+    metrics_text = pages["/metrics"][1]
+    out = {
+        "argv": argv[2:], "child_s": child_s,
+        "row_equals_result": row_ok(row, summary, OBSERVE_CLI_EPOCHS),
+        "row_epoch": row.get("epoch"), "row_best": row.get("best"),
+        "result_best_metric": summary["best_metric"],
+        "result_best_epoch": summary["best_epoch"],
+        "dot_served": pages["/graph/mnist.dot"][0] == 200
+        and pages["/graph/mnist.dot"][1].startswith("digraph mnist"),
+        "svg_served": pages["/graph/mnist.svg"][0] == 200
+        and pages["/graph/mnist.svg"][1].startswith("<svg"),
+        "metrics_workflow_lines": [x for x in metrics_text.splitlines()
+                                   if x.startswith("veles_workflow_")],
+        "timeseries_code": pages["/timeseries.json"][0],
+        "events_lines": len(lines),
+        "events_ok": events_ok(lines, OBSERVE_CLI_EPOCHS)}
+    check(out["row_equals_result"], "observe: the dashboard's row %r is "
+          "not the child's result %r" % ({k: row.get(k) for k in (
+              "epoch", "best", "complete")}, summary))
+    check(out["dot_served"] and out["svg_served"],
+          "observe: the graph was not served as .dot and .svg")
+    check(len(out["metrics_workflow_lines"]) == 3,
+          "observe: /metrics lacks the veles_workflow_* lines: %r"
+          % metrics_text[-2000:])
+    check(out["timeseries_code"] == 404, "observe: /timeseries.json "
+          "answered %r without a store" % out["timeseries_code"])
+    check(out["events_ok"], "observe: the events file does not parse "
+          "with the reference's keys")
+    return out
+
+
+def get_page(url, timeout=30):
+    """GET ``url``; returns (status, body text; "" on an error)."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, ""
+
+
+def stream_status_leg(torch, HK, device):
+    """A ``--stream-window`` run with a dashboard attached: the
+    ``veles_stream_*`` gauges reach ``/metrics``, the dispatches one a
+    graph replay (train steps plus validation minibatches an epoch)."""
+    from veles_tpu_torch import web_status
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.loader.base import TRAIN, VALID
+    wf = observe_build(device, epochs=OBSERVE_CLI_EPOCHS)
+    status = web_status.attach_web_status(wf)
+    HK.reset_launch_counts()
+    try:
+        Launcher(wf, stats=False, stream_window=OBSERVE_WINDOW,
+                 device=None if device == "cuda" else device).boot()
+        torch.cuda.synchronize()
+        launches = HK.launch_counts()["fused_sgd_update"]
+        text = get_page("http://127.0.0.1:%d/metrics" % status.port)[1]
+    finally:
+        status.stop()
+    stats = wf._stream_stats
+    steps = wf.loader.plan_arrays(TRAIN)[0].shape[0]
+    valid = wf.loader.plan_arrays(VALID)[0].shape[0]
+    want = OBSERVE_CLI_EPOCHS * (steps + valid)
+    gauges = [x for x in text.splitlines() if x.startswith("veles_stream_")]
+    label = '{workflow="mnist",process="0"}'
+    out = {"window": OBSERVE_WINDOW, "dispatches": stats["dispatches"],
+           "dispatches_want": want, "windows": stats["windows"],
+           "gauges": gauges, "launches": launches,
+           "train_steps": wf.fused_step.train_steps}
+    check(stats["dispatches"] == want, "observe: %d stream dispatches, "
+          "not %d" % (stats["dispatches"], want))
+    check("veles_stream_dispatches_total%s %d" % (label, want) in gauges
+          and len(gauges) == 4, "observe: /metrics stream gauges %r"
+          % gauges)
+    check(launches == wf.fused_step.train_steps, "observe: %d SGD "
+          "launches in the streamed run for %d steps"
+          % (launches, wf.fused_step.train_steps))
+    return out
+
+
+def observe_fault(name, run, tmp):
+    """True when the planted fault ``name`` makes its check fail on the
+    observed graph-loop ``run``."""
+    from veles_tpu_torch import logger, web_status
+    from veles_tpu_torch.nn_plotting_units import Weights2D
+    from veles_tpu_torch.plotting_units import MatrixPlotter
+    wf = run["wf"]
+    committed = run["weights"][0][0]
+    if name == "weights_not_transposed":
+        class Faulty(Weights2D):
+            def plot_spec(self):
+                w = self.input.weights.to_numpy()[:self.limit]
+                side = int(round(w.shape[1] ** 0.5))
+                return {"kind": "image_grid",
+                        "images": w.reshape(len(w), side, side)}
+        unit = Faulty(wf, name="faulty_weights")
+        unit.input = wf.forwards[0]
+        return not weights_ok(unit.plot_spec(), committed)
+    if name == "confusion_transposed":
+        # on the run's least symmetric confusion matrix (the last
+        # validation one can be diagonal: a transpose would not show)
+        sets = [m[s] for m in wf.decision.epoch_metrics for s in m]
+        target = max(sets, key=lambda v: int(numpy.abs(
+            v["confusion"] - v["confusion"].T).sum()))
+
+        class Faulty(MatrixPlotter):
+            def plot_spec(self):
+                spec = super().plot_spec()
+                spec["matrix"] = spec["matrix"].T
+                return spec
+        unit = Faulty(wf, name="faulty_confusion")
+        unit.input = type("Held", (), {
+            "confusion_matrix": target["confusion"]})()
+        return not confusion_ok(unit.plot_spec()["matrix"], target)
+    if name == "reporter_epoch_behind":
+        class Behind(web_status.StatusReporter):
+            def report(self):
+                super().report()
+                row = self.status.snapshot()[self.workflow.name]
+                self.status.update(self.workflow.name,
+                                   epoch=row["epoch"] - 1)
+        status = web_status.WebStatus()
+        Behind(wf, status=status, name="faulty_reporter").report()
+        return not row_ok(status.snapshot()["mnist"], run["summary"],
+                          OBSERVE_EPOCHS)
+    if name == "events_drop_levelname":
+        path = os.path.join(tmp, "faulty_events.jsonl")
+        real = logger._event_dict
+
+        def dropped(record):
+            event = real(record)
+            event.pop("level")
+            return event
+        logger._event_dict = dropped
+        try:
+            logger.setup_logging(events_file=path)
+            for e in range(1, OBSERVE_EPOCHS + 1):
+                wf.decision.info("epoch %d — planted", e)
+        finally:
+            logger.setup_logging()
+            logger._event_dict = real
+        with open(path, encoding="utf-8") as f:
+            return not events_ok(f.read().splitlines(), OBSERVE_EPOCHS)
+    raise ValueError(name)
+
+
+def observe_phase(torch, HK, card, device="cuda"):
+    """Phase 16: the observability services on MNIST-FC at
+    ``configs[0]``'s widths: (a) the standard plotters over ZeroMQ, the
+    graph loop and the epoch scan, each run bit-equal to the same run
+    unobserved; (b) the dashboard (a CLI child reporting into it, a
+    streamed run's gauges); (c) publishing; (d) planted faults; (e) the
+    plotters' and the reporter's host cost."""
+    import shutil
+    import tempfile
+    from veles_tpu_torch.plotter import render_spec
+    from veles_tpu_torch.publishing import Publisher
+    t_phase = time.monotonic()
+    try:
+        import matplotlib  # noqa: F401
+        mpl = None
+    except ImportError as e:
+        mpl = "matplotlib does not import: %s" % e
+    tmp = tempfile.mkdtemp(prefix="observe_")
+    try:
+        runs = {}
+        # the loop in turns (plain, observed, plain): the host clock's
+        # spread beside the observers' cost
+        for key in ((0, False), (0, True), (0, "again"), (1, False),
+                    (1, True)):
+            runs[key] = observe_run(torch, HK, device, key[0],
+                                    key[1] is True, tmp)
+            gc_cuda(torch)
+        checks = {"bit_equal_plain_rerun": same_metrics(
+            runs[0, False]["metrics"], runs[0, "again"]["metrics"])
+            and all(numpy.array_equal(a, b) for x, y in zip(
+                runs[0, False]["weights"], runs[0, "again"]["weights"])
+                for a, b in zip(x, y))}
+        for scan in (0, 1):
+            plain, seen = runs[scan, False], runs[scan, True]
+            checks["bit_equal_unobserved_%s" % ("scan" if scan else
+                                                "loop")] = (
+                same_metrics(plain["metrics"], seen["metrics"])
+                and all(numpy.array_equal(a, b) for x, y in zip(
+                    plain["weights"], seen["weights"])
+                    for a, b in zip(x, y)))
+        for run in runs.values():
+            check(run["launches"] == run["wf"].fused_step.train_steps
+                  == OBSERVE_EPOCHS * 600, "observe: %d SGD launches for "
+                  "%d train steps" % (run["launches"],
+                                      run["wf"].fused_step.train_steps))
+        loop, scan_run = runs[0, True], runs[1, True]
+        wf = loop["wf"]
+        plotters = loop["plotters"]
+        history = [s for p in plotters for s in p.specs]
+        received = loop["received"]
+        by_name = {p.name: [s for s in received if s["name"] == p.name]
+                   for p in plotters}
+        curve = plotters[0].specs[-1]
+        want_series = {}
+        for m in wf.decision.epoch_metrics:
+            for set_name, values in m.items():
+                want_series.setdefault(set_name, []).append(
+                    values["err_pct"])
+        weights_specs = plotters[2].specs
+        checks.update({
+            "received_equal_history": loop["ended"]
+            and len(received) == len(history)
+            and all(len(by_name[p.name]) == len(p.specs)
+                    and all(same_spec(a, b) for a, b in zip(
+                        by_name[p.name], p.specs)) for p in plotters),
+            "numpy_only": all(numpy_only(s) for s in history),
+            "curve_equals_epoch_metrics": same_spec(curve["series"],
+                                                   want_series),
+            "confusion_equals_decision": numpy.array_equal(
+                plotters[1].specs[-1]["matrix"], wf.decision.confusion_matrix)
+            and confusion_ok(plotters[1].specs[-1]["matrix"],
+                             wf.decision.epoch_metrics[-1]["validation"]),
+            "final_weights_committed": weights_ok(weights_specs[-1],
+                                                  loop["weights"][0][0]),
+            "scan_specs_none": all(not p.specs for p in scan_run[
+                "plotters"]) and not scan_run["received"]
+            and scan_run["ended"],
+            "loop_row_is_result": row_ok(
+                loop["status"].snapshot().get("mnist", {}),
+                loop["summary"], OBSERVE_EPOCHS),
+            "scan_row_is_result": row_ok(
+                scan_run["status"].snapshot().get("mnist", {}),
+                scan_run["summary"], OBSERVE_EPOCHS),
+        })
+        with open(loop["events"], encoding="utf-8") as f:
+            checks["events_ok"] = events_ok(f.read().splitlines(),
+                                            OBSERVE_EPOCHS)
+        # no plot of the initial weights: each epoch's plot moved
+        initial = observe_build(device, epochs=1)
+        initial.initialize(device=device)
+        w0 = initial.forwards[0].weights.to_numpy()
+        checks["weights_plots_not_stale"] = not any(
+            numpy.array_equal(s["images"], w0.T[:64].reshape(-1, 28, 28))
+            for s in weights_specs)
+        del initial
+        for run in (loop, scan_run):
+            run["status"].stop()
+        # PNGs: every spec received, rendered here when matplotlib imports
+        rendered = 0
+        if mpl is None:
+            for i, spec in enumerate(received):
+                render_spec(spec, os.path.join(tmp, "%s_%04d.png"
+                                               % (spec["name"], i)))
+            rendered = sum(f.endswith(".png") for f in os.listdir(tmp))
+        # (c) the report of the observed card run
+        backends = ("markdown", "html", "json") + (("pdf",) if mpl is None
+                                                   else ())
+        t0 = time.monotonic()
+        paths = Publisher(backends).publish(
+            wf, os.path.join(tmp, "report"), launcher=loop["launcher"],
+            plots=[os.path.join(tmp, f) for f in sorted(os.listdir(tmp))
+                   if f.endswith(".png")])
+        publish_s = time.monotonic() - t0
+        with open(paths[2], encoding="utf-8") as f:
+            facts = json.load(f)
+        checks["report_epochs_equal"] = len(facts["epochs"]) == len(
+            wf.decision.epoch_metrics) and all(
+            row["%s_%s" % (s, k)] == m[s][k]
+            for row, m in zip(facts["epochs"], wf.decision.epoch_metrics)
+            for s in m for k in ("n_err", "count", "loss", "err_pct"))
+        # (b) the dashboard: a CLI child reporting in, a streamed run
+        gc_cuda(torch)
+        cli_leg = cli_status_leg(device, tmp)
+        gc_cuda(torch)
+        stream = stream_status_leg(torch, HK, device)
+        # (d) the planted faults
+        faults = {name: observe_fault(name, loop, tmp)
+                  for name in OBSERVE_FAULTS}
+        # (e) host cost: the units' own seconds, and the whole runs
+        epochs = OBSERVE_EPOCHS
+        units = plotters + [loop["reporter"]]
+        steps = wf.fused_step.train_steps
+        cost = {
+            "units_ms_per_epoch": {u.name: 1e3 * u.run_time / epochs
+                                   for u in units},
+            "units_ms_per_epoch_total": 1e3 * sum(
+                u.run_time for u in units) / epochs,
+            "unit_runs_per_epoch": {u.name: u.run_count / epochs
+                                    for u in units},
+            "epoch_end_ms_per_epoch": {
+                k: 1e3 * v / epochs for k, v in loop["epoch_end_s"].items()},
+            "epoch_end_ms_per_epoch_total": 1e3 * sum(
+                loop["epoch_end_s"].values()) / epochs,
+            "loop_s_plain": runs[0, False]["run_s"],
+            "loop_s_observed": loop["run_s"],
+            "loop_s_plain_again": runs[0, "again"]["run_s"],
+            "loop_ms_per_train_step": {
+                k: 1e3 * runs[0, key]["run_s"] / steps for k, key in (
+                    ("plain", False), ("observed", True),
+                    ("plain_again", "again"))},
+            "scan_s_plain": runs[1, False]["run_s"],
+            "scan_s_observed": scan_run["run_s"],
+            "join_s": loop["join_s"]}
+        launches = sum(r["launches"] for r in runs.values()) + \
+            stream["launches"]
+        report = {"phase": "observe", "card": card,
+                  "config": {"layers": "784-100tanh-10softmax",
+                             "minibatch": 100, "n_train": 60000,
+                             "n_valid": 10000, "epochs": OBSERVE_EPOCHS},
+                  "matplotlib": mpl or "imports",
+                  "rendered": rendered,
+                  "rendered_reason": mpl or "every received spec",
+                  "specs": {p.name: len(p.specs) for p in plotters},
+                  "scan_specs": {p.name: len(p.specs)
+                                 for p in scan_run["plotters"]},
+                  "received": len(received), "checks": checks,
+                  "cli": cli_leg, "stream": stream,
+                  "report": {"backends": list(backends),
+                             "seconds": publish_s,
+                             "files": [os.path.basename(p) for p in paths]},
+                  "faults_caught": faults, "cost": cost,
+                  "fused_sgd_launches": launches,
+                  "phase_s": time.monotonic() - t_phase}
+        print(json.dumps({"observe": report}, default=str), flush=True)
+        bad = [k for k, v in checks.items() if not v]
+        check(not bad, "observe: checks failed: %s" % bad)
+        check(all(faults.values()), "observe: faults not caught: %s"
+              % [k for k, v in faults.items() if not v])
+        check(mpl is not None or rendered == len(received),
+              "observe: %d PNGs for %d specs" % (rendered, len(received)))
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     started = time.monotonic()
     import torch
@@ -7061,7 +7640,14 @@ def main():
     deploy_launches = deploy_phase(torch, HK, smi)
     gc_cuda(torch)
 
-    # 16. the kernels line and the result
+    # 16. observability: the plotters over ZeroMQ, the dashboard, the
+    # events file and the report on MNIST-FC, each run bit-equal to the
+    # same run unobserved
+    observe_launches = observe_phase(torch, HK, smi)
+    launches["fused_sgd_update"] += observe_launches
+    gc_cuda(torch)
+
+    # 17. the kernels line and the result
     main_case = {"flash_attention_fwd": flash[0],
                  "flash_attention_bwd_dkv": flash[1],
                  "flash_attention_bwd_dq": flash[2],
@@ -7106,6 +7692,7 @@ def main():
             row["pipeline_launches"] = pipe_launches[row["name"]]
         if row["name"] == "fused_sgd_update":
             row["population_launches"] = pop_launches
+            row["observe_launches"] = observe_launches
         if row["name"] == "lrn_forward":
             row["deploy_launches"] = deploy_launches
     # beside the calls that are one or two short launches, the floor

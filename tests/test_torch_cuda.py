@@ -34,6 +34,8 @@ within 1e-4 of a teacher-forced plain forward.  A narrow LRN net's
 exported artifact, loaded on the card, equals its eval forward within
 1e-6 and launches the LRN kernel once a predict; its native bundle, run
 by the libtorch runner, lies within 1e-5 of that and launches it once.
+On a card workflow, ``Weights2D``'s spec is a numpy array bit-equal to
+the committed first-layer weights copied to the host.
 """
 
 import numpy
@@ -1224,3 +1226,51 @@ def test_lrn_net_export_and_native_runner_on_the_card(tmp_path):
     assert launches == 1
     numpy.testing.assert_allclose(out, got, rtol=0, atol=1e-5)
     numpy.testing.assert_array_equal(out.argmax(1), got.argmax(1))
+
+
+@pytest.mark.cuda
+def test_weights2d_spec_is_the_committed_weights_on_the_host():
+    dev = _card()
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.samples import mnist
+    prng.reset()
+    prng.seed_all(5)
+    saved = root.__dict__.pop("mnist", None)
+    try:
+        root.mnist.update({
+            "loader": {"minibatch_size": 100, "n_train": 300,
+                       "n_valid": 100},
+            "decision": {"max_epochs": 2, "fail_iterations": 50},
+            "layers": [
+                {"type": "all2all_tanh", "output_sample_shape": 16,
+                 "learning_rate": 0.03, "momentum": 0.9},
+                {"type": "softmax", "output_sample_shape": 10,
+                 "learning_rate": 0.03, "momentum": 0.9}]})
+        wf = mnist.build(fused=True)
+    finally:
+        root.__dict__.pop("mnist", None)
+        if saved is not None:
+            root.__dict__["mnist"] = saved
+
+    class Sink:
+        def __init__(self):
+            self.got = []
+
+        def send(self, spec):
+            self.got.append(spec)
+
+    wf.graphics_server = Sink()
+    plotters = wf.link_plotters()
+    wf.initialize(device=dev)
+    wf.run()
+    weights = [p for p in plotters if p.name == "plot_weights"][0]
+    assert len(weights.specs) == 2
+    committed = wf._fused_runner.state[0]["w"]
+    assert committed.device.type == "cuda"
+    images = weights.specs[-1]["images"]
+    assert type(images) is numpy.ndarray and images.dtype == numpy.float32
+    numpy.testing.assert_array_equal(
+        images, committed.cpu().numpy().T.reshape(16, 28, 28))
+    assert all(not isinstance(v, torch.Tensor) for spec in
+               wf.graphics_server.got for v in spec.values())

@@ -339,6 +339,9 @@ def test_streaming_equals_chunked(window, ahead):
     stats = streamed._stream_stats
     assert stats["epochs"] == 3 and stats["window_minibatches"] == window
     assert stats["windows"] == 3 * -(-5 // window)
+    # one dispatch a graph replay: 5 train steps and 2 validation
+    # minibatches an epoch
+    assert stats["dispatches"] == 3 * (5 + 2)
     assert stats["train_samples"] == 3 * 230
     assert 0.0 <= stats["staging_stall_fraction"] <= 1.0
 

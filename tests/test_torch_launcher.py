@@ -91,13 +91,9 @@ def test_cli_dump_config_list_units_version(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--web-status-url", "http://localhost:1"], "Queue 2, item 6"),
-    (["--events-mongo", "mongodb://localhost"], "Queue 2a, item 14"),
-    (["--web-status", "0"], "Queue 2, item 6"),
     (["--serve", "0"], "Queue 1, item 5"),
     (["--serve-slots", "4"], "Queue 2a, item 13"),
     (["--serve-health"], "Queue 2a, item 13"),
-    (["--events-file", "e.jsonl"], "Queue 2a, item 14"),
     (["--fault-plan", "p.json"], "Queue 2a, item 15"),
 ])
 def test_unported_flags_raise_before_training(flags, item, monkeypatch):
@@ -114,6 +110,97 @@ def test_unported_flags_raise_before_training(flags, item, monkeypatch):
         cli.main([sample, "-d", "cpu", *flags])
     assert "mnist" not in root.__dict__ or "layers" not in root.mnist
     root.__dict__.pop("char_lm", None)
+
+
+@pytest.fixture
+def dashboards(monkeypatch):
+    """Every dashboard ``--web-status`` starts in this process, stopped
+    after the test."""
+    from veles_tpu_torch import web_status
+    started = []
+    attach = web_status.attach_web_status
+
+    def keep(*args, **kwargs):
+        status = attach(*args, **kwargs)
+        if status is not None:
+            started.append(status)
+        return status
+    monkeypatch.setattr(web_status, "attach_web_status", keep)
+    yield started
+    for status in started:
+        status.stop()
+
+
+def _status_json(url):
+    import urllib.request
+    with urllib.request.urlopen(url.rstrip("/") + "/status.json",
+                                timeout=10) as resp:
+        return json.loads(resp.read())
+
+
+def test_web_status_prints_its_line_and_serves_the_row(capsys, dashboards):
+    wf, launcher = _cli("--web-status", "0")
+    line = [x for x in capsys.readouterr().out.splitlines()
+            if x.startswith("WEBSTATUS ")]
+    assert line == ["WEBSTATUS http://127.0.0.1:%d/" % dashboards[0].port]
+    row = _status_json(line[0].split()[1])["mnist"]
+    assert row["epoch"] == 2 == int(wf.loader.epoch_number)
+    assert row["best"] == wf.decision.best_metric
+    assert row["complete"] is True and "graph_dot" in row
+
+
+def test_web_status_url_posts_into_a_dashboard(capsys):
+    from veles_tpu_torch.web_status import WebStatus
+    remote = WebStatus().start()
+    try:
+        wf, launcher = _cli("--web-status-url",
+                            "http://127.0.0.1:%d" % remote.port,
+                            "--epoch-scan", "1")
+        assert "WEBSTATUS" not in capsys.readouterr().out
+        row = remote.snapshot()["mnist"]
+        summary = launcher.result_summary()
+        assert row["epoch"] == summary["best_epoch"] == 2
+        assert row["metrics"] == summary["last_epoch_metrics"]
+    finally:
+        remote.stop()
+
+
+@pytest.fixture
+def namespace():
+    """The framework's logging namespace, restored after the test."""
+    import logging
+    from veles_tpu_torch import logger
+    base = logging.getLogger(logger.NAMESPACE)
+    saved = (base.handlers[:], base.level, list(logger._State.installed),
+             logger._State.configured)
+    yield base
+    for h in base.handlers[:]:
+        if h not in saved[0]:
+            base.removeHandler(h)
+            h.close()
+    base.handlers[:] = saved[0]
+    base.setLevel(saved[1])
+    logger._State.installed, logger._State.configured = saved[2], saved[3]
+
+
+def test_events_file_writes_parseable_lines(tmp_path, namespace):
+    events = tmp_path / "events.jsonl"
+    wf, _ = _cli("--events-file", str(events))
+    lines = [json.loads(x) for x in events.read_text().splitlines()]
+    assert lines and all(list(e) == ["t", "level", "logger", "msg"]
+                         for e in lines)
+    epochs = [e for e in lines if e["logger"] == "veles.DecisionGD.decision"]
+    assert [e["msg"].split(" ")[1] for e in epochs] == ["1", "2"]
+    assert all(e["level"] == "INFO" for e in epochs)
+
+
+def test_events_mongo_exits_2_naming_pymongo(capsys, namespace):
+    with pytest.raises(SystemExit) as info:
+        cli.main(["veles_tpu_torch.samples.mnist", "-d", "cpu",
+                  "--events-mongo", "mongodb://127.0.0.1:1"])
+    assert info.value.code == 2
+    assert "pymongo" in capsys.readouterr().err
+    assert "mnist" not in root.__dict__ or "layers" not in root.mnist
 
 
 def test_every_reference_flag_parses():

@@ -211,8 +211,9 @@ def test_snapshot_state_roundtrip_weights():
 
 def test_unported_options_raise():
     """Queue 2a items 1 (lr policies), 2 (grad_accum), 4 (the
-    Snapshotter) and 8 (loader sharding) are ported: those options build
-    and run; item 5 (the plotters) still raises, naming its item."""
+    Snapshotter), 5 (the plotters) and 8 (loader sharding) are ported:
+    those options build and run, and ``link_plotters`` builds the three
+    standard plotters (``tests/test_torch_plotting.py`` runs them)."""
     _seed(prng)
     _configure(root, n_train=200, n_valid=100, max_epochs=1, hidden=16)
     accum = mnist.build(fused=True, grad_accum=2)
@@ -224,8 +225,9 @@ def test_unported_options_raise():
     assert policy.gds[0]._live_lrs(1)[0] < policy.gds[0]._live_lrs(0)[0]
     snap = mnist.build(snapshotter_config={"prefix": "x"})
     assert snap.snapshotter.prefix == "x"
-    with pytest.raises(NotImplementedError, match="Queue 2a, item 5"):
-        mnist.build().link_plotters()
+    plotters = mnist.build().link_plotters()
+    assert [p.name for p in plotters] == ["plot_curve", "plot_confusion",
+                                          "plot_weights"]
     assert mnist.build().loader.shard(1, 2)._shard == (1, 2)
     spmd = mnist.build().loader.shard_spmd(1, 2)
     assert spmd._spmd_shard == (1, 2)

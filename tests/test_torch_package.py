@@ -277,3 +277,27 @@ def test_parallel_slice_modules_are_checked(monkeypatch):
         "ep_input_grad_all_reduce", "p2p_exchange",
         "stage_output_all_reduce", "stage_input_grad_all_reduce",
         "ring_all_gather", "ring_input_grad_all_reduce"}
+
+
+def test_observability_modules_are_checked():
+    """The plotters, the graphics transport, the web status, the Shell
+    and publishing are among the modules the two checks above import and
+    parse; importing them starts no server and imports no matplotlib."""
+    names = set(_modules())
+    assert {"veles_tpu_torch.plotter", "veles_tpu_torch.plotting_units",
+            "veles_tpu_torch.nn_plotting_units",
+            "veles_tpu_torch.graphics_server",
+            "veles_tpu_torch.graphics_client",
+            "veles_tpu_torch.web_status", "veles_tpu_torch.interaction",
+            "veles_tpu_torch.publishing"} <= names
+    code = ("import sys\n"
+            "import veles_tpu_torch.plotting_units, "
+            "veles_tpu_torch.nn_plotting_units, veles_tpu_torch.publishing, "
+            "veles_tpu_torch.web_status, veles_tpu_torch.graphics_client\n"
+            "print('MPL=%s' % ('matplotlib' in sys.modules))\n"
+            "print('DEFAULT=%s' % veles_tpu_torch.web_status._default)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "MPL=False" in out.stdout and "DEFAULT=None" in out.stdout

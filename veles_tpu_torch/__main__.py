@@ -25,12 +25,17 @@ scripts/velescli.py [H], SURVEY §2.1, §3.1):
   loader's normalizer, through the micro-batcher when N > 0), prints
   ``SERVING http://127.0.0.1:<port>/predict`` and blocks until
   interrupted.
+- ``--web-status PORT`` serves the live dashboard (``web_status``; 0:
+  any free port) and prints ``WEBSTATUS http://<host>:<port>/``;
+  ``--web-status-url URL`` reports this process's rows to another
+  dashboard instead; ``--events-file FILE`` appends structured log
+  events as JSON lines and ``--events-mongo ADDR`` sends them to
+  MongoDB (it needs ``pymongo``: without it the CLI exits 2 naming it).
 
 The parser takes every flag of the reference, so any reference command
-line parses.  The flags whose machinery is not ported yet (the web
-status, the LM and fleet serving flags, the event sinks, fault plans)
-raise NotImplementedError naming their ROADMAP item before anything is
-trained.
+line parses.  The flags whose machinery is not ported yet (the LM and
+fleet serving flags, fault plans) raise NotImplementedError naming
+their ROADMAP item before anything is trained.
 """
 
 from __future__ import annotations
@@ -44,11 +49,6 @@ import sys
 
 #: flags not ported yet: (argparse dest, its default, ROADMAP item)
 _UNPORTED = (
-    ("web_status", None, "Queue 2, item 6"),
-    ("web_status_url", None, "Queue 2, item 6"),
-    ("web_status_host", "127.0.0.1", "Queue 2, item 6"),
-    ("events_file", None, "Queue 2a, item 14"),
-    ("events_mongo", None, "Queue 2a, item 14"),
     ("fault_plan", None, "Queue 2a, item 15"),
 )
 
@@ -140,19 +140,29 @@ def build_argparser():
     parser.add_argument("--version", action=_Version, nargs=0,
                         help="print the framework version and exit")
     parser.add_argument("--events-file", default=None, metavar="FILE",
-                        help="structured log events (not ported yet)")
+                        help="append structured log events (JSON lines) "
+                             "to FILE")
     parser.add_argument("--events-mongo", default=None, metavar="ADDR",
-                        help="structured log events (not ported yet)")
+                        help="stream structured log events to MongoDB at "
+                             "ADDR (mongodb://...; requires pymongo)")
     parser.add_argument("--evaluate", action="store_true",
                         help="evaluation only: one pass over every set "
                              "with weight updates gated off (pair with "
                              "--snapshot)")
     parser.add_argument("--web-status", type=int, default=None,
-                        metavar="PORT", help="(not ported yet)")
+                        metavar="PORT",
+                        help="serve the live dashboard (0: any free port; "
+                             "prints WEBSTATUS <url>): a row a process, "
+                             "the epoch metrics, the graph at "
+                             "/graph/<row>.svg, /metrics")
     parser.add_argument("--web-status-url", default=None, metavar="URL",
-                        help="(not ported yet)")
+                        help="report this process's rows to another "
+                             "dashboard instead of serving one (the other "
+                             "ranks of a distributed run)")
     parser.add_argument("--web-status-host", default="127.0.0.1",
-                        metavar="HOST", help="(not ported yet)")
+                        metavar="HOST",
+                        help="interface --web-status binds (0.0.0.0 so "
+                             "other hosts' ranks can POST /report)")
     parser.add_argument("--serve", type=int, default=None, metavar="PORT",
                         help="after training, serve the forward chain "
                              "over HTTP on PORT (0: any free port)")
@@ -256,6 +266,15 @@ def main(argv=None):
     from veles_tpu_torch.config import root, parse_override
     from veles_tpu_torch.launcher import Launcher
 
+    if args.events_file or args.events_mongo:
+        from veles_tpu_torch.logger import setup_logging
+        try:
+            setup_logging(events_file=args.events_file,
+                          events_mongo=args.events_mongo)
+        except (RuntimeError, OSError) as e:
+            # no pymongo, an unreachable server or an unwritable file
+            parser.error(str(e))
+
     if args.random_seed is not None:
         prng.seed_all(args.random_seed)
     if args.precision:
@@ -325,6 +344,15 @@ def main(argv=None):
             # knowable before the training run, not only after it
             parser.error("--serve: workflow %r has no forward chain to "
                          "serve" % wf.name)
+        if args.web_status is not None or args.web_status_url:
+            from veles_tpu_torch.web_status import attach_web_status
+            status = attach_web_status(
+                wf, port=args.web_status or 0,
+                report_url=args.web_status_url,
+                host=args.web_status_host)
+            if status is not None:
+                print("WEBSTATUS http://%s:%d/"
+                      % (args.web_status_host, status.port), flush=True)
         launcher = Launcher(
             wf, snapshot=args.snapshot, stats=not args.no_stats,
             profile=args.profile, evaluate=args.evaluate,

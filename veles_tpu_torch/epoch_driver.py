@@ -48,6 +48,9 @@ buffers while the card trains the current one (``_WindowStager``; with
 ``stage_ahead`` N there are N + 1 buffers).  Keys: one key an epoch,
 folded with each window's first global step, then with the step within
 the window (the reference's windows).  The completion gate as above.
+``dispatches`` counts the card's dispatches: each graph replay, train
+and eval, so an epoch adds its steps plus its eval minibatches (the
+reference counts one program a window and one a set's evaluation).
 """
 
 from __future__ import annotations
@@ -169,8 +172,9 @@ class EpochScanDriver(Logger):
         self.chunk = max(int(chunk), 1)
         self.stream_window = int(stream_window or 0)
         self.stage_ahead = max(int(stage_ahead), 1)
-        #: the streaming path's windows, staging stall and compute
-        #: seconds, samples/s (print_stats reads it off the workflow)
+        #: the streaming path's windows, dispatches, staging stall and
+        #: compute seconds, samples/s (print_stats and the dashboard's
+        #: /metrics read it off the workflow)
         self.stream_stats = None
         runner = getattr(wf, "_fused_runner", None)
         if runner is None:
@@ -294,6 +298,16 @@ class EpochScanDriver(Logger):
         if snap is not None:
             self.loader.epoch_ended = True
             snap.run()
+        self._notify_reporters()
+
+    def _notify_reporters(self):
+        """The driver bypasses the graph, so it pushes the dashboard's
+        rows itself at each commit (the graph loop's reporters run off
+        the decision)."""
+        from veles_tpu_torch.web_status import StatusReporter
+        for unit in self.wf:
+            if isinstance(unit, StatusReporter):
+                unit.report()
 
     def _eval_sets(self, loader):
         """{cls: (idx, mask)} of the test and validation plans (fixed:
@@ -448,7 +462,7 @@ class EpochScanDriver(Logger):
                                device, name=loader.name + "_stager")
         stats = self.stream_stats = {
             "window_minibatches": W, "stage_ahead": self.stage_ahead,
-            "epochs": 0, "windows": 0, "train_samples": 0,
+            "epochs": 0, "windows": 0, "dispatches": 0, "train_samples": 0,
             "staging_stall_s": 0.0, "compute_s": 0.0,
             "samples_per_sec": 0.0, "staging_stall_fraction": 0.0}
         wf._stream_stats = stats
@@ -483,6 +497,7 @@ class EpochScanDriver(Logger):
                 for cls, (eidx, _) in evals.items():
                     for _ in range(len(eidx)):
                         program.replay_eval(cls, eval_at[cls])
+                    stats["dispatches"] += len(eidx)
                 begin = time.perf_counter()
                 stalled = stager.stall_seconds
                 for j, w0 in enumerate(starts):
@@ -494,6 +509,7 @@ class EpochScanDriver(Logger):
                         stager.submit(nxt, idx[n0:n0 + W], nxt % n_slots)
                     for _ in range(min(W, steps - w0)):
                         program.replay_train(slot)
+                    stats["dispatches"] += min(W, steps - w0)
                     stager.release(slot)
                     stats["windows"] += 1
                 train = program.train.group_totals(0)   # waits for the card

@@ -186,6 +186,17 @@ class DecisionGD(DecisionBase):
     def epoch_metric(self, set_metrics):
         return set_metrics.get("n_err")
 
+    @property
+    def confusion_matrix(self):
+        """The latest confusion matrix (validation preferred): the host
+        copy ``_on_epoch_end`` keeps in ``epoch_metrics``, never a
+        device tensor (``MatrixPlotter``'s source)."""
+        for metrics in reversed(self.epoch_metrics):
+            for set_name in ("validation", "test", "train"):
+                if "confusion" in metrics.get(set_name, {}):
+                    return metrics[set_name]["confusion"]
+        return None
+
 
 class DecisionMSE(DecisionBase):
     """Regression/autoencoder decision: minimizes validation RMSE.

@@ -19,8 +19,10 @@ gds) runs as one train/eval step call per minibatch
 numerics (identical pure functions).  Skip-edge layers (``residual``,
 ``residual_proj``) need the fused engine: a ``fused=False`` build with
 one raises ValueError.  ``snapshotter_config`` links a Snapshotter at
-the tail of the backward chain; the plotters are not ported yet and
-raise (ROADMAP Queue 2a, item 5).
+the tail of the backward chain; ``link_plotters`` attaches the standard
+plotter set (metric curve, confusion matrix, first-layer weights),
+redrawn at epoch ends from the host copies of the metrics and the
+committed weights.
 """
 
 from __future__ import annotations
@@ -237,8 +239,34 @@ class StandardWorkflowBase(NNWorkflow):
         return snap
 
     def link_plotters(self, output_dir="plots", weights_2d=True):
-        raise NotImplementedError(
-            "the plotters are not ported yet: ROADMAP Queue 2a, item 5")
+        """Attach the standard plotter set: the metric curve, the
+        confusion matrix (softmax) and the first-layer weight images,
+        all redrawn at epoch ends (the reference's wiring,
+        ``veles_tpu/standard_workflow.py:237``); headless files by
+        default, ZeroMQ when a ``graphics_server`` is attached."""
+        from veles_tpu_torch.plotting_units import (AccumulatingPlotter,
+                                                    MatrixPlotter)
+        from veles_tpu_torch.nn_plotting_units import Weights2D
+        plotters = []
+        metric = "err_pct" if self.loss_function == "softmax" else "rmse"
+        curve = AccumulatingPlotter(self, metric=metric,
+                                    output_dir=output_dir, name="plot_curve")
+        curve.input = self.decision
+        plotters.append(curve)
+        if self.loss_function == "softmax":
+            confusion = MatrixPlotter(self, output_dir=output_dir,
+                                      name="plot_confusion")
+            confusion.input = self.decision
+            plotters.append(confusion)
+        if weights_2d:
+            w2d = Weights2D(self, output_dir=output_dir, name="plot_weights")
+            w2d.input = next((f for f in self.forwards if f.has_params),
+                             self.forwards[0])
+            plotters.append(w2d)
+        for plotter in plotters:
+            plotter.link_from(self.decision)
+        self.plotters = plotters
+        return plotters
 
     def link_end_point(self):
         self.end_point.link_from(self.decision)
@@ -267,17 +295,21 @@ class StandardWorkflowBase(NNWorkflow):
                 runner.state = runner._pull_state()
         return self
 
-    def snapshot_state(self):
-        # during a fused run the unit Vectors lag the device state; sync
-        # before collecting so snapshots always see the live weights
-        # (under --distributed: the trainer gathers its split layers'
-        # slices first; its sync includes the unit sync)
+    def sync_units(self):
+        """During a fused run the unit Vectors lag the device state:
+        point them at the committed state (under --distributed the
+        trainer gathers its split layers' slices first; its sync
+        includes the unit sync).  Snapshots and ``Weights2D`` read the
+        weights after it."""
         trainer = getattr(self, "_sharded_trainer", None)
         runner = getattr(self, "_fused_runner", None)
         if trainer is not None:
             trainer.sync_to_runner()
         elif runner is not None:
             runner.sync_to_units()
+
+    def snapshot_state(self):
+        self.sync_units()
         return super().snapshot_state()
 
     def load_snapshot_state(self, state):

@@ -205,9 +205,9 @@ class Workflow(Unit):
         stream = getattr(self, "_stream_stats", None)
         if stream:
             self.info("  streaming: %d windows (%d mb each, stage-ahead "
-                      "%d), %d epochs", stream["windows"],
+                      "%d), %d dispatches / %d epochs", stream["windows"],
                       stream["window_minibatches"], stream["stage_ahead"],
-                      stream["epochs"])
+                      stream["dispatches"], stream["epochs"])
             self.info("  streaming: %.1f samples/s, staging stall "
                       "%.3fs of %.3fs busy (%.1f%%)",
                       stream["samples_per_sec"], stream["staging_stall_s"],
