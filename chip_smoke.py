@@ -19,7 +19,8 @@ Phases (any failure exits nonzero before the final line is printed):
    at its main path's shapes, with kernel, plain-version and library
    card times (CUDA events; see ``time_ms``) and the card's bound for
    the same work: the paged attention kernels at the serving shapes
-   (library: scaled_dot_product_attention on the gathered view), then
+   (decode also at the speculative verify's c = 5; library:
+   scaled_dot_product_attention on the gathered view), then
    (checked, not timed) long page tables — a 16384-token lane view at
    head_dim 128 — and a head_dim that is neither a multiple of 4 nor
    below 256, and the split-KV decode's edges on a 16384-token view
@@ -145,7 +146,7 @@ Phases (any failure exits nonzero before the final line is printed):
    ``KohonenForward`` (winners equal to a direct pass); then the
    Bernoulli draw's JSON line (its times, bound and launches);
 10. harness — the run harness through the CLI (``veles_tpu_torch.
-   __main__``): MNIST-FC at ``configs[0]``'s widths for 3 epochs (59,950
+   __main__``): MNIST-FC at ``configs[0]``'s widths for 3 epochs (19,950
    train samples, so each epoch ends in a 50-row minibatch) trained by
    the graph loop in a ``python -m veles_tpu_torch`` subprocess (its
    result file and per-epoch snapshots read back), then in this process
@@ -157,7 +158,7 @@ Phases (any failure exits nonzero before the final line is printed):
    bit-equal to the uninterrupted ones on both drivers; ``--evaluate``
    from the final snapshot leaving the weights bit-equal; a
    ``grad_accum=4`` step within rtol 1e-5 / atol 1e-6 of the monolithic
-   one; cifar (``configs[1]``, 49,950 / 10,000, 2 epochs) scan bit-equal
+   one; cifar (``configs[1]``, 9,950 / 10,000, 2 epochs) scan bit-equal
    to its loop; full-width AlexNet (600 / 128, minibatch 128, 2 epochs)
    scanned twice, bit-equal, with exact LRN / dropout / SGD launch
    counts, and card vs the port's CPU scan at minibatch 16 step by step
@@ -254,7 +255,7 @@ Phases (any failure exits nonzero before the final line is printed):
    built with RoPE (``LM_CONFIG``, no positional table, fp32, TF32 off;
    ``ROLLING``: batch 8, seeded 128-token prompts, a 256-slot ring
    behind 4 pinned sinks) for 384 new tokens (prompt + new = max_len
-   512: the tokens equal to ``generate``'s counted) and for 2048: every
+   512: the tokens equal to ``generate``'s counted) and for 1024: every
    step's logits within ``LOGIT_TOL`` of a teacher-forced plain
    ``transformer_forward`` (rope, window 256, sinks 4, 'xla') over the
    emitted sequence, the loop's peak card memory flat in ``n_new``
@@ -296,10 +297,12 @@ Phases (any failure exits nonzero before the final line is printed):
    forward, the batched run's mean batch above 1, a 413 and a 400,
    requests/s, p50/max and one request's JSON and forward seconds; (c)
    ``export_native_bundle`` at batch 8 (AOTInductor, weights baked in)
-   run by the libtorch runner (``native/artifact_runner.cpp``, built
-   with g++) on 8 rows: within ``DEPLOY_CROSS_ATOL`` of predict, equal
-   argmax, exactly 2 LRN launches, the compile, build and run seconds
-   and the runner's card memory; (d) ``python -m veles_tpu_torch
+   of the trained model cut after pool2 with a softmax head
+   (``native_layers``: both LRN layers stay), run by the libtorch runner
+   (``native/artifact_runner.cpp``, built with g++) on 8 rows: within
+   ``DEPLOY_CROSS_ATOL`` of the cut model's eval forward, equal argmax,
+   exactly 2 LRN launches, the compile, build and run seconds and the
+   runner's card memory; (d) ``python -m veles_tpu_torch
    veles_tpu_torch.samples.mnist --serve 0 --serve-batch 8`` at
    ``configs[0]``'s widths (``DEPLOY_CLI``) in a subprocess, 16 rows
    posted one a request, bit-equal to ``serve_snapshot`` of its final
@@ -329,16 +332,48 @@ Phases (any failure exits nonzero before the final line is printed):
    host ms an epoch and the runs' seconds with and without them; one
    SGD launch a train step in every run; its JSON line
    (``{"observe": ...}``);
-17. the script's seconds, the card's name and power limit, one JSON line
+17. serve_fastpath — the paged engine at the full LM width (8 slots,
+   page 32, seeded weights) with its fast-path knobs: (a) 16 requests
+   sharing a 256-token prefix (8 full pages) with distinct suffixes of 1
+   to 64 tokens (two of them agree on a page but for its last token),
+   served without the prefix cache (every full prompt page kept as its
+   lane finishes) and with ``prefix_cache=64``: the hits equal a host
+   count of the repeated full chunks (at least 15 x 256 tokens), the
+   prefilled tokens equal the prompts' less the hits, kernel 6's launches
+   are 8 a prefill dispatch, every trie page bit-equal to the cache-off
+   engine's page for the same prefix, a planted copy-on-write of a trie
+   page leaves it bit-equal and makes a bit-equal copy, every emitted
+   token within ``LOGIT_TOL`` of a teacher-forced plain pass (phase 4's
+   check), the pool full again once the trie is flushed, the TTFT p50
+   with and without the cache; (b) ``spec_k=4`` on the 8 candidate
+   prompts (a's and 8 periodic ones) whose greedy tokens from the plain
+   engine replay the most accepted prompt-lookup drafts on the host:
+   kernel 5's launches 8 a verify dispatch, all at c = 5, more tokens
+   than dispatches, accepted drafts, the teacher-forced check, the
+   verify step at full width against the plain step; three planted
+   faults (``FAST_FAULTS``: a trie keyed on a chunk's first 31 tokens, a
+   verify accepting drafts unchecked, a copy-on-write that skips the
+   copy) caught; its JSON line (``{"serve_fastpath": ...}``);
+18. the script's seconds, the card's name and power limit, one JSON line
    listing every ported TPU kernel (kernel 1 with its launches in phase
    14's parent process, ``population_launches``, and in phase 16's,
    ``observe_launches``; kernel 2 with its
    launches on phase 15's deployment paths, ``deploy_launches``;
    kernels 5, 6 and 7a-7c
-   with their launches on the MoE runs, ``moe_launches``, and 7a-7c with
-   theirs on the pipelined runs, ``pipeline_launches``; kernels 1 and 4
+   with their launches on the MoE runs, ``moe_launches``, 7a-7c with
+   theirs on the pipelined runs, ``pipeline_launches``, and 5 and 6 with
+   theirs in phase 17, ``fastpath_launches``; kernels 1 and 4
    with their device-operand entries' times, bounds and launches, kernel
-   4 with its offset entry's), then the JSON result line.
+   4 with its offset entry's), each phase's seconds
+   (``phase_seconds``), then the JSON result line.
+
+Phases 15 and 16 run in a second process (``beside_phases``), started
+before phase 11 and joined before phase 14: they are host work, and
+phases 11-13 leave the host's cores to it (their gloo ranks measure
+arithmetic, not speed).  Their host clocks share the host with 11-13.
+Seeded host draws of 4 M values or more (the synthetic sets, the weight
+fills) are kept in each process and replayed bit-equal
+(``memo_draws``); the kernels phase draws its inputs on the card.
 
 The kernels phase also holds the three flash-attention kernels (forward,
 dK/dV pass, dQ pass; ``flash_attention.cu``) at the LM's train shape
@@ -622,6 +657,62 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
+#: a host draw of at least this many values is kept by ``memo_draws``
+MEMO_DRAW_MIN = 1 << 22
+#: the most bytes ``memo_draws`` keeps (the oldest draws go first)
+MEMO_DRAW_BYTES = 16 << 30
+
+
+def memo_draws(prng):
+    """Keep this process's large seeded host draws.  Every sample run
+    draws its synthetic set anew from a pinned stream at the same state,
+    so the AlexNet, CIFAR and MNIST sets of the later phases repeat the
+    first run's draws.  Each ``uniform`` or ``normal`` call of at least
+    ``MEMO_DRAW_MIN`` values is kept under the stream's state and the
+    call's arguments; a repeat returns a copy of the kept values and sets
+    the stream to the state the draw left it in, which is what drawing
+    again gives, bit for bit."""
+    kept, cls = {}, prng.RandomGenerator
+
+    def memo(name):
+        inner = getattr(cls, name)
+
+        def draw(self, *args, **kwargs):
+            size = kwargs.get("size", args[2] if len(args) > 2 else None)
+            if size is None or int(numpy.prod(size)) < MEMO_DRAW_MIN:
+                return inner(self, *args, **kwargs)
+            _, mt, pos, has_gauss, gauss = self.state.get_state()
+            key = (name, mt.tobytes(), pos, has_gauss, gauss, args,
+                   tuple(sorted(kwargs.items())))
+            hit = kept.get(key)
+            if hit is None:
+                out = inner(self, *args, **kwargs)
+                kept[key] = hit = (out, self.state.get_state())
+                while sum(v[0].nbytes for v in kept.values()) \
+                        > MEMO_DRAW_BYTES and len(kept) > 1:
+                    del kept[next(iter(kept))]
+            else:
+                self.state.set_state(hit[1])
+            return hit[0].copy()
+        return draw
+
+    for name in ("uniform", "normal"):
+        setattr(cls, name, memo(name))
+
+    # the weight fills, as ``RandomGenerator`` writes them, through the
+    # kept draws
+    def fill(self, arr, vle_min=-1.0, vle_max=1.0):
+        arr[...] = self.uniform(vle_min, vle_max, arr.shape).astype(
+            arr.dtype)
+        return arr
+
+    def fill_normal(self, arr, mean=0.0, stddev=1.0):
+        arr[...] = self.normal(mean, stddev, arr.shape).astype(arr.dtype)
+        return arr
+
+    cls.fill, cls.fill_normal = fill, fill_normal
+
+
 def time_ms(fns, torch, calls=10, reps=25):
     """Median over ``reps`` of the card time of one call, each rep
     timing ``calls`` back-to-back calls between two CUDA events.  The
@@ -660,6 +751,14 @@ def bound(n_bytes, n_flops, flop_s=FP32_FLOP_S):
 
 
 # ------------------------------------------------------------------ kernels
+def card_draws(torch, rng):
+    """A generator on the card seeded from ``rng``: the kernels' large
+    random inputs are drawn there (a host draw of 10**8 normals takes
+    seconds)."""
+    return torch.Generator(device="cuda").manual_seed(
+        int(rng.randint(2 ** 31)))
+
+
 def live_pages(ptab_width, page, pos, c, window=None, sinks=0,
                prefill=False):
     """How many pages of each lane's table hold a key live for any of
@@ -689,12 +788,10 @@ def decode_case(torch, HK, A, b=8, h=8, kv=8, c=1, dh=64, page=32, m=16,
     dev = torch.device("cuda")
     rng = numpy.random.RandomState(seed)
     n_pages = b * m + 1
-    q = torch.as_tensor(rng.randn(b, h, c, dh).astype(numpy.float32),
-                        device=dev)
-    kp = torch.as_tensor(rng.randn(n_pages, kv, page, dh).astype(
-        numpy.float32), device=dev)
-    vp = torch.as_tensor(rng.randn(n_pages, kv, page, dh).astype(
-        numpy.float32), device=dev)
+    g = card_draws(torch, rng)
+    q = torch.randn(b, h, c, dh, generator=g, device=dev)
+    kp = torch.randn(n_pages, kv, page, dh, generator=g, device=dev)
+    vp = torch.randn(n_pages, kv, page, dh, generator=g, device=dev)
     ptab_h = (1 + rng.permutation(b * m)).reshape(b, m).astype(numpy.int32)
     if shallow:
         pos_h = rng.randint(0, page - c + 1, b).astype(numpy.int32)
@@ -730,7 +827,8 @@ def decode_case(torch, HK, A, b=8, h=8, kv=8, c=1, dh=64, page=32, m=16,
     ms = time_ms([lambda k=k, v=v: HK.paged_flash_decode(
         q, k, v, ptab, pos, window, sinks) for k, v in pools], torch)
     plain_ms = time_ms([lambda k=k, v=v: HK.paged_flash_decode_ref(
-        q, k, v, ptab, pos, window, sinks) for k, v in pools], torch)
+        q, k, v, ptab, pos, window, sinks) for k, v in pools], torch,
+        calls=3, reps=5)
     # library yardstick: SDPA on the gathered, head-repeated view
     views = [(A._repeat_kv(A.paged_view(k, ptab), h),
               A._repeat_kv(A.paged_view(v, ptab), h)) for k, v in pools]
@@ -740,7 +838,7 @@ def decode_case(torch, HK, A, b=8, h=8, kv=8, c=1, dh=64, page=32, m=16,
                    - ref).abs().max().item()
     library_ms = time_ms([lambda kx=kx, vx=vx: sdpa(q, kx, vx,
                                                     attn_mask=mask)
-                          for kx, vx in views], torch)
+                          for kx, vx in views], torch, calls=3, reps=5)
     n_bytes = (2 * q.numel() * 4 + ptab.numel() * 4 + pos.numel() * 4
                + sum(pages) * 2 * kv * page * dh * 4)
     n_flops = 4 * (h // kv) * c * sum(pages) * kv * page * dh
@@ -762,10 +860,10 @@ def prefill_case(torch, HK, A, n_hist, b=1, h=8, kv=8, dh=64, page=32,
     rng = numpy.random.RandomState(seed)
     n_pages = b * m + 1
     c = page
+    g = card_draws(torch, rng)
 
     def t(*shape):
-        return torch.as_tensor(rng.randn(*shape).astype(numpy.float32),
-                               device=dev)
+        return torch.randn(*shape, generator=g, device=dev)
 
     q, kn, vn = t(b, h, c, dh), t(b, kv, c, dh), t(b, kv, c, dh)
     kp, vp = t(n_pages, kv, page, dh), t(n_pages, kv, page, dh)
@@ -797,7 +895,8 @@ def prefill_case(torch, HK, A, n_hist, b=1, h=8, kv=8, dh=64, page=32,
     ms = time_ms([lambda k=k, v=v: HK.paged_flash_prefill(
         q, kn, vn, k, v, ptab, pos, window, sinks) for k, v in pools], torch)
     plain_ms = time_ms([lambda k=k, v=v: HK.paged_flash_prefill_ref(
-        q, kn, vn, k, v, ptab, pos, window, sinks) for k, v in pools], torch)
+        q, kn, vn, k, v, ptab, pos, window, sinks) for k, v in pools], torch,
+        calls=3, reps=5)
     views = [(A._repeat_kv(A.paged_view(k, ptab), h),
               A._repeat_kv(A.paged_view(v, ptab), h)) for k, v in pools]
     mask = A.chunk_live_mask(pos.long(), c, m * page, window, sinks)[:, None]
@@ -806,7 +905,7 @@ def prefill_case(torch, HK, A, n_hist, b=1, h=8, kv=8, dh=64, page=32,
                    - ref).abs().max().item()
     library_ms = time_ms([lambda kx=kx, vx=vx: sdpa(q, kx, vx,
                                                     attn_mask=mask)
-                          for kx, vx in views], torch)
+                          for kx, vx in views], torch, calls=3, reps=5)
     hist = sum(live_pages(m, page, pos_h, c, window, sinks,
                              prefill=True))
     keys = c * hist * page + b * c * (c + 1) // 2      # over all rows
@@ -827,19 +926,19 @@ def sgd_operands(torch, shape, seed, copies=1, offset=0):
     """``copies`` sets of (p, v, g) of ``shape`` on the card (g a batch
     sum of 100 samples); ``offset`` > 0 starts each tensor that many
     floats into its buffer (16-byte alignment lost: the scalar path)."""
-    rng = numpy.random.RandomState(seed)
     n = int(numpy.prod(shape))
     dev = torch.device("cuda")
+    g = card_draws(torch, numpy.random.RandomState(seed))
 
     def t(a):
         buf = torch.empty(n + offset, device=dev)
-        buf[offset:] = torch.as_tensor(a.astype(numpy.float32), device=dev)
+        buf[offset:] = a.reshape(-1)
         return buf[offset:].view(shape)
 
-    out = [(t(rng.uniform(-0.3, 0.3, n)), t(rng.randn(n) * 0.01),
-            t(rng.randn(n) * 5))]
-    return out + [tuple(t(x.cpu().numpy().reshape(-1)) for x in out[0])
-                  for _ in range(copies - 1)]
+    out = [(t(torch.rand(n, generator=g, device=dev) * 0.6 - 0.3),
+            t(torch.randn(n, generator=g, device=dev) * 0.01),
+            t(torch.randn(n, generator=g, device=dev) * 5))]
+    return out + [tuple(t(x) for x in out[0]) for _ in range(copies - 1)]
 
 
 def sgd_ulps(torch, got, ref):
@@ -980,16 +1079,18 @@ def lrn_case(torch, HK, name, shape, n=5, seed=0, timed=True, offset=0):
     c = shape[-1]
     rows = int(numpy.prod(shape[:-1]))
 
+    g = card_draws(torch, rng)
+
     def place(a):
-        buf = torch.empty(a.size + offset, device=dev)
-        buf[offset:] = torch.as_tensor(a.reshape(-1), device=dev)
+        buf = torch.empty(a.numel() + offset, device=dev)
+        buf[offset:] = a.reshape(-1)
         return buf[offset:].view(shape)
 
     # non-negative inputs (post-ReLU) of rms 3 and an O(1) cotangent, so
     # that the window term of d and the backward's cross-channel term
     # both sit well above the limits (``lrn_faults`` counts by how much)
-    x = place(3 * numpy.abs(rng.randn(*shape)).astype(numpy.float32))
-    dy = place(rng.randn(*shape).astype(numpy.float32))
+    x = place(3 * torch.randn(shape, generator=g, device=dev).abs())
+    dy = place(torch.randn(shape, generator=g, device=dev))
     hyper = (1e-4, 0.75, n)
     y, d = HK.lrn_forward(x, *hyper, 2.0)
     dx = HK.lrn_backward(x, d, dy, *hyper)
@@ -1427,11 +1528,10 @@ def flash_case(torch, HK, b, h, s, dh, causal=True, seed=0, timed=True,
     the largest score reaches it.  Returns three records: forward, dK/dV,
     dQ."""
     dev = torch.device("cuda")
-    rng = numpy.random.RandomState(seed)
+    g = card_draws(torch, numpy.random.RandomState(seed))
 
     def t():
-        return torch.as_tensor(rng.randn(b, h, s, dh).astype(numpy.float32),
-                               device=dev)
+        return torch.randn(b, h, s, dh, generator=g, device=dev)
 
     q, k, v, do = t(), t(), t(), t()
     if peak:
@@ -3563,9 +3663,9 @@ def streams_phase(torch, card, som, device="cuda"):
 # ------------------------------------------------------------------ harness
 #: the harness phase's MNIST-FC: configs[0]'s widths (784→100 tanh→10
 #: softmax, minibatch 100, 10,000 validation) for 3 epochs, the train set
-#: cut from 60,000 to 59,950 so that each epoch ends in a short minibatch
+#: cut from 60,000 to 19,950 so that each epoch ends in a short minibatch
 #: (50 live rows: a frozen inv_batch shows there)
-HARNESS_MNIST = ["root.mnist.loader.n_train=59950",
+HARNESS_MNIST = ["root.mnist.loader.n_train=19950",
                  "root.mnist.decision.max_epochs=3"]
 #: the exp policy run: every layer's rate decays 0.9995 a step
 HARNESS_POLICY = ("root.mnist.layers=[{'type': 'all2all_tanh', "
@@ -3581,9 +3681,9 @@ HARNESS_LOSS_RTOL = 1e-6
 #: grad_accum=4 against the monolithic step: the CPU tests' tolerance
 #: (tests/test_torch_epoch_scan.py::test_accum_step_matches_monolithic)
 ACCUM_RTOL, ACCUM_ATOL = 1e-5, 1e-6
-#: cifar (configs[1]) at the sample's defaults but 2 epochs and 49,950
+#: cifar (configs[1]) at the sample's defaults but 2 epochs and 9,950
 #: train samples (a short last minibatch)
-HARNESS_CIFAR = 49950
+HARNESS_CIFAR = 9950
 #: AlexNet on the synthetic set: 600 train (4 full minibatches of 128 and
 #: one of 88) / 128 validation, 2 epochs
 HARNESS_ALEXNET = {"n_train": 600, "n_valid": 128}
@@ -3890,7 +3990,7 @@ def harness(torch, HK, card, device="cuda", keep=None):
         program = la1.driver.program
         report["mnist"] = {
             "config": {"layers": "784-100tanh-10softmax", "minibatch": 100,
-                       "n_train": 59950, "n_valid": 10000, "epochs": 3},
+                       "n_train": 19950, "n_valid": 10000, "epochs": 3},
             "loop_cli_s": loop_cli_s, "scan_run_s": la1.run_seconds,
             "capture_s": program.capture_s,
             "graph_launches": {repr(k): v for k, v in
@@ -4260,6 +4360,7 @@ def parallel_rank(rank, port, tmp, out_path):
     from veles_tpu_torch.samples import imagenet
     from veles_tpu_torch.workflow import Workflow
     began = time.monotonic()
+    memo_draws(prng)
     addr = "127.0.0.1:%d" % port
     _, _, backend = parallel.initialize_multihost(addr, 2, rank)
     dev = parallel._JOINED["device"]
@@ -5857,11 +5958,11 @@ def pipeline_phase(torch, HK, card, dense_step_s, device="cuda",
 #: (a) the rolling-cache decode: LM_CONFIG built with RoPE (no
 #: positional table), batch 8, seeded prompts of 128 tokens, a ring of
 #: 256 slots behind 4 pinned sinks; 384 new tokens fill the LM's max_len
-#: 512, 2048 go far past it
+#: 512, 1024 go twice past it
 ROLLING = {"batch": 8, "prompt": 128, "window": 256, "sinks": 4}
-ROLLING_NEW = (384, 2048)
-#: the 2048-token decode loop's peak card memory may exceed the 384
-#: one's by at most this many bytes (its token buffer is 53 KB larger)
+ROLLING_NEW = (384, 1024)
+#: the 1024-token decode loop's peak card memory may exceed the 384
+#: one's by at most this many bytes (its token buffer is 20 KB larger)
 ROLLING_PEAK_SLACK = 1 << 20
 #: planted faults: the slot taken as pos % (sinks + window), so the
 #: sinks are evicted; q/k rotated at the slot instead of the position.
@@ -6048,7 +6149,7 @@ def rolling_phase(torch, T, card, device="cuda", cfg=None):
     report = {"phase": "rolling", "card": card,
               "config": dict(cfg, rope=True, **r), "setup_s": setup_s,
               "runs": {str(k): v for k, v in runs.items()},
-              "peak_2048_minus_384_bytes": (long_["loop_peak_bytes"]
+              "peak_long_minus_short_bytes": (long_["loop_peak_bytes"]
                                             - short["loop_peak_bytes"]),
               "profiled": profiled, "logit_tol": LOGIT_TOL,
               "faults": faults,
@@ -6058,9 +6159,9 @@ def rolling_phase(torch, T, card, device="cuda", cfg=None):
         check(run["max_abs_logit_err"] <= LOGIT_TOL,
               "rolling n_new %d: logits %g from the plain forward > %g"
               % (n, run["max_abs_logit_err"], LOGIT_TOL))
-    check(report["peak_2048_minus_384_bytes"] <= ROLLING_PEAK_SLACK,
+    check(report["peak_long_minus_short_bytes"] <= ROLLING_PEAK_SLACK,
           "rolling: the loop's peak grew %d bytes with n_new"
-          % report["peak_2048_minus_384_bytes"])
+          % report["peak_long_minus_short_bytes"])
     for name, err in faults.items():
         check(err >= FAULT_FACTOR * LOGIT_TOL,
               "rolling fault %s read %g < %g x the limit" % (
@@ -6349,6 +6450,9 @@ DEPLOY_CROSS_ATOL = 1e-5
 DEPLOY_REQUESTS, DEPLOY_CLIENTS, DEPLOY_MAX_BATCH = 32, 8, 32
 #: the native bundle's static batch
 DEPLOY_NATIVE_BATCH = 8
+#: the cut model's loader: only its sample shape is read
+NATIVE_LOADER = {"minibatch_size": 8, "n_train": 8, "n_valid": 8,
+                 "epochs": 1}
 #: the CLI leg: MNIST-FC at configs[0]'s widths (784->100 tanh->10,
 #: minibatch 100), the data cut to 6,000 / 1,000 for 2 epochs; rows
 #: posted one a request to it and to ``serve_snapshot`` of its snapshot
@@ -6359,6 +6463,16 @@ DEPLOY_CLI_ROWS = 16
 #: planted faults, each of which a check of this phase must catch
 DEPLOY_FAULTS = ("int8_scale_over_input_axis", "lrn_k_altered",
                  "batcher_rows_to_wrong_requests", "runner_op_skips_kernel")
+
+
+def native_layers(layers):
+    """The native leg's model: ``layers`` cut after their second pooling
+    layer (AlexNet's first two conv blocks, both LRN layers), then their
+    softmax head: fewer kernels for AOTInductor to generate and compile
+    than the whole net has."""
+    cut = [i for i, layer in enumerate(layers)
+           if layer["type"] == "max_pooling"][1] + 1
+    return layers[:cut] + layers[-1:]
 
 
 def plain_int8(flat):
@@ -6772,14 +6886,28 @@ def deploy_phase(torch, HK, card, device="cuda", layers=None, loader=None):
                 torch, HK, restful_api, paths[None], rows[:DEPLOY_CLIENTS],
                 direct, n_lrn, device, mb)
         split = request_split(torch, model, rows[0])
-        # (c) the native runner
+        # (c) the native runner, on the trained model cut to its conv
+        # blocks and softmax head (``native_layers``)
+        t0 = time.monotonic()
+        cut = imagenet_build(prng, root, imagenet, native_layers(layers),
+                             **dict(NATIVE_LOADER, **(loader or {})))
+        cut.initialize(device=device)
+        cut_runner = cut._fused_runner
+        # the conv blocks' trained weights; the head keeps its own (it
+        # reads pool2's 43,264 features, not fc7's 4096)
+        for mine, trained in zip(cut_runner.state[:-1], runner.state):
+            for k in ("w", "b"):
+                if k in mine:
+                    mine[k].copy_(trained[k])
+        cut_s = time.monotonic() - t0
         t0 = time.monotonic()
         bundle = export.export_native_bundle(
-            wf, os.path.join(tmp, "bundle"), batch=DEPLOY_NATIVE_BATCH)
+            cut, os.path.join(tmp, "bundle"), batch=DEPLOY_NATIVE_BATCH)
         aoti_s = time.monotonic() - t0
         runner_bin, runner_build_s = runners["sound"].result()
         x8 = rows[:DEPLOY_NATIVE_BATCH]
-        want8 = model.predict(x8)
+        want8 = cut_runner.eval_forward()(
+            cut_runner.state, torch.from_numpy(x8).to(device)).cpu().numpy()
         t0 = time.monotonic()
         out8, native_lrn, _, stderr = native.run_artifact(
             bundle, x8, runner=runner_bin)
@@ -6834,7 +6962,11 @@ def deploy_phase(torch, HK, card, device="cuda", layers=None, loader=None):
                        "card_vs_cpu_max_abs_gap": cpu_gap,
                        "int8": dict(int8, argmax_agreement_with_fp32=agree)},
             "rest": dict(rest, one_request=split),
-            "native": {"aoti_compile_s": aoti_s,
+            "native": {"model": "cut after pool2, softmax head",
+                       "weights": sum(v.numel() for e in cut_runner.state
+                                      for k, v in e.items()
+                                      if k in ("w", "b")),
+                       "cut_setup_s": cut_s, "aoti_compile_s": aoti_s,
                        "runner_build_s": runner_build_s,
                        "run_s": native_s, "max_abs_gap": native_gap,
                        "lrn_launches": native_lrn,
@@ -6859,8 +6991,8 @@ def deploy_phase(torch, HK, card, device="cuda", layers=None, loader=None):
           % int8)
     for name, leg in rest.items():
         check(leg["ok"], "deploy: REST %s failed: %r" % (name, leg))
-    check(native_ok, "deploy: the native runner is %g from predict with %d "
-          "LRN launches" % (native_gap, native_lrn))
+    check(native_ok, "deploy: the native runner is %g from the cut model's "
+          "eval forward with %d LRN launches" % (native_gap, native_lrn))
     check(cli["bit_equal_to_serve_snapshot"], "deploy: the CLI's replies "
           "differ from serve_snapshot's")
     for name in DEPLOY_FAULTS:
@@ -7423,8 +7555,527 @@ def observe_phase(torch, HK, card, device="cuda"):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------------------------------------- phase 17
+#: the serving fast path at the full LM width (``LM_CONFIG``), page 32, 8
+#: slots.  (a) 16 requests sharing a 256-token prefix (8 full pages) with
+#: distinct suffixes of 1 to 64 tokens, served with a 64-chunk prefix
+#: cache and without it; the first two suffixes agree on their first page
+#: but for its last token (a full chunk the cache must tell apart)
+FAST_SHARED, FAST_REQUESTS, FAST_SUFFIX, FAST_NEW = 256, 16, (1, 64), (16, 33)
+FAST_PAGE, FAST_SLOTS, FAST_CACHE = 32, 8, 64
+#: (b) speculative verify: the draft length, the requests verified (the
+#: candidates with the most accepted drafts in a host replay of the plain
+#: engine's greedy tokens) and the periodic prompts added to (a)'s as
+#: candidates, with their new tokens
+FAST_SPEC_K, FAST_SPEC_REQUESTS, FAST_PERIODIC, FAST_PERIODIC_NEW = 4, 8, 8, 48
+#: planted faults, each of which a check of this phase must catch
+FAST_FAULTS = ("trie_key_drops_last_token", "verify_accepts_unchecked",
+               "cow_skips_copy")
+
+
+def fast_requests(vocab, page=FAST_PAGE):
+    """Phase 17 (a)'s seeded requests: [(prompt, n_new)]."""
+    rng = numpy.random.RandomState(SEED + 17)
+    shared = rng.randint(0, vocab, FAST_SHARED).astype(numpy.int32)
+    lens = rng.randint(FAST_SUFFIX[0], FAST_SUFFIX[1] + 1, FAST_REQUESTS)
+    lens[:2] = (page + 8, page + 18)
+    suffixes = [rng.randint(0, vocab, n).astype(numpy.int32) for n in lens]
+    suffixes[1][:page] = suffixes[0][:page]
+    suffixes[1][page - 1] = (suffixes[0][page - 1] + 1) % vocab
+    n_new = rng.randint(FAST_NEW[0], FAST_NEW[1], FAST_REQUESTS)
+    return [(numpy.concatenate([shared, s]), int(k))
+            for s, k in zip(suffixes, n_new)]
+
+
+def periodic_requests(vocab):
+    """Phase 17 (b)'s periodic candidate prompts: [(prompt, n_new)]."""
+    rng = numpy.random.RandomState(SEED + 18)
+    out = []
+    for _ in range(FAST_PERIODIC):
+        motif = rng.randint(0, vocab, rng.randint(4, 17))
+        out.append((numpy.resize(motif, rng.randint(64, 161)).astype(
+            numpy.int32), FAST_PERIODIC_NEW))
+    return out
+
+
+def expected_hit_chunks(reqs, page):
+    """Prefix-cache hits of a run that computes each distinct full-chunk
+    prefix once (no eviction): every other full chunk is a hit, at
+    admission or late."""
+    seen, full = set(), 0
+    for prompt, _ in reqs:
+        n_full = (len(prompt) - 1) // page
+        full += n_full
+        seen.update(tuple(int(t) for t in prompt[:(j + 1) * page])
+                    for j in range(n_full))
+    return full - len(seen)
+
+
+def record_prefix_pages(engine, store):
+    """On each finishing lane of ``engine``, keep a copy of every full
+    prompt chunk's page (each block's K and V) under the prompt prefix
+    through that chunk."""
+    finish, page = engine._finish, engine.prefill_chunk
+
+    def recording(slot):
+        lane = engine._lanes[slot]
+        prompt = lane.request.prompt
+        for j in range((lane.request.true_len - 1) // page):
+            key = tuple(int(t) for t in prompt[:(j + 1) * page])
+            if key not in store:
+                p = lane.pages[j]
+                store[key] = [(kp[p].clone(), vp[p].clone())
+                              for kp, vp in engine._kv_pools]
+        finish(slot)
+    engine._finish = recording
+
+
+def trie_page_mismatches(torch, engine, store):
+    """(trie entries, entries whose page is not bit-equal to the page
+    the cache-off engine computed for the same prefix)."""
+    n, bad, stack = 0, 0, [(engine._trie.root, ())]
+    while stack:
+        node, path = stack.pop()
+        for key, child in node.children.items():
+            full = path + key
+            stack.append((child, full))
+            n += 1
+            want = store.get(full)
+            if want is None or not all(
+                    torch.equal(kp[child.rows], k)
+                    and torch.equal(vp[child.rows], v)
+                    for (kp, vp), (k, v) in zip(engine._kv_pools, want)):
+                bad += 1
+    return n, bad
+
+
+def planted_cow(torch, engine):
+    """Copy-on-write of a trie page that a stand-in lane shares, on the
+    stopped engine (every free page filled with NaN first, so a copy not
+    made cannot pass): True when the source stays bit-equal, the copy is
+    bit-equal, and the lane's reference, pin and table entry moved to the
+    copy."""
+    from veles_tpu_torch.serving.kv_pool import KVPagePool
+    from veles_tpu_torch.serving.lm_engine import _Request, _Slot
+    pool = engine._pool
+    p = next(iter(engine._trie.root.children.values())).rows
+    free = list(pool._free)
+    for kp, vp in engine._kv_pools:
+        kp[free] = float("nan")
+        vp[free] = float("nan")
+    before = [(kp[p].clone(), vp[p].clone()) for kp, vp in engine._kv_pools]
+    refs = pool.refs(p)
+    pool.retain(p)
+    pool.pin(p)
+    lane = _Slot(_Request(numpy.zeros(1, numpy.int32), 1, 30.0, pages=1))
+    lane.pages = [p]
+    engine._page_tables[0, 0] = p
+    copies = engine.metrics.counter("kv_cow_copies")
+    engine._cow_guard(0, lane, 0, 1)
+    q = lane.pages[0]
+    ok = (q != p and engine._page_tables[0, 0] == q
+          and pool.refs(p) == refs and not pool.pinned(p)
+          and pool.refs(q) == 1 and pool.pinned(q)
+          and engine.metrics.counter("kv_cow_copies") == copies + 1
+          and all(torch.equal(kp[p], k) and torch.equal(vp[p], v)
+                  and torch.equal(kp[q], k) and torch.equal(vp[q], v)
+                  for (kp, vp), (k, v) in zip(engine._kv_pools, before)))
+    pool.unpin(q)
+    pool.release(q)
+    engine._page_tables[0, :] = KVPagePool.SCRATCH
+    return ok
+
+
+def replay_drafts(S, prompt, out, k):
+    """(draft tokens, accepted) that a speculative run meters on these
+    greedy tokens, replayed on the host (drafts past the known tokens
+    count as misses)."""
+    i, drafted, accepted = 1, 0, 0
+    while i < len(out):
+        draft = S.propose_draft(numpy.concatenate([prompt, out[:i]]), k)
+        a = 0
+        if draft is not None:
+            drafted += len(draft)
+            while (a < len(draft) and i + a < len(out)
+                   and draft[a] == out[i + a]):
+                a += 1
+            accepted += a
+        i += a + 1
+    return drafted, accepted
+
+
+def fast_serve(torch, HK, S, cfg, host, reqs, device, tag, prepare=None,
+               **knobs):
+    """One engine over ``host`` answering ``reqs`` all at once (the
+    launch counts set to 0 just before, read just after); ``prepare``
+    sees the engine before it starts.  Returns (engine (stopped),
+    outputs, TTFTs, launches, wall s)."""
+    engine = S.LMEngine(host, cfg["n_heads"], cfg["max_len"],
+                        slots=FAST_SLOTS, prefill_chunk=FAST_PAGE,
+                        device=device, name="fast_" + tag, **knobs)
+    if prepare is not None:
+        prepare(engine)
+    engine.start()
+    try:
+        HK.reset_launch_counts()
+        t0 = time.monotonic()
+        futures = [engine.submit(p, k) for p, k in reqs]
+        outs = [f.result(timeout=300) for f in futures]
+        wall = time.monotonic() - t0
+        launches = HK.launch_counts()
+    finally:
+        engine.stop()
+    check(engine.metrics.errors == 0, "%s: %d engine errors"
+          % (tag, engine.metrics.errors))
+    for out, (_, k) in zip(outs, reqs):
+        check(out.shape == (k,) and out.min() >= 0
+              and out.max() < cfg["vocab"], "%s: malformed output %r"
+              % (tag, out))
+    return engine, outs, [f.ttft_s for f in futures], launches, wall
+
+
+def worst_shortfall(torch, T, engine, reqs, outs):
+    """Phase 4's teacher-forced check over every emitted token: (worst
+    logit shortfall below its row max, exact argmax matches)."""
+    worst, exact = 0.0, 0
+    with torch.inference_mode():
+        for (prompt, _), out in zip(reqs, outs):
+            short, n_exact = teacher_forced(
+                torch, T, engine, numpy.concatenate([prompt, out]),
+                len(prompt), out)
+            worst, exact = max(worst, short), exact + n_exact
+    return worst, exact
+
+
+def fast_counters(engine):
+    c = engine.metrics.snapshot()["counters"]
+    return {k: c.get(k, 0) for k in (
+        "prefix_hit_chunks", "prefix_hit_tokens", "kv_pages_referenced",
+        "kv_cow_copies", "draft_tokens", "draft_accepted",
+        "decode_dispatches", "prefill_dispatches", "prefill_tokens",
+        "tokens_out")}
+
+
+def pool_drained(engine):
+    """Flush the stopped engine's trie; True when the pool then holds
+    every page free and its books agree."""
+    if engine._trie is not None:
+        while engine._trie.evict_one():
+            pass
+    inv = engine.verify_pool_invariants()
+    return inv["free_pages"] == engine._pool.num_pages
+
+
+def step_ms(torch, fn, device, reps=20):
+    """Host-clock ms of one call of ``fn`` (synchronous: it reads its
+    picks back), after one warm call."""
+    with torch.inference_mode():
+        fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(reps):
+            fn()
+        return (time.monotonic() - t0) / reps * 1e3
+
+
+def serve_fastpath(torch, HK, T, S, card, device="cuda", cfg=None):
+    """Phase 17: the radix prefix cache with copy-on-write pages and the
+    prompt-lookup speculative verify on the paged engine at the full LM
+    width; three planted faults.  Returns kernels 5 and 6's launches on
+    the phase's engine runs (the faults' runs not counted)."""
+    from veles_tpu_torch import prng
+    cfg = cfg or LM_CONFIG
+    began = time.monotonic()
+    host = T.init_transformer_params(
+        prng.RandomGenerator("init", SEED), cfg["vocab"],
+        d_model=cfg["d_model"], n_heads=cfg["n_heads"],
+        n_layers=cfg["n_layers"], max_len=cfg["max_len"])
+    n_layers = cfg["n_layers"]
+    reqs = fast_requests(cfg["vocab"])
+    candidates = periodic_requests(cfg["vocab"])
+    total_prompt = sum(len(p) for p, _ in reqs)
+    want_hits = expected_hit_chunks(reqs, FAST_PAGE)
+    caught = {}
+
+    # (a) the shared-prefix requests without the cache (its full prompt
+    # pages kept as they finish), then with it
+    store = {}
+    off, off_outs, off_ttft, off_launches, off_wall = fast_serve(
+        torch, HK, S, cfg, host, reqs, device, "off",
+        prepare=lambda e: record_prefix_pages(e, store))
+    on, on_outs, on_ttft, on_launches, on_wall = fast_serve(
+        torch, HK, S, cfg, host, reqs, device, "on",
+        prefix_cache=FAST_CACHE)
+    c_on, c_off = fast_counters(on), fast_counters(off)
+    check(c_on["prefix_hit_chunks"] == want_hits
+          and want_hits >= (FAST_REQUESTS - 1) * FAST_SHARED // FAST_PAGE,
+          "fastpath: %d prefix hits, want %d" % (c_on["prefix_hit_chunks"],
+                                                 want_hits))
+    check(c_on["prefix_hit_tokens"] == want_hits * FAST_PAGE
+          and c_on["prefill_tokens"] == total_prompt
+          - c_on["prefix_hit_tokens"]
+          and c_off["prefill_tokens"] == total_prompt,
+          "fastpath: prefill tokens %r" % c_on)
+    check(on_launches["paged_flash_prefill"]
+          == n_layers * c_on["prefill_dispatches"] > 0
+          and on_launches["paged_flash_decode"]
+          == n_layers * c_on["decode_dispatches"] > 0,
+          "fastpath: launches %r for %r" % (on_launches, c_on))
+    entries, mismatched = trie_page_mismatches(torch, on, store)
+    check(entries == on._trie.size > 0 and mismatched == 0,
+          "fastpath: %d of %d trie pages differ from the cache-off "
+          "engine's" % (mismatched, entries))
+    cow_ok = planted_cow(torch, on)
+    check(cow_ok, "fastpath: the planted copy-on-write failed")
+    with patched(on, "_page_copy_program", lambda src, dst: None):
+        caught["cow_skips_copy"] = not planted_cow(torch, on)
+    worst_off, exact_off = worst_shortfall(torch, T, off, reqs, off_outs)
+    worst_on, exact_on = worst_shortfall(torch, T, on, reqs, on_outs)
+    check(max(worst_off, worst_on) <= LOGIT_TOL,
+          "fastpath: an emitted token's logit sits %g below its row max "
+          "(tolerance %g)" % (max(worst_off, worst_on), LOGIT_TOL))
+    same_tokens = sum(bool(numpy.array_equal(a, b))
+                      for a, b in zip(on_outs, off_outs))
+    trie_size = on._trie.size
+    check(pool_drained(on) and pool_drained(off),
+          "fastpath: the pool did not get every page back")
+    # the trie keyed on a chunk's first C - 1 tokens
+    bad = fast_serve(torch, HK, S, cfg, host, reqs, device, "bad_key",
+                     prepare=lambda e: setattr(
+                         e, "_chunk_key",
+                         lambda toks: tuple(int(t) for t in toks[:-1])),
+                     prefix_cache=FAST_CACHE)[0]
+    caught["trie_key_drops_last_token"] = (
+        fast_counters(bad)["prefix_hit_chunks"] != want_hits
+        or trie_page_mismatches(torch, bad, store)[1] > 0)
+    del store, bad
+    if device == "cuda":
+        gc_cuda(torch)
+
+    # (b) speculative verify on the candidates whose greedy tokens (the
+    # plain engine's) replay the most accepted drafts on the host
+    _, plain, _, plain_launches, _ = fast_serve(
+        torch, HK, S, cfg, host, candidates, device, "candidates")
+    pool = reqs + candidates
+    replays = [replay_drafts(S, p, out, FAST_SPEC_K)
+               for (p, _), out in zip(pool, off_outs + plain)]
+    by_accepted = sorted(range(len(pool)), key=lambda i: -replays[i][1])
+    picked = [pool[i] for i in by_accepted[:FAST_SPEC_REQUESTS]]
+    replayed = sum(replays[i][1] for i in by_accepted[:FAST_SPEC_REQUESTS])
+    check(replayed > 0, "fastpath: no candidate prompt replays an "
+          "accepted draft")
+    # the fault's requests: the most rejected draft tokens
+    by_rejected = sorted(range(len(pool)),
+                         key=lambda i: replays[i][1] - replays[i][0])
+    rejecting = [pool[i] for i in by_rejected[:FAST_SPEC_REQUESTS // 2]]
+    widths = []
+
+    def splits(b, h, kv, c, dh, m, real=HK.decode_splits):
+        widths.append(c)
+        return real(b, h, kv, c, dh, m)
+    with patched(HK, "decode_splits", splits):
+        spec, spec_outs, spec_ttft, spec_launches, spec_wall = fast_serve(
+            torch, HK, S, cfg, host, picked, device, "spec",
+            spec_k=FAST_SPEC_K)
+    c_spec = fast_counters(spec)
+    check(spec_launches["paged_flash_decode"]
+          == n_layers * c_spec["decode_dispatches"] > 0
+          and spec_launches["paged_flash_prefill"]
+          == n_layers * c_spec["prefill_dispatches"],
+          "fastpath: verify launches %r for %r" % (spec_launches, c_spec))
+    # the serve's launches are the last (warmup's step launches c = 1)
+    widths = widths[len(widths) - spec_launches["paged_flash_decode"]:]
+    check(device != "cuda" or set(widths) == {FAST_SPEC_K + 1},
+          "fastpath: decode launched at c %r" % sorted(set(widths)))
+    check(c_spec["tokens_out"] > c_spec["decode_dispatches"]
+          and c_spec["draft_accepted"] > 0,
+          "fastpath: speculative run %r" % c_spec)
+    worst_spec, exact_spec = worst_shortfall(torch, T, spec, picked,
+                                             spec_outs)
+    check(worst_spec <= LOGIT_TOL, "fastpath: a verified token's logit "
+          "sits %g below its row max (tolerance %g)"
+          % (worst_spec, LOGIT_TOL))
+    check(pool_drained(spec), "fastpath: the speculative engine's pool "
+          "did not get every page back")
+    # the verify step at full width against the plain step: all lanes 16
+    # pages deep on distinct pages
+    w = spec._max_pages
+    ptabs = (1 + numpy.arange(spec.slots * w, dtype=numpy.int32)
+             ).reshape(spec.slots, w)
+    pos = numpy.full(spec.slots, spec.max_len - 1 - FAST_SPEC_K,
+                     numpy.int32)
+    toks = numpy.zeros((spec.slots, FAST_SPEC_K + 1), numpy.int32)
+    verify_ms = step_ms(torch, lambda: spec._verify_program(ptabs, toks,
+                                                            pos), device)
+    plain_ms = step_ms(torch, lambda: spec._step_program(
+        ptabs, toks[:, 0], pos), device)
+
+    # a verifier that accepts every draft unchecked
+    def unchecked(engine):
+        real = engine._verify_program
+
+        def echo(ptabs, toks, pos):
+            out = real(ptabs, toks, pos)
+            out[:, :-1] = toks[:, 1:]
+            return out
+        engine._verify_program = echo
+    bad, bad_outs = fast_serve(torch, HK, S, cfg, host, rejecting, device,
+                               "bad_verify", prepare=unchecked,
+                               spec_k=FAST_SPEC_K)[:2]
+    worst_bad = worst_shortfall(torch, T, bad, rejecting, bad_outs)[0]
+    caught["verify_accepts_unchecked"] = worst_bad > LOGIT_TOL
+    del bad
+
+    launches = {k: sum(run[k] for run in (off_launches, on_launches,
+                                          plain_launches, spec_launches))
+                for k in ("paged_flash_decode", "paged_flash_prefill")}
+    report = {
+        "phase": "serve_fastpath", "card": card, "config": dict(cfg),
+        "slots": FAST_SLOTS, "page": FAST_PAGE,
+        "prefix": {
+            "requests": len(reqs), "shared_tokens": FAST_SHARED,
+            "prompt_tokens": total_prompt,
+            "served_from_cache_tokens": c_on["prefix_hit_tokens"],
+            "prefilled_tokens": c_on["prefill_tokens"],
+            "expected_hit_chunks": want_hits, "cache_chunks": FAST_CACHE,
+            "counters_on": c_on, "counters_off": c_off,
+            "ttft_p50_s_off": statistics.median(off_ttft),
+            "ttft_p50_s_on": statistics.median(on_ttft),
+            "ttft_max_s_off": max(off_ttft), "ttft_max_s_on": max(on_ttft),
+            "wall_s_off": off_wall, "wall_s_on": on_wall,
+            "trie_entries": trie_size,
+            "trie_pages_bit_equal_to_cache_off": entries - mismatched,
+            "planted_cow_ok": cow_ok,
+            "requests_with_equal_tokens_on_off": same_tokens,
+            "teacher_forced": {"worst_shortfall_off": worst_off,
+                               "worst_shortfall_on": worst_on,
+                               "exact_argmax_off": exact_off,
+                               "exact_argmax_on": exact_on,
+                               "tokens": sum(k for _, k in reqs),
+                               "tolerance": LOGIT_TOL}},
+        "spec": {
+            "k": FAST_SPEC_K, "requests": len(picked),
+            "candidates": len(reqs) + len(candidates),
+            "replayed_accepted": replayed,
+            "replayed_rejected_fault_requests": sum(
+                replays[i][0] - replays[i][1]
+                for i in by_rejected[:FAST_SPEC_REQUESTS // 2]),
+            "counters": c_spec,
+            "tokens_per_decode_dispatch":
+            (c_spec["tokens_out"] - len(picked))
+            / c_spec["decode_dispatches"],
+            "decode_launch_c": sorted(set(widths)),
+            "verify_step_ms_full_width": verify_ms,
+            "plain_step_ms_full_width": plain_ms,
+            "ttft_p50_s": statistics.median(spec_ttft),
+            "wall_s": spec_wall,
+            "teacher_forced": {"worst_shortfall": worst_spec,
+                               "exact_argmax": exact_spec,
+                               "tokens": sum(k for _, k in picked),
+                               "tolerance": LOGIT_TOL}},
+        "launches": launches,
+        "faults": {"caught": caught, "unchecked_verify_shortfall": worst_bad},
+        "phase_s": time.monotonic() - began}
+    print(json.dumps({"serve_fastpath": report}), flush=True)
+    for name in FAST_FAULTS:
+        check(caught[name], "fastpath: the planted fault %r was not caught"
+              % name)
+    return launches
+
+
+# ------------------------------------------------------------------ beside
+def beside_phases(out_path):
+    """Phases 15 and 16 in a process of their own (``python3
+    chip_smoke.py --beside OUT``), which ``main`` starts before phase 11
+    and joins after phase 13: both are host work (an AOTInductor
+    compile, REST serving, CLI children, the observers) beside phases
+    whose gloo ranks leave the host's cores idle.  Writes their launch
+    counts and seconds to ``OUT`` (JSON)."""
+    import torch
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.ops import hopper_kernels as HK
+    began = time.monotonic()
+    smi = nvidia_smi()
+    memo_draws(prng)
+    out = {"deploy_launches": deploy_phase(torch, HK, smi),
+           "deploy_s": time.monotonic() - began}
+    gc_cuda(torch)
+    t0 = time.monotonic()
+    out["observe_launches"] = observe_phase(torch, HK, smi)
+    out["observe_s"] = time.monotonic() - t0
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump(out, f)
+    return 0
+
+
+class Beside:
+    """``beside_phases`` in a child process.  Its output goes to files
+    and is relayed to this process's when it is joined; it is killed if
+    this process exits first."""
+
+    def __init__(self):
+        import atexit
+        import tempfile
+        self.stopped = False
+        self.tmp = tempfile.mkdtemp(prefix="veles_beside_")
+        self.out = os.path.join(self.tmp, "out.json")
+        here = os.path.abspath(__file__)
+        self.logs = [open(os.path.join(self.tmp, name), "w+",
+                          encoding="utf-8") for name in ("stdout", "stderr")]
+        self.proc = subprocess.Popen(
+            [sys.executable, here, "--beside", self.out],
+            cwd=os.path.dirname(here),
+            env=dict(os.environ, PYTHONPATH=os.path.dirname(here)),
+            stdout=self.logs[0], stderr=self.logs[1],
+            start_new_session=True)
+        atexit.register(self.kill)
+
+    def kill(self):
+        """Stop the child and every process it started (its session),
+        once."""
+        import signal
+        if self.stopped:
+            return
+        self.stopped = True
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait()
+
+    def join(self, timeout=900):
+        """Wait for the child, relay its output, and return its
+        report."""
+        import shutil
+        try:
+            code = self.proc.wait(timeout=timeout)
+        finally:
+            self.kill()
+        for log, stream in zip(self.logs, (sys.stdout, sys.stderr)):
+            log.seek(0)
+            stream.write(log.read())
+            stream.flush()
+            log.close()
+        try:
+            check(code == 0, "phases 15 and 16 failed (exit %s; their "
+                  "output above)" % code)
+            with open(self.out, encoding="utf-8") as f:
+                return json.load(f)
+        finally:
+            shutil.rmtree(self.tmp, ignore_errors=True)
+
+
 def main():
     started = time.monotonic()
+    laps, mark = {}, [started]
+
+    def lap(name):
+        """The seconds since the previous lap, kept under ``name``."""
+        now = time.monotonic()
+        laps[name] = now - mark[0]
+        mark[0] = now
+
     import torch
     if not torch.cuda.is_available():
         print("chip smoke: no CUDA device", file=sys.stderr)
@@ -7458,6 +8109,8 @@ def main():
         _build.PACKAGE_DIR.parent)))
     print("build: %.2f s -> %s" % (time.monotonic() - t0, ", ".join(libs)),
           flush=True)
+    memo_draws(prng)
+    lap("start_and_build")
 
     # 3. kernels against their plain versions, at the serving shapes
     cases = [decode_case(torch, HK, A),
@@ -7465,7 +8118,9 @@ def main():
              decode_case(torch, HK, A, c=4, seed=2),
              decode_case(torch, HK, A, window=100, sinks=4, seed=3),
              prefill_case(torch, HK, A, 0),
-             prefill_case(torch, HK, A, 15)]
+             prefill_case(torch, HK, A, 15),
+             # the speculative verify's geometry: k + 1 = 5 query rows
+             decode_case(torch, HK, A, c=FAST_SPEC_K + 1, seed=16)]
     # no limit on the table width or head_dim: long tables (a
     # 16384-token view) and odd or wide heads, checked only
     checks = [decode_case(torch, HK, A, dh=128, m=512, seed=4, timed=False),
@@ -7496,10 +8151,13 @@ def main():
               prefill_case(torch, HK, A, 50, b=2, kv=2, dh=128, page=8,
                            m=64, window=100, sinks=4, seed=15,
                            timed=False)]
+    lap("kernels_paged")
     sgd = sgd_cases(torch, HK)
+    lap("kernels_sgd")
     lrn = [c for i, (name, shape) in enumerate(LRN_SHAPES.items())
            for c in lrn_case(torch, HK, name, shape, seed=i)]
     lrn_checks = lrn_edge_cases(torch, HK)
+    lap("kernels_lrn")
     drop = [dropout_case(torch, HK, prng, name, shape, seed=i)
             for i, (name, shape) in enumerate(DROPOUT_SHAPES.items())]
     drop_checks = [dropout_case(torch, HK, prng, "n%d" % n, (n,), rate,
@@ -7511,6 +8169,7 @@ def main():
     draws += [bernoulli_case(torch, HK, prng, "n%d" % n, (n,), exact,
                              seed=20 + n, timed=False)
               for n in (1, 127, 2 ** 16 + 3) for exact in (False, True)]
+    lap("kernels_dropout_bernoulli")
     flash = flash_case(torch, HK, *FLASH_MAIN)
     flash_checks = [rec for kw in (dict(dh=32), dict(dh=40), dict(dh=128))
                     for rec in flash_case(torch, HK, 2, 4, 200, causal=False,
@@ -7524,16 +8183,20 @@ def main():
     floor_ms = time_ms([lambda: torch.cuda._sleep(0)], torch)
     print(json.dumps({"empty_launch_ms": floor_ms, "card": smi}),
           flush=True)
+    lap("kernels_flash")
     dev_entries = device_entry_cases(torch, HK, prng)
     for case in (cases + checks + sgd + lrn + lrn_checks + drop + drop_checks
                  + draws + flash + flash_checks + dev_entries):
         print(json.dumps(dict(case, card=smi)), flush=True)
+    lap("kernels_device_entries")
 
     # 4. serve through the engine
     launches = serve(torch, HK, T, S, smi)
+    lap("serve")
 
     # 5. train MNIST-FC through the sample's entry point
     launches["fused_sgd_update"] = train(torch, HK, smi)["fused_sgd_update"]
+    lap("train")
 
     # 6. train full-width AlexNet through the ImageNet sample, on the
     # synthetic set, then from a record file (and the LMDB leg)
@@ -7541,17 +8204,21 @@ def main():
     for k in ("lrn_forward", "lrn_backward", "dropout"):
         launches[k] = alex[k]
     launches["fused_sgd_update"] += alex["fused_sgd_update"]
+    lap("alexnet")
     rec = records(torch, HK, smi, synthetic=synthetic)
     for k in ("lrn_forward", "lrn_backward", "dropout", "fused_sgd_update"):
         launches[k] += rec[k]
+    lap("records")
     launches["fused_sgd_update"] += wine_phase(torch, HK, smi)[
         "fused_sgd_update"]
+    lap("wine")
 
     # 7. train the full-width LM through the char-LM sample
     lm, lm_steady = lm_train(torch, HK, smi)
     for k in ("flash_attention_fwd", "flash_attention_bwd_dkv",
               "flash_attention_bwd_dq"):
         launches[k] = lm[k]
+    lap("lm_train")
 
     # 8. the conv zoo through the samples' own train
     from veles_tpu_torch.ops import functional as F
@@ -7559,6 +8226,7 @@ def main():
     for sample in ZOO:
         launches["fused_sgd_update"] += zoo(torch, HK, smi, sample)[
             "fused_sgd_update"]
+    lap("zoo")
 
     # 9. the non-SGD trainers, the lines and video_ae samples, the streams
     som = kohonen_phase(torch, HK, smi)
@@ -7576,6 +8244,7 @@ def main():
                                      "bound_ms", "bound_by", "library_ms")}
                   for c in draws if "kernel_ms" in c],
         "empty_launch_ms": floor_ms, "card": smi}}), flush=True)
+    lap("non_sgd_and_streams")
 
     # 10. the run harness through the CLI: the graph loop, the epoch
     # scan (captured steps) and the streaming scan
@@ -7583,6 +8252,10 @@ def main():
     harnessed = harness(torch, HK, smi, keep=kept)
     for k, v in harnessed.items():
         launches[k] = launches.get(k, 0) + v
+    lap("harness")
+
+    # 15 and 16 in a second process, beside 11-13 (``beside_phases``)
+    beside = Beside()
 
     # 11. data- and tensor-parallel AlexNet: NCCL at world 1 through the
     # CLI, then two gloo ranks sharing the card
@@ -7590,6 +8263,7 @@ def main():
     del kept
     for k, v in shared.items():
         launches[k] = launches.get(k, 0) + v
+    lap("parallel")
 
     # 12. mixture of experts at the full LM width, trained and served,
     # then expert parallelism; the earlier phases' runs go first
@@ -7610,6 +8284,7 @@ def main():
         launches[k] += v
     gc_cuda(torch)
     moe_ep_phase(torch, smi)
+    lap("moe")
 
     # 13. GPipe at one stage in this process and at four on gloo ranks
     # sharing the card, then ring attention on those ranks
@@ -7619,6 +8294,14 @@ def main():
     for k, v in pipe_launches.items():
         launches[k] += v
     gc_cuda(torch)
+    lap("pipeline")
+
+    # 15 and 16 joined: their launches, and their seconds beside 11-13
+    aside = beside.join()
+    deploy_launches = aside["deploy_launches"]
+    observe_launches = aside["observe_launches"]
+    launches["fused_sgd_update"] += observe_launches
+    lap("beside_wait")
 
     # 14. the rolling-cache decode at the full LM width, the GA and the
     # ensemble on MNIST-FC in this process and in workers sharing the
@@ -7632,22 +8315,17 @@ def main():
     zmq_phase(torch, smi)
     print(json.dumps({"phase14_s": time.monotonic() - t0, "card": smi}),
           flush=True)
+    lap("rolling_population_zmq")
 
-    # 15. deployment: a trained full-width AlexNet exported (fp32, int8),
-    # served over REST and run by the native runner, the LRN forward
-    # kernel inside each; the CLI's --serve; the planted faults
+    # 17. the serving fast path: the radix prefix cache with
+    # copy-on-write pages, and the speculative verify at c = k + 1
+    fast_launches = serve_fastpath(torch, HK, T, S, smi)
+    for k, v in fast_launches.items():
+        launches[k] += v
     gc_cuda(torch)
-    deploy_launches = deploy_phase(torch, HK, smi)
-    gc_cuda(torch)
+    lap("serve_fastpath")
 
-    # 16. observability: the plotters over ZeroMQ, the dashboard, the
-    # events file and the report on MNIST-FC, each run bit-equal to the
-    # same run unobserved
-    observe_launches = observe_phase(torch, HK, smi)
-    launches["fused_sgd_update"] += observe_launches
-    gc_cuda(torch)
-
-    # 17. the kernels line and the result
+    # 18. the kernels line and the result
     main_case = {"flash_attention_fwd": flash[0],
                  "flash_attention_bwd_dkv": flash[1],
                  "flash_attention_bwd_dq": flash[2],
@@ -7690,6 +8368,8 @@ def main():
             row["moe_launches"] = moe_launches[row["name"]]
         if row["name"] in pipe_launches:
             row["pipeline_launches"] = pipe_launches[row["name"]]
+        if row["name"] in fast_launches:
+            row["fastpath_launches"] = fast_launches[row["name"]]
         if row["name"] == "fused_sgd_update":
             row["population_launches"] = pop_launches
             row["observe_launches"] = observe_launches
@@ -7700,6 +8380,10 @@ def main():
         if row["name"] in ("fused_sgd_update", "paged_flash_decode",
                            "paged_flash_prefill"):
             row["empty_launch_ms"] = floor_ms
+    print(json.dumps({"phase_seconds": laps,
+                      "beside_seconds": {k: aside[k] for k in (
+                          "deploy_s", "observe_s")}, "card": smi}),
+          flush=True)
     print("chip smoke: %.1f s" % (time.monotonic() - started), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -7716,6 +8400,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--moe-rank"]:
         sys.exit(moe_ep_rank(int(sys.argv[2]), int(sys.argv[3]),
                              sys.argv[4]))
+    if sys.argv[1:2] == ["--beside"]:
+        sys.exit(beside_phases(sys.argv[2]))
     if sys.argv[1:2] == ["--pipeline-rank"]:
         sys.exit(pipeline_rank(int(sys.argv[2]), int(sys.argv[3]),
                                sys.argv[4], sys.argv[5]))

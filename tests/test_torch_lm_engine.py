@@ -179,7 +179,7 @@ def test_generate_batch_and_ttft(workload):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("prefix_cache", 4), ("spec_k", 2), ("megastep", 4), ("tp", 2),
+    ("megastep", 4), ("tp", 2),
     ("devices", ["cpu"]), ("refill_ring", 2), ("temperature", 0.7),
     ("faults", object()), ("tracer", object()), ("paged_kv", 0),
 ])

@@ -321,6 +321,14 @@ def export_native_bundle(workflow, out_dir, batch=8):
     # (``tools/aoti_layout_repro.py``, variants crop_relu and crop_hwio).
     # AlexNet's eval forward is a center crop, then conv + relu.
     config = {"layout_optimization": False}
+    if device.type == "cuda":
+        # The host side of a card bundle only launches kernels, so it
+        # needs no SIMD: Inductor's probe of the host CPU's vector ISA
+        # (test programs compiled under a file lock) and its pool of
+        # compile workers cost most of a bundle's compile on an H100
+        # host with no Inductor cache (``chip_smoke.py`` phase 15
+        # reports ``aoti_compile_s``).
+        config.update({"cpp.vec_isa_ok": False, "compile_threads": 1})
     cxx = _openmp_cxx()
     if cxx:
         config["cpp.cxx"] = (None, cxx)

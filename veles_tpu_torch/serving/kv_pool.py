@@ -28,8 +28,7 @@ Three invariants the engine leans on:
 - COPY-ON-WRITE discipline: writers must own their page exclusively.
   :meth:`shared` is the check; the engine's write paths consult it and
   copy the page before appending — the OTHER referents keep the
-  original rows bit-identical.  (Only shared pages need it, and this
-  port shares none yet: the prefix cache that shares them waits.)
+  original rows bit-identical.
 
 Single-threaded by design: every call happens on the engine worker
 thread, so there is

@@ -20,6 +20,25 @@ per-lane page table (``serving/kv_pool.py`` owns the bookkeeping):
 - a finished lane releases its pages and slot at once, and the next
   queued prompt takes them.
 
+Two fast-path knobs, each leaving the greedy tokens unchanged:
+
+- ``prefix_cache=N`` — a chunk-granular RADIX PREFIX CACHE
+  (:class:`RadixPrefixCache`, N chunks) over prompt tokens.  A full
+  prompt chunk already computed under the same token prefix is a page
+  REFERENCE (ref count plus pin, no device work); a lane admitted
+  beside a sibling prefilling the same prompt picks up its chunks as
+  LATE HITS; entries are LRU-evicted leaf-first at capacity and under
+  pool pressure (eviction releases the page).  Writers own their page
+  exclusively: a write into a shared page copies it first
+  (copy-on-write, one page-copy program).
+- ``spec_k=K`` — PROMPT-LOOKUP SPECULATIVE DECODING: the lane's own
+  prompt+output proposes up to K draft tokens (:func:`propose_draft`),
+  verified for every lane in ONE batched dispatch of ``K + 1`` query
+  rows (``paged_flash_decode`` with ``c = K + 1``); a draft token is
+  accepted only where it equals the verifier's own argmax, then the
+  correction or bonus token follows, so a dispatch yields 1 to K + 1
+  greedy tokens a lane.
+
 Attention runs through the hand-written Hopper kernels
 (``ops/hopper_kernels.py``): the decode step through
 ``paged_flash_decode`` (the page table walked inside the kernel, no
@@ -67,8 +86,6 @@ from veles_tpu_torch.serving.metrics import ServingMetrics
 
 #: where each unported knob of the reference engine is queued
 _ROADMAP = {
-    "prefix_cache": "Queue 1 item 1 (prefix cache + copy-on-write)",
-    "spec_k": "Queue 1 item 2 (speculative verify)",
     "megastep": "Queue 1 item 3 (megastep / while-loop decode)",
     "refill_ring": "Queue 1 item 3 (megastep / while-loop decode)",
     "tp": "Queue 1 item 4 (tensor-parallel serving)",
@@ -89,6 +106,180 @@ _ROADMAP = {
 def _unported(knob):
     return NotImplementedError(
         "LMEngine %s is not ported yet: ROADMAP %s" % (knob, _ROADMAP[knob]))
+
+
+def propose_draft(history, k, max_ngram=3):
+    """Prompt-lookup draft: find the most recent earlier occurrence of
+    the sequence's final n-gram (n = ``max_ngram`` down to 1) and
+    propose the (up to ``k``) tokens that followed it.  Returns (m,)
+    int32 with 1 <= m <= k — exactly the continuation found, unpadded,
+    so callers can meter real draft tokens — or None when no n-gram
+    recurs.
+
+    Draft quality only affects SPEED: the verifier accepts a draft
+    token only when it equals its own greedy argmax."""
+    history = numpy.asarray(history, numpy.int32).reshape(-1)
+    n = len(history)
+    for g in range(min(max_ngram, n - 1), 0, -1):
+        # candidate windows END strictly before the final position (the
+        # tail is not a match for itself)
+        tail = history[n - g:]
+        windows = numpy.lib.stride_tricks.sliding_window_view(
+            history[:n - 1], g)
+        hits = numpy.flatnonzero((windows == tail).all(axis=1))
+        if not len(hits):
+            continue
+        s = int(hits[-1])               # most recent occurrence
+        cont = history[s + g:s + g + k]
+        if len(cont):
+            return numpy.asarray(cont, numpy.int32)
+    return None
+
+
+class _PrefixNode:
+    __slots__ = ("key", "rows", "children", "refs", "last_use", "parent")
+
+    def __init__(self, key, rows, parent):
+        self.key = key                # tuple of the chunk's tokens
+        self.rows = rows              # the page id holding its K/V
+        self.children = {}
+        self.refs = 0
+        self.last_use = 0
+        self.parent = parent
+
+
+class RadixPrefixCache:
+    """Radix trie over prompt tokens at CHUNK granularity.
+
+    A node stands for exactly ``chunk`` tokens at absolute positions
+    [depth·chunk, (depth+1)·chunk): their K/V rows are valid for ANY
+    prompt sharing that token prefix, because causal attention makes a
+    position's K/V depend only on the tokens at and before it.  Keys
+    are the chunk's literal tokens, so two prompts diverging mid-chunk
+    have different keys and never share a chunk.
+
+    Entries are PINNED (ref-counted) while a lane uses them and
+    LRU-evicted leaf-first at ``capacity`` chunks.  Every call runs on
+    the engine's worker thread — no locking.
+
+    ``rows`` is opaque to the trie; the engine stores a PAGE ID, and
+    ``on_evict(rows)`` — the pool's ``release`` — fires whenever an
+    entry is dropped, so eviction IS the pool's reclamation path under
+    pressure (pinned entries refusing eviction keep lane-held pages
+    safe)."""
+
+    def __init__(self, capacity, chunk, on_evict=None):
+        if capacity < 1:
+            raise ValueError("prefix cache capacity must be >= 1")
+        self.capacity = int(capacity)
+        self.chunk = int(chunk)
+        self.on_evict = on_evict
+        self.root = _PrefixNode(None, None, None)
+        self.size = 0
+        self._tick = 0
+
+    def match(self, keys):
+        """Longest cached prefix along ``keys`` (chunk-token tuples);
+        returns the matched nodes in order, each pinned — pass them to
+        :meth:`release` when the lane finishes."""
+        self._tick += 1
+        node, out = self.root, []
+        for key in keys:
+            child = node.children.get(key)
+            if child is None:
+                break
+            child.refs += 1
+            child.last_use = self._tick
+            out.append(child)
+            node = child
+        return out
+
+    def insert(self, parent, key, rows):
+        """Add one computed chunk under ``parent`` (root or the lane's
+        previous node); returns the PINNED node — an existing node is
+        reused (first writer wins; identical content by construction) —
+        or None when every entry is pinned and nothing can be evicted."""
+        self._tick += 1
+        node = parent.children.get(key)
+        if node is None:
+            while self.size >= self.capacity:
+                if not self._evict_one():
+                    return None
+            node = _PrefixNode(key, rows, parent)
+            parent.children[key] = node
+            self.size += 1
+        node.refs += 1
+        node.last_use = self._tick
+        return node
+
+    def lookup_child(self, parent, key):
+        """The one-chunk extension of ``parent`` by ``key``, PINNED, or
+        None.  Asked per pending chunk right before computing it: a
+        sibling lane prefilling the same prompt may have inserted the
+        chunk since this lane was admitted (a LATE HIT), so concurrent
+        shared-prefix arrivals converge on one prefill."""
+        node = parent.children.get(key)
+        if node is None:
+            return None
+        self._tick += 1
+        node.refs += 1
+        node.last_use = self._tick
+        return node
+
+    def release(self, nodes):
+        for node in nodes:
+            node.refs -= 1
+
+    def evict_one(self):
+        """Drop the LRU unpinned leaf now (pool-pressure reclamation).
+        Returns True when an entry was dropped."""
+        return self._evict_one()
+
+    def evictable(self):
+        """Upper bound on the entries eviction can reclaim: the
+        UNPINNED count (an unpinned interior node above a pinned child
+        is counted but unreachable; lanes pin whole root-anchored
+        paths).  Checked BEFORE evicting, so a hopeless reservation
+        cannot flush the whole cache for nothing."""
+        count, stack = 0, [self.root]
+        while stack:
+            for child in stack.pop().children.values():
+                if child.refs == 0:
+                    count += 1
+                stack.append(child)
+        return count
+
+    def live_pins(self):
+        """Total outstanding pin count across the trie — 0 whenever no
+        lane is active (a nonzero value at idle means a path forgot to
+        release a lane's pins)."""
+        total, stack = 0, [self.root]
+        while stack:
+            for child in stack.pop().children.values():
+                total += child.refs
+                stack.append(child)
+        return total
+
+    def _evict_one(self):
+        """Evict the least-recently-used unpinned LEAF (interior nodes
+        keep their children's prefix reachable; they become leaves —
+        and evictable — once their subtree ages out)."""
+        best = None
+        stack = list(self.root.children.values())
+        while stack:
+            node = stack.pop()
+            if node.children:
+                stack.extend(node.children.values())
+            elif node.refs == 0 and (best is None
+                                     or node.last_use < best.last_use):
+                best = node
+        if best is None:
+            return False
+        del best.parent.children[best.key]
+        self.size -= 1
+        if self.on_evict is not None:
+            self.on_evict(best.rows)
+        return True
 
 
 class _Request:
@@ -113,7 +304,8 @@ class _Request:
 class _Slot:
     """Host-side lane state; device state lives in the shared pools."""
 
-    __slots__ = ("request", "emitted", "remaining", "pending", "pages")
+    __slots__ = ("request", "emitted", "remaining", "pending", "pinned",
+                 "cursor", "pages")
 
     def __init__(self, request):
         self.request = request
@@ -121,6 +313,11 @@ class _Slot:
         self.remaining = request.n_new
         #: chunked prefill still to run: [(tokens (C,), start, is_tail)]
         self.pending = []
+        #: prefix-cache nodes pinned by this lane (released at finish)
+        self.pinned = []
+        #: trie node of the last matched/inserted chunk (None once the
+        #: cache refused an insert — this lane's path stops extending)
+        self.cursor = None
         #: page ids backing this lane's table row, in lane-local order
         self.pages = []
 
@@ -135,12 +332,17 @@ class LMEngine(Logger):
     One worker thread owns the device state; clients :meth:`submit`
     single prompts (or :meth:`generate` a batch) and block on futures.
     ``max_len`` pins the lane span: every request must satisfy
-    ``len(prompt) + n_new <= max_len``.  ``paged_kv=True`` sizes the
-    pool at ``slots × max_len / page`` pages, an int sets it; the page
-    is ``prefill_chunk`` tokens (default the largest divisor of
-    ``max_len`` up to 32).  ``queue_tokens=T`` budgets admission by
-    queued prompt tokens.  Attention always runs through the kernel
-    wrappers; a geometry they cannot carry raises ValueError here.
+    ``len(prompt) + n_new + spec_k <= max_len`` (a verify dispatch
+    writes up to ``spec_k`` positions past the committed front).
+    ``paged_kv=True`` sizes the pool at ``slots × max_len / page``
+    pages, an int sets it; the page is ``prefill_chunk`` tokens
+    (default the largest divisor of ``max_len`` up to 32).
+    ``prefix_cache=N`` keeps up to N prompt chunks in the radix prefix
+    cache; ``spec_k=K`` verifies prompt-lookup drafts of up to K tokens
+    found by matching ``spec_ngram``-grams.  ``queue_tokens=T`` budgets
+    admission by queued prompt tokens.  Attention always runs through
+    the kernel wrappers; a geometry they cannot carry raises ValueError
+    here.
     """
 
     #: the CROSS-THREAD state — client admission vs the worker loop —
@@ -155,12 +357,11 @@ class LMEngine(Logger):
     def __init__(self, params, n_heads, max_len, slots=4, rope=False,
                  window=None, sinks=0, queue_depth=64, deadline_s=30.0,
                  metrics=None, name="lm", prefill_chunk=0,
-                 prefix_cache=0, spec_k=0, queue_tokens=0, paged_kv=True,
-                 tp=0, devices=None, faults=None,
+                 prefix_cache=0, spec_k=0, spec_ngram=3, queue_tokens=0,
+                 paged_kv=True, tp=0, devices=None, faults=None,
                  version=0, tracer=None, megastep=0, refill_ring=0,
                  temperature=0.0, device=None):
-        for knob, value in (("prefix_cache", prefix_cache),
-                            ("spec_k", spec_k), ("megastep", megastep),
+        for knob, value in (("megastep", megastep),
                             ("refill_ring", refill_ring), ("tp", tp),
                             ("devices", devices), ("faults", faults),
                             ("tracer", tracer),
@@ -189,9 +390,23 @@ class LMEngine(Logger):
             while self.max_len % prefill_chunk:
                 prefill_chunk -= 1
         self.prefill_chunk = int(prefill_chunk)
+        self.spec_k = int(spec_k)
+        self.spec_ngram = int(spec_ngram)
         if self.prefill_chunk < 0 or self.prefill_chunk > self.max_len:
             raise ValueError("prefill_chunk %d out of range (max_len %d)"
                              % (self.prefill_chunk, self.max_len))
+        if self.spec_k < 0 or self.spec_k + 1 >= self.max_len:
+            raise ValueError("spec_k %d out of range (max_len %d)"
+                             % (self.spec_k, self.max_len))
+        if self.spec_k and self.spec_k + 1 > self.prefill_chunk:
+            # a prefilling lane parks its step position at the chunk
+            # frontier; its next chunk overwrites the verify dispatch's
+            # k+1 garbage writes only when they fit inside one chunk
+            raise ValueError("spec_k + 1 (%d) must not exceed "
+                             "prefill_chunk (%d)"
+                             % (self.spec_k + 1, self.prefill_chunk))
+        if self.spec_ngram < 1:
+            raise ValueError("spec_ngram must be >= 1")
         if self.max_len % self.prefill_chunk:
             # the paged lane view must tile max_len exactly, and the
             # chunk program relies on page-aligned starts
@@ -247,6 +462,11 @@ class LMEngine(Logger):
         self._page_tables = numpy.zeros((self.slots, self._max_pages),
                                         numpy.int32)
         self.metrics.set_gauge("kv_pages_total", num_pages)
+        #: the trie's entries hold page references; evicting one
+        #: releases its page
+        self._trie = (RadixPrefixCache(prefix_cache, self.prefill_chunk,
+                                       on_evict=self._pool.release)
+                      if prefix_cache else None)
         #: per-slot device-facing scalars, host-owned between ticks
         self._pos = numpy.zeros(self.slots, numpy.int32)
         self._last = numpy.zeros(self.slots, numpy.int32)
@@ -292,16 +512,44 @@ class LMEngine(Logger):
         logits = head_logits(self.params, h[:, 0])
         return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
 
+    def _verify_program(self, ptabs, toks, pos):
+        """ONE dispatch feeds every lane's (k+1,) tokens — [last
+        committed, draft...] — at its own position (one
+        ``paged_flash_decode`` launch a layer with ``c = k + 1`` query
+        rows); returns the (slots, k+1) greedy picks AFTER each fed
+        position as a host array."""
+        h, _ = paged_chunk_apply(
+            self.params, self._tensor(toks), self._kv_pools,
+            self._tensor(ptabs), self._tensor(pos), self.n_heads,
+            rope=self.rope, window=self.window, sinks=self.sinks,
+            attn_kernel="decode")
+        logits = head_logits(self.params, h)          # (slots, k+1, v)
+        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+
+    def _page_copy_program(self, src, dst):
+        """Copy-on-write: duplicate page ``src`` into ``dst`` in every
+        block's K and V pool (in place), so the writer owns ``dst``
+        exclusively and the other referents of ``src`` keep
+        bit-identical rows."""
+        for kp, vp in self._kv_pools:
+            kp[dst].copy_(kp[src])
+            vp[dst].copy_(vp[src])
+
     def _warmup(self):
         """Run every program shape once before traffic (on the card
-        this builds the kernels): the chunk program, and the step at
-        every live-width ladder entry.  All writes land on the scratch
-        page (zero tables, position 0)."""
+        this builds the kernels): the chunk program, the page copy, and
+        the step (and with ``spec_k`` the verify) at every live-width
+        ladder entry.  All writes land on the scratch page (zero
+        tables, position 0)."""
         ptabs = numpy.zeros((self.slots, self._max_pages), numpy.int32)
         self._chunk_program(ptabs[0], numpy.zeros(self.prefill_chunk,
                                                   numpy.int32), 0, 0)
+        self._page_copy_program(KVPagePool.SCRATCH, KVPagePool.SCRATCH)
         zeros = numpy.zeros(self.slots, numpy.int32)
+        drafts = numpy.zeros((self.slots, self.spec_k + 1), numpy.int32)
         for w in self._width_ladder:
+            if self.spec_k:
+                self._verify_program(ptabs[:, :w], drafts, zeros)
             self._step_program(ptabs[:, :w], zeros, zeros)
 
     def start(self):
@@ -342,11 +590,14 @@ class LMEngine(Logger):
             raise ValueError("empty prompt")
         if n_new < 1:
             raise ValueError("n_new must be >= 1")
-        if len(prompt) + n_new > self.max_len:
-            raise ValueError("prompt %d + n_new %d exceeds the engine "
+        if len(prompt) + n_new + self.spec_k > self.max_len:
+            extra = (" (+%d speculative headroom, spec_k)" % self.spec_k
+                     if self.spec_k else "")
+            raise ValueError("prompt %d + n_new %d%s exceeds the engine "
                              "cache length %d"
-                             % (len(prompt), n_new, self.max_len))
-        demand = -(-(len(prompt) + n_new) // self.prefill_chunk)
+                             % (len(prompt), n_new, extra, self.max_len))
+        demand = -(-(len(prompt) + n_new + self.spec_k)
+                   // self.prefill_chunk)
         if demand > self._pool.num_pages:
             raise ValueError(
                 "prompt %d + n_new %d needs %d KV pages but the pool "
@@ -423,27 +674,36 @@ class LMEngine(Logger):
     # ---------------------------------------------------------- accounting
     def verify_pool_invariants(self):
         """Cross-check the allocator against the engine's own references:
-        every page's refcount and pin count must equal the lanes holding
-        it, and the pool's free-list/ref/pin bookkeeping must be
-        self-consistent.  Raises RuntimeError naming the first violated
-        page; returns a summary dict when sound.  Call quiesced."""
+        every page's refcount must equal the lanes holding it (each also
+        pinned) plus the trie nodes storing it, and the pool's
+        free-list/ref/pin bookkeeping must be self-consistent.  Raises
+        RuntimeError naming the first violated page; returns a summary
+        dict when sound.  Call quiesced."""
         self._pool.verify()
         n = self._pool.num_pages
-        want = [0] * (n + 1)
+        want_refs = [0] * (n + 1)
+        want_pins = [0] * (n + 1)
         for lane in self._lanes:
             if lane is not None:
                 for p in lane.pages:
-                    want[p] += 1
+                    want_refs[p] += 1
+                    want_pins[p] += 1
+        if self._trie is not None:
+            stack = list(self._trie.root.children.values())
+            while stack:
+                node = stack.pop()
+                stack.extend(node.children.values())
+                want_refs[node.rows] += 1
         for p in range(1, n + 1):
-            if self._pool.refs(p) != want[p]:
+            if self._pool.refs(p) != want_refs[p]:
                 raise RuntimeError(
-                    "page %d holds %d refs but lanes account for %d — "
-                    "leaked or double-released"
-                    % (p, self._pool.refs(p), want[p]))
-            if self._pool._pins[p] != want[p]:
+                    "page %d holds %d refs but lanes+trie account for %d "
+                    "— leaked or double-released"
+                    % (p, self._pool.refs(p), want_refs[p]))
+            if self._pool._pins[p] != want_pins[p]:
                 raise RuntimeError(
                     "page %d holds %d pins but active lanes account for "
-                    "%d" % (p, self._pool._pins[p], want[p]))
+                    "%d" % (p, self._pool._pins[p], want_pins[p]))
         return {"paged": True, "free_pages": self._pool.free_pages,
                 "used_pages": self._pool.used_pages,
                 "pinned_pages": self._pool.pinned_pages}
@@ -511,23 +771,51 @@ class LMEngine(Logger):
                                            self._queued_pages)
                 return
 
+    def _chunk_key(self, tokens):
+        """The prefix cache's key of one prompt chunk: its literal
+        tokens."""
+        return tuple(int(t) for t in tokens)
+
     def _admit_paged(self, slot, req):   # hot-path
         """Reserve the lane's WORST-CASE page span up front (no
-        mid-decode allocation, so decode can never deadlock on pages)
-        and queue its prompt as per-tick chunks.  Returns False —
-        nothing committed — when the pool cannot cover it."""
+        mid-decode allocation, so decode can never deadlock on pages),
+        with prefix-cache hits substituting page REFERENCES (ref count
+        and pin, no device work) for fresh pages, and queue the rest of
+        its prompt as per-tick chunks.  Returns False — nothing
+        committed — when the pool cannot cover it even after pressing
+        the prefix cache."""
         C = self.prefill_chunk
+        # the tail chunk (the last prompt token's) is never cached
         n_full = (req.true_len - 1) // C
-        fresh = self._alloc_pages(req.pages)
+        nodes = []
+        if self._trie is not None:
+            nodes = self._trie.match(
+                [self._chunk_key(req.prompt[i * C:(i + 1) * C])
+                 for i in range(n_full)])
+        fresh = self._alloc_pages(req.pages - len(nodes))
         if fresh is None:
+            if nodes:            # nothing committed — undo the pins
+                self._trie.release(nodes)
             return False
         lane = _Slot(req)
+        lane.pinned.extend(nodes)
+        if self._trie is not None:
+            lane.cursor = nodes[-1] if nodes else self._trie.root
+        for node in nodes:
+            self._pool.retain(node.rows)     # the lane's reference
+            self._pool.pin(node.rows)
+            lane.pages.append(node.rows)
         for p in fresh:
             self._pool.pin(p)
         lane.pages.extend(fresh)
         self._page_tables[slot, :len(lane.pages)] = lane.pages
         self._page_tables[slot, len(lane.pages):] = KVPagePool.SCRATCH
-        for i in range(n_full):
+        if nodes:
+            self.metrics.inc("prefix_hit_chunks", len(nodes))
+            self.metrics.inc("prefix_hit_tokens", len(nodes) * C)
+            self.metrics.inc("kv_pages_referenced", len(nodes))
+            self.metrics.set_gauge("prefix_cache_chunks", self._trie.size)
+        for i in range(len(nodes), n_full):
             lane.pending.append((req.prompt[i * C:(i + 1) * C], i * C,
                                  False))
         tail = req.prompt[n_full * C:]
@@ -544,10 +832,82 @@ class LMEngine(Logger):
         return True
 
     def _alloc_pages(self, n):
-        """``n`` pages from the pool, or None; never blocks."""
+        """``n`` pages from the pool, pressing the prefix cache to drop
+        LRU unpinned entries (each eviction releases its page) until
+        the allocation fits or nothing more can be evicted.  Returns
+        the page list or None; never blocks."""
         if n <= 0:
             return []
-        return self._pool.alloc(n)
+        pages = self._pool.alloc(n)
+        if pages is None and self._trie is not None:
+            # each eviction frees at most ONE page — when even a full
+            # flush cannot cover the deficit, keep the cache warm (only
+            # lanes finishing can place the request anyway)
+            if self._pool.free_pages + self._trie.evictable() < n:
+                return None
+            while pages is None and self._trie.evict_one():
+                self.metrics.set_gauge("prefix_cache_chunks",
+                                       self._trie.size)
+                pages = self._pool.alloc(n)
+        return pages
+
+    def _cow_guard(self, slot, lane, lo, hi):   # hot-path
+        """COPY-ON-WRITE: before a device write covering linear
+        positions [lo, hi), replace any SHARED page in that range with
+        a private copy (one page-copy program) so the other referents —
+        sibling lanes, the prefix cache — keep their rows
+        bit-identical.  Structurally rare (shared pages are full prompt
+        chunks; appends land past the prompt), kept as the safety net
+        that makes sharing unconditionally sound.  Raises on pool
+        exhaustion — the caller fails THIS lane, never wedges.  ``hi``
+        is clamped to the lane's reservation (pages past it are never
+        written by a live lane)."""
+        P = self.prefill_chunk
+        hi = min(hi, len(lane.pages) * P)
+        if hi <= lo:
+            return
+        for j in range(lo // P, (hi - 1) // P + 1):
+            p = lane.pages[j]
+            if not self._pool.shared(p):
+                continue
+            fresh = self._alloc_pages(1)
+            if fresh is None:
+                raise Overloaded()
+            q = fresh[0]
+            try:
+                self._page_copy_program(p, q)
+            except Exception:
+                # nobody owns q yet (not in lane.pages) — hand it back
+                # or a faulting device shrinks the pool for good
+                self._pool.release(q)
+                raise
+            self._pool.pin(q)
+            self._pool.unpin(p)
+            self._pool.release(p)
+            lane.pages[j] = q
+            self._page_tables[slot, j] = q
+            self.metrics.inc("kv_cow_copies")
+            self._update_pool_gauges()
+
+    def _cow_guard_active(self, active, span):
+        """:meth:`_cow_guard` over every active lane's next
+        ``span``-position write, BEFORE the batched dispatch: a lane
+        whose copy cannot be made is torn down ALONE — its siblings keep
+        decoding.  Returns the surviving active list (a torn-down lane's
+        table row parks on scratch, so the batched step stays safe)."""
+        alive = []
+        for slot in active:
+            lane = self._lanes[slot]
+            try:
+                self._cow_guard(slot, lane, int(self._pos[slot]),
+                                int(self._pos[slot]) + span)
+            except Exception as e:   # noqa: BLE001 — fails THIS lane
+                self.metrics.record_error()
+                self.warning("copy-on-write failed: %s", e)
+                self._teardown_slot(slot, lane, e)
+                continue
+            alive.append(slot)
+        return alive
 
     def _advance_prefill(self, slot):   # hot-path
         """Run ONE pending prompt chunk for this lane (a tick's worth of
@@ -561,16 +921,58 @@ class LMEngine(Logger):
         self._advance_prefill_paged(slot, lane, req)
 
     def _advance_prefill_paged(self, slot, lane, req):   # hot-path
-        """One pending prompt chunk through the lane's page table; the
-        tail chunk yields the first generated token."""
+        """One pending prompt chunk through the lane's page table: a
+        LATE HIT swaps the lane's reserved page for a REFERENCE to the
+        sibling's page (release one, retain the other — no device
+        work); a computed full chunk SHARES the lane's own page with the
+        trie (retain — the insert copies nothing).  The tail chunk
+        yields the first generated token."""
+        C = self.prefill_chunk
         tokens, start, is_tail = lane.pending.pop(0)
+        page_idx = start // C
+        cached = (not is_tail and self._trie is not None
+                  and lane.cursor is not None)
+        if cached:
+            node = self._trie.lookup_child(lane.cursor,
+                                           self._chunk_key(tokens))
+            if node is not None:
+                own = lane.pages[page_idx]
+                self._pool.unpin(own)
+                self._pool.release(own)
+                self._pool.retain(node.rows)
+                self._pool.pin(node.rows)
+                lane.pages[page_idx] = node.rows
+                self._page_tables[slot, page_idx] = node.rows
+                lane.pinned.append(node)
+                lane.cursor = node
+                self.metrics.inc("prefix_hit_chunks")
+                self.metrics.inc("prefix_hit_tokens", len(tokens))
+                self.metrics.inc("kv_pages_referenced")
+                self._update_pool_gauges()
+                self._pos[slot] = lane.pending[0][1]
+                return
         last_idx = (req.true_len - 1 - start) if is_tail else 0
         t0 = time.monotonic()
         try:
+            self._cow_guard(slot, lane, start, start + C)
             tok = self._chunk_program(self._page_tables[slot], tokens,
                                       start, last_idx)
             if is_tail:
                 tok = int(tok)
+            if cached:
+                page = lane.pages[page_idx]
+                node = self._trie.insert(lane.cursor,
+                                         self._chunk_key(tokens), page)
+                if node is not None:
+                    lane.pinned.append(node)
+                    if node.rows == page:
+                        # a fresh entry: the trie now references the
+                        # lane's own page (released on eviction)
+                        self._pool.retain(page)
+                lane.cursor = node
+                self.metrics.set_gauge("prefix_cache_chunks",
+                                       self._trie.size)
+                self._update_pool_gauges()
         except Exception as e:   # noqa: BLE001 — fails THIS request
             self.metrics.record_error()
             self.warning("paged chunk prefill failed: %s", e)
@@ -601,8 +1003,13 @@ class LMEngine(Logger):
             self._finish(slot)
 
     def _release_lane(self, lane):
-        """Ref-count release on lane finish: the lane's pages return to
-        the free list."""
+        """Ref-count release on lane finish: the lane's trie pins go
+        first, then its pages — owned pages return to the free list,
+        shared (trie- or sibling-referenced) ones just lose this lane's
+        reference."""
+        if self._trie is not None and lane.pinned:
+            self._trie.release(lane.pinned)
+            lane.pinned = []
         for p in lane.pages:
             self._pool.unpin(p)
             self._pool.release(p)
@@ -654,6 +1061,9 @@ class LMEngine(Logger):
         inactive lanes step too (their writes land on the scratch page
         or at a frontier the next chunk overwrites before it is
         attended), so the step never respecializes on the active set."""
+        active = self._cow_guard_active(active, 1)
+        if not active:
+            return
         t0 = time.monotonic()
         try:
             w = self._live_width(1)
@@ -672,6 +1082,73 @@ class LMEngine(Logger):
             self.metrics.inc("tokens_out")
             self._pos[slot] += 1
             self._last[slot] = int(toks[slot])
+            if lane.remaining == 0 or lane.request.cancelled:
+                self._finish(slot)
+
+    def _step_speculative(self, active):   # hot-path
+        """ONE verify dispatch advances every active lane by 1..k+1
+        tokens: each lane feeds [last, draft...] (the prompt-lookup
+        draft, zeros when none) and accepts the longest draft prefix
+        equal to the verifier's own greedy argmax, plus the correction
+        or bonus token after it — the plain greedy tokens by
+        construction."""
+        k = self.spec_k
+        active = self._cow_guard_active(active, k + 1)
+        if not active:
+            return
+        toks_in = numpy.zeros((self.slots, k + 1), numpy.int32)
+        drafts = [None] * self.slots
+        real_lens = [0] * self.slots
+        for slot in active:
+            lane = self._lanes[slot]
+            toks_in[slot, 0] = self._last[slot]
+            history = numpy.concatenate(
+                [lane.request.prompt,
+                 numpy.asarray(lane.emitted, numpy.int32)])
+            draft = propose_draft(history, k, self.spec_ngram)
+            if draft is not None:
+                # zero-padded to the program's fixed k (a pad is only
+                # accepted where it IS the greedy token), but only the
+                # real continuation is metered
+                padded = numpy.zeros(k, numpy.int32)
+                padded[:len(draft)] = draft
+                toks_in[slot, 1:] = padded
+                drafts[slot] = padded
+                real_lens[slot] = len(draft)
+                self.metrics.inc("draft_tokens", len(draft))
+        t0 = time.monotonic()
+        try:
+            w = self._live_width(k + 1)
+            out = self._verify_program(self._page_tables[:, :w], toks_in,
+                                       self._pos)
+        except Exception as e:   # noqa: BLE001 — fails the lanes
+            self._fail_active(active, e)
+            return
+        self.metrics.record_dispatch(len(active))
+        self.metrics.record_decode_step(time.monotonic() - t0)
+        self.metrics.inc("decode_dispatches")
+        for slot in active:
+            lane = self._lanes[slot]
+            draft = drafts[slot]
+            accepted = 0
+            if draft is not None:
+                while accepted < k and \
+                        out[slot, accepted] == draft[accepted]:
+                    accepted += 1
+                self.metrics.inc("draft_accepted",
+                                 min(accepted, real_lens[slot]))
+            # accepted drafts ARE greedy tokens (they matched the
+            # verifier's argmax); out[accepted] is the greedy token
+            # after them (correction on a miss, bonus on a full hit)
+            emit = ([] if draft is None
+                    else [int(t) for t in draft[:accepted]])
+            emit.append(int(out[slot, accepted]))
+            take = min(len(emit), lane.remaining)
+            lane.emitted.extend(emit[:take])
+            lane.remaining -= take
+            self.metrics.inc("tokens_out", take)
+            self._pos[slot] += accepted + 1
+            self._last[slot] = int(out[slot, accepted])
             if lane.remaining == 0 or lane.request.cancelled:
                 self._finish(slot)
 
@@ -711,7 +1188,10 @@ class LMEngine(Logger):
             active = [i for i, lane in enumerate(self._lanes)
                       if lane is not None and not lane.pending]
             if active:
-                self._step_plain(active)
+                if self.spec_k:
+                    self._step_speculative(active)
+                else:
+                    self._step_plain(active)
         # drain: a stopping engine fails whatever is still queued or in
         # a lane, and hands every page back to the pool
         with self._cond:
