@@ -354,7 +354,25 @@ Phases (any failure exits nonzero before the final line is printed):
    faults (``FAST_FAULTS``: a trie keyed on a chunk's first 31 tokens, a
    verify accepting drafts unchecked, a copy-on-write that skips the
    copy) caught; its JSON line (``{"serve_fastpath": ...}``);
-18. the script's seconds, the card's name and power limit, one JSON line
+18. serve_megastep — the fused K-step decode (``megastep=K``: one CUDA
+   graph a live-width ladder entry, captured at the engine's start) at
+   the full LM width, 8 slots, page 32: (a) K = 8 with a 64-chunk
+   prefix cache on phase 4's requests, (b) ``spec_k=4`` at K = 4 on
+   phase 17's periodic candidates (drafts found in the graph), (c) the
+   MoE engine at K = 4 on 4 requests.  Each run: every emitted token
+   within ``LOGIT_TOL`` of a teacher-forced plain pass, the tokens that
+   differ from the per-tick engine's counted (phase 4's and phase 17's
+   plain runs), the ``megastep_*`` books closed, kernel 5's launches 8
+   x K a dispatch and kernel 6's 8 a prefill dispatch, the pool full
+   again; (a) no frozen lane writes past its last position or into a
+   trie page, (b) accepted drafts and more than one token a live
+   lane-iteration.  Three planted faults (``MEGA_FAULTS``: the write
+   mask dropped, a stale staged page table after a slot refills, one
+   draft token accepted past the first mismatch) caught.  Timed at the
+   widest table against the per-tick step (ms a dispatch and a token,
+   busy shares, capture seconds), here and in a fresh child process
+   (``--megastep-child``); its JSON line (``{"serve_megastep": ...}``);
+19. the script's seconds, the card's name and power limit, one JSON line
    listing every ported TPU kernel (kernel 1 with its launches in phase
    14's parent process, ``population_launches``, and in phase 16's,
    ``observe_launches``; kernel 2 with its
@@ -362,7 +380,8 @@ Phases (any failure exits nonzero before the final line is printed):
    kernels 5, 6 and 7a-7c
    with their launches on the MoE runs, ``moe_launches``, 7a-7c with
    theirs on the pipelined runs, ``pipeline_launches``, and 5 and 6 with
-   theirs in phase 17, ``fastpath_launches``; kernels 1 and 4
+   theirs in phase 17, ``fastpath_launches``, and in phase 18,
+   ``megastep_launches``; kernels 1 and 4
    with their device-operand entries' times, bounds and launches, kernel
    4 with its offset entry's), each phase's seconds
    (``phase_seconds``), then the JSON result line.
@@ -1741,11 +1760,22 @@ def teacher_forced(torch, T, engine, seq, true_len, emitted):
     return short, exact
 
 
-def serve(torch, HK, T, S, card, n_experts=0, n_requests=16):
+def serve_requests(vocab, n):
+    """Phase 4's seeded requests: [(prompt of 20 to 300 tokens, n_new of
+    32 to 64)]; a shorter list is a prefix of a longer one."""
+    rng = numpy.random.RandomState(SEED)
+    return [(rng.randint(0, vocab, rng.randint(20, 301))
+             .astype(numpy.int32), int(rng.randint(32, 65)))
+            for _ in range(n)]
+
+
+def serve(torch, HK, T, S, card, n_experts=0, n_requests=16, keep=None):
     """The paged engine at the full LM width (MoE blocks when
     ``n_experts``) answering ``n_requests`` requests through kernels 5
     and 6, every emitted token held against a teacher-forced plain pass;
-    the decode step alone timed.  Returns the kernels' launches."""
+    the decode step alone timed.  Returns the kernels' launches; ``keep``
+    (a dict) gets the requests, their tokens, tokens/s and the step's
+    ms (phase 18 holds its runs against them)."""
     from veles_tpu_torch import prng
     from veles_tpu_torch.ops import moe
     cfg = LM_CONFIG
@@ -1760,10 +1790,7 @@ def serve(torch, HK, T, S, card, n_experts=0, n_requests=16):
                         name="chip_smoke")
     engine.start()
     setup_s = time.monotonic() - t0
-    rng = numpy.random.RandomState(SEED)
-    reqs = [(rng.randint(0, cfg["vocab"], rng.randint(20, 301))
-             .astype(numpy.int32), int(rng.randint(32, 65)))
-            for _ in range(n_requests)]
+    reqs = serve_requests(cfg["vocab"], n_requests)
     HK.reset_launch_counts()
     t0 = time.monotonic()
     futures = [engine.submit(p, k) for p, k in reqs]
@@ -1839,6 +1866,9 @@ def serve(torch, HK, T, S, card, n_experts=0, n_requests=16):
                                  "min_router_margin": routes.min_margin()},
               "phase_s": time.monotonic() - began}
     print(json.dumps(report), flush=True)
+    if keep is not None:
+        keep.update(requests=reqs, outs=outs, tokens_per_s=tokens / wall,
+                    step_ms=step_ms, busy=busy)
     return launches
 
 
@@ -7779,11 +7809,14 @@ def step_ms(torch, fn, device, reps=20):
         return (time.monotonic() - t0) / reps * 1e3
 
 
-def serve_fastpath(torch, HK, T, S, card, device="cuda", cfg=None):
+def serve_fastpath(torch, HK, T, S, card, device="cuda", cfg=None,
+                   keep=None):
     """Phase 17: the radix prefix cache with copy-on-write pages and the
     prompt-lookup speculative verify on the paged engine at the full LM
     width; three planted faults.  Returns kernels 5 and 6's launches on
-    the phase's engine runs (the faults' runs not counted)."""
+    the phase's engine runs (the faults' runs not counted); ``keep`` (a
+    dict) gets the periodic candidates and the plain engine's tokens for
+    them (phase 18's speculative run is held against them)."""
     from veles_tpu_torch import prng
     cfg = cfg or LM_CONFIG
     began = time.monotonic()
@@ -7857,6 +7890,8 @@ def serve_fastpath(torch, HK, T, S, card, device="cuda", cfg=None):
     # plain engine's) replay the most accepted drafts on the host
     _, plain, _, plain_launches, _ = fast_serve(
         torch, HK, S, cfg, host, candidates, device, "candidates")
+    if keep is not None:
+        keep["candidates"] = (candidates, plain)
     pool = reqs + candidates
     replays = [replay_drafts(S, p, out, FAST_SPEC_K)
                for (p, _), out in zip(pool, off_outs + plain)]
@@ -7980,6 +8015,383 @@ def serve_fastpath(torch, HK, T, S, card, device="cuda", cfg=None):
     print(json.dumps({"serve_fastpath": report}), flush=True)
     for name in FAST_FAULTS:
         check(caught[name], "fastpath: the planted fault %r was not caught"
+              % name)
+    return launches
+
+
+# --------------------------------------------------------------- phase 18
+#: the fused K-step decode at the full LM width (``LM_CONFIG``), page 32,
+#: 8 slots: (a) K = 8 on phase 4's 16 requests, with a 64-chunk prefix
+#: cache (trie pages pinned while lanes freeze); (b) ``spec_k`` 4 at K = 4
+#: on phase 17's periodic candidates; (c) the MoE engine at K = 4 on 4
+#: of phase 4's requests
+MEGA_K, MEGA_SPEC = 8, (4, 4)            # K; (spec_k, K)
+MEGA_MOE_K, MEGA_MOE_REQUESTS, MEGA_FAULT_REQUESTS = 4, 4, 8
+#: replays timed (host clock) and dispatches profiled
+MEGA_TIMED, MEGA_PROFILED = 20, 3
+#: planted faults, each of which a check of this phase must catch
+MEGA_FAULTS = ("write_mask_ignored", "stale_page_table",
+               "accepts_past_mismatch")
+
+
+def guard_rows(torch, engine, changed):
+    """On each lane of ``engine``: as its first token comes out, keep a
+    copy of its pinned trie pages and of its pages from the prompt's
+    last one on; as it finishes, add to ``changed`` the trie pages and
+    the pages whose rows past its last fed position moved.  A finished
+    lane freezes inside a megastep, and its writes must go to the
+    scratch page."""
+    first, finish = engine._emit_first, engine._finish
+    page, kept = engine.prefill_chunk, {}
+
+    def pages(idx):
+        idx = torch.as_tensor(idx, device=engine.device).long()
+        return [(kp[idx].clone(), vp[idx].clone())
+                for kp, vp in engine._kv_pools]
+
+    def on_first(slot, lane, tok):
+        j0 = lane.request.true_len // page
+        trie = [node.rows for node in lane.pinned]
+        kept[id(lane)] = (j0, trie, pages(lane.pages[j0:]), pages(trie))
+        first(slot, lane, tok)
+
+    def on_finish(slot):
+        lane = engine._lanes[slot]
+        j0, trie, tail, shared = kept.pop(id(lane))
+        req = lane.request
+        # rows at and past the first position never fed
+        n = len(lane.pages) - j0
+        unfed = ((j0 * page + torch.arange(n * page, device=engine.device))
+                 .view(n, 1, page, 1) >= req.true_len + req.n_new - 1)
+        for (kb, vb), (ka, va) in zip(tail, pages(lane.pages[j0:])):
+            changed["rows"] += int(not (
+                torch.equal(torch.where(unfed, kb, 0),
+                            torch.where(unfed, ka, 0))
+                and torch.equal(torch.where(unfed, vb, 0),
+                                torch.where(unfed, va, 0))))
+        for (kb, vb), (ka, va) in zip(shared, pages(trie)):
+            changed["trie"] += int(not (torch.equal(kb, ka)
+                                        and torch.equal(vb, va)))
+        finish(slot)
+    engine._emit_first, engine._finish = on_first, on_finish
+
+
+def ignore_write_mask(L):
+    """A planted fault, for the engines started within: the write mask
+    dropped from every paged step (captured so on the card), so frozen
+    lanes write through their own tables."""
+    real = L.paged_chunk_apply
+    return patched(L, "paged_chunk_apply",
+                   lambda *args, write_mask=None, **kw: real(*args, **kw))
+
+
+def stale_page_table(engine):
+    """A planted fault: after the first dispatch the staged page table is
+    never refreshed, so a refilled slot replays its old table."""
+    run = engine._megastep_program
+
+    def once(w):
+        out = run(w)
+        engine._ms_host = dict(engine._ms_host,
+                               ptab=engine._ms_host["ptab"].copy())
+        engine._megastep_program = run
+        return out
+    engine._megastep_program = once
+
+
+def accepts_past_mismatch(engine):
+    """A planted fault: the verify accepts one draft token past the
+    first mismatch."""
+    real = engine._accepted
+    engine._accepted = lambda draft, out: (real(draft, out) + 1).clamp(
+        max=engine.spec_k)
+
+
+def megastep_books(engine, reqs, outs, launches, n_layers, plain):
+    """Phase 18's checks of one run that hold on any device: the books
+    (one decode dispatch a megastep, every token but each request's
+    first from a megastep, plain runs' lane-iterations closed) and
+    kernel 5's and 6's launches.  Returns the counters."""
+    c = engine.metrics.snapshot()["counters"]
+    c = {k: c.get(k, 0) for k in (
+        "megastep_dispatches", "megastep_tokens", "megastep_lane_iterations",
+        "megastep_wasted_iterations", "decode_dispatches",
+        "prefill_dispatches", "draft_tokens", "draft_accepted",
+        "tokens_out", "prefix_hit_tokens")}
+    tokens = sum(len(o) for o in outs)
+    check(c["megastep_dispatches"] == c["decode_dispatches"] > 0
+          and c["tokens_out"] == tokens
+          and c["megastep_tokens"] == tokens - len(reqs)
+          and (not plain or c["megastep_tokens"]
+               + c["megastep_wasted_iterations"]
+               == c["megastep_lane_iterations"]),
+          "megastep: books %r" % c)
+    check(launches["paged_flash_decode"]
+          == n_layers * engine.megastep * c["megastep_dispatches"]
+          and launches["paged_flash_prefill"]
+          == n_layers * c["prefill_dispatches"],
+          "megastep: launches %r for %r" % (launches, c))
+    return c
+
+
+def differing_tokens(outs, want):
+    """Tokens that differ from the per-tick engine's (from the first
+    divergence of a request on; the teacher-forced check of both runs
+    puts both tokens at the divergence within ``LOGIT_TOL`` of the row
+    max, so a divergence is a near-tie)."""
+    n = 0
+    for a, b in zip(outs, want):
+        diff = numpy.flatnonzero(a != b)
+        n += len(a) - int(diff[0]) if len(diff) else 0
+    return n
+
+
+def megastep_times(torch, engine, reps=MEGA_TIMED):
+    """The widest table's fused dispatch against the per-tick step of
+    the same engine, with all 8 lanes 16 pages deep on distinct pages
+    and active for all K iterations: host-clock ms of each (the fused
+    one with its upload and read-back), ms a token of a lane, and each
+    one's card busy share under the profiler."""
+    K, S, w = engine.megastep, engine.slots, engine._max_pages
+    ptabs = (1 + numpy.arange(S * w, dtype=numpy.int32)).reshape(S, w)
+    stage = engine._ms_host
+    stage["ptab"][:] = ptabs
+    stage["last"][:] = 0
+    stage["pos"][:] = engine.max_len - K       # K writes fit
+    stage["left"][:] = K
+    zeros = numpy.zeros(S, numpy.int32)
+    deep = numpy.full(S, engine.max_len - 1, numpy.int32)
+
+    def mega():
+        engine._ms_in.copy_(engine._ms_stage, non_blocking=True)
+        engine._ms_out.copy_(engine._megastep_program(w), non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+
+    def tick():
+        engine._step_program(ptabs, zeros, deep)
+    mega_ms = step_ms(torch, mega, "cuda", reps)
+    tick_ms = step_ms(torch, tick, "cuda", reps)
+    with torch.inference_mode():
+        busy_mega, kernels = profile_steps(torch, mega, MEGA_PROFILED)
+        busy_tick, _ = profile_steps(torch, tick, MEGA_PROFILED)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+    return {"megastep_ms": mega_ms, "megastep_token_ms": mega_ms / K,
+            "tick_step_ms": tick_ms, "token_ms_ratio": mega_ms / K / tick_ms,
+            "megastep_busy_share": busy_mega, "tick_busy_share": busy_tick,
+            "megastep_card_ms": sum(kernels.values()) / 1e3,
+            "megastep_top_kernels_us": dict(top), "K": K, "width": w}
+
+
+def megastep_child(out_path):
+    """Phase 18's timing in a fresh process (``python3 chip_smoke.py
+    --megastep-child OUT``): phase 4's requests through the per-tick
+    engine and the K = 8 engine (tokens/s, dispatch ms), the capture
+    seconds a ladder entry, then :func:`megastep_times`.  Writes JSON to
+    ``OUT``."""
+    import torch
+    from veles_tpu_torch import prng, serving as S
+    from veles_tpu_torch.ops import transformer as T
+    began = time.monotonic()
+    cfg = LM_CONFIG
+    host = T.init_transformer_params(
+        prng.RandomGenerator("init", SEED), cfg["vocab"],
+        d_model=cfg["d_model"], n_heads=cfg["n_heads"],
+        n_layers=cfg["n_layers"], max_len=cfg["max_len"])
+    reqs = serve_requests(cfg["vocab"], 16)
+    out = {}
+    for name, knobs in (("tick", {}), ("megastep", {"megastep": MEGA_K})):
+        engine = S.LMEngine(host, cfg["n_heads"], cfg["max_len"], slots=8,
+                            prefill_chunk=32, device="cuda",
+                            name="child_" + name, **knobs)
+        engine.start()
+        try:
+            t0 = time.monotonic()
+            toks = sum(len(f.result(timeout=300)) for f in
+                       [engine.submit(p, k) for p, k in reqs])
+            wall = time.monotonic() - t0
+        finally:
+            engine.stop()
+        m = engine.metrics
+        out[name] = {"tokens_per_s": toks / wall, "wall_s": wall,
+                     "dispatch_ms_mean":
+                     m.decode_step.sum / m.decode_step.total * 1e3}
+    out["capture_s"] = engine.megastep_capture_s
+    out["times"] = megastep_times(torch, engine)
+    out["child_s"] = time.monotonic() - began
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump(out, f)
+    return 0
+
+
+def run_megastep_child():
+    """:func:`megastep_child` in a fresh process; returns its report."""
+    import shutil
+    import tempfile
+    here = os.path.abspath(__file__)
+    tmp = tempfile.mkdtemp(prefix="veles_megastep_")
+    try:
+        out = os.path.join(tmp, "out.json")
+        proc = subprocess.run(
+            [sys.executable, here, "--megastep-child", out],
+            cwd=os.path.dirname(here), capture_output=True, text=True,
+            env=dict(os.environ, PYTHONPATH=os.path.dirname(here)),
+            timeout=180)
+        check(proc.returncode == 0, "the megastep child failed (exit %s): "
+              "%s" % (proc.returncode, proc.stderr[-4000:]))
+        with open(out, encoding="utf-8") as f:
+            return json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def serve_megastep(torch, HK, T, S, card, tick, fastpath, device="cuda",
+                   cfg=None, child=True):
+    """Phase 18: the fused K-step decode (one captured graph a ladder
+    width) at the full LM width, held against phase 4's per-tick tokens
+    (``tick``) and phase 17's plain tokens for its candidates
+    (``fastpath``); three planted faults; timing here and in a fresh
+    child.  Returns kernels 5 and 6's launches on the phase's runs (the
+    faults' runs not counted)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.serving import lm_engine
+    cfg = cfg or LM_CONFIG
+    began = time.monotonic()
+    n_layers = cfg["n_layers"]
+    host = T.init_transformer_params(
+        prng.RandomGenerator("init", SEED), cfg["vocab"],
+        d_model=cfg["d_model"], n_heads=cfg["n_heads"],
+        n_layers=n_layers, max_len=cfg["max_len"])
+    reqs, tick_outs = tick["requests"], tick["outs"]
+    caught, report = {}, {"phase": "serve_megastep", "card": card,
+                          "config": dict(cfg), "slots": FAST_SLOTS,
+                          "page": FAST_PAGE}
+
+    # (a) K = 8 (with the prefix cache) on phase 4's requests
+    changed = {"rows": 0, "trie": 0}
+    eng, outs, ttft, launches_a, wall = fast_serve(
+        torch, HK, S, cfg, host, reqs, device, "mega",
+        prepare=lambda e: guard_rows(torch, e, changed), megastep=MEGA_K,
+        prefix_cache=FAST_CACHE)
+    c_a = megastep_books(eng, reqs, outs, launches_a, n_layers, plain=True)
+    worst_a, exact_a = worst_shortfall(torch, T, eng, reqs, outs)
+    check(worst_a <= LOGIT_TOL, "megastep: an emitted token's logit sits "
+          "%g below its row max (tolerance %g)" % (worst_a, LOGIT_TOL))
+    check(changed == {"rows": 0, "trie": 0}, "megastep: a frozen lane "
+          "wrote past its last position or into a trie page: %r" % changed)
+    check(pool_drained(eng), "megastep: the pool did not get every page "
+          "back")
+    tokens = sum(len(o) for o in outs)
+    report["plain"] = {
+        "K": MEGA_K, "requests": len(reqs), "tokens": tokens,
+        "counters": c_a, "wall_s": wall, "tokens_per_s": tokens / wall,
+        "tick_tokens_per_s_phase_4": tick["tokens_per_s"],
+        "dispatch_ms_mean": eng.metrics.decode_step.sum
+        / eng.metrics.decode_step.total * 1e3,
+        "tokens_per_lane_iteration": c_a["megastep_tokens"]
+        / max(1, c_a["megastep_lane_iterations"]
+              - c_a["megastep_wasted_iterations"]),
+        "ttft_p50_s": statistics.median(ttft),
+        "differing_tokens_vs_tick": differing_tokens(outs, tick_outs),
+        "capture_s": eng.megastep_capture_s,
+        "launches_a_replay": eng.megastep_launches,
+        "teacher_forced": {"worst_shortfall": worst_a, "exact_argmax":
+                           exact_a, "tokens": tokens,
+                           "tolerance": LOGIT_TOL}}
+    report["times"] = megastep_times(torch, eng)
+    del eng
+    gc_cuda(torch)
+
+    # the write mask dropped: frozen lanes write through their tables
+    moved = {"rows": 0, "trie": 0}
+    with ignore_write_mask(lm_engine):
+        fast_serve(torch, HK, S, cfg, host, reqs[:MEGA_FAULT_REQUESTS],
+                   device, "mega_mask",
+                   prepare=lambda e: guard_rows(torch, e, moved),
+                   megastep=MEGA_K, prefix_cache=FAST_CACHE)
+    caught["write_mask_ignored"] = moved["rows"] + moved["trie"] > 0
+    # a stale page table replayed after slots are refilled
+    refills = reqs[:FAST_SLOTS + 2]
+    bad, bad_outs = fast_serve(torch, HK, S, cfg, host, refills, device,
+                               "mega_stale", prepare=stale_page_table,
+                               megastep=MEGA_K)[:2]
+    worst_stale = worst_shortfall(torch, T, bad, refills, bad_outs)[0]
+    caught["stale_page_table"] = worst_stale > LOGIT_TOL
+    del bad
+    gc_cuda(torch)
+
+    # (b) spec_k 4 at K = 4 on phase 17's periodic candidates
+    k, K = MEGA_SPEC
+    cands, plain_outs = fastpath["candidates"]
+    eng, outs, _, launches_b, wall = fast_serve(
+        torch, HK, S, cfg, host, cands, device, "mega_spec", megastep=K,
+        spec_k=k)
+    c_b = megastep_books(eng, cands, outs, launches_b, n_layers,
+                         plain=False)
+    live = c_b["megastep_lane_iterations"] - c_b["megastep_wasted_iterations"]
+    worst_b, exact_b = worst_shortfall(torch, T, eng, cands, outs)
+    check(worst_b <= LOGIT_TOL and c_b["draft_accepted"] > 0
+          and c_b["megastep_tokens"] > live,
+          "megastep: speculative run %r, worst shortfall %g"
+          % (c_b, worst_b))
+    check(pool_drained(eng), "megastep: the speculative engine's pool did "
+          "not get every page back")
+    tokens = sum(len(o) for o in outs)
+    report["spec"] = {
+        "k": k, "K": K, "requests": len(cands), "tokens": tokens,
+        "counters": c_b, "wall_s": wall, "tokens_per_s": tokens / wall,
+        "tokens_per_lane_iteration": c_b["megastep_tokens"] / live,
+        "differing_tokens_vs_tick": differing_tokens(outs, plain_outs),
+        "teacher_forced": {"worst_shortfall": worst_b, "exact_argmax":
+                           exact_b, "tokens": tokens,
+                           "tolerance": LOGIT_TOL}}
+    del eng
+    # the verify accepting one draft token past the first mismatch
+    few = reqs[:MEGA_FAULT_REQUESTS]
+    bad, bad_outs = fast_serve(torch, HK, S, cfg, host, few, device,
+                               "mega_accept", prepare=accepts_past_mismatch,
+                               megastep=K, spec_k=k)[:2]
+    worst_accept = worst_shortfall(torch, T, bad, few, bad_outs)[0]
+    caught["accepts_past_mismatch"] = worst_accept > LOGIT_TOL
+    del bad
+    gc_cuda(torch)
+
+    # (c) the MoE engine at K = 4: MoE routing inside the captured graph
+    moe_host = T.init_transformer_params(
+        prng.RandomGenerator("init", SEED), cfg["vocab"],
+        d_model=cfg["d_model"], n_heads=cfg["n_heads"],
+        n_layers=n_layers, max_len=cfg["max_len"],
+        n_experts=MOE["n_experts"])
+    few = reqs[:MEGA_MOE_REQUESTS]
+    eng, outs, _, launches_c, wall = fast_serve(
+        torch, HK, S, cfg, moe_host, few, device, "mega_moe",
+        megastep=MEGA_MOE_K)
+    c_c = megastep_books(eng, few, outs, launches_c, n_layers, plain=True)
+    worst_c, exact_c = worst_shortfall(torch, T, eng, few, outs)
+    check(worst_c <= LOGIT_TOL, "megastep: a MoE token's logit sits %g "
+          "below its row max (tolerance %g)" % (worst_c, LOGIT_TOL))
+    check(pool_drained(eng), "megastep: the MoE engine's pool did not get "
+          "every page back")
+    report["moe"] = {"K": MEGA_MOE_K, "n_experts": MOE["n_experts"],
+                     "requests": len(few), "counters": c_c, "wall_s": wall,
+                     "teacher_forced": {"worst_shortfall": worst_c,
+                                        "exact_argmax": exact_c,
+                                        "tolerance": LOGIT_TOL}}
+    del eng, moe_host
+    gc_cuda(torch)
+
+    if child:
+        report["child"] = run_megastep_child()
+    launches = {n: sum(run[n] for run in (launches_a, launches_b,
+                                          launches_c))
+                for n in ("paged_flash_decode", "paged_flash_prefill")}
+    report.update(launches=launches,
+                  faults={"caught": caught, "moved": moved,
+                          "stale_shortfall": worst_stale,
+                          "accept_shortfall": worst_accept},
+                  phase_s=time.monotonic() - began)
+    print(json.dumps({"serve_megastep": report}), flush=True)
+    for name in MEGA_FAULTS:
+        check(caught[name], "megastep: the planted fault %r was not caught"
               % name)
     return launches
 
@@ -8191,7 +8603,8 @@ def main():
     lap("kernels_device_entries")
 
     # 4. serve through the engine
-    launches = serve(torch, HK, T, S, smi)
+    tick = {}
+    launches = serve(torch, HK, T, S, smi, keep=tick)
     lap("serve")
 
     # 5. train MNIST-FC through the sample's entry point
@@ -8319,13 +8732,23 @@ def main():
 
     # 17. the serving fast path: the radix prefix cache with
     # copy-on-write pages, and the speculative verify at c = k + 1
-    fast_launches = serve_fastpath(torch, HK, T, S, smi)
+    fastpath = {}
+    fast_launches = serve_fastpath(torch, HK, T, S, smi, keep=fastpath)
     for k, v in fast_launches.items():
         launches[k] += v
     gc_cuda(torch)
     lap("serve_fastpath")
 
-    # 18. the kernels line and the result
+    # 18. the fused K-step decode: one captured graph a ladder width,
+    # plain, speculative and MoE, then timed in a fresh process too
+    mega_launches = serve_megastep(torch, HK, T, S, smi, tick, fastpath)
+    del tick, fastpath
+    for k, v in mega_launches.items():
+        launches[k] += v
+    gc_cuda(torch)
+    lap("serve_megastep")
+
+    # 19. the kernels line and the result
     main_case = {"flash_attention_fwd": flash[0],
                  "flash_attention_bwd_dkv": flash[1],
                  "flash_attention_bwd_dq": flash[2],
@@ -8370,6 +8793,8 @@ def main():
             row["pipeline_launches"] = pipe_launches[row["name"]]
         if row["name"] in fast_launches:
             row["fastpath_launches"] = fast_launches[row["name"]]
+        if row["name"] in mega_launches:
+            row["megastep_launches"] = mega_launches[row["name"]]
         if row["name"] == "fused_sgd_update":
             row["population_launches"] = pop_launches
             row["observe_launches"] = observe_launches
@@ -8402,6 +8827,8 @@ if __name__ == "__main__":
                              sys.argv[4]))
     if sys.argv[1:2] == ["--beside"]:
         sys.exit(beside_phases(sys.argv[2]))
+    if sys.argv[1:2] == ["--megastep-child"]:
+        sys.exit(megastep_child(sys.argv[2]))
     if sys.argv[1:2] == ["--pipeline-rank"]:
         sys.exit(pipeline_rank(int(sys.argv[2]), int(sys.argv[3]),
                                sys.argv[4], sys.argv[5]))

@@ -35,7 +35,11 @@ exported artifact, loaded on the card, equals its eval forward within
 1e-6 and launches the LRN kernel once a predict; its native bundle, run
 by the libtorch runner, lies within 1e-5 of that and launches it once.
 On a card workflow, ``Weights2D``'s spec is a numpy array bit-equal to
-the committed first-layer weights copied to the host.
+the committed first-layer weights copied to the host.  The engine's
+fused K-step decode, captured as a CUDA graph, launches the decode
+kernel once a layer an iteration a replay, repeats bit for bit and
+equals the same body run eagerly; a body that reads a value on the
+host makes the engine's start raise.
 """
 
 import numpy
@@ -1274,3 +1278,85 @@ def test_weights2d_spec_is_the_committed_weights_on_the_host():
         images, committed.cpu().numpy().T.reshape(16, 28, 28))
     assert all(not isinstance(v, torch.Tensor) for spec in
                wf.graphics_server.got for v in spec.values())
+
+
+def _megastep_engine(**knobs):
+    """A small paged engine (vocab 64, d 64, 4 heads, 2 layers, 4 slots,
+    page 16, 8 pages a lane) with the fused K = 4 decode on the card."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.ops.transformer import init_transformer_params
+    from veles_tpu_torch.serving import LMEngine
+    prng.reset()
+    host = init_transformer_params(prng.RandomGenerator("init", 11), 64,
+                                   d_model=64, n_heads=4, n_layers=2,
+                                   max_len=128)
+    return LMEngine(host, 4, 128, slots=4, prefill_chunk=16, device="cuda",
+                    megastep=4, **knobs)
+
+
+def _stage_lanes(engine, seed):
+    """Stage the fused program's inputs: 4 lanes on distinct pages at
+    their own depths, with 4, 2, 0 (frozen) and 3 iterations of work,
+    and with ``spec_k`` histories over 4 tokens (so drafts recur)."""
+    rng = numpy.random.RandomState(seed)
+    S, w, k = engine.slots, engine._max_pages, engine.spec_k
+    stage = engine._ms_host
+    stage["ptab"][:] = (1 + numpy.arange(S * w)).reshape(S, w)
+    stage["last"][:] = rng.randint(0, 4, S)
+    pos = rng.randint(1, engine.max_len - engine.megastep * (k + 1) - k, S)
+    stage["pos"][:] = pos
+    stage["left"][:] = [4, 2, 0, 3]
+    if k:
+        stage["hist"][:] = rng.randint(0, 4, stage["hist"].shape)
+        stage["hlen"][:] = pos + 1
+    engine._ms_in.copy_(engine._ms_stage)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec_k", [0, 2])
+def test_megastep_graph_equals_eager_body_and_repeats(spec_k):
+    """The captured program at the widest table: a replay launches kernel
+    5 once a layer an iteration (2 x 4), a second replay is bit-equal to
+    the first, and the same body run eagerly gives the same output."""
+    _card()
+    engine = _megastep_engine(spec_k=spec_k).start()
+    engine.stop()
+    w = engine._max_pages
+    assert sorted(engine._megastep_programs) == [1, 2, 4, 8]
+    assert engine.megastep_launches[w] == {"paged_flash_decode": 8}
+    with torch.inference_mode():
+        _stage_lanes(engine, seed=spec_k)
+        HK.reset_launch_counts()
+        first = engine._megastep_program(w).clone()
+        per_replay = HK.launch_counts()
+        second = engine._megastep_program(w).clone()
+        eager = engine._megastep_body(w)
+        torch.cuda.synchronize()
+    assert per_replay["paged_flash_decode"] == 8
+    assert sum(per_replay.values()) == 8
+    assert torch.equal(first, second)
+    assert torch.equal(first, eager)
+    # the frozen lane emitted nothing and kept its carry
+    S, K, c = engine.slots, engine.megastep, spec_k + 1
+    out = first.cpu().numpy()
+    emitted = out[2 * S:2 * S + K * S * c].reshape(K, S, c)
+    assert (emitted[:, 2] == -1).all() and (emitted[:, 0, 0] >= 0).all()
+    assert out[S + 2] == engine._ms_host["pos"][2]
+
+
+@pytest.mark.cuda
+def test_megastep_capture_with_a_host_read_raises_at_start():
+    """A body that reads a value on the host cannot be captured: the
+    engine's start raises, and nothing falls back to eager dispatches.
+    (Last in the file: the failed capture leaves its stream's pool.)"""
+    _card()
+    engine = _megastep_engine()
+    real = engine._plain_iter
+
+    def planted(ptabs, carry):
+        carry[1].max().item()
+        return real(ptabs, carry)
+    engine._plain_iter = planted
+    with pytest.raises(RuntimeError):
+        engine.start()
+    assert engine._thread is None and engine._megastep_programs is None

@@ -571,6 +571,46 @@ def _launch_counts():
     return {fn: fn.launches for fn in HK._WRAPPERS + parallel.COUNTED}
 
 
+def capture(fn, device, pool=None):
+    """Capture ``fn()`` as a CUDA graph on ``device``: warmed up first on
+    a side stream, then captured there with thread-local capture errors
+    (another thread may go on using the card) and no garbage collection
+    (freeing an earlier graph inside a capture would end it; a caller
+    capturing several turns it off itself), in the graph memory ``pool``
+    when given (shared by several graphs).  A replay runs no wrapper, so
+    each counted function's launches a replay are read at the capture,
+    and the counts are put back to before it.  Returns (graph, what the
+    captured call returned, {counted function: launches a replay}); a
+    capture that fails raises."""
+    import gc
+    here = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(here)
+    with torch.cuda.stream(side):
+        fn()
+    here.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = _launch_counts()
+    collect = gc.isenabled()
+    if collect:
+        gc.collect()
+        gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool, stream=side,
+                              capture_error_mode="thread_local"):
+            out = fn()
+    finally:
+        if collect:
+            gc.enable()
+    after = _launch_counts()
+    per_replay = {f: after[f] - n for f, n in before.items()
+                  if after[f] != n}
+    for f in per_replay:
+        f.launches = before[f]
+    here.synchronize()
+    return graph, out, per_replay
+
+
 class StepTables:
     """Static device tables of ``rows`` steps of one kind (train or one
     eval set) and what the steps record: the plan's (idx, mask) rows,
@@ -834,34 +874,16 @@ class ScanProgram:
         if not self.cuda:
             self._graphs[key] = fn
             return fn
-        import gc
+        from veles_tpu_torch.ops import hopper_kernels as HK
         began = time.perf_counter()
         counts = _launch_counts()
         # the warm-up runs the step the first replay runs next: it writes
         # what that replay writes (the destination buffer, the float row
-        # t); the counter and the integer totals are put back
+        # t); its launches, the counter and the integer totals are put
+        # back (the streaming stager's thread may go on using the card)
         t_saved = tables.t.clone()
         totals_saved = {k: v.clone() for k, v in tables.int_totals.items()}
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        before = _launch_counts()
-        # no garbage collection inside the capture: freeing an earlier
-        # run's graph there would end the capture; other threads (the
-        # streaming stager) may go on using the card
-        gc.collect()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, stream=side,
-                                  capture_error_mode="thread_local"):
-                fn()
-        finally:
-            gc.enable()
-        after = _launch_counts()
-        per_replay = {f: after[f] - before[f] for f in after}
+        graph, _, per_replay = capture(fn, self.device)
         for f, n in counts.items():
             f.launches = n
         tables.t.copy_(t_saved)
@@ -875,11 +897,9 @@ class ScanProgram:
 
         def replay():
             graph.replay()
-            for f, n in per_replay.items():
-                if n:
-                    f.launches += n
+            HK.add_launches(per_replay)
         self.graph_launches[key] = {f.__name__: n
-                                    for f, n in per_replay.items() if n}
+                                    for f, n in per_replay.items()}
         self._graphs[key] = replay
         self._graphs[key + ("graph",)] = graph
         self.captured = True

@@ -364,22 +364,32 @@ def paged_view(pool, ptab):
                                      g.shape[-1]))
 
 
-def paged_write(pool, ptab, pos, rows):
+def paged_write(pool, ptab, pos, rows, write_mask=None):
     """Write ``c`` new K (or V) rows into the pool at the lanes' LINEAR
     positions [pos, pos+c), IN PLACE; returns ``pool``.
 
-    rows: (..., kv_heads, c, head_dim); ptab (..., m); pos (...,).
-    Position p maps to (page ptab[p // page], offset p % page), so a
-    write may straddle two pages.  Duplicate targets (free lanes all
-    park on the scratch page) are resolved arbitrarily — only garbage
-    rows collide.  Indices must lie inside the table: torch raises
-    where the reference's gather silently fills (the engine's live-width
-    ladder keeps every write inside)."""
+    rows: (..., kv_heads, c, head_dim); ptab (..., m); pos (...,) — a
+    tensor on the pool's device (a host value would be uploaded, which a
+    captured graph cannot do).  Position p maps to (page ptab[p //
+    page], offset p % page), so a write may straddle two pages.
+    Duplicate targets (free lanes all park on the scratch page) are
+    resolved arbitrarily — only garbage rows collide.  Indices must lie
+    inside the table: torch raises where the reference's gather
+    silently fills (the engine's live-width ladder keeps every write
+    inside).
+
+    ``write_mask`` ((...,) bool, one per lane) sends a masked-out lane's
+    whole write to the scratch page (pool row 0,
+    ``KVPagePool.SCRATCH``): the decode megastep keeps its finished
+    lanes in the batched program, and their writes must not touch an
+    allocated page, whatever position their frozen carry holds."""
     page = pool.shape[2]
     c = rows.shape[-2]
     linear = torch.as_tensor(pos, device=pool.device).long()[..., None] \
         + torch.arange(c, device=pool.device)
     page_ids = torch.gather(ptab.long(), -1, linear // page)
+    if write_mask is not None:
+        page_ids = torch.where(write_mask[..., None], page_ids, 0)
     offsets = linear % page
     # advanced indices split by the head slice: index dims move to the
     # front (numpy rules), so the update is (..., c, kv, dh)
@@ -389,7 +399,7 @@ def paged_write(pool, ptab, pos, rows):
 
 def mha_paged_chunk_step(params, x, k_pool, v_pool, ptab, pos, n_heads,
                          rope=False, window=None, sinks=0,
-                         attn_kernel=None):
+                         attn_kernel=None, write_mask=None):
     """``c`` positions per lane against the PAGED KV pool in one pass.
 
     x: (b, c, d_model) — b lanes' activations for positions
@@ -406,7 +416,12 @@ def mha_paged_chunk_step(params, x, k_pool, v_pool, ptab, pos, n_heads,
     or 'prefill' (c must equal the page size and ``pos`` be
     page-aligned; ``paged_flash_prefill`` attends the history and
     installs the chunk's rows).  None = the plain path.  Returns
-    (out (b, c, d_model), k_pool, v_pool)."""
+    (out (b, c, d_model), k_pool, v_pool).
+
+    ``write_mask`` ((b,) bool) sends masked lanes' K/V writes to the
+    scratch page (:func:`paged_write`); their attention still runs and
+    its output is discarded.  The 'prefill' route takes no mask (its
+    fused install has no slot for one; the megastep never runs it)."""
     b, c, d = x.shape
     dh = d // n_heads
     kv = kv_heads_of(params, n_heads, d)
@@ -426,12 +441,15 @@ def mha_paged_chunk_step(params, x, k_pool, v_pool, ptab, pos, n_heads,
         from veles_tpu_torch.ops import hopper_kernels as HK
         q = q.contiguous()
         if attn_kernel == "prefill":
+            if write_mask is not None:
+                raise ValueError("write_mask is not supported with "
+                                 "attn_kernel='prefill' (fused install)")
             o, k_pool, v_pool = HK.paged_flash_prefill(
                 q, k_new.contiguous(), v_new.contiguous(), k_pool, v_pool,
                 ptab, pos, window=window, sinks=sinks)
         elif attn_kernel == "decode":
-            paged_write(k_pool, ptab, pos, k_new)
-            paged_write(v_pool, ptab, pos, v_new)
+            paged_write(k_pool, ptab, pos, k_new, write_mask)
+            paged_write(v_pool, ptab, pos, v_new, write_mask)
             o = HK.paged_flash_decode(q, k_pool, v_pool, ptab, pos,
                                       window=window, sinks=sinks)
         else:
@@ -439,8 +457,8 @@ def mha_paged_chunk_step(params, x, k_pool, v_pool, ptab, pos, n_heads,
                              "'prefill' (got %r)" % (attn_kernel,))
         o = o.transpose(1, 2).reshape(b, c, d)
         return matmul(o, params["wo"]), k_pool, v_pool
-    paged_write(k_pool, ptab, pos, k_new)
-    paged_write(v_pool, ptab, pos, v_new)
+    paged_write(k_pool, ptab, pos, k_new, write_mask)
+    paged_write(v_pool, ptab, pos, v_new, write_mask)
     kx = paged_view(k_pool, ptab)               # (b, kv, L, dh)
     vx = paged_view(v_pool, ptab)
     scores = matmul(q, _repeat_kv(kx, n_heads).transpose(-1, -2)) \

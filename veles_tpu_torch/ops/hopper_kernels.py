@@ -1411,6 +1411,14 @@ def launch_counts():
     return {fn.__name__: fn.launches for fn in _WRAPPERS}
 
 
+def add_launches(counts):
+    """Add ``counts`` ({wrapper: launches}) to the wrappers' counts: the
+    launches of one replay of a captured graph, which runs no wrapper."""
+    with _COUNT_LOCK:
+        for fn, n in counts.items():
+            fn.launches += n
+
+
 __all__ = ["NEG_INF", "serving_kernels_supported", "fused_sgd_update",
            "fused_sgd_update_ref", "fused_sgd_update_multi",
            "fused_sgd_update_multi_ref", "fused_sgd_update_multi_dev",
@@ -1426,4 +1434,5 @@ __all__ = ["NEG_INF", "serving_kernels_supported", "fused_sgd_update",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
            "flash_attention_ref", "flash_attention_bwd_ref",
            "flash_attention_di",
-           "FlashAttention", "reset_launch_counts", "launch_counts"]
+           "FlashAttention", "reset_launch_counts", "launch_counts",
+           "add_launches"]

@@ -724,15 +724,17 @@ class TransformerDecision(DecisionBase):
 
 def block_paged_chunk_step(blk, h, k_pool, v_pool, ptab, pos, n_heads,
                            rope=False, window=None, sinks=0,
-                           attn_kernel=None):
+                           attn_kernel=None, write_mask=None):
     """One block (pre-LN attention + FFN with residuals) over ``c``
     positions per lane against the PAGED KV pool (pools written in
     place).  ``attn_kernel`` (None | 'decode' | 'prefill') routes the
-    attention through the Hopper kernels."""
+    attention through the Hopper kernels; ``write_mask`` ((b,) bool)
+    sends masked lanes' K/V writes to the scratch page."""
     hn = _layernorm(h, blk["ln1"]["g"], blk["ln1"]["b"])
     attn, k_pool, v_pool = mha_paged_chunk_step(
         blk["attn"], hn, k_pool, v_pool, ptab, pos, n_heads, rope=rope,
-        window=window, sinks=sinks, attn_kernel=attn_kernel)
+        window=window, sinks=sinks, attn_kernel=attn_kernel,
+        write_mask=write_mask)
     h = h + attn
     hn = _layernorm(h, blk["ln2"]["g"], blk["ln2"]["b"])
     return h + _block_ffn(blk, hn), k_pool, v_pool
@@ -753,7 +755,8 @@ def paged_chunk_embed(params, tokens, pos):
 
 
 def paged_chunk_apply(params, tokens, pools, ptab, pos, n_heads,
-                      rope=False, window=None, sinks=0, attn_kernel=None):
+                      rope=False, window=None, sinks=0, attn_kernel=None,
+                      write_mask=None):
     """Run ``c`` consecutive tokens PER LANE through the whole stack
     against the paged KV pools in one pass.
 
@@ -761,14 +764,65 @@ def paged_chunk_apply(params, tokens, pools, ptab, pos, n_heads,
     (n_pages, kv_heads, page, head_dim); ptab: (b, m) int32; pos: (b,)
     int32.  Returns (h (b, c, d), pools) with each lane's K/V written
     through its table at [pos, pos+c) — in place.  Serves the prompt
-    chunk (b=1, c=chunk) and the decode step (c=1, b=slots)."""
+    chunk (b=1, c=chunk), the decode step (c=1, b=slots) and the
+    speculative verify (c=k+1).  ``write_mask`` ((b,) bool) sends
+    masked lanes' writes to the scratch page (the megastep's finished
+    lanes; see :func:`~veles_tpu_torch.ops.attention.paged_write`)."""
     h = paged_chunk_embed(params, tokens, pos)
     for blk, (kp, vp) in zip(params["blocks"], pools):
         h, _, _ = block_paged_chunk_step(blk, h, kp, vp, ptab, pos,
                                          n_heads, rope=rope, window=window,
                                          sinks=sinks,
-                                         attn_kernel=attn_kernel)
+                                         attn_kernel=attn_kernel,
+                                         write_mask=write_mask)
     return h, pools
+
+
+def propose_draft_in_graph(hist, hlen, k, max_ngram=3):
+    """Prompt-lookup drafts for a batch of lanes, computed on the device
+    with no host read — the in-graph sibling of
+    ``serving/lm_engine.py::propose_draft``, for the decode megastep.
+
+    hist: (b, n) int32 token histories (prompt + emitted; entries at and
+    past a lane's ``hlen`` are garbage); hlen: (b,) int32.  For g =
+    ``max_ngram`` down to 1 (the largest g wins) the lane's final g-gram
+    is looked up among the windows that END strictly before its final
+    position, and the MOST RECENT hit's start kept.  Returns (draft (b,
+    k) int32, found (b,) bool): the k tokens after the match (zeros
+    where nothing recurs; the window may run into garbage past
+    ``hlen``).  The reference's clamps hold: the final g-gram's start is
+    clamped into [0, n - g] and the continuation's into [0, n - k], so
+    the answer equals the reference's on any input, garbage included.
+    Draft quality affects speed only: the verifier accepts a draft
+    token only where it equals its own argmax."""
+    b, n = hist.shape
+    dev = hist.device
+    idx = torch.arange(n, device=dev)
+    hlen = hlen.long()
+    best_start = torch.zeros(b, dtype=torch.long, device=dev)
+    best_g = torch.zeros(b, dtype=torch.long, device=dev)
+    found = torch.zeros(b, dtype=torch.bool, device=dev)
+    for g in range(max_ngram, 0, -1):
+        start = (hlen - g).clamp(0, n - g)
+        tail = torch.gather(hist, 1, start[:, None]
+                            + torch.arange(g, device=dev))       # (b, g)
+        eq = torch.ones((b, n), dtype=torch.bool, device=dev)
+        for t in range(g):
+            # hist[j + t] at index j; wrapped windows fail ``valid``
+            eq &= torch.roll(hist, -t, dims=1) == tail[:, t:t + 1]
+        valid = (idx[None] + g <= hlen[:, None] - 1) \
+            & (hlen[:, None] >= g + 1)
+        hit = eq & valid
+        any_hit = hit.any(dim=1)
+        recent = torch.where(hit, idx[None], -1).max(dim=1).values
+        take = any_hit & ~found
+        best_start = torch.where(take, recent, best_start)
+        best_g = torch.where(take, g, best_g)
+        found = found | any_hit
+    first = (best_start + best_g).clamp(0, n - k)
+    cont = torch.gather(hist, 1, first[:, None]
+                        + torch.arange(k, device=dev))
+    return torch.where(found[:, None], cont, 0), found
 
 
 # ------------------------------------------------------------------ module

@@ -39,6 +39,19 @@ Two fast-path knobs, each leaving the greedy tokens unchanged:
   correction or bonus token follows, so a dispatch yields 1 to K + 1
   greedy tokens a lane.
 
+And one that changes only how often the host steps in:
+
+- ``megastep=K`` (K >= 2) — the FUSED K-STEP DECODE: one program runs
+  K decode iterations (or K propose → verify → accept iterations under
+  ``spec_k``, the drafts found on the device by
+  ``ops/transformer.py::propose_draft_in_graph``) for every lane, and
+  the host works only at the boundaries (admission, prompt chunks,
+  finishing, shedding).  A lane that finishes inside the program
+  freezes: its writes go to the scratch page (``write_mask``) and its
+  tokens read -1.  On the card the program is one CUDA graph per
+  live-width ladder entry, captured at :meth:`start`; on the CPU the
+  same body runs as a host loop of K iterations.
+
 Attention runs through the hand-written Hopper kernels
 (``ops/hopper_kernels.py``): the decode step through
 ``paged_flash_decode`` (the page table walked inside the kernel, no
@@ -64,6 +77,8 @@ Knobs of the reference engine that this port does not carry yet raise
 from __future__ import annotations
 
 import collections
+import functools
+import gc
 import threading
 import time
 from concurrent.futures import Future
@@ -77,7 +92,8 @@ from veles_tpu_torch.ops import functional as F
 from veles_tpu_torch.ops.hopper_kernels import serving_kernels_supported
 from veles_tpu_torch.ops.transformer import (TransformerLM, head_logits,
                                              paged_chunk_apply,
-                                             params_from_jax)
+                                             params_from_jax,
+                                             propose_draft_in_graph)
 from veles_tpu_torch.serving import lockcheck
 from veles_tpu_torch.serving.batcher import (DeadlineExceeded, Overloaded,
                                              PoolExhausted)
@@ -86,11 +102,13 @@ from veles_tpu_torch.serving.metrics import ServingMetrics
 
 #: where each unported knob of the reference engine is queued
 _ROADMAP = {
-    "megastep": "Queue 1 item 3 (megastep / while-loop decode)",
-    "refill_ring": "Queue 1 item 3 (megastep / while-loop decode)",
+    "megastep_mode": "Queue 1 item 3 (second leg: the while loop)",
+    "refill_ring": "Queue 1 item 3 (second leg: the while loop)",
     "tp": "Queue 1 item 4 (tensor-parallel serving)",
     "devices": "Queue 1 item 4 (tensor-parallel serving)",
     "temperature": "Queue 1 item 6 (seeded sampling)",
+    "top_k": "Queue 1 item 6 (seeded sampling)",
+    "sample_seed": "Queue 1 item 6 (seeded sampling)",
     "faults": "Queue 1 item 7 (fault injection, tracing, hot swap, "
               "checkpoint/restore)",
     "tracer": "Queue 1 item 7 (fault injection, tracing, hot swap, "
@@ -339,10 +357,12 @@ class LMEngine(Logger):
     (default the largest divisor of ``max_len`` up to 32).
     ``prefix_cache=N`` keeps up to N prompt chunks in the radix prefix
     cache; ``spec_k=K`` verifies prompt-lookup drafts of up to K tokens
-    found by matching ``spec_ngram``-grams.  ``queue_tokens=T`` budgets
-    admission by queued prompt tokens.  Attention always runs through
-    the kernel wrappers; a geometry they cannot carry raises ValueError
-    here.
+    found by matching ``spec_ngram``-grams.  ``megastep=K`` (K >= 2)
+    fuses K decode iterations into one program (``megastep_mode``
+    ``"scan"``, the default; 0 and 1 keep the per-tick path).
+    ``queue_tokens=T`` budgets admission by queued prompt tokens.
+    Attention always runs through the kernel wrappers; a geometry they
+    cannot carry raises ValueError here.
     """
 
     #: the CROSS-THREAD state — client admission vs the worker loop —
@@ -359,17 +379,29 @@ class LMEngine(Logger):
                  metrics=None, name="lm", prefill_chunk=0,
                  prefix_cache=0, spec_k=0, spec_ngram=3, queue_tokens=0,
                  paged_kv=True, tp=0, devices=None, faults=None,
-                 version=0, tracer=None, megastep=0, refill_ring=0,
-                 temperature=0.0, device=None):
-        for knob, value in (("megastep", megastep),
-                            ("refill_ring", refill_ring), ("tp", tp),
+                 version=0, tracer=None, megastep=0, megastep_mode=None,
+                 refill_ring=0, temperature=0.0, top_k=0, sample_seed=None,
+                 device=None):
+        if megastep == "while" or megastep_mode == "while":
+            raise _unported("megastep_mode")
+        if megastep_mode not in (None, "scan"):
+            raise ValueError("megastep_mode must be 'scan' or 'while' "
+                             "(got %r)" % (megastep_mode,))
+        for knob, value in (("refill_ring", refill_ring), ("tp", tp),
                             ("devices", devices), ("faults", faults),
                             ("tracer", tracer),
-                            ("temperature", temperature)):
+                            ("temperature", temperature), ("top_k", top_k),
+                            ("sample_seed", sample_seed is not None)):
             if value:
                 raise _unported(knob)
         if not paged_kv:
             raise _unported("paged_kv")
+        #: fused decode: K >= 2 iterations a dispatch; 0 and 1 are the
+        #: per-tick path, and no fused program is built
+        self.megastep = int(megastep or 0)
+        if self.megastep < 0:
+            raise ValueError("megastep must be >= 0 (got %d)"
+                             % self.megastep)
         if slots < 1:
             raise ValueError("slots must be >= 1")
         self.name = name
@@ -477,6 +509,15 @@ class LMEngine(Logger):
         self._queued_tokens = 0
         self._queued_pages = 0
         self._pool_blocked = False
+        #: the fused programs, one a ladder width ({w: callable}, built
+        #: by :meth:`start`); None without ``megastep``
+        self._megastep_programs = None
+        #: kernel launches a replay of each width's graph, and the
+        #: seconds each capture took (the card only)
+        self.megastep_launches = {}
+        self.megastep_capture_s = {}
+        if self.megastep >= 2:
+            self._megastep_buffers()
         self._cond = lockcheck.make_condition("lm_engine._cond")
         self._thread = None
         self._stop = False
@@ -535,16 +576,193 @@ class LMEngine(Logger):
             kp[dst].copy_(kp[src])
             vp[dst].copy_(vp[src])
 
+    # ------------------------------------------------------------ megastep
+    def _megastep_buffers(self):
+        """The fused program's static inputs and packed output: one
+        int32 staging buffer the host fills (pinned on the card), its
+        device copy the program reads — page table (slots, max_pages),
+        ``last``, ``pos``, ``left`` and with ``spec_k`` the token
+        history (slots, max_len) and its lengths — and one host buffer
+        the program's output is read back into."""
+        S, K, k = self.slots, self.megastep, self.spec_k
+        sizes = [("ptab", (S, self._max_pages)), ("last", (S,)),
+                 ("pos", (S,)), ("left", (S,))]
+        if k:
+            sizes += [("hist", (S, self.max_len)), ("hlen", (S,))]
+        total = sum(int(numpy.prod(shape)) for _, shape in sizes)
+        card = self.device.type == "cuda"
+        self._ms_stage = torch.zeros(total, dtype=torch.int32,
+                                     pin_memory=card)
+        self._ms_in = (self._ms_stage.to(self.device) if card
+                       else self._ms_stage)
+        self._ms_host, self._ms_dev, at = {}, {}, 0
+        stage_np = self._ms_stage.numpy()
+        for name, shape in sizes:
+            n = int(numpy.prod(shape))
+            self._ms_host[name] = stage_np[at:at + n].reshape(shape)
+            self._ms_dev[name] = self._ms_in[at:at + n].view(shape)
+            at += n
+        # packed output: last, pos, emitted (K, S, k+1 or 1), accs (K, S)
+        self._ms_out = torch.zeros(2 * S + K * S * (k + 1)
+                                   + (K * S if k else 0),
+                                   dtype=torch.int32, pin_memory=card)
+
+    def _plain_iter(self, ptabs, carry):
+        """One decode iteration of every lane inside the megastep:
+        returns (carry, emitted (slots,)).  A lane with nothing left
+        is frozen: it writes to the scratch page, keeps its carry and
+        emits -1."""
+        last, pos, left = carry
+        active = left > 0
+        h, _ = paged_chunk_apply(
+            self.params, last[:, None], self._kv_pools, ptabs, pos,
+            self.n_heads, rope=self.rope, window=self.window,
+            sinks=self.sinks, attn_kernel="decode", write_mask=active)
+        toks = torch.argmax(head_logits(self.params, h[:, 0]),
+                            dim=-1).to(torch.int32)
+        carry = (torch.where(active, toks, last),
+                 torch.where(active, pos + 1, pos),
+                 left - active.to(torch.int32))
+        return carry, torch.where(active, toks, -1)
+
+    def _spec_iter(self, ptabs, carry):
+        """One propose → verify → accept iteration of every lane inside
+        the megastep: the draft found in the lane's history on the
+        device, [last, draft] verified at c = k + 1, the longest prefix
+        of draft tokens equal to the verifier's argmax accepted plus
+        the token after it.  Returns (carry, (emitted (slots, k+1),
+        accepted (slots,))), -1 where a lane is frozen."""
+        k, L = self.spec_k, self.max_len
+        last, pos, left, hist, hlen = carry
+        active = left > 0
+        draft, _ = propose_draft_in_graph(hist, hlen, k, self.spec_ngram)
+        h, _ = paged_chunk_apply(
+            self.params, torch.cat([last[:, None], draft], dim=1),
+            self._kv_pools, ptabs, pos, self.n_heads, rope=self.rope,
+            window=self.window, sinks=self.sinks, attn_kernel="decode",
+            write_mask=active)
+        out = torch.argmax(head_logits(self.params, h),
+                           dim=-1).to(torch.int32)           # (slots, k+1)
+        # accepted drafts ARE out[:acc], so the emit window is out[:take]
+        acc = self._accepted(draft, out)
+        take = torch.minimum(acc + 1, left)
+        cols = torch.arange(k + 1, device=out.device)
+        emit = torch.where(active[:, None] & (cols < take[:, None]), out,
+                           -1)
+        # the whole (k+1) window lands at hlen, its start clamped so it
+        # stays inside the row; rows past ``take`` are overwritten by the
+        # next append or never read
+        at = hlen.clamp(max=L - (k + 1)).long()
+        grown = hist.scatter(1, at[:, None] + cols, out)
+        carry = (
+            torch.where(active, out.gather(1, acc.long()[:, None])[:, 0],
+                        last),
+            # a finished lane's next (garbage) window [pos, pos + k]
+            # stays inside the table
+            torch.where(active, (pos + acc + 1).clamp(max=L - 1 - k), pos),
+            left - torch.where(active, take, 0),
+            torch.where(active[:, None], grown, hist),
+            torch.where(active, (hlen + take).clamp(max=L), hlen))
+        return carry, (emit, torch.where(active, acc, -1))
+
+    def _accepted(self, draft, out):
+        """(slots,) int32: how many leading draft tokens equal the
+        verifier's argmax at their position (the first mismatch ends
+        the run)."""
+        matches = (draft == out[:, :self.spec_k]).to(torch.int32)
+        return torch.cumprod(matches, dim=1, dtype=torch.int32).sum(
+            dim=1, dtype=torch.int32)
+
+    def _megastep_body(self, w):
+        """THE fused program: K iterations of every lane over the static
+        inputs, the page table sliced to width ``w``.  Reads nothing on
+        the host, so the card captures it as a graph.  Returns the
+        packed output (int32): the final ``last`` and ``pos``, the
+        emitted tokens (K, slots[, k+1]) and with ``spec_k`` the
+        accepted counts (K, slots)."""
+        inp = self._ms_dev
+        # the kernels take a contiguous table: a copy inside the program
+        ptabs = inp["ptab"][:, :w].contiguous()
+        carry = (inp["last"], inp["pos"], inp["left"])
+        if self.spec_k:
+            carry += (inp["hist"], inp["hlen"])
+        step = self._spec_iter if self.spec_k else self._plain_iter
+        emitted, accs = [], []
+        for _ in range(self.megastep):
+            carry, out = step(ptabs, carry)
+            if self.spec_k:
+                out, acc = out
+                accs.append(acc)
+            emitted.append(out)
+        parts = [carry[0], carry[1], torch.stack(emitted).reshape(-1)]
+        if accs:
+            parts.append(torch.stack(accs).reshape(-1))
+        return torch.cat(parts)
+
+    def _megastep_program(self, w):
+        """Run the fused program of width ``w`` over the staged inputs;
+        returns its packed output (on the engine's device)."""
+        return self._megastep_programs[w]()
+
+    def _capture_megastep(self, w, pool):
+        """The card's program of width ``w``: the body captured as one
+        CUDA graph (``compiled.capture``: warmed up first with every
+        lane frozen, so each write lands on the scratch page; the graph
+        memory ``pool`` shared across the ladder).  A replay runs no
+        Python for its launches, so they are added to the wrappers'
+        counts at every replay.  A capture that fails raises: there is
+        no eager fallback."""
+        from veles_tpu_torch.compiled import capture
+        from veles_tpu_torch.ops import hopper_kernels as HK
+        began = time.perf_counter()
+        self._ms_in.zero_()
+        graph, out, per_replay = capture(
+            functools.partial(self._megastep_body, w), self.device, pool)
+        self.megastep_launches[w] = {fn.__name__: n
+                                     for fn, n in per_replay.items()}
+        self.megastep_capture_s[w] = time.perf_counter() - began
+
+        def replay():
+            graph.replay()
+            HK.add_launches(per_replay)
+            return out
+        return replay
+
+    def _build_megastep(self):
+        """One fused program a live-width ladder entry, so no shape is
+        first seen under traffic: on the card a captured graph, on the
+        CPU the body itself.  No garbage collection while the ladder is
+        captured: freeing an earlier graph inside a capture would end
+        it."""
+        if self.device.type != "cuda":
+            self._megastep_programs = {
+                w: functools.partial(self._megastep_body, w)
+                for w in self._width_ladder}
+            return
+        pool = torch.cuda.graph_pool_handle()
+        gc.collect()
+        gc.disable()
+        try:
+            self._megastep_programs = {
+                w: self._capture_megastep(w, pool)
+                for w in self._width_ladder}
+        finally:
+            gc.enable()
+
     def _warmup(self):
         """Run every program shape once before traffic (on the card
         this builds the kernels): the chunk program, the page copy, and
         the step (and with ``spec_k`` the verify) at every live-width
-        ladder entry.  All writes land on the scratch page (zero
-        tables, position 0)."""
+        ladder entry — or, with ``megastep``, the fused program at
+        every entry.  All writes land on the scratch page (zero
+        tables, position 0, every fused lane frozen)."""
         ptabs = numpy.zeros((self.slots, self._max_pages), numpy.int32)
         self._chunk_program(ptabs[0], numpy.zeros(self.prefill_chunk,
                                                   numpy.int32), 0, 0)
         self._page_copy_program(KVPagePool.SCRATCH, KVPagePool.SCRATCH)
+        if self.megastep >= 2:
+            self._build_megastep()
+            return
         zeros = numpy.zeros(self.slots, numpy.int32)
         drafts = numpy.zeros((self.slots, self.spec_k + 1), numpy.int32)
         for w in self._width_ladder:
@@ -1152,6 +1370,117 @@ class LMEngine(Logger):
             if lane.remaining == 0 or lane.request.cancelled:
                 self._finish(slot)
 
+    def _step_megastep(self, active):   # hot-path
+        """ONE fused dispatch advances every active lane by up to K
+        tokens (up to K·(k+1) under ``spec_k``).  The host stages the
+        inputs (with ``spec_k`` each lane's history rebuilt from its
+        prompt and emitted tokens), runs the width's program, reads its
+        packed output back in one copy, and settles every lane at the
+        boundary."""
+        K, k = self.megastep, self.spec_k
+        # the most positions a lane can write in this dispatch: the copy-
+        # on-write guard and the table width must cover every write
+        span = K * (k + 1) + k if k else K
+        active = self._cow_guard_active(active, span)
+        if not active:
+            return
+        stage = self._ms_host
+        stage["ptab"][:] = self._page_tables
+        stage["last"][:] = self._last
+        stage["pos"][:] = self._pos
+        stage["left"][:] = 0
+        for slot in active:
+            stage["left"][slot] = self._lanes[slot].remaining
+        if k:
+            stage["hist"][:] = 0
+            stage["hlen"][:] = 0
+            for slot in active:
+                lane = self._lanes[slot]
+                row = numpy.concatenate(
+                    [lane.request.prompt,
+                     numpy.asarray(lane.emitted, numpy.int32)])
+                stage["hist"][slot, :len(row)] = row
+                stage["hlen"][slot] = len(row)
+        t0 = time.monotonic()
+        try:
+            w = self._live_width(span)
+            if self._ms_in is not self._ms_stage:
+                self._ms_in.copy_(self._ms_stage, non_blocking=True)
+            out = self._megastep_program(w)
+            if self._ms_in is self._ms_stage:
+                res = out.numpy()
+            else:
+                self._ms_out.copy_(out, non_blocking=True)
+                torch.cuda.current_stream(self.device).synchronize()
+                res = self._ms_out.numpy()
+        except Exception as e:   # noqa: BLE001 — fails the lanes
+            self._fail_active(active, e)
+            return
+        t1 = time.monotonic()
+        S, c = self.slots, k + 1
+        # the final carry: frozen lanes (prefilling or free ones too)
+        # return what they came in with
+        self._last = res[:S].copy()
+        self._pos = res[S:2 * S].copy()
+        emitted = res[2 * S:2 * S + K * S * c].reshape(K, S, c)
+        wasted, total = 0, 0
+        for slot in active:
+            lane = self._lanes[slot]
+            rows = emitted[:, slot, :]
+            toks = rows[rows >= 0]          # iteration-major real tokens
+            wasted += int((rows[:, 0] < 0).sum())
+            lane.emitted.extend(int(t) for t in toks)
+            lane.remaining -= len(toks)
+            total += len(toks)
+            self.metrics.inc("tokens_out", len(toks))
+        if k:
+            # in-graph drafts are always k wide: k proposed a live
+            # iteration
+            accs = res[2 * S + K * S * c:].reshape(K, S)
+            self.metrics.inc("draft_tokens", k * int((accs >= 0).sum()))
+            self.metrics.inc("draft_accepted",
+                             int(numpy.clip(accs, 0, k).sum()))
+        self.metrics.record_dispatch(len(active))
+        self.metrics.record_decode_step(t1 - t0)
+        self.metrics.inc("decode_dispatches")
+        self.metrics.record_megastep(K, len(active), total, wasted)
+        for slot in active:
+            lane = self._lanes[slot]
+            if lane.remaining == 0 or lane.request.cancelled:
+                self._finish(slot)
+
+    def _boundary_shed(self):   # hot-path
+        """Deadline shedding at the loop's boundary: one sweep of the
+        whole queue a turn (a megastep with ``megastep``), so a request
+        whose deadline passes while every slot is busy gets its answer
+        then, not when a slot frees.  A request already in a lane keeps
+        decoding: its deadline governs only its wait in the queue."""
+        now = time.monotonic()
+        shed = []
+        with self._cond:
+            if all(now <= req.deadline or req.cancelled
+                   for req in self._queue):
+                return
+            keep = collections.deque()
+            for req in self._queue:
+                if not req.cancelled and now > req.deadline:
+                    shed.append(req)
+                    self._queued_tokens -= req.true_len
+                    self._queued_pages -= req.pages
+                else:
+                    keep.append(req)
+            self._queue = keep
+            self.metrics.set_gauge("queue_depth", len(self._queue))
+            self.metrics.set_gauge("queue_tokens", self._queued_tokens)
+            self.metrics.set_gauge("queue_pages", self._queued_pages)
+        window = self.megastep if self.megastep >= 2 else 1
+        for req in shed:
+            self.metrics.record_shed()
+            req.future.set_exception(DeadlineExceeded(
+                "prompt shed after %.3fs in queue (boundary sweep, "
+                "window <= %d iterations)"
+                % (time.monotonic() - req.t_enq, window)))
+
     def _worker(self):
         # grad mode is thread-local: the worker enters inference mode
         # itself
@@ -1161,6 +1490,9 @@ class LMEngine(Logger):
     def _serve_loop(self):   # hot-path
         rr = 0
         while True:
+            # every expired queued request is shed now, not only those
+            # the admission loop happens to pop
+            self._boundary_shed()
             self._admit()
             busy = [i for i, lane in enumerate(self._lanes)
                     if lane is not None]
@@ -1188,7 +1520,9 @@ class LMEngine(Logger):
             active = [i for i, lane in enumerate(self._lanes)
                       if lane is not None and not lane.pending]
             if active:
-                if self.spec_k:
+                if self.megastep >= 2:
+                    self._step_megastep(active)
+                elif self.spec_k:
                     self._step_speculative(active)
                 else:
                     self._step_plain(active)
