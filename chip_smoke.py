@@ -11,7 +11,8 @@ Phases (any failure exits nonzero before the final line is printed):
    and power limit;
 2. build — the CUDA kernels compiled from ``veles_tpu_torch/csrc/``
    (``paged_flash_attention.cu``, ``fused_sgd.cu``, ``lrn.cu``,
-   ``dropout.cu``, ``flash_attention.cu``; one nvcc per source, all
+   ``dropout.cu``, ``flash_attention.cu``, and ``graph_while.cu``, the
+   while megastep's conditional-node loop; one nvcc per source, all
    started together) into
    ``build/kernels/``, and the loader's ``native/dataio.cpp`` with g++
    into ``build/native/`` (it must build: no numpy fallback here);
@@ -146,7 +147,7 @@ Phases (any failure exits nonzero before the final line is printed):
    ``KohonenForward`` (winners equal to a direct pass); then the
    Bernoulli draw's JSON line (its times, bound and launches);
 10. harness — the run harness through the CLI (``veles_tpu_torch.
-   __main__``): MNIST-FC at ``configs[0]``'s widths for 3 epochs (19,950
+   __main__``): MNIST-FC at ``configs[0]``'s widths for 3 epochs (9,950
    train samples, so each epoch ends in a 50-row minibatch) trained by
    the graph loop in a ``python -m veles_tpu_torch`` subprocess (its
    result file and per-epoch snapshots read back), then in this process
@@ -158,7 +159,7 @@ Phases (any failure exits nonzero before the final line is printed):
    bit-equal to the uninterrupted ones on both drivers; ``--evaluate``
    from the final snapshot leaving the weights bit-equal; a
    ``grad_accum=4`` step within rtol 1e-5 / atol 1e-6 of the monolithic
-   one; cifar (``configs[1]``, 9,950 / 10,000, 2 epochs) scan bit-equal
+   one; cifar (``configs[1]``, 4,950 / 10,000, 2 epochs) scan bit-equal
    to its loop; full-width AlexNet (600 / 128, minibatch 128, 2 epochs)
    scanned twice, bit-equal, with exact LRN / dropout / SGD launch
    counts, and card vs the port's CPU scan at minibatch 16 step by step
@@ -221,7 +222,9 @@ Phases (any failure exits nonzero before the final line is printed):
    (``MOE_EP``: 16,384 tokens, d 512, d_ff 2048, 4 experts): NCCL at
    world 1 bit-equal to ``moe_ffn`` in values and gradients, then two
    gloo ranks sharing cuda:0 (this script with ``--moe-rank``), each
-   with 2 experts, bit-equal to each other and to the same split
+   holding only its 2 experts (``moe.expert_slice``: half the whole
+   tree's expert-weight bytes, reported), bit-equal to each other and to
+   the same split
    arithmetic in one process, within the reference's bars of
    ``moe_ffn``, ``ep_all_reduce`` and ``ep_input_grad_all_reduce``
    counted, their ms; its JSON line (``{"moe_ep": ...}``);
@@ -372,7 +375,31 @@ Phases (any failure exits nonzero before the final line is printed):
    widest table against the per-tick step (ms a dispatch and a token,
    busy shares, capture seconds), here and in a fresh child process
    (``--megastep-child``); its JSON line (``{"serve_megastep": ...}``);
-19. the script's seconds, the card's name and power limit, one JSON line
+19. serve_whilestep — the while megastep (``megastep_mode="while"``:
+   K conditional graph nodes a live-width ladder entry, built from the
+   captured set-up, one captured iteration and the packing by
+   ``csrc/graph_while.cu``; a node whose predicate reads false is
+   skipped on the card) and the standby refill ring at the full LM
+   width, 8 slots, page 32: (a) the alias ``megastep="while"`` (K = 16)
+   with ``refill_ring=2`` on phase 4's 16 requests, and without the
+   ring for tokens/s; (b) ``spec_k=4`` at K = 4 with a ring of 2 on
+   phase 17's periodic candidates, each sent twice (16 requests on 8
+   slots); (c) one lane with n_new 6 at K = 16 against the scan at the
+   same K (5 realised iterations and 0 wasted against 16 and 11).  Each
+   run: every emitted token within ``LOGIT_TOL`` of a teacher-forced
+   plain pass, the tokens that differ from the per-tick engine's
+   counted, the books closed with realised iterations, every
+   dispatch's ``assign`` and early exit within the program's contract,
+   kernel 5's launches 8 a realised iteration and kernel 6's 8 a prompt
+   chunk (the ring's standby chunks included), the pool full again; (a)
+   and (b) ``megastep_refills`` > 0.  Three planted faults
+   (``WHILE_FAULTS``: an arm that ignores ``count``, a predicate that
+   ignores the ring, a predicate never updated) caught.  Timed at the
+   widest table: the while dispatch at 1, 4, 8 and 16 realised
+   iterations (and at 0) against the scan's K = 16 dispatch, host clock
+   and card time a dispatch and a realised iteration, and the capture
+   seconds a ladder width; its JSON line (``{"serve_whilestep": ...}``);
+20. the script's seconds, the card's name and power limit, one JSON line
    listing every ported TPU kernel (kernel 1 with its launches in phase
    14's parent process, ``population_launches``, and in phase 16's,
    ``observe_launches``; kernel 2 with its
@@ -380,8 +407,9 @@ Phases (any failure exits nonzero before the final line is printed):
    kernels 5, 6 and 7a-7c
    with their launches on the MoE runs, ``moe_launches``, 7a-7c with
    theirs on the pipelined runs, ``pipeline_launches``, and 5 and 6 with
-   theirs in phase 17, ``fastpath_launches``, and in phase 18,
-   ``megastep_launches``; kernels 1 and 4
+   theirs in phase 17, ``fastpath_launches``, in phase 18,
+   ``megastep_launches``, and in phase 19, ``whilestep_launches``;
+   kernels 1 and 4
    with their device-operand entries' times, bounds and launches, kernel
    4 with its offset entry's), each phase's seconds
    (``phase_seconds``), then the JSON result line.
@@ -3693,9 +3721,10 @@ def streams_phase(torch, card, som, device="cuda"):
 # ------------------------------------------------------------------ harness
 #: the harness phase's MNIST-FC: configs[0]'s widths (784→100 tanh→10
 #: softmax, minibatch 100, 10,000 validation) for 3 epochs, the train set
-#: cut from 60,000 to 19,950 so that each epoch ends in a short minibatch
+#: cut from 60,000 to 9,950 so that each epoch ends in a short minibatch
 #: (50 live rows: a frozen inv_batch shows there)
-HARNESS_MNIST = ["root.mnist.loader.n_train=19950",
+HARNESS_MNIST_TRAIN = 9950
+HARNESS_MNIST = ["root.mnist.loader.n_train=%d" % HARNESS_MNIST_TRAIN,
                  "root.mnist.decision.max_epochs=3"]
 #: the exp policy run: every layer's rate decays 0.9995 a step
 HARNESS_POLICY = ("root.mnist.layers=[{'type': 'all2all_tanh', "
@@ -3711,9 +3740,9 @@ HARNESS_LOSS_RTOL = 1e-6
 #: grad_accum=4 against the monolithic step: the CPU tests' tolerance
 #: (tests/test_torch_epoch_scan.py::test_accum_step_matches_monolithic)
 ACCUM_RTOL, ACCUM_ATOL = 1e-5, 1e-6
-#: cifar (configs[1]) at the sample's defaults but 2 epochs and 9,950
+#: cifar (configs[1]) at the sample's defaults but 2 epochs and 4,950
 #: train samples (a short last minibatch)
-HARNESS_CIFAR = 9950
+HARNESS_CIFAR = 4950
 #: AlexNet on the synthetic set: 600 train (4 full minibatches of 128 and
 #: one of 88) / 128 validation, 2 epochs
 HARNESS_ALEXNET = {"n_train": 600, "n_valid": 128}
@@ -3951,6 +3980,13 @@ def harness(torch, HK, card, device="cuda", keep=None):
     base = (["veles_tpu_torch.samples.mnist", "--random-seed", str(SEED),
              "--no-stats"] + dev + HARNESS_MNIST)
     launches, checks, faults, report = {}, {}, {}, {"card": card}
+    legs, mark = {}, [began]
+
+    def leg(name):
+        """The seconds since the previous leg, kept under ``name``."""
+        now = time.monotonic()
+        legs[name] = now - mark[0]
+        mark[0] = now
 
     def counted(fn):
         """fn() with the kernels' counts of its run: (result, counts)."""
@@ -4020,7 +4056,8 @@ def harness(torch, HK, card, device="cuda", keep=None):
         program = la1.driver.program
         report["mnist"] = {
             "config": {"layers": "784-100tanh-10softmax", "minibatch": 100,
-                       "n_train": 19950, "n_valid": 10000, "epochs": 3},
+                       "n_train": HARNESS_MNIST_TRAIN, "n_valid": 10000,
+                       "epochs": 3},
             "loop_cli_s": loop_cli_s, "scan_run_s": la1.run_seconds,
             "capture_s": program.capture_s,
             "graph_launches": {repr(k): v for k, v in
@@ -4088,6 +4125,7 @@ def harness(torch, HK, card, device="cuda", keep=None):
                                                        la1, 200)
         report["mnist"]["measure_device_step_time_ms"] = (
             scan1._fused_runner.measure_device_step_time(20) * 1e3)
+        leg("mnist")
 
         # cifar (configs[1]): loop and scan
         cifar_argv = ["veles_tpu_torch.samples.cifar", "--random-seed",
@@ -4109,6 +4147,7 @@ def harness(torch, HK, card, device="cuda", keep=None):
             "loop_run_s": cla.run_seconds, "scan_run_s": csa.run_seconds,
             "capture_s": csa.driver.program.capture_s, "launches": counts,
             "steady": loop_vs_scan_steps(torch, c_loop, csa, 100)}
+        leg("cifar")
 
         # AlexNet at full width on the synthetic set: the scan, a seeded
         # rerun, the loop
@@ -4138,10 +4177,12 @@ def harness(torch, HK, card, device="cuda", keep=None):
         small = dict(alex, loader=dict(alex["loader"],
                                        **HARNESS_ALEXNET_SMALL),
                      decision={"max_epochs": 1, "fail_iterations": 10})
+        leg("alexnet_runs")
         on_card = scan_step_weights(torch, alex_argv + dev, small)
         on_cpu = scan_step_weights(torch, alex_argv + ["-d", "cpu"], small)
         with harness_fault("key_not_folded"):
             bad = scan_step_weights(torch, alex_argv + dev, small)
+        leg("alexnet_card_vs_cpu")
         under_pool = [any(g.layer_type == "max_pooling"
                           for g in a_scan.forwards[i + 1:])
                       for i, f in enumerate(a_scan.forwards) if f.has_params]
@@ -4169,6 +4210,7 @@ def harness(torch, HK, card, device="cuda", keep=None):
                             "share": sound["share"],
                             "fault_key_not_folded_share": planted["share"]},
             "steady": loop_vs_scan_steps(torch, a_loop, asa, 10)}
+        leg("alexnet_steady")
 
         # AlexNet from a record file, streamed in windows of 4
         files = write_record_set(tmp, "harness", *HARNESS_RECORDS)
@@ -4204,13 +4246,14 @@ def harness(torch, HK, card, device="cuda", keep=None):
                        "window": HARNESS_WINDOW, "epochs": 2},
             "run_s": rla.run_seconds, "stream_stats": r1._stream_stats,
             "capture_s": rla.driver.program.capture_s, "launches": counts}
+        leg("records")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         prng.reset()
         for name in ("mnist", "cifar", "imagenet"):
             root.__dict__.pop(name, None)
     report.update(checks=checks, faults_caught=faults, launches=launches,
-                  phase_s=time.monotonic() - began)
+                  leg_s=legs, phase_s=time.monotonic() - began)
     print(json.dumps({"harness": report}, default=str), flush=True)
     failed = [k for k, v in checks.items() if not v]
     check(not failed, "harness checks failed: %s" % failed)
@@ -5203,10 +5246,12 @@ def moe_ep_times(torch, fn, params, x, g):
 def moe_ep_rank(rank, port, out_path):
     """One of the two gloo ranks sharing cuda:0 (``python3 chip_smoke.py
     --moe-rank R PORT OUT``): ``moe_ffn_ep`` over a ("data", "expert")
-    mesh of two at ``MOE_EP``'s shape, forward and backward, its
-    collective counts, then its time and the all-reduce's alone.  Writes
-    the output, the router and input gradients and this rank's expert
-    slices of the others to ``out_path`` (npz)."""
+    mesh of two at ``MOE_EP``'s shape on the rank's own tree (the router
+    and its E/2 experts, ``moe.expert_slice`` copied: the whole tree is
+    dropped), forward and backward, its collective counts, then its time
+    and the all-reduce's alone.  Writes the output, the router and input
+    gradients, this rank's expert gradients and the expert-weight bytes
+    it held and the whole tree holds to ``out_path`` (npz)."""
     import torch
     from veles_tpu_torch import parallel
     from veles_tpu_torch.ops import moe
@@ -5217,7 +5262,13 @@ def moe_ep_rank(rank, port, out_path):
         dev = parallel._JOINED["device"]
         mesh = parallel.make_mesh(model_parallel=2,
                                   axis_names=("data", "expert"))
-        params, x, g = moe_ep_inputs(torch, dev)
+        whole, x, g = moe_ep_inputs(torch, dev)
+        params = {key: v.detach().clone().requires_grad_()
+                  for key, v in moe.expert_slice(whole, mesh).items()}
+        held, whole_bytes = (sum(
+            tree[key].numel() * tree[key].element_size()
+            for key in moe.EXPERT_KEYS) for tree in (params, whole))
+        del whole
 
         def fn(p, xx):
             return moe.moe_ffn_ep(p, xx, mesh)
@@ -5235,14 +5286,16 @@ def moe_ep_rank(rank, port, out_path):
             times.append((time.perf_counter() - t0) * 1e3)
         k = MOE_EP[3] // 2
         lo = mesh.index("expert") * k
+        check(params["w1"].shape[0] == k, "the rank holds %d experts, "
+              "not %d" % (params["w1"].shape[0], k))
         numpy.savez(out_path, out=out.cpu().numpy(), lo=lo,
                     backend=backend, device=str(dev),
                     step_ms=step_ms,
                     all_reduce_ms=statistics.median(times),
                     rank_s=time.monotonic() - began,
+                    expert_bytes=held, whole_expert_bytes=whole_bytes,
                     **{"count/" + k_: v for k_, v in counts.items()},
-                    **{"grad/" + name: (v if name in ("router", "x")
-                                        else v[lo:lo + k]).cpu().numpy()
+                    **{"grad/" + name: v.cpu().numpy()
                        for name, v in grads.items()})
     finally:
         parallel.shutdown()
@@ -5364,6 +5417,10 @@ def moe_ep_phase(torch, card, device="cuda"):
     checks["gloo_counted"] = all(
         int(r["count/ep_all_reduce"]) == 1
         and int(r["count/ep_input_grad_all_reduce"]) == 1 for r in ranks)
+    # each rank held its own E/2 experts, not the whole tree
+    checks["gloo_ranks_hold_their_experts"] = all(
+        2 * int(r["expert_bytes"]) == int(r["whole_expert_bytes"])
+        for r in ranks)
     routed = (moe._route(params, x.detach())[2].sum(0)).tolist()
     report.update(
         gloo_two_ranks={
@@ -5371,6 +5428,9 @@ def moe_ep_phase(torch, card, device="cuda"):
             "all_reduce_ms": [float(r["all_reduce_ms"]) for r in ranks],
             "rank_s": [float(r["rank_s"]) for r in ranks],
             "ranks_s": ranks_s,
+            "expert_bytes_per_rank": [int(r["expert_bytes"])
+                                      for r in ranks],
+            "whole_tree_expert_bytes": int(ranks[0]["whole_expert_bytes"]),
             "worst_over_bar": errs,
             "bit_equal_to_moe_ffn": all(
                 numpy.array_equal(a, want[name].cpu().numpy())
@@ -8396,6 +8456,388 @@ def serve_megastep(torch, HK, T, S, card, tick, fastpath, device="cuda",
     return launches
 
 
+# --------------------------------------------------------------- phase 19
+#: the while megastep at the full LM width (``LM_CONFIG``), page 32, 8
+#: slots: (a) the alias ``megastep="while"`` (K = 16) with a standby ring
+#: of 2 on phase 4's 16 requests (and without the ring, for tokens/s);
+#: (b) ``spec_k`` 4 at K = 4 with a ring of 2 on phase 17's periodic
+#: candidates, each sent twice; (c) one lane with n_new 6 at K = 16
+#: against the scan at the same K
+WHILE_RING, WHILE_SPEC, WHILE_LONE = 2, (4, 4), 6
+#: realised iterations of the timed dispatches at the widest table
+WHILE_TIMED_ITERS = (1, 4, 8, 16)
+#: planted faults, each of which a check of this phase must catch
+WHILE_FAULTS = ("arm_ignores_count", "predicate_ignores_ring",
+                "predicate_never_updated")
+
+
+def while_output(engine):
+    """The host copy of the last while dispatch's packed output (the
+    pinned read-back buffer on the card, the program's own on the
+    CPU)."""
+    if engine.device.type == "cuda":
+        return engine._ms_out.numpy()
+    return engine._wl["out"].numpy()
+
+
+def record_while(engine, log):
+    """Record every while dispatch of ``engine`` into ``log``: its
+    realised iterations, its published ring entries (``count``) and its
+    ``assign``; and count the standby prompt chunks run
+    (``log["standby_chunks"]``)."""
+    count_launches, chunk = (engine._count_while_launches,
+                             engine._advance_standby_chunk)
+    S, K, k, R = (engine.slots, engine.megastep, engine.spec_k,
+                  engine.refill_ring)
+    at = 2 * S + K * S * (k + 1) + (K * S if k else 0)
+    log.setdefault("dispatches", [])
+    log.setdefault("standby_chunks", 0)
+
+    def counted(w, iters):
+        res = while_output(engine)
+        published = int(engine._ms_host["count"][0]) if R else 0
+        log["dispatches"].append((int(iters), published,
+                                  res[at + 1:at + 1 + R].tolist()))
+        count_launches(w, iters)
+
+    def standby(entry):
+        log["standby_chunks"] += 1
+        chunk(entry)
+    engine._count_while_launches = counted
+    engine._advance_standby_chunk = standby
+
+
+def while_contract(cap, log):
+    """The while program's contract (iteration cap ``cap``) over every
+    recorded dispatch:
+    ``assign`` names a distinct slot or -1 for a published entry and -1
+    past ``count``, and the program stops before the cap only once every
+    published entry is armed.  Returns the dispatches that broke it."""
+    bad = []
+    for iters, published, assign in log["dispatches"]:
+        armed = [s for s in assign[:published] if s >= 0]
+        if (any(s != -1 for s in assign[published:])
+                or len(set(armed)) != len(armed)
+                or (iters < cap and len(armed) < published)):
+            bad.append((iters, published, assign))
+    return bad
+
+
+def whilestep_books(engine, reqs, outs, launches, n_layers, log, plain):
+    """Phase 19's checks of one run that hold on any device: the books
+    (one decode dispatch a while dispatch, every token but each request's
+    first from one, plain runs' lane-iterations closed), the program's
+    contract, and kernels 5's and 6's launches: 8 of kernel 5 a REALISED
+    iteration, 8 of kernel 6 a prompt chunk (the standby ring's
+    included).  Returns the counters."""
+    c = engine.metrics.snapshot()["counters"]
+    c = {k: c.get(k, 0) for k in (
+        "megastep_dispatches", "megastep_tokens", "megastep_lane_iterations",
+        "megastep_wasted_iterations", "megastep_refills",
+        "decode_dispatches", "prefill_dispatches", "draft_tokens",
+        "draft_accepted", "tokens_out")}
+    tokens = sum(len(o) for o in outs)
+    iters = sum(d[0] for d in log["dispatches"])
+    check(c["megastep_dispatches"] == c["decode_dispatches"]
+          == len(log["dispatches"]) > 0
+          and c["tokens_out"] == tokens
+          and c["megastep_tokens"] == tokens - len(reqs)
+          and (not plain or c["megastep_tokens"]
+               + c["megastep_wasted_iterations"]
+               == c["megastep_lane_iterations"]),
+          "whilestep: books %r" % c)
+    broken = while_contract(engine.megastep, log)
+    check(not broken, "whilestep: dispatches broke the program's contract: "
+          "%r" % broken[:4])
+    check(launches["paged_flash_decode"] == n_layers * iters
+          and launches["paged_flash_prefill"]
+          == n_layers * c["prefill_dispatches"],
+          "whilestep: launches %r for %d realised iterations and %r"
+          % (launches, iters, c))
+    return dict(c, realised_iterations=iters,
+                standby_chunks=log["standby_chunks"])
+
+
+def arm_ignores_count(engine):
+    """A planted fault: the in-program arm takes entries past ``count``
+    (the zero padding rows) — it reads a full ring as published."""
+    real = engine._while_arm
+    full = engine._ms_dev["count"].clone().fill_(engine.refill_ring)
+
+    def arm(ptabs, w):
+        count = engine._ms_dev["count"]
+        engine._ms_dev["count"] = full
+        try:
+            real(ptabs, w)
+        finally:
+            engine._ms_dev["count"] = count
+    engine._while_arm = arm
+
+
+def predicate_ignores_ring(engine):
+    """A planted fault: the loop's predicate reads only the lanes, so the
+    program stops once they drain with a published entry unarmed."""
+    st = engine._wl
+
+    def live():
+        st["flag"].copy_((st["left"] > 0).any().view(1))
+    engine._while_live = live
+
+
+def predicate_never_updated(engine):
+    """A planted fault: the predicate is set before the first iteration
+    and never again, so every iteration to the cap runs (the frozen ones
+    as the identity)."""
+    real_pre, real_live = engine._while_pre, engine._while_live
+
+    def pre(w):
+        engine._while_live = real_live
+        try:
+            real_pre(w)
+        finally:
+            engine._while_live = lambda: None
+    engine._while_pre = pre
+    engine._while_live = lambda: None
+
+
+def while_ring_case(torch, HK, S, cfg, host, device, cases, slots,
+                    fault=None):
+    """``slots`` slots, a ring of 2, K = 16, ``cases`` queued before the
+    loop's first turn (the engine's condition held across its start), so
+    a request past the slots waits ready in the ring while they decode.
+    ``fault`` sees the engine before it starts.  Returns the dispatch
+    log."""
+    engine = S.LMEngine(host, cfg["n_heads"], cfg["max_len"], slots=slots,
+                        prefill_chunk=FAST_PAGE, device=device,
+                        name="while_ring_case", megastep=16,
+                        megastep_mode="while", refill_ring=WHILE_RING)
+    log = {}
+    record_while(engine, log)
+    if fault is not None:
+        fault(engine)
+    with engine._cond:
+        engine.start()
+        futures = [engine.submit(p, n) for p, n in cases]
+    try:
+        for f in futures:
+            f.result(timeout=300)
+    finally:
+        engine.stop()
+    return log
+
+
+def while_times(torch, engine, scan, reps=MEGA_TIMED):
+    """The widest table's while dispatch with all 8 lanes 16 pages deep
+    on distinct pages and n iterations of work (``WHILE_TIMED_ITERS``,
+    and 0: every node skipped), against the scan's dispatch at the same
+    K with all K iterations of work: host-clock ms of one synchronous
+    dispatch with its upload and read-back, and card ms of the program
+    alone (CUDA events around ``reps`` back-to-back launches), each also
+    a realised iteration."""
+    S, w, K = engine.slots, engine._max_pages, engine.megastep
+    out = {"K": K, "width": w}
+    for eng in (engine, scan):
+        stage = eng._ms_host
+        stage["ptab"][:] = (1 + numpy.arange(S * w, dtype=numpy.int32)
+                            ).reshape(S, w)
+        stage["last"][:] = 0
+        stage["pos"][:] = eng.max_len - K       # K writes fit
+
+    def dispatch(eng):
+        eng._ms_in.copy_(eng._ms_stage, non_blocking=True)
+        eng._ms_out.copy_(eng._megastep_program(w), non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+
+    def card_ms(eng):
+        eng._ms_in.copy_(eng._ms_stage)
+        eng._megastep_program(w)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(reps):
+            eng._megastep_program(w)
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / reps
+
+    for eng, name, n in ([(engine, "while", n) for n in WHILE_TIMED_ITERS]
+                         + [(scan, "scan", K), (engine, "while", 0)]):
+        eng._ms_host["left"][:] = n
+        ms = step_ms(torch, lambda: dispatch(eng), "cuda", reps)
+        if name == "while":
+            got = int(eng._ms_out[2 * S + K * S])
+            check(got == n, "whilestep: a timed dispatch ran %d iterations, "
+                  "not %d" % (got, n))
+        with torch.inference_mode():
+            card = card_ms(eng)
+        tag = "%s_%d" % (name, n)
+        out[tag] = {"host_ms": ms, "card_ms": card}
+        if n:
+            out[tag].update(host_ms_per_iteration=ms / n,
+                            card_ms_per_iteration=card / n)
+    return out
+
+
+def serve_whilestep(torch, HK, T, S, card, tick, fastpath, device="cuda",
+                    cfg=None, timed=True):
+    """Phase 19: the while megastep (K conditional graph nodes a ladder
+    width) and the standby refill ring at the full LM width, held
+    against phase 4's per-tick tokens (``tick``) and phase 17's plain
+    tokens for its candidates (``fastpath``); three planted faults;
+    timing at the widest table against the scan.  Returns kernels 5 and
+    6's launches on the phase's runs (the faults' runs not counted)."""
+    from veles_tpu_torch import prng
+    cfg = cfg or LM_CONFIG
+    began = time.monotonic()
+    n_layers = cfg["n_layers"]
+    host = T.init_transformer_params(
+        prng.RandomGenerator("init", SEED), cfg["vocab"],
+        d_model=cfg["d_model"], n_heads=cfg["n_heads"],
+        n_layers=n_layers, max_len=cfg["max_len"])
+    reqs, tick_outs = tick["requests"], tick["outs"]
+    caught, report = {}, {"phase": "serve_whilestep", "card": card,
+                          "config": dict(cfg), "slots": FAST_SLOTS,
+                          "page": FAST_PAGE}
+    runs = []
+
+    def run(tag, cases, plain, **knobs):
+        log = {}
+        eng, outs, _, launches, wall = fast_serve(
+            torch, HK, S, cfg, host, cases, device, tag,
+            prepare=lambda e: record_while(e, log), **knobs)
+        c = whilestep_books(eng, cases, outs, launches, n_layers, log,
+                            plain)
+        worst, exact = worst_shortfall(torch, T, eng, cases, outs)
+        check(worst <= LOGIT_TOL, "whilestep %s: an emitted token's logit "
+              "sits %g below its row max (tolerance %g)"
+              % (tag, worst, LOGIT_TOL))
+        check(pool_drained(eng), "whilestep %s: the pool did not get "
+              "every page back" % tag)
+        runs.append(launches)
+        tokens = sum(len(o) for o in outs)
+        rec = {"requests": len(cases), "tokens": tokens, "counters": c,
+               "wall_s": wall, "tokens_per_s": tokens / wall,
+               "iters_per_dispatch": [d[0] for d in log["dispatches"]],
+               "capture_s": eng.megastep_capture_s,
+               "launches_an_iteration": eng.megastep_launches,
+               "teacher_forced": {"worst_shortfall": worst,
+                                  "exact_argmax": exact, "tokens": tokens,
+                                  "tolerance": LOGIT_TOL}}
+        return eng, outs, rec
+
+    # (a) the alias (K = 16) with a ring of 2 on phase 4's requests, and
+    # without the ring
+    eng, outs, rec = run("while_ring", reqs, True, megastep="while",
+                         refill_ring=WHILE_RING)
+    check(eng.megastep == 16 and rec["counters"]["megastep_refills"] > 0
+          and rec["counters"]["standby_chunks"] > 0,
+          "whilestep: the ring armed nothing in phase 4's requests: %r"
+          % rec["counters"])
+    rec["differing_tokens_vs_tick"] = differing_tokens(outs, tick_outs)
+    rec["tick_tokens_per_s_phase_4"] = tick["tokens_per_s"]
+    rec["ring_peak"] = eng.metrics.snapshot()["gauges"].get(
+        "standby_ring_peak", 0)
+    report["ring"] = rec
+    del eng
+    eng, outs, rec = run("while", reqs, True, megastep="while")
+    rec["differing_tokens_vs_tick"] = differing_tokens(outs, tick_outs)
+    report["no_ring"] = rec
+    del eng
+    gc_cuda(torch)
+
+    # (b) spec_k 4 at K = 4 with a ring of 2 on phase 17's candidates,
+    # each sent twice: 16 requests on 8 slots, so the ring fills
+    k, K = WHILE_SPEC
+    cands, plain_outs = fastpath["candidates"]
+    cands, plain_outs = cands * 2, plain_outs * 2
+    eng, outs, rec = run("while_spec", cands, False, megastep=K,
+                         megastep_mode="while", refill_ring=WHILE_RING,
+                         spec_k=k)
+    c_b = rec["counters"]
+    live = c_b["megastep_lane_iterations"] - c_b["megastep_wasted_iterations"]
+    check(c_b["draft_accepted"] > 0 and c_b["megastep_tokens"] > live
+          and c_b["megastep_refills"] > 0,
+          "whilestep: speculative run %r" % c_b)
+    rec.update(k=k, K=K, tokens_per_lane_iteration=c_b["megastep_tokens"]
+               / live, differing_tokens_vs_tick=differing_tokens(
+                   outs, plain_outs))
+    report["spec"] = rec
+    del eng
+    gc_cuda(torch)
+
+    # (c) one lane, n_new 6, K = 16: the while program against the scan
+    lone = [(reqs[0][0], WHILE_LONE)]
+    eng, outs, rec = run("while_lone", lone, True, megastep=16,
+                         megastep_mode="while")
+    c_c = rec["counters"]
+    check(rec["iters_per_dispatch"] == [WHILE_LONE - 1]
+          and c_c["megastep_wasted_iterations"] == 0
+          and c_c["megastep_lane_iterations"] == WHILE_LONE - 1,
+          "whilestep: the lone lane's dispatch %r, books %r"
+          % (rec["iters_per_dispatch"], c_c))
+    scan, scan_outs, _, scan_launches, _ = fast_serve(
+        torch, HK, S, cfg, host, lone, device, "scan_lone", megastep=16)
+    c_s = scan.metrics.snapshot()["counters"]
+    check(c_s["megastep_lane_iterations"] == 16
+          and c_s["megastep_wasted_iterations"] == 16 - (WHILE_LONE - 1)
+          and scan_launches["paged_flash_decode"] == 16 * n_layers
+          and numpy.array_equal(scan_outs[0], outs[0]),
+          "whilestep: the scan twin %r, launches %r" % (c_s, scan_launches))
+    rec["scan_twin"] = {k_: c_s.get(k_, 0) for k_ in (
+        "megastep_lane_iterations", "megastep_wasted_iterations")}
+    rec["scan_twin"]["paged_flash_decode"] = scan_launches[
+        "paged_flash_decode"]
+    report["lone"] = rec
+    if timed:
+        report["times"] = while_times(torch, eng, scan)
+    del eng, scan
+    gc_cuda(torch)
+
+    # the planted faults, on one-chunk prompts: (1) two slots, a short
+    # lane, a long one and a third request in the ring — once the ring
+    # is empty a slot that drains or is free sits beside the live lane,
+    # and the faulty arm takes a padding row; (2) one slot, a lane and a
+    # request in the ring — the faulty predicate ends the program when
+    # the lane drains, the entry unarmed
+    short = [int(t) for t in reqs[0][0][:20]]
+    pair = [(short, WHILE_LONE), (short[::-1], WHILE_LONE)]
+    arm_log = while_ring_case(torch, HK, S, cfg, host, device,
+                        pair + [([int(t) for t in reqs[1][0][:20]], 30)],
+                        2, arm_ignores_count)
+    caught["arm_ignores_count"] = bool(while_contract(16, arm_log))
+    ring_log = while_ring_case(torch, HK, S, cfg, host, device, pair, 1,
+                         predicate_ignores_ring)
+    caught["predicate_ignores_ring"] = bool(while_contract(16, ring_log))
+    good_log = while_ring_case(torch, HK, S, cfg, host, device, pair, 1)
+    check(not while_contract(16, good_log)
+          and good_log["dispatches"][0] == (2 * (WHILE_LONE - 1), 1,
+                                            [0, -1]),
+          "whilestep: the ring pair without a fault %r"
+          % good_log["dispatches"])
+    stuck = {}
+    fast_serve(torch, HK, S, cfg, host, lone, device, "while_stuck",
+               prepare=lambda e: (record_while(e, stuck),
+                                  predicate_never_updated(e)),
+               megastep=16, megastep_mode="while")
+    stuck_iters = [d[0] for d in stuck["dispatches"]]
+    caught["predicate_never_updated"] = stuck_iters != [WHILE_LONE - 1]
+    gc_cuda(torch)
+
+    launches = {n: sum(r[n] for r in runs)
+                for n in ("paged_flash_decode", "paged_flash_prefill")}
+    report.update(launches=launches,
+                  faults={"caught": caught,
+                          "arm_dispatches": arm_log["dispatches"],
+                          "ring_dispatches": ring_log["dispatches"],
+                          "good_pair_dispatches": good_log["dispatches"],
+                          "stuck_iters": stuck_iters},
+                  phase_s=time.monotonic() - began)
+    print(json.dumps({"serve_whilestep": report}), flush=True)
+    for name in WHILE_FAULTS:
+        check(caught[name], "whilestep: the planted fault %r was not "
+              "caught" % name)
+    return launches
+
+
 # ------------------------------------------------------------------ beside
 def beside_phases(out_path):
     """Phases 15 and 16 in a process of their own (``python3
@@ -8510,7 +8952,7 @@ def main():
     # 2. build, one nvcc per source, all started together
     t0 = time.monotonic()
     names = ("paged_flash_attention", "fused_sgd", "lrn", "dropout",
-             "flash_attention")
+             "flash_attention", "graph_while")
     _build.load_all(names)
     libs = [str(_build.library_path(_build.CSRC_DIR / (n + ".cu"))
                 .relative_to(_build.PACKAGE_DIR.parent)) for n in names]
@@ -8742,13 +9184,21 @@ def main():
     # 18. the fused K-step decode: one captured graph a ladder width,
     # plain, speculative and MoE, then timed in a fresh process too
     mega_launches = serve_megastep(torch, HK, T, S, smi, tick, fastpath)
-    del tick, fastpath
     for k, v in mega_launches.items():
         launches[k] += v
     gc_cuda(torch)
     lap("serve_megastep")
 
-    # 19. the kernels line and the result
+    # 19. the while megastep: K conditional graph nodes a ladder width,
+    # the standby refill ring armed in the program, plain and speculative
+    while_launches = serve_whilestep(torch, HK, T, S, smi, tick, fastpath)
+    del tick, fastpath
+    for k, v in while_launches.items():
+        launches[k] += v
+    gc_cuda(torch)
+    lap("serve_whilestep")
+
+    # 20. the kernels line and the result
     main_case = {"flash_attention_fwd": flash[0],
                  "flash_attention_bwd_dkv": flash[1],
                  "flash_attention_bwd_dq": flash[2],
@@ -8795,6 +9245,8 @@ def main():
             row["fastpath_launches"] = fast_launches[row["name"]]
         if row["name"] in mega_launches:
             row["megastep_launches"] = mega_launches[row["name"]]
+        if row["name"] in while_launches:
+            row["whilestep_launches"] = while_launches[row["name"]]
         if row["name"] == "fused_sgd_update":
             row["population_launches"] = pop_launches
             row["observe_launches"] = observe_launches

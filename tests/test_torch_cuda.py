@@ -1282,7 +1282,8 @@ def test_weights2d_spec_is_the_committed_weights_on_the_host():
 
 def _megastep_engine(**knobs):
     """A small paged engine (vocab 64, d 64, 4 heads, 2 layers, 4 slots,
-    page 16, 8 pages a lane) with the fused K = 4 decode on the card."""
+    page 16, 8 pages a lane) with the fused decode on the card (K = 4
+    unless ``knobs`` say otherwise)."""
     from veles_tpu_torch import prng
     from veles_tpu_torch.ops.transformer import init_transformer_params
     from veles_tpu_torch.serving import LMEngine
@@ -1290,8 +1291,9 @@ def _megastep_engine(**knobs):
     host = init_transformer_params(prng.RandomGenerator("init", 11), 64,
                                    d_model=64, n_heads=4, n_layers=2,
                                    max_len=128)
+    knobs = dict({"megastep": 4}, **knobs)
     return LMEngine(host, 4, 128, slots=4, prefill_chunk=16, device="cuda",
-                    megastep=4, **knobs)
+                    **knobs)
 
 
 def _stage_lanes(engine, seed):
@@ -1342,6 +1344,58 @@ def test_megastep_graph_equals_eager_body_and_repeats(spec_k):
     emitted = out[2 * S:2 * S + K * S * c].reshape(K, S, c)
     assert (emitted[:, 2] == -1).all() and (emitted[:, 0, 0] >= 0).all()
     assert out[S + 2] == engine._ms_host["pos"][2]
+
+
+@pytest.mark.cuda
+def test_while_graph_equals_eager_body_with_an_armed_ring_entry():
+    """The captured while program (K = 8 conditional nodes) at a small
+    width: one lane with 2 tokens left drains at iteration 2 and the one
+    published ring entry (3 tokens left, deeper) is armed into its slot,
+    so 5 iterations run and 3 are skipped.  Two launches and the same
+    program run eagerly give equal packed outputs, and the launches
+    added a launch are the per-iteration ones (kernel 5 once a layer)
+    times the realised iterations."""
+    _card()
+    engine = _megastep_engine(megastep=8, megastep_mode="while",
+                              refill_ring=1)
+    engine.start()
+    engine.stop()
+    w, S, K = 2, engine.slots, engine.megastep
+    assert engine.megastep_launches[w] == {"paged_flash_decode": 2}
+    stage = engine._ms_host
+    for name in stage:
+        stage[name][...] = 0
+    stage["ptab"][0, :2] = [1, 2]
+    stage["last"][0], stage["pos"][0] = 5, 10
+    stage["left"][:] = [2, -1, -1, -1]
+    stage["ring_tab"][0, :2] = [3, 4]
+    stage["ring_last"][0], stage["ring_pos"][0] = 7, 20
+    stage["ring_left"][0], stage["count"][0] = 3, 1
+    with torch.inference_mode():
+        engine._ms_in.copy_(engine._ms_stage)
+        HK.reset_launch_counts()
+        first = engine._megastep_program(w).clone()
+        torch.cuda.synchronize()
+        assert HK.launch_counts()["paged_flash_decode"] == 0
+        second = engine._megastep_program(w).clone()
+        eager = engine._while_body(w).clone()
+        torch.cuda.synchronize()
+    out = first.cpu().numpy()
+    at = 2 * S + K * S
+    iters, assign = int(out[at]), out[at + 1:]
+    assert iters == 5 and assign.tolist() == [0]
+    HK.reset_launch_counts()            # the eager run counted its own
+    engine._count_while_launches(w, iters)
+    counts = HK.launch_counts()
+    assert counts["paged_flash_decode"] == 2 * iters
+    assert sum(counts.values()) == 2 * iters
+    assert torch.equal(first, second)
+    assert torch.equal(first, eager)
+    emitted = out[2 * S:at].reshape(K, S)
+    assert (emitted[:iters, 0] >= 0).all() and (emitted[iters:] == -1).all()
+    assert (emitted[:, 1:] == -1).all()
+    # the armed entry's frontier: 20 + its 3 tokens
+    assert out[S] == 23 and out[0] == emitted[iters - 1, 0]
 
 
 @pytest.mark.cuda

@@ -179,8 +179,7 @@ def test_generate_batch_and_ttft(workload):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("megastep", "while"), ("megastep_mode", "while"), ("tp", 2),
-    ("devices", ["cpu"]), ("refill_ring", 2), ("temperature", 0.7),
+    ("tp", 2), ("devices", ["cpu"]), ("temperature", 0.7),
     ("top_k", 5), ("sample_seed", 1),
     ("faults", object()), ("tracer", object()), ("paged_kv", 0),
 ])

@@ -440,6 +440,41 @@ def test_expert_parallel_ranks_bit_equal(ep_runs, n):
 
 
 @pytest.mark.parametrize("n", [2, 4])
+def test_expert_parallel_sliced_tree_equals_whole(ep_runs, n):
+    """A rank holding only its E/n experts (``expert_slice``, copied)
+    computes the whole-tree call's output, loss, router and input
+    gradients and its experts' gradients bit for bit, with n times
+    fewer expert-weight bytes."""
+    _, ranks = ep_runs
+    tag = "ep%d:" % n
+    for r in ranks:
+        for key in ("out", "loss", "x_grad", "grad/router", "grad/w1",
+                    "grad/b1", "grad/w2", "grad/b2"):
+            numpy.testing.assert_array_equal(r[tag + "sliced/" + key],
+                                             r[tag + key], key)
+        assert int(r[tag + "expert_bytes"]) \
+            == n * int(r[tag + "sliced/expert_bytes"])
+
+
+def test_expert_slice_and_held_count_guard():
+    """``expert_slice`` cuts the rank's experts and keeps the router;
+    ``moe_ffn_ep`` refuses expert weights of neither E nor E/n
+    experts."""
+    from veles_tpu_torch.parallel import Mesh
+    host, x = _moe_setup()
+    mesh = Mesh(numpy.arange(2).reshape(1, 2), ("data", "expert"))
+    params = _tensors(host)
+    own = TM.expert_slice(params, mesh)
+    assert own["router"] is params["router"]
+    k = N_EXPERTS // 2
+    for key in TM.EXPERT_KEYS:
+        assert torch.equal(own[key], params[key][:k])
+    bad = dict(params, w1=params["w1"][:1])
+    with pytest.raises(ValueError, match="neither all"):
+        TM.moe_ffn_ep(bad, torch.from_numpy(x), mesh)
+
+
+@pytest.mark.parametrize("n", [2, 4])
 def test_expert_parallel_collectives_counted(ep_runs, n):
     """One forward all-reduce of the experts' shares and one backward
     all-reduce of their input gradient a call; nothing else."""

@@ -571,7 +571,7 @@ def _launch_counts():
     return {fn: fn.launches for fn in HK._WRAPPERS + parallel.COUNTED}
 
 
-def capture(fn, device, pool=None):
+def capture(fn, device, pool=None, keep_graph=False):
     """Capture ``fn()`` as a CUDA graph on ``device``: warmed up first on
     a side stream, then captured there with thread-local capture errors
     (another thread may go on using the card) and no garbage collection
@@ -579,7 +579,9 @@ def capture(fn, device, pool=None):
     capturing several turns it off itself), in the graph memory ``pool``
     when given (shared by several graphs).  A replay runs no wrapper, so
     each counted function's launches a replay are read at the capture,
-    and the counts are put back to before it.  Returns (graph, what the
+    and the counts are put back to before it.  ``keep_graph=True``
+    leaves the graph uninstantiated, its ``raw_cuda_graph()`` for a
+    caller to build on (:class:`WhileGraph`).  Returns (graph, what the
     captured call returned, {counted function: launches a replay}); a
     capture that fails raises."""
     import gc
@@ -589,7 +591,7 @@ def capture(fn, device, pool=None):
     with torch.cuda.stream(side):
         fn()
     here.wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
     before = _launch_counts()
     collect = gc.isenabled()
     if collect:
@@ -609,6 +611,69 @@ def capture(fn, device, pool=None):
         f.launches = before[f]
     here.synchronize()
     return graph, out, per_replay
+
+
+class WhileGraph:
+    """An early-exit loop on the card: ``pre()``, then at most
+    ``iterations`` calls of ``iteration()``, each only while the one-byte
+    device ``flag`` (written by ``pre`` and by every iteration) holds,
+    then ``post()`` — one executable graph (``csrc/graph_while.cu``: K
+    conditional IF nodes, each around a copy of the one captured
+    iteration).  The three pieces are captured with :func:`capture`
+    (``keep_graph=True``, in the graph memory ``pool``) and must keep
+    every state that crosses a piece in buffers allocated before the
+    capture: a skipped iteration writes nothing, and memory allocated
+    inside one piece is free again in the next.  A launch's kernel
+    launches depend on how many iterations ran, which only the caller's
+    output says: :meth:`add_launches` adds them."""
+
+    def __init__(self, pre, iteration, post, iterations, flag, device,
+                 pool=None):
+        import ctypes
+        import weakref
+        from veles_tpu_torch.ops import _build
+        lib = _build.load("graph_while")
+        lib.graph_while_build.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]
+        lib.graph_while_launch.argtypes = [ctypes.c_void_p] * 2
+        lib.graph_while_destroy.argtypes = [ctypes.c_void_p]
+        self._lib, self.device = lib, device
+        #: the captured pieces (their graph memory stays reserved while
+        #: they live) and each one's counted launches
+        self._graphs, counts = [], []
+        for fn in (pre, iteration, post):
+            graph, _, per_replay = capture(fn, device, pool, keep_graph=True)
+            self._graphs.append(graph)
+            counts.append(per_replay)
+        self.per_iteration = counts[1]
+        self.outside = {f: counts[0].get(f, 0) + counts[2].get(f, 0)
+                        for f in set(counts[0]) | set(counts[2])}
+        exe = ctypes.c_void_p()
+        err = lib.graph_while_build(*(g.raw_cuda_graph()
+                                      for g in self._graphs),
+                                    int(iterations), flag.data_ptr(),
+                                    ctypes.byref(exe))
+        if err:
+            raise RuntimeError("building the loop graph failed (cudaError "
+                               "%d)" % err)
+        self._exec = exe.value
+        weakref.finalize(self, lib.graph_while_destroy, self._exec)
+
+    def launch(self):
+        """Run the loop on the current stream (no wait)."""
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        err = self._lib.graph_while_launch(self._exec, stream)
+        if err:
+            raise RuntimeError("launching the loop graph failed (cudaError "
+                               "%d)" % err)
+
+    def add_launches(self, iterations):
+        """Count one launch that ran ``iterations`` iterations."""
+        from veles_tpu_torch.ops import hopper_kernels as HK
+        counts = dict(self.outside)
+        for f, n in self.per_iteration.items():
+            counts[f] = counts.get(f, 0) + n * int(iterations)
+        HK.add_launches(counts)
 
 
 class StepTables:

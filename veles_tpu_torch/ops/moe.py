@@ -105,30 +105,55 @@ def moe_ffn(params, x, return_aux=False, token_mask=None):
     return out
 
 
-def moe_ffn_ep(params, x, mesh, expert_axis="expert"):
-    """Expert-parallel MoE FFN: rank r of the mesh's ``expert_axis``
-    (n ranks) computes experts [r·E/n, (r+1)·E/n) of ``params`` (the
-    whole tree, replicated) for the whole batch; their masked shares are
-    summed with one counted all-reduce (``parallel.ep_all_reduce``) and
-    scaled by the gate.  Numerically :func:`moe_ffn`, values and
-    gradients: the experts' input gradient is summed over the group in
-    the backward (``parallel.ep_input_grad_all_reduce``), and each
-    rank's router gradient (through the gate) is the whole one."""
-    from veles_tpu_torch import parallel
+EXPERT_KEYS = ("w1", "b1", "w2", "b2")
+
+
+def _expert_range(n_experts, mesh, expert_axis):
+    """(first expert, experts a rank) of this rank on ``expert_axis``."""
     n = mesh.shape[expert_axis]
-    n_experts = params["w1"].shape[0]
     if n_experts % n:
         raise ValueError("n_experts %d %% mesh axis %d != 0"
                          % (n_experts, n))
-    group = mesh.group(expert_axis)
     k = n_experts // n
-    lo = mesh.index(expert_axis) * k
+    return mesh.index(expert_axis) * k, k
+
+
+def expert_slice(params, mesh, expert_axis="expert"):
+    """The tree a rank of ``mesh``'s ``expert_axis`` holds under expert
+    parallelism, as the reference places it: the router whole, ``w1``,
+    ``b1``, ``w2`` and ``b2`` cut to the rank's E/n experts (views of
+    ``params``'; copy them to drop the whole tree)."""
+    lo, k = _expert_range(params["router"].shape[-1], mesh, expert_axis)
+    return dict(params, **{key: params[key][lo:lo + k]
+                           for key in EXPERT_KEYS})
+
+
+def moe_ffn_ep(params, x, mesh, expert_axis="expert"):
+    """Expert-parallel MoE FFN: rank r of the mesh's ``expert_axis``
+    (n ranks) computes experts [r·E/n, (r+1)·E/n) for the whole batch;
+    their masked shares are summed with one counted all-reduce
+    (``parallel.ep_all_reduce``) and scaled by the gate.  ``params`` is
+    the whole tree (E experts, the rank's cut here) or the rank's own
+    (:func:`expert_slice`: E/n experts, E read from the router).
+    Numerically :func:`moe_ffn`, values and gradients: the experts'
+    input gradient is summed over the group in the backward
+    (``parallel.ep_input_grad_all_reduce``), and each rank's router
+    gradient (through the gate) is the whole one."""
+    from veles_tpu_torch import parallel
+    n_experts = params["router"].shape[-1]
+    lo, k = _expert_range(n_experts, mesh, expert_axis)
+    held = params["w1"].shape[0]
+    if held == n_experts:
+        params = expert_slice(params, mesh, expert_axis)
+    elif held != k:
+        raise ValueError("the expert weights hold %d experts: neither all "
+                         "%d nor a rank's %d" % (held, n_experts, k))
+    group = mesh.group(expert_axis)
     shape = x.shape
     flat = x.reshape(-1, shape[-1])
     _, gate, onehot = _route(params, flat)
     expert_out = _expert_ffn(                               # (E/n, T, d)
-        params["w1"][lo:lo + k], params["b1"][lo:lo + k],
-        params["w2"][lo:lo + k], params["b2"][lo:lo + k],
+        params["w1"], params["b1"], params["w2"], params["b2"],
         parallel.ep_input_grad_all_reduce(flat, group))
     local = torch.einsum("etd,te->td", expert_out, onehot[:, lo:lo + k])
     return (parallel.ep_all_reduce(local, group) * gate).reshape(shape)

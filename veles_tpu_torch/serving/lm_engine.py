@@ -51,6 +51,17 @@ And one that changes only how often the host steps in:
   tokens read -1.  On the card the program is one CUDA graph per
   live-width ladder entry, captured at :meth:`start`; on the CPU the
   same body runs as a host loop of K iterations.
+- ``megastep_mode="while"`` (``megastep="while"`` is K = 16) — the
+  EARLY-EXIT form: K becomes a cap, and the program stops after the
+  first iteration that leaves no lane live and no published ring entry
+  unarmed.  With ``refill_ring=R`` up to R queued requests are
+  prefilled into STANDBY lanes (:class:`_Standby`) outside the slot
+  array while every slot is busy; each dispatch publishes the ready
+  ones, and a slot that drains inside the program takes the next one
+  in the same iteration (page-table row, frontier and history swapped
+  in on the device).  On the card the K iterations are K conditional
+  graph nodes (``csrc/graph_while.cu``), so the skipped ones cost one
+  tiny launch each; on the CPU the host loop stops.
 
 Attention runs through the hand-written Hopper kernels
 (``ops/hopper_kernels.py``): the decode step through
@@ -102,8 +113,6 @@ from veles_tpu_torch.serving.metrics import ServingMetrics
 
 #: where each unported knob of the reference engine is queued
 _ROADMAP = {
-    "megastep_mode": "Queue 1 item 3 (second leg: the while loop)",
-    "refill_ring": "Queue 1 item 3 (second leg: the while loop)",
     "tp": "Queue 1 item 4 (tensor-parallel serving)",
     "devices": "Queue 1 item 4 (tensor-parallel serving)",
     "temperature": "Queue 1 item 6 (seeded sampling)",
@@ -340,6 +349,27 @@ class _Slot:
         self.pages = []
 
 
+class _Standby:
+    """One standby-ring entry: a lane prefilled on the host OUTSIDE the
+    slot array, waiting to be published into the while megastep's
+    inputs so that a slot draining inside the program takes it there.
+    It owns its pages (reserved and pinned as a lane's are, never
+    shared) and its request's first token is already out: the entry is
+    admitted work, never shed at its deadline."""
+
+    __slots__ = ("lane", "table", "pos", "last", "ready")
+
+    def __init__(self, lane, table):
+        self.lane = lane
+        #: (max_pages,) int32 page-table row backing this entry
+        self.table = table
+        #: decode frontier after the last prompt chunk run
+        self.pos = 0
+        self.last = 0
+        #: tail chunk done: publishable into the program's inputs
+        self.ready = False
+
+
 class LMEngine(Logger):
     """Slot-based continuous batching over ``params`` — the reference's
     portable param tree (nested dicts of numpy arrays), the same tree
@@ -359,7 +389,11 @@ class LMEngine(Logger):
     cache; ``spec_k=K`` verifies prompt-lookup drafts of up to K tokens
     found by matching ``spec_ngram``-grams.  ``megastep=K`` (K >= 2)
     fuses K decode iterations into one program (``megastep_mode``
-    ``"scan"``, the default; 0 and 1 keep the per-tick path).
+    ``"scan"``, the default; 0 and 1 keep the per-tick path);
+    ``megastep_mode="while"`` (or ``megastep="while"``, K = 16) exits
+    the program once nothing is left live, and ``refill_ring=R`` then
+    keeps R prefilled standby lanes that re-arm drained slots inside
+    it.
     ``queue_tokens=T`` budgets admission by queued prompt tokens.
     Attention always runs through the kernel wrappers; a geometry they
     cannot carry raises ValueError here.
@@ -382,12 +416,13 @@ class LMEngine(Logger):
                  version=0, tracer=None, megastep=0, megastep_mode=None,
                  refill_ring=0, temperature=0.0, top_k=0, sample_seed=None,
                  device=None):
-        if megastep == "while" or megastep_mode == "while":
-            raise _unported("megastep_mode")
-        if megastep_mode not in (None, "scan"):
+        if megastep == "while":
+            # the while mode's shorthand: K = 16 as its iteration cap
+            megastep, megastep_mode = 16, "while"
+        if megastep_mode not in (None, "scan", "while"):
             raise ValueError("megastep_mode must be 'scan' or 'while' "
                              "(got %r)" % (megastep_mode,))
-        for knob, value in (("refill_ring", refill_ring), ("tp", tp),
+        for knob, value in (("tp", tp),
                             ("devices", devices), ("faults", faults),
                             ("tracer", tracer),
                             ("temperature", temperature), ("top_k", top_k),
@@ -399,9 +434,24 @@ class LMEngine(Logger):
         #: fused decode: K >= 2 iterations a dispatch; 0 and 1 are the
         #: per-tick path, and no fused program is built
         self.megastep = int(megastep or 0)
+        self.megastep_mode = megastep_mode or "scan"
         if self.megastep < 0:
             raise ValueError("megastep must be >= 0 (got %d)"
                              % self.megastep)
+        if self.megastep_mode == "while" and self.megastep < 2:
+            raise ValueError("megastep_mode='while' needs megastep >= 2 "
+                             "(the iteration cap)")
+        #: standby refill ring: prefilled lanes the while program
+        #: re-arms drained slots from
+        self.refill_ring = int(refill_ring or 0)
+        if self.refill_ring < 0:
+            raise ValueError("refill_ring must be >= 0 (got %d)"
+                             % self.refill_ring)
+        if self.refill_ring and self.megastep_mode != "while":
+            raise ValueError("refill_ring needs paged_kv and "
+                             "megastep_mode='while' (the ring is "
+                             "published into the while program's inputs "
+                             "as page-table rows)")
         if slots < 1:
             raise ValueError("slots must be >= 1")
         self.name = name
@@ -504,6 +554,8 @@ class LMEngine(Logger):
         self._last = numpy.zeros(self.slots, numpy.int32)
         self._lanes = [None] * self.slots
         self._free = list(range(self.slots))
+        #: the standby ring (``refill_ring``), in arrival order
+        self._ring = []
 
         self._queue = collections.deque()
         self._queued_tokens = 0
@@ -516,6 +568,8 @@ class LMEngine(Logger):
         #: seconds each capture took (the card only)
         self.megastep_launches = {}
         self.megastep_capture_s = {}
+        #: the card's while programs ({w: compiled.WhileGraph})
+        self._while_graphs = {}
         if self.megastep >= 2:
             self._megastep_buffers()
         self._cond = lockcheck.make_condition("lm_engine._cond")
@@ -582,13 +636,23 @@ class LMEngine(Logger):
         int32 staging buffer the host fills (pinned on the card), its
         device copy the program reads — page table (slots, max_pages),
         ``last``, ``pos``, ``left`` and with ``spec_k`` the token
-        history (slots, max_len) and its lengths — and one host buffer
-        the program's output is read back into."""
+        history (slots, max_len) and its lengths; in the while mode with
+        a ring also the published entries' rows of the same (R of each,
+        zero-padded, padding tables on the scratch page) and their
+        ``count`` — and one host buffer the program's output is read
+        back into."""
         S, K, k = self.slots, self.megastep, self.spec_k
-        sizes = [("ptab", (S, self._max_pages)), ("last", (S,)),
-                 ("pos", (S,)), ("left", (S,))]
+        R, M, L = self.refill_ring, self._max_pages, self.max_len
+        sizes = [("ptab", (S, M)), ("last", (S,)), ("pos", (S,)),
+                 ("left", (S,))]
         if k:
-            sizes += [("hist", (S, self.max_len)), ("hlen", (S,))]
+            sizes += [("hist", (S, L)), ("hlen", (S,))]
+        if R:
+            sizes += [("ring_tab", (R, M)), ("ring_last", (R,)),
+                      ("ring_pos", (R,)), ("ring_left", (R,))]
+            if k:
+                sizes += [("ring_hist", (R, L)), ("ring_hlen", (R,))]
+            sizes.append(("count", (1,)))
         total = sum(int(numpy.prod(shape)) for _, shape in sizes)
         card = self.device.type == "cuda"
         self._ms_stage = torch.zeros(total, dtype=torch.int32,
@@ -602,10 +666,43 @@ class LMEngine(Logger):
             self._ms_host[name] = stage_np[at:at + n].reshape(shape)
             self._ms_dev[name] = self._ms_in[at:at + n].view(shape)
             at += n
-        # packed output: last, pos, emitted (K, S, k+1 or 1), accs (K, S)
-        self._ms_out = torch.zeros(2 * S + K * S * (k + 1)
-                                   + (K * S if k else 0),
-                                   dtype=torch.int32, pin_memory=card)
+        # packed output: last, pos, emitted (K, S, k+1 or 1), accs (K, S),
+        # and in the while mode iters (1) and assign (R)
+        size = 2 * S + K * S * (k + 1) + (K * S if k else 0)
+        if self.megastep_mode == "while":
+            size += 1 + R
+            self._while_state(size)
+        self._ms_out = torch.zeros(size, dtype=torch.int32,
+                                   pin_memory=card)
+
+    def _while_state(self, size):
+        """The while program's state on the engine's device, allocated
+        once and updated IN PLACE by every piece of the program (a
+        skipped iteration on the card writes nothing, so nothing may
+        live in memory a piece allocates): the carry — the page table
+        (a flat buffer whose first slots × w entries are width w's
+        table), ``last``, ``pos``, ``left`` (and ``hist``/``hlen``) —,
+        the emitted rows (and accepted counts), ``iters`` (int64, the
+        next emitted row), the ring's ``head`` and ``assign``, the
+        one-byte ``flag`` that says whether the next iteration runs,
+        and the packed output."""
+        S, K, k, R = self.slots, self.megastep, self.spec_k, \
+            self.refill_ring
+        i32 = functools.partial(torch.zeros, dtype=torch.int32,
+                                device=self.device)
+        st = {"ptab": i32(S * self._max_pages), "last": i32(S),
+              "pos": i32(S), "left": i32(S),
+              "emitted": i32((K, S, k + 1) if k else (K, S)),
+              "iters": torch.zeros(1, dtype=torch.int64,
+                                   device=self.device),
+              "flag": torch.zeros(1, dtype=torch.uint8, device=self.device),
+              "out": i32(size)}
+        if k:
+            st.update(hist=i32((S, self.max_len)), hlen=i32(S),
+                      accs=i32((K, S)))
+        if R:
+            st.update(head=i32(1), assign=i32(R))
+        self._wl = st
 
     def _plain_iter(self, ptabs, carry):
         """One decode iteration of every lane inside the megastep:
@@ -699,6 +796,119 @@ class LMEngine(Logger):
             parts.append(torch.stack(accs).reshape(-1))
         return torch.cat(parts)
 
+    # --------------------------------------------------- while megastep
+    def _while_carry(self):
+        """The carry buffers in the order the iteration takes them."""
+        st = self._wl
+        carry = (st["last"], st["pos"], st["left"])
+        if self.spec_k:
+            carry += (st["hist"], st["hlen"])
+        return carry
+
+    def _while_live(self):
+        """``flag`` := some lane has tokens left, or a published ring
+        entry is not armed yet."""
+        st = self._wl
+        live = (st["left"] > 0).any()
+        if self.refill_ring:
+            live = live | (st["head"] < self._ms_dev["count"]).any()
+        st["flag"].copy_(live.view(1))
+
+    def _while_pre(self, w):
+        """The program's set-up at width ``w``: the carry from the staged
+        inputs, the emitted rows at -1, no iteration run, no ring entry
+        armed, and the first ``flag``."""
+        st, inp, S = self._wl, self._ms_dev, self.slots
+        st["ptab"][:S * w].view(S, w).copy_(inp["ptab"][:, :w])
+        for name, buf in zip(("last", "pos", "left", "hist", "hlen"),
+                             self._while_carry()):
+            buf.copy_(inp[name])
+        st["emitted"].fill_(-1)
+        if self.spec_k:
+            st["accs"].fill_(-1)
+        st["iters"].zero_()
+        if self.refill_ring:
+            st["head"].zero_()
+            st["assign"].fill_(-1)
+        self._while_live()
+
+    def _while_arm(self, ptabs, w):
+        """THE in-program re-arm: every drained slot (``left == 0``),
+        in slot order, takes the next published ring entry while any is
+        left — its table row (sliced to ``w``), frontier, last token,
+        tokens left (and history) swapped in by masked selects, and
+        ``assign[entry]`` set to the slot.  Vectorised: the drained
+        slots are numbered by a running sum, and slot s takes entry
+        ``head + its number`` when that is below ``count``.  Equal to
+        the reference's loop over slots, where no slot's take depends
+        on another slot's swap (a taking slot's own ``left`` turns
+        positive; only ``head`` carries over)."""
+        st, inp = self._wl, self._ms_dev
+        R = self.refill_ring
+        drained = st["left"] == 0
+        at = st["head"] + torch.cumsum(drained, 0, dtype=torch.int32) - 1
+        take = drained & (at < inp["count"])
+        idx = at.clamp(0, R - 1).long()
+        ptabs.copy_(torch.where(take[:, None], inp["ring_tab"][idx, :w],
+                                ptabs))
+        for name, buf in zip(("last", "pos", "left", "hist", "hlen"),
+                             self._while_carry()):
+            src = inp["ring_" + name][idx]
+            mask = take if buf.dim() == 1 else take[:, None]
+            buf.copy_(torch.where(mask, src, buf))
+        entries = torch.arange(R, device=idx.device)
+        hit = take[:, None] & (idx[:, None] == entries)          # (S, R)
+        slots = torch.arange(self.slots, device=idx.device,
+                             dtype=torch.int32)
+        st["assign"].copy_(torch.where(
+            hit.any(0), (hit.to(torch.int32) * slots[:, None]).sum(
+                0, dtype=torch.int32), st["assign"]))
+        st["head"].add_(take.sum(dtype=torch.int32))
+
+    def _while_iter(self, w):
+        """ONE iteration of the while program at width ``w``, in place on
+        its state: the ring's arm, one plain (or speculative) iteration
+        of every lane, its emitted row (and accepted counts) at row
+        ``iters``, ``iters`` + 1, and the next ``flag``."""
+        st, S = self._wl, self.slots
+        ptabs = st["ptab"][:S * w].view(S, w)
+        if self.refill_ring:
+            self._while_arm(ptabs, w)
+        carry = self._while_carry()
+        if self.spec_k:
+            new, (emit, acc) = self._spec_iter(ptabs, carry)
+            st["accs"].index_copy_(0, st["iters"], acc[None])
+        else:
+            new, emit = self._plain_iter(ptabs, carry)
+        for buf, value in zip(carry, new):
+            buf.copy_(value)
+        st["emitted"].index_copy_(0, st["iters"], emit[None])
+        st["iters"].add_(1)
+        self._while_live()
+
+    def _while_post(self):
+        """The packed output: last, pos, emitted, (accs,) iters,
+        (assign)."""
+        st = self._wl
+        parts = [st["last"], st["pos"], st["emitted"].view(-1)]
+        if self.spec_k:
+            parts.append(st["accs"].view(-1))
+        parts.append(st["iters"].to(torch.int32))
+        if self.refill_ring:
+            parts.append(st["assign"])
+        torch.cat(parts, out=st["out"])
+        return st["out"]
+
+    def _while_body(self, w):
+        """The while program on the host: the set-up, iterations while
+        ``flag`` holds (K at most), the packed output."""
+        self._while_pre(w)
+        for _ in range(self.megastep):
+            if not int(self._wl["flag"][0]):
+                break
+            self._while_iter(w)
+        return self._while_post()
+
     def _megastep_program(self, w):
         """Run the fused program of width ``w`` over the staged inputs;
         returns its packed output (on the engine's device)."""
@@ -728,24 +938,57 @@ class LMEngine(Logger):
             return out
         return replay
 
+    def _capture_while(self, w, pool):
+        """The card's while program of width ``w``: its set-up, ONE
+        iteration and its packing captured as graphs and joined into K
+        conditional nodes (``compiled.WhileGraph``), so the iterations
+        after ``flag`` reads false are skipped on the card.  A launch's
+        kernel launches are counted once its ``iters`` is read back
+        (:meth:`_count_while_launches`)."""
+        from veles_tpu_torch.compiled import WhileGraph
+        began = time.perf_counter()
+        self._ms_in.zero_()
+        loop = WhileGraph(functools.partial(self._while_pre, w),
+                          functools.partial(self._while_iter, w),
+                          self._while_post, self.megastep,
+                          self._wl["flag"], self.device, pool)
+        self._while_graphs[w] = loop
+        self.megastep_launches[w] = {fn.__name__: n for fn, n in
+                                     loop.per_iteration.items()}
+        self.megastep_capture_s[w] = time.perf_counter() - began
+
+        def launch():
+            loop.launch()
+            return self._wl["out"]
+        return launch
+
+    def _count_while_launches(self, w, iters):
+        """Add one while launch's kernel launches (per iteration ×
+        ``iters``) on the card; the CPU's plain versions count none."""
+        loop = self._while_graphs.get(w)
+        if loop is not None:
+            loop.add_launches(iters)
+
     def _build_megastep(self):
         """One fused program a live-width ladder entry, so no shape is
-        first seen under traffic: on the card a captured graph, on the
-        CPU the body itself.  No garbage collection while the ladder is
-        captured: freeing an earlier graph inside a capture would end
-        it."""
+        first seen under traffic: on the card a captured graph (the
+        while mode's a loop of conditional nodes), on the CPU the body
+        itself.  No garbage collection while the ladder is captured:
+        freeing an earlier graph inside a capture would end it."""
+        body = (self._while_body if self.megastep_mode == "while"
+                else self._megastep_body)
         if self.device.type != "cuda":
             self._megastep_programs = {
-                w: functools.partial(self._megastep_body, w)
-                for w in self._width_ladder}
+                w: functools.partial(body, w) for w in self._width_ladder}
             return
+        grab = (self._capture_while if self.megastep_mode == "while"
+                else self._capture_megastep)
         pool = torch.cuda.graph_pool_handle()
         gc.collect()
         gc.disable()
         try:
-            self._megastep_programs = {
-                w: self._capture_megastep(w, pool)
-                for w in self._width_ladder}
+            self._megastep_programs = {w: grab(w, pool)
+                                       for w in self._width_ladder}
         finally:
             gc.enable()
 
@@ -906,6 +1149,11 @@ class LMEngine(Logger):
                 for p in lane.pages:
                     want_refs[p] += 1
                     want_pins[p] += 1
+        for entry in self._ring:
+            # a standby entry holds its pages as a lane does
+            for p in entry.lane.pages:
+                want_refs[p] += 1
+                want_pins[p] += 1
         if self._trie is not None:
             stack = list(self._trie.root.children.values())
             while stack:
@@ -930,13 +1178,17 @@ class LMEngine(Logger):
         self.metrics.set_gauge("kv_pages_free", self._pool.free_pages)
         self.metrics.set_gauge("kv_pages_pinned", self._pool.pinned_pages)
 
-    def _live_width(self, span):
+    def _live_width(self, span, floor=0):
         """Ladder-bucketed page-table width for a step writing ``span``
         positions per lane: the smallest ladder entry covering EVERY
         slot's frontier — ``_pos`` includes prefilling lanes' parked
         frontiers and free lanes' 0, so every write of the batched step
-        lands inside the sliced table."""
-        need = -(-(int(self._pos.max()) + span) // self.prefill_chunk)
+        lands inside the sliced table.  ``floor`` raises the covered
+        frontier past the slots' own: the while program passes its
+        published ring entries' frontiers, so an entry armed inside the
+        program writes inside the sliced table too."""
+        need = -(-(max(int(self._pos.max()), floor) + span)
+                 // self.prefill_chunk)
         for w in self._width_ladder:
             if w >= need:
                 return w
@@ -1392,27 +1644,10 @@ class LMEngine(Logger):
         for slot in active:
             stage["left"][slot] = self._lanes[slot].remaining
         if k:
-            stage["hist"][:] = 0
-            stage["hlen"][:] = 0
-            for slot in active:
-                lane = self._lanes[slot]
-                row = numpy.concatenate(
-                    [lane.request.prompt,
-                     numpy.asarray(lane.emitted, numpy.int32)])
-                stage["hist"][slot, :len(row)] = row
-                stage["hlen"][slot] = len(row)
+            self._stage_histories(active)
         t0 = time.monotonic()
         try:
-            w = self._live_width(span)
-            if self._ms_in is not self._ms_stage:
-                self._ms_in.copy_(self._ms_stage, non_blocking=True)
-            out = self._megastep_program(w)
-            if self._ms_in is self._ms_stage:
-                res = out.numpy()
-            else:
-                self._ms_out.copy_(out, non_blocking=True)
-                torch.cuda.current_stream(self.device).synchronize()
-                res = self._ms_out.numpy()
+            res = self._run_fused(self._live_width(span))
         except Exception as e:   # noqa: BLE001 — fails the lanes
             self._fail_active(active, e)
             return
@@ -1449,13 +1684,359 @@ class LMEngine(Logger):
             if lane.remaining == 0 or lane.request.cancelled:
                 self._finish(slot)
 
+    def _stage_history(self, hist, hlen, row, lane):
+        """Stage one lane's token history (prompt + emitted) at ``row``."""
+        tokens = numpy.concatenate(
+            [lane.request.prompt, numpy.asarray(lane.emitted, numpy.int32)])
+        hist[row, :len(tokens)] = tokens
+        hlen[row] = len(tokens)
+
+    def _stage_histories(self, active):
+        """Stage every active lane's history in its slot's row, the
+        other rows zero."""
+        stage = self._ms_host
+        stage["hist"][:] = 0
+        stage["hlen"][:] = 0
+        for slot in active:
+            self._stage_history(stage["hist"], stage["hlen"], slot,
+                                self._lanes[slot])
+
+    def _run_fused(self, w):
+        """Upload the staged inputs, run width ``w``'s fused program and
+        read its packed output back, one copy each way; returns the
+        host array."""
+        if self._ms_in is self._ms_stage:
+            return self._megastep_program(w).numpy()
+        self._ms_in.copy_(self._ms_stage, non_blocking=True)
+        self._ms_out.copy_(self._megastep_program(w), non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return self._ms_out.numpy()
+
+    def _stage_ring(self, pub):
+        """Publish ``pub`` (the ready standby entries) into the staged
+        inputs, zero-padded to the ring size R; padding table rows park
+        on the scratch page as a free slot's do.  The program does not
+        depend on how many are published: ``count`` 0 arms nothing."""
+        stage = self._ms_host
+        stage["ring_tab"][:] = KVPagePool.SCRATCH
+        for name in ("ring_last", "ring_pos", "ring_left", "count"):
+            stage[name][:] = 0
+        if self.spec_k:
+            stage["ring_hist"][:] = 0
+            stage["ring_hlen"][:] = 0
+        for j, entry in enumerate(pub):
+            stage["ring_tab"][j] = entry.table
+            stage["ring_last"][j] = entry.last
+            stage["ring_pos"][j] = entry.pos
+            stage["ring_left"][j] = entry.lane.remaining
+            if self.spec_k:
+                self._stage_history(stage["ring_hist"], stage["ring_hlen"],
+                                    j, entry.lane)
+        stage["count"][0] = len(pub)
+
+    def _step_while(self, active):   # hot-path
+        """ONE early-exit fused dispatch: the while program advances
+        every active lane until all are drained and every published
+        ring entry is armed — or K iterations, the cap — and arms the
+        published standby entries into slots that drain inside it.
+        The host's boundary work is :meth:`_step_megastep`'s plus: the
+        REALISED iteration count read back (the books quote it, not the
+        cap), each slot's emitted stream split between the outgoing lane
+        and the entries armed into it (in arm order: a lane stops
+        emitting only once drained, and entries arm in ring order),
+        replacements that finished inside the program resolved, and the
+        last unfinished one installed as the slot's lane."""
+        K, k, S = self.megastep, self.spec_k, self.slots
+        span = K * (k + 1) + k if k else K
+        active = self._cow_guard_active(active, span)
+        if not active:
+            return
+        stage = self._ms_host
+        stage["ptab"][:] = self._page_tables
+        stage["last"][:] = self._last
+        stage["pos"][:] = self._pos
+        # idle and prefilling slots enter at -1, so the arm never
+        # touches a lane the host is prefilling
+        stage["left"][:] = -1
+        for slot in active:
+            stage["left"][slot] = self._lanes[slot].remaining
+        pub = []
+        if self.refill_ring:
+            # a free slot enters at 0: armable from the first iteration
+            for slot in self._free:
+                stage["left"][slot] = 0
+            pub = [e for e in self._ring
+                   if e.ready and not e.lane.request.cancelled]
+            self._stage_ring(pub)
+        if k:
+            self._stage_histories(active)
+        t0 = time.monotonic()
+        try:
+            w = self._live_width(span, max([e.pos for e in pub] or [0]))
+            res = self._run_fused(w)
+        except Exception as e:   # noqa: BLE001 — fails the participants
+            self._fail_active(active, e)
+            for entry in pub:
+                # ring occupants took part: they fail too, pages home
+                self._fail_standby(entry, e)
+            return
+        t1 = time.monotonic()
+        c = k + 1
+        at = 2 * S + K * S * c + (K * S if k else 0)
+        iters = int(res[at])
+        self._count_while_launches(w, iters)
+        self._last = res[:S].copy()
+        self._pos = res[S:2 * S].copy()
+        emitted = res[2 * S:2 * S + K * S * c].reshape(K, S, c)[:iters]
+        armed = {}                      # slot -> entries, in arm order
+        if self.refill_ring:
+            for entry, s in zip(pub, res[at + 1:at + 1 + len(pub)]):
+                if s >= 0:
+                    armed.setdefault(int(s), []).append(entry)
+                    self._ring.remove(entry)
+        participants = sorted(set(active) | set(armed))
+        wasted, total = 0, 0
+        for slot in participants:
+            rows = emitted[:, slot, :]
+            toks = [int(t) for t in rows[rows >= 0]]
+            wasted += int((rows[:, 0] < 0).sum())
+            total += len(toks)
+            self.metrics.inc("tokens_out", len(toks))
+            owners = ([self._lanes[slot]] if slot in active else []) \
+                + [e.lane for e in armed.get(slot, ())]
+            for lane in owners:
+                take = min(lane.remaining, len(toks))
+                lane.emitted.extend(toks[:take])
+                lane.remaining -= take
+                toks = toks[take:]
+        if k:
+            accs = res[2 * S + K * S * c:at].reshape(K, S)[:iters]
+            # in-graph drafts are always k wide: k proposed a live
+            # iteration
+            self.metrics.inc("draft_tokens", k * int((accs >= 0).sum()))
+            self.metrics.inc("draft_accepted",
+                             int(numpy.clip(accs, 0, k).sum()))
+        n_armed = sum(len(v) for v in armed.values())
+        if n_armed:
+            self.metrics.inc("megastep_refills", n_armed)
+        self.metrics.set_gauge("standby_ring_occupancy", len(self._ring))
+        self.metrics.record_dispatch(len(participants))
+        self.metrics.record_decode_step(t1 - t0)
+        self.metrics.inc("decode_dispatches")
+        # REALISED iterations, not the cap
+        self.metrics.record_megastep(iters, len(participants), total,
+                                     wasted)
+        for slot in participants:
+            if slot in active:
+                lane = self._lanes[slot]
+                if lane.remaining == 0 or lane.request.cancelled:
+                    self._finish(slot)
+            for entry in armed.get(slot, ()):
+                lane = entry.lane
+                if lane.remaining == 0 or lane.request.cancelled:
+                    self._resolve_standby(entry)
+                    continue
+                # still decoding at the cap: the entry BECOMES the
+                # slot's lane, with its full table row and the frontier
+                # the program left
+                self._lanes[slot] = lane
+                if slot in self._free:
+                    self._free.remove(slot)
+                self._page_tables[slot] = entry.table
+                self._pos[slot] = int(res[S + slot])
+                self._last[slot] = int(res[slot])
+            if self._lanes[slot] is None:
+                # every owner drained: the slot parks on scratch at 0
+                self._pos[slot] = 0
+                self._last[slot] = 0
+                self._page_tables[slot, :] = KVPagePool.SCRATCH
+
+    # ---------------------------------------------------------- standby ring
+    def _admit_ring(self):   # hot-path
+        """Install READY standby entries into free slots on the host: the
+        in-program arm is the ring's fast path, but a slot that frees at
+        a boundary (or lanes that drained while the ring was still
+        prefilling) must not wait for a drain inside a program that may
+        never come."""
+        if not self.refill_ring:
+            return
+        while self._free and self._ring:
+            entry = next((e for e in self._ring if e.ready), None)
+            if entry is None:
+                return
+            self._ring.remove(entry)
+            lane = entry.lane
+            if lane.request.cancelled:
+                self._drop_standby(entry)
+                continue
+            slot = self._free.pop()
+            self._lanes[slot] = lane
+            self._page_tables[slot] = entry.table
+            self._pos[slot] = entry.pos
+            self._last[slot] = entry.last
+            self.metrics.set_gauge("standby_ring_occupancy",
+                                   len(self._ring))
+
+    def _advance_ring(self):   # hot-path
+        """One turn of standby-ring work: run ONE pending standby prompt
+        chunk, or — when every slot is busy and the ring has room — take
+        the queue head into a fresh standby entry.  Its pages are
+        reserved all-or-nothing as :meth:`_admit_paged` reserves a
+        lane's, with NO prefix-cache interaction: a standby page is
+        never shared, so the in-program arm needs no copy-on-write."""
+        if not self.refill_ring:
+            return
+        for entry in list(self._ring):
+            # withdrawn entries give their pages home now
+            if entry.lane.request.cancelled:
+                self._drop_standby(entry)
+        entry = next((e for e in self._ring if not e.ready), None)
+        if entry is not None:
+            self._advance_standby_chunk(entry)
+            return
+        if self._free or len(self._ring) >= self.refill_ring:
+            return
+        with self._cond:
+            req = self._queue.popleft() if self._queue else None
+            if req is not None:
+                self._queued_tokens -= req.true_len
+                self._queued_pages -= req.pages
+                self.metrics.set_gauge("queue_depth", len(self._queue))
+                self.metrics.set_gauge("queue_tokens", self._queued_tokens)
+                self.metrics.set_gauge("queue_pages", self._queued_pages)
+        if req is None:
+            return
+        if req.cancelled:
+            req.future.cancel()
+            return
+        if time.monotonic() > req.deadline:
+            self.metrics.record_shed()
+            req.future.set_exception(DeadlineExceeded(
+                "prompt shed after %.3fs in queue" % (
+                    time.monotonic() - req.t_enq)))
+            return
+        pages = self._alloc_pages(req.pages)
+        if pages is None:
+            # pool pressure: back to the HEAD, as in _admit
+            with self._cond:
+                self._queue.appendleft(req)
+                self._queued_tokens += req.true_len
+                self._queued_pages += req.pages
+                self.metrics.set_gauge("queue_depth", len(self._queue))
+                self.metrics.set_gauge("queue_tokens", self._queued_tokens)
+                self.metrics.set_gauge("queue_pages", self._queued_pages)
+            return
+        lane = _Slot(req)
+        for p in pages:
+            self._pool.pin(p)
+        lane.pages.extend(pages)
+        table = numpy.full(self._max_pages, KVPagePool.SCRATCH, numpy.int32)
+        table[:len(pages)] = pages
+        C = self.prefill_chunk
+        n_full = (req.true_len - 1) // C
+        for i in range(n_full):
+            lane.pending.append((req.prompt[i * C:(i + 1) * C], i * C,
+                                 False))
+        tail = req.prompt[n_full * C:]
+        if len(tail) < C:
+            tail = numpy.pad(tail, (0, C - len(tail)))
+        lane.pending.append((tail, n_full * C, True))
+        self.metrics.record_queue_wait(time.monotonic() - req.t_enq)
+        entry = _Standby(lane, table)
+        self._ring.append(entry)
+        self._update_pool_gauges()
+        self.metrics.set_gauge("standby_ring_occupancy", len(self._ring))
+        self.metrics.set_gauge_max("standby_ring_peak", len(self._ring))
+        # the creating turn runs the first chunk too, so a one-chunk
+        # prompt is publishable at the very next dispatch
+        self._advance_standby_chunk(entry)
+
+    def _advance_standby_chunk(self, entry):   # hot-path
+        """One prompt chunk of a standby lane (kernel 6, through
+        :meth:`_chunk_program`) into its own pages; the tail chunk
+        yields its first token and makes the entry ready."""
+        lane = entry.lane
+        req = lane.request
+        tokens, start, is_tail = lane.pending.pop(0)
+        last_idx = (req.true_len - 1 - start) if is_tail else 0
+        t0 = time.monotonic()
+        try:
+            tok = self._chunk_program(entry.table, tokens, start, last_idx)
+            if is_tail:
+                tok = int(tok)
+        except Exception as e:   # noqa: BLE001 — fails THIS request
+            self.metrics.record_error()
+            self.warning("standby prefill failed: %s", e)
+            self._fail_standby(entry, e)
+            return
+        self.metrics.inc("prefill_dispatches")
+        self.metrics.inc("prefill_tokens",
+                         (req.true_len - start) if is_tail else len(tokens))
+        self.metrics.record_decode_step(time.monotonic() - t0)
+        if not is_tail:
+            entry.pos = lane.pending[0][1]
+            return
+        lane.emitted.append(tok)
+        lane.remaining -= 1
+        req.t_first = time.monotonic()
+        self.metrics.inc("tokens_out")
+        self.metrics.record_ttft(req.t_first - req.t_enq)
+        entry.pos = req.true_len
+        entry.last = tok
+        if lane.remaining == 0 or req.cancelled:
+            self._ring.remove(entry)
+            self._resolve_standby(entry)
+            self.metrics.set_gauge("standby_ring_occupancy",
+                                   len(self._ring))
+            return
+        entry.ready = True
+
+    def _resolve_standby(self, entry):
+        """A standby lane that FINISHED without holding a slot at a
+        boundary (n_new 1 at its prefill tail, or armed and drained
+        inside one program): pages home, future resolved — the ring's
+        :meth:`_finish`."""
+        self._release_lane(entry.lane)
+        req = entry.lane.request
+        fut = req.future
+        if not fut.cancelled():
+            fut.version = self.weights_version
+            fut.ttft_s = req.t_first - req.t_enq
+            fut.set_result(numpy.asarray(entry.lane.emitted, numpy.int32))
+
+    def _drop_standby(self, entry):
+        """A withdrawn standby entry: pages home, future cancelled."""
+        if entry in self._ring:
+            self._ring.remove(entry)
+        self._release_lane(entry.lane)
+        entry.lane.request.future.cancel()
+        self.metrics.set_gauge("standby_ring_occupancy", len(self._ring))
+
+    def _fail_standby(self, entry, exc):
+        """Fail one standby entry to its client: pages home, future
+        failed — ring occupants take part in a faulted dispatch as
+        lanes do."""
+        if entry in self._ring:
+            self._ring.remove(entry)
+        self._release_lane(entry.lane)
+        fut = entry.lane.request.future
+        if not fut.cancelled():
+            fut.set_exception(exc)
+        self.metrics.set_gauge("standby_ring_occupancy", len(self._ring))
+
     def _boundary_shed(self):   # hot-path
         """Deadline shedding at the loop's boundary: one sweep of the
         whole queue a turn (a megastep with ``megastep``), so a request
         whose deadline passes while every slot is busy gets its answer
         then, not when a slot frees.  A request already in a lane keeps
-        decoding: its deadline governs only its wait in the queue."""
+        decoding: its deadline governs only its wait in the queue.  A
+        standby ring entry is admitted work too: its deadline is pushed
+        forward at every sweep, so it is never shed.  The window quoted
+        is the iteration cap (the while mode may realise fewer)."""
         now = time.monotonic()
+        for entry in self._ring:
+            entry.lane.request.deadline = max(entry.lane.request.deadline,
+                                              now + self.deadline_s)
         shed = []
         with self._cond:
             if all(now <= req.deadline or req.cancelled
@@ -1493,7 +2074,9 @@ class LMEngine(Logger):
             # every expired queued request is shed now, not only those
             # the admission loop happens to pop
             self._boundary_shed()
+            self._admit_ring()
             self._admit()
+            self._advance_ring()
             busy = [i for i, lane in enumerate(self._lanes)
                     if lane is not None]
             self.metrics.set_gauge("slots_busy", len(busy))
@@ -1502,7 +2085,11 @@ class LMEngine(Logger):
                 with self._cond:
                     if self._stop:
                         break
-                    if not self._queue:
+                    if self._ring:
+                        # standby prefill still has host work: keep
+                        # turning so the ring drains and installs
+                        pass
+                    elif not self._queue:
                         self._cond.wait(0.5)
                     elif self._pool_blocked:
                         # head request waiting on pages with no lane
@@ -1520,7 +2107,9 @@ class LMEngine(Logger):
             active = [i for i, lane in enumerate(self._lanes)
                       if lane is not None and not lane.pending]
             if active:
-                if self.megastep >= 2:
+                if self.megastep_mode == "while":
+                    self._step_while(active)
+                elif self.megastep >= 2:
                     self._step_megastep(active)
                 elif self.spec_k:
                     self._step_speculative(active)
@@ -1535,6 +2124,8 @@ class LMEngine(Logger):
             self._queued_pages = 0
         for req in pending:
             req.future.set_exception(RuntimeError("LM engine stopped"))
+        for entry in list(self._ring):
+            self._fail_standby(entry, RuntimeError("LM engine stopped"))
         for slot, lane in enumerate(self._lanes):
             if lane is not None:
                 self._teardown_slot(slot, lane,
