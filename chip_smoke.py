@@ -258,7 +258,7 @@ Phases (any failure exits nonzero before the final line is printed):
    built with RoPE (``LM_CONFIG``, no positional table, fp32, TF32 off;
    ``ROLLING``: batch 8, seeded 128-token prompts, a 256-slot ring
    behind 4 pinned sinks) for 384 new tokens (prompt + new = max_len
-   512: the tokens equal to ``generate``'s counted) and for 1024: every
+   512: the tokens equal to ``generate``'s counted) and for 768: every
    step's logits within ``LOGIT_TOL`` of a teacher-forced plain
    ``transformer_forward`` (rope, window 256, sinks 4, 'xla') over the
    emitted sequence, the loop's peak card memory flat in ``n_new``
@@ -399,7 +399,32 @@ Phases (any failure exits nonzero before the final line is printed):
    iterations (and at 0) against the scan's K = 16 dispatch, host clock
    and card time a dispatch and a realised iteration, and the capture
    seconds a ladder width; its JSON line (``{"serve_whilestep": ...}``);
-20. the script's seconds, the card's name and power limit, one JSON line
+20. serve_sampling — seeded sampling (``SAMPLE_KW``: temperature 0.8,
+   top_k 40, sample_seed 123) at the full LM width, 8 slots, page 32,
+   every token drawn by the draw kernel (``dropout.cu``'s third entry,
+   ``HK.sample_token``: the keys fold_in(fold_in(base, admission id),
+   position) made on the card, jax's gumbel-max rule): (a) the engine on
+   phase 4's 16 requests per tick, at scan K = 8, while K = 16 with a
+   ring of 2, and ``spec_k`` 4 at K = 4 (``SAMPLE_MODES``): every
+   emitted token's perturbed score (its teacher-forced plain logit over
+   T after the top-k mask, plus the plain draw's gumbel at its (seed,
+   position)) within ``LOGIT_TOL`` / T of its row's best, the tokens
+   that differ from the per-tick run counted, the books closed, kernels
+   5 and 6 counted as in phases 17–19 and the draw once a prompt chunk
+   and once a decode dispatch or (realised) iteration, the pool full
+   again; (b) a sampled while launch (16 realised iterations) and
+   per-tick step at the widest table against a greedy engine's in the
+   same run, and the draw kernel alone at 8 and 40 rows of 256 against
+   its plain version (tokens equal but at plain near ties, a bit-equal
+   repeat) with its bound; (c) ``generate`` sampling at batch 8, 64
+   tokens (one draw a token), checked as (a) under generate's split
+   chain; (d) ``serve_lm`` over HTTP: 16 greedy requests through its
+   engine against ``generate``'s tokens (a reply that differs held to
+   the teacher-forced check),
+   16 seeded sampled requests through the direct path equal to
+   ``trainer_sample_tokens`` in process, requests/s and p50; its JSON
+   line (``{"serve_sampling": ...}``);
+21. the script's seconds, the card's name and power limit, one JSON line
    listing every ported TPU kernel (kernel 1 with its launches in phase
    14's parent process, ``population_launches``, and in phase 16's,
    ``observe_launches``; kernel 2 with its
@@ -408,11 +433,14 @@ Phases (any failure exits nonzero before the final line is printed):
    with their launches on the MoE runs, ``moe_launches``, 7a-7c with
    theirs on the pipelined runs, ``pipeline_launches``, and 5 and 6 with
    theirs in phase 17, ``fastpath_launches``, in phase 18,
-   ``megastep_launches``, and in phase 19, ``whilestep_launches``;
+   ``megastep_launches``, in phase 19, ``whilestep_launches``, and in
+   phase 20, ``sampling_launches``;
    kernels 1 and 4
    with their device-operand entries' times, bounds and launches, kernel
-   4 with its offset entry's), each phase's seconds
-   (``phase_seconds``), then the JSON result line.
+   4 with its offset entry's), the token draw's line
+   (``{"sample_token": ...}``: no TPU kernel's port, as the Bernoulli
+   draw), each phase's seconds (``phase_seconds``), then the JSON
+   result line.
 
 Phases 15 and 16 run in a second process (``beside_phases``), started
 before phase 11 and joined before phase 14: they are host work, and
@@ -1761,18 +1789,30 @@ def teacher_forced(torch, T, engine, seq, true_len, emitted):
     """Re-run ``seq`` (prompt + emitted) through the plain attention
     path on a fresh single-lane pool; returns (worst logit shortfall of
     an emitted token below its row max, exact argmax matches)."""
+    logits = teacher_logits(torch, T, engine, seq, true_len, len(emitted))
+    tok = torch.as_tensor(emitted, device=engine.device).long()
+    picked = logits.gather(1, tok[:, None])[:, 0]
+    short = (logits.max(dim=1).values - picked).max().item()
+    exact = int((logits.argmax(dim=1) == tok).sum().item())
+    return short, exact
+
+
+def teacher_logits(torch, T, engine, seq, true_len, n):
+    """The plain attention path's logits (n, vocab) after positions
+    true_len - 1 .. true_len + n - 2 of ``seq``, on a fresh single-lane
+    pool of the engine's geometry."""
     page, dev = engine.prefill_chunk, engine.device
-    n = -(-len(seq) // page)
-    pools = [(torch.zeros((n + 1,) + k.shape[1:], device=dev),
-              torch.zeros((n + 1,) + k.shape[1:], device=dev))
+    pages = -(-len(seq) // page)
+    pools = [(torch.zeros((pages + 1,) + k.shape[1:], device=dev),
+              torch.zeros((pages + 1,) + k.shape[1:], device=dev))
              for k, _ in engine._kv_pools]
     ptab = torch.zeros(1, engine.max_len // page, dtype=torch.int32,
                        device=dev)
-    ptab[0, :n] = torch.arange(1, n + 1, dtype=torch.int32)
-    toks = numpy.zeros(n * page, numpy.int32)
+    ptab[0, :pages] = torch.arange(1, pages + 1, dtype=torch.int32)
+    toks = numpy.zeros(pages * page, numpy.int32)
     toks[:len(seq)] = seq
     logits = []
-    for start in range(0, n * page, page):
+    for start in range(0, pages * page, page):
         h, _ = T.paged_chunk_apply(
             engine.params, torch.as_tensor(toks[None, start:start + page],
                                            device=dev),
@@ -1780,12 +1820,7 @@ def teacher_forced(torch, T, engine, seq, true_len, emitted):
                                       device=dev),
             engine.n_heads, attn_kernel=None)
         logits.append(T.head_logits(engine.params, h)[0])
-    logits = torch.cat(logits)[true_len - 1:true_len - 1 + len(emitted)]
-    tok = torch.as_tensor(emitted, device=dev).long()
-    picked = logits.gather(1, tok[:, None])[:, 0]
-    short = (logits.max(dim=1).values - picked).max().item()
-    exact = int((logits.argmax(dim=1) == tok).sum().item())
-    return short, exact
+    return torch.cat(logits)[true_len - 1:true_len - 1 + n]
 
 
 def serve_requests(vocab, n):
@@ -3746,9 +3781,9 @@ HARNESS_CIFAR = 4950
 #: AlexNet on the synthetic set: 600 train (4 full minibatches of 128 and
 #: one of 88) / 128 validation, 2 epochs
 HARNESS_ALEXNET = {"n_train": 600, "n_valid": 128}
-#: AlexNet card vs CPU scan: minibatch 16, 56 train (3 full minibatches
+#: AlexNet card vs CPU scan: minibatch 16, 40 train (2 full minibatches
 #: and one of 8), 1 epoch; every train step's weights compared
-HARNESS_ALEXNET_SMALL = {"minibatch_size": 16, "n_train": 56,
+HARNESS_ALEXNET_SMALL = {"minibatch_size": 16, "n_train": 40,
                          "n_valid": 16}
 #: the record-file leg: the records phase's full set cut to 1,208 train
 #: (9 full minibatches and one of 56) / 256 validation, windows of 4
@@ -6048,11 +6083,11 @@ def pipeline_phase(torch, HK, card, dense_step_s, device="cuda",
 #: (a) the rolling-cache decode: LM_CONFIG built with RoPE (no
 #: positional table), batch 8, seeded prompts of 128 tokens, a ring of
 #: 256 slots behind 4 pinned sinks; 384 new tokens fill the LM's max_len
-#: 512, 1024 go twice past it
+#: 512, 768 go 1.5 times past it
 ROLLING = {"batch": 8, "prompt": 128, "window": 256, "sinks": 4}
-ROLLING_NEW = (384, 1024)
-#: the 1024-token decode loop's peak card memory may exceed the 384
-#: one's by at most this many bytes (its token buffer is 20 KB larger)
+ROLLING_NEW = (384, 768)
+#: the 768-token decode loop's peak card memory may exceed the 384
+#: one's by at most this many bytes (its token buffer is 12 KB larger)
 ROLLING_PEAK_SLACK = 1 << 20
 #: planted faults: the slot taken as pos % (sinks + window), so the
 #: sinks are evicted; q/k rotated at the slot instead of the position.
@@ -8838,6 +8873,447 @@ def serve_whilestep(torch, HK, T, S, card, tick, fastpath, device="cuda",
     return launches
 
 
+# ---------------------------------------------------------------- sampling
+#: phase 20's sampling knobs (the engine's; generate and the HTTP bodies
+#: take the same temperature and top_k)
+SAMPLE_KW = {"temperature": 0.8, "top_k": 40, "sample_seed": 123}
+#: (a)'s decode paths on phase 4's requests
+SAMPLE_MODES = {"tick": {}, "scan": {"megastep": 8},
+                "while": {"megastep": 16, "megastep_mode": "while",
+                          "refill_ring": 2},
+                "spec": {"megastep": 4, "spec_k": 4}}
+#: the draw kernel alone: a decode step's rows and a verify's (8 x (4 + 1))
+SAMPLE_DRAW_ROWS = (8, 40)
+#: (c) generate: batch, prompt length, new tokens
+SAMPLE_GENERATE = (8, 64, 64)
+#: (d) serve_lm: the direct path's largest tier, and the sampled
+#: requests' n_new cap (tier 8: 16 eager decode loops share the host)
+SAMPLE_MAX_NEW, SAMPLE_DIRECT_NEW = 64, 8
+#: the draw: 2 fold-ins a row beside each element's hash
+SAMPLE_ROW_OPS = 2 * DROPOUT_OPS
+
+
+def sampled_shortfall(torch, T, HK, engine, reqs, outs):
+    """Phase 20's teacher-forced check of a sampling engine: each emitted
+    token's perturbed score — its plain-pass logit after the top-k mask,
+    over the temperature, plus the plain draw's gumbel at (its request's
+    admission id, its position) — against its row's best.  Returns
+    (worst shortfall, tokens equal to the plain draw's)."""
+    worst, exact = 0.0, 0
+    with torch.inference_mode():
+        for rid, ((prompt, _), out) in enumerate(zip(reqs, outs), 1):
+            n, s = len(out), len(prompt)
+            logits = teacher_logits(torch, T, engine,
+                                    numpy.concatenate([prompt, out]), s, n)
+            dev = logits.device
+            scores = HK.sample_scores_ref(
+                logits.contiguous(), engine.temperature, engine._sample_key,
+                engine.top_k,
+                torch.full((n,), rid, dtype=torch.int32, device=dev),
+                torch.arange(s, s + n, dtype=torch.int32, device=dev))
+            tok = torch.as_tensor(out, device=dev).long()
+            picked = scores.gather(1, tok[:, None])[:, 0]
+            worst = max(worst, (scores.max(dim=1).values - picked)
+                        .max().item())
+            exact += int((scores.argmax(dim=1) == tok).sum().item())
+    return worst, exact
+
+
+def sampling_books(engine, mode, reqs, outs, launches, n_layers, log):
+    """(a)'s books of one run: phase 4's, 18's or 19's checks of kernels
+    5 and 6 by mode, and the draw's launches — one a prompt chunk and
+    one a decode dispatch (a fused one: one an iteration, realised in
+    the while mode).  Returns the counters."""
+    c = engine.metrics.snapshot()["counters"]
+    chunks = c.get("prefill_dispatches", 0)
+    if mode == "tick":
+        steps = c.get("decode_dispatches", 0)
+        check(launches["paged_flash_decode"] == n_layers * steps > 0
+              and launches["paged_flash_prefill"] == n_layers * chunks > 0
+              and c.get("tokens_out") == sum(len(o) for o in outs),
+              "sampling tick: launches %r for %r" % (launches, c))
+        draws = steps + chunks
+    elif "megastep_mode" in SAMPLE_MODES[mode]:
+        c = whilestep_books(engine, reqs, outs, launches, n_layers, log,
+                            True)
+        draws = c["realised_iterations"] + chunks
+    else:
+        c = megastep_books(engine, reqs, outs, launches, n_layers,
+                           not engine.spec_k)
+        draws = engine.megastep * c["megastep_dispatches"] + chunks
+    check(launches["sample_token"] == draws,
+          "sampling %s: %d draws launched, %d expected (%r)"
+          % (mode, launches["sample_token"], draws, c))
+    return dict(c, draws=draws)
+
+
+def draw_case(torch, HK, prng, rows, vocab, seed=0, timed=True):
+    """The draw kernel alone in the engine's mode (base key, seeds and
+    positions a row, top_k 40) against its plain version on the same
+    card inputs: equal tokens (a difference only at a plain-version
+    near tie within 1e-5), a bit-equal second launch, and its time (the
+    wrapper's call: ``torch.topk``'s cutoffs and the draw; and the
+    draw's launch alone, ``draw_kernel_ms``) beside the plain version's
+    and its bound: the larger of the bytes
+    (logits, top-k cutoffs, seeds and positions read, tokens written)
+    over HBM and the integer operations (each element's threefry hash
+    and the row's two fold-ins, as dropout's row reckons them)."""
+    dev = torch.device("cuda")
+    gen = card_draws(torch, numpy.random.RandomState(seed))
+    lg = torch.randn(rows, vocab, device=dev, generator=gen) * 3
+    seeds = torch.randint(1, 1000, (rows,), device=dev, generator=gen,
+                          dtype=torch.int32)
+    pos = torch.randint(0, 512, (rows,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    base = prng.RandomGenerator("lm-sample", SAMPLE_KW["sample_seed"]
+                                ).base_key()
+    t, k = SAMPLE_KW["temperature"], SAMPLE_KW["top_k"]
+    got = HK.sample_token(lg, t, base, k, seeds, pos)
+    again = HK.sample_token(lg, t, base, k, seeds, pos)
+    scores = HK.sample_scores_ref(lg, t, base, k, seeds, pos)
+    ref = scores.argmax(dim=1).to(torch.int32)
+    torch.cuda.synchronize()
+    top2 = scores.topk(2, dim=1).values
+    differ = got != ref
+    ties = int((differ & ((top2[:, 0] - top2[:, 1]) <= 1e-5)).sum().item())
+    check(int(differ.sum().item()) == ties and torch.equal(got, again),
+          "draw %dx%d: %d tokens differ from the plain version (%d near "
+          "ties), repeat equal %s" % (rows, vocab, int(differ.sum().item()),
+                                      ties, torch.equal(got, again)))
+    n = rows * vocab
+    out = {"kernel": "sample_token", "case": "rows%d" % rows,
+           "shape": [rows, vocab], "top_k": k, "unequal": ties,
+           "max_abs_err": float((got - ref).abs().max().item()),
+           "repeat_bit_equal": True}
+    if not timed:
+        return out
+    lgs = [lg] + [lg.clone() for _ in range(COPIES - 1)]
+    n_bytes = 4 * n + 4 * rows * 4
+    int_ops = DROPOUT_OPS * n + SAMPLE_ROW_OPS * rows
+    tops = [torch.topk(x, k, dim=1).values for x in lgs]
+    out.update(
+        kernel_ms=time_ms([lambda x=x: HK.sample_token(x, t, base, k, seeds,
+                                                       pos) for x in lgs],
+                          torch),
+        draw_kernel_ms=time_ms([lambda x=x, top=top: HK._sample_launch(
+            x, t, base, top, seeds, pos) for x, top in zip(lgs, tops)],
+            torch),
+        plain_ms=time_ms([lambda x=x: HK.sample_token_ref(
+            x, t, base, k, seeds, pos) for x in lgs], torch, calls=3,
+            reps=5),
+        library_ms=None, bytes=n_bytes, int_ops=int_ops)
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = int_ops / INT32_OP_S * 1e3
+    out["bound_ms"], out["bound_by"] = ((t_bytes, "bytes") if t_bytes >= t_ops
+                                        else (t_ops, "operations"))
+    return out
+
+
+def sampled_while_ms(torch, engine, reps=MEGA_TIMED):
+    """Host-clock and card ms of one while launch at the widest table
+    with all 8 lanes 16 pages deep and 16 iterations of work (a sampling
+    engine's lanes under seeds 1..8)."""
+    S, w, K = engine.slots, engine._max_pages, engine.megastep
+    stage = engine._ms_host
+    stage["ptab"][:] = (1 + numpy.arange(S * w, dtype=numpy.int32)
+                        ).reshape(S, w)
+    stage["last"][:] = 0
+    stage["pos"][:] = engine.max_len - K
+    stage["left"][:] = K
+    if "seeds" in stage:
+        stage["seeds"][:] = numpy.arange(1, S + 1)
+    if "count" in stage:
+        stage["count"][:] = 0
+
+    def dispatch():
+        engine._ms_in.copy_(engine._ms_stage, non_blocking=True)
+        engine._ms_out.copy_(engine._megastep_program(w), non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+    host = step_ms(torch, dispatch, "cuda", reps)
+    check(int(engine._ms_out[2 * S + K * S]) == K,
+          "sampling: a timed while launch ran %d iterations, not %d"
+          % (int(engine._ms_out[2 * S + K * S]), K))
+    with torch.inference_mode():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(reps):
+            engine._megastep_program(w)
+        ev[1].record()
+        torch.cuda.synchronize()
+    return {"host_ms": host, "card_ms": ev[0].elapsed_time(ev[1]) / reps,
+            "iterations": K}
+
+
+def generate_sampling(torch, HK, T, prng, params, cfg, device):
+    """(c): ``generate`` sampling at ``SAMPLE_GENERATE``: one draw launch
+    a token, every token's perturbed score under generate's split chain
+    (one key for the batch's draw, flat counters) within LOGIT_TOL / T
+    of its row's best in a plain full forward over the output."""
+    b, s, n_new = SAMPLE_GENERATE
+    t, k = SAMPLE_KW["temperature"], SAMPLE_KW["top_k"]
+    prompt = torch.as_tensor(numpy.random.RandomState(SEED + 20).randint(
+        0, cfg["vocab"], (b, s)).astype(numpy.int32), device=device)
+    HK.reset_launch_counts()
+    t0 = time.monotonic()
+    out = T.generate(params, prompt, n_new, cfg["n_heads"],
+                     rng=prng.PRNGKey(SEED), temperature=t, top_k=k)
+    out_host = out.cpu().numpy()
+    wall = time.monotonic() - t0
+    draws = HK.launch_counts()["sample_token"]
+    check(device != "cuda" or draws == n_new,
+          "generate: %d draws for %d tokens" % (draws, n_new))
+    worst, exact = 0.0, 0
+    with torch.inference_mode():
+        logits = T.transformer_forward(params, out[:, :-1].long(),
+                                       cfg["n_heads"])
+        key = prng.PRNGKey(SEED)
+        for i in range(n_new):
+            key, sub = prng.split(key)
+            scores = HK.sample_scores_ref(
+                logits[:, s - 1 + i].contiguous(), t, sub, k)
+            tok = out[:, s + i].long()
+            picked = scores.gather(1, tok[:, None])[:, 0]
+            worst = max(worst, (scores.max(dim=1).values - picked)
+                        .max().item())
+            exact += int((scores.argmax(dim=1) == tok).sum().item())
+    check(worst <= LOGIT_TOL / t, "generate: a sampled token's perturbed "
+          "score sits %g below its row's best (tolerance %g)"
+          % (worst, LOGIT_TOL / t))
+    check(out_host.shape == (b, s + n_new) and out_host.min() >= 0
+          and out_host.max() < cfg["vocab"], "generate: malformed output")
+    return {"batch": b, "prompt": s, "new_tokens": n_new, "draws": draws,
+            "wall_s": wall, "tokens_per_s": b * n_new / wall,
+            "worst_shortfall": worst, "exact_draws": exact,
+            "tokens": b * n_new, "tolerance": LOGIT_TOL / t}
+
+
+def direct_reference(T, trainer, params, prompt, n_new, seed, cache_len):
+    """What ``serve_lm``'s direct path answers for one sampled request:
+    its tier and power-of-two bucket, ``trainer_sample_tokens`` in
+    process, cut back to the prompt and ``n_new`` tokens."""
+    tiers = sorted({x for x in (8, 32, 128, SAMPLE_MAX_NEW)
+                    if x <= SAMPLE_MAX_NEW})
+    s = len(prompt)
+    run = next((x for x in tiers if x >= n_new), tiers[-1])
+    bucket = 16
+    while bucket < s:
+        bucket *= 2
+    bucket = min(bucket, cache_len - run)
+    padded = numpy.pad(numpy.asarray(prompt, numpy.int32)[None],
+                       ((0, 0), (0, max(bucket - s, 0))))
+    out = T.trainer_sample_tokens(
+        trainer, padded, n_new=run, temperature=SAMPLE_KW["temperature"],
+        seed=seed, params=params, max_len=cache_len,
+        top_k=SAMPLE_KW["top_k"], true_len=s)
+    return numpy.concatenate([out[0, :s], out[0, padded.shape[1]:
+                                              padded.shape[1] + n_new]])
+
+
+def serve_lm_http(torch, HK, T, params, cfg, reqs, device):
+    """(d): ``serve_lm`` on the card over HTTP: the greedy requests
+    through its engine (8 slots, page 32) against ``generate``'s tokens,
+    the seeded sampled ones through the direct path against
+    ``trainer_sample_tokens`` in process, each set posted from 16 client
+    threads at once: requests/s, p50 latency, launches."""
+    from types import SimpleNamespace
+    from veles_tpu_torch import restful_api
+    trainer = SimpleNamespace(params=params, n_heads=cfg["n_heads"],
+                              max_len=cfg["max_len"],
+                              _to_portable=lambda tree: tree)
+    api = restful_api.serve_lm(SimpleNamespace(trainer=trainer), port=0,
+                               slots=FAST_SLOTS, prefill_chunk=FAST_PAGE,
+                               max_new=SAMPLE_MAX_NEW)
+    out = {}
+    try:
+        greedy = [json.dumps({"input": [p.tolist()], "n_new": k}).encode()
+                  for p, k in reqs]
+        sampled = [json.dumps({"input": [p.tolist()],
+                               "n_new": min(k, SAMPLE_DIRECT_NEW),
+                               "temperature": SAMPLE_KW["temperature"],
+                               "top_k": SAMPLE_KW["top_k"],
+                               "seed": i}).encode()
+                   for i, (p, k) in enumerate(reqs)]
+        for name, bodies in (("greedy_engine", greedy),
+                             ("sampled_direct", sampled)):
+            HK.reset_launch_counts()
+            replies, lat, wall = rest_load(api, bodies, len(bodies))
+            launches = HK.launch_counts()
+            check(all(replies[i][0] == 200 for i in range(len(bodies))),
+                  "serve_lm %s: %r" % (name, [replies[i][0] for i in
+                                              range(len(bodies))]))
+            lat.sort()
+            out[name] = {"requests": len(bodies), "wall_s": wall,
+                         "requests_per_s": len(bodies) / wall,
+                         "p50_s": statistics.median(lat), "max_s": lat[-1],
+                         "launches": {n: launches[n] for n in (
+                             "paged_flash_decode", "paged_flash_prefill",
+                             "sample_token")}}
+            out[name]["replies"] = [numpy.asarray(replies[i][1]["tokens"][0])
+                                    for i in range(len(bodies))]
+        engine = api.lm_engine
+        c = engine.metrics.snapshot()["counters"]
+        g = out["greedy_engine"]
+        check(g["launches"]["paged_flash_decode"]
+              == cfg["n_layers"] * c["decode_dispatches"] > 0
+              and g["launches"]["sample_token"] == 0
+              and out["sampled_direct"]["launches"]["paged_flash_decode"]
+              == 0, "serve_lm: launches %r / %r for %r"
+              % (g["launches"], out["sampled_direct"]["launches"], c))
+    finally:
+        api.stop()
+    # the greedy replies against generate, one request at a time; a reply
+    # that differs is held to the teacher-forced pass (a near tie)
+    differing, worst = 0, 0.0
+    with torch.inference_mode():
+        for (p, k), reply in zip(reqs, out["greedy_engine"].pop("replies")):
+            want = T.generate(params, torch.as_tensor(p[None], device=device),
+                              k, cfg["n_heads"], temperature=0.0,
+                              max_len=cfg["max_len"]).cpu().numpy()[0]
+            check(len(reply) == len(want) and (reply[:len(p)] == p).all(),
+                  "serve_lm: a greedy reply is malformed")
+            n = differing_tokens([reply[len(p):]], [want[len(p):]])
+            if n:
+                differing += n
+                short, _ = teacher_forced(torch, T, engine, reply, len(p),
+                                          reply[len(p):])
+                worst = max(worst, short)
+    check(worst <= LOGIT_TOL, "serve_lm: a greedy token's logit sits %g "
+          "below its row max (tolerance %g)" % (worst, LOGIT_TOL))
+    out["greedy_engine"].update(differing_tokens_vs_generate=differing,
+                                worst_shortfall=worst)
+    # the sampled replies against trainer_sample_tokens in process
+    unequal = 0
+    for i, ((p, k), reply) in enumerate(
+            zip(reqs, out["sampled_direct"].pop("replies"))):
+        want = direct_reference(T, trainer, params, p,
+                                min(k, SAMPLE_DIRECT_NEW), i,
+                                cfg["max_len"])
+        unequal += int(len(reply) != len(want)
+                       or not numpy.array_equal(reply, want))
+    check(unequal == 0, "serve_lm: %d sampled replies differ from "
+          "trainer_sample_tokens in process" % unequal)
+    out["sampled_direct"]["unequal_to_in_process"] = unequal
+    return out
+
+
+def serve_sampling(torch, HK, T, S, card, tick, device="cuda", cfg=None,
+                   timed=True):
+    """Phase 20: seeded sampling (``SAMPLE_KW``) at the full LM width, 8
+    slots, page 32: (a) the engine on phase 4's requests (``tick``) in
+    ``SAMPLE_MODES``, (b) timings (a sampled while launch and per-tick
+    step against greedy ones of the same run, the draw kernel alone),
+    (c) ``generate`` sampling, (d) ``serve_lm`` over HTTP.  Returns
+    kernels 5 and 6's launches on (a)'s and (d)'s runs, and the draw's
+    line."""
+    from veles_tpu_torch import prng
+    cfg = cfg or LM_CONFIG
+    began = time.monotonic()
+    n_layers = cfg["n_layers"]
+    host = T.init_transformer_params(
+        prng.RandomGenerator("init", SEED), cfg["vocab"],
+        d_model=cfg["d_model"], n_heads=cfg["n_heads"],
+        n_layers=n_layers, max_len=cfg["max_len"])
+    reqs = tick["requests"]
+    tol = LOGIT_TOL / SAMPLE_KW["temperature"]
+    report = {"phase": "serve_sampling", "card": card, "config": dict(cfg),
+              "slots": FAST_SLOTS, "page": FAST_PAGE, "knobs": SAMPLE_KW}
+    runs, outs_by, kept, legs = [], {}, {}, {}
+    draws = 0
+    mark = [began]
+
+    def leg(name):
+        now = time.monotonic()
+        legs[name], mark[0] = now - mark[0], now
+    # (a) each decode path on phase 4's requests
+    for mode, knobs in SAMPLE_MODES.items():
+        log = {}
+        prepare = None
+        if "megastep_mode" in knobs:
+            def prepare(e, log=log):
+                record_while(e, log)
+        eng, outs, ttft, launches, wall = fast_serve(
+            torch, HK, S, cfg, host, reqs, device, "sample_" + mode,
+            prepare=prepare, **dict(SAMPLE_KW, **knobs))
+        c = sampling_books(eng, mode, reqs, outs, launches, n_layers, log)
+        worst, exact = sampled_shortfall(torch, T, HK, eng, reqs, outs)
+        check(worst <= tol, "sampling %s: a token's perturbed score sits %g "
+              "below its row's best (tolerance %g)" % (mode, worst, tol))
+        check(pool_drained(eng), "sampling %s: the pool did not get every "
+              "page back" % mode)
+        runs.append(launches)
+        draws += launches["sample_token"]
+        outs_by[mode] = outs
+        tokens = sum(len(o) for o in outs)
+        report[mode] = {
+            "knobs": knobs, "tokens": tokens, "wall_s": wall,
+            "tokens_per_s": tokens / wall,
+            "ttft_p50_s": statistics.median(ttft), "counters": c,
+            "differing_tokens_vs_tick": differing_tokens(
+                outs, outs_by["tick"]),
+            "teacher_forced": {"worst_shortfall": worst,
+                               "exact_draws": exact, "tokens": tokens,
+                               "tolerance": tol}}
+        if mode in ("tick", "while"):
+            kept[mode] = eng
+        else:
+            del eng
+        gc_cuda(torch)
+        leg(mode)
+    report["tick"]["tokens_per_s_greedy_phase_4"] = tick["tokens_per_s"]
+    # (b) timings: the sampled while launch and per-tick step against a
+    # greedy engine of the same run; the draw kernel alone
+    drawn = [draw_case(torch, HK, prng, rows, cfg["vocab"], seed=rows,
+                       timed=timed) for rows in SAMPLE_DRAW_ROWS]
+    if timed:
+        greedy = S.LMEngine(host, cfg["n_heads"], cfg["max_len"],
+                            slots=FAST_SLOTS, prefill_chunk=FAST_PAGE,
+                            device=device, name="sample_greedy",
+                            **SAMPLE_MODES["while"])
+        greedy.start()
+        greedy.stop()
+        w = greedy._max_pages
+        ptabs = (1 + numpy.arange(FAST_SLOTS * w, dtype=numpy.int32)
+                 ).reshape(FAST_SLOTS, w)
+        zeros = numpy.zeros(FAST_SLOTS, numpy.int32)
+        deep = numpy.full(FAST_SLOTS, cfg["max_len"] - 1, numpy.int32)
+        seeds = numpy.arange(1, FAST_SLOTS + 1, dtype=numpy.int32)
+        times = {
+            "while_sampled": sampled_while_ms(torch, kept["while"]),
+            "while_greedy": sampled_while_ms(torch, greedy),
+            "tick_sampled_ms": step_ms(torch, lambda: kept[
+                "tick"]._step_program(ptabs, zeros, deep, seeds), device),
+            "tick_greedy_ms": step_ms(torch, lambda: greedy._step_program(
+                ptabs, zeros, deep), device)}
+        times["while_card_ratio"] = (times["while_sampled"]["card_ms"]
+                                     / times["while_greedy"]["card_ms"])
+        times["tick_ratio"] = (times["tick_sampled_ms"]
+                               / times["tick_greedy_ms"])
+        report["times"] = times
+        del greedy
+    kept.clear()
+    gc_cuda(torch)
+    leg("times")
+    # (c) generate, (d) serve_lm over HTTP
+    params = T.params_from_jax(host, device)
+    report["generate"] = generate_sampling(torch, HK, T, prng, params, cfg,
+                                           device)
+    draws += report["generate"]["draws"]
+    leg("generate")
+    http = serve_lm_http(torch, HK, T, params, cfg, reqs, device)
+    leg("serve_lm")
+    report["serve_lm"] = http
+    for name in ("greedy_engine", "sampled_direct"):
+        runs.append(http[name]["launches"])
+        draws += http[name]["launches"]["sample_token"]
+    launches = {n: sum(r[n] for r in runs)
+                for n in ("paged_flash_decode", "paged_flash_prefill")}
+    report.update(launches=launches, draw_launches=draws,
+                  draw_cases=drawn, leg_s=legs,
+                  phase_s=time.monotonic() - began)
+    print(json.dumps({"serve_sampling": report}), flush=True)
+    return launches, {"launches": draws, "cases": drawn}
+
+
 # ------------------------------------------------------------------ beside
 def beside_phases(out_path):
     """Phases 15 and 16 in a process of their own (``python3
@@ -9192,13 +9668,22 @@ def main():
     # 19. the while megastep: K conditional graph nodes a ladder width,
     # the standby refill ring armed in the program, plain and speculative
     while_launches = serve_whilestep(torch, HK, T, S, smi, tick, fastpath)
-    del tick, fastpath
+    del fastpath
     for k, v in while_launches.items():
         launches[k] += v
     gc_cuda(torch)
     lap("serve_whilestep")
 
-    # 20. the kernels line and the result
+    # 20. seeded sampling: every decode path of the engine with the draw
+    # kernel, generate, and serve_lm over HTTP
+    sample_launches, drawn = serve_sampling(torch, HK, T, S, smi, tick)
+    del tick
+    for k, v in sample_launches.items():
+        launches[k] += v
+    gc_cuda(torch)
+    lap("serve_sampling")
+
+    # 21. the kernels line and the result
     main_case = {"flash_attention_fwd": flash[0],
                  "flash_attention_bwd_dkv": flash[1],
                  "flash_attention_bwd_dq": flash[2],
@@ -9247,6 +9732,8 @@ def main():
             row["megastep_launches"] = mega_launches[row["name"]]
         if row["name"] in while_launches:
             row["whilestep_launches"] = while_launches[row["name"]]
+        if row["name"] in sample_launches:
+            row["sampling_launches"] = sample_launches[row["name"]]
         if row["name"] == "fused_sgd_update":
             row["population_launches"] = pop_launches
             row["observe_launches"] = observe_launches
@@ -9257,6 +9744,23 @@ def main():
         if row["name"] in ("fused_sgd_update", "paged_flash_decode",
                            "paged_flash_prefill"):
             row["empty_launch_ms"] = floor_ms
+    # the token draw is no TPU kernel's port either: a line of its own,
+    # beside the Bernoulli draw's, with a kernels row's keys (its main
+    # case: a decode step's 8 rows)
+    main_draw = drawn["cases"][0]
+    print(json.dumps({"sample_token": {
+        "name": "sample_token", "route": "cuda", "source": SOURCES["dropout"],
+        "replaces": None, "launches": drawn["launches"],
+        "max_abs_err": main_draw["max_abs_err"],
+        "ms": main_draw["kernel_ms"], "plain_ms": main_draw["plain_ms"],
+        "bound_ms": main_draw["bound_ms"], "bound_by": main_draw["bound_by"],
+        "library_ms": None,
+        "cases": [{k: c[k] for k in (
+            "case", "shape", "top_k", "unequal", "max_abs_err", "kernel_ms",
+            "draw_kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
+            for c in drawn["cases"]],
+        "empty_launch_ms": floor_ms, "card": smi}}), flush=True)
     print(json.dumps({"phase_seconds": laps,
                       "beside_seconds": {k: aside[k] for k in (
                           "deploy_s", "observe_s")}, "card": smi}),

@@ -38,8 +38,12 @@ On a card workflow, ``Weights2D``'s spec is a numpy array bit-equal to
 the committed first-layer weights copied to the host.  The engine's
 fused K-step decode, captured as a CUDA graph, launches the decode
 kernel once a layer an iteration a replay, repeats bit for bit and
-equals the same body run eagerly; a body that reads a value on the
-host makes the engine's start raise.
+equals the same body run eagerly (greedy, and sampling: the draw kernel
+once an iteration); a body that reads a value on the host makes the
+engine's start raise.  The seeded token draw's tokens equal its plain
+version's on the same card inputs (a token may differ only where the
+plain version's two best perturbed scores lie within 1e-5), and a
+second launch is bit-equal.
 """
 
 import numpy
@@ -593,6 +597,84 @@ def test_rbm_sample_launches_two_draws_a_step_and_repeats():
                      for k in ("weights", "vbias", "hbias")])
     for a, b in zip(*runs):
         assert numpy.array_equal(a, b)
+
+
+def _sample_operands(rows, vocab, mode, dev, seed=0):
+    """Logits (rows, vocab) with a few exact ties, and the key (and the
+    engine mode's per-row seeds and positions) of one draw."""
+    from veles_tpu_torch import prng
+    rng = numpy.random.RandomState(seed)
+    lg = (rng.randn(rows, vocab) * 3).astype(numpy.float32)
+    lg[:, 1::7] = lg[:, :1]             # ties, at the top-k cutoff too
+    lg = torch.as_tensor(lg, device=dev)
+    if mode == "key":
+        return lg, prng.fold_in(prng.PRNGKey(seed), 0x5A), None, None
+    base = prng.RandomGenerator("lm-sample", 123).base_key()
+    seeds = torch.as_tensor(rng.randint(1, 1000, rows).astype(numpy.int32),
+                            device=dev)
+    pos = torch.as_tensor(rng.randint(0, 512, rows).astype(numpy.int32),
+                          device=dev)
+    return lg, base, seeds, pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,vocab", [(8, 256), (40, 256), (3, 1000),
+                                        (5, 37)])
+@pytest.mark.parametrize("top_k", [0, 40])
+@pytest.mark.parametrize("mode", ["key", "seeded"])
+def test_sample_token_equals_plain(rows, vocab, top_k, mode, monkeypatch):
+    """The draw kernel's tokens equal its plain version's on the same
+    card inputs (a token may differ only where the plain version's two
+    best perturbed scores lie within 1e-5: there are none here), a
+    second launch is bit-equal, and a CUDA tensor never reaches the
+    plain version."""
+    dev = _card()
+    top_k = min(top_k, vocab)
+    lg, key, seeds, pos = _sample_operands(rows, vocab, mode, dev,
+                                           seed=rows + vocab)
+    scores = HK.sample_scores_ref(lg, 0.8, key, top_k, seeds, pos)
+    ref = HK.sample_token_ref(lg, 0.8, key, top_k, seeds, pos)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(HK, "sample_token_ref", refuse)
+    monkeypatch.setattr(HK, "sample_scores_ref", refuse)
+    before = HK.sample_token.launches
+    got = HK.sample_token(lg, 0.8, key, top_k, seeds, pos)
+    again = HK.sample_token(lg, 0.8, key, top_k, seeds, pos)
+    assert HK.sample_token.launches == before + 2
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (rows,)
+    assert torch.equal(got, again)
+    top2 = scores.topk(2, dim=-1).values
+    near = (top2[:, 0] - top2[:, 1]) <= 1e-5
+    differ = got != ref
+    assert not bool((differ & ~near).any()), (got, ref)
+    assert int(differ.sum()) == 0
+    if top_k:
+        cut = torch.topk(lg, top_k, dim=-1).values[:, -1]
+        assert bool((lg.gather(1, got.long()[:, None])[:, 0] >= cut).all())
+
+
+@pytest.mark.cuda
+def test_sample_token_rejects_bad_operands():
+    dev = _card()
+    lg = torch.zeros(4, 16, device=dev)
+    seeds = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        HK.sample_token(lg.double(), 1.0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        HK.sample_token(torch.zeros(4, 32, device=dev)[:, ::2], 1.0, 1)
+    with pytest.raises(ValueError, match="int32"):
+        HK.sample_token(lg, 1.0, 1, seeds=seeds.long(), positions=seeds)
+    with pytest.raises(ValueError, match="together"):
+        HK.sample_token(lg, 1.0, 1, seeds=seeds)
+    with pytest.raises(ValueError, match="several devices"):
+        HK.sample_token(lg, 1.0, 1, seeds=seeds.cpu(), positions=seeds)
+    with pytest.raises(ValueError, match="temperature"):
+        HK.sample_token(lg, 0.0, 1)
+    with pytest.raises(ValueError, match="top_k"):
+        HK.sample_token(lg, 1.0, 1, top_k=17)
 
 
 @pytest.mark.cuda
@@ -1396,6 +1478,78 @@ def test_while_graph_equals_eager_body_with_an_armed_ring_entry():
     assert (emitted[:, 1:] == -1).all()
     # the armed entry's frontier: 20 + its 3 tokens
     assert out[S] == 23 and out[0] == emitted[iters - 1, 0]
+
+
+SAMPLED = dict(temperature=0.8, top_k=40, sample_seed=123)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec_k", [0, 2])
+def test_sampled_megastep_graph_equals_eager_body_and_repeats(spec_k):
+    """A sampling engine's captured program draws each iteration's
+    tokens with the draw kernel, the lanes' keys made in the graph from
+    the staged seeds: a replay launches it once an iteration (4) beside
+    kernel 5 (8), a second replay is bit-equal to the first, and the
+    same body run eagerly gives the same output."""
+    _card()
+    engine = _megastep_engine(spec_k=spec_k, **SAMPLED).start()
+    engine.stop()
+    w = engine._max_pages
+    assert engine.megastep_launches[w] == {"paged_flash_decode": 8,
+                                           "sample_token": 4}
+    with torch.inference_mode():
+        _stage_lanes(engine, seed=spec_k)
+        engine._ms_host["seeds"][:] = [3, 5, 0, 9]
+        engine._ms_in.copy_(engine._ms_stage)
+        HK.reset_launch_counts()
+        first = engine._megastep_program(w).clone()
+        per_replay = HK.launch_counts()
+        second = engine._megastep_program(w).clone()
+        eager = engine._megastep_body(w)
+        torch.cuda.synchronize()
+    assert per_replay["paged_flash_decode"] == 8
+    assert per_replay["sample_token"] == 4
+    assert torch.equal(first, second)
+    assert torch.equal(first, eager)
+
+
+@pytest.mark.cuda
+def test_sampled_while_graph_equals_eager_body_with_an_armed_ring_entry():
+    """The sampling while program with a ring entry that brings its own
+    seed: the graph's two launches and the eager program agree bit for
+    bit, and each realised iteration launches the draw kernel once."""
+    _card()
+    engine = _megastep_engine(megastep=8, megastep_mode="while",
+                              refill_ring=1, **SAMPLED)
+    engine.start()
+    engine.stop()
+    w, S, K = 2, engine.slots, engine.megastep
+    assert engine.megastep_launches[w] == {"paged_flash_decode": 2,
+                                           "sample_token": 1}
+    stage = engine._ms_host
+    for name in stage:
+        stage[name][...] = 0
+    stage["ptab"][0, :2] = [1, 2]
+    stage["last"][0], stage["pos"][0], stage["seeds"][0] = 5, 10, 4
+    stage["left"][:] = [2, -1, -1, -1]
+    stage["ring_tab"][0, :2] = [3, 4]
+    stage["ring_last"][0], stage["ring_pos"][0] = 7, 20
+    stage["ring_left"][0], stage["ring_seeds"][0] = 3, 7
+    stage["count"][0] = 1
+    with torch.inference_mode():
+        engine._ms_in.copy_(engine._ms_stage)
+        first = engine._megastep_program(w).clone()
+        second = engine._megastep_program(w).clone()
+        eager = engine._while_body(w).clone()
+        torch.cuda.synchronize()
+    out = first.cpu().numpy()
+    iters = int(out[2 * S + K * S])
+    assert iters == 5
+    HK.reset_launch_counts()
+    engine._count_while_launches(w, iters)
+    assert HK.launch_counts()["sample_token"] == iters
+    assert torch.equal(first, second)
+    assert torch.equal(first, eager)
 
 
 @pytest.mark.cuda

@@ -91,25 +91,59 @@ def test_cli_dump_config_list_units_version(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--serve", "0"], "Queue 1, item 5"),
-    (["--serve-slots", "4"], "Queue 2a, item 13"),
-    (["--serve-health"], "Queue 2a, item 13"),
+    (["--serve-tp", "2"], "Queue 1, item 4"),
+    (["--serve-trace", "all"], "Queue 1, item 7"),
+    (["--serve-health"], "Queue 1, item 9"),
     (["--fault-plan", "p.json"], "Queue 2a, item 15"),
 ])
 def test_unported_flags_raise_before_training(flags, item, monkeypatch):
-    """Each unported flag raises naming its item before anything trains;
-    ``--serve`` is ported for forward chains and raises on an LM
-    workflow (its serving, ``serve_lm``, is not ported), so that case
-    runs the char-LM sample."""
-    sample = "veles_tpu_torch.samples.mnist"
-    if flags[0] == "--serve":
-        sample = "veles_tpu_torch.samples.char_lm"
-        monkeypatch.setattr(Launcher, "boot", lambda self: pytest.fail(
-            "the run started before --serve was refused"))
+    """Each unported flag raises naming its item before anything trains
+    (``--serve`` and the engine's ``--serve-*`` flags are ported: see
+    ``test_lm_serve_flags_reach_serve_lm``)."""
+    monkeypatch.setattr(Launcher, "boot", lambda self: pytest.fail(
+        "the run started before %s was refused" % flags[0]))
     with pytest.raises(NotImplementedError, match=item):
-        cli.main([sample, "-d", "cpu", *flags])
-    assert "mnist" not in root.__dict__ or "layers" not in root.mnist
+        cli.main(["veles_tpu_torch.samples.char_lm", "-d", "cpu", *flags])
     root.__dict__.pop("char_lm", None)
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--serve", "0"], dict(slots=0, prefix_cache=0, prefill_chunk=0,
+                            spec_k=0, paged_kv=True, megastep=0)),
+    (["--serve", "0", "--serve-slots", "4", "--serve-prefix-cache", "8",
+      "--serve-prefill-chunk", "16", "--serve-spec-k", "2",
+      "--serve-paged-kv", "40", "--serve-megastep", "4"],
+     dict(slots=4, prefix_cache=8, prefill_chunk=16, spec_k=2,
+          paged_kv=40, megastep=4)),
+])
+def test_lm_serve_flags_reach_serve_lm(flags, want, monkeypatch, capsys):
+    """``--serve`` on an LM workflow serves it through ``serve_lm`` after
+    the run, with the engine's six ``--serve-*`` flags forwarded
+    (``--serve-paged-kv`` 0 is the port's paged default)."""
+    from veles_tpu_torch import restful_api
+    seen = {}
+
+    class Served:
+        port = 4321
+        stopped = False
+
+        def stop(self):
+            Served.stopped = True
+
+    def fake_serve_lm(wf, port, **kw):
+        seen.update(kw, port=port, trainer=wf.trainer)
+        return Served()
+    monkeypatch.setattr(Launcher, "boot", lambda self: None)
+    monkeypatch.setattr(restful_api, "serve_lm", fake_serve_lm)
+    monkeypatch.setattr(cli, "_wait_for_interrupt", lambda: None)
+    try:
+        assert cli.main(["veles_tpu_torch.samples.char_lm", "-d", "cpu",
+                         *flags]) == 0
+    finally:
+        root.__dict__.pop("char_lm", None)
+    assert hasattr(seen.pop("trainer"), "n_heads")
+    assert seen == dict(want, port=0) and Served.stopped
+    assert "SERVING http://127.0.0.1:4321/predict" in capsys.readouterr().out
 
 
 @pytest.fixture

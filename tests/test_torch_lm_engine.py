@@ -184,10 +184,23 @@ def test_generate_batch_and_ttft(workload):
     ("faults", object()), ("tracer", object()), ("paged_kv", 0),
 ])
 def test_unported_knobs_raise(workload, knob, value):
+    """Each knob not ported yet raises naming its ROADMAP item.  The
+    sampling knobs serve now (``tests/test_torch_lm_sampling.py``):
+    ``temperature`` alone asks for ``sample_seed``, and ``top_k`` or
+    ``sample_seed`` alone leave a greedy engine."""
     host, _ = workload
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LMEngine(host, N_HEADS, MAX_LEN, prefill_chunk=PAGE, device="cpu",
-                 **{knob: value})
+    if knob == "temperature":
+        with pytest.raises(ValueError, match="needs sample_seed"):
+            LMEngine(host, N_HEADS, MAX_LEN, prefill_chunk=PAGE,
+                     device="cpu", temperature=value)
+    elif knob in ("top_k", "sample_seed"):
+        engine = LMEngine(host, N_HEADS, MAX_LEN, prefill_chunk=PAGE,
+                          device="cpu", **{knob: value})
+        assert getattr(engine, knob) == value and not engine._sampling
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            LMEngine(host, N_HEADS, MAX_LEN, prefill_chunk=PAGE,
+                     device="cpu", **{knob: value})
 
 
 def test_unported_methods_raise(workload):

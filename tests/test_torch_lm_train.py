@@ -273,14 +273,21 @@ def test_greedy_generate_equals_reference(backend, prompt, n_new, kw):
 
 
 def test_generate_refuses_sampling():
-    """Sampling raises; greedy decoding drops an in-range ``top_k`` as
-    the reference does ("greedy never reads top_k") and returns the
-    reference's tokens."""
+    """Sampling without ``rng`` raises the reference's ValueError, and
+    with one (a key or an int seed) gives the reference's tokens; greedy
+    decoding drops an in-range ``top_k`` as the reference does ("greedy
+    never reads top_k") and returns the reference's tokens."""
     host = _host_params()
     params = _tensors(host)
     prompt = torch.tensor([[1, 2]], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
+    with pytest.raises(ValueError, match="needs rng"):
         TT.generate(params, prompt, 3, 4, temperature=0.8)
+    sampled = numpy.asarray(JT.generate(
+        jax.tree.map(jnp.asarray, host), jnp.asarray(prompt.numpy()), 3, 4,
+        rng=jax.random.PRNGKey(9), temperature=0.8, top_k=4))
+    numpy.testing.assert_array_equal(
+        TT.generate(params, prompt, 3, 4, rng=9, temperature=0.8,
+                    top_k=4).numpy(), sampled)
     want = numpy.asarray(JT.generate(jax.tree.map(jnp.asarray, host),
                                      jnp.asarray(prompt.numpy()), 3, 4,
                                      temperature=0, top_k=4))

@@ -243,8 +243,10 @@ class TestUnported:
             MicroBatcher(lambda x: x, **{knob: object()})
 
     def test_serve_lm_raises_naming_its_item(self):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            serve_lm(None, port=0)
+        """serve_lm is ported; its fleet knobs raise naming their item
+        before the workflow is read."""
+        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+            serve_lm(None, port=0, replicas=2)
 
 
 class TestMicroBatcher:

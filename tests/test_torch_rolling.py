@@ -158,8 +158,9 @@ def test_rolling_equals_port_generate_while_the_cache_lasts(kv, window,
 
 def test_rolling_errors_match_reference():
     """The reference's errors: a positional table, window < 1, n_new < 1
-    and top_k out of range raise ValueError; sampling raises the port's
-    NotImplementedError; greedy decoding ignores an in-range top_k."""
+    and top_k out of range raise ValueError, and so does sampling
+    without ``rng``; sampling with one gives the reference's tokens;
+    greedy decoding ignores an in-range top_k."""
     rope = _host_params(11)
     table = _host_params(11, rope=False)
     prompt = numpy.array([[1, 2]], numpy.int32)
@@ -178,9 +179,15 @@ def test_rolling_errors_match_reference():
             TT.generate_rolling(_tensors(host), torch.from_numpy(prompt),
                                 n_heads=4, temperature=0, **kw)
     params = _tensors(rope)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
+    with pytest.raises(ValueError, match="needs rng"):
         TT.generate_rolling(params, torch.from_numpy(prompt), 4, 4, 2,
                             temperature=0.8)
+    numpy.testing.assert_array_equal(
+        TT.generate_rolling(params, torch.from_numpy(prompt), 4, 4, 2,
+                            rng=prng.PRNGKey(3), temperature=0.8).numpy(),
+        numpy.asarray(JT.generate_rolling(
+            jax.tree.map(jnp.asarray, rope), jnp.asarray(prompt), 4, 4, 2,
+            rng=jax.random.PRNGKey(3), temperature=0.8)))
     numpy.testing.assert_array_equal(
         TT.generate_rolling(params, torch.from_numpy(prompt), 6, 4, 2,
                             temperature=0, top_k=5).numpy(),

@@ -22,9 +22,12 @@ scripts/velescli.py [H], SURVEY §2.1, §3.1):
 
 - ``--serve PORT`` (``--serve-batch N``) serves the trained forward
   chain over HTTP after the run (``restful_api.RESTfulAPI`` with the
-  loader's normalizer, through the micro-batcher when N > 0), prints
-  ``SERVING http://127.0.0.1:<port>/predict`` and blocks until
-  interrupted.
+  loader's normalizer, through the micro-batcher when N > 0), or an LM
+  workflow's token continuation (``restful_api.serve_lm``, with
+  ``--serve-slots``, ``--serve-prefix-cache``, ``--serve-prefill-chunk``,
+  ``--serve-spec-k``, ``--serve-paged-kv`` and ``--serve-megastep``
+  for its engine), prints ``SERVING http://127.0.0.1:<port>/predict``
+  and blocks until interrupted.
 - ``--web-status PORT`` serves the live dashboard (``web_status``; 0:
   any free port) and prints ``WEBSTATUS http://<host>:<port>/``;
   ``--web-status-url URL`` reports this process's rows to another
@@ -33,9 +36,10 @@ scripts/velescli.py [H], SURVEY §2.1, §3.1):
   MongoDB (it needs ``pymongo``: without it the CLI exits 2 naming it).
 
 The parser takes every flag of the reference, so any reference command
-line parses.  The flags whose machinery is not ported yet (the LM and
-fleet serving flags, fault plans) raise NotImplementedError naming
-their ROADMAP item before anything is trained.
+line parses.  The flags whose machinery is not ported yet (the fleet,
+tensor-parallel and operations serving flags, fault plans) raise
+NotImplementedError naming their ROADMAP item before anything is
+trained.
 """
 
 from __future__ import annotations
@@ -165,14 +169,22 @@ def build_argparser():
                              "other hosts' ranks can POST /report)")
     parser.add_argument("--serve", type=int, default=None, metavar="PORT",
                         help="after training, serve the forward chain "
+                             "(or an LM workflow's token continuation) "
                              "over HTTP on PORT (0: any free port)")
     parser.add_argument("--serve-batch", type=int, default=0, metavar="N",
                         help="with --serve: coalesce concurrent requests "
                              "into batches of up to N (0: one forward a "
                              "request)")
+    for flag, help_ in _SERVE_FLAGS:
+        parser.add_argument(flag, type=int, default=0, help=help_)
+    parser.add_argument("--serve-attn-kernel", default="off",
+                        choices=("off", "auto", "force"),
+                        help="parsed for the reference's command lines; "
+                             "the port's engine has one attention route, "
+                             "the card's kernels, whatever this says")
     # the rest of the reference's --serve-* flags, with their types and
-    # defaults (not ported yet: ROADMAP Queue 2a, item 13)
-    for flag, kind, default in _SERVE_FLAGS:
+    # defaults (not ported yet: each raises naming its ROADMAP item)
+    for flag, kind, default, _ in _SERVE_UNPORTED:
         if kind is bool:
             parser.add_argument(flag, action="store_true",
                                 help="(not ported yet)")
@@ -188,19 +200,44 @@ def build_argparser():
     return parser
 
 
-#: the reference's serving flags not ported yet: (flag, type, default)
+#: the LM engine's serving flags (ints, default 0), with their help
 _SERVE_FLAGS = (
-    ("--serve-slots", int, 0), ("--serve-prefix-cache", int, 0),
-    ("--serve-prefill-chunk", int, 0), ("--serve-spec-k", int, 0),
-    ("--serve-paged-kv", int, 0), ("--serve-megastep", int, 0),
-    ("--serve-attn-kernel", str, "off"), ("--serve-tp", int, 0),
-    ("--serve-replicas", int, 1), ("--serve-router", str, "metrics"),
-    ("--serve-health", bool, False), ("--serve-hedge", float, 0.0),
-    ("--serve-retries", int, 0), ("--serve-model-dir", str, None),
-    ("--serve-canary", int, 1), ("--serve-publish-interval", float, 5.0),
-    ("--serve-canary-watch", float, 2.0), ("--serve-trace", str, "off"),
-    ("--serve-trace-last", int, 256), ("--serve-telemetry", float, 0.0),
-    ("--serve-slo", str, None), ("--serve-no-auto-rollback", bool, False),
+    ("--serve-slots", "with --serve on an LM workflow: decode up to N "
+     "requests side by side in the paged engine's slots (greedy ones; "
+     "sampled requests take the direct path); 0: every request "
+     "decodes alone"),
+    ("--serve-prefix-cache", "with --serve-slots: keep N prompt chunks "
+     "in the radix prefix cache"),
+    ("--serve-prefill-chunk", "with --serve-slots: the prompt chunk and "
+     "KV page, in tokens (0: the largest divisor of max_len up to 32)"),
+    ("--serve-spec-k", "with --serve-slots: prompt-lookup speculative "
+     "decoding, up to K draft tokens a dispatch"),
+    ("--serve-paged-kv", "with --serve-slots: the KV pool's pages (0 or "
+     "-1: every slot's full span; the port's engine is paged only)"),
+    ("--serve-megastep", "with --serve-slots: K decode iterations a "
+     "fused dispatch (0 or 1: one a dispatch)"),
+)
+
+_FLEET = "Queue 1, item 9"
+_OPERATIONS = "Queue 1, item 7"
+#: the reference's serving flags not ported yet: (flag, type, default,
+#: ROADMAP item)
+_SERVE_UNPORTED = (
+    ("--serve-tp", int, 0, "Queue 1, item 4"),
+    ("--serve-replicas", int, 1, _FLEET),
+    ("--serve-router", str, "metrics", _FLEET),
+    ("--serve-health", bool, False, _FLEET),
+    ("--serve-hedge", float, 0.0, _FLEET),
+    ("--serve-retries", int, 0, _FLEET),
+    ("--serve-model-dir", str, None, _FLEET),
+    ("--serve-canary", int, 1, _FLEET),
+    ("--serve-publish-interval", float, 5.0, _FLEET),
+    ("--serve-canary-watch", float, 2.0, _FLEET),
+    ("--serve-no-auto-rollback", bool, False, _FLEET),
+    ("--serve-trace", str, "off", _OPERATIONS),
+    ("--serve-trace-last", int, 256, _OPERATIONS),
+    ("--serve-telemetry", float, 0.0, _OPERATIONS),
+    ("--serve-slo", str, None, _OPERATIONS),
 )
 
 
@@ -208,8 +245,8 @@ def refuse_unported(args):
     """NotImplementedError naming the ROADMAP item of the first flag
     given that is not ported yet (before anything is built)."""
     unported = list(_UNPORTED) + [
-        (flag[2:].replace("-", "_"), default, "Queue 2a, item 13")
-        for flag, _, default in _SERVE_FLAGS]
+        (flag[2:].replace("-", "_"), default, item)
+        for flag, _, default, item in _SERVE_UNPORTED]
     for dest, default, item in unported:
         if getattr(args, dest) != default:
             raise NotImplementedError(
@@ -308,14 +345,9 @@ def main(argv=None):
     holder = {}
 
     def _servable(wf):
-        """True when --serve will find a forward chain to serve after
-        training; an LM workflow raises (its serving is not ported)."""
-        if getattr(wf, "trainer", None) is not None and \
-                hasattr(wf.trainer, "n_heads"):
-            raise NotImplementedError(
-                "--serve on an LM workflow (serve_lm) is not ported yet: "
-                "ROADMAP Queue 1, item 5")
-        return bool(getattr(wf, "forwards", None))
+        """True when --serve will find a serving surface after training:
+        an LM trainer (token continuation) or a forward chain."""
+        return _is_lm(wf) or bool(getattr(wf, "forwards", None))
 
     def load(workflow_cls, **kwargs):
         if args.snapshot_dir:
@@ -342,8 +374,8 @@ def main(argv=None):
         if args.serve is not None and not _servable(wf):
             # fail before launcher.boot(): an unservable workflow is
             # knowable before the training run, not only after it
-            parser.error("--serve: workflow %r has no forward chain to "
-                         "serve" % wf.name)
+            parser.error("--serve: workflow %r has no forward chain or "
+                         "LM trainer to serve" % wf.name)
         if args.web_status is not None or args.web_status_url:
             from veles_tpu_torch.web_status import attach_web_status
             status = attach_web_status(
@@ -372,31 +404,57 @@ def main(argv=None):
         with open(args.result_file, "w", encoding="utf-8") as f:
             json.dump(launcher.result_summary(), f, indent=2, default=str)
     if launcher is not None and args.serve is not None:
-        serve(launcher.workflow, args.serve, args.serve_batch)
+        serve(launcher.workflow, args.serve, args.serve_batch, args)
     return 0
 
 
-def serve(wf, port, batch=0):
-    """Serve a trained forward-chain workflow until interrupted (the
-    ``--serve`` tail of a run).  In a distributed run only process 0
-    serves (one endpoint, as one process writes snapshots)."""
-    import threading
+def _is_lm(wf):
+    """True for a transformer-trainer workflow (served by serve_lm)."""
+    return getattr(wf, "trainer", None) is not None and \
+        hasattr(wf.trainer, "n_heads")
+
+
+def serve(wf, port, batch=0, args=None):
+    """Serve a trained workflow until interrupted (the ``--serve`` tail
+    of a run): an LM workflow's token continuation through
+    ``serve_lm`` with the ``--serve-*`` engine flags of ``args``, else
+    its forward chain.  In a distributed run only process 0 serves (one
+    endpoint, as one process writes snapshots)."""
     import torch.distributed as dist
-    from veles_tpu_torch.restful_api import RESTfulAPI
+    from veles_tpu_torch import restful_api
     if dist.is_initialized() and dist.get_rank() != 0:
         return
-    api = RESTfulAPI(wf, normalizer=getattr(wf.loader, "normalizer", None))
-    if batch > 0:
-        api.enable_batching(max_batch=batch)
-    api.start(port=port)
+    if _is_lm(wf):
+        kw = {}
+        if args is not None:
+            kw = dict(slots=args.serve_slots,
+                      prefix_cache=args.serve_prefix_cache,
+                      prefill_chunk=args.serve_prefill_chunk,
+                      spec_k=args.serve_spec_k,
+                      paged_kv=(True if args.serve_paged_kv <= 0
+                                else args.serve_paged_kv),
+                      megastep=args.serve_megastep)
+        api = restful_api.serve_lm(wf, port=port, **kw)
+    else:
+        api = restful_api.RESTfulAPI(
+            wf, normalizer=getattr(wf.loader, "normalizer", None))
+        if batch > 0:
+            api.enable_batching(max_batch=batch)
+        api.start(port=port)
     # parseable by wrappers and tests; flushed before blocking
     print("SERVING http://127.0.0.1:%d/predict" % api.port, flush=True)
     try:
-        threading.Event().wait()        # until SIGINT
+        _wait_for_interrupt()
     except KeyboardInterrupt:
         pass
     finally:
         api.stop()
+
+
+def _wait_for_interrupt():
+    """Block until SIGINT (a KeyboardInterrupt)."""
+    import threading
+    threading.Event().wait()
 
 
 def _run_process():

@@ -3,9 +3,10 @@
 Counterpart of ``veles_tpu/ops/pallas_kernels.py``.  Each kernel is CUDA
 C++ for ``sm_90a`` under ``csrc/``, built at first use by :mod:`._build`:
 the training update in ``csrc/fused_sgd.cu``, the AlexNet LRN forward and
-backward in ``csrc/lrn.cu``, dropout with its threefry mask and the
-RBM's Bernoulli draws in ``csrc/dropout.cu``, and the serving hot loop's
-two paged attention kernels in ``csrc/paged_flash_attention.cu``.  The
+backward in ``csrc/lrn.cu``, dropout with its threefry mask, the RBM's
+Bernoulli draws and the decoders' token draw in ``csrc/dropout.cu``, and
+the serving hot loop's two paged attention kernels in
+``csrc/paged_flash_attention.cu``.  The
 attention kernels share the TPU kernels' geometry: the KV pool is
 (n_pages, kv_heads, page, head_dim), a lane's page-table row maps its linear positions [0, m·page) onto pool
 pages, and queries arrive as (b, heads, c, head_dim).  Grouped-query
@@ -52,6 +53,15 @@ bernoulli
     ``p``, which the reference leaves to XLA (the RBM's visible
     binarization and Gibbs samples, one launch a draw).  The same
     threefry hash as dropout, compared with p[i]; bound: operations.
+sample_token
+    No TPU kernel's port: the seeded temperature / top-k draw of one
+    token a row (``jax.random.categorical`` in the reference's decode
+    programs, which XLA computes).  One block a row: the row's key (one
+    key for the whole draw, or fold_in(fold_in(base, seed), position)
+    made in the kernel), jax's threefry bits, uniform and gumbel draw,
+    the top-k mask against a cutoff found by ``torch.topk`` before the
+    launch, the division by the temperature and a block argmax; bound:
+    operations.
 paged_flash_decode
     Replaces ``veles_tpu/ops/pallas_kernels.py:367`` (paged_flash_decode).
     Bound on the H100: bytes — every live K/V page is read once for
@@ -1052,6 +1062,11 @@ def _dropout_lib():
         lib.bernoulli_f32.argtypes = [ptr, ptr, ctypes.c_longlong, u32, u32,
                                       ptr]
         lib.bernoulli_f32.restype = ctypes.c_int
+        i32 = ctypes.c_int
+        lib.sample_token_f32.argtypes = [ptr, i64, i32, ptr, i32,
+                                         ctypes.c_float, u32, u32, ptr, ptr,
+                                         ptr, ptr]
+        lib.sample_token_f32.restype = ctypes.c_int
         lib.dropout_error_string.argtypes = [ctypes.c_int]
         lib.dropout_error_string.restype = ctypes.c_char_p
         _DROPOUT_LIB = lib
@@ -1125,12 +1140,10 @@ def _uniform_ref(key, n, device, offset=0):
     """The float32 uniforms in [0, 1) of flat indices offset..offset+n-1
     under ``key``, on ``device``: jax's partitionable threefry bits, top
     23 bits as the mantissa of a float in [1, 2), minus 1."""
-    from veles_tpu_torch.prng import threefry2x32
+    from veles_tpu_torch import prng
     k0, k1 = (int(w) for w in _as_key(key))
     idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
-    o0, o1 = threefry2x32(k0, k1, idx >> 32, idx & 0xFFFFFFFF)
-    return (((o0 ^ o1) >> 9) | 0x3F800000).to(torch.int32).view(
-        torch.float32) - 1.0
+    return prng.unit_float_tensor(prng.bits_words(k0, k1, idx))
 
 
 def bernoulli_ref(key, p):
@@ -1174,6 +1187,141 @@ def bernoulli(key, p):
 
 
 bernoulli.launches = 0
+
+
+def _sample_rows(logits, seeds, positions):
+    """(rows, vocab) of a draw's logits, after the operands' checks."""
+    if (seeds is None) != (positions is None):
+        raise ValueError("seeds and positions come together (the "
+                         "engine's per-row keys) or not at all")
+    if logits.dim() < 1 or logits.shape[-1] < 1:
+        raise ValueError("logits must end in a vocab axis (got %s)"
+                         % (tuple(logits.shape),))
+    vocab = logits.shape[-1]
+    rows = logits.numel() // vocab
+    if seeds is not None and not (seeds.numel() == positions.numel()
+                                  == rows):
+        raise ValueError("one seed and one position a row: %d rows, %d "
+                         "seeds, %d positions"
+                         % (rows, seeds.numel(), positions.numel()))
+    return rows, vocab
+
+
+def sample_scores_ref(logits, temperature, key, top_k=0, seeds=None,
+                      positions=None):
+    """The perturbed scores :func:`sample_token` takes the argmax of,
+    (rows, vocab) float32: the keys and bits by ``prng``'s threefry on
+    int64 tensors, jax's gumbel draw, plus the logits after the top-k
+    mask (against ``torch.topk``'s k-th value) divided by the
+    temperature."""
+    from veles_tpu_torch import prng
+    rows, vocab = _sample_rows(logits, seeds, positions)
+    lg = logits.reshape(rows, vocab)
+    k0, k1 = (int(w) for w in _as_key(key))
+    cols = torch.arange(vocab, dtype=torch.int64, device=lg.device)
+    if seeds is None:
+        counters = torch.arange(rows, dtype=torch.int64,
+                                device=lg.device)[:, None] * vocab + cols
+    else:
+        k0, k1 = prng.fold_in_words(k0, k1, seeds.reshape(rows))
+        k0, k1 = prng.fold_in_words(k0, k1, positions.reshape(rows))
+        k0, k1, counters = k0[:, None], k1[:, None], cols[None, :]
+    gumbel = prng.gumbel_tensor(prng.bits_words(k0, k1, counters))
+    if top_k:
+        cut = torch.topk(lg, int(top_k), dim=-1).values[:, -1:]
+        lg = torch.where(lg >= cut, lg, NEG_INF)
+    # a division by a tensor: a CUDA division by a Python scalar is a
+    # multiply by its reciprocal
+    scores = lg / torch.full_like(lg, float(numpy.float32(temperature)))
+    return gumbel + scores
+
+
+def sample_token_ref(logits, temperature, key, top_k=0, seeds=None,
+                     positions=None):
+    """Plain PyTorch version of :func:`sample_token`: ``torch.argmax``
+    (the first maximum) of :func:`sample_scores_ref`."""
+    scores = sample_scores_ref(logits, temperature, key, top_k, seeds,
+                               positions)
+    return torch.argmax(scores, dim=-1).to(torch.int32).reshape(
+        logits.shape[:-1])
+
+
+def sample_token(logits, temperature, key, top_k=0, seeds=None,
+                 positions=None):
+    """One seeded token a row of ``logits`` (..., vocab), as the
+    reference's ``sample_token`` / ``_make_sampler`` draw it: the logits
+    below the row's ``top_k``-th largest (0: none) set to -1e30, divided
+    by ``temperature``, plus jax's gumbel draw, argmax (the first
+    maximum).  Returns int32 of the rows' shape.  Not a TPU kernel's
+    port: the reference leaves the draw to XLA
+    (``jax.random.categorical``).
+
+    Two ways to key it: ``key`` (a (2,) uint32 host key or an int seed)
+    alone draws the whole (rows, vocab) array under one key, element
+    (r, i) at counter r·vocab + i (``generate``'s mode); with ``seeds``
+    and ``positions`` ((rows,) int32 tensors on the logits' device)
+    ``key`` is a base key, row r's key is fold_in(fold_in(key, seeds[r]),
+    positions[r]) and its counters are 0..vocab-1 (the serving engine's
+    mode, its keys made on the device).
+
+    CPU tensors run :func:`sample_token_ref`; CUDA tensors launch the
+    kernel in ``csrc/dropout.cu`` (fp32 contiguous logits, int32
+    contiguous seeds and positions — anything else raises), after one
+    ``torch.topk`` for the k-th value when ``top_k``.  The key and the
+    temperature go by value (a captured graph keeps them)."""
+    rows, vocab = _sample_rows(logits, seeds, positions)
+    if not float(temperature) > 0.0:
+        raise ValueError("temperature must be > 0 (got %r): greedy "
+                         "decoding is an argmax" % (temperature,))
+    top_k = int(top_k or 0)
+    if not 0 <= top_k <= vocab:
+        raise ValueError("top_k %d out of range (vocab %d)" % (top_k, vocab))
+    keyed = () if seeds is None else (seeds, positions)
+    if not _on_card(logits, *keyed):
+        return sample_token_ref(logits, temperature, key, top_k, seeds,
+                                positions)
+    if logits.dtype != torch.float32 or not logits.is_contiguous():
+        raise ValueError("logits must be contiguous float32 (got %s)"
+                         % logits.dtype)
+    for t in keyed:
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError("seeds and positions must be contiguous int32 "
+                             "(got %s)" % t.dtype)
+    # the k-th value of each row, read in place from topk's output
+    top = (torch.topk(logits.view(rows, vocab), top_k, dim=-1).values
+           if top_k else None)
+    out = _sample_launch(logits, temperature, key, top, seeds, positions)
+    _count(sample_token)
+    return out
+
+
+sample_token.launches = 0
+
+
+def _sample_launch(logits, temperature, key, top, seeds, positions):
+    """The draw kernel's launch alone, operands checked by
+    :func:`sample_token`: ``top`` is None or the (rows, k) values of
+    ``torch.topk`` (the cutoff its last column).  Not counted."""
+    vocab = logits.shape[-1]
+    rows = logits.numel() // vocab
+    k0, k1 = (int(w) for w in _as_key(key))
+    out = torch.empty(logits.shape[:-1], dtype=torch.int32,
+                      device=logits.device)
+    lib = _dropout_lib()
+    with torch.cuda.device(logits.device):
+        stream = torch.cuda.current_stream(logits.device).cuda_stream
+        code = lib.sample_token_f32(
+            logits.data_ptr(), rows, vocab,
+            None if top is None else top[:, -1:].data_ptr(),
+            0 if top is None else top.shape[1],
+            float(numpy.float32(temperature)), k0, k1,
+            None if seeds is None else seeds.data_ptr(),
+            None if positions is None else positions.data_ptr(),
+            out.data_ptr(), stream)
+    if code:
+        raise RuntimeError("sample_token launch failed: %s"
+                           % lib.dropout_error_string(code).decode())
+    return out
 
 # ---------------------------------------------------- flash attention (train)
 def _flash_scale(q, sm_scale):
@@ -1395,8 +1543,8 @@ class FlashAttention(torch.autograd.Function):
 
 
 _WRAPPERS = (fused_sgd_update, lrn_forward, lrn_backward, dropout,
-             bernoulli, paged_flash_decode, paged_flash_prefill,
-             flash_attention_fwd, flash_attention_bwd_dkv,
+             bernoulli, sample_token, paged_flash_decode,
+             paged_flash_prefill, flash_attention_fwd, flash_attention_bwd_dkv,
              flash_attention_bwd_dq)
 
 
@@ -1426,6 +1574,7 @@ __all__ = ["NEG_INF", "serving_kernels_supported", "fused_sgd_update",
            "lrn_forward_ref",
            "LRN_FORWARD_OP", "lrn_backward", "lrn_backward_ref", "LRN", "LRN_MAX_CHANNELS",
            "dropout", "dropout_ref", "bernoulli", "bernoulli_ref",
+           "sample_token", "sample_token_ref", "sample_scores_ref",
            "paged_flash_decode",
            "paged_flash_decode_ref", "decode_splits", "paged_flash_prefill",
            "paged_flash_prefill_ref", "prefill_splits", "split_ranges",

@@ -1,12 +1,13 @@
-"""Transformer language model: training, greedy decoding and paged
-serving.
+"""Transformer language model: training, decoding (greedy or seeded
+sampling) and paged serving.
 
 Port of ``veles_tpu/ops/transformer.py``: host-side init (bit-equal to
 the reference for the same prng stream); the training forward
 (``transformer_forward``, ``lm_loss``, with top-1-routed mixture-of-
 experts blocks and their load-balancing term, ``ops/moe.py``) and the
 Adam step; KV-cached
-greedy ``generate`` and its unbounded ring-buffer sibling
+``generate`` (greedy, or temperature / top-k sampling through the draw
+kernel) and its unbounded ring-buffer sibling
 ``generate_rolling``; the decoder block over the paged KV pool;
 :class:`TransformerTrainer` (sequential, or GPipe stages through
 ``parallel/pipeline.py``) with :class:`TransformerDecision`; and
@@ -36,6 +37,7 @@ from veles_tpu_torch.ops.attention import (init_mha_params, mha_decode_step,
                                            mha_forward,
                                            mha_paged_chunk_step,
                                            rolling_slot_update)
+from veles_tpu_torch.ops import hopper_kernels as HK
 from veles_tpu_torch.ops.decision import DecisionBase
 from veles_tpu_torch.ops.functional import matmul, relu
 from veles_tpu_torch.ops.moe import init_moe_params, moe_ffn
@@ -275,7 +277,7 @@ def make_adam_train_step(loss_fn, learning_rate, beta1=0.9, beta2=0.999,
     return train_step
 
 
-# ---------------------------------------------------------- greedy decoding
+# ------------------------------------------------------------------ decoding
 def prefill(params, tokens, n_heads, max_len, rope=False, window=None,
             sinks=0):
     """Run the prompt through the stack once, capturing each block's
@@ -317,29 +319,49 @@ def block_decode_step(blk, h, k_cache, v_cache, pos, n_heads, rope=False,
     return h + _block_ffn(blk, hn), k_cache, v_cache
 
 
-_SAMPLING = ("seeded sampling (temperature > 0) is not ported yet: "
-             "ROADMAP Queue 1, item 6")
+def _make_sampler(greedy, top_k, temperature):
+    """The token sampler shared by the full-cache and rolling decoders
+    (their top-k tie rule and temperature handling never drift apart),
+    and its key schedule.  ``sample(logits, key)`` is the greedy argmax
+    (the first maximum, as ``jnp.argmax``) or the seeded draw of
+    :func:`sample_token` (``top_k`` None: no mask) under ``key`` for
+    the whole (batch, vocab) draw; ``next_key(key)`` is the reference's
+    split chain, (key, sub) = split(key), made on the host (the keys do
+    not depend on the data), and (None, None) when greedy."""
+    def sample(logits, key):
+        if greedy:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        return sample_token(key, logits, temperature, top_k or 0)
+
+    def next_key(key):
+        if key is None:
+            return None, None
+        key, sub = prng_mod.split(key)
+        return key, sub
+
+    return sample, next_key
 
 
-def _make_sampler(greedy):
-    """The token sampler: greedy argmax (the first maximum, as
-    ``jnp.argmax``).  Sampling raises."""
-    if not greedy:
-        raise NotImplementedError(_SAMPLING)
-
-    def sample(logits):
-        return torch.argmax(logits, dim=-1).to(torch.int32)
-
-    return sample
+def sample_token(key, logits, temperature, top_k=0):
+    """Sample one token id from each (vocab,) row of ``logits``: the
+    logits below the row's ``top_k``-th largest (0: none; ties at the
+    cutoff stay eligible) set to -1e30, divided by ``temperature`` (>
+    0), and drawn by ``jax.random.categorical(key, ...)``'s gumbel-max
+    rule, ``key`` covering the whole array (the flat index is the
+    counter).  int32 of the rows' shape.  On the card one launch of
+    ``hopper_kernels.sample_token``; on the CPU its plain version."""
+    return HK.sample_token(logits.contiguous(), temperature, key, top_k)
 
 
 def generate(params, prompt, n_new, n_heads, rng=None, temperature=1.0,
              max_len=None, top_k=None, true_len=None, rope=False,
              window=None, sinks=0):
-    """Greedy autoregressive decoding with a KV cache: ``prompt``
-    (batch, s) int; returns (batch, s + n_new) int32.  ``temperature``
-    must be 0 (sampling raises); greedy decoding never reads ``top_k``
-    once it is in range.  ``max_len`` pins the cache size
+    """Autoregressive decoding with a KV cache: ``prompt`` (batch, s)
+    int; returns (batch, s + n_new) int32.  ``temperature=0`` decodes
+    greedily (and never reads ``top_k`` once it is in range); otherwise
+    ``rng`` (a key or an int seed) seeds the draws through the
+    reference's split chain, ``top_k`` keeping the k most likely tokens.
+    ``max_len`` pins the cache size
     (default prompt + n_new); ``true_len`` says how many leading prompt
     positions are real when the prompt is right-padded to a bucket
     width — decoding continues from there and the continuation lands at
@@ -361,17 +383,22 @@ def generate(params, prompt, n_new, n_heads, rng=None, temperature=1.0,
     if "pos" in params and max_len > params["pos"].shape[0]:
         raise ValueError("max_len %d exceeds the positional table (%d)"
                          % (max_len, params["pos"].shape[0]))
+    greedy = not temperature
+    if not greedy and rng is None:
+        raise ValueError("sampling (temperature > 0) needs rng")
     if top_k is not None and not 1 <= top_k <= params["embed"].shape[0]:
         raise ValueError("top_k %r out of range (vocab %d)"
                          % (top_k, params["embed"].shape[0]))
-    sample = _make_sampler(not temperature)
+    sample, next_key = _make_sampler(greedy, top_k, temperature)
+    key = None if greedy else HK._as_key(rng)
     with torch.no_grad():
         h, caches = prefill(params, prompt, n_heads, max_len, rope=rope,
                             window=window, sinks=sinks)
         logits = head_logits(params, h[:, start - 1:start])[:, 0]
         toks = []
         for i in range(n_new - 1):
-            tok = sample(logits)
+            key, sub = next_key(key)
+            tok = sample(logits, sub)
             pos = start + i
             x = params["embed"][tok.long()][:, None, :]
             if "pos" in params:
@@ -382,7 +409,7 @@ def generate(params, prompt, n_new, n_heads, rng=None, temperature=1.0,
                                             sinks=sinks)
             logits = head_logits(params, x)[:, 0]
             toks.append(tok)
-        toks.append(sample(logits))
+        toks.append(sample(logits, next_key(key)[1]))
         return torch.cat([prompt.to(torch.int32), torch.stack(toks, 1)],
                          dim=1)
 
@@ -404,7 +431,7 @@ def block_decode_step_rolling(blk, h, k_cache, v_cache, slot, live, pos,
 
 def generate_rolling(params, prompt, n_new, n_heads, window, rng=None,
                      temperature=1.0, top_k=None, sinks=0):
-    """UNBOUNDED greedy decoding in O(sinks + window) memory, for RoPE
+    """UNBOUNDED decoding in O(sinks + window) memory, for RoPE
     models: ``prompt`` (batch, s) int; returns (batch, s + n_new) int32.
     The prompt is prefilled at its own width (windowed, with sinks), its
     K/V folded into each block's [sinks | window-ring] cache, and every
@@ -414,8 +441,8 @@ def generate_rolling(params, prompt, n_new, n_heads, window, rng=None,
     sinks=sinks)`` while that one's full cache lasts.  The loop makes no
     host-to-device copy: the rotary positions are uploaded once, the
     slot is a host int and the tokens stay on the device until the
-    end.  ``temperature`` must be 0 (sampling raises); greedy decoding
-    never reads ``top_k`` once it is in range."""
+    end.  ``temperature``, ``rng`` and ``top_k`` as in
+    :func:`generate` (the same sampler and split chain)."""
     if "pos" in params:
         raise ValueError("generate_rolling needs a RoPE model (a learned "
                          "positional table bounds the length anyway — "
@@ -424,10 +451,14 @@ def generate_rolling(params, prompt, n_new, n_heads, window, rng=None,
         raise ValueError("n_new must be >= 1")
     if not window or window < 1:
         raise ValueError("generate_rolling needs window >= 1")
+    greedy = not temperature
+    if not greedy and rng is None:
+        raise ValueError("sampling (temperature > 0) needs rng")
     if top_k is not None and not 1 <= top_k <= params["embed"].shape[0]:
         raise ValueError("top_k %r out of range (vocab %d)"
                          % (top_k, params["embed"].shape[0]))
-    sample = _make_sampler(not temperature)
+    sample, next_key = _make_sampler(greedy, top_k, temperature)
+    key = None if greedy else HK._as_key(rng)
     device = prompt.device
     b, s = prompt.shape
     with torch.no_grad():
@@ -458,7 +489,8 @@ def generate_rolling(params, prompt, n_new, n_heads, window, rng=None,
         out = torch.empty((b, s + n_new), dtype=torch.int32, device=device)
         out[:, :s] = prompt
         for i in range(n_new - 1):
-            tok = sample(logits)
+            key, sub = next_key(key)
+            tok = sample(logits, sub)
             out[:, s + i] = tok
             slot, slot_pos, live = rolling_slot_update(
                 slot_pos, s + i, window, sinks=sinks)
@@ -467,23 +499,27 @@ def generate_rolling(params, prompt, n_new, n_heads, window, rng=None,
                 x, _, _ = block_decode_step_rolling(
                     blk, x, kc, vc, slot, live, positions[i:i + 1], n_heads)
             logits = head_logits(params, x)[:, 0]
-        out[:, s + n_new - 1] = sample(logits)
+        out[:, s + n_new - 1] = sample(logits, next_key(key)[1])
         return out
 
 def trainer_sample_tokens(trainer, prompt, n_new=32, temperature=0.0,
                           seed=0, params=None, max_len=None, top_k=None,
                           true_len=None):
     """Continue token sequences with a trained :class:`TransformerTrainer`
-    by greedy KV-cached :func:`generate` on the trainer's device, with
-    its rope/window/sinks settings; ``prompt`` (batch, s) ints.  Returns
-    numpy int32 (batch, s + n_new).  A pipelined trainer's blocks are
-    gathered from its stages first (every stage must call this)."""
+    by KV-cached :func:`generate` on the trainer's device, with its
+    rope/window/sinks settings: greedy at ``temperature=0``, else
+    sampled under ``PRNGKey(seed)``; ``prompt`` (batch, s) ints.
+    Returns numpy int32 (batch, s + n_new).  A pipelined trainer's
+    blocks are gathered from its stages first (every stage must call
+    this)."""
     if params is None:
         params = trainer._to_portable(trainer.params)
     device = tree_leaves(params)[0].device
     out = generate(params, torch.as_tensor(numpy.asarray(prompt, numpy.int32),
                                            device=device),
-                   n_new, trainer.n_heads, temperature=temperature,
+                   n_new, trainer.n_heads,
+                   rng=prng_mod.PRNGKey(seed) if temperature else None,
+                   temperature=temperature,
                    max_len=max_len, top_k=top_k, true_len=true_len,
                    rope=getattr(trainer, "rope", False),
                    window=getattr(trainer, "window", None),

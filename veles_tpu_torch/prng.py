@@ -15,7 +15,11 @@ bit: ``PRNGKey``, ``fold_in``, ``split``, 32-bit ``random_bits`` (the
 flat index split into hi/lo counter words; bits = out0 ^ out1),
 ``uniform``, ``bernoulli`` and ``randint``.  A step hashes a few words
 on the host and uploads nothing it must read back; the dropout kernel
-runs the same hash on the card (``csrc/dropout.cu``).
+runs the same hash on the card (``csrc/dropout.cu``).  For keys that
+live on the device (a serving lane's seed and position), the same hash
+runs on torch int64 tensors: ``fold_in_words``, ``bits_words``, and
+jax's ``uniform(minval=tiny)`` and gumbel draw (``uniform_tiny``,
+``gumbel_tensor``), the plain version of the sampling draw's kernel.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from __future__ import annotations
 import hashlib
 
 import numpy
+import torch
 
 _MASK32 = 0xFFFFFFFF
 #: threefry2x32's rotation schedule and key-schedule parity constant
@@ -110,6 +115,48 @@ def uniform(key, shape):
 def bernoulli(key, p, shape):
     """``jax.random.bernoulli(key, p, shape)``: uniform < float32(p)."""
     return uniform(key, shape) < numpy.float32(p)
+
+
+# -- the device half of the sampling keys: torch int64 tensors ------------
+#: float32's smallest normal, jax's ``minval`` for the gumbel's uniform
+_TINY = float(numpy.finfo(numpy.float32).tiny)
+
+
+def fold_in_words(k0, k1, data):
+    """``jax.random.fold_in`` of the key words ``(k0, k1)`` (ints or int64
+    tensors) with ``data`` (an integer tensor; its low 32 bits are
+    folded in, so an int32 -1 is 0xFFFFFFFF): returns the new key's two
+    words as int64 tensors of ``data``'s shape."""
+    data = data.to(torch.int64) & _MASK32
+    return threefry2x32(k0, k1, torch.zeros_like(data), data)
+
+
+def bits_words(k0, k1, counters):
+    """32-bit ``jax.random.bits`` (partitionable) of the int64 flat
+    indices ``counters`` under the key words ``(k0, k1)`` (broadcast
+    against them): hi/lo counter words, bits = out0 ^ out1."""
+    o0, o1 = threefry2x32(k0, k1, counters >> 32, counters & _MASK32)
+    return o0 ^ o1
+
+
+def unit_float_tensor(bits):
+    """float32 in [0, 1) from 32 random bits held in an int64 tensor,
+    as :func:`bits_to_unit_float`."""
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(
+        torch.float32) - 1.0
+
+
+def uniform_tiny(bits):
+    """``jax.random.uniform(key, shape, minval=tiny, maxval=1.)`` from
+    the draw's bits: ``maxval - minval`` rounds to 1.0f, so the value is
+    max(tiny, f + tiny) with f the unit float of the bits."""
+    return (unit_float_tensor(bits) + _TINY).clamp(min=_TINY)
+
+
+def gumbel_tensor(bits):
+    """jax's gumbel draw (mode "low") from 32-bit draws:
+    -log(-log(u)) of :func:`uniform_tiny`."""
+    return -(-uniform_tiny(bits).log()).log()
 
 
 def randint(key, shape, minval, maxval):

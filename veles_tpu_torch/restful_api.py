@@ -25,10 +25,17 @@ server fault, 503 shed past deadline.  Every POST reply carries
 /metrics`` (Prometheus text) and ``GET /status`` (a text panel) expose
 the serving counters on the serving port itself.
 
-Not ported yet: ``serve_lm`` (ROADMAP Queue 1 item 5), and the
-reference's fault plan (``faults=``, Queue 2a item 15), span tracer,
-telemetry store and SLO monitor (``tracer=``, ``telemetry=``, ``slo=``,
-Queue 1 item 7) — each raises NotImplementedError naming its item.
+:func:`serve_lm` serves a trained transformer workflow's token
+continuation: greedy requests through the paged ``LMEngine``'s slots,
+sampled ones (and every one without slots) through ``generate``.
+
+Not ported yet: the reference's fault plan (``faults=``, Queue 2a item
+15), span tracer, telemetry store and SLO monitor (``tracer=``,
+``telemetry=``, ``slo=``, Queue 1 item 7), and ``serve_lm``'s fleet
+(replicas, router, health, hedging, retries, the model directory's
+publisher: Queue 1 item 9), ``tp`` (item 4) and the contiguous KV
+layout (``paged_kv=0``, item 8) — each raises NotImplementedError
+naming its item.
 
 Usage::
 
@@ -55,6 +62,21 @@ from veles_tpu_torch.logger import Logger
 #: the reference's keyword arguments not ported yet, with their items
 _UNPORTED = (("faults", "Queue 2a item 15"), ("tracer", "Queue 1 item 7"),
              ("telemetry", "Queue 1 item 7"), ("slo", "Queue 1 item 7"))
+
+_FLEET = "Queue 1 item 9 (the serving fleet)"
+_OPERATIONS = "Queue 1 item 7 (operations)"
+#: serve_lm's knobs not ported yet: (name, default, ROADMAP item)
+SERVE_LM_UNPORTED = (
+    ("tp", 0, "Queue 1 item 4 (tensor-parallel serving)"),
+    ("replicas", 1, _FLEET), ("router", "metrics", _FLEET),
+    ("health", False, _FLEET), ("hedge", 0.0, _FLEET),
+    ("retries", 0, _FLEET), ("model_dir", None, _FLEET),
+    ("publish_interval_s", 5.0, _FLEET), ("canary", 1, _FLEET),
+    ("canary_watch_s", 2.0, _FLEET), ("auto_rollback", True, _FLEET),
+    ("trace", None, _OPERATIONS), ("telemetry", 0.0, _OPERATIONS),
+    ("slo", None, _OPERATIONS),
+    ("fault_plan", None, "Queue 2a item 15 (fault plans)"),
+)
 
 
 def _retry_after(seconds):
@@ -93,6 +115,9 @@ class RESTfulAPI(Logger):
         self.max_body = int(max_body)
         #: optional MicroBatcher the predict path routes through
         self.batcher = None
+        #: the LM engine :func:`serve_lm` started (stopped with the
+        #: server)
+        self.lm_engine = None
         self.port = None
 
     # ------------------------------------------------------------- inference
@@ -306,6 +331,8 @@ class RESTfulAPI(Logger):
             self._server = None
         if self.batcher is not None:
             self.batcher.stop()
+        if self.lm_engine is not None:
+            self.lm_engine.stop()
 
 
 def render_status(metrics=None):
@@ -331,10 +358,137 @@ def render_status(metrics=None):
     return "\n".join(lines) + "\n"
 
 
-def serve_lm(*unused_args, **unused_kwargs):
-    """Not ported yet: ROADMAP Queue 1 item 5."""
-    raise NotImplementedError("serve_lm is not ported yet: ROADMAP Queue 1 "
-                              "item 5")
+def serve_lm(workflow, host="127.0.0.1", port=8180, max_new=256,
+             slots=0, queue_depth=64, deadline_s=30.0,
+             prefix_cache=0, prefill_chunk=0, spec_k=0,
+             queue_tokens=0, paged_kv=True, megastep=0, tp=0, replicas=1,
+             router="metrics", health=False, health_interval_s=1.0,
+             hedge=0.0, retries=0, fault_plan=None, model_dir=None,
+             publish_interval_s=5.0, canary=1, canary_watch_s=2.0,
+             auto_rollback=True, trace=None, trace_last=256,
+             telemetry=0.0, slo=None):
+    """Serve a trained transformer-trainer workflow (e.g. char_lm) for
+    autoregressive continuation: POST ``{"input": [[tok, ...]],
+    "n_new": N, "temperature": T, "top_k": K, "seed": S}`` to
+    ``/predict`` returns ``{"tokens": [[...]]}`` — prompt plus
+    continuation per row.  The model runs on the trainer's device.
+
+    ``slots > 0`` starts a paged :class:`veles_tpu_torch.serving.
+    LMEngine` (``queue_depth``, ``deadline_s``, ``prefix_cache``,
+    ``prefill_chunk``, ``spec_k``, ``queue_tokens``, ``megastep``, and
+    ``paged_kv``: True sizes the pool to every slot's full span, an int
+    sets its pages) and routes GREEDY requests (temperature 0, the
+    default) through it: concurrent prompts decode side by side, each
+    gets its exact ``n_new``, equal to the direct path's tokens, and
+    the reply carries a per-row ``"weights_version"``.  A prompt too
+    close to the cache cap for ``spec_k``'s headroom, every sampled
+    request, and every request when ``slots`` is 0 take the DIRECT
+    path: one ``generate`` a request (sampled under ``PRNGKey(seed)``),
+    ``n_new`` rounded up to a tier (8, 32, 128, ``max_new``) and the
+    prompt right-padded to a power of two with ``true_len``, as the
+    reference bounds its compiles.  ``n_new`` 0 echoes the prompt; a
+    prompt with no room to decode is a 400.
+
+    Not ported yet, each raising NotImplementedError naming its ROADMAP
+    item (:data:`SERVE_LM_UNPORTED`): ``tp``; the fleet (``replicas``,
+    ``router``, ``health``, ``hedge``, ``retries``, ``model_dir``,
+    ``publish_interval_s``, ``canary``, ``canary_watch_s``,
+    ``auto_rollback``); ``trace`` (``"off"`` is unset), ``telemetry``
+    and ``slo``; ``fault_plan``; and ``paged_kv=0``.  The reference's
+    ``attn_kernel`` is not a keyword here: the port has one attention
+    route, the kernels."""
+    given = dict(tp=tp, replicas=replicas, router=router, health=health,
+                 hedge=hedge, retries=retries, model_dir=model_dir,
+                 publish_interval_s=publish_interval_s, canary=canary,
+                 canary_watch_s=canary_watch_s,
+                 auto_rollback=auto_rollback,
+                 trace=None if trace == "off" else trace,
+                 telemetry=telemetry, slo=slo, fault_plan=fault_plan)
+    for knob, default, item in SERVE_LM_UNPORTED:
+        if given[knob] != default:
+            raise NotImplementedError(
+                "serve_lm(%s=) is not ported yet: ROADMAP %s"
+                % (knob, item))
+    if slots > 0 and paged_kv is not True and int(paged_kv) == 0:
+        raise NotImplementedError(
+            "serve_lm(paged_kv=0) — the contiguous KV layout — is not "
+            "ported yet: ROADMAP Queue 1 item 8 (contiguous KV layout)")
+    from veles_tpu_torch.ops.transformer import (tree_leaves,
+                                                 trainer_sample_tokens)
+    trainer = workflow.trainer
+    # marshalled once: the weights are frozen while serving
+    params = trainer._to_portable(trainer.params)
+    device = tree_leaves(params)[0].device
+    cache_len = int(trainer.max_len)
+    # a geometric ladder bounds the direct path's decode overshoot (at
+    # most 4x the request's n_new)
+    tiers = sorted({t for t in (8, 32, 128, max_new) if t <= max_new})
+    engine = None
+    if slots > 0:
+        from veles_tpu_torch.serving import LMEngine
+        from veles_tpu_torch.serving import metrics as metrics_mod
+        engine = LMEngine(
+            params, n_heads=trainer.n_heads, max_len=cache_len,
+            slots=slots, rope=getattr(trainer, "rope", False),
+            window=getattr(trainer, "window", None),
+            sinks=getattr(trainer, "attn_sinks", 0),
+            queue_depth=queue_depth, deadline_s=deadline_s,
+            prefix_cache=prefix_cache, prefill_chunk=prefill_chunk,
+            spec_k=spec_k, queue_tokens=queue_tokens, paged_kv=paged_kv,
+            megastep=megastep, name="lm", metrics=metrics_mod.new("lm"),
+            device=device).start()
+
+    def handler(request):
+        prompt = numpy.asarray(request["input"], numpy.int32)
+        want = min(int(request.get("n_new", 32)), max_new)
+        if want < 1:        # n_new 0: an echo / validation probe
+            return {"tokens": prompt.tolist()}
+        s_true = prompt.shape[1]
+        headroom = cache_len - s_true
+        if headroom < 1:
+            raise ValueError("prompt length %d leaves no room to decode "
+                             "(max_len %d)" % (s_true, cache_len))
+        temperature = float(request.get("temperature", 0.0))
+        # a verify writes spec_k positions past the committed front: a
+        # prompt too near the cap takes the direct path instead
+        eng_headroom = headroom - (engine.spec_k if engine is not None
+                                   else 0)
+        if engine is not None and temperature == 0.0 \
+                and eng_headroom >= 1:
+            toks, vers = engine.generate(prompt, min(want, eng_headroom),
+                                         return_versions=True)
+            return {"tokens": toks.tolist(), "weights_version": vers}
+        # decode length: the request rounded UP to a tier; near the cap
+        # the largest tier that fits (or the exact headroom)
+        run = next((t for t in tiers if t >= want), tiers[-1])
+        if run > headroom:
+            fitting = [t for t in tiers if t <= headroom]
+            run = fitting[-1] if fitting else headroom
+        # prompt bucket: the next power of two that still fits the cache;
+        # true_len keeps decoding exact
+        bucket = 16
+        while bucket < s_true:
+            bucket *= 2
+        bucket = min(bucket, cache_len - run)
+        if bucket > s_true:
+            prompt = numpy.pad(prompt, ((0, 0), (0, bucket - s_true)))
+        top_k = request.get("top_k")
+        out = trainer_sample_tokens(
+            trainer, prompt, n_new=run, temperature=temperature,
+            seed=int(request.get("seed", 0)), params=params,
+            max_len=cache_len,
+            top_k=int(top_k) if top_k is not None else None,
+            true_len=s_true)
+        # the continuation lands after the PADDED width: reply with the
+        # true prompt plus min(want, run) new tokens
+        new = out[:, prompt.shape[1]:prompt.shape[1] + min(want, run)]
+        return {"tokens": numpy.concatenate(
+            [out[:, :s_true], new], axis=1).tolist()}
+
+    api = RESTfulAPI(None, handler=handler,
+                     metrics=engine.metrics if engine is not None else None)
+    api.lm_engine = engine
+    return api.start(host=host, port=port)
 
 
 def serve_artifact(path, host="127.0.0.1", port=8180, max_batch=0,

@@ -140,8 +140,9 @@ build, train, run = make_trainer_sample("char_lm", CharLMWorkflow,
 
 
 def sample_tokens(wf, prompt, n_new=32, temperature=0.0, seed=0):
-    """Continue token sequences with the trained model: greedy KV-cached
-    decoding on the trainer's device.  ``prompt``: (batch, s) ints;
+    """Continue token sequences with the trained model: KV-cached
+    decoding on the trainer's device, greedy by default, sampled at
+    ``temperature`` > 0 under ``seed``.  ``prompt``: (batch, s) ints;
     returns (batch, s + n_new) numpy int32."""
     return trainer_sample_tokens(wf.trainer, prompt, n_new=n_new,
                                  temperature=temperature, seed=seed)

@@ -72,9 +72,18 @@ into its page by the same kernel).  There is no other route: on the
 card every dispatch launches the kernels, and on the CPU
 (``device="cpu"``) the same wrappers run their plain PyTorch versions.
 
-Decoding is GREEDY — the same tokens as the reference's
+Decoding is GREEDY by default — the same tokens as the reference's
 ``ops/transformer.py::generate`` and its paged engine on the same
-weights, which is the serving contract.
+weights, which is the serving contract.  ``temperature > 0`` (with
+``top_k`` and a ``sample_seed``) SAMPLES instead, as the reference's
+in-graph seeded sampling does: the token after position p of a request
+is drawn under the key fold_in(fold_in(base, seed), p), with ``base``
+the ``"lm-sample"`` stream's root key for ``sample_seed`` and ``seed``
+the request's admission id, so the per-tick, chunked, speculative, scan
+and while paths all draw the same token at the same position.  The
+draw is one launch of ``hopper_kernels.sample_token`` (the keys made on
+the device, inside the captured graphs too); greedy programs stay as
+they were, with no key threaded.
 
 PyTorch idiom: the pools are updated IN PLACE (the reference threads
 functional pool copies through each jitted program), the programs are
@@ -97,6 +106,7 @@ from concurrent.futures import Future
 import numpy
 import torch
 
+from veles_tpu_torch import prng
 from veles_tpu_torch.device import resolve_device
 from veles_tpu_torch.logger import Logger
 from veles_tpu_torch.ops import functional as F
@@ -115,9 +125,6 @@ from veles_tpu_torch.serving.metrics import ServingMetrics
 _ROADMAP = {
     "tp": "Queue 1 item 4 (tensor-parallel serving)",
     "devices": "Queue 1 item 4 (tensor-parallel serving)",
-    "temperature": "Queue 1 item 6 (seeded sampling)",
-    "top_k": "Queue 1 item 6 (seeded sampling)",
-    "sample_seed": "Queue 1 item 6 (seeded sampling)",
     "faults": "Queue 1 item 7 (fault injection, tracing, hot swap, "
               "checkpoint/restore)",
     "tracer": "Queue 1 item 7 (fault injection, tracing, hot swap, "
@@ -311,7 +318,7 @@ class RadixPrefixCache:
 
 class _Request:
     __slots__ = ("prompt", "true_len", "n_new", "future", "t_enq",
-                 "deadline", "cancelled", "pages", "t_first")
+                 "deadline", "cancelled", "pages", "t_first", "seed")
 
     def __init__(self, prompt, n_new, deadline_s, pages=0):
         self.prompt = prompt          # (s,) int32, unpadded
@@ -326,6 +333,8 @@ class _Request:
         self.pages = pages
         #: when the first token came out (time-to-first-token)
         self.t_first = None
+        #: the sampling lane seed: the admission id
+        self.seed = 0
 
 
 class _Slot:
@@ -395,6 +404,9 @@ class LMEngine(Logger):
     keeps R prefilled standby lanes that re-arm drained slots inside
     it.
     ``queue_tokens=T`` budgets admission by queued prompt tokens.
+    ``temperature > 0`` samples (``top_k`` > 0 keeps the k most likely
+    tokens, ties at the cutoff included) under ``sample_seed``, which it
+    needs; 0 decodes greedily.
     Attention always runs through the kernel wrappers; a geometry they
     cannot carry raises ValueError here.
     """
@@ -403,6 +415,7 @@ class LMEngine(Logger):
     #: lives under ``_cond``; everything else is owned by the worker
     _guarded_by = {
         "_queue": "_cond",
+        "_rid": "_cond",
         "_queued_tokens": "_cond",
         "_queued_pages": "_cond",
         "_stop": "_cond",
@@ -424,11 +437,26 @@ class LMEngine(Logger):
                              "(got %r)" % (megastep_mode,))
         for knob, value in (("tp", tp),
                             ("devices", devices), ("faults", faults),
-                            ("tracer", tracer),
-                            ("temperature", temperature), ("top_k", top_k),
-                            ("sample_seed", sample_seed is not None)):
+                            ("tracer", tracer)):
             if value:
                 raise _unported(knob)
+        #: seeded sampling: temperature > 0 draws each token under a key
+        #: of (lane seed, position); 0 keeps the greedy argmax programs
+        self.temperature = float(temperature or 0.0)
+        self.top_k = int(top_k or 0)
+        if self.temperature < 0 or self.top_k < 0:
+            raise ValueError("temperature and top_k must be >= 0")
+        self._sampling = self.temperature > 0
+        if self._sampling and sample_seed is None:
+            raise ValueError("temperature > 0 needs sample_seed — "
+                             "seeded reproducibility is the contract")
+        self.sample_seed = (None if sample_seed is None
+                            else int(sample_seed))
+        #: the draws' base key: a FIXED stream name, so sampled tokens
+        #: depend on sample_seed alone, never on the engine's name
+        self._sample_key = (prng.RandomGenerator(
+            "lm-sample", self.sample_seed).base_key()
+            if self._sampling else None)
         if not paged_kv:
             raise _unported("paged_kv")
         #: fused decode: K >= 2 iterations a dispatch; 0 and 1 are the
@@ -510,6 +538,9 @@ class LMEngine(Logger):
         self.params = params_from_jax(params, self.device)
         embed = self.params["embed"]
         d_model = embed.shape[1]
+        if self.top_k > embed.shape[0]:
+            raise ValueError("top_k %d out of range (vocab %d)"
+                             % (self.top_k, embed.shape[0]))
         head_dim = d_model // self.n_heads
         kv_heads = self.params["blocks"][0]["attn"]["wk"].shape[1] \
             // head_dim
@@ -558,6 +589,8 @@ class LMEngine(Logger):
         self._ring = []
 
         self._queue = collections.deque()
+        #: admission ids, in submission order (the sampling lane seeds)
+        self._rid = 0
         self._queued_tokens = 0
         self._queued_pages = 0
         self._pool_blocked = False
@@ -583,43 +616,101 @@ class LMEngine(Logger):
         return torch.as_tensor(numpy.ascontiguousarray(arr, numpy.int32),
                                device=self.device)
 
-    def _chunk_program(self, ptab_row, tokens, start, last_idx):
+    def _pick(self, logits, seeds, pos):
+        """The token after each row of ``logits`` (slots, c, vocab) or
+        (slots, vocab), fed at ``pos`` (slots,) by lanes of sampling
+        seed ``seeds`` (slots,): the greedy argmax, or with
+        ``temperature`` the seeded draw — row (s, j) at position
+        pos[s] + 1 + j under lane s's seed, one launch of
+        ``hopper_kernels.sample_token`` with the keys made on the
+        device.  int32, the rows' shape."""
+        if not self._sampling:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        from veles_tpu_torch.ops import hopper_kernels as HK
+        if logits.dim() == 3:
+            c = logits.shape[1]
+            cols = torch.arange(1, c + 1, dtype=torch.int32,
+                                device=pos.device)
+            seeds = seeds[:, None].expand(-1, c).contiguous()
+            at = (pos[:, None] + cols).contiguous()
+        else:
+            at = pos + 1
+        return HK.sample_token(logits.contiguous(), self.temperature,
+                               self._sample_key, self.top_k, seeds, at)
+
+    def _chunk_program(self, ptab_row, tokens, start, last_idx, seed=0):
         """One lane's prompt chunk through its page table (the K/V rows
-        land in the pools); returns the greedy pick after chunk offset
-        ``last_idx`` as a device scalar (read on the tail chunk only)."""
+        land in the pools); returns the pick after chunk offset
+        ``last_idx`` as a device scalar (read on the tail chunk only;
+        sampled under the lane's ``seed``)."""
         h, _ = paged_chunk_apply(
             self.params, self._tensor(tokens[None]), self._kv_pools,
             self._tensor(ptab_row[None]), self._tensor([start]),
             self.n_heads, rope=self.rope, window=self.window,
             sinks=self.sinks, attn_kernel="prefill")
         logits = head_logits(self.params, h[:, last_idx])
-        return torch.argmax(logits[0])
+        if not self._sampling:
+            return torch.argmax(logits[0])
+        # the pick after position start + last_idx
+        keys = self._tensor([seed, start + last_idx])
+        return self._pick(logits, keys[:1], keys[1:])[0]
 
-    def _step_program(self, ptabs, toks, pos):
+    def _seeds(self, active):
+        """(slots,) host int32: each ``active`` slot's lane seed, 0
+        elsewhere (a free or prefilling slot's pick is discarded)."""
+        seeds = numpy.zeros(self.slots, numpy.int32)
+        for slot in active:
+            seeds[slot] = self._lanes[slot].request.seed
+        return seeds
+
+    def _seed_args(self, active):
+        """The trailing seed argument of a batched program call: empty
+        when greedy, so the greedy calls stay exactly as they were."""
+        return (self._seeds(active),) if self._sampling else ()
+
+    def _lane_seed(self, req):
+        """The trailing seed argument of a prompt-chunk call."""
+        return (req.seed,) if self._sampling else ()
+
+    def _seed_buffer(self, bufs):
+        """The trailing seed argument of an iteration inside the fused
+        program: the seeds buffer of ``bufs`` when sampling."""
+        return (bufs["seeds"],) if self._sampling else ()
+
+    def _step_program(self, ptabs, toks, pos, seeds=None):
         """ONE dispatch advances every lane by one token at its own
-        position through its own page table; returns (slots,) greedy
-        picks as a host array."""
+        position through its own page table; returns (slots,) picks as
+        a host array (sampled under ``seeds``, zeros when None)."""
+        at = self._tensor(pos)
         h, _ = paged_chunk_apply(
             self.params, self._tensor(toks)[:, None], self._kv_pools,
-            self._tensor(ptabs), self._tensor(pos), self.n_heads,
+            self._tensor(ptabs), at, self.n_heads,
             rope=self.rope, window=self.window, sinks=self.sinks,
             attn_kernel="decode")
-        logits = head_logits(self.params, h[:, 0])
-        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        return self._host_picks(head_logits(self.params, h[:, 0]), seeds, at)
 
-    def _verify_program(self, ptabs, toks, pos):
+    def _verify_program(self, ptabs, toks, pos, seeds=None):
         """ONE dispatch feeds every lane's (k+1,) tokens — [last
         committed, draft...] — at its own position (one
         ``paged_flash_decode`` launch a layer with ``c = k + 1`` query
-        rows); returns the (slots, k+1) greedy picks AFTER each fed
-        position as a host array."""
+        rows); returns the (slots, k+1) picks AFTER each fed position
+        as a host array (sampled under ``seeds``, zeros when None)."""
+        at = self._tensor(pos)
         h, _ = paged_chunk_apply(
             self.params, self._tensor(toks), self._kv_pools,
-            self._tensor(ptabs), self._tensor(pos), self.n_heads,
+            self._tensor(ptabs), at, self.n_heads,
             rope=self.rope, window=self.window, sinks=self.sinks,
             attn_kernel="decode")
-        logits = head_logits(self.params, h)          # (slots, k+1, v)
-        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        # logits (slots, k+1, vocab)
+        return self._host_picks(head_logits(self.params, h), seeds, at)
+
+    def _host_picks(self, logits, seeds, at):
+        """:meth:`_pick` of a per-tick program's logits, read back: the
+        host ``seeds`` (zeros when None) uploaded when sampling."""
+        if self._sampling:
+            seeds = self._tensor(numpy.zeros(self.slots, numpy.int32)
+                                 if seeds is None else seeds)
+        return self._pick(logits, seeds, at).cpu().numpy()
 
     def _page_copy_program(self, src, dst):
         """Copy-on-write: duplicate page ``src`` into ``dst`` in every
@@ -636,7 +727,8 @@ class LMEngine(Logger):
         int32 staging buffer the host fills (pinned on the card), its
         device copy the program reads — page table (slots, max_pages),
         ``last``, ``pos``, ``left`` and with ``spec_k`` the token
-        history (slots, max_len) and its lengths; in the while mode with
+        history (slots, max_len) and its lengths, when sampling the
+        lanes' seeds; in the while mode with
         a ring also the published entries' rows of the same (R of each,
         zero-padded, padding tables on the scratch page) and their
         ``count`` — and one host buffer the program's output is read
@@ -647,11 +739,15 @@ class LMEngine(Logger):
                  ("left", (S,))]
         if k:
             sizes += [("hist", (S, L)), ("hlen", (S,))]
+        if self._sampling:
+            sizes.append(("seeds", (S,)))
         if R:
             sizes += [("ring_tab", (R, M)), ("ring_last", (R,)),
                       ("ring_pos", (R,)), ("ring_left", (R,))]
             if k:
                 sizes += [("ring_hist", (R, L)), ("ring_hlen", (R,))]
+            if self._sampling:
+                sizes.append(("ring_seeds", (R,)))
             sizes.append(("count", (1,)))
         total = sum(int(numpy.prod(shape)) for _, shape in sizes)
         card = self.device.type == "cuda"
@@ -685,7 +781,8 @@ class LMEngine(Logger):
         the emitted rows (and accepted counts), ``iters`` (int64, the
         next emitted row), the ring's ``head`` and ``assign``, the
         one-byte ``flag`` that says whether the next iteration runs,
-        and the packed output."""
+        and the packed output; when sampling, the slots' seeds (a ring
+        entry armed into a slot brings its own)."""
         S, K, k, R = self.slots, self.megastep, self.spec_k, \
             self.refill_ring
         i32 = functools.partial(torch.zeros, dtype=torch.int32,
@@ -702,33 +799,36 @@ class LMEngine(Logger):
                       accs=i32((K, S)))
         if R:
             st.update(head=i32(1), assign=i32(R))
+        if self._sampling:
+            st["seeds"] = i32(S)
         self._wl = st
 
-    def _plain_iter(self, ptabs, carry):
+    def _plain_iter(self, ptabs, carry, seeds=None):
         """One decode iteration of every lane inside the megastep:
         returns (carry, emitted (slots,)).  A lane with nothing left
         is frozen: it writes to the scratch page, keeps its carry and
-        emits -1."""
+        emits -1.  ``seeds``: the lanes' sampling seeds (sampling
+        only)."""
         last, pos, left = carry
         active = left > 0
         h, _ = paged_chunk_apply(
             self.params, last[:, None], self._kv_pools, ptabs, pos,
             self.n_heads, rope=self.rope, window=self.window,
             sinks=self.sinks, attn_kernel="decode", write_mask=active)
-        toks = torch.argmax(head_logits(self.params, h[:, 0]),
-                            dim=-1).to(torch.int32)
+        toks = self._pick(head_logits(self.params, h[:, 0]), seeds, pos)
         carry = (torch.where(active, toks, last),
                  torch.where(active, pos + 1, pos),
                  left - active.to(torch.int32))
         return carry, torch.where(active, toks, -1)
 
-    def _spec_iter(self, ptabs, carry):
+    def _spec_iter(self, ptabs, carry, seeds=None):
         """One propose → verify → accept iteration of every lane inside
         the megastep: the draft found in the lane's history on the
         device, [last, draft] verified at c = k + 1, the longest prefix
-        of draft tokens equal to the verifier's argmax accepted plus
-        the token after it.  Returns (carry, (emitted (slots, k+1),
-        accepted (slots,))), -1 where a lane is frozen."""
+        of draft tokens equal to the verifier's pick (its argmax, or
+        its seeded sample at that position) accepted plus the token
+        after it.  Returns (carry, (emitted (slots, k+1), accepted
+        (slots,))), -1 where a lane is frozen."""
         k, L = self.spec_k, self.max_len
         last, pos, left, hist, hlen = carry
         active = left > 0
@@ -738,8 +838,8 @@ class LMEngine(Logger):
             self._kv_pools, ptabs, pos, self.n_heads, rope=self.rope,
             window=self.window, sinks=self.sinks, attn_kernel="decode",
             write_mask=active)
-        out = torch.argmax(head_logits(self.params, h),
-                           dim=-1).to(torch.int32)           # (slots, k+1)
+        out = self._pick(head_logits(self.params, h), seeds,
+                         pos)                                # (slots, k+1)
         # accepted drafts ARE out[:acc], so the emit window is out[:take]
         acc = self._accepted(draft, out)
         take = torch.minimum(acc + 1, left)
@@ -786,7 +886,7 @@ class LMEngine(Logger):
         step = self._spec_iter if self.spec_k else self._plain_iter
         emitted, accs = [], []
         for _ in range(self.megastep):
-            carry, out = step(ptabs, carry)
+            carry, out = step(ptabs, carry, *self._seed_buffer(inp))
             if self.spec_k:
                 out, acc = out
                 accs.append(acc)
@@ -827,6 +927,8 @@ class LMEngine(Logger):
         if self.spec_k:
             st["accs"].fill_(-1)
         st["iters"].zero_()
+        if self._sampling:
+            st["seeds"].copy_(inp["seeds"])
         if self.refill_ring:
             st["head"].zero_()
             st["assign"].fill_(-1)
@@ -836,7 +938,8 @@ class LMEngine(Logger):
         """THE in-program re-arm: every drained slot (``left == 0``),
         in slot order, takes the next published ring entry while any is
         left — its table row (sliced to ``w``), frontier, last token,
-        tokens left (and history) swapped in by masked selects, and
+        tokens left (and history, and seed) swapped in by masked
+        selects, and
         ``assign[entry]`` set to the slot.  Vectorised: the drained
         slots are numbered by a running sum, and slot s takes entry
         ``head + its number`` when that is below ``count``.  Equal to
@@ -856,6 +959,9 @@ class LMEngine(Logger):
             src = inp["ring_" + name][idx]
             mask = take if buf.dim() == 1 else take[:, None]
             buf.copy_(torch.where(mask, src, buf))
+        if self._sampling:
+            st["seeds"].copy_(torch.where(take, inp["ring_seeds"][idx],
+                                          st["seeds"]))
         entries = torch.arange(R, device=idx.device)
         hit = take[:, None] & (idx[:, None] == entries)          # (S, R)
         slots = torch.arange(self.slots, device=idx.device,
@@ -876,10 +982,12 @@ class LMEngine(Logger):
             self._while_arm(ptabs, w)
         carry = self._while_carry()
         if self.spec_k:
-            new, (emit, acc) = self._spec_iter(ptabs, carry)
+            new, (emit, acc) = self._spec_iter(ptabs, carry,
+                                               *self._seed_buffer(st))
             st["accs"].index_copy_(0, st["iters"], acc[None])
         else:
-            new, emit = self._plain_iter(ptabs, carry)
+            new, emit = self._plain_iter(ptabs, carry,
+                                         *self._seed_buffer(st))
         for buf, value in zip(carry, new):
             buf.copy_(value)
         st["emitted"].index_copy_(0, st["iters"], emit[None])
@@ -1044,8 +1152,9 @@ class LMEngine(Logger):
 
     # -------------------------------------------------------------- clients
     def submit(self, prompt, n_new):
-        """Queue one prompt ((s,) ints) for ``n_new`` greedy tokens;
-        returns a Future resolving to the (n_new,) continuation."""
+        """Queue one prompt ((s,) ints) for ``n_new`` tokens (greedy, or
+        sampled under the request's admission id); returns a Future
+        resolving to the (n_new,) continuation."""
         prompt = numpy.asarray(prompt, numpy.int32).reshape(-1)
         if len(prompt) < 1:
             raise ValueError("empty prompt")
@@ -1090,6 +1199,11 @@ class LMEngine(Logger):
                 raise PoolExhausted(demand, 2 * self._pool.num_pages)
             req = _Request(prompt, int(n_new), self.deadline_s,
                            pages=demand)
+            # the sampling lane seed: the admission id, deterministic in
+            # submission order, so the same traffic on any engine mode
+            # folds the same (seed, position) into its draws
+            self._rid += 1
+            req.seed = self._rid
             self._queue.append(req)
             self._queued_tokens += req.true_len
             self._queued_pages += req.pages
@@ -1102,11 +1216,12 @@ class LMEngine(Logger):
             self._cond.notify()
         return req.future
 
-    def generate(self, prompts, n_new):
+    def generate(self, prompts, n_new, return_versions=False):
         """Decode a whole (b, s) prompt batch; returns (b, s + n_new)
-        int32 — prompt plus greedy continuation per row.  All-or-
-        nothing: if a row is refused or fails, the rows already queued
-        are cancelled."""
+        int32 — prompt plus continuation per row (with
+        ``return_versions`` also the ``weights_version`` that served
+        each row).  All-or-nothing: if a row is refused or fails, the
+        rows already queued are cancelled."""
         prompts = numpy.asarray(prompts, numpy.int32)
         futures = []
         try:
@@ -1117,7 +1232,10 @@ class LMEngine(Logger):
             for f in futures:
                 self._cancel(f.request)
             raise
-        return numpy.concatenate([prompts, news], axis=1)
+        out = numpy.concatenate([prompts, news], axis=1)
+        if return_versions:
+            return out, [getattr(f, "version", None) for f in futures]
+        return out
 
     def _cancel(self, req):
         """Withdraw a request: dequeue it if still queued; if already in
@@ -1426,7 +1544,7 @@ class LMEngine(Logger):
         try:
             self._cow_guard(slot, lane, start, start + C)
             tok = self._chunk_program(self._page_tables[slot], tokens,
-                                      start, last_idx)
+                                      start, last_idx, *self._lane_seed(req))
             if is_tail:
                 tok = int(tok)
             if cached:
@@ -1538,7 +1656,8 @@ class LMEngine(Logger):
         try:
             w = self._live_width(1)
             toks = self._step_program(self._page_tables[:, :w],
-                                      self._last, self._pos)
+                                      self._last, self._pos,
+                                      *self._seed_args(active))
         except Exception as e:   # noqa: BLE001 — fails the lanes
             self._fail_active(active, e)
             return
@@ -1559,9 +1678,9 @@ class LMEngine(Logger):
         """ONE verify dispatch advances every active lane by 1..k+1
         tokens: each lane feeds [last, draft...] (the prompt-lookup
         draft, zeros when none) and accepts the longest draft prefix
-        equal to the verifier's own greedy argmax, plus the correction
-        or bonus token after it — the plain greedy tokens by
-        construction."""
+        equal to the verifier's own pick (greedy, or seeded at its
+        position), plus the correction or bonus token after it — the
+        plain path's tokens by construction."""
         k = self.spec_k
         active = self._cow_guard_active(active, k + 1)
         if not active:
@@ -1590,7 +1709,7 @@ class LMEngine(Logger):
         try:
             w = self._live_width(k + 1)
             out = self._verify_program(self._page_tables[:, :w], toks_in,
-                                       self._pos)
+                                       self._pos, *self._seed_args(active))
         except Exception as e:   # noqa: BLE001 — fails the lanes
             self._fail_active(active, e)
             return
@@ -1645,6 +1764,8 @@ class LMEngine(Logger):
             stage["left"][slot] = self._lanes[slot].remaining
         if k:
             self._stage_histories(active)
+        if self._sampling:
+            stage["seeds"][:] = self._seeds(active)
         t0 = time.monotonic()
         try:
             res = self._run_fused(self._live_width(span))
@@ -1724,6 +1845,8 @@ class LMEngine(Logger):
         if self.spec_k:
             stage["ring_hist"][:] = 0
             stage["ring_hlen"][:] = 0
+        if self._sampling:
+            stage["ring_seeds"][:] = 0
         for j, entry in enumerate(pub):
             stage["ring_tab"][j] = entry.table
             stage["ring_last"][j] = entry.last
@@ -1732,6 +1855,8 @@ class LMEngine(Logger):
             if self.spec_k:
                 self._stage_history(stage["ring_hist"], stage["ring_hlen"],
                                     j, entry.lane)
+            if self._sampling:
+                stage["ring_seeds"][j] = entry.lane.request.seed
         stage["count"][0] = len(pub)
 
     def _step_while(self, active):   # hot-path
@@ -1770,6 +1895,8 @@ class LMEngine(Logger):
             self._stage_ring(pub)
         if k:
             self._stage_histories(active)
+        if self._sampling:
+            stage["seeds"][:] = self._seeds(active)
         t0 = time.monotonic()
         try:
             w = self._live_width(span, max([e.pos for e in pub] or [0]))
@@ -1961,7 +2088,8 @@ class LMEngine(Logger):
         last_idx = (req.true_len - 1 - start) if is_tail else 0
         t0 = time.monotonic()
         try:
-            tok = self._chunk_program(entry.table, tokens, start, last_idx)
+            tok = self._chunk_program(entry.table, tokens, start, last_idx,
+                                      *self._lane_seed(req))
             if is_tail:
                 tok = int(tok)
         except Exception as e:   # noqa: BLE001 — fails THIS request
