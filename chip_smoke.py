@@ -147,7 +147,7 @@ Phases (any failure exits nonzero before the final line is printed):
    ``KohonenForward`` (winners equal to a direct pass); then the
    Bernoulli draw's JSON line (its times, bound and launches);
 10. harness — the run harness through the CLI (``veles_tpu_torch.
-   __main__``): MNIST-FC at ``configs[0]``'s widths for 3 epochs (9,950
+   __main__``): MNIST-FC at ``configs[0]``'s widths for 3 epochs (4,950
    train samples, so each epoch ends in a 50-row minibatch) trained by
    the graph loop in a ``python -m veles_tpu_torch`` subprocess (its
    result file and per-epoch snapshots read back), then in this process
@@ -159,7 +159,7 @@ Phases (any failure exits nonzero before the final line is printed):
    bit-equal to the uninterrupted ones on both drivers; ``--evaluate``
    from the final snapshot leaving the weights bit-equal; a
    ``grad_accum=4`` step within rtol 1e-5 / atol 1e-6 of the monolithic
-   one; cifar (``configs[1]``, 4,950 / 10,000, 2 epochs) scan bit-equal
+   one; cifar (``configs[1]``, 2,450 / 10,000, 2 epochs) scan bit-equal
    to its loop; full-width AlexNet (600 / 128, minibatch 128, 2 epochs)
    scanned twice, bit-equal, with exact LRN / dropout / SGD launch
    counts, and card vs the port's CPU scan at minibatch 16 step by step
@@ -424,7 +424,33 @@ Phases (any failure exits nonzero before the final line is printed):
    16 seeded sampled requests through the direct path equal to
    ``trainer_sample_tokens`` in process, requests/s and p50; its JSON
    line (``{"serve_sampling": ...}``);
-21. the script's seconds, the card's name and power limit, one JSON line
+21. serve_ops — crash-safe serving and hot weight swap at the full LM
+   width, 8 slots, page 32, a prefix cache of 128 chunks: (a) on each
+   decode path (per tick, scan K = 8, while K = 16 with a ring of 2)
+   phase 4's 16 requests twice, ``swap_weights`` asked for once every
+   slot is busy — weights A (phase 4's) to B (a second seeded draw)
+   finish-on-old, then back to A with ``drain=True``: stamps of both
+   versions, every token within ``LOGIT_TOL`` of a teacher-forced plain
+   pass on the weights of its stamped version, 0 tokens differing from
+   phase 4's (A) or a fresh engine's on B, the prefix cache empty after
+   each apply, requests requeued, the pool full again; the swap's
+   staging (host clock) and in-place apply (card time) against its
+   bytes' bound; two planted faults (``OPS_FAULTS``: a swap that
+   reassigns ``params``, which leaves the captured scan graphs on A,
+   and a swap that keeps the prefix cache) caught; (b) fault plans: per
+   tick with ``spec_k`` 4 an ``engine.verify`` and an ``engine.chunk``
+   fault, an ``engine.tick`` freeze released after 0.2 s, and an
+   ``engine.cow`` fault on the first page copy, made due at the freeze
+   by a second reference to a page one busy lane writes next (served
+   traffic never writes into a shared page), then the same site on a
+   direct call of the page guard; while K = 16 with a ring of 2 an
+   ``engine.step`` fault: exactly the participants fail, the survivors
+   and the next 16 requests pass the check, the pool full again; a plan
+   with no rule launches kernels 5 and 6 as no plan does; (c) a freeze
+   mid-traffic, ``checkpoint()``, release, stop, and ``restore`` into a
+   fresh engine: 0 tokens differing from the uncrashed run; its JSON
+   line (``{"serve_ops": ...}``);
+22. the script's seconds, the card's name and power limit, one JSON line
    listing every ported TPU kernel (kernel 1 with its launches in phase
    14's parent process, ``population_launches``, and in phase 16's,
    ``observe_launches``; kernel 2 with its
@@ -433,8 +459,8 @@ Phases (any failure exits nonzero before the final line is printed):
    with their launches on the MoE runs, ``moe_launches``, 7a-7c with
    theirs on the pipelined runs, ``pipeline_launches``, and 5 and 6 with
    theirs in phase 17, ``fastpath_launches``, in phase 18,
-   ``megastep_launches``, in phase 19, ``whilestep_launches``, and in
-   phase 20, ``sampling_launches``;
+   ``megastep_launches``, in phase 19, ``whilestep_launches``, in
+   phase 20, ``sampling_launches``, and in phase 21, ``ops_launches``;
    kernels 1 and 4
    with their device-operand entries' times, bounds and launches, kernel
    4 with its offset entry's), the token draw's line
@@ -1785,11 +1811,13 @@ def profile_steps(torch, step, n):
     return (busy / wall_us if kernels else None), per_kernel
 
 
-def teacher_forced(torch, T, engine, seq, true_len, emitted):
+def teacher_forced(torch, T, engine, seq, true_len, emitted, params=None):
     """Re-run ``seq`` (prompt + emitted) through the plain attention
-    path on a fresh single-lane pool; returns (worst logit shortfall of
-    an emitted token below its row max, exact argmax matches)."""
-    logits = teacher_logits(torch, T, engine, seq, true_len, len(emitted))
+    path on a fresh single-lane pool (on ``params``, default the
+    engine's weights); returns (worst logit shortfall of an emitted
+    token below its row max, exact argmax matches)."""
+    logits = teacher_logits(torch, T, engine, seq, true_len, len(emitted),
+                            params)
     tok = torch.as_tensor(emitted, device=engine.device).long()
     picked = logits.gather(1, tok[:, None])[:, 0]
     short = (logits.max(dim=1).values - picked).max().item()
@@ -1797,10 +1825,12 @@ def teacher_forced(torch, T, engine, seq, true_len, emitted):
     return short, exact
 
 
-def teacher_logits(torch, T, engine, seq, true_len, n):
+def teacher_logits(torch, T, engine, seq, true_len, n, params=None):
     """The plain attention path's logits (n, vocab) after positions
     true_len - 1 .. true_len + n - 2 of ``seq``, on a fresh single-lane
-    pool of the engine's geometry."""
+    pool of the engine's geometry (on ``params``, default the engine's
+    weights)."""
+    params = engine.params if params is None else params
     page, dev = engine.prefill_chunk, engine.device
     pages = -(-len(seq) // page)
     pools = [(torch.zeros((pages + 1,) + k.shape[1:], device=dev),
@@ -1814,12 +1844,12 @@ def teacher_logits(torch, T, engine, seq, true_len, n):
     logits = []
     for start in range(0, pages * page, page):
         h, _ = T.paged_chunk_apply(
-            engine.params, torch.as_tensor(toks[None, start:start + page],
-                                           device=dev),
+            params, torch.as_tensor(toks[None, start:start + page],
+                                    device=dev),
             pools, ptab, torch.tensor([start], dtype=torch.int32,
                                       device=dev),
             engine.n_heads, attn_kernel=None)
-        logits.append(T.head_logits(engine.params, h)[0])
+        logits.append(T.head_logits(params, h)[0])
     return torch.cat(logits)[true_len - 1:true_len - 1 + n]
 
 
@@ -9314,6 +9344,501 @@ def serve_sampling(torch, HK, T, S, card, tick, device="cuda", cfg=None,
     return launches, {"launches": draws, "cases": drawn}
 
 
+# ---------------------------------------------------------------- phase 21
+#: crash-safe serving and hot weight swap at the full LM width, 8 slots,
+#: page 32, a prefix cache of ``OPS_CACHE`` chunks.  (a) the swap on each
+#: decode path of ``OPS_MODES``, phase 4's 16 requests twice: weights A
+#: (phase 4's) to B (a second seeded draw) finish-on-old, then back to A
+#: with ``drain=True``, each swap asked for once every slot is busy
+OPS_MODES = {"tick": {}, "scan": {"megastep": 8},
+             "while": {"megastep": 16, "megastep_mode": "while",
+                       "refill_ring": 2}}
+OPS_CACHE = 128
+OPS_SEED_B = SEED + 1
+#: the weights each stamped version serves
+OPS_VERSION_WEIGHTS = {0: "A", 1: "B", 2: "A"}
+#: the planted faults' and the unarmed-plan runs' traffic: phase 4's
+#: first 8 prompts, 16 new tokens each
+OPS_SHORT = (8, 16)
+#: (b) a freeze at this loop turn of the per-tick verify run, held this
+#: long before it is released; (c) the crash: a freeze at this turn
+OPS_FREEZE_TURN, OPS_FREEZE_S, OPS_CRASH_TURN = 20, 0.2, 6
+OPS_FAULTS = ("pointer_swap", "trie_kept")
+
+
+def serve_ops(torch, HK, T, S, card, tick, device="cuda", cfg=None):
+    """Phase 21: hot weight swap, fault plans and checkpoint/restore at
+    the full LM width (see the module docstring), every result held by
+    the teacher-forced check on the weights of its stamped version and
+    counted against phase 4's tokens (``tick``) or a fresh engine's on
+    B.  Returns kernels 5 and 6's launches on the phase's runs (the
+    planted faults' runs and the crashed engine's not counted)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.serving import FaultPlan, InjectedFault
+    from veles_tpu_torch.serving import lm_engine as LE
+    cfg = cfg or LM_CONFIG
+    began = time.monotonic()
+
+    def draw(seed):
+        return T.init_transformer_params(
+            prng.RandomGenerator("init", seed), cfg["vocab"],
+            d_model=cfg["d_model"], n_heads=cfg["n_heads"],
+            n_layers=cfg["n_layers"], max_len=cfg["max_len"])
+    hosts = {"A": draw(SEED), "B": draw(OPS_SEED_B)}
+    weights = {k: T.params_from_jax(h, device) for k, h in hosts.items()}
+    reqs, a_outs = tick["requests"], tick["outs"]
+    short = [(p, OPS_SHORT[1]) for p, _ in reqs[:OPS_SHORT[0]]]
+    report = {"phase": "serve_ops", "card": card, "config": dict(cfg),
+              "slots": FAST_SLOTS, "page": FAST_PAGE,
+              "prefix_cache": OPS_CACHE}
+    runs, caught, legs, mark = [], {}, {}, [began]
+
+    def leg(name):
+        now = time.monotonic()
+        legs[name], mark[0] = now - mark[0], now
+
+    def engine(tag, host, plan=None, **knobs):
+        return S.LMEngine(host, cfg["n_heads"], cfg["max_len"],
+                          slots=FAST_SLOTS, prefill_chunk=FAST_PAGE,
+                          prefix_cache=OPS_CACHE, device=device,
+                          name="ops_" + tag, faults=plan, **knobs)
+
+    def held(eng, cases):
+        """Start ``eng`` with ``cases`` queued before its loop's first
+        turn (the schedule fixed by the loop, not the clock), the launch
+        counts set to 0 after its warmup; returns the futures."""
+        with eng._cond:
+            eng.start()
+            HK.reset_launch_counts()
+            return [eng.submit(p, k) for p, k in cases]
+
+    def worst(eng, cases, outs, names):
+        """The teacher-forced check of every result on the weights named
+        in ``names``: the worst shortfall."""
+        out = 0.0
+        with torch.inference_mode():
+            for (prompt, _), toks, name in zip(cases, outs, names):
+                short_, _ = teacher_forced(
+                    torch, T, eng, numpy.concatenate([prompt, toks]),
+                    len(prompt), toks, params=weights[name])
+                out = max(out, short_)
+        return out
+
+    def outcomes(futures):
+        """(tokens or None, the exception) of each future."""
+        out = []
+        for f in futures:
+            try:
+                out.append((f.result(timeout=300), None))
+            except Exception as e:   # noqa: BLE001 — read by the checks
+                out.append((None, e))
+        return out
+
+    def watch(eng, failed):
+        """Record in ``failed`` every request a planted fault fails as a
+        participant: a lane torn down or a ring entry failed with
+        ``InjectedFault``."""
+        teardown, fail_standby = eng._teardown_slot, eng._fail_standby
+
+        def on_teardown(slot, lane, exc=None):
+            if isinstance(exc, InjectedFault):
+                failed.append(lane.request.future)
+            teardown(slot, lane, exc)
+
+        def on_fail_standby(entry, exc):
+            if isinstance(exc, InjectedFault):
+                failed.append(entry.lane.request.future)
+            fail_standby(entry, exc)
+        eng._teardown_slot, eng._fail_standby = on_teardown, on_fail_standby
+
+    def until(cond, what, timeout=120.0):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            check(time.monotonic() < deadline, "serve_ops: timed out "
+                  "waiting for %s" % what)
+            time.sleep(0.001)
+
+    # a fresh per-tick engine on B: the tokens B-stamped results must give
+    eng, b_outs, _, launches, _ = fast_serve(torch, HK, S, cfg, hosts["B"],
+                                             reqs, device, "ops_fresh_b")
+    runs.append(launches)
+    check(worst(eng, reqs, b_outs, "B" * len(reqs)) <= LOGIT_TOL,
+          "serve_ops: the fresh engine on B failed the teacher check")
+    del eng
+    leg("fresh_b")
+
+    # (a) the swap on each path: A -> B finish-on-old, B -> A drained
+    applies = []
+
+    def swap_batch(eng, to, version, drain):
+        futures = [eng.submit(p, k) for p, k in reqs]
+        until(lambda: eng.metrics.gauge("slots_busy") >= FAST_SLOTS,
+              "every slot busy")
+        t0 = time.monotonic()
+        check(eng.swap_weights(hosts[to], version=version, drain=drain)
+              == version, "serve_ops: swap_weights returned another "
+              "version")
+        wait_s = time.monotonic() - t0
+        outs = [f.result(timeout=300) for f in futures]
+        return outs, [f.version for f in futures], wait_s
+
+    for mode, knobs in OPS_MODES.items():
+        eng = engine(mode, hosts["A"], **knobs)
+
+        def recorded(eng=eng, flush=eng._flush_prefix_cache, mode=mode):
+            before = eng._trie.size
+            flush()
+            applies.append({"mode": mode, "chunks_before": before,
+                            "chunks_after": eng._trie.size,
+                            "gauge": eng.metrics.gauge(
+                                "prefix_cache_chunks")})
+        eng._flush_prefix_cache = recorded
+        eng.start()
+        try:
+            HK.reset_launch_counts()
+            t0 = time.monotonic()
+            outs1, vers1, wait1 = swap_batch(eng, "B", 1, False)
+            quiesce1 = eng.metrics.gauge("swap_quiesce_s")
+            requeued1 = eng.metrics.counter("requests_requeued_for_swap")
+            outs2, vers2, wait2 = swap_batch(eng, "A", 2, True)
+            wall = time.monotonic() - t0
+            launches = HK.launch_counts()
+        finally:
+            eng.stop()
+        runs.append(launches)
+        outs, vers = outs1 + outs2, vers1 + vers2
+        names = [OPS_VERSION_WEIGHTS[v] for v in vers]
+        short_ = worst(eng, reqs * 2, outs, names)
+        check(short_ <= LOGIT_TOL, "serve_ops %s: a token's logit sits %g "
+              "below its row max on its stamped version's weights "
+              "(tolerance %g)" % (mode, short_, LOGIT_TOL))
+        on_b = [(o, w) for o, w, v in zip(outs, b_outs * 2, vers) if v == 1]
+        on_a = [(o, w) for o, w, v in zip(outs, a_outs * 2, vers) if v != 1]
+        differ_b = differing_tokens(*zip(*on_b)) if on_b else 0
+        differ_a = differing_tokens(*zip(*on_a)) if on_a else 0
+        c = eng.metrics.snapshot()["counters"]
+        requeued2 = c["requests_requeued_for_swap"] - requeued1
+        check(set(vers1) == {0, 1} and set(vers2) <= {1, 2} and 2 in vers2,
+              "serve_ops %s: stamps %r then %r" % (mode, vers1, vers2))
+        check(differ_a == 0 and differ_b == 0, "serve_ops %s: %d tokens "
+              "differ from phase 4's on A, %d from the fresh engine's on B"
+              % (mode, differ_a, differ_b))
+        check(eng.metrics.errors == 0 and c["weight_swaps"] == 2
+              and requeued2 > 0, "serve_ops %s: errors %d, "
+              "swaps %d, requeued at the drain %d" % (
+                  mode, eng.metrics.errors, c["weight_swaps"], requeued2))
+        check(launches["paged_flash_decode"] > 0
+              and launches["paged_flash_prefill"] > 0,
+              "serve_ops %s: the kernels did not run: %r" % (mode, launches))
+        check(pool_drained(eng), "serve_ops %s: the pool did not get every "
+              "page back" % mode)
+        tokens = sum(len(o) for o in outs)
+        report[mode] = {
+            "knobs": knobs, "requests": len(outs), "tokens": tokens,
+            # prefill_tokens beyond these are prompts prefilled again
+            "prompt_tokens": sum(len(p) for p, _ in reqs * 2),
+            "wall_s": wall, "tokens_per_s": tokens / wall,
+            "stamps": [vers1, vers2],
+            "swap_wait_s": [wait1, wait2],
+            "swap_quiesce_s": [quiesce1,
+                               eng.metrics.gauge("swap_quiesce_s")],
+            "requeued": [requeued1, requeued2],
+            "differing_tokens": {"on_A_vs_phase_4": differ_a,
+                                 "on_B_vs_fresh_B": differ_b},
+            "counters": {k: c.get(k, 0) for k in (
+                "prefix_hit_chunks", "prefill_dispatches", "prefill_tokens",
+                "decode_dispatches", "megastep_refills", "tokens_out")},
+            "launches": launches,
+            "teacher_forced": {"worst_shortfall": short_,
+                               "tolerance": LOGIT_TOL}}
+        del eng
+        gc_cuda(torch)
+        leg("swap_" + mode)
+    check(len(applies) == 2 * len(OPS_MODES)
+          and all(a["chunks_before"] > 0 and a["chunks_after"] == 0
+                  and a["gauge"] == 0 for a in applies),
+          "serve_ops: the prefix cache at the applies %r" % applies)
+    report["applies"] = applies
+
+    # the swap's two halves on a quiet engine: staging on the caller's
+    # thread (host clock), the in-place copy (card time) against its
+    # bytes' bound
+    eng = engine("apply", hosts["A"])
+    t0 = time.monotonic()
+    staged = eng._stage_params(hosts["B"])
+    stage_ms = (time.monotonic() - t0) * 1e3
+    n_bytes = 2 * sum(t.numel() * t.element_size()
+                      for t in T.tree_leaves(staged))
+    with torch.inference_mode():
+        apply_ms = time_ms([lambda: eng._load_params(staged)], torch,
+                           calls=5, reps=5)
+    report["apply"] = {"stage_ms_host": stage_ms, "apply_ms_card": apply_ms,
+                       "leaves": len(T.tree_leaves(staged)),
+                       "bytes": n_bytes, "bound_ms": bound(n_bytes, 0)[0]}
+    del eng, staged
+    leg("apply_times")
+
+    # the planted faults: (1) a swap that reassigns params — the captured
+    # scan graphs keep decoding on A; (2) a swap that keeps the trie — the
+    # same prompts hit A's cached chunks after the apply
+    b_short = [b[:k] for b, (_, k) in zip(b_outs, short)]
+    eng = engine("pointer_swap", hosts["A"], megastep=8)
+    eng._load_params = lambda staged, eng=eng: setattr(eng, "params",
+                                                       staged)
+    eng.start()
+    try:
+        eng.swap_weights(hosts["B"])
+        outs = [f.result(timeout=300)
+                for f in [eng.submit(p, k) for p, k in short]]
+    finally:
+        eng.stop()
+    caught["pointer_swap"] = differing_tokens(outs, b_short)
+    del eng
+    eng = engine("trie_kept", hosts["A"])
+    eng._flush_prefix_cache = lambda: None
+    eng.start()
+    try:
+        [f.result(timeout=300) for f in [eng.submit(p, k) for p, k in short]]
+        cached = eng._trie.size
+        eng.swap_weights(hosts["B"])
+        outs = [f.result(timeout=300)
+                for f in [eng.submit(p, k) for p, k in short]]
+    finally:
+        eng.stop()
+    caught["trie_kept"] = differing_tokens(outs, b_short) if cached else 0
+    del eng
+    gc_cuda(torch)
+    leg("planted")
+
+    # (b) fault plans: per tick with spec_k 4 (a verify, a prompt chunk,
+    # a freeze released, a copy-on-write made due at the freeze), then
+    # the copy-on-write site on a direct call; while K = 16 with a ring
+    # of 2 (a step)
+    def faulted(tag, plan, at_freeze=None, **knobs):
+        """The engine on A under ``plan``, phase 4's requests held;
+        ``at_freeze`` (given a plan with a tick freeze) sees the frozen
+        engine and returns what to undo once every future resolved."""
+        failed = []
+        eng = engine(tag, hosts["A"], plan, **knobs)
+        watch(eng, failed)
+        futures = held(eng, reqs)
+        frozen_tokens = undo = None
+        if at_freeze is not None:
+            until(lambda: plan.calls("engine.tick") >= OPS_FREEZE_TURN,
+                  "the freeze")
+            before = eng.metrics.counter("tokens_out")
+            time.sleep(OPS_FREEZE_S)
+            frozen_tokens = eng.metrics.counter("tokens_out") - before
+            undo = at_freeze(eng)
+            plan.release()
+        got = outcomes(futures)
+        if undo is not None:
+            undo()
+        launches = HK.launch_counts()
+        runs.append(launches)
+        bad = [f for f, (_, e) in zip(futures, got) if e is not None]
+        check(all(isinstance(e, InjectedFault) for _, e in got if e)
+              and set(map(id, bad)) == set(map(id, failed)) and bad,
+              "serve_ops %s: failed %d requests, %d participants of the "
+              "faults" % (tag, len(bad), len(failed)))
+        ok = [(c, t) for c, (t, e) in zip(reqs, got) if e is None]
+        short_ = worst(eng, [c for c, _ in ok], [t for _, t in ok],
+                       "A" * len(ok))
+        differ = differing_tokens([t for _, t in ok],
+                                  [a for a, (_, e) in zip(a_outs, got)
+                                   if e is None])
+        check(short_ <= LOGIT_TOL and differ == 0, "serve_ops %s: the "
+              "survivors' shortfall %g, %d tokens differ from phase 4's"
+              % (tag, short_, differ))
+        inv = eng.verify_pool_invariants()
+        trie = eng._trie.size
+        check(inv["pinned_pages"] == 0 and inv["used_pages"] == trie,
+              "serve_ops %s: the pool after the faults %r" % (tag, inv))
+        rec = {"failed": len(bad), "participants": len(failed),
+               "fired": plan.fired(), "frozen_tokens_out": frozen_tokens,
+               "launches": launches, "errors": eng.metrics.errors,
+               "survivors_shortfall": short_}
+        return eng, rec
+
+    shared_lane = []
+
+    def share_write_page(eng):
+        """A second reference (a sibling's) to a page that one busy lane
+        writes next — a decoding lane's write position, else a
+        prefilling lane's tail chunk (never served from the cache): that
+        write must copy the page first, and the armed ``engine.cow``
+        fails the lane (and it alone) there.  Returns the reference's
+        release."""
+        P = eng.prefill_chunk
+        busy = [(s_, ln) for s_, ln in enumerate(eng._lanes)
+                if ln is not None]
+        check(busy, "serve_ops: no lane busy at the freeze")
+        slot, lane = min(busy, key=lambda b: bool(b[1].pending))
+        at = lane.pending[-1][1] if lane.pending else int(eng._pos[slot])
+        page = lane.pages[at // P]
+        check(not eng._pool.shared(page), "serve_ops: the write page of "
+              "slot %d is shared before the plant" % slot)
+        eng._pool.retain(page)
+        shared_lane.extend([lane.request.future,
+                            "tail chunk" if lane.pending else "decode"])
+        return lambda: eng._pool.release(page)
+
+    plan = FaultPlan().arm("engine.verify", calls=[3]) \
+        .arm("engine.chunk", calls=[5]) \
+        .arm("engine.cow", calls=[1]) \
+        .arm("engine.tick", kind="freeze", calls=[OPS_FREEZE_TURN],
+             duration_s=120.0)
+    eng, rec = faulted("faults_tick", plan, at_freeze=share_write_page,
+                       spec_k=FAST_SPEC_K)
+    try:
+        check(rec["frozen_tokens_out"] == 0 and rec["fired"] == {
+            "engine.verify": 1, "engine.chunk": 1, "engine.cow": 1,
+            "engine.tick": 1} and plan.calls("engine.cow") == 1
+            and eng.metrics.counter("kv_cow_copies") == 0,
+            "serve_ops: the per-tick plan %r" % rec)
+        check(isinstance(shared_lane[0].exception(timeout=0),
+                         InjectedFault)
+              and "engine.cow" in str(shared_lane[0].exception()),
+              "serve_ops: the lane whose write page was shared did not "
+              "fail at engine.cow")
+        # disarmed: the next 16 requests pass the check
+        plan.disarm()
+        HK.reset_launch_counts()
+        outs = [f.result(timeout=300)
+                for f in [eng.submit(p, k) for p, k in reqs]]
+        runs.append(HK.launch_counts())
+    finally:
+        plan.release()
+        eng.stop()
+    after = worst(eng, reqs, outs, "A" * len(reqs))
+    check(after <= LOGIT_TOL and differing_tokens(outs, a_outs) == 0,
+          "serve_ops: the requests after the faults: shortfall %g" % after)
+    check(pool_drained(eng), "serve_ops: the pool after the faults did "
+          "not get every page back")
+    # copy-on-write, the unit check: a shared page and one direct write
+    # on the stopped engine, the site armed once
+    plan.arm("engine.cow", times=1)
+    pool = eng._pool
+    (page,) = pool.alloc(1)
+    pool.retain(page)
+    pool.pin(page)
+    lane = LE._Slot(LE._Request(numpy.asarray([1, 2, 3], numpy.int32), 4,
+                                30.0, pages=1))
+    lane.pages = [page]
+    eng._page_tables[0, 0] = page
+    free = pool.free_pages
+    try:
+        eng._cow_guard(0, lane, 0, 1)
+        cow_fired = False
+    except InjectedFault:
+        cow_fired = True
+    check(cow_fired and pool.free_pages == free and pool.refs(page) == 2
+          and lane.pages == [page], "serve_ops: the copy-on-write fault "
+          "kept a page or moved the lane")
+    with torch.inference_mode():
+        eng._cow_guard(0, lane, 0, 1)
+        copy = lane.pages[0]
+        check(copy != page and eng.metrics.counter("kv_cow_copies") == 1
+              and all(torch.equal(k[copy], k[page])
+                      and torch.equal(v[copy], v[page])
+                      for k, v in eng._kv_pools),
+              "serve_ops: the copy after the copy-on-write fault")
+    rec.update(after_shortfall=after, cow_served_write=shared_lane[1],
+               cow_fault_returned_page=cow_fired)
+    report["faults_tick"] = rec
+    del eng
+    gc_cuda(torch)
+    eng, rec = faulted("faults_while", FaultPlan().arm("engine.step",
+                                                       calls=[3]),
+                       **OPS_MODES["while"])
+    eng.stop()
+    check(pool_drained(eng), "serve_ops: the while run's pool after its "
+          "fault")
+    report["faults_while"] = rec
+    del eng
+    gc_cuda(torch)
+    # a plan with no rule launches the kernels as no plan does
+    unarmed = []
+    for tag, plan in (("no_plan", None), ("unarmed", FaultPlan())):
+        eng = engine(tag, hosts["A"], plan)
+        futures = held(eng, short)
+        outs = [f.result(timeout=300) for f in futures]
+        unarmed.append((HK.launch_counts(), outs))
+        eng.stop()
+        del eng
+    runs.append(unarmed[1][0])
+    keys = ("paged_flash_decode", "paged_flash_prefill")
+    check([unarmed[0][0][k] for k in keys] == [unarmed[1][0][k]
+                                                for k in keys]
+          and differing_tokens(unarmed[1][1], unarmed[0][1]) == 0,
+          "serve_ops: an unarmed plan changed the launches %r"
+          % [u[0] for u in unarmed])
+    report["unarmed"] = {"no_plan": unarmed[0][0], "unarmed": unarmed[1][0]}
+    gc_cuda(torch)
+    leg("faults")
+
+    # (c) crash and restore: freeze mid-traffic, checkpoint, release,
+    # stop; restore into a fresh engine
+    plan = FaultPlan().arm("engine.tick", kind="freeze",
+                           calls=[OPS_CRASH_TURN], duration_s=120.0)
+    crashed = engine("crashed", hosts["A"], plan)
+    held(crashed, reqs)
+    try:
+        until(lambda: plan.calls("engine.tick") >= OPS_CRASH_TURN,
+              "the crash")
+        state = json.loads(json.dumps(crashed.checkpoint()))
+    finally:
+        plan.release()
+        crashed.stop()
+    del crashed
+    check(len(state["requests"]) == len(reqs), "serve_ops: the checkpoint "
+          "journaled %d of %d requests" % (len(state["requests"]),
+                                           len(reqs)))
+    fresh = engine("restored", hosts["A"]).start()
+    try:
+        HK.reset_launch_counts()
+        restored = fresh.restore(state)
+        outs = [restored[e["rid"]].result(timeout=300)
+                for e in state["requests"]]
+        launches = HK.launch_counts()
+    finally:
+        fresh.stop()
+    runs.append(launches)
+    order = {tuple(p): i for i, (p, _) in enumerate(reqs)}
+    want = [a_outs[order[tuple(e["prompt"])]] for e in state["requests"]]
+    differ = differing_tokens(outs, want)
+    short_ = worst(fresh, [(numpy.asarray(e["prompt"], numpy.int32),
+                            e["n_new"]) for e in state["requests"]], outs,
+                   "A" * len(outs))
+    check(differ == 0 and short_ <= LOGIT_TOL
+          and fresh.metrics.counter("engine_restores") == 1
+          and fresh.metrics.counter("requests_restored") == len(reqs),
+          "serve_ops: the restore: %d tokens differ from the uncrashed "
+          "run, shortfall %g" % (differ, short_))
+    check(pool_drained(fresh), "serve_ops: the restored engine's pool")
+    report["restore"] = {
+        "journaled": len(state["requests"]),
+        "slot_frontiers": state["slot_frontiers"],
+        "pool_used_at_crash": state["pool"]["num_pages"]
+        - len(state["pool"]["free"]),
+        "prefix_cache_chunks_at_crash": state["prefix_cache_chunks"],
+        "differing_tokens_vs_uncrashed": differ, "shortfall": short_,
+        "launches": launches}
+    del fresh
+    gc_cuda(torch)
+    leg("restore")
+
+    launches = {n: sum(r[n] for r in runs)
+                for n in ("paged_flash_decode", "paged_flash_prefill")}
+    report.update(launches=launches, faults_caught=caught, leg_s=legs,
+                  phase_s=time.monotonic() - began)
+    print(json.dumps({"serve_ops": report}, default=str), flush=True)
+    for name in OPS_FAULTS:
+        check(caught[name], "serve_ops: the planted fault %r was not "
+              "caught" % name)
+    return launches
+
+
 # ------------------------------------------------------------------ beside
 def beside_phases(out_path):
     """Phases 15 and 16 in a process of their own (``python3
@@ -9677,13 +10202,21 @@ def main():
     # 20. seeded sampling: every decode path of the engine with the draw
     # kernel, generate, and serve_lm over HTTP
     sample_launches, drawn = serve_sampling(torch, HK, T, S, smi, tick)
-    del tick
     for k, v in sample_launches.items():
         launches[k] += v
     gc_cuda(torch)
     lap("serve_sampling")
 
-    # 21. the kernels line and the result
+    # 21. operations: hot weight swap on every decode path, fault plans
+    # at every engine site, checkpoint and restore
+    ops_launches = serve_ops(torch, HK, T, S, smi, tick)
+    del tick
+    for k, v in ops_launches.items():
+        launches[k] += v
+    gc_cuda(torch)
+    lap("serve_ops")
+
+    # 22. the kernels line and the result
     main_case = {"flash_attention_fwd": flash[0],
                  "flash_attention_bwd_dkv": flash[1],
                  "flash_attention_bwd_dq": flash[2],
@@ -9734,6 +10267,8 @@ def main():
             row["whilestep_launches"] = while_launches[row["name"]]
         if row["name"] in sample_launches:
             row["sampling_launches"] = sample_launches[row["name"]]
+        if row["name"] in ops_launches:
+            row["ops_launches"] = ops_launches[row["name"]]
         if row["name"] == "fused_sgd_update":
             row["population_launches"] = pop_launches
             row["observe_launches"] = observe_launches

@@ -1552,6 +1552,61 @@ def test_sampled_while_graph_equals_eager_body_with_an_armed_ring_entry():
     assert torch.equal(first, eager)
 
 
+def _swap_tree(seed):
+    """A host tree of ``_megastep_engine``'s geometry from seed ``seed``."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.ops.transformer import init_transformer_params
+    prng.reset()
+    return init_transformer_params(prng.RandomGenerator("init", seed), 64,
+                                   d_model=64, n_heads=4, n_layers=2,
+                                   max_len=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planted", [False, True])
+def test_swap_under_captured_graphs_serves_the_new_weights(planted):
+    """An engine captured on weights A (``megastep=4``: one graph a
+    ladder width, reading the weights by address) swaps to B and then
+    serves B's greedy tokens, equal to a fresh engine started on B, with
+    every decode iteration a graph replay.  The planted pointer swap
+    (``params`` reassigned, the reference's apply) leaves the graphs on
+    A: its tokens differ from B's, so the check fails it."""
+    from veles_tpu_torch.serving import LMEngine
+    _card()
+    prompts = numpy.asarray([[3, 1, 4, 1, 5, 9, 2, 6], [2, 7, 1, 8, 2, 8,
+                                                         1, 8]])
+    trees = {seed: _swap_tree(seed) for seed in (11, 12)}
+
+    def engine(seed):
+        return LMEngine(trees[seed], 4, 128, slots=4, prefill_chunk=16,
+                        device="cuda", megastep=4).start()
+    fresh = engine(12)
+    try:
+        want_b = fresh.generate(prompts, 24)
+    finally:
+        fresh.stop()
+    live = engine(11)
+    try:
+        want_a = live.generate(prompts, 24)
+        if planted:
+            live._load_params = lambda staged: setattr(live, "params",
+                                                       staged)
+        assert live.swap_weights(trees[12]) == 1
+        HK.reset_launch_counts()
+        got, vers = live.generate(prompts, 24, return_versions=True)
+        launches = HK.launch_counts()
+    finally:
+        live.stop()
+    assert vers == [1, 1] and not numpy.array_equal(want_a, want_b)
+    # every decode iteration ran inside a replayed graph (2 layers)
+    steps = live.metrics.counter("megastep_dispatches")
+    assert launches["paged_flash_decode"] >= 2 * 4 * 1 and steps > 0
+    if planted:
+        assert not numpy.array_equal(got, want_b)
+    else:
+        numpy.testing.assert_array_equal(got, want_b)
+
+
 @pytest.mark.cuda
 def test_megastep_capture_with_a_host_read_raises_at_start():
     """A body that reads a value on the host cannot be captured: the

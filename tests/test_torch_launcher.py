@@ -99,7 +99,20 @@ def test_cli_dump_config_list_units_version(capsys):
 def test_unported_flags_raise_before_training(flags, item, monkeypatch):
     """Each unported flag raises naming its item before anything trains
     (``--serve`` and the engine's ``--serve-*`` flags are ported: see
-    ``test_lm_serve_flags_reach_serve_lm``)."""
+    ``test_lm_serve_flags_reach_serve_lm``).  ``--fault-plan`` (its item
+    done) is not refused: the run starts, and the plan is armed when it
+    serves (``tests/test_torch_serving_faults.py``)."""
+    booted = []
+    if flags[0] == "--fault-plan":
+        monkeypatch.setattr(Launcher, "boot",
+                            lambda self: booted.append(True))
+        try:
+            assert cli.main(["veles_tpu_torch.samples.char_lm", "-d", "cpu",
+                             *flags]) == 0
+        finally:
+            root.__dict__.pop("char_lm", None)
+        assert booted == [True]
+        return
     monkeypatch.setattr(Launcher, "boot", lambda self: pytest.fail(
         "the run started before %s was refused" % flags[0]))
     with pytest.raises(NotImplementedError, match=item):
@@ -109,12 +122,13 @@ def test_unported_flags_raise_before_training(flags, item, monkeypatch):
 
 @pytest.mark.parametrize("flags,want", [
     (["--serve", "0"], dict(slots=0, prefix_cache=0, prefill_chunk=0,
-                            spec_k=0, paged_kv=True, megastep=0)),
+                            spec_k=0, paged_kv=True, megastep=0,
+                            fault_plan=None)),
     (["--serve", "0", "--serve-slots", "4", "--serve-prefix-cache", "8",
       "--serve-prefill-chunk", "16", "--serve-spec-k", "2",
       "--serve-paged-kv", "40", "--serve-megastep", "4"],
      dict(slots=4, prefix_cache=8, prefill_chunk=16, spec_k=2,
-          paged_kv=40, megastep=4)),
+          paged_kv=40, megastep=4, fault_plan=None)),
 ])
 def test_lm_serve_flags_reach_serve_lm(flags, want, monkeypatch, capsys):
     """``--serve`` on an LM workflow serves it through ``serve_lm`` after

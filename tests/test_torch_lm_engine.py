@@ -22,6 +22,7 @@ from veles_tpu_torch.ops.transformer import (head_logits,
                                              paged_chunk_apply,
                                              params_from_jax)
 from veles_tpu_torch.serving import LMEngine
+from veles_tpu_torch.serving import lm_engine
 
 VOCAB, D_MODEL, N_HEADS, N_LAYERS, MAX_LEN, PAGE = 32, 32, 4, 2, 64, 8
 #: (prompt length, n_new): 3-40 tokens, 5-12 new, chunk tails of every
@@ -187,9 +188,15 @@ def test_unported_knobs_raise(workload, knob, value):
     """Each knob not ported yet raises naming its ROADMAP item.  The
     sampling knobs serve now (``tests/test_torch_lm_sampling.py``):
     ``temperature`` alone asks for ``sample_seed``, and ``top_k`` or
-    ``sample_seed`` alone leave a greedy engine."""
+    ``sample_seed`` alone leave a greedy engine.  ``faults`` arms a
+    plan now (``tests/test_torch_serving_faults.py``): the engine keeps
+    it and calls its ``fire`` at each site."""
     host, _ = workload
-    if knob == "temperature":
+    if knob == "faults":
+        engine = LMEngine(host, N_HEADS, MAX_LEN, prefill_chunk=PAGE,
+                          device="cpu", faults=value)
+        assert engine._faults is value and "faults" not in lm_engine._ROADMAP
+    elif knob == "temperature":
         with pytest.raises(ValueError, match="needs sample_seed"):
             LMEngine(host, N_HEADS, MAX_LEN, prefill_chunk=PAGE,
                      device="cpu", temperature=value)
@@ -204,13 +211,19 @@ def test_unported_knobs_raise(workload, knob, value):
 
 
 def test_unported_methods_raise(workload):
+    """``swap_weights``, ``checkpoint`` and ``restore`` are ported
+    (``tests/test_torch_lm_swap.py``, ``tests/test_torch_serving_faults.py``):
+    a swap before ``start()`` applies at once, a quiet engine's
+    checkpoint holds no request, and a state of no format is refused
+    as the reference refuses it."""
     host, _ = workload
     engine = LMEngine(host, N_HEADS, MAX_LEN, prefill_chunk=PAGE,
                       device="cpu")
-    for call in (lambda: engine.swap_weights(host),
-                 engine.checkpoint, lambda: engine.restore({})):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    assert engine.swap_weights(host) == 1 == engine.weights_version
+    state = engine.checkpoint()
+    assert state["format"] == 1 and state["requests"] == []
+    with pytest.raises(ValueError, match="format"):
+        engine.restore({})
 
 
 def test_submit_validation(workload):

@@ -31,7 +31,7 @@ from veles_tpu_torch import prng
 from veles_tpu_torch.ops import hopper_kernels as HK
 from veles_tpu_torch.ops import transformer as TT
 from veles_tpu_torch.restful_api import SERVE_LM_UNPORTED, serve_lm
-from veles_tpu_torch.serving import LMEngine
+from veles_tpu_torch.serving import FaultPlan, LMEngine
 
 VOCAB, D_MODEL, N_HEADS, N_LAYERS, MAX_LEN = 64, 32, 2, 2, 96
 #: the reference's seeded-sampling knobs (tests/test_lm_fastpath.py)
@@ -461,10 +461,22 @@ def test_serve_lm_without_slots_samples_directly(workflow):
         api.stop()
 
 
-@pytest.mark.parametrize("knob,default,item", SERVE_LM_UNPORTED,
-                         ids=[k for k, _, _ in SERVE_LM_UNPORTED])
+#: ``fault_plan`` is ported: its case checks that the plan arms the engine
+LATER_KNOBS = SERVE_LM_UNPORTED + (("fault_plan", None, None),)
+
+
+@pytest.mark.parametrize("knob,default,item", LATER_KNOBS,
+                         ids=[k for k, _, _ in LATER_KNOBS])
 def test_serve_lm_later_knobs_raise_naming_their_items(workflow, knob,
                                                        default, item):
+    if knob == "fault_plan":
+        plan = FaultPlan()
+        api = serve_lm(workflow, port=0, slots=1, fault_plan=plan)
+        try:
+            assert api.faults is plan and api.lm_engine._faults is plan
+        finally:
+            api.stop()
+        return
     value = {bool: True, int: 2, float: 0.5, str: "x",
              type(None): "set"}[type(default)]
     if isinstance(default, bool):

@@ -234,11 +234,25 @@ class TestUnported:
         ("faults", "Queue 2a item 15"), ("tracer", "Queue 1 item 7"),
         ("telemetry", "Queue 1 item 7"), ("slo", "Queue 1 item 7")])
     def test_restful_knobs_raise_naming_their_items(self, knob, item):
+        """``faults`` (its item done) is kept and reaches the batcher
+        (``tests/test_torch_serving_faults.py`` serves through it)."""
+        if knob == "faults":
+            plan = object()
+            api = RESTfulAPI(None, forward=lambda x: x, faults=plan)
+            api.enable_batching(sample_shape=(2,))
+            assert api.faults is plan and api.batcher._faults is plan
+            return
         with pytest.raises(NotImplementedError, match=item):
             RESTfulAPI(None, forward=lambda x: x, **{knob: object()})
 
     @pytest.mark.parametrize("knob", ["faults", "tracer"])
     def test_batcher_knobs_raise_naming_their_item(self, knob):
+        """``faults`` is ported (the batcher keeps the plan); ``tracer``
+        raises naming its item."""
+        if knob == "faults":
+            plan = object()
+            assert MicroBatcher(lambda x: x, faults=plan)._faults is plan
+            return
         with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
             MicroBatcher(lambda x: x, **{knob: object()})
 
@@ -403,6 +417,38 @@ class TestBatchedHTTP:
             assert "[engine http_t]" in status and "responses 40" in status
         finally:
             api.stop()
+
+    def test_burst_of_connections_waits_in_the_backlog(self):
+        """32 clients connect at once while the server's accept loop is
+        held in its first request: the listen backlog holds them all
+        (the default of 5 overflows, and a host that aborts on overflow
+        resets the rest), and every one is answered."""
+        api = RESTfulAPI(None, forward=lambda x: x + 1.0).start(port=0)
+        assert api._server.request_queue_size >= 32
+        release = threading.Event()
+        process = api._server.process_request
+
+        def held(request, address):
+            release.wait(10)
+            process(request, address)
+        api._server.process_request = held
+        replies = []
+
+        def client():
+            replies.append(_post(api.port, {"input": [[1.0]]})[0]["output"])
+        threads = [threading.Thread(target=client) for _ in range(32)]
+        try:
+            for t in threads:
+                t.start()
+            time.sleep(0.3)
+            release.set()
+            for t in threads:
+                t.join(timeout=60)
+        finally:
+            release.set()
+            api.stop()
+        assert not any(t.is_alive() for t in threads)
+        assert replies == [[[2.0]]] * 32
 
     def test_overload_yields_429_with_integer_retry_after(self):
         def slow_forward(x):

@@ -96,10 +96,15 @@ def test_paged_chunk_apply_matches_reference(rope):
 
 
 def test_engine_accepts_a_module_or_a_tensor_tree():
+    """The engine serves a module's (or a tensor tree's) weights from
+    its own copy: a weight swap copies into the live tensors in place,
+    and must not write the caller's parameters."""
     from veles_tpu_torch.serving import LMEngine
     host = _host()
     model = TT.TransformerLM.from_jax(host, device="cpu")
     for params in (model, model.tree()):
         engine = LMEngine(params, 4, 32, prefill_chunk=8, device="cpu")
-        assert engine.params["blocks"][1]["w2"] is \
-            model.tree()["blocks"][1]["w2"]
+        got = engine.params["blocks"][1]["w2"]
+        want = model.tree()["blocks"][1]["w2"]
+        assert torch.equal(got, want) and not got.requires_grad
+        assert got.data_ptr() != want.data_ptr()

@@ -27,7 +27,9 @@ scripts/velescli.py [H], SURVEY §2.1, §3.1):
   ``--serve-slots``, ``--serve-prefix-cache``, ``--serve-prefill-chunk``,
   ``--serve-spec-k``, ``--serve-paged-kv`` and ``--serve-megastep``
   for its engine), prints ``SERVING http://127.0.0.1:<port>/predict``
-  and blocks until interrupted.
+  and blocks until interrupted; ``--fault-plan FILE`` arms a JSON fault
+  plan (``serving/faults.py``) at the served engine's, batcher's and
+  server's sites.
 - ``--web-status PORT`` serves the live dashboard (``web_status``; 0:
   any free port) and prints ``WEBSTATUS http://<host>:<port>/``;
   ``--web-status-url URL`` reports this process's rows to another
@@ -37,7 +39,7 @@ scripts/velescli.py [H], SURVEY §2.1, §3.1):
 
 The parser takes every flag of the reference, so any reference command
 line parses.  The flags whose machinery is not ported yet (the fleet,
-tensor-parallel and operations serving flags, fault plans) raise
+tensor-parallel, tracing, telemetry and SLO serving flags) raise
 NotImplementedError naming their ROADMAP item before anything is
 trained.
 """
@@ -50,12 +52,6 @@ import importlib.util
 import json
 import os
 import sys
-
-#: flags not ported yet: (argparse dest, its default, ROADMAP item)
-_UNPORTED = (
-    ("fault_plan", None, "Queue 2a, item 15"),
-)
-
 
 def build_argparser():
     parser = argparse.ArgumentParser(
@@ -196,7 +192,11 @@ def build_argparser():
             parser.add_argument(flag, type=kind, default=default,
                                 help="(not ported yet)")
     parser.add_argument("--fault-plan", default=None, metavar="FILE",
-                        help="(not ported yet)")
+                        help="with --serve: arm the deterministic fault-"
+                             "injection sites from a JSON plan "
+                             "(serving/faults.py: injected dispatch "
+                             "errors, latency, freezes, transient HTTP "
+                             "errors); every site is a no-op without it")
     return parser
 
 
@@ -244,9 +244,8 @@ _SERVE_UNPORTED = (
 def refuse_unported(args):
     """NotImplementedError naming the ROADMAP item of the first flag
     given that is not ported yet (before anything is built)."""
-    unported = list(_UNPORTED) + [
-        (flag[2:].replace("-", "_"), default, item)
-        for flag, _, default, item in _SERVE_UNPORTED]
+    unported = [(flag[2:].replace("-", "_"), default, item)
+                for flag, _, default, item in _SERVE_UNPORTED]
     for dest, default, item in unported:
         if getattr(args, dest) != default:
             raise NotImplementedError(
@@ -418,16 +417,21 @@ def serve(wf, port, batch=0, args=None):
     """Serve a trained workflow until interrupted (the ``--serve`` tail
     of a run): an LM workflow's token continuation through
     ``serve_lm`` with the ``--serve-*`` engine flags of ``args``, else
-    its forward chain.  In a distributed run only process 0 serves (one
-    endpoint, as one process writes snapshots)."""
+    its forward chain, with ``--fault-plan``'s plan armed.  In a
+    distributed run only process 0 serves (one endpoint, as one process
+    writes snapshots)."""
     import torch.distributed as dist
     from veles_tpu_torch import restful_api
     if dist.is_initialized() and dist.get_rank() != 0:
         return
+    plan = None
+    if args is not None and args.fault_plan:
+        from veles_tpu_torch.serving import FaultPlan
+        plan = FaultPlan.from_file(args.fault_plan)
     if _is_lm(wf):
-        kw = {}
+        kw = {"fault_plan": plan}
         if args is not None:
-            kw = dict(slots=args.serve_slots,
+            kw.update(slots=args.serve_slots,
                       prefix_cache=args.serve_prefix_cache,
                       prefill_chunk=args.serve_prefill_chunk,
                       spec_k=args.serve_spec_k,
@@ -437,8 +441,11 @@ def serve(wf, port, batch=0, args=None):
         api = restful_api.serve_lm(wf, port=port, **kw)
     else:
         api = restful_api.RESTfulAPI(
-            wf, normalizer=getattr(wf.loader, "normalizer", None))
+            wf, normalizer=getattr(wf.loader, "normalizer", None),
+            faults=plan)
         if batch > 0:
+            # enable_batching forwards the plan: its batcher.* sites
+            # arm beside http.request
             api.enable_batching(max_batch=batch)
         api.start(port=port)
     # parseable by wrappers and tests; flushed before blocking

@@ -19,9 +19,11 @@ Error contract: every non-200 reply is structured JSON
 (``{"error": ...}``) with a meaningful status — 400 malformed request,
 404 unknown path, 413 oversized body (``max_body``, refused before the
 body is parsed), 429 overload (+ integer ``Retry-After`` seconds), 500
-server fault, 503 shed past deadline.  Every POST reply carries
-``X-Request-Id`` (the client's, or one minted here) and the same id as
-``request_id`` in its body.  ``GET /metrics.json`` (snapshot), ``GET
+server fault, 503 shed past deadline; a fault plan's injected HTTP
+error (``faults=``, the ``http.request`` site) replies at its status
+with the same structure, ``Retry-After`` on 429 and 503.  Every POST
+reply carries ``X-Request-Id`` (the client's, or one minted here) and
+the same id as ``request_id`` in its body.  ``GET /metrics.json`` (snapshot), ``GET
 /metrics`` (Prometheus text) and ``GET /status`` (a text panel) expose
 the serving counters on the serving port itself.
 
@@ -29,13 +31,12 @@ the serving counters on the serving port itself.
 continuation: greedy requests through the paged ``LMEngine``'s slots,
 sampled ones (and every one without slots) through ``generate``.
 
-Not ported yet: the reference's fault plan (``faults=``, Queue 2a item
-15), span tracer, telemetry store and SLO monitor (``tracer=``,
-``telemetry=``, ``slo=``, Queue 1 item 7), and ``serve_lm``'s fleet
-(replicas, router, health, hedging, retries, the model directory's
-publisher: Queue 1 item 9), ``tp`` (item 4) and the contiguous KV
-layout (``paged_kv=0``, item 8) — each raises NotImplementedError
-naming its item.
+Not ported yet: the reference's span tracer, telemetry store and SLO
+monitor (``tracer=``, ``telemetry=``, ``slo=``, Queue 1 item 7), and
+``serve_lm``'s fleet (replicas, router, health, hedging, retries, the
+model directory's publisher: Queue 1 item 9), ``tp`` (item 4) and the
+contiguous KV layout (``paged_kv=0``, item 8) — each raises
+NotImplementedError naming its item.
 
 Usage::
 
@@ -60,8 +61,8 @@ import torch
 from veles_tpu_torch.logger import Logger
 
 #: the reference's keyword arguments not ported yet, with their items
-_UNPORTED = (("faults", "Queue 2a item 15"), ("tracer", "Queue 1 item 7"),
-             ("telemetry", "Queue 1 item 7"), ("slo", "Queue 1 item 7"))
+_UNPORTED = (("tracer", "Queue 1 item 7"), ("telemetry", "Queue 1 item 7"),
+             ("slo", "Queue 1 item 7"))
 
 _FLEET = "Queue 1 item 9 (the serving fleet)"
 _OPERATIONS = "Queue 1 item 7 (operations)"
@@ -75,8 +76,16 @@ SERVE_LM_UNPORTED = (
     ("canary_watch_s", 2.0, _FLEET), ("auto_rollback", True, _FLEET),
     ("trace", None, _OPERATIONS), ("telemetry", 0.0, _OPERATIONS),
     ("slo", None, _OPERATIONS),
-    ("fault_plan", None, "Queue 2a item 15 (fault plans)"),
 )
+
+
+class _Server(ThreadingHTTPServer):
+    """The serving socket: a listen backlog sized for a burst of
+    concurrent clients.  The default of 5 overflows when more connect at
+    once while the accept loop waits for the interpreter lock (a busy
+    engine worker), and a host that aborts on overflow resets them."""
+
+    request_queue_size = 128
 
 
 def _retry_after(seconds):
@@ -88,14 +97,16 @@ class RESTfulAPI(Logger):
     def __init__(self, workflow, normalizer=None, forward=None,
                  handler=None, metrics=None, max_body=16 << 20,
                  faults=None, tracer=None, telemetry=None, slo=None):
-        given = dict(faults=faults, tracer=tracer, telemetry=telemetry,
-                     slo=slo)
+        given = dict(tracer=tracer, telemetry=telemetry, slo=slo)
         for knob, item in _UNPORTED:
             if given[knob] is not None:
                 raise NotImplementedError(
                     "RESTfulAPI(%s=) is not ported yet: ROADMAP %s"
                     % (knob, item))
         self.workflow = workflow
+        #: the armed fault plan: its ``http.request`` site here, its
+        #: ``batcher.*`` sites through :meth:`enable_batching`
+        self.faults = faults
         #: optional input normalizer (a loader's fitted normalizer) applied
         #: before the forward, so clients send raw feature scale
         self.normalizer = normalizer
@@ -178,7 +189,7 @@ class RESTfulAPI(Logger):
             self._ensure_forward(), max_batch=max_batch,
             queue_depth=queue_depth, batch_wait_s=batch_wait_s,
             deadline_s=deadline_s, sample_shape=sample_shape,
-            metrics=m, name=name)
+            metrics=m, name=name, faults=self.faults)
         self.metrics = m
         return self
 
@@ -198,6 +209,7 @@ class RESTfulAPI(Logger):
     def start(self, host="127.0.0.1", port=8180):
         from veles_tpu_torch.serving.batcher import (DeadlineExceeded,
                                                      Overloaded)
+        from veles_tpu_torch.serving.faults import InjectedHTTPError
         api = self
         if self.batcher is not None:
             self.batcher.start()
@@ -285,6 +297,20 @@ class RESTfulAPI(Logger):
                 except (json.JSONDecodeError, KeyError, TypeError) as e:
                     return 400, {"error": "%s: %s"
                                  % (type(e).__name__, e)}, []
+                if api.faults is not None:
+                    try:
+                        api.faults.fire("http.request")
+                    except InjectedHTTPError as e:
+                        # a transient HTTP-level fault: a structured
+                        # reply at the injected status, Retry-After on
+                        # the retryable codes
+                        headers = []
+                        if e.code in (429, 503):
+                            headers = [("Retry-After",
+                                        _retry_after(e.retry_after))]
+                        return e.code, {"error": str(e),
+                                        "retry_after": e.retry_after}, \
+                            headers
                 try:
                     result = (api._handler(payload)
                               if api._handler is not None
@@ -316,7 +342,7 @@ class RESTfulAPI(Logger):
             def log_message(self, fmt, *args):
                 api.debug("restful: " + fmt, *args)
 
-        self._server = ThreadingHTTPServer((host, port), Handler)
+        self._server = _Server((host, port), Handler)
         self._thread = threading.Thread(target=self._server.serve_forever,
                                         daemon=True)
         self._thread.start()
@@ -389,12 +415,16 @@ def serve_lm(workflow, host="127.0.0.1", port=8180, max_new=256,
     reference bounds its compiles.  ``n_new`` 0 echoes the prompt; a
     prompt with no room to decode is a 400.
 
+    ``fault_plan`` (a :class:`veles_tpu_torch.serving.FaultPlan`, the
+    CLI's ``--fault-plan FILE``) arms the engine's ``engine.*`` sites
+    and the server's ``http.request`` site.
+
     Not ported yet, each raising NotImplementedError naming its ROADMAP
     item (:data:`SERVE_LM_UNPORTED`): ``tp``; the fleet (``replicas``,
     ``router``, ``health``, ``hedge``, ``retries``, ``model_dir``,
     ``publish_interval_s``, ``canary``, ``canary_watch_s``,
     ``auto_rollback``); ``trace`` (``"off"`` is unset), ``telemetry``
-    and ``slo``; ``fault_plan``; and ``paged_kv=0``.  The reference's
+    and ``slo``; and ``paged_kv=0``.  The reference's
     ``attn_kernel`` is not a keyword here: the port has one attention
     route, the kernels."""
     given = dict(tp=tp, replicas=replicas, router=router, health=health,
@@ -403,7 +433,7 @@ def serve_lm(workflow, host="127.0.0.1", port=8180, max_new=256,
                  canary_watch_s=canary_watch_s,
                  auto_rollback=auto_rollback,
                  trace=None if trace == "off" else trace,
-                 telemetry=telemetry, slo=slo, fault_plan=fault_plan)
+                 telemetry=telemetry, slo=slo)
     for knob, default, item in SERVE_LM_UNPORTED:
         if given[knob] != default:
             raise NotImplementedError(
@@ -436,7 +466,7 @@ def serve_lm(workflow, host="127.0.0.1", port=8180, max_new=256,
             prefix_cache=prefix_cache, prefill_chunk=prefill_chunk,
             spec_k=spec_k, queue_tokens=queue_tokens, paged_kv=paged_kv,
             megastep=megastep, name="lm", metrics=metrics_mod.new("lm"),
-            device=device).start()
+            faults=fault_plan, device=device).start()
 
     def handler(request):
         prompt = numpy.asarray(request["input"], numpy.int32)
@@ -486,7 +516,8 @@ def serve_lm(workflow, host="127.0.0.1", port=8180, max_new=256,
             [out[:, :s_true], new], axis=1).tolist()}
 
     api = RESTfulAPI(None, handler=handler,
-                     metrics=engine.metrics if engine is not None else None)
+                     metrics=engine.metrics if engine is not None else None,
+                     faults=fault_plan)
     api.lm_engine = engine
     return api.start(host=host, port=port)
 

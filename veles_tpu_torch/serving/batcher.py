@@ -21,9 +21,11 @@ with :class:`DeadlineExceeded` instead of wasting a forward on a client
 that has long since timed out.
 
 The forward takes and returns numpy arrays; where its work runs (the
-CPU or the card) is its own affair.  The reference's fault sites
-(``faults=``) and span tracing (``tracer=``) are not ported yet: ROADMAP
-Queue 1 item 7.
+CPU or the card) is its own affair.  ``faults=`` arms a
+:class:`~veles_tpu_torch.serving.faults.FaultPlan`'s ``batcher.submit``
+and ``batcher.dispatch`` sites (an injected dispatch error fails that
+batch's clients, never the worker).  The reference's span tracing
+(``tracer=``) is not ported yet: ROADMAP Queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -107,11 +109,12 @@ class MicroBatcher(Logger):
                  batch_wait_s=0.002, deadline_s=2.0, sample_shape=None,
                  dtype=numpy.float32, metrics=None, name="predict",
                  faults=None, tracer=None):
-        for knob, value in (("faults", faults), ("tracer", tracer)):
-            if value is not None:
-                raise NotImplementedError(
-                    "MicroBatcher(%s=) is not ported yet: ROADMAP Queue 1 "
-                    "item 7" % knob)
+        if tracer is not None:
+            raise NotImplementedError(
+                "MicroBatcher(tracer=) is not ported yet: ROADMAP Queue 1 "
+                "item 7")
+        #: the armed fault plan (None: each site is one is-None check)
+        self._faults = faults
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         if queue_depth < 1:
@@ -168,6 +171,8 @@ class MicroBatcher(Logger):
         rows = numpy.asarray(rows, self.dtype)
         if rows.ndim < 1 or len(rows) < 1:
             raise ValueError("submit needs at least one row")
+        if self._faults is not None:
+            self._faults.fire("batcher.submit")
         return self._admit(rows).future.result()
 
     def _admit(self, rows):
@@ -250,6 +255,10 @@ class MicroBatcher(Logger):
         A single oversized request (rows > max_batch) is chunked over
         several max_batch forwards."""
         now = time.monotonic()
+        if self._faults is not None:
+            # inside the worker's dispatch try: an injected error takes
+            # the real fault-isolation path
+            self._faults.fire("batcher.dispatch")
         x = numpy.concatenate([it.rows for it in items]) \
             if len(items) > 1 else items[0].rows
         outs = []

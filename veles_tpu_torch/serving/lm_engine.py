@@ -85,6 +85,26 @@ draw is one launch of ``hopper_kernels.sample_token`` (the keys made on
 the device, inside the captured graphs too); greedy programs stay as
 they were, with no key threaded.
 
+Operations (the reference's crash-safe serving and hot weight swap):
+
+- ``faults=`` takes a :class:`~veles_tpu_torch.serving.faults.FaultPlan`
+  whose sites (``engine.submit``, ``engine.tick``, ``engine.chunk``,
+  ``engine.cow``, ``engine.step``, ``engine.verify``, ``engine.swap``)
+  sit where the reference's do; unarmed, each is one is-None check.
+- Every admitted request is JOURNALED until its future settles:
+  :meth:`checkpoint` gives the reference's format-1 JSON (the unresolved
+  requests, the slot frontiers, the pool's books, no tensors) and
+  :meth:`restore` re-admits it into a fresh engine.
+- :meth:`swap_weights` hot-installs a new tree of the same structure:
+  staged on the caller's thread, applied by the worker at a tick
+  boundary once the active lanes finish on the old weights (or, with
+  ``drain=True``, after they and the standby ring are requeued whole);
+  every result is stamped with the ``weights_version`` that served it.
+  Unlike the reference's pointer assignment, the apply COPIES the new
+  values into the live tensors in place, because the captured scan and
+  while graphs read the weights by address; and it FLUSHES the prefix
+  cache, whose pages hold K/V the old weights computed.
+
 PyTorch idiom: the pools are updated IN PLACE (the reference threads
 functional pool copies through each jitted program), the programs are
 plain methods run eagerly, and the worker thread enters
@@ -114,7 +134,8 @@ from veles_tpu_torch.ops.hopper_kernels import serving_kernels_supported
 from veles_tpu_torch.ops.transformer import (TransformerLM, head_logits,
                                              paged_chunk_apply,
                                              params_from_jax,
-                                             propose_draft_in_graph)
+                                             propose_draft_in_graph,
+                                             tree_map)
 from veles_tpu_torch.serving import lockcheck
 from veles_tpu_torch.serving.batcher import (DeadlineExceeded, Overloaded,
                                              PoolExhausted)
@@ -125,14 +146,7 @@ from veles_tpu_torch.serving.metrics import ServingMetrics
 _ROADMAP = {
     "tp": "Queue 1 item 4 (tensor-parallel serving)",
     "devices": "Queue 1 item 4 (tensor-parallel serving)",
-    "faults": "Queue 1 item 7 (fault injection, tracing, hot swap, "
-              "checkpoint/restore)",
-    "tracer": "Queue 1 item 7 (fault injection, tracing, hot swap, "
-              "checkpoint/restore)",
-    "swap_weights": "Queue 1 item 7 (fault injection, tracing, hot "
-                    "swap, checkpoint/restore)",
-    "checkpoint": "Queue 1 item 7 (fault injection, tracing, hot swap, "
-                  "checkpoint/restore)",
+    "tracer": "Queue 1 item 7 (span tracing, telemetry and SLOs)",
     "paged_kv": "Queue 1 item 8 (contiguous KV layout)",
 }
 
@@ -140,6 +154,37 @@ _ROADMAP = {
 def _unported(knob):
     return NotImplementedError(
         "LMEngine %s is not ported yet: ROADMAP %s" % (knob, _ROADMAP[knob]))
+
+
+def _owned_tree(params, device):
+    """``params`` (the reference's portable tree, a tree of tensors, or a
+    :class:`TransformerLM`) as a tree of tensors on ``device`` that the
+    engine OWNS: a swap copies into the live tree in place, so no leaf
+    may share memory with the caller's.  Only a leaf that would is
+    cloned: on the CPU ``params_from_jax`` shares a numpy array's
+    memory, and a tensor already on the device comes back as itself;
+    anything else it copied onto the device already."""
+    if isinstance(params, TransformerLM):
+        params = params.tree()
+
+    def own(src, t):
+        shared = t.device.type == "cpu" or t is src
+        return t.detach().clone() if shared else t.detach()
+    return tree_map(own, params, params_from_jax(params, device))
+
+
+def _leaf_specs(tree, path=""):
+    """``{path: (shape, dtype)}`` for the leaves of a param tree of
+    tensors, keyed by path, so two trees compare equal whatever order
+    their dicts hold their keys in."""
+    if isinstance(tree, dict):
+        items = (("%s[%r]" % (path, k), v) for k, v in tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = (("%s[%d]" % (path, i), v) for i, v in enumerate(tree))
+    else:
+        return {path: (tuple(tree.shape), tree.dtype)}
+    return {p: spec for sub, v in items
+            for p, spec in _leaf_specs(v, sub).items()}
 
 
 def propose_draft(history, k, max_ngram=3):
@@ -404,6 +449,8 @@ class LMEngine(Logger):
     keeps R prefilled standby lanes that re-arm drained slots inside
     it.
     ``queue_tokens=T`` budgets admission by queued prompt tokens.
+    ``faults`` arms a :class:`~veles_tpu_torch.serving.faults.FaultPlan`'s
+    ``engine.*`` sites; ``version`` is the first ``weights_version``.
     ``temperature > 0`` samples (``top_k`` > 0 keeps the k most likely
     tokens, ties at the cutoff included) under ``sample_seed``, which it
     needs; 0 decodes greedily.
@@ -418,6 +465,8 @@ class LMEngine(Logger):
         "_rid": "_cond",
         "_queued_tokens": "_cond",
         "_queued_pages": "_cond",
+        "_journal": "_cond",
+        "_pending_swap": "_cond",
         "_stop": "_cond",
     }
 
@@ -435,11 +484,12 @@ class LMEngine(Logger):
         if megastep_mode not in (None, "scan", "while"):
             raise ValueError("megastep_mode must be 'scan' or 'while' "
                              "(got %r)" % (megastep_mode,))
-        for knob, value in (("tp", tp),
-                            ("devices", devices), ("faults", faults),
+        for knob, value in (("tp", tp), ("devices", devices),
                             ("tracer", tracer)):
             if value:
                 raise _unported(knob)
+        #: the armed fault plan (None: every site is one is-None check)
+        self._faults = faults
         #: seeded sampling: temperature > 0 draws each token under a key
         #: of (lane seed, position); 0 keeps the greedy argmax programs
         self.temperature = float(temperature or 0.0)
@@ -529,13 +579,14 @@ class LMEngine(Logger):
         #: the checkpoint generation serving; stamped on every result
         self.weights_version = int(version)
         self.metrics.set_gauge("weights_version", self.weights_version)
+        #: the swap_weights request the worker applies at a tick
+        #: boundary (None almost always)
+        self._pending_swap = None
 
         if F.get_matmul_precision() == "float32":
             # the parity mode: fp32 products stay fp32 in cuBLAS/cuDNN
             F.pin_fp32_matmul()
-        if isinstance(params, TransformerLM):
-            params = params.tree()
-        self.params = params_from_jax(params, self.device)
+        self.params = _owned_tree(params, self.device)
         embed = self.params["embed"]
         d_model = embed.shape[1]
         if self.top_k > embed.shape[0]:
@@ -591,6 +642,9 @@ class LMEngine(Logger):
         self._queue = collections.deque()
         #: admission ids, in submission order (the sampling lane seeds)
         self._rid = 0
+        #: the admission journal: rid -> _Request for every request not
+        #: resolved yet (what :meth:`checkpoint` snapshots)
+        self._journal = {}
         self._queued_tokens = 0
         self._queued_pages = 0
         self._pool_blocked = False
@@ -609,6 +663,12 @@ class LMEngine(Logger):
         self._thread = None
         self._stop = False
         self._update_pool_gauges()
+
+    def _fault(self, site):
+        """Fault-injection hook: free when no plan is attached — one
+        attribute-is-None check on the hot path."""
+        if self._faults is not None:
+            self._faults.fire(site)
 
     # ------------------------------------------------------------- programs
     def _tensor(self, arr):
@@ -1141,14 +1201,339 @@ class LMEngine(Logger):
             self._thread.join(timeout=60)
             self._thread = None
 
-    def swap_weights(self, params, version=None, drain=False):
-        raise _unported("swap_weights")
+    # ------------------------------------------------------------ hot swap
+    def _stage_params(self, params):
+        """The new tree on the engine's device, on the CALLER's thread
+        (off the decode loop), its copies finished before the worker
+        may read it.  A tree whose paths, shapes or dtypes differ from
+        the serving tree's is refused LOUDLY here, before the live
+        weights are touched — dict order aside, since the apply copies
+        by key."""
+        def spec(shape_dtype):
+            if shape_dtype is None:
+                return "absent"
+            return "%s %s" % (shape_dtype[0],
+                              str(shape_dtype[1]).replace("torch.", ""))
+        staged = _owned_tree(params, self.device)
+        live, new = _leaf_specs(self.params), _leaf_specs(staged)
+        for path in sorted(live.keys() | new.keys()):
+            if live.get(path) != new.get(path):
+                raise ValueError(
+                    "swap refused: param %s is %s in the new tree but %s "
+                    "in the serving tree — old weights keep serving"
+                    % (path or "the root", spec(new.get(path)),
+                       spec(live.get(path))))
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return staged
+
+    def _load_params(self, staged):
+        """THE apply: copy ``staged`` into the live weight tensors IN
+        PLACE, key by key, on the current stream — the one the captured
+        scan and while graphs are replayed on — so the copies are
+        ordered before their next replay, which reads the tensors by
+        address.  Reassigning ``self.params`` instead would leave every
+        captured graph decoding on the old weights."""
+        with torch.no_grad():
+            tree_map(lambda live, new: live.copy_(new), self.params, staged)
+
+    def _flush_prefix_cache(self):
+        """Drop every prefix-cache entry (each eviction sends its page
+        home): their K/V rows were computed by the weights being
+        replaced.  Called with no lane active and the ring empty, so no
+        entry is pinned and the trie empties."""
+        if self._trie is None:
+            return
+        while self._trie.evict_one():
+            pass
+        self.metrics.set_gauge("prefix_cache_chunks", self._trie.size)
+        self._update_pool_gauges()
+
+    def _install(self, staged, version):
+        """Apply a staged tree: the weights copied in place, the prefix
+        cache flushed, the version set."""
+        self._load_params(staged)
+        self._flush_prefix_cache()
+        self._set_version(version)
+
+    def swap_weights(self, params, version=None, drain=False,
+                     timeout_s=120.0):
+        """Hot-install ``params`` (the same structure, shapes and dtypes
+        as the serving tree) into this LIVE engine without dropping
+        lanes.
+
+        The tree is validated and staged on the engine's device HERE, on
+        the caller's thread; the worker applies it at a tick boundary.
+        By default in-flight lanes FINISH on the old weights first —
+        admission holds while they do, and the standby ring neither
+        grows, advances, installs nor arms.  With ``drain=True`` the
+        active lanes are withdrawn whole and requeued at the head with a
+        fresh deadline instead, re-decoding from scratch on the new
+        weights (their futures resolve exactly once).  Either way the
+        standby ring's entries, prefilled on the old weights, go back to
+        the queue head whole.  The apply copies the new values into the
+        live tensors in place (so the captured graphs serve them at
+        their next replay) and flushes the prefix cache.
+
+        ``version`` (int; default: current + 1) becomes
+        :attr:`weights_version`, stamped on every result served by the
+        new weights.  Returns the installed version; raises ValueError
+        on a structural mismatch and re-raises an apply-time fault (the
+        ``engine.swap`` site), in both cases leaving the old weights
+        serving.  Blocks until applied (``timeout_s`` bounds a wedged
+        worker: an unclaimed swap is withdrawn).  ``params`` may also be
+        a :class:`TransformerLM`."""
+        staged = self._stage_params(params)
+        if version is None:
+            version = self.weights_version + 1
+        version = int(version)
+        with self._cond:
+            if self._pending_swap is not None:
+                raise RuntimeError("a weight swap is already in flight")
+            if self._stop and self._thread is not None:
+                # the worker may still be replaying a graph on the live
+                # tensors: refuse as the stop drain refuses a pending
+                # swap
+                raise RuntimeError("LM engine stopped before the swap "
+                                   "applied")
+            if self._thread is None:
+                # not serving: apply here (start() warms the programs
+                # on the live tensors, whatever they hold)
+                self._install(staged, version)
+                self.metrics.inc("weight_swaps")
+                return version
+            swap = {"params": staged, "version": version,
+                    "drain": bool(drain), "done": threading.Event(),
+                    "exc": None, "t0": time.monotonic()}
+            self._pending_swap = swap
+            self._cond.notify_all()
+        if not swap["done"].wait(timeout_s):
+            with self._cond:
+                withdrawn = self._pending_swap is swap
+                if withdrawn:
+                    self._pending_swap = None
+            if not withdrawn:
+                # the worker claimed the swap right at the deadline:
+                # give the apply a moment rather than report a state
+                # about to be wrong
+                swap["done"].wait(5.0)
+            if not swap["done"].is_set():
+                raise RuntimeError(
+                    "weight swap did not apply within %.0fs (worker "
+                    "wedged or lanes never finished); %s"
+                    % (timeout_s,
+                       "old weights keep serving" if withdrawn else
+                       "swap state INDETERMINATE — the worker claimed "
+                       "it but never finished applying"))
+        if swap["exc"] is not None:
+            raise swap["exc"]
+        return version
+
+    def _set_version(self, version):
+        self.weights_version = int(version)
+        self.metrics.set_gauge("weights_version", self.weights_version)
+
+    def _peek_swap(self):
+        """Racy worker peek at the pending weight swap.  Read-only: the
+        holds in :meth:`_admit`, :meth:`_admit_ring`,
+        :meth:`_advance_ring` and :meth:`_step_while` only keep work
+        back for a turn, and :meth:`_maybe_apply_swap` re-checks under
+        ``_cond`` before claiming."""
+        return self._pending_swap
+
+    def _maybe_apply_swap(self):
+        """Worker-side swap application, once a loop turn (one is-None
+        check).  Finish-on-old waits for the lanes (admission holds, so
+        the wait is bounded by their remaining tokens); drain mode
+        requeues them whole first; the standby ring is requeued either
+        way.  Then the ``engine.swap`` fault site and the in-place
+        apply."""
+        swap = self._peek_swap()
+        if swap is None:
+            return
+        active = [i for i, lane in enumerate(self._lanes)
+                  if lane is not None]
+        if active and not swap["drain"]:
+            return           # lanes finish on the OLD weights first
+        with self._cond:
+            # claim before mutating anything: a timed-out caller may
+            # have withdrawn the swap
+            if self._pending_swap is not swap:
+                return
+            self._pending_swap = None
+        if active:
+            self._requeue_active(active)
+        if self._ring:
+            # standby prefill ran on the OLD weights
+            self._requeue_ring()
+        try:
+            self._fault("engine.swap")
+        except Exception as e:   # noqa: BLE001 — refuse, keep serving
+            swap["exc"] = e
+            self.metrics.record_error()
+            self.metrics.inc("weight_swap_failures")
+            self.warning("weight swap refused at apply: %s (old weights "
+                         "keep serving)", e)
+        else:
+            # staging checked every leaf against the live tree's, so
+            # the keyed copy cannot stop partway on a shape or dtype
+            self._install(swap["params"], swap["version"])
+            self.metrics.inc("weight_swaps")
+            self.metrics.set_gauge("swap_quiesce_s",
+                                   time.monotonic() - swap["t0"])
+        swap["params"] = None             # the staged tree is freed
+        swap["done"].set()
+
+    def _requeue_reqs(self, reqs):
+        """Put ``reqs`` back at the queue head, in order, each with a
+        fresh deadline: its wait was spent on work a swap threw away,
+        and shedding it for that would turn a deploy into errors."""
+        fresh_deadline = time.monotonic() + self.deadline_s
+        for req in reqs:
+            req.deadline = max(req.deadline, fresh_deadline)
+        with self._cond:
+            for req in reversed(reqs):
+                self._queue.appendleft(req)
+                self._queued_tokens += req.true_len
+                self._queued_pages += req.pages
+            self.metrics.set_gauge("queue_depth", len(self._queue))
+            self.metrics.set_gauge("queue_tokens", self._queued_tokens)
+            self.metrics.set_gauge("queue_pages", self._queued_pages)
+        self.metrics.inc("requests_requeued_for_swap", len(reqs))
+
+    def _requeue_active(self, active):
+        """Drain-mode swap: withdraw every active lane WHOLE (pages home,
+        slot parked on scratch) and requeue its request at the head in
+        admission order.  The futures are untouched: each request
+        re-decodes from scratch and resolves exactly once."""
+        order = sorted(active, key=lambda s: self._lanes[s].request.t_enq)
+        reqs = []
+        for slot in order:
+            lane = self._lanes[slot]
+            self._vacate_slot(slot, lane)
+            reqs.append(lane.request)
+        self._requeue_reqs(reqs)
+
+    def _requeue_ring(self):
+        """Swap application: the standby entries were prefilled on the
+        OLD weights, so they go back to the queue head whole (pages
+        home) and re-prefill on the new ones; a withdrawn entry is
+        cancelled."""
+        reqs = []
+        for entry in self._ring:
+            self._release_lane(entry.lane)
+            req = entry.lane.request
+            if req.cancelled:
+                req.future.cancel()
+                continue
+            reqs.append(req)
+        self._ring = []
+        self.metrics.set_gauge("standby_ring_occupancy", 0)
+        self._requeue_reqs(reqs)
+
+    # -------------------------------------------------- crash-safe recovery
+    def _journal_pop(self, rid):
+        with self._cond:
+            self._journal.pop(rid, None)
 
     def checkpoint(self):
-        raise _unported("checkpoint")
+        """JSON-safe snapshot of the HOST-side serving state (the
+        reference's format 1): every admitted but unresolved request
+        (the admission journal), the slot frontiers, the pool's
+        ref/pin/free books, the page tables and the prefix cache's size.
+        Taken under the engine lock, so the request set is consistent.
+
+        A crash loses the device state (the KV pages) unconditionally,
+        so the checkpoint carries no tensors: :meth:`restore` re-admits
+        the journaled work on a fresh engine and prefill derives the KV
+        again.  The pool and page-table sections are post-mortem
+        evidence: the worker mutates them without this lock, so on a
+        live engine they may be torn mid-turn; :meth:`restore` never
+        reads them.  Only the request set is exact."""
+        with self._cond:
+            entries = [{"rid": rid,
+                        "prompt": [int(t) for t in req.prompt],
+                        "n_new": int(req.n_new)}
+                       for rid, req in sorted(self._journal.items())
+                       if not req.future.done() and not req.cancelled]
+            state = {
+                "format": 1,
+                "config": {"max_len": self.max_len,
+                           "slots": self.slots,
+                           "prefill_chunk": self.prefill_chunk,
+                           "spec_k": self.spec_k,
+                           "paged_kv": True,
+                           "pool_pages": self._pool.num_pages},
+                "requests": entries,
+                "slot_frontiers": {
+                    "pos": [int(x) for x in self._pos],
+                    "last": [int(x) for x in self._last]},
+                "pool": self._pool.snapshot(),
+                "page_tables": self._page_tables.tolist(),
+            }
+            if self._trie is not None:
+                state["prefix_cache_chunks"] = self._trie.size
+        return state
 
     def restore(self, state):
-        raise _unported("checkpoint")
+        """Re-admit a :meth:`checkpoint`'s unresolved requests into THIS
+        (fresh, started) engine after a crash: the pool's invariants are
+        verified first, every entry is validated against this engine's
+        geometry before any is admitted (all or nothing), then each is
+        submitted afresh, retrying on ``Overloaded`` for up to 30 s.
+        Returns ``{rid: Future}`` keyed by the checkpoint's ids.
+
+        In-flight work resumes AT LEAST ONCE from the engine's side (a
+        request that finished between the checkpoint and the crash runs
+        again).  The checkpoint journals no sampling seed: a restored
+        sampled request draws under its NEW admission id in this engine,
+        as the reference's restore does, so its tokens equal the
+        reference's restore of the same state, not the crashed run's."""
+        if not isinstance(state, dict) or state.get("format") != 1:
+            raise ValueError("not an LMEngine checkpoint (format %r)"
+                             % (state.get("format")
+                                if isinstance(state, dict) else state))
+        cfg = state.get("config", {})
+        if int(cfg.get("max_len", self.max_len)) > self.max_len:
+            raise ValueError(
+                "checkpoint was taken at max_len %d but this engine holds "
+                "%d — journaled prompts may not fit"
+                % (cfg["max_len"], self.max_len))
+        self.verify_pool_invariants()
+        entries = list(state.get("requests", ()))
+        for entry in entries:
+            span = len(entry["prompt"]) + int(entry["n_new"]) + self.spec_k
+            if span > self.max_len:
+                raise ValueError(
+                    "journaled request rid=%s needs %d cache positions but "
+                    "this engine holds %d"
+                    % (entry.get("rid"), span, self.max_len))
+            pages = -(-span // self.prefill_chunk)
+            if pages > self._pool.num_pages:
+                raise ValueError(
+                    "journaled request rid=%s needs %d KV pages but this "
+                    "engine's pool holds %d — restore into a pool at "
+                    "least as large as the checkpoint's (pool_pages=%s)"
+                    % (entry.get("rid"), pages, self._pool.num_pages,
+                       cfg.get("pool_pages")))
+        futures = {}
+        stop = time.monotonic() + 30.0
+        for entry in entries:
+            while True:
+                try:
+                    futures[entry["rid"]] = self.submit(entry["prompt"],
+                                                        entry["n_new"])
+                    break
+                except Overloaded as e:
+                    if time.monotonic() > stop:
+                        raise RuntimeError(
+                            "restore stalled: %d/%d journaled requests "
+                            "re-admitted before the engine stopped "
+                            "accepting" % (len(futures), len(entries)))
+                    time.sleep(min(getattr(e, "retry_after", 0.05), 0.05))
+        self.metrics.inc("engine_restores")
+        self.metrics.inc("requests_restored", len(futures))
+        return futures
 
     # -------------------------------------------------------------- clients
     def submit(self, prompt, n_new):
@@ -1173,6 +1558,7 @@ class LMEngine(Logger):
                 "prompt %d + n_new %d needs %d KV pages but the pool "
                 "holds %d — this request can never be placed"
                 % (len(prompt), n_new, demand, self._pool.num_pages))
+        self._fault("engine.submit")
         return self._submit_admit(prompt, n_new, demand)
 
     def _submit_admit(self, prompt, n_new, demand):
@@ -1204,6 +1590,12 @@ class LMEngine(Logger):
             # folds the same (seed, position) into its draws
             self._rid += 1
             req.seed = self._rid
+            # the journal entry lives until the future settles (result,
+            # exception or cancel); the pop re-takes the (re-entrant)
+            # lock, so a checkpoint never iterates a changing dict
+            self._journal[self._rid] = req
+            req.future.add_done_callback(
+                lambda f, rid=self._rid: self._journal_pop(rid))
             self._queue.append(req)
             self._queued_tokens += req.true_len
             self._queued_pages += req.pages
@@ -1322,7 +1714,11 @@ class LMEngine(Logger):
         """Move queued prompts into free slots, each RESERVING its
         worst-case pages; when the pool cannot cover them the request
         goes BACK to the queue head (retried next tick, shed at its
-        deadline) instead of wedging or being skipped."""
+        deadline) instead of wedging or being skipped.  A pending
+        finish-on-old swap holds admission: admitting now would extend
+        the old weights' serving without bound."""
+        if self._peek_swap() is not None:
+            return
         self._pool_blocked = False
         while self._free:
             with self._cond:
@@ -1463,6 +1859,7 @@ class LMEngine(Logger):
                 raise Overloaded()
             q = fresh[0]
             try:
+                self._fault("engine.cow")
                 self._page_copy_program(p, q)
             except Exception:
                 # nobody owns q yet (not in lane.pages) — hand it back
@@ -1542,6 +1939,7 @@ class LMEngine(Logger):
         last_idx = (req.true_len - 1 - start) if is_tail else 0
         t0 = time.monotonic()
         try:
+            self._fault("engine.chunk")
             self._cow_guard(slot, lane, start, start + C)
             tok = self._chunk_program(self._page_tables[slot], tokens,
                                       start, last_idx, *self._lane_seed(req))
@@ -1654,6 +2052,7 @@ class LMEngine(Logger):
             return
         t0 = time.monotonic()
         try:
+            self._fault("engine.step")
             w = self._live_width(1)
             toks = self._step_program(self._page_tables[:, :w],
                                       self._last, self._pos,
@@ -1707,6 +2106,7 @@ class LMEngine(Logger):
                 self.metrics.inc("draft_tokens", len(draft))
         t0 = time.monotonic()
         try:
+            self._fault("engine.verify")
             w = self._live_width(k + 1)
             out = self._verify_program(self._page_tables[:, :w], toks_in,
                                        self._pos, *self._seed_args(active))
@@ -1768,6 +2168,7 @@ class LMEngine(Logger):
             stage["seeds"][:] = self._seeds(active)
         t0 = time.monotonic()
         try:
+            self._fault("engine.step")
             res = self._run_fused(self._live_width(span))
         except Exception as e:   # noqa: BLE001 — fails the lanes
             self._fail_active(active, e)
@@ -1890,8 +2291,11 @@ class LMEngine(Logger):
             # a free slot enters at 0: armable from the first iteration
             for slot in self._free:
                 stage["left"][slot] = 0
-            pub = [e for e in self._ring
-                   if e.ready and not e.lane.request.cancelled]
+            if self._peek_swap() is None:
+                # nothing is published while a swap quiesces: an entry
+                # prefilled on the old weights must not decode past it
+                pub = [e for e in self._ring
+                       if e.ready and not e.lane.request.cancelled]
             self._stage_ring(pub)
         if k:
             self._stage_histories(active)
@@ -1899,6 +2303,7 @@ class LMEngine(Logger):
             stage["seeds"][:] = self._seeds(active)
         t0 = time.monotonic()
         try:
+            self._fault("engine.step")
             w = self._live_width(span, max([e.pos for e in pub] or [0]))
             res = self._run_fused(w)
         except Exception as e:   # noqa: BLE001 — fails the participants
@@ -1984,8 +2389,8 @@ class LMEngine(Logger):
         in-program arm is the ring's fast path, but a slot that frees at
         a boundary (or lanes that drained while the ring was still
         prefilling) must not wait for a drain inside a program that may
-        never come."""
-        if not self.refill_ring:
+        never come.  Held while a swap quiesces."""
+        if not self.refill_ring or self._peek_swap() is not None:
             return
         while self._free and self._ring:
             entry = next((e for e in self._ring if e.ready), None)
@@ -2017,6 +2422,9 @@ class LMEngine(Logger):
             # withdrawn entries give their pages home now
             if entry.lane.request.cancelled:
                 self._drop_standby(entry)
+        if self._peek_swap() is not None:
+            # a quiescing swap: no standby prefill on the old weights
+            return
         entry = next((e for e in self._ring if not e.ready), None)
         if entry is not None:
             self._advance_standby_chunk(entry)
@@ -2088,6 +2496,7 @@ class LMEngine(Logger):
         last_idx = (req.true_len - 1 - start) if is_tail else 0
         t0 = time.monotonic()
         try:
+            self._fault("engine.chunk")
             tok = self._chunk_program(entry.table, tokens, start, last_idx,
                                       *self._lane_seed(req))
             if is_tail:
@@ -2199,6 +2608,16 @@ class LMEngine(Logger):
     def _serve_loop(self):   # hot-path
         rr = 0
         while True:
+            if self._faults is not None:
+                try:
+                    self._faults.fire("engine.tick")
+                except Exception as e:   # noqa: BLE001 — injected
+                    # a raised tick fault poisons this turn: fail the
+                    # busy lanes and keep serving
+                    self._fail_active(
+                        [i for i, ln in enumerate(self._lanes)
+                         if ln is not None], e)
+            self._maybe_apply_swap()
             # every expired queued request is shed now, not only those
             # the admission loop happens to pop
             self._boundary_shed()
@@ -2250,6 +2669,12 @@ class LMEngine(Logger):
             self._queue.clear()
             self._queued_tokens = 0
             self._queued_pages = 0
+            swap, self._pending_swap = self._pending_swap, None
+        if swap is not None:
+            # never strand a swap_weights caller on a stopping engine
+            swap["exc"] = RuntimeError("LM engine stopped before the "
+                                       "swap applied")
+            swap["done"].set()
         for req in pending:
             req.future.set_exception(RuntimeError("LM engine stopped"))
         for entry in list(self._ring):
