@@ -450,7 +450,33 @@ Phases (any failure exits nonzero before the final line is printed):
    mid-traffic, ``checkpoint()``, release, stop, and ``restore`` into a
    fresh engine: 0 tokens differing from the uncrashed run; its JSON
    line (``{"serve_ops": ...}``);
-22. the script's seconds, the card's name and power limit, one JSON line
+22. serve_observe — request tracing and live telemetry at the full LM
+   width, 8 slots, page 32: (a) on each decode path (``TRACE_PATHS``:
+   per tick, ``spec_k`` 4, scan K = 8, while K = 16 with a ring of 2) one
+   engine serves phase 4's 16 requests untraced and under the tracer
+   modes ``all``, ``sample:0.25`` (seeded) and ``errors``, the tracer set
+   between batches while the engine is idle (the same captured graphs
+   serve every mode): tokens, kernel 5/6 launches and decode dispatches
+   equal to the untraced run's, every retained tree sound
+   (``verify_integrity``), one ledger dispatch a decode step or graph
+   replay and one a prompt chunk (``all``, ``errors``), tokens/s a mode
+   against untraced; (b) fencing: behind every prompt chunk and the swap
+   apply a spin of >= 5 ms and a CUDA event, every span's close finds
+   its event complete; (c) ``errors`` mode with
+   faults at ``engine.chunk`` and ``engine.step``: the ring retains
+   exactly the failed requests; three planted faults
+   (``TRACE_FAULTS``: the fence removed, K spans a replay, the span's
+   call moved inside the captured body) caught; (d) ``serve_lm`` over
+   HTTP with ``trace="all"``, telemetry every 0.05 s, the stock SLOs and
+   the scan at K = 8: ``/trace.json``, ``/ledger.json``,
+   ``/timeseries.json``, ``/slo.json``, ``/metrics.json`` strict JSON and
+   ``/status`` text, ``compile_programs`` the captured graphs,
+   ``0 < device_mem_bytes <= torch.cuda.memory_reserved()``, the
+   ``tokens_per_s`` gauge integrated over the window within 10% of the
+   tokens counted on the host clock, ``sample_once`` ms, the
+   ``/trace.json`` bytes for 16 requests; its JSON line
+   (``{"serve_observe": ...}``);
+23. the script's seconds, the card's name and power limit, one JSON line
    listing every ported TPU kernel (kernel 1 with its launches in phase
    14's parent process, ``population_launches``, and in phase 16's,
    ``observe_launches``; kernel 2 with its
@@ -460,7 +486,8 @@ Phases (any failure exits nonzero before the final line is printed):
    theirs on the pipelined runs, ``pipeline_launches``, and 5 and 6 with
    theirs in phase 17, ``fastpath_launches``, in phase 18,
    ``megastep_launches``, in phase 19, ``whilestep_launches``, in
-   phase 20, ``sampling_launches``, and in phase 21, ``ops_launches``;
+   phase 20, ``sampling_launches``, in phase 21, ``ops_launches``, and in
+   phase 22, ``observe_serve_launches``;
    kernels 1 and 4
    with their device-operand entries' times, bounds and launches, kernel
    4 with its offset entry's), the token draw's line
@@ -9839,6 +9866,454 @@ def serve_ops(torch, HK, T, S, card, tick, device="cuda", cfg=None):
     return launches
 
 
+# ---------------------------------------------------------------- phase 22
+#: the decode paths phase 22 traces, each one engine (8 slots, page 32)
+TRACE_PATHS = {"tick": {}, "spec_k4": {"spec_k": FAST_SPEC_K},
+                 "scan_k8": {"megastep": 8},
+                 "while_k16": {"megastep": 16, "megastep_mode": "while",
+                               "refill_ring": 2}}
+#: the tracer settings each path serves phase 4's 16 requests under
+#: (None: untraced); the sampled tracer's coin is seeded
+TRACE_MODES = (None, "all", "sample:0.25", "errors")
+#: (b) a spin of at least 5 ms queued behind each watched dispatch, its
+#: event behind the spin: a span that closed at enqueue finds it pending
+TRACE_SPIN_CYCLES = int(2.5e9 * 0.005)
+#: (d) the telemetry store's interval, and the sample_once calls timed
+TRACE_TELEMETRY_S, TRACE_SAMPLES_TIMED = 0.05, 20
+#: (b), (c) and the planted faults serve phase 4's first 8 prompts, 16
+#: new tokens each
+TRACE_SHORT = (8, 16)
+TRACE_FAULTS = ("chunk_span_unfenced", "k_spans_a_replay",
+                  "tracer_call_in_captured_body")
+
+
+class _TracerProxy:
+    """A span tracer seen through a planted fault: ``add_many`` of one
+    span name is replaced, every other call reaches the real tracer."""
+
+    def __init__(self, real, name, add_many):
+        self._real, self._name, self._add_many = real, name, add_many
+
+    def __getattr__(self, attr):
+        return getattr(self._real, attr)
+
+    def add_many(self, ctxs, name, *args, **kw):
+        if name == self._name:
+            return self._add_many(ctxs, name, *args, **kw)
+        return self._real.add_many(ctxs, name, *args, **kw)
+
+
+def ledger_dispatches(rows, prefix):
+    """Dispatches of the ledger ``rows`` whose op starts with
+    ``prefix``."""
+    return sum(r["dispatches"] for r in rows if r["op"].startswith(prefix))
+
+
+def settled(tracer, timeout=60.0):
+    """Wait until every traced request has been finished (a future's
+    done callback finishes its trace on the engine's thread, after the
+    client's wait returned)."""
+    deadline = time.monotonic() + timeout
+    while tracer.stats()["live"]:
+        check(time.monotonic() < deadline, "a traced request never "
+              "finished its trace")
+        time.sleep(0.001)
+
+
+def strict_json(body):
+    """Parse ``body`` as strict JSON (NaN and Infinity refused)."""
+    def refuse(const):
+        raise ValueError("non-strict JSON constant %s" % const)
+    return json.loads(body, parse_constant=refuse)
+
+
+def http_get(url, timeout=60):
+    """GET ``url``; returns (status, body bytes, content type)."""
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, r.read(), r.headers.get("Content-Type", "")
+
+
+def serve_observe(torch, HK, T, S, card, tick, device="cuda", cfg=None):
+    """Phase 22: request tracing and live telemetry at the full LM width
+    (see the module docstring).  Returns kernels 5 and 6's launches on
+    the phase's runs (the planted faults' runs not counted)."""
+    from types import SimpleNamespace
+    from veles_tpu_torch import prng, restful_api
+    from veles_tpu_torch.serving import (FaultPlan, InjectedFault,
+                                         SpanTracer, verify_integrity)
+    cfg = cfg or LM_CONFIG
+    began = time.monotonic()
+    host = T.init_transformer_params(
+        prng.RandomGenerator("init", SEED), cfg["vocab"],
+        d_model=cfg["d_model"], n_heads=cfg["n_heads"],
+        n_layers=cfg["n_layers"], max_len=cfg["max_len"])
+    reqs = tick["requests"]
+    short = [(p, TRACE_SHORT[1]) for p, _ in reqs[:TRACE_SHORT[0]]]
+    kernels = ("paged_flash_decode", "paged_flash_prefill")
+    report = {"phase": "serve_observe", "card": card, "config": dict(cfg),
+              "slots": FAST_SLOTS, "page": FAST_PAGE}
+    runs, caught, legs, mark = [], {}, {}, [began]
+
+    def leg(name):
+        now = time.monotonic()
+        legs[name], mark[0] = now - mark[0], now
+
+    def engine(tag, tracer=None, **knobs):
+        return S.LMEngine(host, cfg["n_heads"], cfg["max_len"],
+                          slots=FAST_SLOTS, prefill_chunk=FAST_PAGE,
+                          device=device, name="observe_" + tag,
+                          tracer=tracer, **knobs)
+
+    def served(eng, cases):
+        """``cases`` queued on the started, idle ``eng`` before its loop's
+        next turn (the schedule fixed by the loop, not the clock), the
+        launch counts set to 0 just before; returns (outputs, launches,
+        wall s, decode and prefill dispatches)."""
+        m = eng.metrics
+        before = (m.counter("decode_dispatches"),
+                  m.counter("prefill_dispatches"))
+        with eng._cond:
+            HK.reset_launch_counts()
+            t0 = time.monotonic()
+            futures = [eng.submit(p, k) for p, k in cases]
+        outs = [f.result(timeout=300) for f in futures]
+        wall = time.monotonic() - t0
+        launches = HK.launch_counts()
+        return outs, {n: launches[n] for n in kernels}, wall, (
+            m.counter("decode_dispatches") - before[0],
+            m.counter("prefill_dispatches") - before[1])
+
+    # (a) traced equals untraced: a fresh engine a path and mode (its
+    # free slots and round robin as the untraced run's, so the schedule
+    # is the same)
+    paths = {}
+    for path, knobs in TRACE_PATHS.items():
+        rows = {}
+        for mode in TRACE_MODES:
+            tracer = (None if mode is None else
+                      SpanTracer.from_spec(mode, last=64, seed=SEED))
+            eng = engine(path, tracer, **knobs).start()
+            try:
+                outs, launches, wall, (steps, chunks) = served(eng, reqs)
+                runs.append(launches)
+                tokens = sum(len(o) for o in outs)
+                row = {"tokens_per_s": tokens / wall, "wall_s": wall,
+                       "launches": launches, "decode_dispatches": steps,
+                       "prefill_dispatches": chunks, "outs": outs}
+                if tracer is not None:
+                    settled(tracer)
+                    recs = tracer.requests()
+                    integ = verify_integrity(recs)
+                    stats = tracer.stats()
+                    ledger = tracer.live_ledger()
+                    row.update(
+                        stats=stats, spans=integ["spans"],
+                        ledger_decode=ledger_dispatches(ledger, "decode."),
+                        ledger_prefill=ledger_dispatches(ledger,
+                                                         "prefill."),
+                        megastep_spans=sum(
+                            1 for r in recs for s in r["spans"]
+                            if s["name"] == "decode.megastep"))
+                rows[str(mode)] = row
+            finally:
+                eng.stop()
+            del eng
+        gc_cuda(torch)
+        base = rows["None"]
+        base_outs = base["outs"]
+        for mode, row in rows.items():
+            differ = differing_tokens(row.pop("outs"), base_outs)
+            row["differing_tokens_vs_untraced"] = differ
+            check(differ == 0, "serve_observe %s %s: %d tokens differ from "
+                  "the untraced run" % (path, mode, differ))
+            check(row["launches"] == base["launches"], "serve_observe %s "
+                  "%s: launches %r, untraced %r" % (
+                      path, mode, row["launches"], base["launches"]))
+            check(row["decode_dispatches"] == base["decode_dispatches"],
+                  "serve_observe %s %s: the schedule moved" % (path, mode))
+            if mode in ("all", "errors"):
+                # every request traced: one ledger dispatch a step or a
+                # graph replay, one a prompt chunk
+                check(row["ledger_decode"] == row["decode_dispatches"]
+                      and row["ledger_prefill"]
+                      == row["prefill_dispatches"],
+                      "serve_observe %s %s: ledger %d / %d dispatches for "
+                      "%d steps / %d chunks" % (
+                          path, mode, row["ledger_decode"],
+                          row["ledger_prefill"], row["decode_dispatches"],
+                          row["prefill_dispatches"]))
+                check(row["stats"]["retained"]
+                      == (len(reqs) if mode == "all" else 0),
+                      "serve_observe %s %s: %r" % (path, mode,
+                                                   row["stats"]))
+            if mode == "sample:0.25":
+                st = row["stats"]
+                check(st["started"] == len(reqs) and 0 < st["retained"]
+                      == len(reqs) - st["sampled_out"]
+                      and row["ledger_decode"] <= row["decode_dispatches"],
+                      "serve_observe %s sampled: %r" % (path, row))
+            if mode != "None":
+                row["tokens_per_s_vs_untraced"] = (row["tokens_per_s"]
+                                                   / base["tokens_per_s"])
+        paths[path] = rows
+        leg("traced_" + path)
+    report["traced"] = paths
+
+    # (b) fencing: behind every watched chunk and swap apply a spin and
+    # a CUDA event; each span's close must find the event complete
+    # (planted: the fence removed)
+    def watched(tag, planted):
+        tracer = SpanTracer(mode="all", last=64)
+        eng = engine(tag, tracer)
+        if planted:
+            eng._tfence = lambda traced=True: None
+        closes = []
+        chunk, load = eng._chunk_program, eng._load_params
+        add, event_of = tracer.add, tracer.event
+
+        def spun(fn):
+            def run(*args):
+                out = fn(*args)
+                torch.cuda._sleep(TRACE_SPIN_CYCLES)
+                ev = torch.cuda.Event()
+                ev.record()
+                closes.append([ev, None])
+                return out
+            return run
+
+        def closing(ctx, name, *args, **kw):
+            if name == "prefill.chunk":
+                closes[-1][1] = ("prefill.chunk", closes[-1][0].query())
+            return add(ctx, name, *args, **kw)
+
+        def closing_event(name, *args, **kw):
+            if name == "swap.apply":
+                closes[-1][1] = ("swap.apply", closes[-1][0].query())
+            return event_of(name, *args, **kw)
+        eng.start()
+        eng._chunk_program, eng._load_params = spun(chunk), spun(load)
+        tracer.add, tracer.event = closing, closing_event
+        try:
+            outs, launches, _, _ = served(eng, short)
+            eng.swap_weights(host)
+        finally:
+            eng.stop()
+        marks = [c[1] for c in closes if c[1] is not None]
+        late = sum(1 for _, done in marks if not done)
+        verify_integrity(tracer.requests())
+        return outs, launches, marks, late
+
+    outs, launches, marks, late = watched("fenced", False)
+    runs.append(launches)
+    check(late == 0 and any(n == "swap.apply" for n, _ in marks)
+          and sum(n == "prefill.chunk" for n, _ in marks) > len(short),
+          "serve_observe: %d of %d fenced spans closed before their "
+          "dispatch's event" % (late, len(marks)))
+    _, _, marks_p, late_p = watched("unfenced", True)
+    caught["chunk_span_unfenced"] = late_p
+    report["fencing"] = {
+        "spans_watched": len(marks), "closed_before_event": late,
+        "swap_apply_watched": sum(n == "swap.apply" for n, _ in marks),
+        "planted_closed_before_event": late_p,
+        "spin_cycles": TRACE_SPIN_CYCLES}
+    gc_cuda(torch)
+    leg("fencing")
+
+    # (c) errors mode: faults at a prompt chunk and a decode step; the
+    # ring retains exactly the failed requests
+    plan = FaultPlan().arm("engine.chunk", calls=[5]) \
+        .arm("engine.step", calls=[3])
+    tracer = SpanTracer(mode="errors", last=64)
+    eng = engine("errors", tracer, faults=plan).start()
+    try:
+        with eng._cond:
+            HK.reset_launch_counts()
+            futures = [eng.submit(p, k) for p, k in short]
+        failed = set()
+        for f in futures:
+            try:
+                f.result(timeout=300)
+            except InjectedFault:
+                failed.add(f.request.trace.rid)
+        runs.append({n: HK.launch_counts()[n] for n in kernels})
+    finally:
+        eng.stop()
+    recs = tracer.requests()
+    verify_integrity(recs)
+    kept = {r["rid"] for r in recs}
+    check(failed and kept == failed and all(
+        "InjectedFault" in r["error"] for r in recs)
+        and len(tracer.dumps()) == len(failed),
+        "serve_observe: the errors ring kept %r for the failed %r"
+        % (sorted(kept), sorted(failed)))
+    report["errors_mode"] = {"failed": len(failed), "retained": len(kept),
+                             "fired": plan.fired(),
+                             "stats": tracer.stats()}
+    del eng
+    gc_cuda(torch)
+    leg("errors_mode")
+
+    # the planted faults on the captured scan: K spans a replay, and the
+    # span's call moved inside the captured body (it runs at capture only)
+    def scan_run(tag, plant):
+        real = SpanTracer(mode="all", last=64)
+        eng = engine(tag, real, megastep=8)
+        plant(eng, real)
+        eng.start()
+        try:
+            _, _, _, (steps, _) = served(eng, short)
+        finally:
+            eng.stop()
+        return ledger_dispatches(real.live_ledger(), "decode."), steps
+
+    def k_spans(eng, real):
+        def k_times(ctxs, name, *args, **kw):
+            for _ in range(eng.megastep):
+                did = real.add_many(ctxs, name, *args, **kw)
+            return did
+        eng._tracer = _TracerProxy(real, "decode.megastep", k_times)
+
+    def in_body(eng, real):
+        eng._tracer = _TracerProxy(real, "decode.megastep",
+                                   lambda *args, **kw: None)
+        body = eng._megastep_body
+
+        def traced_body(w):
+            ctxs = [ln.request.trace for ln in eng._lanes if ln is not None]
+            t = time.monotonic()
+            real.add_many(ctxs, "decode.megastep", "decode", t, t,
+                          attrs={"bucket": w, "backend": eng._backend})
+            return body(w)
+        eng._megastep_body = traced_body
+    for name, plant in (("k_spans_a_replay", k_spans),
+                        ("tracer_call_in_captured_body", in_body)):
+        ledger, steps = scan_run(name, plant)
+        caught[name] = ledger != steps
+        report.setdefault("planted", {})[name] = {
+            "ledger_decode": ledger, "decode_dispatches": steps}
+        gc_cuda(torch)
+    leg("planted")
+
+    # (d) serve_lm over HTTP, traced, with telemetry and the stock SLOs
+    trainer = SimpleNamespace(params=T.params_from_jax(host, device),
+                              n_heads=cfg["n_heads"], max_len=cfg["max_len"],
+                              _to_portable=lambda tree: tree)
+    api = restful_api.serve_lm(
+        SimpleNamespace(trainer=trainer), port=0, slots=FAST_SLOTS,
+        prefill_chunk=FAST_PAGE, megastep=8, max_new=SAMPLE_MAX_NEW,
+        trace="all", telemetry=TRACE_TELEMETRY_S, slo=True)
+    base = "http://127.0.0.1:%d" % api.port
+    try:
+        eng, store = api.lm_engine, api.telemetry
+        bodies = [json.dumps({"input": [p.tolist()], "n_new": k}).encode()
+                  for p, k in reqs]
+        HK.reset_launch_counts()
+        replies, lat, wall = rest_load(api, bodies, len(bodies))
+        launches = HK.launch_counts()
+        runs.append({n: launches[n] for n in kernels})
+        check(all(replies[i][0] == 200 for i in range(len(bodies))),
+              "serve_observe http: %r" % [replies[i][0]
+                                          for i in range(len(bodies))])
+        # two more ticks, so the window closes after the traffic
+        samples = store.samples
+        deadline = time.monotonic() + 10
+        while store.samples < samples + 2:
+            check(time.monotonic() < deadline, "serve_observe: the "
+                  "telemetry store stopped sampling")
+            time.sleep(TRACE_TELEMETRY_S / 2)
+        got = {}
+        for path in ("/trace.json?last=16", "/ledger.json",
+                     "/timeseries.json?window=600", "/slo.json",
+                     "/metrics.json", "/status"):
+            code, body, ctype = http_get(base + path)
+            check(code == 200, "serve_observe: GET %s %d" % (path, code))
+            got[path.split("?")[0]] = (body if ctype.startswith(
+                "text/plain") else strict_json(body), len(body))
+        reserved = torch.cuda.memory_reserved() if device == "cuda" \
+            else None
+        sample_ms = []
+        for _ in range(TRACE_SAMPLES_TIMED):
+            t0 = time.perf_counter()
+            store.sample_once()
+            sample_ms.append((time.perf_counter() - t0) * 1e3)
+        recs = api.tracer.requests()
+        verify_integrity(recs)
+    finally:
+        api.stop()
+    gauges = got["/metrics.json"][0]["gauges"]
+    graphs = len(eng._megastep_programs) if device == "cuda" else 0
+    check(gauges["compile_programs"] == graphs
+          == len(eng._width_ladder) * (device == "cuda"),
+          "serve_observe: compile_programs %r for %d captured graphs"
+          % (gauges["compile_programs"], graphs))
+    if device == "cuda":
+        check(0 < gauges["device_mem_bytes"] <= reserved,
+              "serve_observe: device_mem_bytes %r, reserved %r"
+              % (gauges.get("device_mem_bytes"), reserved))
+    # the probe's tokens/s, integrated over the window, against the
+    # tokens the store's counter saw (host clock)
+    series = got["/timeseries.json"][0]["series"]
+    key = [k for k in store.sources()][0]
+    rate = series["%s.gauge.tokens_per_s" % key]["series"]
+    count = series["%s.counter.tokens_out" % key]["series"]
+    # (a counter first appears at its first increment: absent is 0)
+    by_t = {round(t, 6): v for t, v in count}
+    integral = sum(v * (t - t_prev) for (t_prev, _), (t, v)
+                   in zip(rate, rate[1:]))
+    counted = (by_t.get(round(rate[-1][0], 6), 0)
+               - by_t.get(round(rate[0][0], 6), 0))
+    check(counted > 0 and abs(integral - counted) <= 0.1 * counted,
+          "serve_observe: tokens_per_s integrates to %g tokens over the "
+          "window, the counter saw %d" % (integral, counted))
+    led = got["/ledger.json"][0]
+    c = eng.metrics.snapshot()["counters"]
+    check(ledger_dispatches(led["rows"], "decode.")
+          == c["decode_dispatches"] > 0, "serve_observe http: ledger %r, "
+          "decode dispatches %d" % (led["rows"], c["decode_dispatches"]))
+    roots = {r["spans"][0]["name"] for r in recs}
+    status = got["/status"][0].decode()
+    slo = got["/slo.json"][0]
+    check(roots == {"http.request"} and len(recs) == len(bodies)
+          and all(s in status for s in ("[telemetry", "[slo",
+                                        "[cost ledger"))
+          and slo["objectives"] and slo["evaluations"] > 0,
+          "serve_observe http: roots %r, status %r" % (roots, status))
+    lat.sort()
+    report["http"] = {
+        "requests": len(bodies), "wall_s": wall,
+        "requests_per_s": len(bodies) / wall,
+        "p50_s": statistics.median(lat), "max_s": lat[-1],
+        "launches": runs[-1],
+        "trace_json_bytes_16_requests": got["/trace.json"][1],
+        "trace_events": len(got["/trace.json"][0]["traceEvents"]),
+        "ledger_rows": led["rows"], "compile_programs": graphs,
+        "device_mem_bytes": gauges.get("device_mem_bytes"),
+        "memory_reserved": reserved,
+        "tokens_per_s_integrated": integral, "tokens_counted": counted,
+        "mfu_live_max": max((v for _, v in series.get(
+            "%s.gauge.mfu_live" % key, {}).get("series", [])),
+            default=None),
+        "mfu_peak": {k: v for k, v in gauges.items()
+                     if k.startswith("mfu_peak_flops")},
+        "slo_worst": slo["worst_state_name"],
+        "samples": store.samples,
+        "sample_once_ms_median": statistics.median(sample_ms),
+        "sample_once_ms_max": max(sample_ms)}
+    del eng, store, api
+    gc_cuda(torch)
+    leg("http")
+
+    launches = {n: sum(r[n] for r in runs) for n in kernels}
+    report.update(launches=launches, faults_caught=caught, leg_s=legs,
+                  phase_s=time.monotonic() - began)
+    print(json.dumps({"serve_observe": report}, default=str), flush=True)
+    for name in TRACE_FAULTS:
+        check(caught[name], "serve_observe: the planted fault %r was not "
+              "caught" % name)
+    return launches
+
+
 # ------------------------------------------------------------------ beside
 def beside_phases(out_path):
     """Phases 15 and 16 in a process of their own (``python3
@@ -10210,13 +10685,22 @@ def main():
     # 21. operations: hot weight swap on every decode path, fault plans
     # at every engine site, checkpoint and restore
     ops_launches = serve_ops(torch, HK, T, S, smi, tick)
-    del tick
     for k, v in ops_launches.items():
         launches[k] += v
     gc_cuda(torch)
     lap("serve_ops")
 
-    # 22. the kernels line and the result
+    # 22. request tracing and live telemetry: every decode path traced
+    # against itself untraced, the fences, the errors ring, serve_lm
+    # traced over HTTP with the telemetry store and the SLO monitor
+    observe_serve_launches = serve_observe(torch, HK, T, S, smi, tick)
+    del tick
+    for k, v in observe_serve_launches.items():
+        launches[k] += v
+    gc_cuda(torch)
+    lap("serve_observe")
+
+    # 23. the kernels line and the result
     main_case = {"flash_attention_fwd": flash[0],
                  "flash_attention_bwd_dkv": flash[1],
                  "flash_attention_bwd_dq": flash[2],
@@ -10269,6 +10753,9 @@ def main():
             row["sampling_launches"] = sample_launches[row["name"]]
         if row["name"] in ops_launches:
             row["ops_launches"] = ops_launches[row["name"]]
+        if row["name"] in observe_serve_launches:
+            row["observe_serve_launches"] = observe_serve_launches[
+                row["name"]]
         if row["name"] == "fused_sgd_update":
             row["population_launches"] = pop_launches
             row["observe_launches"] = observe_launches

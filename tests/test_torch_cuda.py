@@ -43,7 +43,10 @@ once an iteration); a body that reads a value on the host makes the
 engine's start raise.  The seeded token draw's tokens equal its plain
 version's on the same card inputs (a token may differ only where the
 plain version's two best perturbed scores lie within 1e-5), and a
-second launch is bit-equal.
+second launch is bit-equal.  A traced engine (per tick, scan, while)
+serves an untraced one's tokens with its launches, its span trees
+sound, one ledger dispatch a step or replay, and every prompt chunk's
+span closed after the chunk's CUDA event completed.
 """
 
 import numpy
@@ -1605,6 +1608,71 @@ def test_swap_under_captured_graphs_serves_the_new_weights(planted):
         assert not numpy.array_equal(got, want_b)
     else:
         numpy.testing.assert_array_equal(got, want_b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [
+    {"megastep": 0, "prefix_cache": 16}, {"megastep": 4},
+    {"megastep": 8, "megastep_mode": "while", "refill_ring": 2}],
+    ids=["tick", "scan", "while"])
+def test_traced_engine_equals_untraced(knobs):
+    """A traced engine on the card: its tokens and kernel 5/6 launches
+    are an untraced engine's, every request's span tree is closed and
+    sound, the ledger counts one decode dispatch a step or graph replay,
+    and every prompt chunk's span closes after the card finished the
+    chunk (a CUDA event recorded behind it has completed)."""
+    from veles_tpu_torch.serving import SpanTracer, verify_integrity
+    _card()
+    prompts = [[3, 1, 4, 1, 5, 9, 2, 6] * 3, [2, 7, 1, 8] * 5, [5, 5, 5],
+               [3, 1, 4, 1, 5, 9, 2, 6] * 3 + [7], [1, 2, 3, 4, 5, 6]]
+
+    def run(tracer):
+        engine = _megastep_engine(tracer=tracer, **knobs)
+        late = []
+
+        def watch():
+            # each served chunk records an event behind it; its span's
+            # close reads whether the event has completed
+            chunk, add = engine._chunk_program, tracer.add
+
+            def recorded_chunk(*args):
+                out = chunk(*args)
+                event = torch.cuda.Event()
+                event.record()
+                late.append([event, None])
+                return out
+
+            def closing(ctx, name, *args, **kw):
+                if name == "prefill.chunk":
+                    late[-1][1] = late[-1][0].query()
+                return add(ctx, name, *args, **kw)
+            engine._chunk_program, tracer.add = recorded_chunk, closing
+        with engine._cond:
+            engine.start()          # the warmup's chunk is not watched
+            if tracer is not None:
+                watch()
+            HK.reset_launch_counts()
+            futures = [engine.submit(p, 16) for p in prompts]
+        try:
+            outs = [f.result(timeout=300) for f in futures]
+        finally:
+            engine.stop()
+        return outs, HK.launch_counts(), engine, late
+
+    want, want_launches, _, _ = run(None)
+    tracer = SpanTracer(mode="all", last=16)
+    got, launches, engine, late = run(tracer)
+    for a, b in zip(got, want):
+        numpy.testing.assert_array_equal(a, b)
+    for name in ("paged_flash_decode", "paged_flash_prefill"):
+        assert launches[name] == want_launches[name] > 0
+    recs = tracer.requests()
+    assert verify_integrity(recs)["requests"] == len(prompts)
+    decode = sum(r["dispatches"] for r in tracer.live_ledger()
+                 if r["op"].startswith("decode."))
+    assert decode == engine.metrics.counter("decode_dispatches") > 0
+    assert late and all(done for _, done in late)
+    assert {r["backend"] for r in tracer.live_ledger()} == {"cuda"}
 
 
 @pytest.mark.cuda

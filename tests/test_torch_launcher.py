@@ -92,18 +92,20 @@ def test_cli_dump_config_list_units_version(capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--serve-tp", "2"], "Queue 1, item 4"),
-    (["--serve-trace", "all"], "Queue 1, item 7"),
+    (["--serve-trace", "all", "--serve-telemetry"], "Queue 1, item 7"),
     (["--serve-health"], "Queue 1, item 9"),
     (["--fault-plan", "p.json"], "Queue 2a, item 15"),
 ])
 def test_unported_flags_raise_before_training(flags, item, monkeypatch):
     """Each unported flag raises naming its item before anything trains
     (``--serve`` and the engine's ``--serve-*`` flags are ported: see
-    ``test_lm_serve_flags_reach_serve_lm``).  ``--fault-plan`` (its item
-    done) is not refused: the run starts, and the plan is armed when it
-    serves (``tests/test_torch_serving_faults.py``)."""
+    ``test_lm_serve_flags_reach_serve_lm``).  ``--fault-plan`` and the
+    trace and telemetry flags (their items done) are not refused: the
+    run starts, and they are armed when it serves
+    (``tests/test_torch_serving_faults.py``,
+    ``tests/test_torch_timeseries.py``)."""
     booted = []
-    if flags[0] == "--fault-plan":
+    if flags[0] in ("--fault-plan", "--serve-trace"):
         monkeypatch.setattr(Launcher, "boot",
                             lambda self: booted.append(True))
         try:
@@ -123,17 +125,23 @@ def test_unported_flags_raise_before_training(flags, item, monkeypatch):
 @pytest.mark.parametrize("flags,want", [
     (["--serve", "0"], dict(slots=0, prefix_cache=0, prefill_chunk=0,
                             spec_k=0, paged_kv=True, megastep=0,
-                            fault_plan=None)),
+                            fault_plan=None, trace="off", trace_last=256,
+                            telemetry=0.0, slo=None)),
     (["--serve", "0", "--serve-slots", "4", "--serve-prefix-cache", "8",
       "--serve-prefill-chunk", "16", "--serve-spec-k", "2",
-      "--serve-paged-kv", "40", "--serve-megastep", "4"],
+      "--serve-paged-kv", "40", "--serve-megastep", "4",
+      "--serve-trace", "sample:0.5", "--serve-trace-last", "32",
+      "--serve-telemetry", "--serve-slo", "default"],
      dict(slots=4, prefix_cache=8, prefill_chunk=16, spec_k=2,
-          paged_kv=40, megastep=4, fault_plan=None)),
+          paged_kv=40, megastep=4, fault_plan=None, trace="sample:0.5",
+          trace_last=32, telemetry=1.0, slo=True)),
 ])
 def test_lm_serve_flags_reach_serve_lm(flags, want, monkeypatch, capsys):
     """``--serve`` on an LM workflow serves it through ``serve_lm`` after
     the run, with the engine's six ``--serve-*`` flags forwarded
-    (``--serve-paged-kv`` 0 is the port's paged default)."""
+    (``--serve-paged-kv`` 0 is the port's paged default), and the trace,
+    telemetry (a bare flag: 1 s) and SLO (``default``: the stock
+    objectives) flags."""
     from veles_tpu_torch import restful_api
     seen = {}
 

@@ -190,12 +190,14 @@ def test_unported_knobs_raise(workload, knob, value):
     ``temperature`` alone asks for ``sample_seed``, and ``top_k`` or
     ``sample_seed`` alone leave a greedy engine.  ``faults`` arms a
     plan now (``tests/test_torch_serving_faults.py``): the engine keeps
-    it and calls its ``fire`` at each site."""
+    it and calls its ``fire`` at each site; so does ``tracer`` a span
+    tracer (``tests/test_torch_tracing.py``)."""
     host, _ = workload
-    if knob == "faults":
+    if knob in ("faults", "tracer"):
         engine = LMEngine(host, N_HEADS, MAX_LEN, prefill_chunk=PAGE,
-                          device="cpu", faults=value)
-        assert engine._faults is value and "faults" not in lm_engine._ROADMAP
+                          device="cpu", **{knob: value})
+        assert getattr(engine, "_" + knob) is value
+        assert knob not in lm_engine._ROADMAP
     elif knob == "temperature":
         with pytest.raises(ValueError, match="needs sample_seed"):
             LMEngine(host, N_HEADS, MAX_LEN, prefill_chunk=PAGE,

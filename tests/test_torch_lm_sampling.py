@@ -461,21 +461,46 @@ def test_serve_lm_without_slots_samples_directly(workflow):
         api.stop()
 
 
-#: ``fault_plan`` is ported: its case checks that the plan arms the engine
-LATER_KNOBS = SERVE_LM_UNPORTED + (("fault_plan", None, None),)
+#: ``fault_plan``, ``trace``, ``telemetry`` and ``slo`` are ported: their
+#: cases check that each arms the server and its engine
+PORTED_KNOBS = (("fault_plan", None, None), ("trace", None, None),
+                ("telemetry", 0.0, None), ("slo", None, None))
+LATER_KNOBS = SERVE_LM_UNPORTED + PORTED_KNOBS
+
+
+def _serve_armed(workflow, knob):
+    """serve_lm with the ported ``knob`` set: the server and its engine
+    hold what it arms (the process's default telemetry store restored
+    after)."""
+    from veles_tpu_torch.serving import timeseries
+    old = timeseries.get_default()
+    value = {"fault_plan": FaultPlan(), "trace": "all", "telemetry": 0.5,
+             "slo": True}[knob]
+    api = serve_lm(workflow, port=0, slots=1, **{knob: value})
+    try:
+        engine = api.lm_engine
+        if knob == "fault_plan":
+            assert api.faults is value and engine._faults is value
+        elif knob == "trace":
+            assert api.tracer.mode == "all" and engine._tracer is api.tracer
+        else:
+            assert api.telemetry.interval_s == (0.5 if knob == "telemetry"
+                                                else 1.0)
+            assert timeseries.get_default() is api.telemetry
+            assert (api.slo is not None) == (knob == "slo")
+    finally:
+        api.stop()
+        timeseries.set_default(old)
 
 
 @pytest.mark.parametrize("knob,default,item", LATER_KNOBS,
                          ids=[k for k, _, _ in LATER_KNOBS])
 def test_serve_lm_later_knobs_raise_naming_their_items(workflow, knob,
                                                        default, item):
-    if knob == "fault_plan":
-        plan = FaultPlan()
-        api = serve_lm(workflow, port=0, slots=1, fault_plan=plan)
-        try:
-            assert api.faults is plan and api.lm_engine._faults is plan
-        finally:
-            api.stop()
+    """The fleet and ``tp`` knobs raise naming their items; the ported
+    ones arm the server instead."""
+    if item is None:
+        _serve_armed(workflow, knob)
         return
     value = {bool: True, int: 2, float: 0.5, str: "x",
              type(None): "set"}[type(default)]

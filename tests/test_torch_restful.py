@@ -234,33 +234,34 @@ class TestUnported:
         ("faults", "Queue 2a item 15"), ("tracer", "Queue 1 item 7"),
         ("telemetry", "Queue 1 item 7"), ("slo", "Queue 1 item 7")])
     def test_restful_knobs_raise_naming_their_items(self, knob, item):
-        """``faults`` (its item done) is kept and reaches the batcher
-        (``tests/test_torch_serving_faults.py`` serves through it)."""
-        if knob == "faults":
-            plan = object()
-            api = RESTfulAPI(None, forward=lambda x: x, faults=plan)
+        """Every knob's item is done: ``faults`` is kept and reaches the
+        batcher (``tests/test_torch_serving_faults.py`` serves through
+        it); ``tracer``, ``telemetry`` and ``slo`` are kept, the tracer
+        reaching the batcher too (``tests/test_torch_tracing.py``,
+        ``tests/test_torch_timeseries.py`` serve through them)."""
+        value = object()
+        api = RESTfulAPI(None, forward=lambda x: x, **{knob: value})
+        assert getattr(api, knob) is value
+        if knob in ("faults", "tracer"):
             api.enable_batching(sample_shape=(2,))
-            assert api.faults is plan and api.batcher._faults is plan
-            return
-        with pytest.raises(NotImplementedError, match=item):
-            RESTfulAPI(None, forward=lambda x: x, **{knob: object()})
+            assert getattr(api.batcher, "_" + knob) is value
 
     @pytest.mark.parametrize("knob", ["faults", "tracer"])
     def test_batcher_knobs_raise_naming_their_item(self, knob):
-        """``faults`` is ported (the batcher keeps the plan); ``tracer``
-        raises naming its item."""
-        if knob == "faults":
-            plan = object()
-            assert MicroBatcher(lambda x: x, faults=plan)._faults is plan
-            return
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            MicroBatcher(lambda x: x, **{knob: object()})
+        """Both are ported: the batcher keeps the plan and the tracer."""
+        value = object()
+        assert getattr(MicroBatcher(lambda x: x, **{knob: value}),
+                       "_" + knob) is value
 
     def test_serve_lm_raises_naming_its_item(self):
         """serve_lm is ported; its fleet knobs raise naming their item
-        before the workflow is read."""
+        before the workflow is read, and its trace, telemetry and SLO
+        knobs are no longer among the unported."""
         with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
             serve_lm(None, port=0, replicas=2)
+        from veles_tpu_torch.restful_api import SERVE_LM_UNPORTED
+        assert not {"trace", "telemetry", "slo"} & {
+            knob for knob, _, _ in SERVE_LM_UNPORTED}
 
 
 class TestMicroBatcher:

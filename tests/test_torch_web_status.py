@@ -8,8 +8,8 @@ What is held, and how closely:
 - two dashboards fed the same rows answer the same ``/status.json``
   (apart from each row's ``updated``), ``/metrics``, ``/graph/*.dot``
   and ``.svg``, the same 400 for a bad report and the same 404s;
-  ``/timeseries.json`` is 404 (no store until ``serving/timeseries.py``
-  is ported);
+  ``/timeseries.json`` is 404 while no telemetry store is published
+  (``tests/test_torch_timeseries.py`` serves one);
 - ``StatusReporter``: under the epoch scan a run's row equals the
   reference's (numbers exact but the loss, within 1e-5, the MNIST-FC
   tolerance); in the graph loop the port's final row is the result's
@@ -172,7 +172,13 @@ def test_404s_equal_the_reference(servers, path):
 
 
 def test_timeseries_is_404_without_a_store(servers):
-    assert _get(servers[0] + "/timeseries.json?window=5")[0] == 404
+    from veles_tpu_torch.serving import timeseries
+    old = timeseries.get_default()
+    timeseries.set_default(None)
+    try:
+        assert _get(servers[0] + "/timeseries.json?window=5")[0] == 404
+    finally:
+        timeseries.set_default(old)
 
 
 @pytest.mark.parametrize("body", [b"not json", b'{"epoch": 1}', b"[1, 2]"])

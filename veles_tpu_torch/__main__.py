@@ -29,7 +29,11 @@ scripts/velescli.py [H], SURVEY §2.1, §3.1):
   for its engine), prints ``SERVING http://127.0.0.1:<port>/predict``
   and blocks until interrupted; ``--fault-plan FILE`` arms a JSON fault
   plan (``serving/faults.py``) at the served engine's, batcher's and
-  server's sites.
+  server's sites; an LM workflow's server also takes ``--serve-trace
+  off|errors|all|sample:P`` (``--serve-trace-last N``: the flight
+  recorder's size), ``--serve-telemetry [SECONDS]`` and ``--serve-slo
+  FILE|default`` (``serving/{tracing,timeseries,slo}.py``: ``GET
+  /trace.json``, ``/ledger.json``, ``/timeseries.json``, ``/slo.json``).
 - ``--web-status PORT`` serves the live dashboard (``web_status``; 0:
   any free port) and prints ``WEBSTATUS http://<host>:<port>/``;
   ``--web-status-url URL`` reports this process's rows to another
@@ -38,10 +42,9 @@ scripts/velescli.py [H], SURVEY §2.1, §3.1):
   MongoDB (it needs ``pymongo``: without it the CLI exits 2 naming it).
 
 The parser takes every flag of the reference, so any reference command
-line parses.  The flags whose machinery is not ported yet (the fleet,
-tensor-parallel, tracing, telemetry and SLO serving flags) raise
-NotImplementedError naming their ROADMAP item before anything is
-trained.
+line parses.  The flags whose machinery is not ported yet (the fleet
+and tensor-parallel serving flags) raise NotImplementedError naming
+their ROADMAP item before anything is trained.
 """
 
 from __future__ import annotations
@@ -178,15 +181,34 @@ def build_argparser():
                         help="parsed for the reference's command lines; "
                              "the port's engine has one attention route, "
                              "the card's kernels, whatever this says")
+    parser.add_argument("--serve-trace", default="off", metavar="MODE",
+                        help="with --serve on an LM workflow: request "
+                             "tracing (serving/tracing.py) — "
+                             "off|errors|all|sample:P; GET /trace.json "
+                             "exports the flight recorder as Chrome-"
+                             "trace/Perfetto JSON and GET /ledger.json "
+                             "the per-op cost ledger (default: off)")
+    parser.add_argument("--serve-trace-last", type=int, default=256,
+                        metavar="N",
+                        help="with --serve-trace: the flight recorder's "
+                             "size in requests (default 256)")
+    parser.add_argument("--serve-telemetry", type=float, default=0.0,
+                        nargs="?", const=1.0, metavar="SECONDS",
+                        help="with --serve-slots: sample the serving "
+                             "metrics and the runtime gauges every "
+                             "SECONDS (bare flag: 1) into bounded "
+                             "time series, GET /timeseries.json"
+                             "?window=S (default: off)")
+    parser.add_argument("--serve-slo", default=None, metavar="FILE",
+                        help="with --serve-slots: SLO objectives from a "
+                             "JSON file ('default': the stock set) as "
+                             "multi-window burn rates over the "
+                             "telemetry (implied at 1 s), GET /slo.json")
     # the rest of the reference's --serve-* flags, with their types and
     # defaults (not ported yet: each raises naming its ROADMAP item)
     for flag, kind, default, _ in _SERVE_UNPORTED:
         if kind is bool:
             parser.add_argument(flag, action="store_true",
-                                help="(not ported yet)")
-        elif flag == "--serve-telemetry":
-            parser.add_argument(flag, type=float, default=default,
-                                nargs="?", const=1.0,
                                 help="(not ported yet)")
         else:
             parser.add_argument(flag, type=kind, default=default,
@@ -219,7 +241,6 @@ _SERVE_FLAGS = (
 )
 
 _FLEET = "Queue 1, item 9"
-_OPERATIONS = "Queue 1, item 7"
 #: the reference's serving flags not ported yet: (flag, type, default,
 #: ROADMAP item)
 _SERVE_UNPORTED = (
@@ -234,10 +255,6 @@ _SERVE_UNPORTED = (
     ("--serve-publish-interval", float, 5.0, _FLEET),
     ("--serve-canary-watch", float, 2.0, _FLEET),
     ("--serve-no-auto-rollback", bool, False, _FLEET),
-    ("--serve-trace", str, "off", _OPERATIONS),
-    ("--serve-trace-last", int, 256, _OPERATIONS),
-    ("--serve-telemetry", float, 0.0, _OPERATIONS),
-    ("--serve-slo", str, None, _OPERATIONS),
 )
 
 
@@ -416,8 +433,9 @@ def _is_lm(wf):
 def serve(wf, port, batch=0, args=None):
     """Serve a trained workflow until interrupted (the ``--serve`` tail
     of a run): an LM workflow's token continuation through
-    ``serve_lm`` with the ``--serve-*`` engine flags of ``args``, else
-    its forward chain, with ``--fault-plan``'s plan armed.  In a
+    ``serve_lm`` with the ``--serve-*`` engine, trace, telemetry and SLO
+    flags of ``args``, else its forward chain, with ``--fault-plan``'s
+    plan armed.  In a
     distributed run only process 0 serves (one endpoint, as one process
     writes snapshots)."""
     import torch.distributed as dist
@@ -437,7 +455,12 @@ def serve(wf, port, batch=0, args=None):
                       spec_k=args.serve_spec_k,
                       paged_kv=(True if args.serve_paged_kv <= 0
                                 else args.serve_paged_kv),
-                      megastep=args.serve_megastep)
+                      megastep=args.serve_megastep,
+                      trace=args.serve_trace,
+                      trace_last=args.serve_trace_last,
+                      telemetry=args.serve_telemetry,
+                      slo=(True if args.serve_slo == "default"
+                           else args.serve_slo))
         api = restful_api.serve_lm(wf, port=port, **kw)
     else:
         api = restful_api.RESTfulAPI(

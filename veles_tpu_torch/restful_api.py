@@ -23,20 +23,30 @@ server fault, 503 shed past deadline; a fault plan's injected HTTP
 error (``faults=``, the ``http.request`` site) replies at its status
 with the same structure, ``Retry-After`` on 429 and 503.  Every POST
 reply carries ``X-Request-Id`` (the client's, or one minted here) and
-the same id as ``request_id`` in its body.  ``GET /metrics.json`` (snapshot), ``GET
-/metrics`` (Prometheus text) and ``GET /status`` (a text panel) expose
-the serving counters on the serving port itself.
+the same id as ``request_id`` in its body.  ``GET /metrics.json``
+(snapshot), ``GET /metrics`` (Prometheus text) and ``GET /status`` (a
+text panel) expose the serving counters on the serving port itself.
+
+Observability (each a no-op when not given): ``tracer=`` (a
+:class:`~veles_tpu_torch.serving.tracing.SpanTracer`) opens an
+``http.request`` root span per POST keyed by its request id, joined by
+the batcher and engine below, and serves the flight recorder as
+Chrome-trace/Perfetto JSON at ``GET /trace.json?last=N`` and the live
+per-op cost ledger at ``GET /ledger.json``; ``telemetry=`` (a
+:class:`~veles_tpu_torch.serving.timeseries.TimeSeriesStore`) serves
+its windowed series at ``GET /timeseries.json?window=S`` (400 on a bad
+window) and is stopped with the server; ``slo=`` (an
+:class:`~veles_tpu_torch.serving.slo.SLOMonitor`) serves its burn
+rates and states at ``GET /slo.json``.  ``/status`` shows all three.
 
 :func:`serve_lm` serves a trained transformer workflow's token
 continuation: greedy requests through the paged ``LMEngine``'s slots,
 sampled ones (and every one without slots) through ``generate``.
 
-Not ported yet: the reference's span tracer, telemetry store and SLO
-monitor (``tracer=``, ``telemetry=``, ``slo=``, Queue 1 item 7), and
-``serve_lm``'s fleet (replicas, router, health, hedging, retries, the
-model directory's publisher: Queue 1 item 9), ``tp`` (item 4) and the
-contiguous KV layout (``paged_kv=0``, item 8) — each raises
-NotImplementedError naming its item.
+Not ported yet: ``serve_lm``'s fleet (replicas, router, health,
+hedging, retries, the model directory's publisher: Queue 1 item 9),
+``tp`` (item 4) and the contiguous KV layout (``paged_kv=0``, item 8) —
+each raises NotImplementedError naming its item.
 
 Usage::
 
@@ -60,12 +70,7 @@ import torch
 
 from veles_tpu_torch.logger import Logger
 
-#: the reference's keyword arguments not ported yet, with their items
-_UNPORTED = (("tracer", "Queue 1 item 7"), ("telemetry", "Queue 1 item 7"),
-             ("slo", "Queue 1 item 7"))
-
 _FLEET = "Queue 1 item 9 (the serving fleet)"
-_OPERATIONS = "Queue 1 item 7 (operations)"
 #: serve_lm's knobs not ported yet: (name, default, ROADMAP item)
 SERVE_LM_UNPORTED = (
     ("tp", 0, "Queue 1 item 4 (tensor-parallel serving)"),
@@ -74,8 +79,6 @@ SERVE_LM_UNPORTED = (
     ("retries", 0, _FLEET), ("model_dir", None, _FLEET),
     ("publish_interval_s", 5.0, _FLEET), ("canary", 1, _FLEET),
     ("canary_watch_s", 2.0, _FLEET), ("auto_rollback", True, _FLEET),
-    ("trace", None, _OPERATIONS), ("telemetry", 0.0, _OPERATIONS),
-    ("slo", None, _OPERATIONS),
 )
 
 
@@ -97,16 +100,19 @@ class RESTfulAPI(Logger):
     def __init__(self, workflow, normalizer=None, forward=None,
                  handler=None, metrics=None, max_body=16 << 20,
                  faults=None, tracer=None, telemetry=None, slo=None):
-        given = dict(tracer=tracer, telemetry=telemetry, slo=slo)
-        for knob, item in _UNPORTED:
-            if given[knob] is not None:
-                raise NotImplementedError(
-                    "RESTfulAPI(%s=) is not ported yet: ROADMAP %s"
-                    % (knob, item))
         self.workflow = workflow
         #: the armed fault plan: its ``http.request`` site here, its
         #: ``batcher.*`` sites through :meth:`enable_batching`
         self.faults = faults
+        #: optional SpanTracer: an ``http.request`` root span a POST,
+        #: ``GET /trace.json`` and ``GET /ledger.json``; also handed to
+        #: the batcher of :meth:`enable_batching`
+        self.tracer = tracer
+        #: optional TimeSeriesStore — ``GET /timeseries.json?window=S``
+        #: (stopped with the server)
+        self.telemetry = telemetry
+        #: optional SLOMonitor over the store — ``GET /slo.json``
+        self.slo = slo
         #: optional input normalizer (a loader's fitted normalizer) applied
         #: before the forward, so clients send raw feature scale
         self.normalizer = normalizer
@@ -189,7 +195,7 @@ class RESTfulAPI(Logger):
             self._ensure_forward(), max_batch=max_batch,
             queue_depth=queue_depth, batch_wait_s=batch_wait_s,
             deadline_s=deadline_s, sample_shape=sample_shape,
-            metrics=m, name=name, faults=self.faults)
+            metrics=m, name=name, faults=self.faults, tracer=self.tracer)
         self.metrics = m
         return self
 
@@ -241,12 +247,56 @@ class RESTfulAPI(Logger):
                            "application/json", headers)
 
             def do_GET(self):
-                path = urllib.parse.urlsplit(self.path).path.rstrip("/")
+                split = urllib.parse.urlsplit(self.path)
+                path = split.path.rstrip("/")
+                query = urllib.parse.parse_qs(split.query)
                 if path == "/metrics.json" and api.metrics is not None:
                     self._reply(200, api.metrics.snapshot())
+                elif path == "/timeseries.json" \
+                        and api.telemetry is not None:
+                    # every metrics family's windowed rates, gauges and
+                    # percentiles plus the raw ring points
+                    try:
+                        window = float(query.get("window", ["60"])[0])
+                    except ValueError:
+                        window = float("nan")
+                    # not (window > 0) also catches NaN, which would
+                    # serialize as a non-strict literal
+                    if not window > 0 or window == float("inf"):
+                        self._reply(400, {"error": "window must be a "
+                                          "positive number of seconds"})
+                        return
+                    self._reply(200, api.telemetry.snapshot(
+                        window_s=window))
+                elif path == "/slo.json" and api.slo is not None:
+                    self._reply(200, api.slo.snapshot())
+                elif path == "/ledger.json" and api.tracer is not None:
+                    # the live per-op cost ledger: dispatches deduplicated
+                    # by dispatch id, maintained as spans are recorded
+                    from veles_tpu_torch.serving.metrics import \
+                        monotonic_offset
+                    rows = api.tracer.live_ledger()
+                    self._reply(200, {
+                        "sampled_at": round(monotonic_offset(), 6),
+                        "dispatches_total": sum(r["dispatches"]
+                                                for r in rows),
+                        "rows": rows})
+                elif path == "/trace.json" and api.tracer is not None:
+                    # the flight recorder as Chrome-trace/Perfetto JSON;
+                    # ?last=N trims to the newest N requests
+                    try:
+                        last = (int(query["last"][0]) if query.get("last")
+                                else None)
+                    except ValueError:
+                        self._reply(400, {"error": "last must be an "
+                                          "integer"})
+                        return
+                    self._reply(200, api.tracer.export_chrome(last=last))
                 elif path == "/status":
-                    self._send(200, render_status(api.metrics).encode(),
-                               "text/plain; charset=utf-8")
+                    self._send(200, render_status(
+                        metrics=api.metrics, telemetry=api.telemetry,
+                        slo=api.slo, tracer=api.tracer).encode(),
+                        "text/plain; charset=utf-8")
                 elif path == "/metrics":
                     from veles_tpu_torch.serving import metrics as \
                         metrics_mod
@@ -269,7 +319,34 @@ class RESTfulAPI(Logger):
                 t0 = time.monotonic()
                 rid = (self.headers.get("X-Request-Id") or "").strip()
                 rid = rid[:64] or uuid.uuid4().hex[:16]
-                code, payload, headers = self._handle_post(t0)
+                ctx = None
+                if api.tracer is not None:
+                    ctx = api.tracer.start_request(
+                        rid=rid, name="http.request", cat="http",
+                        attrs={"path": self.path})
+                #: set by _handle_post's DeadlineExceeded branch: a 503
+                #: alone is not a deadline (an injected one is not)
+                self._shed = False
+                code, payload, headers = 500, {"error": "internal"}, []
+                try:
+                    if api.tracer is not None:
+                        from veles_tpu_torch.serving import tracing
+                        # ctx None: the sampler skipped this request —
+                        # the sentinel keeps the layers below from
+                        # rooting partial trees of their own
+                        with tracing.use(ctx if ctx is not None
+                                         else tracing.SAMPLED_OUT):
+                            code, payload, headers = \
+                                self._handle_post(t0)
+                    else:
+                        code, payload, headers = self._handle_post(t0)
+                finally:
+                    if ctx is not None:
+                        # 5xx replies dump the flight recorder
+                        api.tracer.finish_request(
+                            ctx, error=("http %d" % code) if code >= 500
+                            else None, deadline=self._shed,
+                            attrs={"status": code})
                 if isinstance(payload, dict):
                     payload.setdefault("request_id", rid)
                 self._reply(code, payload,
@@ -322,6 +399,7 @@ class RESTfulAPI(Logger):
                                  "retry_after": e.retry_after}, \
                         [("Retry-After", _retry_after(e.retry_after))]
                 except DeadlineExceeded as e:
+                    self._shed = True
                     return 503, {"error": str(e)}, [("Retry-After", "1")]
                 except (TypeError, ValueError) as e:
                     # shape/range complaints raised while processing the
@@ -355,16 +433,23 @@ class RESTfulAPI(Logger):
             self._server.shutdown()
             self._server.server_close()
             self._server = None
+        if self.telemetry is not None:
+            # the sampler reads engine metrics: stop it before the
+            # engine so a tick never races a teardown
+            self.telemetry.stop()
         if self.batcher is not None:
             self.batcher.stop()
         if self.lm_engine is not None:
             self.lm_engine.stop()
 
 
-def render_status(metrics=None):
-    """The ``GET /status`` text panel: the engine's counters and gauges
-    (the reference's telemetry, SLO and cost-ledger sections need
-    modules not ported yet, ROADMAP Queue 1 item 7)."""
+def render_status(metrics=None, telemetry=None, slo=None, tracer=None,
+                  window_s=60.0):
+    """The ``GET /status`` text panel: the operator's one-glance view —
+    the engine's counters and live gauges, windowed rates and tail
+    latency from the telemetry store, every SLO objective's state and
+    burn, and the top live-ledger rows; each section only when its
+    component is given.  Plain text, readable over curl."""
     from veles_tpu_torch.serving.metrics import monotonic_offset
     lines = ["veles_tpu_torch serving status",
              "sampled_at %.3fs (monotonic offset)"
@@ -377,9 +462,64 @@ def render_status(metrics=None):
             % (snap["requests"], snap["responses"], snap["errors"],
                snap["rejected"], snap["shed"]))
         g = snap["gauges"]
-        lines.append("  queue_depth %g  dispatches %d  mean batch %s"
-                     % (g.get("queue_depth", 0), snap["dispatches"],
-                        snap["batch_size"].get("mean", "-")))
+        lines.append(
+            "  queue_depth %g  slots %g/%g  kv_pages_free %g/%g  "
+            "compile_programs %g"
+            % (g.get("queue_depth", 0), g.get("slots_busy", 0),
+               g.get("slots_total", 0), g.get("kv_pages_free", 0),
+               g.get("kv_pages_total", 0),
+               g.get("compile_programs", 0)))
+        lines.append(
+            "  dispatches %d  mean batch %s  ewma ttft %.4fs  "
+            "decode_step %.4fs  mfu_live %s"
+            % (snap["dispatches"], snap["batch_size"].get("mean", "-"),
+               snap["ewma"].get("ttft", 0.0),
+               snap["ewma"].get("decode_step", 0.0),
+               g.get("mfu_live", "-")))
+        lines.append("")
+    if telemetry is not None:
+        lines.append("[telemetry — last %gs of %d samples @ %gs]"
+                     % (window_s, telemetry.samples,
+                        telemetry.interval_s))
+        for key in telemetry.sources():
+            rq = telemetry.window("%s.counter.responses" % key,
+                                  window_s)
+            er = telemetry.window("%s.counter.errors" % key, window_s)
+            tt = telemetry.window("%s.hist.ttft" % key, window_s)
+            ds = telemetry.window("%s.hist.decode_step" % key,
+                                  window_s)
+            lines.append(
+                "  %-24s %7.2f resp/s  %5.2f err/s  "
+                "ttft p95 %ss  step p95 %ss"
+                % (key,
+                   rq["rate_per_s"] if rq else 0.0,
+                   er["rate_per_s"] if er else 0.0,
+                   tt["p95"] if tt else "-",
+                   ds["p95"] if ds else "-"))
+        lines.append("")
+    if slo is not None:
+        snap = slo.snapshot()
+        lines.append("[slo — worst state: %s, %d page(s) total]"
+                     % (snap["worst_state_name"],
+                        snap["pages_total"]))
+        for row in snap["objectives"]:
+            burns = " ".join("%gs=%.2fx" % (b["window_s"], b["burn"])
+                             for b in row["burn_rates"])
+            lines.append("  %-5s %-24s %-12s target %g  burn %s"
+                         % (row["state_name"].upper(), row["source"],
+                            row["objective"], row["target"], burns))
+        lines.append("")
+    if tracer is not None:
+        rows = tracer.live_ledger()
+        lines.append("[cost ledger — %d dispatch(es), top rows]"
+                     % sum(r["dispatches"] for r in rows))
+        for r in rows[:8]:
+            lines.append(
+                "  %-18s bucket %-6s %-8s n=%-7d p50 %8.3fms  "
+                "p95 %8.3fms  total %10.1fms"
+                % (r["op"], r["bucket"], r["backend"],
+                   r["dispatches"], r["p50_ms"], r["p95_ms"],
+                   r["total_ms"]))
         lines.append("")
     return "\n".join(lines) + "\n"
 
@@ -419,21 +559,36 @@ def serve_lm(workflow, host="127.0.0.1", port=8180, max_new=256,
     CLI's ``--fault-plan FILE``) arms the engine's ``engine.*`` sites
     and the server's ``http.request`` site.
 
+    ``trace`` (``"off"``/None, ``"all"``, ``"errors"``, ``"sample:P"``
+    or a :class:`~veles_tpu_torch.serving.SpanTracer`; the CLI's
+    ``--serve-trace``) arms a span tracer through the HTTP root, the
+    engine's queue, prompt chunks, copies and decode dispatches (one
+    span a captured-graph replay); the last ``trace_last`` finished
+    requests stay in its flight recorder, served at ``GET
+    /trace.json?last=N`` (Chrome-trace/Perfetto JSON) with the live cost
+    ledger at ``GET /ledger.json``.  ``telemetry=S`` (engine path; True
+    is 1 s) samples the engine's metrics every ``S`` seconds into a
+    :class:`~veles_tpu_torch.serving.TimeSeriesStore` with the runtime
+    probe (captured graphs, RSS, card memory, tokens/s, MFU), served at
+    ``GET /timeseries.json?window=S`` and published as the process's
+    default store (``web_status``'s ``/timeseries.json``); ``slo`` (a
+    JSON objective file, a parsed spec, or True for the stock
+    objectives) arms an :class:`~veles_tpu_torch.serving.SLOMonitor` on
+    the store's tick, served at ``GET /slo.json``, and implies
+    ``telemetry`` (1 s).  ``stop()`` stops the store before the engine.
+
     Not ported yet, each raising NotImplementedError naming its ROADMAP
     item (:data:`SERVE_LM_UNPORTED`): ``tp``; the fleet (``replicas``,
     ``router``, ``health``, ``hedge``, ``retries``, ``model_dir``,
     ``publish_interval_s``, ``canary``, ``canary_watch_s``,
-    ``auto_rollback``); ``trace`` (``"off"`` is unset), ``telemetry``
-    and ``slo``; and ``paged_kv=0``.  The reference's
+    ``auto_rollback``); and ``paged_kv=0``.  The reference's
     ``attn_kernel`` is not a keyword here: the port has one attention
     route, the kernels."""
     given = dict(tp=tp, replicas=replicas, router=router, health=health,
                  hedge=hedge, retries=retries, model_dir=model_dir,
                  publish_interval_s=publish_interval_s, canary=canary,
                  canary_watch_s=canary_watch_s,
-                 auto_rollback=auto_rollback,
-                 trace=None if trace == "off" else trace,
-                 telemetry=telemetry, slo=slo)
+                 auto_rollback=auto_rollback)
     for knob, default, item in SERVE_LM_UNPORTED:
         if given[knob] != default:
             raise NotImplementedError(
@@ -453,6 +608,8 @@ def serve_lm(workflow, host="127.0.0.1", port=8180, max_new=256,
     # a geometric ladder bounds the direct path's decode overshoot (at
     # most 4x the request's n_new)
     tiers = sorted({t for t in (8, 32, 128, max_new) if t <= max_new})
+    from veles_tpu_torch.serving.tracing import SpanTracer
+    tracer = SpanTracer.from_spec(trace, last=int(trace_last))
     engine = None
     if slots > 0:
         from veles_tpu_torch.serving import LMEngine
@@ -466,7 +623,28 @@ def serve_lm(workflow, host="127.0.0.1", port=8180, max_new=256,
             prefix_cache=prefix_cache, prefill_chunk=prefill_chunk,
             spec_k=spec_k, queue_tokens=queue_tokens, paged_kv=paged_kv,
             megastep=megastep, name="lm", metrics=metrics_mod.new("lm"),
-            faults=fault_plan, device=device).start()
+            faults=fault_plan, tracer=tracer, device=device).start()
+        if slo and not telemetry:
+            telemetry = 1.0         # objectives need the store
+    store = monitor = None
+    if engine is not None and telemetry:
+        from veles_tpu_torch.serving import timeseries as ts_mod
+        from veles_tpu_torch.serving.metrics import _registry_key
+        from veles_tpu_torch.serving.slo import SLOMonitor
+        interval = 1.0 if telemetry is True else float(telemetry)
+        store = ts_mod.telemetry_for(engine, interval_s=interval)
+        if slo:
+            # the SLO gauges and counters land in the engine's own
+            # family, so /metrics carries slo_state too
+            kw = dict(source_replicas={_registry_key(engine.metrics): 0},
+                      metrics=engine.metrics)
+            monitor = (SLOMonitor(store, SLOMonitor.default_objectives(),
+                                  **kw) if slo is True
+                       else SLOMonitor.from_spec(slo, store, **kw))
+            # one evaluation per sampling window, on the store's tick
+            store.add_listener(monitor.sample_once)
+        ts_mod.set_default(store)
+        store.start()
 
     def handler(request):
         prompt = numpy.asarray(request["input"], numpy.int32)
@@ -517,7 +695,8 @@ def serve_lm(workflow, host="127.0.0.1", port=8180, max_new=256,
 
     api = RESTfulAPI(None, handler=handler,
                      metrics=engine.metrics if engine is not None else None,
-                     faults=fault_plan)
+                     faults=fault_plan, tracer=tracer, telemetry=store,
+                     slo=monitor)
     api.lm_engine = engine
     return api.start(host=host, port=port)
 

@@ -24,8 +24,13 @@ The forward takes and returns numpy arrays; where its work runs (the
 CPU or the card) is its own affair.  ``faults=`` arms a
 :class:`~veles_tpu_torch.serving.faults.FaultPlan`'s ``batcher.submit``
 and ``batcher.dispatch`` sites (an injected dispatch error fails that
-batch's clients, never the worker).  The reference's span tracing
-(``tracer=``) is not ported yet: ROADMAP Queue 1 item 7.
+batch's clients, never the worker).  ``tracer=`` takes a
+:class:`~veles_tpu_torch.serving.tracing.SpanTracer`: each request
+roots a ``batch.request`` trace (or joins its caller's), its
+``queue.wait`` span closes at dispatch (or with ``error="shed"``), and
+one ``batch.dispatch`` span a forward is shared by the batch's items
+under one dispatch id (``backend`` ``"forward"``: the caller's forward,
+its result read back as numpy, so the span closes after its work).
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from concurrent.futures import Future
 import numpy
 
 from veles_tpu_torch.logger import Logger
-from veles_tpu_torch.serving import lockcheck
+from veles_tpu_torch.serving import lockcheck, tracing
 from veles_tpu_torch.serving.metrics import ServingMetrics
 
 
@@ -77,13 +82,17 @@ class DeadlineExceeded(RuntimeError):
 
 
 class _Item:
-    __slots__ = ("rows", "future", "t_enq", "deadline")
+    __slots__ = ("rows", "future", "t_enq", "deadline", "trace",
+                 "tspan")
 
     def __init__(self, rows, deadline_s):
         self.rows = rows
         self.future = Future()
         self.t_enq = time.monotonic()
         self.deadline = self.t_enq + deadline_s
+        #: tracing: request context + open queue-wait span
+        self.trace = None
+        self.tspan = None
 
 
 def batch_buckets(max_batch):
@@ -109,12 +118,10 @@ class MicroBatcher(Logger):
                  batch_wait_s=0.002, deadline_s=2.0, sample_shape=None,
                  dtype=numpy.float32, metrics=None, name="predict",
                  faults=None, tracer=None):
-        if tracer is not None:
-            raise NotImplementedError(
-                "MicroBatcher(tracer=) is not ported yet: ROADMAP Queue 1 "
-                "item 7")
         #: the armed fault plan (None: each site is one is-None check)
         self._faults = faults
+        #: the span tracer (None: each site is one is-None check)
+        self._tracer = tracer
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         if queue_depth < 1:
@@ -173,9 +180,22 @@ class MicroBatcher(Logger):
             raise ValueError("submit needs at least one row")
         if self._faults is not None:
             self._faults.fire("batcher.submit")
-        return self._admit(rows).future.result()
+        tctx, own_root = None, False
+        if self._tracer is not None:
+            tctx, own_root = tracing.join_or_root(
+                self._tracer, "batch.request", "batch",
+                attrs={"engine": self.name})
+            if tctx is tracing.SAMPLED_OUT:
+                tctx = None
+        try:
+            item = self._admit(rows, tctx, own_root)
+        except Exception as e:
+            if own_root:
+                tctx.tracer.finish_request(tctx, error=e)
+            raise
+        return item.future.result()
 
-    def _admit(self, rows):
+    def _admit(self, rows, tctx, own_root):
         with self._cond:
             if self._stop or self._thread is None:
                 raise RuntimeError("micro-batcher is not running")
@@ -196,6 +216,15 @@ class MicroBatcher(Logger):
                 raise Overloaded(retry_after=max(
                     0.01, self._dispatch_ewma))
             item = _Item(rows, self.deadline_s)
+            if tctx is not None:
+                item.trace = tctx
+                item.tspan = tctx.tracer.begin(
+                    tctx, "queue.wait", cat="queue",
+                    attrs={"engine": self.name})
+                if own_root:
+                    item.future.add_done_callback(
+                        lambda f, ctx=tctx:
+                        tracing.finish_from_future(ctx, f))
             self._queue.append(item)
             self.metrics.record_enqueue()
             self.metrics.set_gauge("queue_depth", len(self._queue))
@@ -255,6 +284,14 @@ class MicroBatcher(Logger):
         A single oversized request (rows > max_batch) is chunked over
         several max_batch forwards."""
         now = time.monotonic()
+        for it in items:
+            # close queue-wait spans BEFORE the fault site: an injected
+            # dispatch error fails these clients, and their finished
+            # trees must carry no unclosed spans
+            if it.tspan is not None:
+                it.trace.tracer.end(it.tspan, attrs={
+                    "wait_s": round(now - it.t_enq, 6)})
+                it.tspan = None
         if self._faults is not None:
             # inside the worker's dispatch try: an injected error takes
             # the real fault-isolation path
@@ -275,6 +312,13 @@ class MicroBatcher(Logger):
             with self._cond:
                 self._dispatch_ewma = (0.8 * self._dispatch_ewma
                                        + 0.2 * (time.monotonic() - t0))
+            if self._tracer is not None:
+                # the forward's numpy result is its read-back: no fence
+                self._tracer.add_many(
+                    [it.trace for it in items], "batch.dispatch",
+                    "batch", t0, time.monotonic(),
+                    attrs={"rows": real, "bucket": bucket,
+                           "backend": "forward"})
             outs.append(out[:real])
             # histogram the real coalesced rows, not the bucket padding
             self.metrics.record_dispatch(
@@ -297,6 +341,9 @@ class MicroBatcher(Logger):
             items, expired = self._take_batch()
             for it in expired:
                 self.metrics.record_shed()
+                if it.tspan is not None:
+                    it.trace.tracer.end(it.tspan, error="shed")
+                    it.tspan = None
                 it.future.set_exception(DeadlineExceeded(
                     "request shed after %.3fs in queue (deadline %.3fs)"
                     % (time.monotonic() - it.t_enq, self.deadline_s)))

@@ -91,6 +91,20 @@ Operations (the reference's crash-safe serving and hot weight swap):
   whose sites (``engine.submit``, ``engine.tick``, ``engine.chunk``,
   ``engine.cow``, ``engine.step``, ``engine.verify``, ``engine.swap``)
   sit where the reference's do; unarmed, each is one is-None check.
+- ``tracer=`` takes a :class:`~veles_tpu_torch.serving.tracing.
+  SpanTracer`: each request's ``engine.request`` root (or the caller's,
+  joined), its ``queue.wait``, ``prefix.hit`` marks, every
+  ``prefill.chunk`` (the standby ring's too), ``cow.copy``,
+  ``decode.step`` / ``decode.verify``, ONE ``decode.megastep`` span a
+  replay of a captured graph (or a while launch, with its realised
+  ``iters``) shared by its lanes under one dispatch id, and the
+  ``swap.apply`` / ``swap.refused`` events, with the reference's
+  attributes (``backend`` names the kernel route: ``cuda``, or
+  ``plain`` on the CPU).  The decode spans close after their read-back;
+  the prompt chunk, page copy and swap apply run in place, so a traced
+  one synchronizes the stream before its span closes — only when a
+  sampled request takes part.  No span site sits inside a captured
+  body; unarmed, each site is one is-None check.
 - Every admitted request is JOURNALED until its future settles:
   :meth:`checkpoint` gives the reference's format-1 JSON (the unresolved
   requests, the slot frontiers, the pool's books, no tensors) and
@@ -136,7 +150,7 @@ from veles_tpu_torch.ops.transformer import (TransformerLM, head_logits,
                                              params_from_jax,
                                              propose_draft_in_graph,
                                              tree_map)
-from veles_tpu_torch.serving import lockcheck
+from veles_tpu_torch.serving import lockcheck, tracing
 from veles_tpu_torch.serving.batcher import (DeadlineExceeded, Overloaded,
                                              PoolExhausted)
 from veles_tpu_torch.serving.kv_pool import KVPagePool
@@ -146,7 +160,6 @@ from veles_tpu_torch.serving.metrics import ServingMetrics
 _ROADMAP = {
     "tp": "Queue 1 item 4 (tensor-parallel serving)",
     "devices": "Queue 1 item 4 (tensor-parallel serving)",
-    "tracer": "Queue 1 item 7 (span tracing, telemetry and SLOs)",
     "paged_kv": "Queue 1 item 8 (contiguous KV layout)",
 }
 
@@ -363,7 +376,8 @@ class RadixPrefixCache:
 
 class _Request:
     __slots__ = ("prompt", "true_len", "n_new", "future", "t_enq",
-                 "deadline", "cancelled", "pages", "t_first", "seed")
+                 "deadline", "cancelled", "pages", "t_first", "seed",
+                 "trace", "tspan")
 
     def __init__(self, prompt, n_new, deadline_s, pages=0):
         self.prompt = prompt          # (s,) int32, unpadded
@@ -380,6 +394,10 @@ class _Request:
         self.t_first = None
         #: the sampling lane seed: the admission id
         self.seed = 0
+        #: tracing: the request's TraceContext (None: not traced) and
+        #: its open queue-wait span
+        self.trace = None
+        self.tspan = None
 
 
 class _Slot:
@@ -450,7 +468,9 @@ class LMEngine(Logger):
     it.
     ``queue_tokens=T`` budgets admission by queued prompt tokens.
     ``faults`` arms a :class:`~veles_tpu_torch.serving.faults.FaultPlan`'s
-    ``engine.*`` sites; ``version`` is the first ``weights_version``.
+    ``engine.*`` sites; ``tracer`` a
+    :class:`~veles_tpu_torch.serving.tracing.SpanTracer`'s spans;
+    ``version`` is the first ``weights_version``.
     ``temperature > 0`` samples (``top_k`` > 0 keeps the k most likely
     tokens, ties at the cutoff included) under ``sample_seed``, which it
     needs; 0 decodes greedily.
@@ -484,12 +504,13 @@ class LMEngine(Logger):
         if megastep_mode not in (None, "scan", "while"):
             raise ValueError("megastep_mode must be 'scan' or 'while' "
                              "(got %r)" % (megastep_mode,))
-        for knob, value in (("tp", tp), ("devices", devices),
-                            ("tracer", tracer)):
+        for knob, value in (("tp", tp), ("devices", devices)):
             if value:
                 raise _unported(knob)
         #: the armed fault plan (None: every site is one is-None check)
         self._faults = faults
+        #: the span tracer (None: every site is one is-None check)
+        self._tracer = tracer
         #: seeded sampling: temperature > 0 draws each token under a key
         #: of (lane seed, position); 0 keeps the greedy argmax programs
         self.temperature = float(temperature or 0.0)
@@ -534,6 +555,8 @@ class LMEngine(Logger):
             raise ValueError("slots must be >= 1")
         self.name = name
         self.device = resolve_device(device)
+        #: the traced device spans' ``backend``: the kernels' route
+        self._backend = "cuda" if self.device.type == "cuda" else "plain"
         self.n_heads = int(n_heads)
         self.max_len = int(max_len)
         self.slots = int(slots)
@@ -669,6 +692,33 @@ class LMEngine(Logger):
         attribute-is-None check on the hot path."""
         if self._faults is not None:
             self._faults.fire(site)
+
+    # -------------------------------------------------------------- tracing
+    def _tfence(self, traced=True):
+        """Dispatch fencing: the prompt chunk, the page copy and the swap
+        apply return before the card finishes them, so a traced span
+        synchronizes the current stream — the one every program runs on
+        — before it closes, to time the card's work and not its
+        enqueue.  Only when tracing is armed AND the dispatch serves a
+        sampled request (``traced``); the CPU has nothing to wait for.
+        The decode paths read their output back and need no fence."""
+        if self._tracer is not None and traced \
+                and self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _trace_admitted(self, req):
+        """Close the request's queue-wait span at slot assignment."""
+        if req.tspan is not None:
+            req.trace.tracer.end(req.tspan, attrs={
+                "wait_s": round(time.monotonic() - req.t_enq, 6)})
+            req.tspan = None
+
+    def _trace_queue_end(self, req, error):
+        """Close the queue-wait span on a non-admission exit (shed,
+        cancel, stop) so the finished tree carries no unclosed spans."""
+        if req.tspan is not None:
+            req.trace.tracer.end(req.tspan, error=error)
+            req.tspan = None
 
     # ------------------------------------------------------------- programs
     def _tensor(self, arr):
@@ -1366,6 +1416,7 @@ class LMEngine(Logger):
         if self._ring:
             # standby prefill ran on the OLD weights
             self._requeue_ring()
+        t0a = time.monotonic()
         try:
             self._fault("engine.swap")
         except Exception as e:   # noqa: BLE001 — refuse, keep serving
@@ -1374,6 +1425,10 @@ class LMEngine(Logger):
             self.metrics.inc("weight_swap_failures")
             self.warning("weight swap refused at apply: %s (old weights "
                          "keep serving)", e)
+            if self._tracer is not None:
+                self._tracer.event(
+                    "swap.refused", cat="swap", t0=t0a,
+                    attrs={"engine": self.name, "error": str(e)})
         else:
             # staging checked every leaf against the live tree's, so
             # the keyed copy cannot stop partway on a shape or dtype
@@ -1381,6 +1436,16 @@ class LMEngine(Logger):
             self.metrics.inc("weight_swaps")
             self.metrics.set_gauge("swap_quiesce_s",
                                    time.monotonic() - swap["t0"])
+            if self._tracer is not None:
+                # the in-place copies are queued, not done: fenced
+                self._tfence()
+                self._tracer.event(
+                    "swap.apply", cat="swap", t0=t0a,
+                    attrs={"engine": self.name,
+                           "version": swap["version"],
+                           "drain": swap["drain"],
+                           "quiesce_s": round(
+                               time.monotonic() - swap["t0"], 4)})
         swap["params"] = None             # the staged tree is freed
         swap["done"].set()
 
@@ -1391,6 +1456,14 @@ class LMEngine(Logger):
         fresh_deadline = time.monotonic() + self.deadline_s
         for req in reqs:
             req.deadline = max(req.deadline, fresh_deadline)
+            if req.trace is not None:
+                # back in the queue: a fresh queue-wait span, ended by
+                # the re-admission
+                req.trace.tracer.instant(req.trace, "swap.requeue",
+                                         cat="engine")
+                req.tspan = req.trace.tracer.begin(
+                    req.trace, "queue.wait", cat="queue",
+                    attrs={"engine": self.name, "requeued": True})
         with self._cond:
             for req in reversed(reqs):
                 self._queue.appendleft(req)
@@ -1559,9 +1632,25 @@ class LMEngine(Logger):
                 "holds %d — this request can never be placed"
                 % (len(prompt), n_new, demand, self._pool.num_pages))
         self._fault("engine.submit")
-        return self._submit_admit(prompt, n_new, demand)
+        # tracing: join the caller's request context (HTTP) or root one
+        # here — whoever STARTED the trace finishes it, so own_root
+        # marks ours; a sampled-out decision above sticks
+        tctx, own_root = None, False
+        if self._tracer is not None:
+            tctx, own_root = tracing.join_or_root(
+                self._tracer, "engine.request", "engine",
+                attrs={"engine": self.name})
+            if tctx is tracing.SAMPLED_OUT:
+                tctx = None
+        try:
+            return self._submit_admit(prompt, n_new, demand, tctx,
+                                      own_root)
+        except Exception as e:
+            if own_root:
+                tctx.tracer.finish_request(tctx, error=e)
+            raise
 
-    def _submit_admit(self, prompt, n_new, demand):
+    def _submit_admit(self, prompt, n_new, demand, tctx, own_root):
         with self._cond:
             if self._stop or self._thread is None:
                 raise RuntimeError("LM engine is not running")
@@ -1585,6 +1674,15 @@ class LMEngine(Logger):
                 raise PoolExhausted(demand, 2 * self._pool.num_pages)
             req = _Request(prompt, int(n_new), self.deadline_s,
                            pages=demand)
+            if tctx is not None:
+                req.trace = tctx
+                req.tspan = tctx.tracer.begin(
+                    tctx, "queue.wait", cat="queue",
+                    attrs={"engine": self.name})
+                if own_root:
+                    req.future.add_done_callback(
+                        lambda f, ctx=tctx:
+                        tracing.finish_from_future(ctx, f))
             # the sampling lane seed: the admission id, deterministic in
             # submission order, so the same traffic on any engine mode
             # folds the same (seed, position) into its draws
@@ -1640,6 +1738,7 @@ class LMEngine(Logger):
                 self._queued_pages -= req.pages
             except ValueError:
                 return           # admitted (or done) — worker handles it
+        self._trace_queue_end(req, "cancelled")
         req.future.cancel()
 
     # ---------------------------------------------------------- accounting
@@ -1732,10 +1831,12 @@ class LMEngine(Logger):
             if req is None:
                 return
             if req.cancelled:            # raced _cancel's dequeue
+                self._trace_queue_end(req, "cancelled")
                 req.future.cancel()
                 continue
             if time.monotonic() > req.deadline:
                 self.metrics.record_shed()
+                self._trace_queue_end(req, "shed")
                 req.future.set_exception(DeadlineExceeded(
                     "prompt shed after %.3fs in queue" % (
                         time.monotonic() - req.t_enq)))
@@ -1807,6 +1908,12 @@ class LMEngine(Logger):
             tail = numpy.pad(tail, (0, C - len(tail)))
         lane.pending.append((tail, n_full * C, True))
         self.metrics.record_queue_wait(time.monotonic() - req.t_enq)
+        self._trace_admitted(req)
+        if nodes and req.trace is not None:
+            req.trace.tracer.instant(
+                req.trace, "prefix.hit", cat="prefill",
+                attrs={"chunks": len(nodes), "tokens": len(nodes) * C,
+                       "paged": True})
         self._lanes[slot] = lane
         # park the step position at the chunk frontier: the batched
         # decode steps EVERY slot, and a prefilling lane's garbage write
@@ -1858,14 +1965,22 @@ class LMEngine(Logger):
             if fresh is None:
                 raise Overloaded()
             q = fresh[0]
+            t0c = time.monotonic()
             try:
                 self._fault("engine.cow")
                 self._page_copy_program(p, q)
+                self._tfence(lane.request.trace is not None)
             except Exception:
                 # nobody owns q yet (not in lane.pages) — hand it back
                 # or a faulting device shrinks the pool for good
                 self._pool.release(q)
                 raise
+            if lane.request.trace is not None:
+                lane.request.trace.tracer.add(
+                    lane.request.trace, "cow.copy", "kv", t0c,
+                    time.monotonic(),
+                    attrs={"page": int(p), "bucket": self.prefill_chunk,
+                           "backend": self._backend})
             self._pool.pin(q)
             self._pool.unpin(p)
             self._pool.release(p)
@@ -1933,6 +2048,11 @@ class LMEngine(Logger):
                 self.metrics.inc("prefix_hit_chunks")
                 self.metrics.inc("prefix_hit_tokens", len(tokens))
                 self.metrics.inc("kv_pages_referenced")
+                if req.trace is not None:
+                    req.trace.tracer.instant(
+                        req.trace, "prefix.hit", cat="prefill",
+                        attrs={"late": True, "start": int(start),
+                               "paged": True})
                 self._update_pool_gauges()
                 self._pos[slot] = lane.pending[0][1]
                 return
@@ -1943,6 +2063,7 @@ class LMEngine(Logger):
             self._cow_guard(slot, lane, start, start + C)
             tok = self._chunk_program(self._page_tables[slot], tokens,
                                       start, last_idx, *self._lane_seed(req))
+            self._tfence(req.trace is not None)
             if is_tail:
                 tok = int(tok)
             if cached:
@@ -1962,12 +2083,27 @@ class LMEngine(Logger):
         except Exception as e:   # noqa: BLE001 — fails THIS request
             self.metrics.record_error()
             self.warning("paged chunk prefill failed: %s", e)
+            if req.trace is not None:
+                # the FAILED dispatch is part of the timeline (no backend
+                # attr: failed spans stay out of the ledger)
+                req.trace.tracer.add(
+                    req.trace, "prefill.chunk", "prefill", t0,
+                    time.monotonic(),
+                    attrs={"start": int(start), "paged": True,
+                           "error": str(e)})
             self._teardown_slot(slot, lane, e)
             return
         self.metrics.inc("prefill_dispatches")
         self.metrics.inc("prefill_tokens",
                          (req.true_len - start) if is_tail else len(tokens))
         self.metrics.record_decode_step(time.monotonic() - t0)
+        if req.trace is not None:
+            req.trace.tracer.add(
+                req.trace, "prefill.chunk", "prefill", t0,
+                time.monotonic(),
+                attrs={"start": int(start), "tail": is_tail,
+                       "bucket": self.prefill_chunk, "paged": True,
+                       "backend": self._backend})
         if is_tail:
             self._emit_first(slot, lane, tok)
         else:
@@ -2050,19 +2186,34 @@ class LMEngine(Logger):
         active = self._cow_guard_active(active, 1)
         if not active:
             return
+        tctxs = ()
+        if self._tracer is not None:
+            # only the sampled lanes carry a context: an all-None batch
+            # records nothing
+            tctxs = [self._lanes[s].request.trace for s in active]
         t0 = time.monotonic()
         try:
             self._fault("engine.step")
             w = self._live_width(1)
+            # read back in the call: the span closes after the card's work
             toks = self._step_program(self._page_tables[:, :w],
                                       self._last, self._pos,
                                       *self._seed_args(active))
         except Exception as e:   # noqa: BLE001 — fails the lanes
+            if self._tracer is not None:
+                self._tracer.add_many(
+                    tctxs, "decode.step", "decode", t0, time.monotonic(),
+                    attrs={"batch": len(active), "error": str(e)})
             self._fail_active(active, e)
             return
         self.metrics.record_dispatch(len(active))
         self.metrics.record_decode_step(time.monotonic() - t0)
         self.metrics.inc("decode_dispatches")
+        if self._tracer is not None:
+            self._tracer.add_many(
+                tctxs, "decode.step", "decode", t0, time.monotonic(),
+                attrs={"batch": len(active), "bucket": w,
+                       "backend": self._backend})
         for slot in active:
             lane = self._lanes[slot]
             lane.emitted.append(int(toks[slot]))
@@ -2104,6 +2255,9 @@ class LMEngine(Logger):
                 drafts[slot] = padded
                 real_lens[slot] = len(draft)
                 self.metrics.inc("draft_tokens", len(draft))
+        tctxs = ()
+        if self._tracer is not None:
+            tctxs = [self._lanes[s].request.trace for s in active]
         t0 = time.monotonic()
         try:
             self._fault("engine.verify")
@@ -2111,11 +2265,20 @@ class LMEngine(Logger):
             out = self._verify_program(self._page_tables[:, :w], toks_in,
                                        self._pos, *self._seed_args(active))
         except Exception as e:   # noqa: BLE001 — fails the lanes
+            if self._tracer is not None:
+                self._tracer.add_many(
+                    tctxs, "decode.verify", "decode", t0, time.monotonic(),
+                    attrs={"batch": len(active), "error": str(e)})
             self._fail_active(active, e)
             return
         self.metrics.record_dispatch(len(active))
         self.metrics.record_decode_step(time.monotonic() - t0)
         self.metrics.inc("decode_dispatches")
+        if self._tracer is not None:
+            self._tracer.add_many(
+                tctxs, "decode.verify", "decode", t0, time.monotonic(),
+                attrs={"batch": len(active), "k": k, "bucket": w,
+                       "backend": self._backend})
         for slot in active:
             lane = self._lanes[slot]
             draft = drafts[slot]
@@ -2166,13 +2329,23 @@ class LMEngine(Logger):
             self._stage_histories(active)
         if self._sampling:
             stage["seeds"][:] = self._seeds(active)
+        tctxs = ()
+        if self._tracer is not None:
+            tctxs = [self._lanes[s].request.trace for s in active]
         t0 = time.monotonic()
         try:
             self._fault("engine.step")
-            res = self._run_fused(self._live_width(span))
+            w = self._live_width(span)
+            res = self._run_fused(w)
         except Exception as e:   # noqa: BLE001 — fails the lanes
+            if self._tracer is not None:
+                self._tracer.add_many(
+                    tctxs, "decode.megastep", "decode", t0,
+                    time.monotonic(),
+                    attrs={"batch": len(active), "K": K, "error": str(e)})
             self._fail_active(active, e)
             return
+        # the packed output is read back: the card's work is done
         t1 = time.monotonic()
         S, c = self.slots, k + 1
         # the final carry: frozen lanes (prefilling or free ones too)
@@ -2180,7 +2353,7 @@ class LMEngine(Logger):
         self._last = res[:S].copy()
         self._pos = res[S:2 * S].copy()
         emitted = res[2 * S:2 * S + K * S * c].reshape(K, S, c)
-        wasted, total = 0, 0
+        wasted, total, lane_tokens = 0, 0, {}
         for slot in active:
             lane = self._lanes[slot]
             rows = emitted[:, slot, :]
@@ -2188,6 +2361,7 @@ class LMEngine(Logger):
             wasted += int((rows[:, 0] < 0).sum())
             lane.emitted.extend(int(t) for t in toks)
             lane.remaining -= len(toks)
+            lane_tokens[slot] = len(toks)
             total += len(toks)
             self.metrics.inc("tokens_out", len(toks))
         if k:
@@ -2201,6 +2375,17 @@ class LMEngine(Logger):
         self.metrics.record_decode_step(t1 - t0)
         self.metrics.inc("decode_dispatches")
         self.metrics.record_megastep(K, len(active), total, wasted)
+        if self._tracer is not None:
+            # ONE span a replay, recorded here on the host (a call in
+            # the captured body would run at capture only), one dispatch
+            # id shared by its lanes: the ledger counts the program once
+            self._tracer.add_many(
+                tctxs, "decode.megastep", "decode", t0, t1,
+                attrs={"batch": len(active), "K": K, "tokens": total,
+                       "bucket": "%sxK%d" % (w, K),
+                       "backend": self._backend},
+                each_attrs=[{"lane_tokens": lane_tokens[s]}
+                            for s in active])
         for slot in active:
             lane = self._lanes[slot]
             if lane.remaining == 0 or lane.request.cancelled:
@@ -2301,12 +2486,24 @@ class LMEngine(Logger):
             self._stage_histories(active)
         if self._sampling:
             stage["seeds"][:] = self._seeds(active)
+        tctxs = ()
+        if self._tracer is not None:
+            # the published standby entries take part in this launch:
+            # the span lands in their trees too
+            tctxs = [self._lanes[s].request.trace for s in active] \
+                + [e.lane.request.trace for e in pub]
         t0 = time.monotonic()
         try:
             self._fault("engine.step")
             w = self._live_width(span, max([e.pos for e in pub] or [0]))
             res = self._run_fused(w)
         except Exception as e:   # noqa: BLE001 — fails the participants
+            if self._tracer is not None:
+                self._tracer.add_many(
+                    tctxs, "decode.megastep", "decode", t0,
+                    time.monotonic(),
+                    attrs={"batch": len(active) + len(pub), "K": K,
+                           "error": str(e)})
             self._fail_active(active, e)
             for entry in pub:
                 # ring occupants took part: they fail too, pages home
@@ -2327,11 +2524,12 @@ class LMEngine(Logger):
                     armed.setdefault(int(s), []).append(entry)
                     self._ring.remove(entry)
         participants = sorted(set(active) | set(armed))
-        wasted, total = 0, 0
+        wasted, total, lane_tokens = 0, 0, {}
         for slot in participants:
             rows = emitted[:, slot, :]
             toks = [int(t) for t in rows[rows >= 0]]
             wasted += int((rows[:, 0] < 0).sum())
+            lane_tokens[slot] = len(toks)
             total += len(toks)
             self.metrics.inc("tokens_out", len(toks))
             owners = ([self._lanes[slot]] if slot in active else []) \
@@ -2358,6 +2556,17 @@ class LMEngine(Logger):
         # REALISED iterations, not the cap
         self.metrics.record_megastep(iters, len(participants), total,
                                      wasted)
+        if self._tracer is not None:
+            # one span a launch, with the iterations it realised
+            self._tracer.add_many(
+                tctxs, "decode.megastep", "decode", t0, t1,
+                attrs={"batch": len(participants), "K": K,
+                       "iters": iters, "tokens": total,
+                       "bucket": "%sxK%d" % (w, K),
+                       "backend": self._backend},
+                each_attrs=[{"lane_tokens": lane_tokens.get(s, 0)}
+                            for s in active]
+                + [{"standby": True} for _ in pub])
         for slot in participants:
             if slot in active:
                 lane = self._lanes[slot]
@@ -2442,10 +2651,12 @@ class LMEngine(Logger):
         if req is None:
             return
         if req.cancelled:
+            self._trace_queue_end(req, "cancelled")
             req.future.cancel()
             return
         if time.monotonic() > req.deadline:
             self.metrics.record_shed()
+            self._trace_queue_end(req, "shed")
             req.future.set_exception(DeadlineExceeded(
                 "prompt shed after %.3fs in queue" % (
                     time.monotonic() - req.t_enq)))
@@ -2477,6 +2688,7 @@ class LMEngine(Logger):
             tail = numpy.pad(tail, (0, C - len(tail)))
         lane.pending.append((tail, n_full * C, True))
         self.metrics.record_queue_wait(time.monotonic() - req.t_enq)
+        self._trace_admitted(req)
         entry = _Standby(lane, table)
         self._ring.append(entry)
         self._update_pool_gauges()
@@ -2499,17 +2711,31 @@ class LMEngine(Logger):
             self._fault("engine.chunk")
             tok = self._chunk_program(entry.table, tokens, start, last_idx,
                                       *self._lane_seed(req))
+            self._tfence(req.trace is not None)
             if is_tail:
                 tok = int(tok)
         except Exception as e:   # noqa: BLE001 — fails THIS request
             self.metrics.record_error()
             self.warning("standby prefill failed: %s", e)
+            if req.trace is not None:
+                req.trace.tracer.add(
+                    req.trace, "prefill.chunk", "prefill", t0,
+                    time.monotonic(),
+                    attrs={"start": int(start), "standby": True,
+                           "error": str(e)})
             self._fail_standby(entry, e)
             return
         self.metrics.inc("prefill_dispatches")
         self.metrics.inc("prefill_tokens",
                          (req.true_len - start) if is_tail else len(tokens))
         self.metrics.record_decode_step(time.monotonic() - t0)
+        if req.trace is not None:
+            req.trace.tracer.add(
+                req.trace, "prefill.chunk", "prefill", t0,
+                time.monotonic(),
+                attrs={"start": int(start), "tail": is_tail,
+                       "standby": True, "bucket": self.prefill_chunk,
+                       "paged": True, "backend": self._backend})
         if not is_tail:
             entry.pos = lane.pending[0][1]
             return
@@ -2594,6 +2820,7 @@ class LMEngine(Logger):
         window = self.megastep if self.megastep >= 2 else 1
         for req in shed:
             self.metrics.record_shed()
+            self._trace_queue_end(req, "shed")
             req.future.set_exception(DeadlineExceeded(
                 "prompt shed after %.3fs in queue (boundary sweep, "
                 "window <= %d iterations)"
@@ -2676,6 +2903,7 @@ class LMEngine(Logger):
                                        "swap applied")
             swap["done"].set()
         for req in pending:
+            self._trace_queue_end(req, "engine stopped")
             req.future.set_exception(RuntimeError("LM engine stopped"))
         for entry in list(self._ring):
             self._fail_standby(entry, RuntimeError("LM engine stopped"))

@@ -13,12 +13,14 @@ thread serving
   (``Workflow.generate_graph``);
 - ``/graph/<name>.svg``   — the same graph drawn by a small built-in
   layered-DAG renderer (no graphviz binary needed);
+- ``/timeseries.json``    — the process's default telemetry store
+  (``serving/timeseries.py``'s ``get_default``, published by
+  ``serve_lm(telemetry=)``), so the dashboard and the serving port
+  expose the same rings, with the same ``?window=S`` (a bad value
+  falls back to 60 s: the dashboard is best-effort, not an API); 404
+  while no store is published;
 - ``POST /report``        — a row from another process (400 on a bad
   body).
-
-``/timeseries.json`` answers 404, as the reference does while no
-serving stack has published a time-series store: the port has no
-``serving/timeseries.py`` yet, and the route gets its store with it.
 
 Workflows register themselves through :class:`StatusReporter`; the
 other ranks of a distributed run (or remote launchers) report into rank
@@ -235,6 +237,26 @@ class WebStatus:
                     # plus this dashboard's workflow rows as gauges
                     body = status.render_metrics().encode()
                     ctype = "text/plain; version=0.0.4"
+                elif self.path.split("?")[0].rstrip("/") \
+                        == "/timeseries.json":
+                    import urllib.parse
+                    from veles_tpu_torch.serving import timeseries
+                    store = timeseries.get_default()
+                    if store is None:
+                        self.send_error(404)
+                        return
+                    query = urllib.parse.parse_qs(
+                        urllib.parse.urlsplit(self.path).query)
+                    window = 60.0
+                    try:
+                        w = float(query.get("window", ["60"])[0])
+                        if w > 0 and w != float("inf"):
+                            window = w
+                    except ValueError:
+                        pass
+                    body = json.dumps(
+                        store.snapshot(window_s=window)).encode()
+                    ctype = "application/json"
                 elif self.path.startswith("/graph/"):
                     target = self.path[len("/graph/"):]
                     base, _, ext = target.rpartition(".")
