@@ -476,7 +476,34 @@ Phases (any failure exits nonzero before the final line is printed):
    tokens counted on the host clock, ``sample_once`` ms, the
    ``/trace.json`` bytes for 16 requests; its JSON line
    (``{"serve_observe": ...}``);
-23. the script's seconds, the card's name and power limit, one JSON line
+23. serve_guarded — the lock-order witness
+   (``serving/lockcheck.py``) and the transfer guard
+   (``serving/xfer.py``, ``"disallow"``: the card's sync debug mode
+   ``"error"`` while a worker's turn runs outside a declared boundary)
+   armed at the full LM width, 8 slots, page 32: (a) which host/card
+   operations the mode refuses on this card (``sync_probe``: a blocking
+   upload, a blocking read, ``.item()`` and a stream synchronize must
+   raise, non-blocking uploads and a card-to-card copy must not); (b)
+   phase 4's 16 requests on each of phase 22's decode paths (per tick,
+   ``spec_k`` 4, scan K = 8, while K = 16 with a ring of 2), then per
+   tick sampled (``SAMPLE_KW``) and traced at ``sample:1.0`` (every fence
+   runs), and a swap to seeded weights B under the scan's captured
+   graphs: tokens, kernel 5/6 launches and dispatches equal to the
+   unarmed runs (phase 22's untraced run a path; an unarmed run of the
+   same script here for the sampled run and the swap), zero violations,
+   the sync debug mode 0 after every ``stop()``, the witness's
+   acquisitions, dispatch checks and role edge graph; (c) three planted
+   faults (``GUARD_FAULTS``: ``lm_engine._cond`` held across the
+   ``engine.step`` dispatch, a decode dispatch that reads a card value
+   with ``.item()`` — its request fails with the sync error and the next
+   is served —, a guard exit that leaves the mode set) caught; (d) the
+   unarmed shims' µs a round trip on the host clock (``TrackedCondition``
+   against ``threading.Condition``, ``TrackedLock`` against
+   ``threading.Lock``, the null guard and boundary), charged the
+   acquisitions the armed per-tick run made a decode dispatch, as a
+   share of phase 4's decode step (under ``GUARD_SHIM_SHARE``); its JSON
+   line (``{"serve_guarded": ...}``);
+24. the script's seconds, the card's name and power limit, one JSON line
    listing every ported TPU kernel (kernel 1 with its launches in phase
    14's parent process, ``population_launches``, and in phase 16's,
    ``observe_launches``; kernel 2 with its
@@ -486,8 +513,9 @@ Phases (any failure exits nonzero before the final line is printed):
    theirs on the pipelined runs, ``pipeline_launches``, and 5 and 6 with
    theirs in phase 17, ``fastpath_launches``, in phase 18,
    ``megastep_launches``, in phase 19, ``whilestep_launches``, in
-   phase 20, ``sampling_launches``, in phase 21, ``ops_launches``, and in
-   phase 22, ``observe_serve_launches``;
+   phase 20, ``sampling_launches``, in phase 21, ``ops_launches``, in
+   phase 22, ``observe_serve_launches``, and in phase 23,
+   ``guarded_launches``;
    kernels 1 and 4
    with their device-operand entries' times, bounds and launches, kernel
    4 with its offset entry's), the token draw's line
@@ -9934,10 +9962,13 @@ def http_get(url, timeout=60):
         return r.status, r.read(), r.headers.get("Content-Type", "")
 
 
-def serve_observe(torch, HK, T, S, card, tick, device="cuda", cfg=None):
+def serve_observe(torch, HK, T, S, card, tick, device="cuda", cfg=None,
+                  keep=None):
     """Phase 22: request tracing and live telemetry at the full LM width
     (see the module docstring).  Returns kernels 5 and 6's launches on
-    the phase's runs (the planted faults' runs not counted)."""
+    the phase's runs (the planted faults' runs not counted); ``keep`` (a
+    dict) gets each path's untraced run (tokens, launches, dispatches;
+    phase 23 holds its guarded runs against them)."""
     from types import SimpleNamespace
     from veles_tpu_torch import prng, restful_api
     from veles_tpu_torch.serving import (FaultPlan, InjectedFault,
@@ -10022,6 +10053,10 @@ def serve_observe(torch, HK, T, S, card, tick, device="cuda", cfg=None):
         gc_cuda(torch)
         base = rows["None"]
         base_outs = base["outs"]
+        if keep is not None:
+            keep[path] = {"outs": base_outs, "launches": base["launches"],
+                          "decode_dispatches": base["decode_dispatches"],
+                          "prefill_dispatches": base["prefill_dispatches"]}
         for mode, row in rows.items():
             differ = differing_tokens(row.pop("outs"), base_outs)
             row["differing_tokens_vs_untraced"] = differ
@@ -10310,6 +10345,354 @@ def serve_observe(torch, HK, T, S, card, tick, device="cuda", cfg=None):
     print(json.dumps({"serve_observe": report}, default=str), flush=True)
     for name in TRACE_FAULTS:
         check(caught[name], "serve_observe: the planted fault %r was not "
+              "caught" % name)
+    return launches
+
+
+# ---------------------------------------------------------------- guarded
+#: phase 23's armed runs: phase 22's four decode paths (its untraced runs
+#: the reference), then per tick sampled (against an unarmed run here)
+#: and traced at ``sample:1.0`` (against phase 22's), and a swap under
+#: the scan's captured graphs (against an unarmed run of the same script)
+GUARD_SWAP_PATH = "scan_k8"
+GUARD_FAULTS = ("cond_held_across_step", "implicit_read_in_decode",
+                "guard_exit_keeps_mode")
+#: the unarmed shims' cost: with-block round trips timed on the host clock
+GUARD_SHIM_PAIRS = 200000
+#: the reference's bound on the unarmed shims, a share of a decode step
+#: (``tools/chaos_bench.py``'s ``fault_free_overhead``)
+GUARD_SHIM_SHARE = 0.02
+
+
+def sync_probe(torch, device):
+    """Which host/card operations ``set_sync_debug_mode("error")``
+    refuses on this card: {operation: whether it raised}.  A refusal must
+    be the mode's (its message names a synchronizing operation)."""
+    a = numpy.arange(4096, dtype=numpy.int32)
+    pinned = torch.zeros(4096, dtype=torch.int32).pin_memory()
+    d = torch.zeros(4096, dtype=torch.int32, device=device)
+    event = torch.cuda.Event()
+    ops = {
+        "blocking_upload": lambda: torch.as_tensor(a, device=device),
+        "pageable_non_blocking_upload": lambda: torch.from_numpy(a).to(
+            device, non_blocking=True),
+        "pinned_non_blocking_upload": lambda: pinned.to(
+            device, non_blocking=True),
+        "pinned_non_blocking_read": lambda: pinned.copy_(
+            d, non_blocking=True),
+        "blocking_read": lambda: d.cpu(),
+        "item": lambda: d[0].item(),
+        "stream_synchronize": lambda: torch.cuda.current_stream(
+            device).synchronize(),
+        "device_synchronize": torch.cuda.synchronize,
+        "event_synchronize": lambda: (event.record(), event.synchronize()),
+        "card_to_card_copy": lambda: d.clone(),
+    }
+    raised = {}
+    for name, fn in ops.items():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+            raised[name] = False
+        except RuntimeError as e:
+            check("synchroniz" in str(e), "sync probe %s raised something "
+                  "else: %s" % (name, e))
+            raised[name] = True
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return raised
+
+
+def pair_us(lock, n=GUARD_SHIM_PAIRS):
+    """µs a ``with lock: pass`` round trip, host clock."""
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with lock:
+            pass
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def serve_guarded(torch, HK, T, S, card, tick, observed, device="cuda",
+                  cfg=None):
+    """Phase 23: the lock-order witness and the transfer guard armed on
+    every decode path at the full LM width (see the module docstring).
+    Returns kernels 5 and 6's launches on the armed runs (the unarmed
+    references' and the planted faults' runs not counted)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.serving import (SpanTracer, lockcheck, verify_integrity,
+                                         xfer)
+    cfg = cfg or LM_CONFIG
+    began = time.monotonic()
+    on_card = device == "cuda"
+    host = T.init_transformer_params(
+        prng.RandomGenerator("init", SEED), cfg["vocab"],
+        d_model=cfg["d_model"], n_heads=cfg["n_heads"],
+        n_layers=cfg["n_layers"], max_len=cfg["max_len"])
+    reqs = tick["requests"]
+    short = [(p, TRACE_SHORT[1]) for p, _ in reqs[:TRACE_SHORT[0]]]
+    kernels = ("paged_flash_decode", "paged_flash_prefill")
+    report = {"phase": "serve_guarded", "card": card, "config": dict(cfg),
+              "slots": FAST_SLOTS, "page": FAST_PAGE}
+    runs, rows, caught, legs, mark = [], {}, {}, {}, [began]
+    edges, totals = {}, {"acquisitions": 0, "dispatch_checks": 0}
+
+    def leg(name):
+        now = time.monotonic()
+        legs[name], mark[0] = now - mark[0], now
+
+    def mode():
+        """The card's sync debug mode (0 on the CPU, which has none)."""
+        return torch.cuda.get_sync_debug_mode() if on_card else 0
+
+    def engine(tag, params=host, **knobs):
+        return S.LMEngine(params, cfg["n_heads"], cfg["max_len"],
+                          slots=FAST_SLOTS, prefill_chunk=FAST_PAGE,
+                          device=device, name="guarded_" + tag, **knobs)
+
+    def served(eng, cases):
+        """``cases`` queued on the started, idle ``eng`` before its
+        loop's next turn, the launch counts set to 0 just before; returns
+        (outputs, launches, decode and prefill dispatches)."""
+        m = eng.metrics
+        before = (m.counter("decode_dispatches"),
+                  m.counter("prefill_dispatches"))
+        with eng._cond:
+            HK.reset_launch_counts()
+            futures = [eng.submit(p, k) for p, k in cases]
+        outs = [f.result(timeout=300) for f in futures]
+        launches = HK.launch_counts()
+        return outs, {n: launches[n] for n in kernels}, (
+            m.counter("decode_dispatches") - before[0],
+            m.counter("prefill_dispatches") - before[1])
+
+    @contextlib.contextmanager
+    def armed(name):
+        """Both witnesses armed; yields the lock-order witness."""
+        witness = lockcheck.arm(lockcheck.LockOrderWitness(name=name))
+        xfer.arm("disallow")
+        try:
+            yield witness
+        finally:
+            xfer.disarm()
+            lockcheck.disarm()
+
+    def swapped(eng):
+        """Phase 4's first 8 prompts on A, the swap to B while the engine
+        idles (its graphs keep serving, reading B by address), then the
+        16 requests on B."""
+        first = served(eng, short)[0]
+        check(eng.swap_weights(swap_to, version=1) == 1,
+              "serve_guarded: the swap was refused")
+        outs, launches, steps = served(eng, reqs)
+        return outs, launches, steps, first
+
+    def all16(eng):
+        return served(eng, reqs)
+
+    def run(tag, knobs, script):
+        eng = engine(tag, **knobs).start()
+        try:
+            return script(eng)
+        finally:
+            eng.stop()
+            del eng
+
+    def guarded(tag, knobs, want, script=all16):
+        """One armed run of ``script`` held against ``want`` (an unarmed
+        run's outputs, launches and dispatches)."""
+        with armed(tag) as witness:
+            got = run(tag, knobs, script)
+        after = mode()
+        rep = witness.report()
+        differ = differing_tokens(got[0], want["outs"])
+        row = {"differing_tokens": differ, "launches": got[1],
+               "decode_dispatches": got[2][0],
+               "prefill_dispatches": got[2][1],
+               "acquisitions": rep["acquisitions"],
+               "dispatch_checks": rep["dispatch_checks"],
+               "violations": len(rep["violations"]), "mode_after": after}
+        rows[tag] = row
+        runs.append(got[1])
+        totals["acquisitions"] += rep["acquisitions"]
+        totals["dispatch_checks"] += rep["dispatch_checks"]
+        for a, bs in rep["edges"].items():
+            edges.setdefault(a, set()).update(bs)
+        check(not rep["violations"], "serve_guarded %s: %d lock-order "
+              "violations:\n%s" % (tag, len(rep["violations"]),
+                                   "\n\n".join(rep["violations"])))
+        check(differ == 0, "serve_guarded %s: %d tokens differ from the "
+              "unarmed run" % (tag, differ))
+        check(got[1] == want["launches"], "serve_guarded %s: launches %r, "
+              "unarmed %r" % (tag, got[1], want["launches"]))
+        check(got[2] == (want["decode_dispatches"],
+                         want["prefill_dispatches"]),
+              "serve_guarded %s: the schedule moved" % tag)
+        check(after == 0, "serve_guarded %s: sync debug mode %d after "
+              "stop()" % (tag, after))
+        check(rep["dispatch_checks"] > 0, "serve_guarded %s: no dispatch "
+              "was checked" % tag)
+        return got
+
+    def unarmed(tag, knobs):
+        outs, launches, steps = run(tag, knobs, all16)
+        return {"outs": outs, "launches": launches,
+                "decode_dispatches": steps[0],
+                "prefill_dispatches": steps[1]}
+
+    # (a) what the mode refuses on this card
+    if on_card:
+        report["sync_probe"] = probe = sync_probe(torch, device)
+        for name in ("blocking_upload", "item", "blocking_read",
+                     "stream_synchronize"):
+            check(probe[name], "sync probe: %s passed the error mode" % name)
+        for name in ("pageable_non_blocking_upload",
+                     "pinned_non_blocking_upload", "card_to_card_copy"):
+            check(not probe[name], "sync probe: %s raised" % name)
+    leg("probe")
+
+    # (b) every decode path armed against phase 22's untraced run, then
+    # sampled, traced and swapped
+    for path, knobs in TRACE_PATHS.items():
+        guarded(path, knobs, observed[path])
+        gc_cuda(torch)
+        leg(path)
+    guarded("sampled", SAMPLE_KW, unarmed("sampled_unarmed", SAMPLE_KW))
+    leg("sampled")
+    tracer = SpanTracer.from_spec("sample:1.0", last=64, seed=SEED)
+    guarded("traced", {"tracer": tracer}, observed["tick"])
+    settled(tracer)
+    integ = verify_integrity(tracer.requests())
+    rows["traced"].update(spans=integ["spans"], stats=tracer.stats())
+    check(integ["requests"] == len(reqs), "serve_guarded traced: %r"
+          % integ)
+    del tracer
+    leg("traced")
+    swap_to = T.init_transformer_params(
+        prng.RandomGenerator("init", SEED + 1), cfg["vocab"],
+        d_model=cfg["d_model"], n_heads=cfg["n_heads"],
+        n_layers=cfg["n_layers"], max_len=cfg["max_len"])
+    knobs = TRACE_PATHS[GUARD_SWAP_PATH]
+    base = run("swap_unarmed", knobs, swapped)
+    got = guarded("swap", knobs, {
+        "outs": base[0], "launches": base[1],
+        "decode_dispatches": base[2][0], "prefill_dispatches": base[2][1]},
+        swapped)
+    check(differing_tokens(got[3], base[3]) == 0, "serve_guarded swap: "
+          "the tokens before the swap differ from the unarmed run")
+    check(differing_tokens(got[0], observed[GUARD_SWAP_PATH]["outs"]) > 0,
+          "serve_guarded swap: weights B served weights A's tokens")
+    del swap_to
+    gc_cuda(torch)
+    leg("swap")
+
+    # (c) the planted faults, each on a per-tick engine serving phase
+    # 4's first prompts
+    with armed("cond_held_across_step") as witness:
+        eng = engine("cond_held")
+        step = eng._step_plain
+
+        def held(active, eng=eng, step=step):
+            with eng._cond:
+                return step(active)
+        eng._step_plain = held
+        eng.start()
+        try:
+            served(eng, short[:2])
+        finally:
+            eng.stop()
+    caught["cond_held_across_step"] = any(
+        "'lm_engine._cond' held across device dispatch 'engine.step'" in v
+        for v in witness.violations)
+    with armed("implicit_read_in_decode") as witness:
+        eng = engine("implicit_read").start()
+        pick, left = eng._pick, [1]
+
+        def poisoned(logits, seeds, pos, pick=pick, left=left):
+            if left[0]:
+                left[0] -= 1
+                logits.max().item()
+            return pick(logits, seeds, pos)
+        eng._pick = poisoned
+        error = None
+        try:
+            try:
+                eng.submit(*short[0]).result(timeout=300)
+            except RuntimeError as e:
+                error = str(e)
+            nxt = eng.submit(*short[1]).result(timeout=300)
+        finally:
+            eng.stop()
+    after = mode()
+    caught["implicit_read_in_decode"] = bool(
+        error and "synchroniz" in error and len(nxt) == short[1][1]
+        and after == 0)
+    report["implicit_read_error"] = error
+    leave = xfer._leave_guard
+
+    def kept_mode():
+        with xfer._state:
+            xfer._guards -= 1
+    xfer._leave_guard = kept_mode
+    try:
+        with armed("guard_exit_keeps_mode"):
+            eng = engine("kept_mode").start()
+            try:
+                for p, k in short[:2]:
+                    try:
+                        eng.submit(p, k).result(timeout=300)
+                    except RuntimeError:
+                        pass
+            finally:
+                eng.stop()
+        after = mode()
+    finally:
+        xfer._leave_guard = leave
+        if on_card:
+            torch.cuda.set_sync_debug_mode("default")
+        xfer._guards, xfer._boundaries, xfer._applied = 0, 0, None
+    caught["guard_exit_keeps_mode"] = after != 0
+    gc_cuda(torch)
+    leg("faults")
+
+    # (d) the unarmed shims' cost on the host clock, against the decode
+    # step alone (phase 4's, full width), charged the acquisitions the
+    # armed per-tick run made a decode dispatch
+    check(lockcheck.armed() is None and not xfer.armed(),
+          "serve_guarded: a witness is still armed")
+    import threading as _threading
+    empty = pair_us(contextlib.nullcontext())
+    shim = {"tracked_condition_us": pair_us(lockcheck.make_condition(
+                "chip_smoke.cond")),
+            "condition_us": pair_us(_threading.Condition()),
+            "tracked_lock_us": pair_us(lockcheck.make_lock("chip_smoke.lock")),
+            "lock_us": pair_us(_threading.Lock()),
+            "unarmed_guard_us": pair_us(xfer.guard(device)) - empty,
+            "unarmed_boundary_us": pair_us(xfer.boundary()) - empty}
+    delta = max(0.0, shim["tracked_condition_us"] - shim["condition_us"],
+                shim["tracked_lock_us"] - shim["lock_us"])
+    per_step = rows["tick"]["acquisitions"] / rows["tick"][
+        "decode_dispatches"]
+    step_us = tick["step_ms"] * 1e3
+    shim.update(acquisitions_per_decode_dispatch=per_step,
+                decode_step_ms=tick["step_ms"],
+                step_share=(per_step * delta + max(
+                    0.0, shim["unarmed_guard_us"])
+                    + 2 * max(0.0, shim["unarmed_boundary_us"])) / step_us)
+    check(shim["step_share"] < GUARD_SHIM_SHARE, "serve_guarded: the "
+          "unarmed shims cost %.4f of a decode step" % shim["step_share"])
+    leg("shim_cost")
+
+    launches = {n: sum(r[n] for r in runs) for n in kernels}
+    report.update(runs=rows, edges={a: sorted(bs) for a, bs in
+                                    sorted(edges.items())},
+                  witness_totals=totals, shim=shim, launches=launches,
+                  faults_caught=caught, leg_s=legs,
+                  phase_s=time.monotonic() - began)
+    print(json.dumps({"serve_guarded": report}, default=str), flush=True)
+    for name in GUARD_FAULTS:
+        check(caught[name], "serve_guarded: the planted fault %r was not "
               "caught" % name)
     return launches
 
@@ -10693,14 +11076,25 @@ def main():
     # 22. request tracing and live telemetry: every decode path traced
     # against itself untraced, the fences, the errors ring, serve_lm
     # traced over HTTP with the telemetry store and the SLO monitor
-    observe_serve_launches = serve_observe(torch, HK, T, S, smi, tick)
-    del tick
+    observed = {}
+    observe_serve_launches = serve_observe(torch, HK, T, S, smi, tick,
+                                           keep=observed)
     for k, v in observe_serve_launches.items():
         launches[k] += v
     gc_cuda(torch)
     lap("serve_observe")
 
-    # 23. the kernels line and the result
+    # 23. the lock-order witness and the transfer guard armed on every
+    # decode path, sampled, traced and across a swap under the captured
+    # graphs, three planted faults, the unarmed shims' cost
+    guarded_launches = serve_guarded(torch, HK, T, S, smi, tick, observed)
+    del tick, observed
+    for k, v in guarded_launches.items():
+        launches[k] += v
+    gc_cuda(torch)
+    lap("serve_guarded")
+
+    # 24. the kernels line and the result
     main_case = {"flash_attention_fwd": flash[0],
                  "flash_attention_bwd_dkv": flash[1],
                  "flash_attention_bwd_dq": flash[2],
@@ -10756,6 +11150,8 @@ def main():
         if row["name"] in observe_serve_launches:
             row["observe_serve_launches"] = observe_serve_launches[
                 row["name"]]
+        if row["name"] in guarded_launches:
+            row["guarded_launches"] = guarded_launches[row["name"]]
         if row["name"] == "fused_sgd_update":
             row["population_launches"] = pop_launches
             row["observe_launches"] = observe_launches

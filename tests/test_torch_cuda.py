@@ -46,7 +46,14 @@ plain version's two best perturbed scores lie within 1e-5), and a
 second launch is bit-equal.  A traced engine (per tick, scan, while)
 serves an untraced one's tokens with its launches, its span trees
 sound, one ledger dispatch a step or replay, and every prompt chunk's
-span closed after the chunk's CUDA event completed.
+span closed after the chunk's CUDA event completed.  With the
+lock-order witness and the transfer guard armed (each test arms them
+itself), every decode path (per tick, ``spec_k``, scan, while) serves
+the unarmed run's tokens with its kernel 5/6 launches, no violation, and
+the sync debug mode back to default after ``stop()``; a decode dispatch
+that reads a card value with ``.item()``, or uploads with a blocking
+``torch.as_tensor(..., device=)``, fails its request with the sync error
+and the engine serves the next.
 """
 
 import numpy
@@ -1673,6 +1680,139 @@ def test_traced_engine_equals_untraced(knobs):
     assert decode == engine.metrics.counter("decode_dispatches") > 0
     assert late and all(done for _, done in late)
     assert {r["backend"] for r in tracer.live_ledger()} == {"cuda"}
+
+
+
+class _Witnessed:
+    """The lock-order witness and the transfer guard (``"disallow"``)
+    armed for a ``with`` block (this file runs without the suite's
+    conftest, so each test arms them itself); ``witness`` is the lock
+    witness."""
+
+    def __enter__(self):
+        from veles_tpu_torch.serving import lockcheck, xfer
+        self.witness = lockcheck.arm(lockcheck.LockOrderWitness(
+            name="card"))
+        xfer.arm("disallow")
+        return self
+
+    def __exit__(self, *exc):
+        from veles_tpu_torch.serving import lockcheck, xfer
+        xfer.disarm()
+        lockcheck.disarm()
+        return False
+
+
+GUARD_PROMPTS = [[3, 1, 4, 1, 5, 9, 2, 6] * 3, [2, 7, 1, 8] * 5, [5, 5, 5],
+                 [3, 1, 4, 1, 5, 9, 2, 6] * 3 + [7], [1, 2, 3, 4, 5, 6]]
+
+
+def _guard_run(knobs):
+    """Serve ``GUARD_PROMPTS`` (16 tokens each, queued before the
+    worker's first turn) on a fresh ``_megastep_engine(**knobs)``;
+    returns (tokens, kernel 5/6 launches)."""
+    engine = _megastep_engine(**knobs)
+    with engine._cond:
+        engine.start()
+        HK.reset_launch_counts()
+        futures = [engine.submit(p, 16) for p in GUARD_PROMPTS]
+    try:
+        outs = [list(f.result(timeout=300)) for f in futures]
+    finally:
+        engine.stop()
+    launches = HK.launch_counts()
+    return outs, {k: launches[k] for k in ("paged_flash_decode",
+                                           "paged_flash_prefill")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [
+    {"megastep": 0}, {"megastep": 0, "spec_k": 2}, {"megastep": 4},
+    {"megastep": 8, "megastep_mode": "while", "refill_ring": 2}],
+    ids=["tick", "spec", "scan", "while"])
+def test_guard_and_witness_armed_engine_equals_unarmed(knobs):
+    """With the lock-order witness and the transfer guard armed, every
+    decode path serves the unarmed run's tokens with its kernel 5 and 6
+    launches, no violation is recorded, every dispatch is checked, and
+    the sync debug mode is back to default after ``stop()``."""
+    _card()
+    want = _guard_run(knobs)
+    with _Witnessed() as armed:
+        got = _guard_run(knobs)
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert got == want and got[1]["paged_flash_decode"] > 0
+    report = armed.witness.report()
+    assert report["violations"] == [], "\n\n".join(report["violations"])
+    assert report["dispatch_checks"] > 0 and report["acquisitions"] > 0
+
+
+@pytest.mark.cuda
+def test_implicit_read_in_a_decode_dispatch_fails_the_request_loudly():
+    """The twin of the reference's poisoned step: a decode dispatch that
+    reads a card value with ``.item()`` fails its request's future with
+    the sync error under the armed guard, and the engine goes on to
+    serve the next request with the unarmed run's tokens."""
+    _card()
+    prompt = [3, 1, 4, 1, 5, 9, 2, 6]
+    engine = _megastep_engine(megastep=0).start()
+    try:
+        want = list(engine.submit(prompt, 8).result(timeout=300))
+    finally:
+        engine.stop()
+    with _Witnessed() as armed:
+        engine = _megastep_engine(megastep=0).start()
+        real, left = engine._pick, [1]
+
+        def poisoned(logits, seeds, pos):
+            if left[0]:
+                left[0] -= 1
+                logits.max().item()
+            return real(logits, seeds, pos)
+        engine._pick = poisoned
+        try:
+            with pytest.raises(RuntimeError, match="synchroniz"):
+                engine.submit(prompt, 8).result(timeout=300)
+            got = list(engine.submit(prompt, 8).result(timeout=300))
+        finally:
+            engine.stop()
+    assert got == want and not left[0]
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert armed.witness.violations == []
+
+
+@pytest.mark.cuda
+def test_blocking_upload_outside_to_device_is_caught():
+    """Under the armed guard a blocking ``torch.as_tensor(...,
+    device=)`` upload in a dispatch raises (the sync debug mode covers
+    the synchronizing host-to-card copy), while the same values through
+    ``xfer.to_device`` pass; the request fails and the next is served."""
+    from veles_tpu_torch.serving import xfer
+    dev = _card()
+    with _Witnessed():
+        with xfer.guard(dev):
+            ok = xfer.to_device(numpy.arange(4), numpy.int32, dev)
+            with pytest.raises(RuntimeError, match="synchroniz"):
+                torch.as_tensor(numpy.arange(4, dtype=numpy.int32),
+                                device=dev)
+            with xfer.boundary():
+                assert xfer.to_host(ok).tolist() == [0, 1, 2, 3]
+        engine = _megastep_engine(megastep=0).start()
+        real, left = engine._tensor, [1]
+
+        def blocking(arr):
+            if left[0]:
+                left[0] -= 1
+                return torch.as_tensor(numpy.asarray(arr, numpy.int32),
+                                       device=engine.device)
+            return real(arr)
+        engine._tensor = blocking
+        try:
+            with pytest.raises(RuntimeError, match="synchroniz"):
+                engine.submit([1, 2, 3], 4).result(timeout=300)
+            assert len(engine.submit([1, 2, 3], 4).result(timeout=300)) == 4
+        finally:
+            engine.stop()
+    assert torch.cuda.get_sync_debug_mode() == 0
 
 
 @pytest.mark.cuda

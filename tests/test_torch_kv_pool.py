@@ -6,6 +6,7 @@ import pytest
 
 from veles_tpu.serving.kv_pool import KVPagePool as RefPool
 from veles_tpu_torch.serving.kv_pool import KVPagePool
+from torch_witness import port_witness  # noqa: F401
 
 
 def _state(pool):

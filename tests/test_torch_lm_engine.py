@@ -23,6 +23,7 @@ from veles_tpu_torch.ops.transformer import (head_logits,
                                              params_from_jax)
 from veles_tpu_torch.serving import LMEngine
 from veles_tpu_torch.serving import lm_engine
+from torch_witness import port_witness  # noqa: F401
 
 VOCAB, D_MODEL, N_HEADS, N_LAYERS, MAX_LEN, PAGE = 32, 32, 4, 2, 64, 8
 #: (prompt length, n_new): 3-40 tokens, 5-12 new, chunk tails of every

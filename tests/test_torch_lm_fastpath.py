@@ -27,6 +27,7 @@ from veles_tpu_torch.ops.transformer import init_transformer_params
 from veles_tpu_torch.serving import (KVPagePool, LMEngine, PoolExhausted,
                                      RadixPrefixCache, propose_draft)
 from veles_tpu_torch.serving.lm_engine import _Request, _Slot
+from torch_witness import port_witness  # noqa: F401
 
 VOCAB, D_MODEL, N_HEADS, N_LAYERS, MAX_LEN, PAGE = 32, 32, 4, 2, 128, 8
 #: every prompt of this file fits one padded ``generate`` shape

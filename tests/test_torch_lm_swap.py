@@ -40,6 +40,7 @@ from veles_tpu.serving.lm_engine import LMEngine as JaxLMEngine
 from veles_tpu_torch import prng
 from veles_tpu_torch.ops import transformer as TT
 from veles_tpu_torch.serving import FaultPlan, InjectedFault, LMEngine
+from torch_witness import port_witness  # noqa: F401
 
 VOCAB, D_MODEL, N_HEADS, N_LAYERS, PAGE = 32, 32, 4, 2, 8
 MAX_LEN, PARAMS_LEN = 64, 128

@@ -301,3 +301,27 @@ def test_observability_modules_are_checked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "MPL=False" in out.stdout and "DEFAULT=None" in out.stdout
+
+
+def test_witness_modules_are_checked():
+    """The lock-order witness and the transfer guard are among the
+    modules the two checks above import and parse; importing them (and
+    the serving package that exports their names) leaves ``jax`` and
+    ``veles_tpu`` out and does not touch the card's sync debug mode."""
+    names = set(_modules())
+    assert {"veles_tpu_torch.serving.lockcheck",
+            "veles_tpu_torch.serving.xfer"} <= names
+    code = ("import sys\n"
+            "from veles_tpu_torch.serving import lockcheck, xfer\n"
+            "from veles_tpu_torch.serving import (LockOrderViolation, "
+            "LockOrderWitness, get)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
+            "             m.startswith(('jax.', 'jaxlib', 'veles_tpu.'))\n"
+            "             or m == 'veles_tpu')\n"
+            "print('BAD=%s' % bad)\n"
+            "print('ARMED=%s %s' % (lockcheck.armed(), xfer.armed()))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD=[]" in out.stdout and "ARMED=None False" in out.stdout

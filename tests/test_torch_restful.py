@@ -43,6 +43,7 @@ sys.path.insert(0, os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
 
 from load_gen import run_load  # noqa: E402
+from torch_witness import port_witness  # noqa: E402,F401
 
 SEED = 1
 MNIST = {

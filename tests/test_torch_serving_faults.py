@@ -54,6 +54,7 @@ from veles_tpu_torch.restful_api import RESTfulAPI, serve_lm
 from veles_tpu_torch.serving import (FaultPlan, InjectedFault, LMEngine,
                                      Overloaded, PoolExhausted, faults)
 from veles_tpu_torch.serving.lm_engine import _Request, _Slot
+from torch_witness import port_witness  # noqa: F401
 
 VOCAB, D_MODEL, N_HEADS, N_LAYERS, PAGE = 32, 32, 4, 2, 8
 #: the engines' lane span; the weights' learned positions reach

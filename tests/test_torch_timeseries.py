@@ -58,6 +58,7 @@ from veles_tpu_torch.serving.timeseries import (engine_flops_per_token,
                                                 engine_program_cache_size,
                                                 peak_flops_estimate,
                                                 runtime_probe)
+from torch_witness import port_witness  # noqa: F401
 
 sys.path.insert(0, os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))

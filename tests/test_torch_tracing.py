@@ -55,6 +55,7 @@ from veles_tpu_torch.serving import (FaultPlan, LMEngine, MicroBatcher,
 from veles_tpu_torch.serving.tracing import (SpanTracer, cost_ledger,
                                              format_waterfall,
                                              verify_integrity)
+from torch_witness import port_witness  # noqa: F401
 
 sys.path.insert(0, os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))

@@ -20,8 +20,15 @@ explicit: a full queue raises :class:`Overloaded` (HTTP 429 +
 with :class:`DeadlineExceeded` instead of wasting a forward on a client
 that has long since timed out.
 
-The forward takes and returns numpy arrays; where its work runs (the
-CPU or the card) is its own affair.  ``faults=`` arms a
+The forward takes numpy arrays and returns numpy arrays or tensors;
+where its work runs (the CPU or the card) is its own affair.  It is user
+code (REST's predict path and the exported program take numpy, and the
+port has no process-wide default device), so unlike the reference's
+batcher, which uploads the chunk itself, the port hands it the host
+chunk; the call runs inside a declared ``xfer.boundary()`` and its
+result is read back through ``xfer.to_host``.  With a transfer guard
+armed on a machine with a card, each dispatch (never the wait for a
+batch) runs under ``xfer.guard``.  ``faults=`` arms a
 :class:`~veles_tpu_torch.serving.faults.FaultPlan`'s ``batcher.submit``
 and ``batcher.dispatch`` sites (an injected dispatch error fails that
 batch's clients, never the worker).  ``tracer=`` takes a
@@ -41,9 +48,10 @@ import time
 from concurrent.futures import Future
 
 import numpy
+import torch
 
 from veles_tpu_torch.logger import Logger
-from veles_tpu_torch.serving import lockcheck, tracing
+from veles_tpu_torch.serving import lockcheck, tracing, xfer
 from veles_tpu_torch.serving.metrics import ServingMetrics
 
 
@@ -296,6 +304,8 @@ class MicroBatcher(Logger):
             # inside the worker's dispatch try: an injected error takes
             # the real fault-isolation path
             self._faults.fire("batcher.dispatch")
+        if lockcheck._witness is not None:
+            lockcheck._witness.dispatch("batcher.dispatch")
         x = numpy.concatenate([it.rows for it in items]) \
             if len(items) > 1 else items[0].rows
         outs = []
@@ -308,12 +318,15 @@ class MicroBatcher(Logger):
                                   chunk.dtype)
                 chunk = numpy.concatenate([chunk, pad])
             t0 = time.monotonic()
-            out = numpy.asarray(self.forward(chunk))
+            # the forward is user code whose transfers are its own: a
+            # declared boundary, its result read back explicitly
+            with xfer.boundary():
+                out = xfer.to_host(self.forward(chunk))
             with self._cond:
                 self._dispatch_ewma = (0.8 * self._dispatch_ewma
                                        + 0.2 * (time.monotonic() - t0))
             if self._tracer is not None:
-                # the forward's numpy result is its read-back: no fence
+                # xfer.to_host above read the result back: no fence
                 self._tracer.add_many(
                     [it.trace for it in items], "batch.dispatch",
                     "batch", t0, time.monotonic(),
@@ -336,7 +349,11 @@ class MicroBatcher(Logger):
             it.future.set_result(out[offset:offset + n])
             offset += n
 
-    def _serve_batches(self):
+    def _serve_batches(self):   # hot-path
+        # each dispatch runs under the transfer guard on a machine with
+        # a card (the forward's device is the user's); the wait for a
+        # batch does not: the guard's mode is process-wide
+        card = "cuda" if torch.cuda.is_available() else "cpu"
         while True:
             items, expired = self._take_batch()
             for it in expired:
@@ -354,7 +371,8 @@ class MicroBatcher(Logger):
                     return
                 continue
             try:
-                self._dispatch(items)
+                with xfer.guard(card):
+                    self._dispatch(items)
             except Exception as e:   # noqa: BLE001 — delivered to clients
                 self.metrics.record_error()
                 self.warning("dispatch failed: %s", e)

@@ -150,7 +150,7 @@ from veles_tpu_torch.ops.transformer import (TransformerLM, head_logits,
                                              params_from_jax,
                                              propose_draft_in_graph,
                                              tree_map)
-from veles_tpu_torch.serving import lockcheck, tracing
+from veles_tpu_torch.serving import lockcheck, tracing, xfer
 from veles_tpu_torch.serving.batcher import (DeadlineExceeded, Overloaded,
                                              PoolExhausted)
 from veles_tpu_torch.serving.kv_pool import KVPagePool
@@ -689,9 +689,14 @@ class LMEngine(Logger):
 
     def _fault(self, site):
         """Fault-injection hook: free when no plan is attached — one
-        attribute-is-None check on the hot path."""
+        attribute-is-None check on the hot path.  The lock-order witness
+        piggybacks here: every dispatch-class site doubles as a
+        lock-held-across-dispatch probe, one module-global None-check
+        when unarmed."""
         if self._faults is not None:
             self._faults.fire(site)
+        if lockcheck._witness is not None:
+            lockcheck._witness.dispatch(site)
 
     # -------------------------------------------------------------- tracing
     def _tfence(self, traced=True):
@@ -700,11 +705,16 @@ class LMEngine(Logger):
         synchronizes the current stream — the one every program runs on
         — before it closes, to time the card's work and not its
         enqueue.  Only when tracing is armed AND the dispatch serves a
-        sampled request (``traced``); the CPU has nothing to wait for.
-        The decode paths read their output back and need no fence."""
-        if self._tracer is not None and traced \
-                and self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        sampled request (``traced``); the CPU has nothing to wait for,
+        but reports the fence to the lock-order witness all the same.
+        The synchronize is a declared transfer boundary.  The decode
+        paths read their output back and need no fence."""
+        if self._tracer is not None and traced:
+            if lockcheck._witness is not None:
+                lockcheck._witness.dispatch("engine.fence")
+            if self.device.type == "cuda":
+                with xfer.boundary():
+                    torch.cuda.current_stream(self.device).synchronize()
 
     def _trace_admitted(self, req):
         """Close the request's queue-wait span at slot assignment."""
@@ -722,9 +732,9 @@ class LMEngine(Logger):
 
     # ------------------------------------------------------------- programs
     def _tensor(self, arr):
-        """One host int32 array (or int) on the engine's device."""
-        return torch.as_tensor(numpy.ascontiguousarray(arr, numpy.int32),
-                               device=self.device)
+        """One host int32 array (or int) on the engine's device, through
+        the explicit upload."""
+        return xfer.to_device(arr, numpy.int32, self.device)
 
     def _pick(self, logits, seeds, pos):
         """The token after each row of ``logits`` (slots, c, vocab) or
@@ -820,7 +830,7 @@ class LMEngine(Logger):
         if self._sampling:
             seeds = self._tensor(numpy.zeros(self.slots, numpy.int32)
                                  if seeds is None else seeds)
-        return self._pick(logits, seeds, at).cpu().numpy()
+        return xfer.to_host(self._pick(logits, seeds, at))
 
     def _page_copy_program(self, src, dst):
         """Copy-on-write: duplicate page ``src`` into ``dst`` in every
@@ -1205,8 +1215,11 @@ class LMEngine(Logger):
         gc.collect()
         gc.disable()
         try:
-            self._megastep_programs = {w: grab(w, pool)
-                                       for w in self._width_ladder}
+            # a capture synchronizes the card before and after: set-up,
+            # not a turn's work, so a declared transfer boundary
+            with xfer.boundary():
+                self._megastep_programs = {w: grab(w, pool)
+                                           for w in self._width_ladder}
         finally:
             gc.enable()
 
@@ -1233,8 +1246,9 @@ class LMEngine(Logger):
 
     def start(self):
         # the discarded warmup writes land on the scratch page, which
-        # no live mask ever covers
-        with torch.inference_mode():
+        # no live mask ever covers; it runs under the transfer guard
+        # (its arguments go through the explicit shims, like a turn's)
+        with torch.inference_mode(), xfer.guard(self.device):
             self._warmup()
         with self._cond:
             self._stop = False
@@ -1264,7 +1278,13 @@ class LMEngine(Logger):
                 return "absent"
             return "%s %s" % (shape_dtype[0],
                               str(shape_dtype[1]).replace("torch.", ""))
-        staged = _owned_tree(params, self.device)
+        # the uploads and their wait run on the caller's thread, outside
+        # the worker's guard; the guard's mode is process-wide, so they
+        # are a declared transfer boundary
+        with xfer.boundary():
+            staged = _owned_tree(params, self.device)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
         live, new = _leaf_specs(self.params), _leaf_specs(staged)
         for path in sorted(live.keys() | new.keys()):
             if live.get(path) != new.get(path):
@@ -1273,8 +1293,6 @@ class LMEngine(Logger):
                     "in the serving tree — old weights keep serving"
                     % (path or "the root", spec(new.get(path)),
                        spec(live.get(path))))
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
         return staged
 
     def _load_params(self, staged):
@@ -2065,7 +2083,7 @@ class LMEngine(Logger):
                                       start, last_idx, *self._lane_seed(req))
             self._tfence(req.trace is not None)
             if is_tail:
-                tok = int(tok)
+                tok = int(xfer.to_host(tok))
             if cached:
                 page = lane.pages[page_idx]
                 node = self._trie.insert(lane.cursor,
@@ -2411,12 +2429,15 @@ class LMEngine(Logger):
     def _run_fused(self, w):
         """Upload the staged inputs, run width ``w``'s fused program and
         read its packed output back, one copy each way; returns the
-        host array."""
+        host array.  The copies are asynchronous (pinned both ways); the
+        wait for the read-back is a declared transfer boundary, after
+        which the pinned output is host data."""
         if self._ms_in is self._ms_stage:
             return self._megastep_program(w).numpy()
         self._ms_in.copy_(self._ms_stage, non_blocking=True)
         self._ms_out.copy_(self._megastep_program(w), non_blocking=True)
-        torch.cuda.current_stream(self.device).synchronize()
+        with xfer.boundary():
+            torch.cuda.current_stream(self.device).synchronize()
         return self._ms_out.numpy()
 
     def _stage_ring(self, pub):
@@ -2713,7 +2734,7 @@ class LMEngine(Logger):
                                       *self._lane_seed(req))
             self._tfence(req.trace is not None)
             if is_tail:
-                tok = int(tok)
+                tok = int(xfer.to_host(tok))
         except Exception as e:   # noqa: BLE001 — fails THIS request
             self.metrics.record_error()
             self.warning("standby prefill failed: %s", e)
@@ -2832,7 +2853,7 @@ class LMEngine(Logger):
         with torch.inference_mode():
             self._serve_loop()
 
-    def _serve_loop(self):   # hot-path
+    def _serve_loop(self):
         rr = 0
         while True:
             if self._faults is not None:
@@ -2844,51 +2865,28 @@ class LMEngine(Logger):
                     self._fail_active(
                         [i for i, ln in enumerate(self._lanes)
                          if ln is not None], e)
-            self._maybe_apply_swap()
-            # every expired queued request is shed now, not only those
-            # the admission loop happens to pop
-            self._boundary_shed()
-            self._admit_ring()
-            self._admit()
-            self._advance_ring()
-            busy = [i for i, lane in enumerate(self._lanes)
-                    if lane is not None]
-            self.metrics.set_gauge("slots_busy", len(busy))
-            self.metrics.set_gauge_max("slots_busy_peak", len(busy))
-            if not busy:
-                with self._cond:
-                    if self._stop:
-                        break
-                    if self._ring:
-                        # standby prefill still has host work: keep
-                        # turning so the ring drains and installs
-                        pass
-                    elif not self._queue:
-                        self._cond.wait(0.5)
-                    elif self._pool_blocked:
-                        # head request waiting on pages with no lane
-                        # running to free any: only its deadline can
-                        # resolve it — poll briefly so the shed is on time
-                        self._cond.wait(0.05)
+            # the transfer guard covers a turn's work, never the tick
+            # fault's freeze or the idle wait below: its mode is
+            # process-wide, and a caller's thread may read its own card
+            # tensors while the engine idles
+            with xfer.guard(self.device):
+                busy, rr = self._serve_turn(rr)
+            if busy:
                 continue
-            # at most ONE prompt chunk per tick (round-robin across
-            # prefilling lanes), then one decode dispatch for the lanes
-            # past prefill
-            prefilling = [i for i in busy if self._lanes[i].pending]
-            if prefilling:
-                rr += 1
-                self._advance_prefill(prefilling[rr % len(prefilling)])
-            active = [i for i, lane in enumerate(self._lanes)
-                      if lane is not None and not lane.pending]
-            if active:
-                if self.megastep_mode == "while":
-                    self._step_while(active)
-                elif self.megastep >= 2:
-                    self._step_megastep(active)
-                elif self.spec_k:
-                    self._step_speculative(active)
-                else:
-                    self._step_plain(active)
+            with self._cond:
+                if self._stop:
+                    break
+                if self._ring:
+                    # standby prefill still has host work: keep
+                    # turning so the ring drains and installs
+                    pass
+                elif not self._queue:
+                    self._cond.wait(0.5)
+                elif self._pool_blocked:
+                    # head request waiting on pages with no lane
+                    # running to free any: only its deadline can
+                    # resolve it — poll briefly so the shed is on time
+                    self._cond.wait(0.05)
         # drain: a stopping engine fails whatever is still queued or in
         # a lane, and hands every page back to the pool
         with self._cond:
@@ -2911,3 +2909,39 @@ class LMEngine(Logger):
             if lane is not None:
                 self._teardown_slot(slot, lane,
                                     RuntimeError("LM engine stopped"))
+
+    def _serve_turn(self, rr):   # hot-path
+        """One loop turn's work: a pending swap, the boundary sweep,
+        admission and the ring, then at most ONE prompt chunk
+        (round-robin over the prefilling lanes, ``rr`` the turn counter)
+        and one decode dispatch for the lanes past prefill.  Returns
+        (whether any lane is busy, the counter)."""
+        self._maybe_apply_swap()
+        # every expired queued request is shed now, not only those
+        # the admission loop happens to pop
+        self._boundary_shed()
+        self._admit_ring()
+        self._admit()
+        self._advance_ring()
+        busy = [i for i, lane in enumerate(self._lanes)
+                if lane is not None]
+        self.metrics.set_gauge("slots_busy", len(busy))
+        self.metrics.set_gauge_max("slots_busy_peak", len(busy))
+        if not busy:
+            return False, rr
+        prefilling = [i for i in busy if self._lanes[i].pending]
+        if prefilling:
+            rr += 1
+            self._advance_prefill(prefilling[rr % len(prefilling)])
+        active = [i for i, lane in enumerate(self._lanes)
+                  if lane is not None and not lane.pending]
+        if active:
+            if self.megastep_mode == "while":
+                self._step_while(active)
+            elif self.megastep >= 2:
+                self._step_megastep(active)
+            elif self.spec_k:
+                self._step_speculative(active)
+            else:
+                self._step_plain(active)
+        return True, rr
