@@ -185,12 +185,13 @@ Phases (any failure exits nonzero before the final line is printed):
    train step (counted at capture and per replay), exact kernel
    launches, backend ``nccl``; then two gloo ranks sharing ``cuda:0``
    (this script with ``--parallel-rank``; NCCL refuses two ranks on one
-   device): (b) data-parallel through the launcher, 64 rows a rank, 10
-   steps, both ranks' weights bit-equal after every step, within the
-   ``ALEXNET_*_SHARE`` limits of the single-process graph loop after the
-   first and third update, exact launches; (c) tensor parallelism of the
-   two 4096-wide FC layers (2048-wide slices), 3 steps on fixed batches,
-   within the same limits of a single-process trajectory; (d) a record
+   device): (b) data-parallel through the launcher, 64 rows a rank, 6
+   steps, both ranks' weights bit-equal after every step, exact
+   launches, and 3 data-parallel steps on fixed batches within the
+   ``ALEXNET_*_SHARE`` limits of the same split arithmetic in one
+   process after the first and third update; (c) tensor parallelism of
+   the two 4096-wide FC layers (2048-wide slices), 3 steps on fixed
+   batches, within the same limits of a single-process trajectory; (d) a record
    file sharded two ways, each rank's device minibatch its rows of the
    global minibatch bit for bit; (e) three planted faults (the gradient
    all-reduce skipped, rank 1's dropout at offset 0, the split layers'
@@ -373,8 +374,8 @@ Phases (any failure exits nonzero before the final line is printed):
    mask dropped, a stale staged page table after a slot refills, one
    draft token accepted past the first mismatch) caught.  Timed at the
    widest table against the per-tick step (ms a dispatch and a token,
-   busy shares, capture seconds), here and in a fresh child process
-   (``--megastep-child``); its JSON line (``{"serve_megastep": ...}``);
+   busy shares, capture seconds); its JSON line
+   (``{"serve_megastep": ...}``);
 19. serve_whilestep — the while megastep (``megastep_mode="while"``:
    K conditional graph nodes a live-width ladder entry, built from the
    captured set-up, one captured iteration and the packing by
@@ -452,11 +453,12 @@ Phases (any failure exits nonzero before the final line is printed):
    line (``{"serve_ops": ...}``);
 22. serve_observe — request tracing and live telemetry at the full LM
    width, 8 slots, page 32: (a) on each decode path (``TRACE_PATHS``:
-   per tick, ``spec_k`` 4, scan K = 8, while K = 16 with a ring of 2) one
-   engine serves phase 4's 16 requests untraced and under the tracer
-   modes ``all``, ``sample:0.25`` (seeded) and ``errors``, the tracer set
-   between batches while the engine is idle (the same captured graphs
-   serve every mode): tokens, kernel 5/6 launches and decode dispatches
+   per tick, ``spec_k`` 4, scan K = 8, while K = 16 with a ring of 2) a
+   fresh engine a mode serves phase 4's 16 requests untraced and under
+   the tracer mode ``all``, per tick, at ``spec_k`` 4 and at scan K = 8
+   also ``sample:0.25`` (seeded), and per tick ``errors``
+   (``TRACE_PATH_MODES``): tokens, kernel 5/6 launches and
+   decode dispatches
    equal to the untraced run's, every retained tree sound
    (``verify_integrity``), one ledger dispatch a decode step or graph
    replay and one a prompt chunk (``all``, ``errors``), tokens/s a mode
@@ -503,7 +505,38 @@ Phases (any failure exits nonzero before the final line is printed):
    acquisitions the armed per-tick run made a decode dispatch, as a
    share of phase 4's decode step (under ``GUARD_SHIM_SHARE``); its JSON
    line (``{"serve_guarded": ...}``);
-24. the script's seconds, the card's name and power limit, one JSON line
+24. serve_fleet — two engine replicas on the card behind the router
+   (``serving/router.py``; each replica its own weights copy, pools and
+   captured graphs, 8 slots, page 32, full LM width): (a) phase 4's 16
+   requests one at a time and then as one burst, under the ``metrics``
+   and ``round_robin`` policies, per tick and at scan K = 8
+   (``FLEET_PATHS``): the sequential placements alternate (every score
+   0: the fewest-routed tiebreak, or the counter), a burst's split within
+   the reference's bound (``FLEET_BURST_SPREAD``; round robin exact),
+   kernel 5/6 launches n_layers x (K x) the replicas' summed decode
+   dispatches and prompt chunks, the tokens that differ from phase 4's
+   one engine counted and each differing row held to the teacher-forced
+   plain pass (``LOGIT_TOL``), the pools full again, tokens/s against
+   phase 4's; (b) a drain (replica 0 slowed by a ``latency`` plan,
+   unregistered mid-decode: every request once and whole, requeued >=
+   withdrawn, later placements on replica 1) and a wedged drain (replica
+   0 frozen with the request in a lane: force re-placed after
+   ``FLEET_DRAIN_TIMEOUT_S``, the zombie's late result ignored); (c)
+   every replica refusing: the minimum ``Retry-After``, and
+   ``NoLiveReplicas`` once none is live, and ``_order`` over
+   ``FLEET_ORDER_FLEETS`` seeded stub fleets equal to a plain ordering;
+   (d) ``serve_lm(replicas=2, router="round_robin", trace="all")`` over
+   HTTP: 16 concurrent requests split 8/8, per-row replica stamps,
+   ``/metrics`` (one ``# TYPE`` a family, a row a replica),
+   ``/metrics.json`` (both replicas' snapshots) and ``/trace.json``
+   strict, every trace sound with one ``attempt`` span a request; (e)
+   three planted faults (``FLEET_FAULTS``: an ``_order`` that keeps a
+   drained replica, a completion path that delivers a drained attempt's
+   short result, a ``Retry-After`` from the last refusal) caught; (f)
+   the router's host µs a placement (a stub fleet of settled futures) as
+   a share of phase 4's decode step; its JSON line
+   (``{"serve_fleet": ...}``);
+25. the script's seconds, the card's name and power limit, one JSON line
    listing every ported TPU kernel (kernel 1 with its launches in phase
    14's parent process, ``population_launches``, and in phase 16's,
    ``observe_launches``; kernel 2 with its
@@ -514,8 +547,8 @@ Phases (any failure exits nonzero before the final line is printed):
    theirs in phase 17, ``fastpath_launches``, in phase 18,
    ``megastep_launches``, in phase 19, ``whilestep_launches``, in
    phase 20, ``sampling_launches``, in phase 21, ``ops_launches``, in
-   phase 22, ``observe_serve_launches``, and in phase 23,
-   ``guarded_launches``;
+   phase 22, ``observe_serve_launches``, in phase 23,
+   ``guarded_launches``, and in phase 24, ``fleet_launches``;
    kernels 1 and 4
    with their device-operand entries' times, bounds and launches, kernel
    4 with its offset entry's), the token draw's line
@@ -542,6 +575,16 @@ head_dim 32, 40, 128 and 37 (rows not 16-byte aligned), and scores
 peaked at ±100.  In every case each kernel is launched twice
 (bit-equal) and held against an fp64 plain version: its error at most
 ``FLASH_FP64_FACTOR`` times the fp32 plain version's.
+
+Depth given up to pay for phase 24's seconds: phase 22(a) runs the
+``errors`` tracer mode per tick only and ``sample:0.25`` not on the
+while path (every path still runs untraced and under ``all``; (c) runs
+``errors`` under faults); phase 11's data-parallel gloo run trains 6
+steps, not 10, and rank 0 no longer repeats it as a single-process
+graph loop, so the launcher-driven data-parallel run is no longer
+compared with one process (that gap was reported, never checked; the
+fixed-batch data-parallel steps are still held to one process); phase
+18 no longer repeats its timing in a fresh child process.
 
 It imports nothing of JAX and nothing of the ``veles_tpu`` package.
 """
@@ -4387,8 +4430,9 @@ def harness(torch, HK, card, device="cuda", keep=None):
 #: the parallel phase: full-width AlexNet (configs[4]'s model) at
 #: minibatch 128 on the seeded 256x256 synthetic images.  (b) two gloo
 #: ranks sharing cuda:0 train data-parallel through the launcher, 64 rows
-#: a rank, 2 epochs of 640 train = 10 steps
-PARALLEL_DP = {"n_train": 640, "n_valid": 128}
+#: a rank, 2 epochs of 384 train = 6 steps
+PARALLEL_DP = {"n_train": 384, "n_valid": 128}
+PARALLEL_DP_STEPS = 6
 #: (c) tensor parallelism of the two 4096-wide FC layers and (e) the
 #: planted faults: steps from the initial state on fixed global batches
 PARALLEL_STEPS = 3
@@ -4559,25 +4603,27 @@ def parallel_rank(rank, port, tmp, out_path):
     dev = parallel._JOINED["device"]
     report = {"rank": rank, "backend": backend, "device": str(dev),
               "join_s": time.monotonic() - began}
+    legs, mark = {}, [time.monotonic()]
+
+    def leg(name):
+        now = time.monotonic()
+        legs[name], mark[0] = now - mark[0], now
     layers = imagenet.alexnet_layers()
 
-    # (b) data parallelism through the launcher: 10 steps, each step's
-    # weights digested, the first PARALLEL_STEPS kept
-    kept, digests, init = [], [], []
+    # (b) data parallelism through the launcher: 6 steps, each step's
+    # weights digested, the initial state kept
+    digests, init = [], []
     inner = FusedCommit.run
 
     def commit(self):
         trainer = self.runner.wf._sharded_trainer
         pending = self.runner.wf.fused_step.pending_state is not None
-        if not kept:
+        if not init:
             init.extend({k: v.clone() for k, v in e.items()}
                         for e in trainer.state)
-            kept.append(host_weights(trainer.state))
         inner(self)
         if pending:
             digests.append(weight_digest(trainer.state))
-            if len(kept) <= PARALLEL_STEPS:
-                kept.append(host_weights(trainer.state))
 
     wf = imagenet_build(prng, root, imagenet, layers, **PARALLEL_DP)
     HK.reset_launch_counts()
@@ -4603,6 +4649,8 @@ def parallel_rank(rank, port, tmp, out_path):
         "collectives": parallel.collective_counts(),
         "losses": [{s_: m[s_]["loss"] for s_ in ("validation", "train")}
                    for m in wf.decision.epoch_metrics]}
+
+    leg("dp_launcher_run")
 
     # fixed global batches (train rows) and keys for (c), (e) and the
     # steady steps
@@ -4654,6 +4702,7 @@ def parallel_rank(rank, port, tmp, out_path):
             out.append(host_weights(runner.state))
         return tr, out
 
+    leg("dp_steady_and_all_reduce")
     dp = trajectory(dp_mesh, ())[1]
     tp_trainer, tp = trajectory(tp_mesh, fc)
 
@@ -4664,12 +4713,15 @@ def parallel_rank(rank, port, tmp, out_path):
     report["tp"] = {"layers": fc, "local_widths": [
         int(tp_trainer.state[i]["w"].shape[-1]) for i in fc],
         "step_ms": tp_ms, "busy_share": tp_busy}
+    leg("dp_tp_trajectories")
     faulty = {}
     for name in PARALLEL_FAULTS:
         with parallel_fault(name, rank):
             split = fc if name.startswith("tp_") else ()
             faulty[name] = trajectory(tp_mesh if split else dp_mesh,
                                       split)[1]
+
+    leg("faults")
 
     # (d) a record file sharded two ways: each rank's device minibatch
     # against its rows of the unsharded host loader's
@@ -4733,12 +4785,12 @@ def parallel_rank(rank, port, tmp, out_path):
                 out.append(host_weights(state))
             return out
 
+        leg("records")
         alone = single(None)
         split_dp = single(SplitReference(runner))
         split_tp = single(SplitReference(runner, fc))
         report["kinks"] = kink_flips(runner, init, xs[0], keys[0], fc)
-        loop = committed_weights(imagenet_build(
-            prng, root, imagenet, layers, **PARALLEL_DP), dev)
+        leg("single_process_trajectories")
         under_pool = [any(g.layer_type == "max_pooling"
                           for g in wf.forwards[i + 1:])
                       for i, f in enumerate(wf.forwards) if f.has_params]
@@ -4753,9 +4805,7 @@ def parallel_rank(rank, port, tmp, out_path):
         gaps = {"dp_split": weight_gaps(dp, split_dp),
                 "tp_split": weight_gaps(tp, split_tp),
                 "dp_plain": weight_gaps(dp, alone),
-                "tp_plain": weight_gaps(tp, alone),
-                "launcher_dp_plain_loop": weight_gaps(
-                    kept, loop[:PARALLEL_STEPS + 1])}
+                "tp_plain": weight_gaps(tp, alone)}
         refs = {"all_reduce_skipped": split_dp,
                 "dropout_offset_zero_rank1": split_dp,
                 "tp_input_grad_not_reduced": split_tp}
@@ -4770,7 +4820,9 @@ def parallel_rank(rank, port, tmp, out_path):
                                 "tp": bit_equal(flat(tp), flat(split_tp))},
             fault_share={k: v["share"] for k, v in fault_gaps.items()},
             faults_caught={k: not within(v) for k, v in fault_gaps.items()})
+    leg("rank0_gaps" if rank == 0 else "records")
     report["collectives"] = parallel.collective_counts()
+    report["leg_s"] = legs
     report["rank_s"] = time.monotonic() - began
     with open(out_path, "w") as f:
         json.dump(report, f, default=str)
@@ -4944,10 +4996,10 @@ def parallel_phase(torch, HK, card, keep):
     steps = r0["dp"]["train_steps"]
     checks["gloo_backend_on_one_card"] = all(
         r["backend"] == "gloo" and r["device"] == "cuda:0" for r in ranks)
-    # the completion gate drops the stopping epoch's last update: 9
-    # commits of 10 steps
+    # the completion gate drops the stopping epoch's last update: 5
+    # commits of 6 steps
     checks["dp_ranks_bit_equal_every_step"] = (
-        steps == 10 and len(r0["dp"]["digests"]) == steps - 1
+        steps == PARALLEL_DP_STEPS and len(r0["dp"]["digests"]) == steps - 1
         and r0["dp"]["digests"] == r1["dp"]["digests"])
     checks["dp_64_rows_a_rank"] = all(r["dp"]["local_rows"] == 64
                                       for r in ranks)
@@ -4983,7 +5035,9 @@ def parallel_phase(torch, HK, card, keep):
             "bit_equal_to_split": r0["bit_equal_to_split"],
             "kinks": r0["kinks"],
             "fault_share": r0["fault_share"],
-            "rank_s": [r["rank_s"] for r in ranks], "ranks_s": ranks_s},
+            "rank_s": [r["rank_s"] for r in ranks], "ranks_s": ranks_s,
+            "rank_leg_s": [{"join_s": r["join_s"], **r["leg_s"]}
+                           for r in ranks]},
         checks=checks, faults_caught=faults,
         phase_s=time.monotonic() - began)
     print(json.dumps({"parallel": report}, default=str), flush=True)
@@ -8362,75 +8416,12 @@ def megastep_times(torch, engine, reps=MEGA_TIMED):
             "megastep_top_kernels_us": dict(top), "K": K, "width": w}
 
 
-def megastep_child(out_path):
-    """Phase 18's timing in a fresh process (``python3 chip_smoke.py
-    --megastep-child OUT``): phase 4's requests through the per-tick
-    engine and the K = 8 engine (tokens/s, dispatch ms), the capture
-    seconds a ladder entry, then :func:`megastep_times`.  Writes JSON to
-    ``OUT``."""
-    import torch
-    from veles_tpu_torch import prng, serving as S
-    from veles_tpu_torch.ops import transformer as T
-    began = time.monotonic()
-    cfg = LM_CONFIG
-    host = T.init_transformer_params(
-        prng.RandomGenerator("init", SEED), cfg["vocab"],
-        d_model=cfg["d_model"], n_heads=cfg["n_heads"],
-        n_layers=cfg["n_layers"], max_len=cfg["max_len"])
-    reqs = serve_requests(cfg["vocab"], 16)
-    out = {}
-    for name, knobs in (("tick", {}), ("megastep", {"megastep": MEGA_K})):
-        engine = S.LMEngine(host, cfg["n_heads"], cfg["max_len"], slots=8,
-                            prefill_chunk=32, device="cuda",
-                            name="child_" + name, **knobs)
-        engine.start()
-        try:
-            t0 = time.monotonic()
-            toks = sum(len(f.result(timeout=300)) for f in
-                       [engine.submit(p, k) for p, k in reqs])
-            wall = time.monotonic() - t0
-        finally:
-            engine.stop()
-        m = engine.metrics
-        out[name] = {"tokens_per_s": toks / wall, "wall_s": wall,
-                     "dispatch_ms_mean":
-                     m.decode_step.sum / m.decode_step.total * 1e3}
-    out["capture_s"] = engine.megastep_capture_s
-    out["times"] = megastep_times(torch, engine)
-    out["child_s"] = time.monotonic() - began
-    with open(out_path, "w", encoding="utf-8") as f:
-        json.dump(out, f)
-    return 0
-
-
-def run_megastep_child():
-    """:func:`megastep_child` in a fresh process; returns its report."""
-    import shutil
-    import tempfile
-    here = os.path.abspath(__file__)
-    tmp = tempfile.mkdtemp(prefix="veles_megastep_")
-    try:
-        out = os.path.join(tmp, "out.json")
-        proc = subprocess.run(
-            [sys.executable, here, "--megastep-child", out],
-            cwd=os.path.dirname(here), capture_output=True, text=True,
-            env=dict(os.environ, PYTHONPATH=os.path.dirname(here)),
-            timeout=180)
-        check(proc.returncode == 0, "the megastep child failed (exit %s): "
-              "%s" % (proc.returncode, proc.stderr[-4000:]))
-        with open(out, encoding="utf-8") as f:
-            return json.load(f)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-
-
 def serve_megastep(torch, HK, T, S, card, tick, fastpath, device="cuda",
-                   cfg=None, child=True):
+                   cfg=None):
     """Phase 18: the fused K-step decode (one captured graph a ladder
     width) at the full LM width, held against phase 4's per-tick tokens
     (``tick``) and phase 17's plain tokens for its candidates
-    (``fastpath``); three planted faults; timing here and in a fresh
-    child.  Returns kernels 5 and 6's launches on the phase's runs (the
+    (``fastpath``); three planted faults; timing.  Returns kernels 5 and 6's launches on the phase's runs (the
     faults' runs not counted)."""
     from veles_tpu_torch import prng
     from veles_tpu_torch.serving import lm_engine
@@ -8559,8 +8550,6 @@ def serve_megastep(torch, HK, T, S, card, tick, fastpath, device="cuda",
     del eng, moe_host
     gc_cuda(torch)
 
-    if child:
-        report["child"] = run_megastep_child()
     launches = {n: sum(run[n] for run in (launches_a, launches_b,
                                           launches_c))
                 for n in ("paged_flash_decode", "paged_flash_prefill")}
@@ -9901,8 +9890,18 @@ TRACE_PATHS = {"tick": {}, "spec_k4": {"spec_k": FAST_SPEC_K},
                  "while_k16": {"megastep": 16, "megastep_mode": "while",
                                "refill_ring": 2}}
 #: the tracer settings each path serves phase 4's 16 requests under
-#: (None: untraced); the sampled tracer's coin is seeded
+#: (None: untraced); the sampled tracer's coin is seeded.  Every path
+#: runs untraced and ``all``.  The sampled mode runs per tick, at
+#: ``spec_k`` 4 and at scan K = 8: the verify and megastep spans open
+#: and fence only when a sampled request takes part, so the per-tick
+#: run does not stand for them.  ``errors`` runs per tick only ((c)
+#: runs it again under faults); the while path shares the scan path's
+#: sampled span logic
 TRACE_MODES = (None, "all", "sample:0.25", "errors")
+TRACE_PATH_MODES = {"tick": TRACE_MODES,
+                    "spec_k4": (None, "all", "sample:0.25"),
+                    "scan_k8": (None, "all", "sample:0.25"),
+                    "while_k16": (None, "all")}
 #: (b) a spin of at least 5 ms queued behind each watched dispatch, its
 #: event behind the spin: a span that closed at enqueue finds it pending
 TRACE_SPIN_CYCLES = int(2.5e9 * 0.005)
@@ -10021,7 +10020,7 @@ def serve_observe(torch, HK, T, S, card, tick, device="cuda", cfg=None,
     paths = {}
     for path, knobs in TRACE_PATHS.items():
         rows = {}
-        for mode in TRACE_MODES:
+        for mode in TRACE_PATH_MODES[path]:
             tracer = (None if mode is None else
                       SpanTracer.from_spec(mode, last=64, seed=SEED))
             eng = engine(path, tracer, **knobs).start()
@@ -10697,6 +10696,550 @@ def serve_guarded(torch, HK, T, S, card, tick, observed, device="cuda",
     return launches
 
 
+# ------------------------------------------------------------------- fleet
+#: phase 24: two engine replicas on the one card behind the router
+FLEET_REPLICAS = 2
+FLEET_PATHS = {"tick": {}, "scan_k8": {"megastep": 8}}
+FLEET_POLICIES = ("metrics", "round_robin")
+#: the reference's bound on a burst's split over an idle fleet
+#: (``tests/test_serving.py::TestRouter::test_idle_fleet_spreads_evenly``)
+FLEET_BURST_SPREAD = 2
+#: (b) the drain: replica 0's decode dispatch slowed by this much; the
+#: wedged drain's timeout
+FLEET_LATENCY_S, FLEET_DRAIN_TIMEOUT_S = 0.05, 0.5
+#: (c) the refusing replicas' Retry-After seconds
+FLEET_RETRY_AFTERS = (0.7, 0.3, 0.5)
+#: (e) the seeded stub fleets ``_order`` is held on
+FLEET_ORDER_FLEETS = 200
+#: (f) placements timed through a stub fleet whose futures are settled
+FLEET_PLACEMENTS_TIMED = 20000
+FLEET_FAULTS = ("order_keeps_drained", "short_result_delivered",
+                "retry_after_last")
+#: the planted short-result delivery's drain serves phase 4's first 8
+FLEET_PLANTED_REQUESTS = 8
+
+
+def router_mutant(S, name, old, new):
+    """A copy of ``S.Router``'s method ``name`` with ``old`` replaced by
+    ``new`` in its source: a planted fault."""
+    import inspect
+    import textwrap
+    from veles_tpu_torch.serving import router as router_mod
+    src = textwrap.dedent(inspect.getsource(getattr(S.Router, name)))
+    check(src.count(old) == 1, "router_mutant: %r not in %s" % (old, name))
+    scope = {}
+    exec(compile(src.replace(old, new), "<planted %s>" % name, "exec"),
+         vars(router_mod), scope)
+    return scope[name]
+
+
+def stub_replica(S, i, gauges=(), steps=(), ttfts=(), submit=None):
+    """A replica the router can place on without an engine: its metrics
+    set from ``gauges``/``steps``/``ttfts`` and ``submit`` its admission."""
+    from types import SimpleNamespace
+    m = S.ServingMetrics("fleet_stub", labels={"replica": str(i)})
+    for k, v in gauges:
+        m.set_gauge(k, v)
+    for s in steps:
+        m.record_decode_step(s)
+    for s in ttfts:
+        m.record_ttft(s)
+    return SimpleNamespace(metrics=m, spec_k=0, max_len=512,
+                           weights_version=0, submit=submit,
+                           _cancel=lambda req: None)
+
+
+def plain_order(router):
+    """The placement order, computed apart from ``Router._order``: the
+    live replicas by (score, requests routed, index), or round robin from
+    the counter's next value."""
+    live = [i for i, ok in enumerate(router._live) if ok]
+    if router.policy == "round_robin":
+        start = router._rr + 1
+        return [live[(start + j) % len(live)] for j in range(len(live))]
+    return sorted(live, key=lambda i: (router._score(i), router._routed[i],
+                                       i))
+
+
+def order_mismatches(S, seed=SEED):
+    """Seeded stub fleets (2-4 replicas, gauges and EWMAs drawn from few
+    values so ties occur, about a quarter drained, both policies): the
+    fleets whose ``_order`` differs from :func:`plain_order`."""
+    rng = numpy.random.RandomState(seed)
+    bad = 0
+    for k in range(FLEET_ORDER_FLEETS):
+        n = int(rng.randint(2, 5))
+        stubs = []
+        for i in range(n):
+            total = int(rng.choice([0, 128]))
+            gauges = [("queue_depth", int(rng.randint(0, 3))),
+                      ("slots_busy", int(rng.randint(0, 3)))]
+            if total:
+                gauges += [("kv_pages_total", total),
+                           ("kv_pages_free", int(rng.randint(0, total + 1)))]
+            stubs.append(stub_replica(
+                S, i, gauges, rng.choice([0.004, 0.008], rng.randint(0, 3)),
+                rng.choice([0.05, 0.1], rng.randint(0, 2))))
+        router = S.Router(stubs, policy=FLEET_POLICIES[k % 2])
+        router._live = [bool(x) for x in rng.rand(n) < 0.75]
+        router._routed = [int(x) for x in rng.randint(0, 3, n)]
+        router._rr = int(rng.randint(0, 7))
+        if not any(router._live):
+            try:
+                router._order()
+                bad += 1
+            except S.NoLiveReplicas:
+                pass
+            continue
+        want = plain_order(router)
+        bad += int(router._order() != want)
+    return bad
+
+
+def all_refuse(S):
+    """Every replica refusing with its own Retry-After: (the raised
+    exception's type name, its retry_after)."""
+    def refusing(ra):
+        def submit(prompt, n_new):
+            raise S.Overloaded(retry_after=ra)
+        return submit
+    router = S.Router([stub_replica(S, i, submit=refusing(ra))
+                       for i, ra in enumerate(FLEET_RETRY_AFTERS)],
+                      policy="round_robin")
+    try:
+        router.submit(numpy.arange(3, dtype=numpy.int32), 4)
+    except S.Overloaded as e:
+        return type(e).__name__, e.retry_after
+    return None, None
+
+
+def placement_us(S, n=FLEET_PLACEMENTS_TIMED):
+    """Host µs of one placement through the router (``submit``:
+    ``_order``, ``_place``, the completion callback, ``_deliver``) on a
+    two-replica stub fleet whose futures come back settled, less the
+    stub's own submit; host clock."""
+    from concurrent.futures import Future
+    from types import SimpleNamespace
+    out = numpy.zeros(8, numpy.int32)
+
+    def submit(prompt, n_new):
+        f = Future()
+        f.request = SimpleNamespace(tspan=None)
+        f.set_result(out)
+        return f
+    router = S.Router([stub_replica(S, i, submit=submit) for i in range(2)])
+    prompt = numpy.arange(8, dtype=numpy.int32)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        submit(prompt, 8)
+    own = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(n):
+        router.submit(prompt, 8)
+    return max(0.0, time.perf_counter() - t0 - own) / n * 1e6
+
+
+def serve_fleet(torch, HK, T, S, card, tick, device="cuda", cfg=None):
+    """Phase 24: two engine replicas on the card behind the router (see
+    the module docstring).  Returns kernels 5 and 6's launches on the
+    fleet runs of (a), (b) and (d) (the planted faults' runs not
+    counted)."""
+    from types import SimpleNamespace
+    from veles_tpu_torch import prng, restful_api
+    from veles_tpu_torch.serving import verify_integrity
+    cfg = cfg or LM_CONFIG
+    began = time.monotonic()
+    host = T.init_transformer_params(
+        prng.RandomGenerator("init", SEED), cfg["vocab"],
+        d_model=cfg["d_model"], n_heads=cfg["n_heads"],
+        n_layers=cfg["n_layers"], max_len=cfg["max_len"])
+    reqs, want = tick["requests"], tick["outs"]
+    kernels = ("paged_flash_decode", "paged_flash_prefill")
+    n_layers = cfg["n_layers"]
+    report = {"phase": "serve_fleet", "card": card, "config": dict(cfg),
+              "replicas": FLEET_REPLICAS, "slots": FAST_SLOTS,
+              "page": FAST_PAGE}
+    runs, caught, legs, mark = [], {}, {}, [began]
+    teacher = {"rows": 0, "worst": 0.0}
+
+    def leg(name):
+        now = time.monotonic()
+        legs[name], mark[0] = now - mark[0], now
+
+    def fleet(tag, knobs=None, plans=()):
+        return [S.LMEngine(host, cfg["n_heads"], cfg["max_len"],
+                           slots=FAST_SLOTS, prefill_chunk=FAST_PAGE,
+                           device=device, name="fleet_%s_r%d" % (tag, i),
+                           metrics=S.ServingMetrics(
+                               "fleet_" + tag, labels={"replica": str(i)}),
+                           faults=plans[i] if i < len(plans) else None,
+                           **(knobs or {}))
+                for i in range(FLEET_REPLICAS)]
+
+    def held(tag, cases, outs):
+        """Rows that differ from phase 4's one engine, held to the
+        teacher-forced plain pass (a row equal to phase 4's was held in
+        phase 4); returns the differing tokens."""
+        diff = 0
+        with torch.inference_mode():
+            for (prompt, k), out, base in zip(cases, outs, want):
+                check(out.shape == (k,) and out.min() >= 0
+                      and out.max() < cfg["vocab"], "serve_fleet %s: "
+                      "malformed output %r" % (tag, out))
+                n = differing_tokens([out], [base])
+                if n:
+                    diff += n
+                    short, _ = teacher_forced(
+                        torch, T, engine0[0], numpy.concatenate(
+                            [prompt, out]), len(prompt), out)
+                    teacher["rows"] += 1
+                    teacher["worst"] = max(teacher["worst"], short)
+                    check(short <= LOGIT_TOL, "serve_fleet %s: an emitted "
+                          "token's logit sits %g below its row max" % (
+                              tag, short))
+        return diff
+
+    def served(tag, router, sequential, k_scan):
+        """Phase 4's requests through ``router`` one at a time or as one
+        burst, the launch counts set to 0 just before; checks the launch
+        formula over the replicas' dispatch deltas and returns the
+        run's record."""
+        engines = router.replicas
+        before = [(e.metrics.counter("decode_dispatches"),
+                   e.metrics.counter("prefill_dispatches")) for e in engines]
+        routed0 = router.routed_counts()
+        HK.reset_launch_counts()
+        t0 = time.monotonic()
+        if sequential:
+            futures = []
+            for p, k in reqs:
+                futures.append(router.submit(p, k))
+                futures[-1].result(timeout=300)
+        else:
+            futures = [router.submit(p, k) for p, k in reqs]
+        outs = [f.result(timeout=300) for f in futures]
+        wall = time.monotonic() - t0
+        launches = HK.launch_counts()
+        launches = {n: launches[n] for n in kernels}
+        steps = [e.metrics.counter("decode_dispatches") - b[0]
+                 for e, b in zip(engines, before)]
+        chunks = [e.metrics.counter("prefill_dispatches") - b[1]
+                  for e, b in zip(engines, before)]
+        split = [a - b for a, b in zip(router.routed_counts(), routed0)]
+        check(launches["paged_flash_decode"]
+              == n_layers * k_scan * sum(steps) > 0
+              and launches["paged_flash_prefill"]
+              == n_layers * sum(chunks) > 0,
+              "serve_fleet %s: launches %r for decode dispatches %r and "
+              "chunks %r" % (tag, launches, steps, chunks))
+        runs.append(launches)
+        tokens = sum(len(o) for o in outs)
+        return outs, {"wall_s": wall, "tokens_per_s": tokens / wall,
+                      "split": split,
+                      "stamps": [f.job.replica for f in futures],
+                      "decode_dispatches": steps, "prefill_dispatches": chunks,
+                      "launches": launches,
+                      "differing_tokens": held(tag, reqs, outs)}
+
+    def quiet(router):
+        deadline = time.monotonic() + 60
+        while any(e.metrics.gauge("slots_busy", 0)
+                  or e.metrics.gauge("queue_depth", 0)
+                  for e in router.replicas):
+            check(time.monotonic() < deadline, "serve_fleet: the fleet "
+                  "never went idle")
+            time.sleep(0.001)
+
+    # (a) phase 4's requests, sequential then as one burst, each policy
+    # (a router of its own over the path's started replicas), per tick
+    # and at scan K = 8
+    engine0 = [None]
+    report["runs"] = {}
+    for path, knobs in FLEET_PATHS.items():
+        k_scan = knobs.get("megastep", 1)
+        engines = fleet(path, knobs)
+        engine0[0] = engines[0]
+        for e in engines:
+            e.start()
+        for policy in FLEET_POLICIES:
+            tag = "%s_%s" % (path, policy)
+            router = S.Router(engines, policy=policy)
+            try:
+                _, seq = served(tag + "_sequential", router, True, k_scan)
+                quiet(router)
+                _, burst = served(tag + "_burst", router, False, k_scan)
+                quiet(router)
+            except BaseException:
+                router.stop()
+                raise
+            # sequential: every score 0 at each placement — the
+            # fewest-routed tiebreak alternates from replica 0 (metrics),
+            # the counter from replica 1 (round robin)
+            first = 0 if policy == "metrics" else 1
+            check(seq["stamps"] == [(first + i) % 2
+                                    for i in range(len(reqs))],
+                  "serve_fleet %s: sequential placements %r" % (
+                      tag, seq["stamps"]))
+            spread = max(burst["split"]) - min(burst["split"])
+            bound = FLEET_BURST_SPREAD if policy == "metrics" else 0
+            check(spread <= bound, "serve_fleet %s: a burst split %r" % (
+                tag, burst["split"]))
+            report["runs"][tag] = {"sequential": seq, "burst": burst,
+                                   "tokens_per_s_vs_phase4":
+                                   burst["tokens_per_s"]
+                                   / tick["tokens_per_s"]}
+            leg(tag)
+        router.stop()
+        errors = sum(e.metrics.errors for e in engines)
+        check(errors == 0 and all(pool_drained(e) for e in engines),
+              "serve_fleet %s: %d engine errors, or a pool not full again"
+              % (path, errors))
+        del router, engines
+        gc_cuda(torch)
+
+    def drain_run(tag, cases, count=True):
+        """(b): ``cases`` as one burst on a per-tick fleet whose replica
+        0 is slowed; replica 0 (the burst's first placement) is
+        unregistered once it has made two decode dispatches.  Returns
+        (outputs, withdrawn, router snapshot, a later placement's
+        replica)."""
+        plan = S.FaultPlan().arm("engine.step", kind="latency",
+                                 latency_s=FLEET_LATENCY_S)
+        router = S.Router(fleet(tag, plans=[plan])).start()
+        engine0[0] = router.replicas[0]
+        try:
+            HK.reset_launch_counts()
+            futures = [router.submit(p, k) for p, k in cases]
+            check(futures[0].job.replica == 0, "serve_fleet %s: the first "
+                  "placement went to replica %r" % (
+                      tag, futures[0].job.replica))
+            deadline = time.monotonic() + 60
+            while plan.calls("engine.step") < 2:
+                check(time.monotonic() < deadline, "serve_fleet %s: "
+                      "replica 0 never decoded" % tag)
+                time.sleep(0.001)
+            moved = router.unregister(0, reason="serve_fleet drain")
+            outs = [f.result(timeout=300) for f in futures]
+            later = router.submit(*reqs[0])
+            later.result(timeout=300)
+            launches = HK.launch_counts()
+        finally:
+            router.stop()
+        if count:
+            runs.append({n: launches[n] for n in kernels})
+        return outs, moved, router.metrics.snapshot(), later.job.replica
+
+    # (b) the drain, exactly once and whole
+    outs, moved, snap, later = drain_run("drain", reqs)
+    c = snap["counters"]
+    report["drain"] = {
+        "withdrawn": moved, "requeued": c.get("requeued_requests", 0),
+        "responses": snap["responses"], "later_replica": later,
+        "replicas_live": snap["gauges"]["replicas_live"],
+        "differing_tokens": held("drain", reqs, outs)}
+    check(moved >= 1 and c.get("requeued_requests", 0) >= moved
+          and snap["responses"] == len(reqs) + 1 and snap["errors"] == 0
+          and snap["gauges"]["replicas_live"] == 1 and later == 1,
+          "serve_fleet drain: %r" % report["drain"])
+    gc_cuda(torch)
+    leg("drain")
+
+    # the wedged drain: replica 0 frozen at a loop turn with the request
+    # in a lane, force re-placed after the drain timeout, its zombie's
+    # late result ignored
+    plan = S.FaultPlan().arm("engine.step", kind="latency",
+                             latency_s=FLEET_LATENCY_S)
+    router = S.Router(fleet("wedged", plans=[plan]),
+                      drain_timeout_s=FLEET_DRAIN_TIMEOUT_S).start()
+    engine0[0] = router.replicas[0]
+    prompt, k = reqs[0]
+    try:
+        HK.reset_launch_counts()
+        f = router.submit(prompt, k)
+        deadline = time.monotonic() + 60
+        while plan.calls("engine.step") < 1:
+            check(time.monotonic() < deadline, "serve_fleet wedged: no "
+                  "decode")
+            time.sleep(0.001)
+        plan.arm("engine.tick", kind="freeze", times=1, duration_s=60.0,
+                 after=plan.calls("engine.tick"))
+        while plan.fired("engine.tick") < 1:
+            check(time.monotonic() < deadline, "serve_fleet wedged: no "
+                  "freeze")
+            time.sleep(0.001)
+        [att] = list(router._pending[0])
+        zombie = att.engine_future
+        t_drain = time.monotonic()
+        withdrawn = router.unregister(0, reason="serve_fleet wedged")
+        out = f.result(timeout=300)
+        replaced_s = time.monotonic() - t_drain
+        plan.release()
+        late = zombie.result(timeout=300)
+        while router._jobs:
+            check(time.monotonic() < deadline + 60, "serve_fleet wedged: "
+                  "the job was never forgotten")
+            time.sleep(0.001)
+        launches = HK.launch_counts()
+    finally:
+        plan.release()
+        router.stop()
+    runs.append({n: launches[n] for n in kernels})
+    m = router.metrics
+    report["wedged"] = {
+        "withdrawn": withdrawn, "replaced_after_s": replaced_s,
+        "forced": m.counter("drain_forced_replacements"),
+        "requeued": m.counter("requeued_requests"),
+        "replica": f.job.replica, "zombie_tokens": len(late),
+        "responses": m.responses,
+        "differing_tokens": held("wedged", reqs[:1], [out])}
+    check(withdrawn == 1 and report["wedged"]["forced"] == 1
+          and report["wedged"]["requeued"] == 1 and f.job.replica == 1
+          and len(late) < k and f.result() is out and m.responses == 1
+          and replaced_s >= FLEET_DRAIN_TIMEOUT_S,
+          "serve_fleet wedged: %r" % report["wedged"])
+    del router
+    gc_cuda(torch)
+    leg("wedged")
+
+    # (c) every replica refusing, then none live
+    name, ra = all_refuse(S)
+    router = S.Router([stub_replica(S, i) for i in range(FLEET_REPLICAS)])
+    for i in range(FLEET_REPLICAS):
+        router.unregister(i, reason="serve_fleet none live")
+    try:
+        router.submit(numpy.arange(3, dtype=numpy.int32), 4)
+        none_live = None
+    except S.Overloaded as e:
+        none_live = (type(e).__name__, e.retry_after, str(e))
+    report["refusals"] = {"all_refuse": [name, ra],
+                          "none_live": none_live,
+                          "order_mismatches": order_mismatches(S)}
+    check(name == "Overloaded" and ra == min(FLEET_RETRY_AFTERS)
+          and none_live is not None and none_live[0] == "NoLiveReplicas"
+          and none_live[1] > 0
+          and report["refusals"]["order_mismatches"] == 0,
+          "serve_fleet refusals: %r" % report["refusals"])
+    leg("refusals")
+
+    # (d) serve_lm with two replicas over HTTP, traced
+    trainer = SimpleNamespace(params=T.params_from_jax(host, device),
+                              n_heads=cfg["n_heads"], max_len=cfg["max_len"],
+                              _to_portable=lambda tree: tree)
+    api = restful_api.serve_lm(
+        SimpleNamespace(trainer=trainer), port=0, slots=FAST_SLOTS,
+        prefill_chunk=FAST_PAGE, max_new=SAMPLE_MAX_NEW,
+        replicas=FLEET_REPLICAS, router="round_robin", trace="all")
+    base = "http://127.0.0.1:%d" % api.port
+    try:
+        fleet_router = api.lm_engine
+        engine0[0] = fleet_router.replicas[0]
+        check(isinstance(fleet_router, S.Router)
+              and [e.device.type for e in fleet_router.replicas]
+              == [device] * FLEET_REPLICAS, "serve_fleet http: not a "
+              "fleet on %s" % device)
+        bodies = [json.dumps({"input": [p.tolist()], "n_new": k}).encode()
+                  for p, k in reqs]
+        before = [(e.metrics.counter("decode_dispatches"),
+                   e.metrics.counter("prefill_dispatches"))
+                  for e in fleet_router.replicas]
+        HK.reset_launch_counts()
+        replies, lat, wall = rest_load(api, bodies, len(bodies))
+        launches = HK.launch_counts()
+        launches = {n: launches[n] for n in kernels}
+        steps = sum(e.metrics.counter("decode_dispatches") - b[0]
+                    for e, b in zip(fleet_router.replicas, before))
+        chunks = sum(e.metrics.counter("prefill_dispatches") - b[1]
+                     for e, b in zip(fleet_router.replicas, before))
+        check(all(replies[i][0] == 200 for i in range(len(bodies))),
+              "serve_fleet http: %r" % [replies[i][0]
+                                        for i in range(len(bodies))])
+        got = {}
+        for path in ("/metrics", "/metrics.json", "/trace.json?last=16"):
+            code, body, ctype = http_get(base + path)
+            check(code == 200, "serve_fleet: GET %s %d" % (path, code))
+            got[path.split("?")[0]] = (body.decode() if ctype.startswith(
+                "text/plain") else strict_json(body), len(body))
+        split = fleet_router.routed_counts()
+    finally:
+        api.stop()
+    runs.append(launches)
+    settled(api.tracer)
+    recs = api.tracer.requests()
+    integ = verify_integrity(recs)
+    stamps = [replies[i][1]["replicas"] for i in range(len(bodies))]
+    outs = [numpy.asarray(replies[i][1]["tokens"][0][len(p):], numpy.int32)
+            for i, (p, _) in enumerate(reqs)]
+    text = got["/metrics"][0].splitlines()
+    types = [line for line in text if line.startswith("# TYPE ")]
+    rows = {i: [line for line in text if line.startswith(
+        'veles_serving_tokens_out_total{engine="lm",replica="%d"}' % i)]
+        for i in range(FLEET_REPLICAS)}
+    snap = got["/metrics.json"][0]
+    attempts = sum(1 for r in recs for s in r["spans"]
+                   if s["name"] == "attempt")
+    report["http"] = {
+        "requests": len(bodies), "wall_s": wall,
+        "requests_per_s": len(bodies) / wall,
+        "p50_s": statistics.median(lat), "max_s": max(lat),
+        "split": split, "launches": launches,
+        "decode_dispatches": steps, "prefill_dispatches": chunks,
+        "trace_requests": integ["requests"], "attempt_spans": attempts,
+        "trace_json_bytes": got["/trace.json"][1],
+        "metrics_families": len(types),
+        "differing_tokens": held("http", reqs, outs)}
+    check(split == [len(reqs) // 2] * FLEET_REPLICAS
+          and all(len(s) == 1 and s[0] in (0, 1) for s in stamps)
+          and sorted(s[0] for s in stamps) == sorted(
+              i % 2 for i in range(len(reqs)))
+          and launches["paged_flash_decode"] == n_layers * steps > 0
+          and launches["paged_flash_prefill"] == n_layers * chunks > 0
+          and len(types) == len(set(types))
+          and all(len(rows[i]) == 1 for i in rows)
+          and len(snap["replicas"]) == FLEET_REPLICAS
+          and integ["requests"] == len(reqs) == attempts
+          and len(got["/trace.json"][0]["traceEvents"]) > 0,
+          "serve_fleet http: %r" % report["http"])
+    gc_cuda(torch)
+    leg("http")
+
+    # (e) the planted faults
+    with patched(S.Router, "_order", router_mutant(
+            S, "_order", "live = [i for i, ok in enumerate(self._live) "
+            "if ok]", "live = list(range(len(self._live)))")):
+        caught["order_keeps_drained"] = order_mismatches(S) > 0
+    with patched(S.Router, "_on_attempt_done", router_mutant(
+            S, "_on_attempt_done", "if requeue and len(result) < job.n_new:",
+            "if False:")):
+        outs, _, _, _ = drain_run("planted", reqs[:FLEET_PLANTED_REQUESTS],
+                                  count=False)
+    caught["short_result_delivered"] = any(
+        len(o) < k for o, (_, k) in zip(outs, reqs))
+    with patched(S.Router, "_place", router_mutant(
+            S, "_place", "else min(min_retry, ra)", "else ra")):
+        caught["retry_after_last"] = all_refuse(S)[1] != min(
+            FLEET_RETRY_AFTERS)
+    gc_cuda(torch)
+    leg("faults")
+
+    # (f) the fleet's tokens/s against phase 4's one engine (the (a)
+    # bursts), and the router's host cost a placement against phase 4's
+    # decode step
+    us = placement_us(S)
+    report["placement"] = {"host_us": us, "decode_step_ms": tick["step_ms"],
+                           "step_share": us / (tick["step_ms"] * 1e3)}
+    launches = {n: sum(r[n] for r in runs) for n in kernels}
+    report.update(launches=launches, teacher_forced={
+        "rows_checked": teacher["rows"], "worst_shortfall": teacher["worst"],
+        "tolerance": LOGIT_TOL}, phase4_tokens_per_s=tick["tokens_per_s"],
+        faults_caught=caught, leg_s=legs,
+        phase_s=time.monotonic() - began)
+    print(json.dumps({"serve_fleet": report}, default=str), flush=True)
+    for name in FLEET_FAULTS:
+        check(caught[name], "serve_fleet: the planted fault %r was not "
+              "caught" % name)
+    return launches
+
+
 # ------------------------------------------------------------------ beside
 def beside_phases(out_path):
     """Phases 15 and 16 in a process of their own (``python3
@@ -11088,13 +11631,23 @@ def main():
     # decode path, sampled, traced and across a swap under the captured
     # graphs, three planted faults, the unarmed shims' cost
     guarded_launches = serve_guarded(torch, HK, T, S, smi, tick, observed)
-    del tick, observed
+    del observed
     for k, v in guarded_launches.items():
         launches[k] += v
     gc_cuda(torch)
     lap("serve_guarded")
 
-    # 24. the kernels line and the result
+    # 24. the serving fleet: two replicas on the card behind the router,
+    # both policies on two decode paths, the drains, the refusals,
+    # serve_lm over HTTP, three planted faults
+    fleet_launches = serve_fleet(torch, HK, T, S, smi, tick)
+    del tick
+    for k, v in fleet_launches.items():
+        launches[k] += v
+    gc_cuda(torch)
+    lap("serve_fleet")
+
+    # 25. the kernels line and the result
     main_case = {"flash_attention_fwd": flash[0],
                  "flash_attention_bwd_dkv": flash[1],
                  "flash_attention_bwd_dq": flash[2],
@@ -11152,6 +11705,8 @@ def main():
                 row["name"]]
         if row["name"] in guarded_launches:
             row["guarded_launches"] = guarded_launches[row["name"]]
+        if row["name"] in fleet_launches:
+            row["fleet_launches"] = fleet_launches[row["name"]]
         if row["name"] == "fused_sgd_update":
             row["population_launches"] = pop_launches
             row["observe_launches"] = observe_launches
@@ -11201,8 +11756,6 @@ if __name__ == "__main__":
                              sys.argv[4]))
     if sys.argv[1:2] == ["--beside"]:
         sys.exit(beside_phases(sys.argv[2]))
-    if sys.argv[1:2] == ["--megastep-child"]:
-        sys.exit(megastep_child(sys.argv[2]))
     if sys.argv[1:2] == ["--pipeline-rank"]:
         sys.exit(pipeline_rank(int(sys.argv[2]), int(sys.argv[3]),
                                sys.argv[4], sys.argv[5]))

@@ -53,7 +53,9 @@ the unarmed run's tokens with its kernel 5/6 launches, no violation, and
 the sync debug mode back to default after ``stop()``; a decode dispatch
 that reads a card value with ``.item()``, or uploads with a blocking
 ``torch.as_tensor(..., device=)``, fails its request with the sync error
-and the engine serves the next.
+and the engine serves the next.  Two engine replicas on the card behind
+the router serve one engine's tokens (per tick and scan), with kernel 5
+and 6 launches summed over the replicas.
 """
 
 import numpy
@@ -1813,6 +1815,55 @@ def test_blocking_upload_outside_to_device_is_caught():
         finally:
             engine.stop()
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def _sequential_fleet(engines):
+    """``GUARD_PROMPTS`` one at a time (each resolved before the next is
+    submitted) through a router over ``engines``, or through the lone
+    engine; returns (tokens, replica stamps, kernel 5/6 launches)."""
+    from veles_tpu_torch.serving import Router
+    server = Router(engines) if len(engines) > 1 else engines[0]
+    server.start()
+    HK.reset_launch_counts()
+    try:
+        outs, stamps = [], []
+        for p in GUARD_PROMPTS:
+            f = server.submit(p, 16)
+            outs.append(list(f.result(timeout=300)))
+            stamps.append(getattr(getattr(f, "job", None), "replica", 0))
+    finally:
+        server.stop()
+    launches = HK.launch_counts()
+    return outs, stamps, {k: launches[k] for k in ("paged_flash_decode",
+                                                   "paged_flash_prefill")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("megastep", [0, 4], ids=["tick", "scan"])
+def test_two_replica_router_serves_one_engines_tokens(megastep):
+    """Two replicas on ``cuda:0`` behind the router, each with its own
+    weights copy and, at K = 4, its own captured graphs: the tokens one
+    engine serves for the same requests one at a time, the placements
+    alternating, and kernels 5 and 6 launched n_layers x the replicas'
+    summed decode iterations and prompt chunks."""
+    _card()
+    from veles_tpu_torch.serving import ServingMetrics
+    want, _, _ = _sequential_fleet([_megastep_engine(megastep=megastep)])
+    engines = [_megastep_engine(
+        megastep=megastep, name="fleet_r%d" % i,
+        metrics=ServingMetrics("fleet", labels={"replica": str(i)}))
+        for i in range(2)]
+    assert engines[0].params["embed"].data_ptr() \
+        != engines[1].params["embed"].data_ptr()
+    got, stamps, launches = _sequential_fleet(engines)
+    assert got == want
+    assert stamps == [0, 1, 0, 1, 0]
+    steps = sum(e.metrics.counter("decode_dispatches") for e in engines)
+    chunks = sum(e.metrics.counter("prefill_dispatches") for e in engines)
+    n_layers, k = 2, max(1, megastep)
+    assert launches == {"paged_flash_decode": n_layers * k * steps,
+                        "paged_flash_prefill": n_layers * chunks}
+    assert steps > 0 and chunks > 0
 
 
 @pytest.mark.cuda

@@ -125,21 +125,25 @@ def test_unported_flags_raise_before_training(flags, item, monkeypatch):
 @pytest.mark.parametrize("flags,want", [
     (["--serve", "0"], dict(slots=0, prefix_cache=0, prefill_chunk=0,
                             spec_k=0, paged_kv=True, megastep=0,
+                            replicas=1, router="metrics",
                             fault_plan=None, trace="off", trace_last=256,
                             telemetry=0.0, slo=None)),
     (["--serve", "0", "--serve-slots", "4", "--serve-prefix-cache", "8",
       "--serve-prefill-chunk", "16", "--serve-spec-k", "2",
       "--serve-paged-kv", "40", "--serve-megastep", "4",
+      "--serve-replicas", "2", "--serve-router", "round_robin",
       "--serve-trace", "sample:0.5", "--serve-trace-last", "32",
       "--serve-telemetry", "--serve-slo", "default"],
      dict(slots=4, prefix_cache=8, prefill_chunk=16, spec_k=2,
-          paged_kv=40, megastep=4, fault_plan=None, trace="sample:0.5",
+          paged_kv=40, megastep=4, replicas=2, router="round_robin",
+          fault_plan=None, trace="sample:0.5",
           trace_last=32, telemetry=1.0, slo=True)),
 ])
 def test_lm_serve_flags_reach_serve_lm(flags, want, monkeypatch, capsys):
     """``--serve`` on an LM workflow serves it through ``serve_lm`` after
     the run, with the engine's six ``--serve-*`` flags forwarded
-    (``--serve-paged-kv`` 0 is the port's paged default), and the trace,
+    (``--serve-paged-kv`` 0 is the port's paged default), the fleet's
+    ``--serve-replicas`` and ``--serve-router``, and the trace,
     telemetry (a bare flag: 1 s) and SLO (``default``: the stock
     objectives) flags."""
     from veles_tpu_torch import restful_api

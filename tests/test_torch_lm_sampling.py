@@ -14,6 +14,7 @@ in the ``near_ties`` junit property; no seed is changed to avoid one).
 """
 
 import json
+import re
 import urllib.error
 import urllib.request
 from types import SimpleNamespace
@@ -444,6 +445,53 @@ def test_serve_lm_over_http(workflow):
     assert api.lm_engine._thread is None
 
 
+def test_serve_lm_fleet_over_http(workflow):
+    """``replicas=2`` behind the round-robin router: greedy rows equal
+    ``generate``'s and carry per-row replica stamps, the placements
+    split evenly, ``/metrics`` renders one ``# TYPE`` line a family with
+    a ``{replica="0"}`` and a ``{replica="1"}`` row, and
+    ``/metrics.json`` embeds both replicas' snapshots."""
+    api = serve_lm(workflow, port=0, slots=2, replicas=2,
+                   router="round_robin", max_new=32)
+    base = "http://127.0.0.1:%d" % api.port
+    try:
+        prompts = [[3, 1, 4, 1, 5], [2, 7, 1, 8, 2], [9, 9, 9, 9, 9],
+                   [1, 2, 3, 4, 5], [6, 5, 4, 3, 2], [8, 8, 1, 1, 8]]
+        seen = []
+        for pair in (prompts[:2], prompts[2:4], prompts[4:]):
+            code, body = _post(base + "/predict", {"input": pair,
+                                                   "n_new": 6})
+            assert code == 200 and body["weights_version"] == [0, 0]
+            want = TT.generate(workflow.trainer.params,
+                               torch.tensor(pair, dtype=torch.int32), 6,
+                               N_HEADS, temperature=0.0).numpy()
+            numpy.testing.assert_array_equal(body["tokens"], want)
+            assert len(body["replicas"]) == 2
+            seen += body["replicas"]
+        assert sorted(seen) == [0, 0, 0, 1, 1, 1]
+        assert api.lm_engine.routed_counts() == [3, 3]
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            text = r.read().decode()
+        lines = text.splitlines()
+        types = [line for line in lines if line.startswith("# TYPE ")]
+        assert len(types) == len(set(types)) > 0
+        for i in (0, 1):
+            row = 'veles_serving_tokens_out_total{engine="lm",replica="%d"} 18'
+            assert row % i in lines
+            assert ('veles_serving_routed_requests_total{engine="lm_router",'
+                    'replica="%d"} 3' % i) in lines
+        with urllib.request.urlopen(base + "/metrics.json",
+                                    timeout=60) as r:
+            snap = json.loads(r.read())
+        assert len(snap["replicas"]) == 2
+        assert [s["counters"]["tokens_out"] for s in snap["replicas"]] \
+            == [18, 18]
+        assert snap["gauges"]["replicas_live"] == 2
+    finally:
+        api.stop()
+    assert all(e._thread is None for e in api.lm_engine.replicas)
+
+
 def test_serve_lm_without_slots_samples_directly(workflow):
     """slots 0: every request, greedy or sampled, takes the direct path
     (no engine), and greedy rows equal ``generate``'s."""
@@ -461,10 +509,12 @@ def test_serve_lm_without_slots_samples_directly(workflow):
         api.stop()
 
 
-#: ``fault_plan``, ``trace``, ``telemetry`` and ``slo`` are ported: their
-#: cases check that each arms the server and its engine
+#: ``fault_plan``, ``trace``, ``telemetry``, ``slo``, ``replicas`` and
+#: ``router`` are ported: their cases check that each arms the server and
+#: its engine (the fleet's: a router over that many replicas)
 PORTED_KNOBS = (("fault_plan", None, None), ("trace", None, None),
-                ("telemetry", 0.0, None), ("slo", None, None))
+                ("telemetry", 0.0, None), ("slo", None, None),
+                ("replicas", 1, None), ("router", "metrics", None))
 LATER_KNOBS = SERVE_LM_UNPORTED + PORTED_KNOBS
 
 
@@ -474,12 +524,21 @@ def _serve_armed(workflow, knob):
     after)."""
     from veles_tpu_torch.serving import timeseries
     old = timeseries.get_default()
+    from veles_tpu_torch.serving import Router
     value = {"fault_plan": FaultPlan(), "trace": "all", "telemetry": 0.5,
-             "slo": True}[knob]
-    api = serve_lm(workflow, port=0, slots=1, **{knob: value})
+             "slo": True, "replicas": 2, "router": "round_robin"}[knob]
+    # the policy only matters behind a fleet: two replicas carry it
+    fleet = {"replicas": 2} if knob == "router" else {}
+    api = serve_lm(workflow, port=0, slots=1, **fleet, **{knob: value})
     try:
         engine = api.lm_engine
-        if knob == "fault_plan":
+        if knob in ("replicas", "router"):
+            assert isinstance(engine, Router) and len(engine.replicas) == 2
+            assert engine.policy == ("round_robin" if knob == "router"
+                                     else "metrics")
+            assert [e.name for e in engine.replicas] == ["lm_r0", "lm_r1"]
+            assert all(e._thread is not None for e in engine.replicas)
+        elif knob == "fault_plan":
             assert api.faults is value and engine._faults is value
         elif knob == "trace":
             assert api.tracer.mode == "all" and engine._tracer is api.tracer
@@ -497,8 +556,9 @@ def _serve_armed(workflow, knob):
                          ids=[k for k, _, _ in LATER_KNOBS])
 def test_serve_lm_later_knobs_raise_naming_their_items(workflow, knob,
                                                        default, item):
-    """The fleet and ``tp`` knobs raise naming their items; the ported
-    ones arm the server instead."""
+    """The fleet's resilience and deploy knobs and ``tp`` raise naming
+    their items (9(b), 9(c), 4); the ported ones arm the server
+    instead."""
     if item is None:
         _serve_armed(workflow, knob)
         return
@@ -506,7 +566,8 @@ def test_serve_lm_later_knobs_raise_naming_their_items(workflow, knob,
              type(None): "set"}[type(default)]
     if isinstance(default, bool):
         value = not default
-    with pytest.raises(NotImplementedError, match=item.split(" (")[0]):
+    with pytest.raises(NotImplementedError,
+                       match=re.escape(item.split(" (")[0])):
         serve_lm(workflow, port=0, slots=1, **{knob: value})
 
 

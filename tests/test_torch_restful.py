@@ -255,13 +255,15 @@ class TestUnported:
                        "_" + knob) is value
 
     def test_serve_lm_raises_naming_its_item(self):
-        """serve_lm is ported; its fleet knobs raise naming their item
-        before the workflow is read, and its trace, telemetry and SLO
-        knobs are no longer among the unported."""
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            serve_lm(None, port=0, replicas=2)
+        """serve_lm is ported; its fleet's resilience knobs raise naming
+        item 9(b) before the workflow is read, and its trace, telemetry,
+        SLO, ``replicas`` and ``router`` knobs are no longer among the
+        unported."""
+        with pytest.raises(NotImplementedError,
+                           match=r"Queue 1 item 9\(b\)"):
+            serve_lm(None, port=0, health=True)
         from veles_tpu_torch.restful_api import SERVE_LM_UNPORTED
-        assert not {"trace", "telemetry", "slo"} & {
+        assert not {"trace", "telemetry", "slo", "replicas", "router"} & {
             knob for knob, _, _ in SERVE_LM_UNPORTED}
 
 

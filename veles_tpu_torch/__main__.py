@@ -26,8 +26,10 @@ scripts/velescli.py [H], SURVEY §2.1, §3.1):
   workflow's token continuation (``restful_api.serve_lm``, with
   ``--serve-slots``, ``--serve-prefix-cache``, ``--serve-prefill-chunk``,
   ``--serve-spec-k``, ``--serve-paged-kv`` and ``--serve-megastep``
-  for its engine), prints ``SERVING http://127.0.0.1:<port>/predict``
-  and blocks until interrupted; ``--fault-plan FILE`` arms a JSON fault
+  for its engine, ``--serve-replicas R`` and ``--serve-router
+  metrics|round_robin`` for R engine replicas behind the router),
+  prints ``SERVING http://127.0.0.1:<port>/predict`` and blocks until
+  interrupted; ``--fault-plan FILE`` arms a JSON fault
   plan (``serving/faults.py``) at the served engine's, batcher's and
   server's sites; an LM workflow's server also takes ``--serve-trace
   off|errors|all|sample:P`` (``--serve-trace-last N``: the flight
@@ -42,9 +44,10 @@ scripts/velescli.py [H], SURVEY §2.1, §3.1):
   MongoDB (it needs ``pymongo``: without it the CLI exits 2 naming it).
 
 The parser takes every flag of the reference, so any reference command
-line parses.  The flags whose machinery is not ported yet (the fleet
-and tensor-parallel serving flags) raise NotImplementedError naming
-their ROADMAP item before anything is trained.
+line parses.  The flags whose machinery is not ported yet (the fleet's
+resilience and deploy flags, and tensor-parallel serving's) raise
+NotImplementedError naming their ROADMAP item before anything is
+trained.
 """
 
 from __future__ import annotations
@@ -204,6 +207,20 @@ def build_argparser():
                              "JSON file ('default': the stock set) as "
                              "multi-window burn rates over the "
                              "telemetry (implied at 1 s), GET /slo.json")
+    parser.add_argument("--serve-replicas", type=int, default=1,
+                        metavar="R",
+                        help="with --serve-slots: R engine replicas, each "
+                             "on its own device (round robin over the "
+                             "visible cards, or the CPU with -d cpu), "
+                             "behind the router; /metrics gains "
+                             "{replica=} rows")
+    parser.add_argument("--serve-router", default="metrics",
+                        choices=("metrics", "round_robin"),
+                        help="with --serve-replicas: placement policy — "
+                             "'metrics' (default) weighs each replica's "
+                             "live queue depth, resident KV pages and "
+                             "TTFT/decode-step EWMAs; 'round_robin' "
+                             "ignores them")
     # the rest of the reference's --serve-* flags, with their types and
     # defaults (not ported yet: each raises naming its ROADMAP item)
     for flag, kind, default, _ in _SERVE_UNPORTED:
@@ -240,21 +257,20 @@ _SERVE_FLAGS = (
      "fused dispatch (0 or 1: one a dispatch)"),
 )
 
-_FLEET = "Queue 1, item 9"
+_RESILIENCE = "Queue 1, item 9(b) (the router's resilience layer)"
+_DEPLOY = "Queue 1, item 9(c) (fleet deploy and the model manager)"
 #: the reference's serving flags not ported yet: (flag, type, default,
 #: ROADMAP item)
 _SERVE_UNPORTED = (
     ("--serve-tp", int, 0, "Queue 1, item 4"),
-    ("--serve-replicas", int, 1, _FLEET),
-    ("--serve-router", str, "metrics", _FLEET),
-    ("--serve-health", bool, False, _FLEET),
-    ("--serve-hedge", float, 0.0, _FLEET),
-    ("--serve-retries", int, 0, _FLEET),
-    ("--serve-model-dir", str, None, _FLEET),
-    ("--serve-canary", int, 1, _FLEET),
-    ("--serve-publish-interval", float, 5.0, _FLEET),
-    ("--serve-canary-watch", float, 2.0, _FLEET),
-    ("--serve-no-auto-rollback", bool, False, _FLEET),
+    ("--serve-health", bool, False, _RESILIENCE),
+    ("--serve-hedge", float, 0.0, _RESILIENCE),
+    ("--serve-retries", int, 0, _RESILIENCE),
+    ("--serve-model-dir", str, None, _DEPLOY),
+    ("--serve-canary", int, 1, _DEPLOY),
+    ("--serve-publish-interval", float, 5.0, _DEPLOY),
+    ("--serve-canary-watch", float, 2.0, _DEPLOY),
+    ("--serve-no-auto-rollback", bool, False, _DEPLOY),
 )
 
 
@@ -433,8 +449,8 @@ def _is_lm(wf):
 def serve(wf, port, batch=0, args=None):
     """Serve a trained workflow until interrupted (the ``--serve`` tail
     of a run): an LM workflow's token continuation through
-    ``serve_lm`` with the ``--serve-*`` engine, trace, telemetry and SLO
-    flags of ``args``, else its forward chain, with ``--fault-plan``'s
+    ``serve_lm`` with the ``--serve-*`` engine, fleet, trace, telemetry
+    and SLO flags of ``args``, else its forward chain, with ``--fault-plan``'s
     plan armed.  In a
     distributed run only process 0 serves (one endpoint, as one process
     writes snapshots)."""
@@ -456,6 +472,8 @@ def serve(wf, port, batch=0, args=None):
                       paged_kv=(True if args.serve_paged_kv <= 0
                                 else args.serve_paged_kv),
                       megastep=args.serve_megastep,
+                      replicas=args.serve_replicas,
+                      router=args.serve_router,
                       trace=args.serve_trace,
                       trace_last=args.serve_trace_last,
                       telemetry=args.serve_telemetry,

@@ -43,10 +43,12 @@ rates and states at ``GET /slo.json``.  ``/status`` shows all three.
 continuation: greedy requests through the paged ``LMEngine``'s slots,
 sampled ones (and every one without slots) through ``generate``.
 
-Not ported yet: ``serve_lm``'s fleet (replicas, router, health,
-hedging, retries, the model directory's publisher: Queue 1 item 9),
-``tp`` (item 4) and the contiguous KV layout (``paged_kv=0``, item 8) —
-each raises NotImplementedError naming its item.
+``serve_lm(replicas=N)`` serves N engine replicas behind the fleet's
+:class:`~veles_tpu_torch.serving.Router`.  Not ported yet: the fleet's
+resilience layer (health, hedging, retries: Queue 1 item 9(b)) and
+deploy (the model directory's publisher, canaries: item 9(c)), ``tp``
+(item 4) and the contiguous KV layout (``paged_kv=0``, item 8) — each
+raises NotImplementedError naming its item.
 
 Usage::
 
@@ -70,15 +72,15 @@ import torch
 
 from veles_tpu_torch.logger import Logger
 
-_FLEET = "Queue 1 item 9 (the serving fleet)"
+_RESILIENCE = "Queue 1 item 9(b) (the router's resilience layer)"
+_DEPLOY = "Queue 1 item 9(c) (fleet deploy and the model manager)"
 #: serve_lm's knobs not ported yet: (name, default, ROADMAP item)
 SERVE_LM_UNPORTED = (
     ("tp", 0, "Queue 1 item 4 (tensor-parallel serving)"),
-    ("replicas", 1, _FLEET), ("router", "metrics", _FLEET),
-    ("health", False, _FLEET), ("hedge", 0.0, _FLEET),
-    ("retries", 0, _FLEET), ("model_dir", None, _FLEET),
-    ("publish_interval_s", 5.0, _FLEET), ("canary", 1, _FLEET),
-    ("canary_watch_s", 2.0, _FLEET), ("auto_rollback", True, _FLEET),
+    ("health", False, _RESILIENCE), ("hedge", 0.0, _RESILIENCE),
+    ("retries", 0, _RESILIENCE), ("model_dir", None, _DEPLOY),
+    ("publish_interval_s", 5.0, _DEPLOY), ("canary", 1, _DEPLOY),
+    ("canary_watch_s", 2.0, _DEPLOY), ("auto_rollback", True, _DEPLOY),
 )
 
 
@@ -555,9 +557,21 @@ def serve_lm(workflow, host="127.0.0.1", port=8180, max_new=256,
     reference bounds its compiles.  ``n_new`` 0 echoes the prompt; a
     prompt with no room to decode is a 400.
 
+    ``replicas > 1`` (engine path) builds one engine a replica, each on
+    its device from :func:`~veles_tpu_torch.serving.
+    replica_device_slices` over the trainer's device kind (every visible
+    card, or the CPU), named ``lm_r{i}`` with its metrics under the
+    ``lm`` family labelled ``{replica="i"}``, each owning its copy of
+    the weights, behind a :class:`~veles_tpu_torch.serving.Router`
+    (``router``: ``"metrics"`` or ``"round_robin"`` placement) whose
+    :class:`~veles_tpu_torch.serving.RouterMetrics` serve
+    ``/metrics.json`` with every replica's snapshot; greedy replies then
+    carry a per-row ``"replicas"`` list beside ``"weights_version"``.
+
     ``fault_plan`` (a :class:`veles_tpu_torch.serving.FaultPlan`, the
-    CLI's ``--fault-plan FILE``) arms the engine's ``engine.*`` sites
-    and the server's ``http.request`` site.
+    CLI's ``--fault-plan FILE``) arms the engines' ``engine.*`` sites,
+    the router's ``router.place`` and the server's ``http.request``
+    site.
 
     ``trace`` (``"off"``/None, ``"all"``, ``"errors"``, ``"sample:P"``
     or a :class:`~veles_tpu_torch.serving.SpanTracer`; the CLI's
@@ -578,14 +592,14 @@ def serve_lm(workflow, host="127.0.0.1", port=8180, max_new=256,
     ``telemetry`` (1 s).  ``stop()`` stops the store before the engine.
 
     Not ported yet, each raising NotImplementedError naming its ROADMAP
-    item (:data:`SERVE_LM_UNPORTED`): ``tp``; the fleet (``replicas``,
-    ``router``, ``health``, ``hedge``, ``retries``, ``model_dir``,
-    ``publish_interval_s``, ``canary``, ``canary_watch_s``,
-    ``auto_rollback``); and ``paged_kv=0``.  The reference's
-    ``attn_kernel`` is not a keyword here: the port has one attention
-    route, the kernels."""
-    given = dict(tp=tp, replicas=replicas, router=router, health=health,
-                 hedge=hedge, retries=retries, model_dir=model_dir,
+    item (:data:`SERVE_LM_UNPORTED`): ``tp``; the fleet's resilience
+    layer (``health``, ``hedge``, ``retries``) and deploy
+    (``model_dir``, ``publish_interval_s``, ``canary``,
+    ``canary_watch_s``, ``auto_rollback``); and ``paged_kv=0``.  The
+    reference's ``attn_kernel`` is not a keyword here: the port has one
+    attention route, the kernels."""
+    given = dict(tp=tp, health=health, hedge=hedge, retries=retries,
+                 model_dir=model_dir,
                  publish_interval_s=publish_interval_s, canary=canary,
                  canary_watch_s=canary_watch_s,
                  auto_rollback=auto_rollback)
@@ -611,19 +625,45 @@ def serve_lm(workflow, host="127.0.0.1", port=8180, max_new=256,
     from veles_tpu_torch.serving.tracing import SpanTracer
     tracer = SpanTracer.from_spec(trace, last=int(trace_last))
     engine = None
+    routed = False
     if slots > 0:
-        from veles_tpu_torch.serving import LMEngine
+        from veles_tpu_torch.serving import (LMEngine, Router, RouterMetrics,
+                                             replica_device_slices)
         from veles_tpu_torch.serving import metrics as metrics_mod
-        engine = LMEngine(
-            params, n_heads=trainer.n_heads, max_len=cache_len,
-            slots=slots, rope=getattr(trainer, "rope", False),
-            window=getattr(trainer, "window", None),
-            sinks=getattr(trainer, "attn_sinks", 0),
-            queue_depth=queue_depth, deadline_s=deadline_s,
-            prefix_cache=prefix_cache, prefill_chunk=prefill_chunk,
-            spec_k=spec_k, queue_tokens=queue_tokens, paged_kv=paged_kv,
-            megastep=megastep, name="lm", metrics=metrics_mod.new("lm"),
-            faults=fault_plan, tracer=tracer, device=device).start()
+        n_rep = max(1, int(replicas))
+        # every visible card, or the trainer's CPU
+        slices = (replica_device_slices(
+            n_rep, 0, devices=None if device.type == "cuda" else [device])
+            if n_rep > 1 else None)
+
+        def build_engine(i=None):
+            """One engine: replica ``i`` on its device slice, its metrics
+            a ``{replica="i"}`` row of the shared ``lm`` family; each
+            engine owns its copy of the weights (``_owned_tree``)."""
+            dev, label, eng_name = device, None, "lm"
+            if i is not None:
+                dev, label, eng_name = (slices[i][0], {"replica": str(i)},
+                                        "lm_r%d" % i)
+            return LMEngine(
+                params, n_heads=trainer.n_heads, max_len=cache_len,
+                slots=slots, rope=getattr(trainer, "rope", False),
+                window=getattr(trainer, "window", None),
+                sinks=getattr(trainer, "attn_sinks", 0),
+                queue_depth=queue_depth, deadline_s=deadline_s,
+                prefix_cache=prefix_cache, prefill_chunk=prefill_chunk,
+                spec_k=spec_k, queue_tokens=queue_tokens,
+                paged_kv=paged_kv, megastep=megastep, name=eng_name,
+                metrics=metrics_mod.new("lm", labels=label),
+                faults=fault_plan, tracer=tracer, device=dev)
+
+        if n_rep > 1:
+            routed = True
+            engine = Router(
+                [build_engine(i) for i in range(n_rep)],
+                metrics=metrics_mod.register(RouterMetrics("lm_router")),
+                policy=router, faults=fault_plan, tracer=tracer).start()
+        else:
+            engine = build_engine().start()
         if slo and not telemetry:
             telemetry = 1.0         # objectives need the store
     store = monitor = None
@@ -634,10 +674,13 @@ def serve_lm(workflow, host="127.0.0.1", port=8180, max_new=256,
         interval = 1.0 if telemetry is True else float(telemetry)
         store = ts_mod.telemetry_for(engine, interval_s=interval)
         if slo:
-            # the SLO gauges and counters land in the engine's own
-            # family, so /metrics carries slo_state too
-            kw = dict(source_replicas={_registry_key(engine.metrics): 0},
-                      metrics=engine.metrics)
+            # the SLO gauges and counters land in the router's (or the
+            # lone engine's) own family, so /metrics carries slo_state
+            # too; no health checker until Queue 1 item 9(b)
+            kw = dict(source_replicas={
+                _registry_key(e.metrics): i for i, e in
+                enumerate(getattr(engine, "replicas", [engine]))},
+                metrics=engine.metrics)
             monitor = (SLOMonitor(store, SLOMonitor.default_objectives(),
                                   **kw) if slo is True
                        else SLOMonitor.from_spec(slo, store, **kw))
@@ -663,6 +706,14 @@ def serve_lm(workflow, host="127.0.0.1", port=8180, max_new=256,
                                    else 0)
         if engine is not None and temperature == 0.0 \
                 and eng_headroom >= 1:
+            if routed:
+                # per-row replica ids beside the weights_version stamps:
+                # the client-side balance evidence
+                toks, reps, vers = engine.generate(
+                    prompt, min(want, eng_headroom), return_replicas=True,
+                    return_versions=True)
+                return {"tokens": toks.tolist(), "replicas": reps,
+                        "weights_version": vers}
             toks, vers = engine.generate(prompt, min(want, eng_headroom),
                                          return_versions=True)
             return {"tokens": toks.tolist(), "weights_version": vers}

@@ -6,7 +6,17 @@ deterministic fault plans that arm their failure paths, the span tracer
 time-series store and SLO burn-rate monitor over the serving metrics,
 the lock-order witness and the transfer guard that check them at run
 time, and their host-side bookkeeping (allocator, metrics, admission
-exceptions)."""
+exceptions).
+
+The serving fleet (``router.py``): N engine replicas, each on its own
+device (``replica_device_slices``), behind a :class:`Router` that places
+each request on one replica by the replicas' live metrics (or round
+robin), answers 429 with the minimum ``Retry-After`` only when every
+live replica refuses (:class:`NoLiveReplicas` when none is live),
+drains a hot-unregistered replica's requests onto the others exactly
+once, and meters the fleet in :class:`RouterMetrics` (every replica's
+snapshot under ``"replicas"``).  Its resilience layer and deploy are not
+ported yet (ROADMAP Queue 1 items 9(b) and 9(c))."""
 
 from veles_tpu_torch.serving.batcher import (DeadlineExceeded, MicroBatcher,
                                              Overloaded, PoolExhausted,
@@ -20,6 +30,9 @@ from veles_tpu_torch.serving.lm_engine import (LMEngine, RadixPrefixCache,
                                                propose_draft)
 from veles_tpu_torch.serving.metrics import (Histogram, ServingMetrics, get,
                                              render_prometheus)
+from veles_tpu_torch.serving.router import (NoLiveReplicas, Router,
+                                            RouterMetrics,
+                                            replica_device_slices)
 from veles_tpu_torch.serving.slo import Objective, SLOMonitor
 from veles_tpu_torch.serving.timeseries import (TimeSeriesStore,
                                                 decode_flops_per_token,
@@ -32,10 +45,11 @@ from veles_tpu_torch.serving.tracing import (SpanTracer, TraceContext,
 
 __all__ = ["DeadlineExceeded", "FaultPlan", "Histogram", "InjectedFault",
            "InjectedHTTPError", "KVPagePool", "LMEngine", "LockOrderViolation",
-           "LockOrderWitness", "MicroBatcher",
-           "Objective", "Overloaded", "PoolExhausted", "RadixPrefixCache",
-           "SLOMonitor", "ServingMetrics", "SpanTracer", "TimeSeriesStore",
-           "TraceContext", "batch_buckets", "cost_ledger",
+           "LockOrderWitness", "MicroBatcher", "NoLiveReplicas", "Objective",
+           "Overloaded", "PoolExhausted", "RadixPrefixCache", "Router",
+           "RouterMetrics", "SLOMonitor", "ServingMetrics", "SpanTracer",
+           "TimeSeriesStore", "TraceContext", "batch_buckets", "cost_ledger",
            "decode_flops_per_token", "format_waterfall", "get",
            "peak_flops_estimate", "propose_draft", "render_prometheus",
-           "runtime_probe", "telemetry_for", "verify_integrity"]
+           "replica_device_slices", "runtime_probe", "telemetry_for",
+           "verify_integrity"]

@@ -2,12 +2,12 @@
 
 Port of ``veles_tpu/serving/faults.py``, whole: a :class:`FaultPlan`
 arms named SITES (fixed strings compiled into ``serving/lm_engine.py``,
-``serving/batcher.py`` and ``restful_api.py``) with rules that raise,
-delay, or freeze at chosen call numbers, so the serving stack's
-failure paths — a faulted dispatch failing exactly its lanes, pool
-cleanup mid-prefill, a refused weight swap, a wedged worker and its
-crash-safe restore — are driven as deterministic inputs instead of
-monkeypatches.
+``serving/batcher.py``, ``serving/router.py`` and ``restful_api.py``)
+with rules that raise, delay, or freeze at chosen call numbers, so the
+serving stack's failure paths — a faulted dispatch failing exactly its
+lanes, pool cleanup mid-prefill, a refused weight swap, a wedged worker
+and its crash-safe restore — are driven as deterministic inputs
+instead of monkeypatches.
 
 Design rules (the reference's):
 
@@ -48,8 +48,8 @@ Sites (each a no-op when unarmed):
                       keep serving)
 ``batcher.submit``    MicroBatcher.submit admission
 ``batcher.dispatch``  MicroBatcher forward dispatch
-``router.place``      router placement (the reference's fleet; no call
-                      site in the port yet)
+``router.place``      Router placement, once a placement attempt
+                      (``serving/router.py``, ``Router._place``)
 ``http.request``      restful_api request dispatch (transient HTTP
                       errors via :class:`InjectedHTTPError`, latency)
 ===================== ==================================================
