@@ -110,7 +110,12 @@ Phases (any failure exits nonzero before the final line is printed):
    and two faulty card runs rejected by those limits;
 8. the conv zoo — first the transposed conv and its backward (stride 2,
    k 5, SAME and int padding) on the card against the CPU (checked, not
-   timed); then each of ``cifar`` (``BASELINE.json`` configs[1]: 3
+   timed); stochastic and stochastic-abs pooling at CIFAR's first
+   pooling input (100 x 32 x 32 x 32, 2x2) on the card against the CPU
+   with one key: the drawn positions and outputs equal but at counted
+   near ties (``POOL_TIE``), eval within 1e-5, the backward bit-equal,
+   and a two-step train of a small conv workflow with both layers
+   (``POOL_TRAIN``: finite losses, one SGD launch a step); then each of ``cifar`` (``BASELINE.json`` configs[1]: 3
    conv_str, 3 pools, softmax; 50,000 / 10,000 synthetic 32x32x3),
    ``mnist_conv``, ``cifar_resnet`` (stem, identity block, downsampling
    block with a projected skip, identity block) and ``mnist_ae`` (conv,
@@ -234,7 +239,7 @@ Phases (any failure exits nonzero before the final line is printed):
    'flash_pallas': (a) in this process at one stage (no joined run), the
    char-LM sample at ``LM_TRAIN``'s size with 4 microbatches
    (``PIPE_TRAIN``): exact flash launches (4 microbatches x 8 layers a
-   step), falling train loss, a seeded rerun bit-equal, the steady
+   step), falling train loss, the steady
    step, and the params after the first and third update within
    ``LM_*_SHARE`` of the sequential run (microbatching changes the GEMM
    shapes); the MoE run of ``docs/USAGE.md`` (``PIPE_MOE``: 4 experts, 8
@@ -508,35 +513,68 @@ Phases (any failure exits nonzero before the final line is printed):
 24. serve_fleet — two engine replicas on the card behind the router
    (``serving/router.py``; each replica its own weights copy, pools and
    captured graphs, 8 slots, page 32, full LM width): (a) phase 4's 16
-   requests one at a time and then as one burst, under the ``metrics``
-   and ``round_robin`` policies, per tick and at scan K = 8
-   (``FLEET_PATHS``): the sequential placements alternate (every score
-   0: the fewest-routed tiebreak, or the counter), a burst's split within
-   the reference's bound (``FLEET_BURST_SPREAD``; round robin exact),
-   kernel 5/6 launches n_layers x (K x) the replicas' summed decode
-   dispatches and prompt chunks, the tokens that differ from phase 4's
-   one engine counted and each differing row held to the teacher-forced
-   plain pass (``LOGIT_TOL``), the pools full again, tokens/s against
-   phase 4's; (b) a drain (replica 0 slowed by a ``latency`` plan,
-   unregistered mid-decode: every request once and whole, requeued >=
-   withdrawn, later placements on replica 1) and a wedged drain (replica
-   0 frozen with the request in a lane: force re-placed after
-   ``FLEET_DRAIN_TIMEOUT_S``, the zombie's late result ignored); (c)
-   every replica refusing: the minimum ``Retry-After``, and
-   ``NoLiveReplicas`` once none is live, and ``_order`` over
-   ``FLEET_ORDER_FLEETS`` seeded stub fleets equal to a plain ordering;
-   (d) ``serve_lm(replicas=2, router="round_robin", trace="all")`` over
-   HTTP: 16 concurrent requests split 8/8, per-row replica stamps,
-   ``/metrics`` (one ``# TYPE`` a family, a row a replica),
-   ``/metrics.json`` (both replicas' snapshots) and ``/trace.json``
-   strict, every trace sound with one ``attempt`` span a request; (e)
-   three planted faults (``FLEET_FAULTS``: an ``_order`` that keeps a
-   drained replica, a completion path that delivers a drained attempt's
-   short result, a ``Retry-After`` from the last refusal) caught; (f)
-   the router's host µs a placement (a stub fleet of settled futures) as
-   a share of phase 4's decode step; its JSON line
-   (``{"serve_fleet": ...}``);
-25. the script's seconds, the card's name and power limit, one JSON line
+   requests as one burst, under the ``metrics`` and ``round_robin``
+   policies, per tick and at scan K = 8 (``FLEET_PATHS``), and at scan
+   K = 8 also one at a time (``FLEET_SEQUENTIAL_PATHS``): the
+   sequential placements alternate (every score 0: the fewest-routed
+   tiebreak, or the counter), a burst's split within the reference's
+   bound (``FLEET_BURST_SPREAD``; round robin exact), kernel 5/6
+   launches n_layers x (K x) the replicas' summed decode dispatches and
+   prompt chunks, the tokens that differ from phase 4's one engine
+   counted and each differing row held to the teacher-forced plain pass
+   (``LOGIT_TOL``), the pools full again, tokens/s against phase 4's;
+   (b) a drain (replica 0 slowed by a ``latency`` plan, unregistered
+   mid-decode: every request once and whole, requeued >= withdrawn,
+   later placements on replica 1); (c) every replica refusing: the
+   minimum ``Retry-After``, and ``NoLiveReplicas`` once none is live,
+   and ``_order`` over ``FLEET_ORDER_FLEETS`` seeded stub fleets equal
+   to a plain ordering; (d) three planted faults (``FLEET_FAULTS``: an
+   ``_order`` that keeps a drained replica, a completion path that
+   delivers a drained attempt's short result, a ``Retry-After`` from the
+   last refusal) caught; (e) the router's host µs a placement (a stub
+   fleet of settled futures) as a share of phase 4's decode step; its
+   JSON line (``{"serve_fleet": ...}``).  The wedged drain and
+   ``serve_lm`` over HTTP run in phase 25, armed;
+25. serve_resilience — the router's resilience layer over two replicas
+   on the card (full LM width, 8 slots, page 32), one fleet a path (per
+   tick and scan K = 8, ``RES_PATHS``) reused across the legs with the
+   fault plans swapped between them: (a) retries: replica 0 faulting
+   every decode dispatch, ``retries=2``, phase 4's 16 requests as one
+   burst, every one delivered by replica 1, ``requests_retried`` >= 1;
+   then both replicas faulting: ``InjectedFault`` after exactly 2
+   retries; (b) hedges: replica 0's dispatch slowed by
+   ``RES_LATENCY_S``, ``hedge_after_s`` ``RES_HEDGE_AFTER_S``: hedges
+   placed and won, every request delivered once, every loser cancelled
+   and never delivered, both pools' invariants sound once quiet; per
+   tick (``RES_UNHEDGED_PATHS``) the same burst unhedged for the slowed
+   requests' p50 and max latency; (c) the circuit: replica 0 frozen at
+   a loop turn mid-decode, ``HealthChecker.step()`` by hand
+   (``RES_STALL_S`` staleness, ``RES_FAIL_THRESHOLD`` failures):
+   quarantined through the drain with ``circuit_open_total`` 1, its
+   wedged lanes force re-placed after ``RES_DRAIN_TIMEOUT_S`` and the
+   zombies' late results ignored, every request once and whole, after the
+   release and ``RES_COOLDOWN_S`` the half-open probe re-admits it and
+   it serves again; ``note_slo_page`` x ``RES_FAIL_THRESHOLD`` opens
+   the circuit the same way and a half-open probe closes it; in every
+   leg kernel 5/6 launches n_layers x (K x) the replicas' summed
+   dispatches and chunks (losers, retries and probes included), tokens
+   differing from phase 4's counted and each differing row held to the
+   teacher-forced plain pass; (d) ``serve_lm(replicas=2, health=True,
+   retries=2, hedge=-1, slo=True, trace="all")`` over HTTP with one
+   injected chunk fault: 16 replies 200, one retry, the launch formula,
+   ``/metrics`` (one ``# TYPE`` a family, ``replica_health_state`` and
+   ``tokens_out`` a row a replica), ``/metrics.json`` (both replicas'
+   snapshots), ``/slo.json`` and ``/trace.json`` strict, every trace
+   sound with an ``attempt`` span a placement, the checker stopped with
+   the server; (e) four planted faults
+   (``RES_FAULTS``: a retry that ignores ``exclude``, a ``_deliver``
+   that lets a hedge loser overwrite the winner's stamps, a half-open
+   probe that does not double the cooldown, a probe success that resets
+   the SLO page streak) caught on stub fleets; (f) the router's host µs
+   a placement armed but idle (``retries`` 2, a hedge loop running)
+   against phase 24's unarmed figure; its JSON line
+   (``{"serve_resilience": ...}``);
+26. the script's seconds, the card's name and power limit, one JSON line
    listing every ported TPU kernel (kernel 1 with its launches in phase
    14's parent process, ``population_launches``, and in phase 16's,
    ``observe_launches``; kernel 2 with its
@@ -548,7 +586,8 @@ Phases (any failure exits nonzero before the final line is printed):
    ``megastep_launches``, in phase 19, ``whilestep_launches``, in
    phase 20, ``sampling_launches``, in phase 21, ``ops_launches``, in
    phase 22, ``observe_serve_launches``, in phase 23,
-   ``guarded_launches``, and in phase 24, ``fleet_launches``;
+   ``guarded_launches``, in phase 24, ``fleet_launches``, and in phase
+   25, ``resilience_launches``;
    kernels 1 and 4
    with their device-operand entries' times, bounds and launches, kernel
    4 with its offset entry's), the token draw's line
@@ -584,7 +623,18 @@ steps, not 10, and rank 0 no longer repeats it as a single-process
 graph loop, so the launcher-driven data-parallel run is no longer
 compared with one process (that gap was reported, never checked; the
 fixed-batch data-parallel steps are still held to one process); phase
-18 no longer repeats its timing in a fresh child process.
+18 no longer repeats its timing in a fresh child process.  And to pay
+for phase 25: phase 24(a) runs phase 4's requests one at a time only
+at scan K = 8 (per tick: the bursts alone, so the per-tick fleet's
+one-at-a-time placements are no longer seen; their alternation is
+still checked at K = 8); phase 24's wedged drain and its ``serve_lm``
+over HTTP (round robin, unarmed) moved into phase 25's circuit and
+HTTP legs (armed; the round-robin split over HTTP is no longer
+checked, round robin is still held in (a)'s bursts); phase 13(a) no
+longer reruns its one-stage run in process (its determinism is still
+shown by the four ranks reproducing it bit for bit); phase 11's rank-0
+gap sums (``weight_gaps``) reduce on torch's host threads and take each
+reference's movement once (the same values).
 
 It imports nothing of JAX and nothing of the ``veles_tpu`` package.
 """
@@ -2199,20 +2249,34 @@ def committed_weights(run, device):
     return kept
 
 
-def weight_gaps(card, cpu):
+def _max_gap(a, b):
+    """max |a - b| over two host arrays, in their type (the value
+    numpy's ``abs(a - b).max()`` gives) on torch's host threads."""
+    import torch
+    return float(torch.from_numpy(numpy.asarray(a)).sub(
+        torch.from_numpy(numpy.asarray(b))).abs_().max())
+
+
+def movements(cpu):
+    """Per committed update after the first and per layer: the run's
+    movement max |w - w0| over weights and bias."""
+    return [[max(_max_gap(a, b) for a, b in zip(x, y))
+             for x, y in zip(cpu[k], cpu[0])] for k in range(1, len(cpu))]
+
+
+def weight_gaps(card, cpu, moved=None):
     """Per committed update (after the first, ..., the last) and per
     layer: the max |card - CPU| gap over weights and bias ("abs"), the
-    CPU run's movement max |w - w0| ("movement"), and the gap as a share
+    CPU run's movement max |w - w0| ("movement", or ``moved`` when the
+    caller has it: :func:`movements` of ``cpu``), and the gap as a share
     of the movement ("share")."""
-    out = {"abs": [], "movement": [], "share": []}
+    out = {"abs": [], "movement": moved or movements(cpu), "share": []}
     for k in range(1, len(cpu)):
-        gaps = [max(float(numpy.abs(a - b).max()) for a, b in zip(x, y))
+        gaps = [max(_max_gap(a, b) for a, b in zip(x, y))
                 for x, y in zip(card[k], cpu[k])]
-        moved = [max(float(numpy.abs(a - b).max()) for a, b in zip(x, y))
-                 for x, y in zip(cpu[k], cpu[0])]
         out["abs"].append(gaps)
-        out["movement"].append(moved)
-        out["share"].append([g / m for g, m in zip(gaps, moved)])
+        out["share"].append([g / m for g, m in
+                             zip(gaps, out["movement"][k - 1])])
     return out
 
 
@@ -3379,6 +3443,112 @@ def deconv_check(torch, F, card, device="cuda"):
     report = {"phase": "deconv_check", "card": card, "limit": DECONV_SHARE,
               "cases": out}
     print(json.dumps(report), flush=True)
+
+
+#: phase 8: stochastic pooling at CIFAR's first pooling input (minibatch
+#: 100, 32x32, the sample's 32 kernels), card against the CPU; two scores
+#: closer than this may swap (the gumbel's 4e-6, plus a few ulps of log p)
+POOL_SHAPE, POOL_TIE = (100, 32, 32, 32), 1e-5
+#: the two-step train: CIFAR's first conv and a stochastic pooling layer
+POOL_TRAIN = {
+    "loader": {"minibatch_size": 100, "n_train": 200, "n_valid": 100},
+    "decision": {"max_epochs": 1, "fail_iterations": 50},
+    "layers": [
+        {"type": "conv_str", "n_kernels": 32, "kx": 5, "ky": 5,
+         "padding": "SAME", "learning_rate": 0.02, "momentum": 0.9,
+         "weights_filling": "gaussian", "weights_stddev": 0.05},
+        {"type": "stochastic_pooling", "kx": 2, "ky": 2},
+        {"type": "stochastic_abs_pooling", "kx": 2, "ky": 2},
+        {"type": "softmax", "output_sample_shape": 10,
+         "learning_rate": 0.02, "momentum": 0.9}]}
+
+
+def stochastic_pool_check(torch, HK, F, card, device="cuda"):
+    """Stochastic and stochastic-abs pooling on the card against the CPU
+    with the same key: positions and outputs equal but at counted near
+    ties, eval within 1e-5, the backward equal (near-tie windows' errors
+    zeroed on both sides); then a two-step train of a small conv
+    workflow with both layers, finite losses, one SGD launch a step.
+    Plain PyTorch (the reference leaves the draw to XLA): no kernel."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.samples import cifar
+    began = time.monotonic()
+    rs = numpy.random.RandomState(SEED)
+    x = rs.randn(*POOL_SHAPE).astype(numpy.float32)
+    err = rs.randn(POOL_SHAPE[0], POOL_SHAPE[1] // 2, POOL_SHAPE[2] // 2,
+                   POOL_SHAPE[3]).astype(numpy.float32)
+    key = prng.PRNGKey(SEED)
+    cases = []
+    for use_abs in (False, True):
+        runs = {}
+        for dev in (device, "cpu"):
+            xt = torch.as_tensor(x, device=dev)
+            y, idx = F.stochastic_pooling(xt, (2, 2), (2, 2), key, True,
+                                          use_abs)
+            ye, _ = F.stochastic_pooling(xt, (2, 2), (2, 2), None, False,
+                                         use_abs)
+            runs[dev] = (xt, y, idx, ye)
+        xc, yc, ic, ec = runs["cpu"]
+        # the CPU's scores, for the near ties
+        patches = F._pool_patches(xc, (2, 2), (2, 2))
+        weights = patches.abs() if use_abs else patches.clamp(min=0.0)
+        total = weights.sum(dim=3, keepdim=True)
+        probs = torch.where(total > 0, weights / total.clamp(min=1e-30),
+                            torch.full_like(total, 0.25))
+        k0, k1 = (int(w) for w in key)
+        g = prng.gumbel_tensor(prng.bits_words(k0, k1, torch.arange(
+            probs.numel(), dtype=torch.int64))).reshape(probs.shape)
+        top = (probs.clamp(min=1e-30).log() + g).topk(2, dim=3).values
+        near = (top[:, :, :, 0] - top[:, :, :, 1] < POOL_TIE).numpy()
+        xd, yd, idd, ed = runs[device]
+        far = ~near
+        idx_card, idx_cpu = idd[:, :, :, 0].cpu().numpy(), ic[:, :, :, 0].numpy()
+        y_card = yd.cpu().numpy()
+        e = err.copy()
+        e[near] = 0.0
+        gd = F.stochastic_pooling_backward(
+            xd, torch.as_tensor(e, device=device), idd, (2, 2)).cpu().numpy()
+        gc = F.stochastic_pooling_backward(
+            xc, torch.as_tensor(e), ic, (2, 2)).numpy()
+        case = {"use_abs": use_abs, "shape": list(POOL_SHAPE),
+                "windows": int(near.size), "near_ties": int(near.sum()),
+                "positions_differing": int((idx_card != idx_cpu)[far].sum()),
+                "outputs_differing": int((y_card != yc.numpy())[far].sum()),
+                "eval_max_abs": float(numpy.abs(
+                    ed.cpu().numpy() - ec.numpy()).max()),
+                "backward_max_abs": float(numpy.abs(gd - gc).max())}
+        cases.append(case)
+        check(case["positions_differing"] == 0
+              and case["outputs_differing"] == 0
+              and case["eval_max_abs"] <= 1e-5
+              and case["backward_max_abs"] == 0.0,
+              "stochastic pooling card vs CPU: %r" % case)
+    # the two-step train of a small conv workflow with both layers
+    prng.reset()
+    prng.seed_all(SEED)
+    root.__dict__.pop("cifar", None)
+    root.cifar.update(POOL_TRAIN)
+    HK.reset_launch_counts()
+    wf = cifar.build(fused=True)
+    wf.initialize(device=device)
+    wf.run()
+    [epoch] = wf.decision.epoch_metrics
+    sgd = HK.launch_counts()["fused_sgd_update"]
+    root.__dict__.pop("cifar", None)
+    train = {"train_count": epoch["train"]["count"],
+             "train_loss": epoch["train"]["loss"],
+             "validation_loss": epoch["validation"]["loss"],
+             "sgd_launches": sgd}
+    check(train["train_count"] == 200
+          and numpy.isfinite(train["train_loss"])
+          and numpy.isfinite(train["validation_loss"]) and sgd == 2,
+          "stochastic pooling train: %r" % train)
+    del wf
+    gc_cuda(torch)
+    print(json.dumps({"phase": "stochastic_pooling", "card": card,
+                      "tie": POOL_TIE, "cases": cases, "train": train,
+                      "phase_s": time.monotonic() - began}), flush=True)
 
 
 # ------------------------------------------------- the non-SGD trainers
@@ -4802,14 +4972,19 @@ def parallel_rank(rank, port, tmp, out_path):
                                                      limits))
                     and max(gaps["share"][-1]) <= ALEXNET_DRIFT_SHARE)
 
-        gaps = {"dp_split": weight_gaps(dp, split_dp),
-                "tp_split": weight_gaps(tp, split_tp),
-                "dp_plain": weight_gaps(dp, alone),
-                "tp_plain": weight_gaps(tp, alone)}
-        refs = {"all_reduce_skipped": split_dp,
-                "dropout_offset_zero_rank1": split_dp,
-                "tp_input_grad_not_reduced": split_tp}
-        fault_gaps = {name: weight_gaps(w, refs[name])
+        # each reference trajectory's movement once, for every gap
+        # held against it
+        moved = {"dp": movements(split_dp), "tp": movements(split_tp),
+                 "alone": movements(alone)}
+        gaps = {"dp_split": weight_gaps(dp, split_dp, moved["dp"]),
+                "tp_split": weight_gaps(tp, split_tp, moved["tp"]),
+                "dp_plain": weight_gaps(dp, alone, moved["alone"]),
+                "tp_plain": weight_gaps(tp, alone, moved["alone"])}
+        refs = {"all_reduce_skipped": (split_dp, "dp"),
+                "dropout_offset_zero_rank1": (split_dp, "dp"),
+                "tp_input_grad_not_reduced": (split_tp, "tp")}
+        fault_gaps = {name: weight_gaps(w, refs[name][0],
+                                        moved[refs[name][1]])
                       for name, w in faulty.items()}
         report.update(
             limits={"first_update": limits,
@@ -6025,7 +6200,7 @@ def pipeline_phase(torch, HK, card, dense_step_s, device="cuda",
                    dense_cfg=None, moe_cfg=None, ring_shape=RING_SHAPE):
     """GPipe and ring attention at the LM's full width: (a) in this
     process at one stage (no joined run), the dense char-LM run (exact
-    flash launches, falling loss, a bit-equal rerun, the steady step)
+    flash launches, falling loss, the steady step)
     held against the sequential run within ``LM_*_SHARE``, and the MoE
     run; (b) four gloo ranks sharing the card (this script with
     ``--pipeline-rank``) at 4 stages, bit-equal to (a) and to each other
@@ -6048,7 +6223,6 @@ def pipeline_phase(torch, HK, card, dense_step_s, device="cuda",
         del wf
         if cuda:
             gc_cuda(torch)
-        _, again = pipe_run(torch, HK, dense_cfg, 1, device)
         _, seq = pipe_run(torch, HK, dense_cfg, 0, device, keep=(0, 1, 3))
         if cuda:
             gc_cuda(torch)
@@ -6066,11 +6240,6 @@ def pipeline_phase(torch, HK, card, dense_step_s, device="cuda",
     losses = one["losses"]
     checks["a_loss_falls"] = bool(all(numpy.isfinite(losses)) and numpy.mean(
         losses[-3:]) < numpy.mean(losses[:3]))
-    checks["a_rerun_bit_equal"] = (
-        again["losses"] == losses
-        and again["replicated_digests"] == one["replicated_digests"]
-        and again["final_digests"] == one["final_digests"]
-        and again["validation_loss"] == one["validation_loss"])
     shares = lm_shares([one["kept"][k] for k in (0, 1, 3)],
                        [seq["kept"][k] for k in (0, 1, 3)])
     worst = [max(d.values()) for d in shares]
@@ -6098,7 +6267,7 @@ def pipeline_phase(torch, HK, card, dense_step_s, device="cuda",
         "peak_bytes": one["peak_bytes"],
         "moe": {k: moe_one[k] for k in ("losses", "validation_loss",
                                         "run_s", "peak_bytes")}}
-    del shares, seq, again
+    del shares, seq
 
     # (b), (c): four gloo ranks sharing the card
     tmp = tempfile.mkdtemp(prefix="veles_pipeline_")
@@ -10701,17 +10870,19 @@ def serve_guarded(torch, HK, T, S, card, tick, observed, device="cuda",
 FLEET_REPLICAS = 2
 FLEET_PATHS = {"tick": {}, "scan_k8": {"megastep": 8}}
 FLEET_POLICIES = ("metrics", "round_robin")
+#: the paths whose requests also run one at a time (the placements'
+#: alternation); every path runs them as one burst
+FLEET_SEQUENTIAL_PATHS = ("scan_k8",)
 #: the reference's bound on a burst's split over an idle fleet
 #: (``tests/test_serving.py::TestRouter::test_idle_fleet_spreads_evenly``)
 FLEET_BURST_SPREAD = 2
-#: (b) the drain: replica 0's decode dispatch slowed by this much; the
-#: wedged drain's timeout
-FLEET_LATENCY_S, FLEET_DRAIN_TIMEOUT_S = 0.05, 0.5
+#: (b) the drain: replica 0's decode dispatch slowed by this much
+FLEET_LATENCY_S = 0.05
 #: (c) the refusing replicas' Retry-After seconds
 FLEET_RETRY_AFTERS = (0.7, 0.3, 0.5)
-#: (e) the seeded stub fleets ``_order`` is held on
+#: (c) the seeded stub fleets ``_order`` is held on
 FLEET_ORDER_FLEETS = 200
-#: (f) placements timed through a stub fleet whose futures are settled
+#: (e) placements timed through a stub fleet whose futures are settled
 FLEET_PLACEMENTS_TIMED = 20000
 FLEET_FAULTS = ("order_keeps_drained", "short_result_delivered",
                 "retry_after_last")
@@ -10813,11 +10984,12 @@ def all_refuse(S):
     return None, None
 
 
-def placement_us(S, n=FLEET_PLACEMENTS_TIMED):
+def placement_us(S, n=FLEET_PLACEMENTS_TIMED, **knobs):
     """Host µs of one placement through the router (``submit``:
     ``_order``, ``_place``, the completion callback, ``_deliver``) on a
     two-replica stub fleet whose futures come back settled, less the
-    stub's own submit; host clock."""
+    stub's own submit; host clock.  ``knobs`` arm the router (a hedge
+    loop runs while it is timed)."""
     from concurrent.futures import Future
     from types import SimpleNamespace
     out = numpy.zeros(8, numpy.int32)
@@ -10827,26 +10999,26 @@ def placement_us(S, n=FLEET_PLACEMENTS_TIMED):
         f.request = SimpleNamespace(tspan=None)
         f.set_result(out)
         return f
-    router = S.Router([stub_replica(S, i, submit=submit) for i in range(2)])
+    stubs = [stub_replica(S, i, submit=submit) for i in range(2)]
     prompt = numpy.arange(8, dtype=numpy.int32)
-    t0 = time.perf_counter()
-    for _ in range(n):
-        submit(prompt, 8)
-    own = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for _ in range(n):
-        router.submit(prompt, 8)
-    return max(0.0, time.perf_counter() - t0 - own) / n * 1e6
+    with fleet_router(S, stubs, **knobs) as router:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            submit(prompt, 8)
+        own = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(n):
+            router.submit(prompt, 8)
+        return max(0.0, time.perf_counter() - t0 - own) / n * 1e6
 
 
 def serve_fleet(torch, HK, T, S, card, tick, device="cuda", cfg=None):
     """Phase 24: two engine replicas on the card behind the router (see
     the module docstring).  Returns kernels 5 and 6's launches on the
-    fleet runs of (a), (b) and (d) (the planted faults' runs not
-    counted)."""
-    from types import SimpleNamespace
-    from veles_tpu_torch import prng, restful_api
-    from veles_tpu_torch.serving import verify_integrity
+    fleet runs of (a) and (b) (the planted faults' runs not counted);
+    ``tick`` gets the router's host µs a placement (phase 25 times the
+    armed router against it)."""
+    from veles_tpu_torch import prng
     cfg = cfg or LM_CONFIG
     began = time.monotonic()
     host = T.init_transformer_params(
@@ -10964,9 +11136,12 @@ def serve_fleet(torch, HK, T, S, card, tick, device="cuda", cfg=None):
         for policy in FLEET_POLICIES:
             tag = "%s_%s" % (path, policy)
             router = S.Router(engines, policy=policy)
+            seq = None
             try:
-                _, seq = served(tag + "_sequential", router, True, k_scan)
-                quiet(router)
+                if path in FLEET_SEQUENTIAL_PATHS:
+                    _, seq = served(tag + "_sequential", router, True,
+                                    k_scan)
+                    quiet(router)
                 _, burst = served(tag + "_burst", router, False, k_scan)
                 quiet(router)
             except BaseException:
@@ -10976,10 +11151,10 @@ def serve_fleet(torch, HK, T, S, card, tick, device="cuda", cfg=None):
             # fewest-routed tiebreak alternates from replica 0 (metrics),
             # the counter from replica 1 (round robin)
             first = 0 if policy == "metrics" else 1
-            check(seq["stamps"] == [(first + i) % 2
-                                    for i in range(len(reqs))],
-                  "serve_fleet %s: sequential placements %r" % (
-                      tag, seq["stamps"]))
+            check(seq is None or seq["stamps"] == [
+                (first + i) % 2 for i in range(len(reqs))],
+                "serve_fleet %s: sequential placements %r" % (
+                    tag, seq and seq["stamps"]))
             spread = max(burst["split"]) - min(burst["split"])
             bound = FLEET_BURST_SPREAD if policy == "metrics" else 0
             check(spread <= bound, "serve_fleet %s: a burst split %r" % (
@@ -11044,63 +11219,6 @@ def serve_fleet(torch, HK, T, S, card, tick, device="cuda", cfg=None):
     gc_cuda(torch)
     leg("drain")
 
-    # the wedged drain: replica 0 frozen at a loop turn with the request
-    # in a lane, force re-placed after the drain timeout, its zombie's
-    # late result ignored
-    plan = S.FaultPlan().arm("engine.step", kind="latency",
-                             latency_s=FLEET_LATENCY_S)
-    router = S.Router(fleet("wedged", plans=[plan]),
-                      drain_timeout_s=FLEET_DRAIN_TIMEOUT_S).start()
-    engine0[0] = router.replicas[0]
-    prompt, k = reqs[0]
-    try:
-        HK.reset_launch_counts()
-        f = router.submit(prompt, k)
-        deadline = time.monotonic() + 60
-        while plan.calls("engine.step") < 1:
-            check(time.monotonic() < deadline, "serve_fleet wedged: no "
-                  "decode")
-            time.sleep(0.001)
-        plan.arm("engine.tick", kind="freeze", times=1, duration_s=60.0,
-                 after=plan.calls("engine.tick"))
-        while plan.fired("engine.tick") < 1:
-            check(time.monotonic() < deadline, "serve_fleet wedged: no "
-                  "freeze")
-            time.sleep(0.001)
-        [att] = list(router._pending[0])
-        zombie = att.engine_future
-        t_drain = time.monotonic()
-        withdrawn = router.unregister(0, reason="serve_fleet wedged")
-        out = f.result(timeout=300)
-        replaced_s = time.monotonic() - t_drain
-        plan.release()
-        late = zombie.result(timeout=300)
-        while router._jobs:
-            check(time.monotonic() < deadline + 60, "serve_fleet wedged: "
-                  "the job was never forgotten")
-            time.sleep(0.001)
-        launches = HK.launch_counts()
-    finally:
-        plan.release()
-        router.stop()
-    runs.append({n: launches[n] for n in kernels})
-    m = router.metrics
-    report["wedged"] = {
-        "withdrawn": withdrawn, "replaced_after_s": replaced_s,
-        "forced": m.counter("drain_forced_replacements"),
-        "requeued": m.counter("requeued_requests"),
-        "replica": f.job.replica, "zombie_tokens": len(late),
-        "responses": m.responses,
-        "differing_tokens": held("wedged", reqs[:1], [out])}
-    check(withdrawn == 1 and report["wedged"]["forced"] == 1
-          and report["wedged"]["requeued"] == 1 and f.job.replica == 1
-          and len(late) < k and f.result() is out and m.responses == 1
-          and replaced_s >= FLEET_DRAIN_TIMEOUT_S,
-          "serve_fleet wedged: %r" % report["wedged"])
-    del router
-    gc_cuda(torch)
-    leg("wedged")
-
     # (c) every replica refusing, then none live
     name, ra = all_refuse(S)
     router = S.Router([stub_replica(S, i) for i in range(FLEET_REPLICAS)])
@@ -11121,88 +11239,7 @@ def serve_fleet(torch, HK, T, S, card, tick, device="cuda", cfg=None):
           "serve_fleet refusals: %r" % report["refusals"])
     leg("refusals")
 
-    # (d) serve_lm with two replicas over HTTP, traced
-    trainer = SimpleNamespace(params=T.params_from_jax(host, device),
-                              n_heads=cfg["n_heads"], max_len=cfg["max_len"],
-                              _to_portable=lambda tree: tree)
-    api = restful_api.serve_lm(
-        SimpleNamespace(trainer=trainer), port=0, slots=FAST_SLOTS,
-        prefill_chunk=FAST_PAGE, max_new=SAMPLE_MAX_NEW,
-        replicas=FLEET_REPLICAS, router="round_robin", trace="all")
-    base = "http://127.0.0.1:%d" % api.port
-    try:
-        fleet_router = api.lm_engine
-        engine0[0] = fleet_router.replicas[0]
-        check(isinstance(fleet_router, S.Router)
-              and [e.device.type for e in fleet_router.replicas]
-              == [device] * FLEET_REPLICAS, "serve_fleet http: not a "
-              "fleet on %s" % device)
-        bodies = [json.dumps({"input": [p.tolist()], "n_new": k}).encode()
-                  for p, k in reqs]
-        before = [(e.metrics.counter("decode_dispatches"),
-                   e.metrics.counter("prefill_dispatches"))
-                  for e in fleet_router.replicas]
-        HK.reset_launch_counts()
-        replies, lat, wall = rest_load(api, bodies, len(bodies))
-        launches = HK.launch_counts()
-        launches = {n: launches[n] for n in kernels}
-        steps = sum(e.metrics.counter("decode_dispatches") - b[0]
-                    for e, b in zip(fleet_router.replicas, before))
-        chunks = sum(e.metrics.counter("prefill_dispatches") - b[1]
-                     for e, b in zip(fleet_router.replicas, before))
-        check(all(replies[i][0] == 200 for i in range(len(bodies))),
-              "serve_fleet http: %r" % [replies[i][0]
-                                        for i in range(len(bodies))])
-        got = {}
-        for path in ("/metrics", "/metrics.json", "/trace.json?last=16"):
-            code, body, ctype = http_get(base + path)
-            check(code == 200, "serve_fleet: GET %s %d" % (path, code))
-            got[path.split("?")[0]] = (body.decode() if ctype.startswith(
-                "text/plain") else strict_json(body), len(body))
-        split = fleet_router.routed_counts()
-    finally:
-        api.stop()
-    runs.append(launches)
-    settled(api.tracer)
-    recs = api.tracer.requests()
-    integ = verify_integrity(recs)
-    stamps = [replies[i][1]["replicas"] for i in range(len(bodies))]
-    outs = [numpy.asarray(replies[i][1]["tokens"][0][len(p):], numpy.int32)
-            for i, (p, _) in enumerate(reqs)]
-    text = got["/metrics"][0].splitlines()
-    types = [line for line in text if line.startswith("# TYPE ")]
-    rows = {i: [line for line in text if line.startswith(
-        'veles_serving_tokens_out_total{engine="lm",replica="%d"}' % i)]
-        for i in range(FLEET_REPLICAS)}
-    snap = got["/metrics.json"][0]
-    attempts = sum(1 for r in recs for s in r["spans"]
-                   if s["name"] == "attempt")
-    report["http"] = {
-        "requests": len(bodies), "wall_s": wall,
-        "requests_per_s": len(bodies) / wall,
-        "p50_s": statistics.median(lat), "max_s": max(lat),
-        "split": split, "launches": launches,
-        "decode_dispatches": steps, "prefill_dispatches": chunks,
-        "trace_requests": integ["requests"], "attempt_spans": attempts,
-        "trace_json_bytes": got["/trace.json"][1],
-        "metrics_families": len(types),
-        "differing_tokens": held("http", reqs, outs)}
-    check(split == [len(reqs) // 2] * FLEET_REPLICAS
-          and all(len(s) == 1 and s[0] in (0, 1) for s in stamps)
-          and sorted(s[0] for s in stamps) == sorted(
-              i % 2 for i in range(len(reqs)))
-          and launches["paged_flash_decode"] == n_layers * steps > 0
-          and launches["paged_flash_prefill"] == n_layers * chunks > 0
-          and len(types) == len(set(types))
-          and all(len(rows[i]) == 1 for i in rows)
-          and len(snap["replicas"]) == FLEET_REPLICAS
-          and integ["requests"] == len(reqs) == attempts
-          and len(got["/trace.json"][0]["traceEvents"]) > 0,
-          "serve_fleet http: %r" % report["http"])
-    gc_cuda(torch)
-    leg("http")
-
-    # (e) the planted faults
+    # (d) the planted faults
     with patched(S.Router, "_order", router_mutant(
             S, "_order", "live = [i for i, ok in enumerate(self._live) "
             "if ok]", "live = list(range(len(self._live)))")):
@@ -11221,10 +11258,9 @@ def serve_fleet(torch, HK, T, S, card, tick, device="cuda", cfg=None):
     gc_cuda(torch)
     leg("faults")
 
-    # (f) the fleet's tokens/s against phase 4's one engine (the (a)
-    # bursts), and the router's host cost a placement against phase 4's
-    # decode step
-    us = placement_us(S)
+    # (e) the router's host cost a placement against phase 4's decode
+    # step
+    us = tick["placement_us"] = placement_us(S)
     report["placement"] = {"host_us": us, "decode_step_ms": tick["step_ms"],
                            "step_share": us / (tick["step_ms"] * 1e3)}
     launches = {n: sum(r[n] for r in runs) for n in kernels}
@@ -11236,6 +11272,645 @@ def serve_fleet(torch, HK, T, S, card, tick, device="cuda", cfg=None):
     print(json.dumps({"serve_fleet": report}, default=str), flush=True)
     for name in FLEET_FAULTS:
         check(caught[name], "serve_fleet: the planted fault %r was not "
+              "caught" % name)
+    return launches
+
+
+# -------------------------------------------------------------- resilience
+#: phase 25: the router's resilience layer over two replicas on the card,
+#: one fleet a decode path reused across the legs
+RES_PATHS = {"tick": {}, "scan_k8": {"megastep": 8}}
+RES_RETRIES = 2
+#: (b) replica 0's decode dispatch slowed by this much; the fixed hedge
+#: threshold; the paths whose burst also runs unhedged (the latency
+#: hedging saves)
+RES_LATENCY_S, RES_HEDGE_AFTER_S = 0.02, 0.25
+RES_UNHEDGED_PATHS = ("tick",)
+#: (c) the health checker: consecutive failures to open, the staleness
+#: window (above one K = 8 replay), the first cooldown and its cap, the
+#: drain timeout of a wedged lane
+RES_FAIL_THRESHOLD, RES_STALL_S = 2, 1.0
+RES_COOLDOWN_S, RES_COOLDOWN_CAP_S = 0.2, 1.6
+RES_DRAIN_TIMEOUT_S = 0.5
+RES_FAULTS = ("retry_ignores_exclude", "loser_overwrites_stamps",
+              "half_open_no_doubling", "probe_resets_page_streak")
+
+
+@contextlib.contextmanager
+def fleet_router(S, engines, **knobs):
+    """A router over engines that already run: its own threads (the
+    hedge loop) started and stopped, the engines left running for the
+    next leg (``Router.start`` / ``stop`` would start or stop them
+    too)."""
+    router = S.Router(engines, **knobs)
+    router.replicas = []
+    router.start()
+    router.replicas = engines
+    try:
+        yield router
+    finally:
+        router.replicas = []
+        router.stop()
+        router.replicas = engines
+
+
+class _PendingReplica:
+    """A stub replica whose futures the script resolves by hand."""
+
+    def __init__(self, S, i):
+        self.metrics = S.ServingMetrics("res_stub", labels={"replica": str(i)})
+        self.spec_k, self.max_len, self.weights_version = 0, 512, 0
+        self.futures, self.cancelled = [], 0
+        self.outcome = "ok"
+
+    def submit(self, prompt, n_new):
+        from concurrent.futures import Future
+        from types import SimpleNamespace
+        f = Future()
+        f.request = SimpleNamespace(tspan=None)
+        f.version = len(self.futures)
+        self.futures.append(f)
+        if self.outcome == "error":
+            f.set_exception(RuntimeError("probe failed"))
+        elif self.outcome == "ok_now":
+            f.set_result(numpy.zeros(n_new, numpy.int32))
+        return f
+
+    def _cancel(self, req):
+        self.cancelled += 1
+
+
+class _HeldTimer:
+    """``threading.Timer`` stand-in that keeps its call for the script."""
+
+    made = []
+
+    def __init__(self, delay, func, args=()):
+        self.delay, self.func, self.args, self.daemon = delay, func, args, 0
+        _HeldTimer.made.append(self)
+
+    def start(self):
+        pass
+
+    def cancel(self):
+        pass
+
+    def is_alive(self):
+        return False
+
+
+def retry_target(S):
+    """Replica 0 first in placement order (replica 1 routed more); its
+    attempt faults and the retry, run from the held timer, goes where
+    ``exclude`` sends it: (attempts per replica, the serving replica)."""
+    _HeldTimer.made = []
+    engines = [_PendingReplica(S, i) for i in range(2)]
+    with patched(threading, "Timer", _HeldTimer):
+        router = S.Router(engines, retries=1)
+        router._routed = [0, 5]
+        fut = router.submit(numpy.arange(3, dtype=numpy.int32), 2)
+        engines[0].futures[0].set_exception(S.InjectedFault("step"))
+        [timer] = _HeldTimer.made
+        timer.func(*timer.args)
+    placed = [len(e.futures) for e in engines]
+    for e in engines:
+        for f in e.futures:
+            if not f.done():
+                f.set_result(numpy.zeros(2, numpy.int32))
+    return placed, fut.job.replica
+
+
+def hedge_race(S):
+    """A primary on replica 0 and a hedge on replica 1: the hedge
+    delivers, and the primary reaches ``_deliver`` in the same window
+    (both passed the done check).  (replica stamp, result, hedge_wins,
+    losers cancelled per replica)."""
+    engines = [_PendingReplica(S, i) for i in range(2)]
+    router = S.Router(engines)
+    fut = router.submit(numpy.arange(3, dtype=numpy.int32), 2)
+    job = fut.job
+    router._place(job, exclude={0}, hedge=True)
+    [primary] = [a for a in job.live if not a.is_hedge]
+    engines[1].futures[0].set_result(numpy.ones(2, numpy.int32))
+    router._deliver(job, primary, numpy.zeros(2, numpy.int32))
+    return (job.replica, fut.result().tolist(),
+            router.metrics.counter("hedge_wins"),
+            [e.cancelled for e in engines])
+
+
+def half_open_cooldowns(S, checker_cls):
+    """Replica 0 opened by ``RES_FAIL_THRESHOLD`` page signals at t = 0,
+    then every half-open probe failing, one step at each re-open time:
+    the cooldowns after each failed probe."""
+    engines = [_PendingReplica(S, i) for i in range(2)]
+    for e in engines:
+        e.outcome = "ok_now"
+    router = S.Router(engines)
+    checker = checker_cls(router, fail_threshold=RES_FAIL_THRESHOLD,
+                          cooldown_s=1.0, cooldown_cap_s=4.0)
+    for _ in range(RES_FAIL_THRESHOLD):
+        checker.note_slo_page(0, reason="script", now=0.0)
+    engines[0].outcome = "error"
+    out, now = [], 0.0
+    for _ in range(4):
+        now = checker._reopen_at[0]
+        checker.step(now=now)
+        out.append(checker._cooldown[0])
+    return out
+
+
+def page_streak(S, checker_cls):
+    """The reference's page-streak script on a stub fleet whose probes
+    succeed: True when page, probe scan, page opens the circuit."""
+    engines = [_PendingReplica(S, i) for i in range(2)]
+    for e in engines:
+        e.outcome = "ok_now"
+    router = S.Router(engines)
+    checker = checker_cls(router, fail_threshold=2, cooldown_s=600.0)
+    checker.note_slo_page(0, reason="burning")
+    checker.step()
+    checker.note_slo_page(0, reason="still burning")
+    return checker.states()[0] == checker.OPEN
+
+
+def resilience_planted(S):
+    """Each planted fault of phase 25 (e): the honest router or checker
+    passes the check the mutant fails.  Returns {fault: caught}."""
+    from veles_tpu_torch.serving import router as router_mod
+    plain = {"retry_ignores_exclude": lambda: retry_target(S) == ([1, 1], 1),
+             "loser_overwrites_stamps": lambda: hedge_race(S)
+             == (1, [1, 1], 1, [1, 0]),
+             "half_open_no_doubling": lambda: half_open_cooldowns(
+                 S, S.HealthChecker) == [2.0, 4.0, 4.0, 4.0],
+             "probe_resets_page_streak": lambda: page_streak(
+                 S, S.HealthChecker)}
+    for name, ok in plain.items():
+        check(ok(), "serve_resilience: the honest %s check failed" % name)
+    caught = {}
+    with patched(S.Router, "_place", router_mutant(
+            S, "_place", "    if exclude:\n", "    if False:\n")):
+        caught["retry_ignores_exclude"] = not plain[
+            "retry_ignores_exclude"]()
+    with patched(S.Router, "_deliver", router_mutant(
+            S, "_deliver", "if job.delivered or job.future.done():",
+            "if job.future.cancelled():")):
+        caught["loser_overwrites_stamps"] = not plain[
+            "loser_overwrites_stamps"]()
+
+    def checker_mutant(name, old, new):
+        import inspect
+        import textwrap
+        src = textwrap.dedent(inspect.getsource(
+            getattr(S.HealthChecker, name)))
+        check(src.count(old) == 1, "checker mutant: %r not in %s"
+              % (old, name))
+        scope = {}
+        exec(compile(src.replace(old, new), "<planted %s>" % name, "exec"),
+             vars(router_mod), scope)
+        return type("Planted", (S.HealthChecker,), {name: scope[name]})
+    caught["half_open_no_doubling"] = half_open_cooldowns(S, checker_mutant(
+        "_half_open_probe", "2 * self._cooldown[i]", "self._cooldown[i]")) \
+        != [2.0, 4.0, 4.0, 4.0]
+    caught["probe_resets_page_streak"] = not page_streak(S, checker_mutant(
+        "step", "self._fails[i] = 0\n", "self._fails[i] = 0\n"
+        "                self._slo_fails[i] = 0\n"))
+    return caught
+
+
+def serve_resilience(torch, HK, T, S, card, tick, device="cuda", cfg=None):
+    """Phase 25: the router's resilience layer over two replicas on the
+    card (see the module docstring).  Returns kernels 5 and 6's launches
+    on its runs."""
+    from types import SimpleNamespace
+    from veles_tpu_torch import prng, restful_api
+    from veles_tpu_torch.serving import verify_integrity
+    cfg = cfg or LM_CONFIG
+    began = time.monotonic()
+    host = T.init_transformer_params(
+        prng.RandomGenerator("init", SEED), cfg["vocab"],
+        d_model=cfg["d_model"], n_heads=cfg["n_heads"],
+        n_layers=cfg["n_layers"], max_len=cfg["max_len"])
+    reqs, want = tick["requests"], tick["outs"]
+    kernels = ("paged_flash_decode", "paged_flash_prefill")
+    n_layers = cfg["n_layers"]
+    report = {"phase": "serve_resilience", "card": card, "config": dict(cfg),
+              "replicas": 2, "slots": FAST_SLOTS, "page": FAST_PAGE,
+              "paths": {}}
+    runs, legs, mark = [], {}, [began]
+    teacher = {"rows": 0, "worst": 0.0}
+    engine0 = [None]
+
+    def leg(name):
+        now = time.monotonic()
+        legs[name], mark[0] = now - mark[0], now
+
+    def held(tag, cases, outs):
+        """Every output whole; rows that differ from phase 4's one
+        engine held to the teacher-forced plain pass; returns the
+        differing tokens."""
+        diff = 0
+        with torch.inference_mode():
+            for (prompt, k), out, base in zip(cases, outs, want):
+                check(out.shape == (k,) and out.min() >= 0
+                      and out.max() < cfg["vocab"], "serve_resilience %s: "
+                      "malformed output %r" % (tag, out))
+                n = differing_tokens([out], [base])
+                if n:
+                    diff += n
+                    short, _ = teacher_forced(
+                        torch, T, engine0[0], numpy.concatenate(
+                            [prompt, out]), len(prompt), out)
+                    teacher["rows"] += 1
+                    teacher["worst"] = max(teacher["worst"], short)
+                    check(short <= LOGIT_TOL, "serve_resilience %s: an "
+                          "emitted token's logit sits %g below its row max"
+                          % (tag, short))
+        return diff
+
+    def quiet(engines, router=None):
+        deadline = time.monotonic() + 120
+        while (router is not None and router._jobs) or any(
+                e.metrics.gauge("slots_busy", 0)
+                or e.metrics.gauge("queue_depth", 0) for e in engines):
+            check(time.monotonic() < deadline, "serve_resilience: the "
+                  "fleet never went quiet")
+            time.sleep(0.002)
+
+    def books(engines):
+        return [(e.metrics.counter("decode_dispatches"),
+                 e.metrics.counter("prefill_dispatches")) for e in engines]
+
+    def launched(tag, engines, before, k_scan):
+        """Kernels 5 and 6 since the reset: n_layers x (K x) the
+        replicas' summed decode dispatches and prompt chunks, the hedge
+        losers', the retries' and the probes' included."""
+        counts = HK.launch_counts()
+        counts = {n: counts[n] for n in kernels}
+        after = books(engines)
+        steps = sum(a[0] - b[0] for a, b in zip(after, before))
+        chunks = sum(a[1] - b[1] for a, b in zip(after, before))
+        check(counts["paged_flash_decode"] == n_layers * k_scan * steps > 0
+              and counts["paged_flash_prefill"] == n_layers * chunks > 0,
+              "serve_resilience %s: launches %r for %d decode dispatches "
+              "and %d chunks" % (tag, counts, steps, chunks))
+        runs.append(counts)
+        return counts
+
+    def wait_for(cond, what, timeout=60):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            check(time.monotonic() < deadline, "serve_resilience: " + what)
+            time.sleep(0.002)
+
+    def burst(router, cases):
+        """``cases`` as one burst; (outputs, futures, seconds from
+        submit to result each)."""
+        done = {}
+        futures = []
+        for p, k in cases:
+            f = router.submit(p, k)
+            f.add_done_callback(lambda f, t0=f.job.t0: done.setdefault(
+                id(f), time.monotonic() - t0))
+            futures.append(f)
+        outs = [f.result(timeout=300) for f in futures]
+        return outs, futures, [done[id(f)] for f in futures]
+
+    for path, knobs in RES_PATHS.items():
+        k_scan = knobs.get("megastep", 1)
+        engines = [S.LMEngine(host, cfg["n_heads"], cfg["max_len"],
+                              slots=FAST_SLOTS, prefill_chunk=FAST_PAGE,
+                              device=device, name="res_%s_r%d" % (path, i),
+                              metrics=S.ServingMetrics(
+                                  "res_" + path, labels={"replica": str(i)}),
+                              **knobs)
+                   for i in range(2)]
+        engine0[0] = engines[0]
+        for e in engines:
+            e.start()
+        rec = report["paths"][path] = {}
+        try:
+            # (a) retries: every step of replica 0 faults
+            engines[0]._faults = S.FaultPlan().arm("engine.step")
+            with fleet_router(S, engines, retries=RES_RETRIES,
+                              retry_backoff_s=0.01) as router:
+                before = books(engines)
+                HK.reset_launch_counts()
+                outs, futures, _ = burst(router, reqs)
+                quiet(engines, router)
+                served = [f.job.replica for f in futures]
+                retried = router.metrics.counter("requests_retried")
+                rec["retry"] = {
+                    "retried": retried, "served_by": served,
+                    "responses": router.metrics.responses,
+                    "launches": launched(path + " retry", engines, before,
+                                         k_scan),
+                    "differing_tokens": held(path + " retry", reqs, outs)}
+                check(served == [1] * len(reqs) and retried >= 1
+                      and router.metrics.responses == len(reqs)
+                      and all(f.job.retries <= 1 for f in futures),
+                      "serve_resilience %s retry: %r" % (path, rec["retry"]))
+                # both replicas faulting: the budget runs out
+                engines[1]._faults = S.FaultPlan().arm("engine.step")
+                f = router.submit(*reqs[0])
+                try:
+                    f.result(timeout=300)
+                    spent = None
+                except S.InjectedFault as e:
+                    spent = type(e).__name__
+                quiet(engines, router)
+                rec["retry"]["budget_spent"] = {
+                    "raised": spent, "retries": f.job.retries,
+                    "retried": router.metrics.counter("requests_retried")
+                    - retried}
+                check(spent == "InjectedFault" and f.job.retries
+                      == RES_RETRIES == rec["retry"]["budget_spent"][
+                          "retried"], "serve_resilience %s: a spent retry "
+                      "budget: %r" % (path, rec["retry"]["budget_spent"]))
+            engines[1]._faults = None
+            leg(path + "_retry")
+
+            # (b) hedges: replica 0's decode dispatch slowed; then the
+            # same traffic unhedged, for the latency
+            engines[0]._faults = S.FaultPlan().arm(
+                "engine.step", kind="latency", latency_s=RES_LATENCY_S)
+            with fleet_router(S, engines,
+                              hedge_after_s=RES_HEDGE_AFTER_S) as router:
+                settled_att, delivered = [], []
+                done_cb, deliver = router._on_attempt_done, router._deliver
+                router._on_attempt_done = lambda att, f: (
+                    settled_att.append(att), done_cb(att, f))
+                router._deliver = lambda job, att, result: (
+                    delivered.append(att), deliver(job, att, result))
+                before = books(engines)
+                HK.reset_launch_counts()
+                outs, futures, lat = burst(router, reqs)
+                quiet(engines, router)
+                m = router.metrics
+                primary = {id(a.job): a.replica for a in settled_att
+                           if not a.is_hedge}
+                slow = [s for f, s in zip(futures, lat)
+                        if primary.get(id(f.job)) == 0]
+                losers = [a for a in settled_att if a not in delivered]
+                with contextlib.ExitStack() as stack:
+                    for e in engines:
+                        stack.enter_context(e._cond)
+                    for e in engines:
+                        e.verify_pool_invariants()
+                rec["hedge"] = {
+                    "hedged": m.counter("requests_hedged"),
+                    "hedge_wins": m.counter("hedge_wins"),
+                    "responses": m.responses, "losers": len(losers),
+                    "losers_cancelled": sum(
+                        bool(a.engine_future.request.cancelled)
+                        for a in losers),
+                    "delivered_once": sorted(id(a.job) for a in delivered)
+                    == sorted(id(f.job) for f in futures),
+                    "slow_requests": len(slow),
+                    "slow_p50_s": statistics.median(slow) if slow else None,
+                    "slow_max_s": max(slow) if slow else None,
+                    "launches": launched(path + " hedge", engines, before,
+                                         k_scan),
+                    "differing_tokens": held(path + " hedge", reqs, outs)}
+                h = rec["hedge"]
+                check(h["hedged"] >= 1 and h["hedge_wins"] >= 1
+                      and h["responses"] == len(reqs) and h["delivered_once"]
+                      and h["losers"] >= 1
+                      and h["losers_cancelled"] == h["losers"],
+                      "serve_resilience %s hedge: %r" % (path, h))
+            if path in RES_UNHEDGED_PATHS:
+                with fleet_router(S, engines) as router:
+                    before = books(engines)
+                    HK.reset_launch_counts()
+                    outs, futures, lat = burst(router, reqs)
+                    quiet(engines, router)
+                    slow = [s for f, s in zip(futures, lat)
+                            if f.job.replica == 0]
+                    rec["unhedged"] = {
+                        "slow_requests": len(slow),
+                        "slow_p50_s": statistics.median(slow),
+                        "slow_max_s": max(slow),
+                        "launches": launched(path + " unhedged", engines,
+                                             before, k_scan),
+                        "differing_tokens": held(path + " unhedged", reqs,
+                                                 outs)}
+            engines[0]._faults = None
+            leg(path + "_hedge")
+
+            # (c) the circuit: replica 0 frozen mid-decode, the checker
+            # stepped by hand; then the SLO monitor's hook
+            plan = S.FaultPlan()
+            engines[0]._faults = plan
+            with fleet_router(S, engines,
+                              drain_timeout_s=RES_DRAIN_TIMEOUT_S) as router:
+                checker = S.HealthChecker(
+                    router, interval_s=0.05, probe_timeout_s=30.0,
+                    fail_threshold=RES_FAIL_THRESHOLD,
+                    cooldown_s=RES_COOLDOWN_S,
+                    cooldown_cap_s=RES_COOLDOWN_CAP_S, stall_s=RES_STALL_S)
+                checker.warm_probes()
+                before = books(engines)
+                HK.reset_launch_counts()
+                futures = [router.submit(p, k) for p, k in reqs]
+                d0 = before[0][0]
+                wait_for(lambda: engines[0].metrics.counter(
+                    "decode_dispatches") > d0, "replica 0 never decoded")
+                plan.arm("engine.tick", kind="freeze", times=1,
+                         duration_s=120.0, after=plan.calls("engine.tick"))
+                wait_for(lambda: plan.fired("engine.tick") == 1,
+                         "no freeze")
+                t_frozen = time.monotonic()
+                deadline = t_frozen + 60
+                while router._live[0]:
+                    check(time.monotonic() < deadline, "serve_resilience "
+                          "%s: replica 0 never quarantined" % path)
+                    checker.step()
+                    time.sleep(0.05)
+                opened_s = time.monotonic() - t_frozen
+                state_open = checker.states()[0]
+                outs = [f.result(timeout=300) for f in futures]
+                m = router.metrics
+                rec["circuit"] = {
+                    "quarantined_after_s": opened_s,
+                    "state": state_open,
+                    "circuit_open_total": m.counter("circuit_open_total"),
+                    "withdrawn_forced": m.counter(
+                        "drain_forced_replacements"),
+                    "requeued": m.counter("requeued_requests"),
+                    "responses": m.responses,
+                    "differing_tokens": held(path + " circuit", reqs, outs)}
+                # the frozen replica's lanes could not be withdrawn: the
+                # drain timeout force re-placed them, and the zombies'
+                # late results are ignored (each request answered once)
+                check(state_open == S.HealthChecker.OPEN
+                      and m.counter("circuit_open_total") == 1
+                      and m.counter("drain_forced_replacements") >= 1
+                      and m.responses == len(reqs),
+                      "serve_resilience %s circuit: %r" % (
+                          path, rec["circuit"]))
+                plan.release()
+                quiet(engines, router)
+                time.sleep(RES_COOLDOWN_S)
+                t0 = time.monotonic()
+                while not router._live[0]:
+                    check(time.monotonic() < t0 + 60, "serve_resilience "
+                          "%s: the half-open probe never re-admitted "
+                          "replica 0" % path)
+                    checker.step()
+                    time.sleep(0.05)
+                rec["circuit"]["readmitted_after_s"] = time.monotonic() - t0
+                with router._lock:
+                    router._routed[1] += 100   # replica 0 first
+                f = router.submit(*reqs[0])
+                again = f.result(timeout=300)
+                rec["circuit"]["serves_again"] = f.job.replica
+                rec["circuit"]["again_differing_tokens"] = held(
+                    path + " again", reqs[:1], [again])
+                check(f.job.replica == 0 and checker.states()[0]
+                      == S.HealthChecker.HEALTHY, "serve_resilience %s: "
+                      "the recovered replica did not serve" % path)
+                # the SLO monitor's hook opens the same circuit
+                for _ in range(RES_FAIL_THRESHOLD):
+                    checker.note_slo_page(0, reason="serve_resilience")
+                rec["circuit"]["slo"] = {
+                    "state": checker.states()[0], "live": router._live[0],
+                    "circuit_open_total": m.counter("circuit_open_total"),
+                    "slo_page_signals": m.counter("slo_page_signals")}
+                check(checker.states()[0] == S.HealthChecker.OPEN
+                      and not router._live[0]
+                      and m.counter("circuit_open_total") == 2
+                      and m.counter("slo_page_signals")
+                      == RES_FAIL_THRESHOLD, "serve_resilience %s slo: %r"
+                      % (path, rec["circuit"]["slo"]))
+                time.sleep(RES_COOLDOWN_S)
+                t0 = time.monotonic()
+                while not router._live[0]:
+                    check(time.monotonic() < t0 + 60, "serve_resilience "
+                          "%s: no re-admission after the pages" % path)
+                    checker.step()
+                    time.sleep(0.05)
+                quiet(engines, router)
+                rec["circuit"]["launches"] = launched(
+                    path + " circuit", engines, before, k_scan)
+                rec["circuit"]["probes"] = m.counter("health_probes")
+            engines[0]._faults = None
+            plan.release()
+            leg(path + "_circuit")
+        finally:
+            for e in engines:
+                if e._faults is not None:
+                    e._faults.release()
+                e.stop()
+        errors_ok = all(pool_drained(e) for e in engines)
+        check(errors_ok, "serve_resilience %s: a pool not full again" % path)
+        del engines
+        gc_cuda(torch)
+
+    # (d) serve_lm with the whole layer armed over HTTP, one injected
+    # chunk fault (one plan shared by both replicas) retried
+    trainer = SimpleNamespace(params=T.params_from_jax(host, device),
+                              n_heads=cfg["n_heads"], max_len=cfg["max_len"],
+                              _to_portable=lambda tree: tree)
+    plan = S.FaultPlan()
+    api = restful_api.serve_lm(
+        SimpleNamespace(trainer=trainer), port=0, slots=FAST_SLOTS,
+        prefill_chunk=FAST_PAGE, max_new=SAMPLE_MAX_NEW, replicas=2,
+        health=True, health_interval_s=60.0, retries=RES_RETRIES, hedge=-1,
+        slo=True, trace="all", fault_plan=plan)
+    base = "http://127.0.0.1:%d" % api.port
+    try:
+        router = api.lm_engine
+        engines = router.replicas
+        engine0[0] = engines[0]
+        checker = api.health_checker
+        check(isinstance(router, S.Router) and checker is not None
+              and api.slo.checker is checker and router.retries
+              == RES_RETRIES and router.hedge_after_s < 0,
+              "serve_resilience http: the layer is not armed")
+        wait_for(lambda: checker._warmed, "the warm-up probes never ran")
+        # the burst's first prompt chunk faults, on whichever replica
+        plan.arm("engine.chunk", times=1, after=plan.calls("engine.chunk"))
+        bodies = [json.dumps({"input": [p.tolist()], "n_new": k}).encode()
+                  for p, k in reqs]
+        before = books(engines)
+        HK.reset_launch_counts()
+        replies, lat, wall = rest_load(api, bodies, len(bodies))
+        quiet(engines, router)
+        launches = launched("http", engines, before, 1)
+        got = {}
+        for path in ("/metrics", "/metrics.json", "/slo.json",
+                     "/trace.json?last=32"):
+            code, body, ctype = http_get(base + path)
+            check(code == 200, "serve_resilience: GET %s %d" % (path, code))
+            got[path.split("?")[0]] = (body.decode() if ctype.startswith(
+                "text/plain") else strict_json(body), len(body))
+        m = router.metrics
+        counters = {k: m.counter(k) for k in (
+            "requests_retried", "requests_hedged", "hedge_wins",
+            "circuit_open_total", "slo_page_signals",
+            "health_probe_warmups")}
+    finally:
+        api.stop()
+    check(api.health_checker is None and checker._thread is None,
+          "serve_resilience http: the checker was not stopped")
+    settled(api.tracer)
+    recs = api.tracer.requests()
+    integ = verify_integrity(recs)
+    outs = [numpy.asarray(replies[i][1]["tokens"][0][len(p):], numpy.int32)
+            for i, (p, _) in enumerate(reqs)]
+    text = got["/metrics"][0].splitlines()
+    families = [line for line in text if line.startswith("# TYPE ")]
+    types = [line for line in families if "replica_health_state" in line]
+    rows = [line for line in text
+            if line.startswith("veles_serving_replica_health_state{")]
+    token_rows = [line for line in text if line.startswith(
+        'veles_serving_tokens_out_total{engine="lm",replica=')]
+    attempts = sum(1 for r in recs for s in r["spans"]
+                   if s["name"] == "attempt")
+    slo = got["/slo.json"][0]
+    report["http"] = {
+        "requests": len(bodies), "wall_s": wall,
+        "p50_s": statistics.median(lat), "max_s": max(lat),
+        "codes": sorted({replies[i][0] for i in range(len(bodies))}),
+        "counters": counters, "launches": launches,
+        "trace_requests": integ["requests"],
+        "health_rows": rows, "attempt_spans": attempts,
+        "metrics_families": len(families),
+        "slo_evaluations": slo["evaluations"],
+        "slo_worst_state": slo["worst_state_name"],
+        "fault_fired": plan.fired("engine.chunk"),
+        "differing_tokens": held("http", reqs, outs)}
+    check(report["http"]["codes"] == [200] and plan.fired("engine.chunk") == 1
+          and counters["requests_retried"] == 1
+          and counters["health_probe_warmups"] == 1 and len(types) == 1
+          and len(families) == len(set(families)) and len(rows) == 2
+          and len(token_rows) == 2 and integ["requests"] >= len(reqs)
+          and attempts >= len(reqs) + counters["requests_retried"]
+          and len(got["/metrics.json"][0]["replicas"]) == 2
+          and len(got["/trace.json"][0]["traceEvents"]) > 0
+          and "objectives" in slo,
+          "serve_resilience http: %r" % report["http"])
+    gc_cuda(torch)
+    leg("http")
+
+    # (e) the planted faults, host-only on stub fleets
+    caught = resilience_planted(S)
+    leg("faults")
+
+    # (f) the router's host µs a placement armed but idle, against phase
+    # 24's unarmed figure in this run
+    report["placement"] = {"unarmed_us": tick["placement_us"],
+                           "armed_idle_us": placement_us(
+                               S, retries=RES_RETRIES, hedge_after_s=60.0),
+                           "decode_step_ms": tick["step_ms"]}
+    leg("placement")
+    launches = {n: sum(r[n] for r in runs) for n in kernels}
+    report.update(launches=launches, teacher_forced={
+        "rows_checked": teacher["rows"], "worst_shortfall": teacher["worst"],
+        "tolerance": LOGIT_TOL}, faults_caught=caught, leg_s=legs,
+        phase_s=time.monotonic() - began)
+    print(json.dumps({"serve_resilience": report}, default=str), flush=True)
+    for name in RES_FAULTS:
+        check(caught[name], "serve_resilience: the planted fault %r was not "
               "caught" % name)
     return launches
 
@@ -11480,6 +12155,7 @@ def main():
     # 8. the conv zoo through the samples' own train
     from veles_tpu_torch.ops import functional as F
     deconv_check(torch, F, smi)
+    stochastic_pool_check(torch, HK, F, smi)
     for sample in ZOO:
         launches["fused_sgd_update"] += zoo(torch, HK, smi, sample)[
             "fused_sgd_update"]
@@ -11641,13 +12317,22 @@ def main():
     # both policies on two decode paths, the drains, the refusals,
     # serve_lm over HTTP, three planted faults
     fleet_launches = serve_fleet(torch, HK, T, S, smi, tick)
-    del tick
     for k, v in fleet_launches.items():
         launches[k] += v
     gc_cuda(torch)
     lap("serve_fleet")
 
-    # 25. the kernels line and the result
+    # 25. the fleet's resilience layer: retries, hedges, the health
+    # circuit (by hand and fed by the SLO hook), serve_lm over HTTP with
+    # all of it armed, four planted faults
+    resilience_launches = serve_resilience(torch, HK, T, S, smi, tick)
+    del tick
+    for k, v in resilience_launches.items():
+        launches[k] += v
+    gc_cuda(torch)
+    lap("serve_resilience")
+
+    # 26. the kernels line and the result
     main_case = {"flash_attention_fwd": flash[0],
                  "flash_attention_bwd_dkv": flash[1],
                  "flash_attention_bwd_dq": flash[2],
@@ -11707,6 +12392,8 @@ def main():
             row["guarded_launches"] = guarded_launches[row["name"]]
         if row["name"] in fleet_launches:
             row["fleet_launches"] = fleet_launches[row["name"]]
+        if row["name"] in resilience_launches:
+            row["resilience_launches"] = resilience_launches[row["name"]]
         if row["name"] == "fused_sgd_update":
             row["population_launches"] = pop_launches
             row["observe_launches"] = observe_launches

@@ -55,7 +55,9 @@ that reads a card value with ``.item()``, or uploads with a blocking
 ``torch.as_tensor(..., device=)``, fails its request with the sync error
 and the engine serves the next.  Two engine replicas on the card behind
 the router serve one engine's tokens (per tick and scan), with kernel 5
-and 6 launches summed over the replicas.
+and 6 launches summed over the replicas; with ``retries=2`` and
+replica 0 faulting every step, every request is retried onto replica 1
+with the same tokens.
 """
 
 import numpy
@@ -1864,6 +1866,36 @@ def test_two_replica_router_serves_one_engines_tokens(megastep):
     assert launches == {"paged_flash_decode": n_layers * k * steps,
                         "paged_flash_prefill": n_layers * chunks}
     assert steps > 0 and chunks > 0
+
+
+@pytest.mark.cuda
+def test_retrying_router_on_the_card_serves_one_engines_tokens():
+    """Two replicas on ``cuda:0`` behind a router with ``retries=2``,
+    replica 0 faulting every decode step: every request is retried onto
+    replica 1 and served with one engine's greedy tokens."""
+    _card()
+    from veles_tpu_torch.serving import FaultPlan, Router, ServingMetrics
+    want, _, _ = _sequential_fleet([_megastep_engine(megastep=0)])
+    plan = FaultPlan().arm("engine.step", times=1000)
+    engines = [_megastep_engine(
+        megastep=0, name="retry_r%d" % i, faults=plan if i == 0 else None,
+        metrics=ServingMetrics("retry", labels={"replica": str(i)}))
+        for i in range(2)]
+    router = Router(engines, retries=2, retry_backoff_s=0.01).start()
+    try:
+        got, stamps = [], []
+        for p in GUARD_PROMPTS:
+            with router._lock:
+                router._routed = [0, 1]     # replica 0 first every time
+            f = router.submit(p, 16)
+            got.append(list(f.result(timeout=300)))
+            stamps.append(f.job.replica)
+    finally:
+        router.stop()
+    assert got == want
+    assert stamps == [1] * len(GUARD_PROMPTS)
+    assert router.metrics.counter("requests_retried") == len(GUARD_PROMPTS)
+    assert plan.fired("engine.step") >= len(GUARD_PROMPTS)
 
 
 @pytest.mark.cuda

@@ -228,10 +228,19 @@ def test_unported_parts_raise(tmp_path):
     assert loader.shard(0, 2) is loader and loader._shard == (0, 2)
     with pytest.raises(ValueError, match="not a record file"):
         loader.initialize(device="cpu")
+    # stochastic pooling is ported: the workflow that refused it builds
+    # and runs one train step (8 samples, one minibatch)
     _seed(prng)
-    with pytest.raises(NotImplementedError, match="Queue 2a, item 10"):
-        StandardWorkflow(
-            None, loader_factory=imagenet.make_loader,
-            loader_config={"n_train": 8, "n_valid": 4},
-            layers=[{"type": "stochastic_pooling", "kx": 2, "ky": 2},
-                    {"type": "softmax", "output_sample_shape": 4}])
+    wf = StandardWorkflow(
+        None, loader_factory=imagenet.make_loader,
+        loader_config={"n_train": 8, "n_valid": 4, "minibatch_size": 8,
+                       "image_hw": (32, 32), "n_classes": 4},
+        layers=[{"type": "stochastic_pooling", "kx": 2, "ky": 2},
+                {"type": "softmax", "output_sample_shape": 4}],
+        decision_config={"max_epochs": 1})
+    wf.initialize(device="cpu")
+    wf.run()
+    assert wf.forwards[0].output.shape == (8, 16, 16, 3)
+    [epoch] = wf.decision.epoch_metrics
+    assert epoch["train"]["count"] == 8
+    assert numpy.isfinite(epoch["train"]["loss"])

@@ -93,7 +93,7 @@ def test_cli_dump_config_list_units_version(capsys):
 @pytest.mark.parametrize("flags,item", [
     (["--serve-tp", "2"], "Queue 1, item 4"),
     (["--serve-trace", "all", "--serve-telemetry"], "Queue 1, item 7"),
-    (["--serve-health"], "Queue 1, item 9"),
+    (["--serve-model-dir", "d"], "Queue 1, item 9"),
     (["--fault-plan", "p.json"], "Queue 2a, item 15"),
 ])
 def test_unported_flags_raise_before_training(flags, item, monkeypatch):
@@ -125,25 +125,29 @@ def test_unported_flags_raise_before_training(flags, item, monkeypatch):
 @pytest.mark.parametrize("flags,want", [
     (["--serve", "0"], dict(slots=0, prefix_cache=0, prefill_chunk=0,
                             spec_k=0, paged_kv=True, megastep=0,
-                            replicas=1, router="metrics",
+                            replicas=1, router="metrics", health=False,
+                            hedge=0.0, retries=0,
                             fault_plan=None, trace="off", trace_last=256,
                             telemetry=0.0, slo=None)),
     (["--serve", "0", "--serve-slots", "4", "--serve-prefix-cache", "8",
       "--serve-prefill-chunk", "16", "--serve-spec-k", "2",
       "--serve-paged-kv", "40", "--serve-megastep", "4",
       "--serve-replicas", "2", "--serve-router", "round_robin",
+      "--serve-health", "--serve-hedge", "0.5", "--serve-retries", "2",
       "--serve-trace", "sample:0.5", "--serve-trace-last", "32",
       "--serve-telemetry", "--serve-slo", "default"],
      dict(slots=4, prefix_cache=8, prefill_chunk=16, spec_k=2,
           paged_kv=40, megastep=4, replicas=2, router="round_robin",
-          fault_plan=None, trace="sample:0.5",
+          health=True, hedge=0.5, retries=2, fault_plan=None, trace="sample:0.5",
           trace_last=32, telemetry=1.0, slo=True)),
 ])
 def test_lm_serve_flags_reach_serve_lm(flags, want, monkeypatch, capsys):
     """``--serve`` on an LM workflow serves it through ``serve_lm`` after
     the run, with the engine's six ``--serve-*`` flags forwarded
     (``--serve-paged-kv`` 0 is the port's paged default), the fleet's
-    ``--serve-replicas`` and ``--serve-router``, and the trace,
+    ``--serve-replicas`` and ``--serve-router``, its resilience flags
+    ``--serve-health``, ``--serve-hedge`` and ``--serve-retries``, and
+    the trace,
     telemetry (a bare flag: 1 s) and SLO (``default``: the stock
     objectives) flags."""
     from veles_tpu_torch import restful_api

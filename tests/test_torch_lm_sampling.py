@@ -492,6 +492,45 @@ def test_serve_lm_fleet_over_http(workflow):
     assert all(e._thread is None for e in api.lm_engine.replicas)
 
 
+def test_serve_lm_resilient_fleet_over_http(workflow):
+    """``replicas=2`` with the health checker, two retries and the SLO
+    monitor: greedy rows equal ``generate``'s, ``/metrics`` renders one
+    ``# TYPE`` line for ``replica_health_state`` with both replicas'
+    rows (0: healthy), and the monitor's checker is the server's."""
+    from veles_tpu_torch.serving import HealthChecker, timeseries
+    old = timeseries.get_default()
+    api = serve_lm(workflow, port=0, slots=2, replicas=2, health=True,
+                   retries=2, slo=True, max_new=32)
+    base = "http://127.0.0.1:%d" % api.port
+    try:
+        checker = api.health_checker
+        assert isinstance(checker, HealthChecker)
+        assert api.slo.checker is checker
+        assert api.lm_engine.retries == 2
+        pair = [[3, 1, 4, 1, 5], [2, 7, 1, 8, 2]]
+        code, body = _post(base + "/predict", {"input": pair, "n_new": 6})
+        want = TT.generate(workflow.trainer.params,
+                           torch.tensor(pair, dtype=torch.int32), 6,
+                           N_HEADS, temperature=0.0).numpy()
+        assert code == 200
+        numpy.testing.assert_array_equal(body["tokens"], want)
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            lines = r.read().decode().splitlines()
+        types = [line for line in lines
+                 if line.startswith("# TYPE ")
+                 and "replica_health_state" in line]
+        assert len(types) == 1, types
+        for i in (0, 1):
+            assert ('veles_serving_replica_health_state{engine="lm_router",'
+                    'replica="%d"} 0' % i) in lines
+        assert checker.states() == [HealthChecker.HEALTHY] * 2
+    finally:
+        api.stop()
+        timeseries.set_default(old)
+    assert api.health_checker is None and checker._thread is None
+    assert all(e._thread is None for e in api.lm_engine.replicas)
+
+
 def test_serve_lm_without_slots_samples_directly(workflow):
     """slots 0: every request, greedy or sampled, takes the direct path
     (no engine), and greedy rows equal ``generate``'s."""
@@ -509,12 +548,15 @@ def test_serve_lm_without_slots_samples_directly(workflow):
         api.stop()
 
 
-#: ``fault_plan``, ``trace``, ``telemetry``, ``slo``, ``replicas`` and
-#: ``router`` are ported: their cases check that each arms the server and
-#: its engine (the fleet's: a router over that many replicas)
+#: ``fault_plan``, ``trace``, ``telemetry``, ``slo``, ``replicas``,
+#: ``router`` and the resilience knobs (``health``, ``hedge``,
+#: ``retries``) are ported: their cases check that each arms the server
+#: and its engine (the fleet's: a router over that many replicas)
 PORTED_KNOBS = (("fault_plan", None, None), ("trace", None, None),
                 ("telemetry", 0.0, None), ("slo", None, None),
-                ("replicas", 1, None), ("router", "metrics", None))
+                ("replicas", 1, None), ("router", "metrics", None),
+                ("health", False, None), ("hedge", 0.0, None),
+                ("retries", 0, None))
 LATER_KNOBS = SERVE_LM_UNPORTED + PORTED_KNOBS
 
 
@@ -526,7 +568,8 @@ def _serve_armed(workflow, knob):
     old = timeseries.get_default()
     from veles_tpu_torch.serving import Router
     value = {"fault_plan": FaultPlan(), "trace": "all", "telemetry": 0.5,
-             "slo": True, "replicas": 2, "router": "round_robin"}[knob]
+             "slo": True, "replicas": 2, "router": "round_robin",
+             "health": True, "hedge": 0.5, "retries": 2}[knob]
     # the policy only matters behind a fleet: two replicas carry it
     fleet = {"replicas": 2} if knob == "router" else {}
     api = serve_lm(workflow, port=0, slots=1, **fleet, **{knob: value})
@@ -538,6 +581,24 @@ def _serve_armed(workflow, knob):
                                      else "metrics")
             assert [e.name for e in engine.replicas] == ["lm_r0", "lm_r1"]
             assert all(e._thread is not None for e in engine.replicas)
+        elif knob in ("health", "hedge", "retries"):
+            # any resilience knob wraps the one engine in a router; the
+            # engine keeps its name and no replica label
+            assert isinstance(engine, Router) and len(engine.replicas) == 1
+            [lone] = engine.replicas
+            assert lone.name == "lm" and lone._thread is not None
+            assert "replica" not in lone.metrics.labels
+            checker = api.health_checker
+            if knob == "health":
+                assert checker is not None and checker.router is engine
+                assert checker._thread is not None
+                assert checker.probe_timeout_s == 15.0    # deadline 30 s
+            else:
+                assert checker is None
+                assert (engine.retries, engine.hedge_after_s) == (
+                    (2, 0.0) if knob == "retries" else (0, 0.5))
+                assert (engine._hedge_thread is not None) \
+                    == (knob == "hedge")
         elif knob == "fault_plan":
             assert api.faults is value and engine._faults is value
         elif knob == "trace":
@@ -556,9 +617,8 @@ def _serve_armed(workflow, knob):
                          ids=[k for k, _, _ in LATER_KNOBS])
 def test_serve_lm_later_knobs_raise_naming_their_items(workflow, knob,
                                                        default, item):
-    """The fleet's resilience and deploy knobs and ``tp`` raise naming
-    their items (9(b), 9(c), 4); the ported ones arm the server
-    instead."""
+    """The fleet's deploy knobs and ``tp`` raise naming their items
+    (9(c), 4); the ported ones arm the server instead."""
     if item is None:
         _serve_armed(workflow, knob)
         return

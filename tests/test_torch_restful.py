@@ -255,15 +255,17 @@ class TestUnported:
                        "_" + knob) is value
 
     def test_serve_lm_raises_naming_its_item(self):
-        """serve_lm is ported; its fleet's resilience knobs raise naming
-        item 9(b) before the workflow is read, and its trace, telemetry,
-        SLO, ``replicas`` and ``router`` knobs are no longer among the
+        """serve_lm is ported; its fleet's deploy knobs raise naming
+        item 9(c) before the workflow is read, and its trace, telemetry,
+        SLO, ``replicas``, ``router`` and resilience (``health``,
+        ``hedge``, ``retries``) knobs are no longer among the
         unported."""
         with pytest.raises(NotImplementedError,
-                           match=r"Queue 1 item 9\(b\)"):
-            serve_lm(None, port=0, health=True)
+                           match=r"Queue 1 item 9\(c\)"):
+            serve_lm(None, port=0, model_dir="snapshots")
         from veles_tpu_torch.restful_api import SERVE_LM_UNPORTED
-        assert not {"trace", "telemetry", "slo", "replicas", "router"} & {
+        assert not {"trace", "telemetry", "slo", "replicas", "router",
+                    "health", "hedge", "retries"} & {
             knob for knob, _, _ in SERVE_LM_UNPORTED}
 
 

@@ -39,10 +39,10 @@ lock-order witness and armed transfer guard (``tests/torch_witness.py``):
   replica, a completion path that delivers a drained attempt's short
   result, a ``Retry-After`` taken from the last refusal.
 
-Left to ROADMAP Queue 1 items 9(b) and 9(c): retries, hedging, the
-health checker and deploy (``TestResilience``, the fleet cases of
-``TestWeightSwap``); the constructor and ``deploy`` refuse them naming
-their items.
+Retries, hedging and the health checker (``TestResilience``) are held
+against the reference in ``tests/test_torch_resilience.py``.  Left to
+ROADMAP Queue 1 item 9(c): deploy (the fleet cases of
+``TestWeightSwap``); ``deploy`` refuses naming its item.
 """
 
 import inspect
@@ -454,10 +454,12 @@ def test_validation_and_later_slices_refused(host):
     [engine] = _port_fleet(host, 1, tag="val")
     with pytest.raises(ValueError, match="policy"):
         Router([engine], policy="fastest")
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 9\(b\)"):
-        Router([engine], retries=2)
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 9\(b\)"):
-        Router([engine], hedge_after_s=0.1)
+    # the resilience knobs are ported: accepted, with the reference's
+    # backoff defaults
+    armed = Router([engine], retries=2, hedge_after_s=0.1)
+    assert (armed.retries, armed.hedge_after_s) == (2, 0.1)
+    assert (armed.retry_backoff_s, armed.retry_backoff_cap_s) == (0.05, 2.0)
+    assert armed._hedge_thread is None           # started by start()
     router = Router([engine])
     # the reference's role names, so the witnesses' graphs compare
     assert (router._lock.name, router._deploy_lock.name) \
@@ -466,7 +468,7 @@ def test_validation_and_later_slices_refused(host):
         router.deploy(host)
     assert router.spec_k == 0 and router.max_len == MAX_LEN
     from veles_tpu_torch import serving
-    assert not hasattr(serving, "HealthChecker")
+    assert serving.HealthChecker is prouter.HealthChecker
 
 
 # ------------------------------------------------------------- (f) drain

@@ -26,12 +26,13 @@ the CPU.
   One scripted span sequence gives both tracers the same records and
   exports, timings aside.
 
-Left to the fleet (ROADMAP Queue 1 item 9: the router, its health
-checker and hedging) and to tensor-parallel serving (item 4): the
-reference's ``TestRouterTracing::test_retry_shows_both_attempts``,
-``TestReviewHardening::test_hedge_loser_spans_closed_under_upstream_root``
-and ``TestEngineTracing::test_tp_traced_acceptance_combo``; the
-sampled-once case runs here across the HTTP layer and the engine.
+The fleet's tracing cases (the reference's
+``TestRouterTracing::test_retry_shows_both_attempts`` and
+``TestReviewHardening::test_hedge_loser_spans_closed_under_upstream_root``)
+run in ``tests/test_torch_resilience.py``.  Left to tensor-parallel
+serving (ROADMAP Queue 1 item 4): ``TestEngineTracing::
+test_tp_traced_acceptance_combo``; the sampled-once case runs here across
+the HTTP layer and the engine.
 """
 
 import json

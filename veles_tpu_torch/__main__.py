@@ -27,7 +27,9 @@ scripts/velescli.py [H], SURVEY §2.1, §3.1):
   ``--serve-slots``, ``--serve-prefix-cache``, ``--serve-prefill-chunk``,
   ``--serve-spec-k``, ``--serve-paged-kv`` and ``--serve-megastep``
   for its engine, ``--serve-replicas R`` and ``--serve-router
-  metrics|round_robin`` for R engine replicas behind the router),
+  metrics|round_robin`` for R engine replicas behind the router, and
+  ``--serve-health``, ``--serve-hedge SECONDS`` and ``--serve-retries
+  N`` for the router's resilience layer),
   prints ``SERVING http://127.0.0.1:<port>/predict`` and blocks until
   interrupted; ``--fault-plan FILE`` arms a JSON fault
   plan (``serving/faults.py``) at the served engine's, batcher's and
@@ -221,6 +223,35 @@ def build_argparser():
                              "live queue depth, resident KV pages and "
                              "TTFT/decode-step EWMAs; 'round_robin' "
                              "ignores them")
+    parser.add_argument("--serve-health", action="store_true",
+                        help="with --serve-slots: background health "
+                             "prober per replica (staleness watch on "
+                             "busy replicas, synthetic 1-token probe "
+                             "on idle ones) that auto-quarantines a "
+                             "failing replica via the router's drain "
+                             "path and re-admits it after a cooldown "
+                             "(half-open circuit breaker; "
+                             "replica_health_state / "
+                             "circuit_open_total on /metrics)")
+    parser.add_argument("--serve-hedge", type=float, default=0.0,
+                        metavar="SECONDS",
+                        help="with --serve-slots: duplicate a request "
+                             "still outstanding past SECONDS on a "
+                             "second replica — first complete wins, "
+                             "the loser is cancelled (greedy replicas "
+                             "are bit-identical, so hedging moves "
+                             "tail latency, never output); negative = "
+                             "dynamic threshold (1.5x the live "
+                             "latency p95); 0 = off (default)")
+    parser.add_argument("--serve-retries", type=int, default=0,
+                        metavar="N",
+                        help="with --serve-slots: re-place a request "
+                             "whose replica FAULTED (engine error — "
+                             "not 429/503 sheds, not client errors) "
+                             "on a different replica up to N times "
+                             "with exponential jittered backoff; "
+                             "0 = off (default, the fault fails to "
+                             "the client)")
     # the rest of the reference's --serve-* flags, with their types and
     # defaults (not ported yet: each raises naming its ROADMAP item)
     for flag, kind, default, _ in _SERVE_UNPORTED:
@@ -257,15 +288,11 @@ _SERVE_FLAGS = (
      "fused dispatch (0 or 1: one a dispatch)"),
 )
 
-_RESILIENCE = "Queue 1, item 9(b) (the router's resilience layer)"
 _DEPLOY = "Queue 1, item 9(c) (fleet deploy and the model manager)"
 #: the reference's serving flags not ported yet: (flag, type, default,
 #: ROADMAP item)
 _SERVE_UNPORTED = (
     ("--serve-tp", int, 0, "Queue 1, item 4"),
-    ("--serve-health", bool, False, _RESILIENCE),
-    ("--serve-hedge", float, 0.0, _RESILIENCE),
-    ("--serve-retries", int, 0, _RESILIENCE),
     ("--serve-model-dir", str, None, _DEPLOY),
     ("--serve-canary", int, 1, _DEPLOY),
     ("--serve-publish-interval", float, 5.0, _DEPLOY),
@@ -474,6 +501,9 @@ def serve(wf, port, batch=0, args=None):
                       megastep=args.serve_megastep,
                       replicas=args.serve_replicas,
                       router=args.serve_router,
+                      health=args.serve_health,
+                      hedge=args.serve_hedge,
+                      retries=args.serve_retries,
                       trace=args.serve_trace,
                       trace_last=args.serve_trace_last,
                       telemetry=args.serve_telemetry,

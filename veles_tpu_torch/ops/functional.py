@@ -625,6 +625,89 @@ def avg_pooling_backward(x, err, window=(2, 2), stride=None):
     return _nhwc(g[:, :, :x.shape[1], :x.shape[2]])
 
 
+def _pool_patches(x, window, stride):
+    """The ceil-padded pooling patches of NHWC ``x`` (zero tail pad), as
+    (b, oh, ow, kh·kw, c): axis 3 enumerates the window row-major, the
+    reference's ``conv_general_dilated_patches`` order."""
+    kh, kw = window
+    ph = _ceil_pad(x.shape[1], kh, stride[0])
+    pw = _ceil_pad(x.shape[2], kw, stride[1])
+    if ph or pw:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pw, 0, ph))
+    p = x.unfold(1, kh, stride[0]).unfold(2, kw, stride[1])
+    b, oh, ow, c = p.shape[:4]
+    return p.reshape(b, oh, ow, c, kh * kw).transpose(3, 4)
+
+
+def _key_words(rng):
+    """A threefry key's two words: Python ints of a host key, or int64
+    0-dim tensors of a key held as two int32 words in a tensor (on the
+    card, the captured epoch scan's), never read on the host."""
+    if isinstance(rng, torch.Tensor):
+        w = rng.to(torch.int64) & 0xFFFFFFFF
+        return w[0], w[1]
+    from veles_tpu_torch.ops.hopper_kernels import _as_key
+    return tuple(int(w) for w in _as_key(rng))
+
+
+def stochastic_pooling(x, window=(2, 2), stride=None, rng=None, train=True,
+                       use_abs=False):
+    """Zeiler-style stochastic pooling (ref: veles/znicz/pooling.py::
+    StochasticPooling / StochasticAbsPooling [H]): each window's
+    probabilities are its relu'd (or absolute) values over their sum,
+    uniform on an all-zero window.  Train: one position a window drawn
+    by the Gumbel trick, the argmax of log(max(p, 1e-30)) + gumbel with
+    jax's ``gumbel(rng, probs.shape)`` (the threefry bits of the flat
+    counters under ``rng``); the output is the SIGNED value there.
+    Eval: the probability-weighted sum.  Returns (y, idx), idx the
+    chosen positions (b, oh, ow, 1, c) in training, None in eval.  A
+    :class:`RowShard` key draws the rank's rows of the global draw
+    (counter offset rank·numel).  Plain PyTorch, as the reference
+    leaves it to XLA."""
+    stride = tuple(stride or window)
+    patches = _pool_patches(x, window, stride)
+    weights = patches.abs() if use_abs else torch.clamp(patches, min=0.0)
+    total = weights.sum(dim=3, keepdim=True)
+    k = patches.shape[3]
+    probs = torch.where(total > 0, weights / torch.clamp(total, min=1e-30),
+                        torch.full_like(total, 1.0 / k))
+    if not train:
+        return (probs * patches).sum(dim=3), None
+    if rng is None:
+        raise ValueError("stochastic pooling needs rng when train=True")
+    from veles_tpu_torch import prng
+    offset = 0
+    if isinstance(rng, RowShard):
+        rng, rank, _ = rng
+        offset = rank * probs.numel()
+    k0, k1 = _key_words(rng)
+    counters = torch.arange(offset, offset + probs.numel(),
+                            dtype=torch.int64, device=x.device)
+    gumbel = prng.gumbel_tensor(prng.bits_words(k0, k1, counters))
+    scores = torch.log(torch.clamp(probs, min=1e-30)) \
+        + gumbel.reshape(probs.shape)
+    idx = scores.argmax(dim=3, keepdim=True)
+    return torch.gather(patches, 3, idx)[:, :, :, 0, :], idx
+
+
+def stochastic_pooling_backward(x, err, idx, window=(2, 2), stride=None):
+    """The vjp of the training forward (the reference's autodiff of
+    ``take_along_axis``): each window's gradient onto its chosen
+    position, summed where windows overlap, cropped back to x's
+    plane."""
+    stride = tuple(stride or window)
+    kh, kw = window
+    b, h, w, c = x.shape
+    oh, ow, k = idx.shape[1], idx.shape[2], kh * kw
+    g = torch.zeros((b, oh, ow, k, c), dtype=err.dtype, device=err.device)
+    g.scatter_(3, idx, err[:, :, :, None, :])
+    hp = h + _ceil_pad(h, kh, stride[0])
+    wp = w + _ceil_pad(w, kw, stride[1])
+    cols = g.permute(0, 4, 3, 1, 2).reshape(b, c * k, oh * ow)
+    plane = torch.nn.functional.fold(cols, (hp, wp), window, stride=stride)
+    return _nhwc(plane[:, :, :h, :w])
+
+
 # ------------------------------------------------- local response norm (LRN)
 _BACKENDS = ("xla", "pallas")
 

@@ -7,7 +7,8 @@ the min half of max-abs, 0 for avg, which divides by the full window).
 The max variants keep each window's argmax from the forward — the first
 maximum in row-major window order, the element XLA's select-and-scatter
 picks — and their backward scatters the gradient there.  Stochastic
-pooling is not ported yet and raises (ROADMAP Queue 2a, item 10).
+pooling draws one position a window from jax's gumbel stream (the
+threefry bits of ``prng``) and keeps it for its backward.
 """
 
 from __future__ import annotations
@@ -71,21 +72,27 @@ class AvgPooling(PoolingBase):
 
 @register_layer_type("stochastic_pooling")
 class StochasticPooling(PoolingBase):
-    """Sample-by-magnitude pooling: not ported yet (it draws from jax's
-    gumbel stream; ROADMAP Queue 2a, item 10)."""
+    """Sample-by-magnitude pooling (ref: StochasticPooling [M]); eval mode
+    uses the probability-weighted average.  The backward routes the
+    gradient to the position the forward drew (kept in ``saved``)."""
 
     STOCHASTIC = True
+    USE_ABS = False
 
-    def __init__(self, workflow, **kwargs):
-        raise NotImplementedError(
-            "stochastic pooling is not ported yet: ROADMAP Queue 2a, "
-            "item 10")
+    def transform(self, x, rng=None, train=False):
+        return F.stochastic_pooling(x, self.window, self.sliding, rng,
+                                    train, self.USE_ABS)
+
+    def backward(self, x, y, err, saved, rng=None):
+        return F.stochastic_pooling_backward(x, err, saved, self.window,
+                                             self.sliding)
 
 
 @register_layer_type("stochastic_abs_pooling")
 class StochasticAbsPooling(StochasticPooling):
-    """Probabilities from |x|: not ported yet (ROADMAP Queue 2a,
-    item 10)."""
+    """Probabilities from |x| (ref: StochasticAbsPooling [H])."""
+
+    USE_ABS = True
 
 
 @register_gd_for(PoolingBase)

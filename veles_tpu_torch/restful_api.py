@@ -44,11 +44,11 @@ continuation: greedy requests through the paged ``LMEngine``'s slots,
 sampled ones (and every one without slots) through ``generate``.
 
 ``serve_lm(replicas=N)`` serves N engine replicas behind the fleet's
-:class:`~veles_tpu_torch.serving.Router`.  Not ported yet: the fleet's
-resilience layer (health, hedging, retries: Queue 1 item 9(b)) and
-deploy (the model directory's publisher, canaries: item 9(c)), ``tp``
-(item 4) and the contiguous KV layout (``paged_kv=0``, item 8) — each
-raises NotImplementedError naming its item.
+:class:`~veles_tpu_torch.serving.Router`, with its resilience layer
+(``health``, ``hedge``, ``retries``) on request.  Not ported yet: the
+fleet's deploy (the model directory's publisher, canaries: Queue 1 item
+9(c)), ``tp`` (item 4) and the contiguous KV layout (``paged_kv=0``,
+item 8) — each raises NotImplementedError naming its item.
 
 Usage::
 
@@ -72,13 +72,11 @@ import torch
 
 from veles_tpu_torch.logger import Logger
 
-_RESILIENCE = "Queue 1 item 9(b) (the router's resilience layer)"
 _DEPLOY = "Queue 1 item 9(c) (fleet deploy and the model manager)"
 #: serve_lm's knobs not ported yet: (name, default, ROADMAP item)
 SERVE_LM_UNPORTED = (
     ("tp", 0, "Queue 1 item 4 (tensor-parallel serving)"),
-    ("health", False, _RESILIENCE), ("hedge", 0.0, _RESILIENCE),
-    ("retries", 0, _RESILIENCE), ("model_dir", None, _DEPLOY),
+    ("model_dir", None, _DEPLOY),
     ("publish_interval_s", 5.0, _DEPLOY), ("canary", 1, _DEPLOY),
     ("canary_watch_s", 2.0, _DEPLOY), ("auto_rollback", True, _DEPLOY),
 )
@@ -137,6 +135,9 @@ class RESTfulAPI(Logger):
         #: the LM engine :func:`serve_lm` started (stopped with the
         #: server)
         self.lm_engine = None
+        #: the fleet's HealthChecker (serve_lm(health=True)), stopped
+        #: after the telemetry store and before the engines
+        self.health_checker = None
         self.port = None
 
     # ------------------------------------------------------------- inference
@@ -441,6 +442,11 @@ class RESTfulAPI(Logger):
             self.telemetry.stop()
         if self.batcher is not None:
             self.batcher.stop()
+        if self.health_checker is not None:
+            # the prober must stop BEFORE its engines do, or its next
+            # probe lands on a stopped engine and counts a fake failure
+            self.health_checker.stop()
+            self.health_checker = None
         if self.lm_engine is not None:
             self.lm_engine.stop()
 
@@ -568,6 +574,20 @@ def serve_lm(workflow, host="127.0.0.1", port=8180, max_new=256,
     ``/metrics.json`` with every replica's snapshot; greedy replies then
     carry a per-row ``"replicas"`` list beside ``"weights_version"``.
 
+    The fleet's resilience layer (engine path): ``retries=N`` re-places
+    a request whose attempt faulted on a live replica on another one,
+    up to N times, after a seeded exponential backoff; ``hedge=T``
+    duplicates a request outstanding past ``T`` seconds (``T < 0``: 1.5×
+    the live latency p95) on a second replica, the first to finish
+    wins and the loser is cancelled; ``health=True`` starts a
+    :class:`~veles_tpu_torch.serving.HealthChecker` every
+    ``health_interval_s`` (probe timeout ``max(5, deadline_s / 2)``)
+    that quarantines a wedged or failing replica and re-admits it
+    through a half-open probe, served as ``replica_health_state`` and
+    ``api.health_checker``; with ``slo`` the monitor's page signals
+    feed it.  Any of the three wraps even one engine in a ``Router``
+    (the engine keeps the name ``lm`` and no replica label).
+
     ``fault_plan`` (a :class:`veles_tpu_torch.serving.FaultPlan`, the
     CLI's ``--fault-plan FILE``) arms the engines' ``engine.*`` sites,
     the router's ``router.place`` and the server's ``http.request``
@@ -589,17 +609,16 @@ def serve_lm(workflow, host="127.0.0.1", port=8180, max_new=256,
     JSON objective file, a parsed spec, or True for the stock
     objectives) arms an :class:`~veles_tpu_torch.serving.SLOMonitor` on
     the store's tick, served at ``GET /slo.json``, and implies
-    ``telemetry`` (1 s).  ``stop()`` stops the store before the engine.
+    ``telemetry`` (1 s).  ``stop()`` stops the store, then the health
+    checker, then the engines.
 
     Not ported yet, each raising NotImplementedError naming its ROADMAP
-    item (:data:`SERVE_LM_UNPORTED`): ``tp``; the fleet's resilience
-    layer (``health``, ``hedge``, ``retries``) and deploy
+    item (:data:`SERVE_LM_UNPORTED`): ``tp``; the fleet's deploy
     (``model_dir``, ``publish_interval_s``, ``canary``,
     ``canary_watch_s``, ``auto_rollback``); and ``paged_kv=0``.  The
     reference's ``attn_kernel`` is not a keyword here: the port has one
     attention route, the kernels."""
-    given = dict(tp=tp, health=health, hedge=hedge, retries=retries,
-                 model_dir=model_dir,
+    given = dict(tp=tp, model_dir=model_dir,
                  publish_interval_s=publish_interval_s, canary=canary,
                  canary_watch_s=canary_watch_s,
                  auto_rollback=auto_rollback)
@@ -625,12 +644,17 @@ def serve_lm(workflow, host="127.0.0.1", port=8180, max_new=256,
     from veles_tpu_torch.serving.tracing import SpanTracer
     tracer = SpanTracer.from_spec(trace, last=int(trace_last))
     engine = None
+    checker = None
     routed = False
     if slots > 0:
-        from veles_tpu_torch.serving import (LMEngine, Router, RouterMetrics,
+        from veles_tpu_torch.serving import (HealthChecker, LMEngine, Router,
+                                             RouterMetrics,
                                              replica_device_slices)
         from veles_tpu_torch.serving import metrics as metrics_mod
         n_rep = max(1, int(replicas))
+        # the resilience layer lives on the Router: one replica wraps in
+        # the degenerate router when health, hedge or retries is asked
+        resilient = bool(health) or bool(hedge) or int(retries) > 0
         # every visible card, or the trainer's CPU
         slices = (replica_device_slices(
             n_rep, 0, devices=None if device.type == "cuda" else [device])
@@ -656,12 +680,19 @@ def serve_lm(workflow, host="127.0.0.1", port=8180, max_new=256,
                 metrics=metrics_mod.new("lm", labels=label),
                 faults=fault_plan, tracer=tracer, device=dev)
 
-        if n_rep > 1:
+        if n_rep > 1 or resilient:
             routed = True
             engine = Router(
-                [build_engine(i) for i in range(n_rep)],
+                [build_engine(i if n_rep > 1 else None)
+                 for i in range(n_rep)],
                 metrics=metrics_mod.register(RouterMetrics("lm_router")),
-                policy=router, faults=fault_plan, tracer=tracer).start()
+                policy=router, retries=int(retries),
+                hedge_after_s=float(hedge or 0.0),
+                faults=fault_plan, tracer=tracer).start()
+            if health:
+                checker = HealthChecker(
+                    engine, interval_s=float(health_interval_s),
+                    probe_timeout_s=max(5.0, deadline_s / 2)).start()
         else:
             engine = build_engine().start()
         if slo and not telemetry:
@@ -676,8 +707,8 @@ def serve_lm(workflow, host="127.0.0.1", port=8180, max_new=256,
         if slo:
             # the SLO gauges and counters land in the router's (or the
             # lone engine's) own family, so /metrics carries slo_state
-            # too; no health checker until Queue 1 item 9(b)
-            kw = dict(source_replicas={
+            # too; a page on one replica feeds the health checker
+            kw = dict(checker=checker, source_replicas={
                 _registry_key(e.metrics): i for i, e in
                 enumerate(getattr(engine, "replicas", [engine]))},
                 metrics=engine.metrics)
@@ -749,6 +780,7 @@ def serve_lm(workflow, host="127.0.0.1", port=8180, max_new=256,
                      faults=fault_plan, tracer=tracer, telemetry=store,
                      slo=monitor)
     api.lm_engine = engine
+    api.health_checker = checker
     return api.start(host=host, port=port)
 
 

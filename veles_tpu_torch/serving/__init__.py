@@ -15,8 +15,13 @@ robin), answers 429 with the minimum ``Retry-After`` only when every
 live replica refuses (:class:`NoLiveReplicas` when none is live),
 drains a hot-unregistered replica's requests onto the others exactly
 once, and meters the fleet in :class:`RouterMetrics` (every replica's
-snapshot under ``"replicas"``).  Its resilience layer and deploy are not
-ported yet (ROADMAP Queue 1 items 9(b) and 9(c))."""
+snapshot under ``"replicas"``).  Its resilience layer retries a faulted
+request on another replica after a seeded backoff (``retries=``), hedges
+a slow one onto a second replica and cancels the loser
+(``hedge_after_s=``), and :class:`HealthChecker` quarantines a wedged or
+failing replica and re-admits it through a half-open probe, fed also by
+the SLO monitor's page signals.  Deploy is not ported yet (ROADMAP
+Queue 1 item 9(c))."""
 
 from veles_tpu_torch.serving.batcher import (DeadlineExceeded, MicroBatcher,
                                              Overloaded, PoolExhausted,
@@ -30,8 +35,8 @@ from veles_tpu_torch.serving.lm_engine import (LMEngine, RadixPrefixCache,
                                                propose_draft)
 from veles_tpu_torch.serving.metrics import (Histogram, ServingMetrics, get,
                                              render_prometheus)
-from veles_tpu_torch.serving.router import (NoLiveReplicas, Router,
-                                            RouterMetrics,
+from veles_tpu_torch.serving.router import (HealthChecker, NoLiveReplicas,
+                                            Router, RouterMetrics,
                                             replica_device_slices)
 from veles_tpu_torch.serving.slo import Objective, SLOMonitor
 from veles_tpu_torch.serving.timeseries import (TimeSeriesStore,
@@ -43,7 +48,8 @@ from veles_tpu_torch.serving.tracing import (SpanTracer, TraceContext,
                                              cost_ledger, format_waterfall,
                                              verify_integrity)
 
-__all__ = ["DeadlineExceeded", "FaultPlan", "Histogram", "InjectedFault",
+__all__ = ["DeadlineExceeded", "FaultPlan", "HealthChecker", "Histogram",
+           "InjectedFault",
            "InjectedHTTPError", "KVPagePool", "LMEngine", "LockOrderViolation",
            "LockOrderWitness", "MicroBatcher", "NoLiveReplicas", "Objective",
            "Overloaded", "PoolExhausted", "RadixPrefixCache", "Router",
